@@ -1,0 +1,275 @@
+"""Ragged paged attention: the hand-written CUDA kernel of the fused
+serving step, its plain PyTorch version, and the host-side row layout.
+
+Replaces the Pallas TPU kernel ``paddle_tpu/ops/ragged_paged_attention.py``
+(``_rpa_kernel`` via ``ragged_paged_attention``) with
+``csrc/ragged_paged_attention.cu``. The layout contract is unchanged, so
+the engine's host operands are the JAX engine's:
+
+* queries are FLATTENED over the batch, ``[H, Qp, Dh]``: each sequence's
+  ``q_len[s]`` rows sit contiguously, padded to a multiple of
+  ``BLOCK_Q`` so no q block mixes sequences;
+* ``blk_seq [Qp / BLOCK_Q]`` names the sequence of each q block (-1 =
+  pad block, output zeros); ``seq_qstart``/``seq_pos0`` recover every
+  row's virtual cache position; ``tables [S, T]`` is the page table,
+  ``kv_len`` bounds the KV walk and ``lo`` is the window floor;
+* a row at position ``p`` attends to cache columns ``[lo, p]`` of the
+  pool ``[L, 2, NB + 1, H, bs, Dh]``, whose ``layer`` plane is read in
+  place.
+
+:func:`ragged_paged_attention` takes the plain version only for tensors
+on the CPU. A CUDA tensor goes to the kernel, or the call raises: there
+is no fallback. ``ragged_paged_attention.launches`` counts kernel
+launches.
+"""
+from __future__ import annotations
+
+import ctypes
+import math
+from typing import Sequence, Tuple
+
+import numpy as np
+import torch
+
+from . import _build
+
+__all__ = ["ragged_paged_attention", "ragged_paged_attention_plain",
+           "ragged_layout", "reference_ragged_attention", "BLOCK_Q",
+           "MIN_KV_BLOCK"]
+
+_NEG_INF = -1e30
+
+# q rows per CTA (and per q block of the layout): a decode row wastes at
+# most 7 pad rows, a prefill chunk fills whole blocks
+BLOCK_Q = 8
+
+# smallest KV block the engine accepts: kept from the TPU contract so the
+# two engines take the same configurations
+MIN_KV_BLOCK = 8
+
+_DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
+
+
+def _check(q, pool, layer):
+    h, qp, dh = q.shape
+    L, two, nb1, hp, bs, dhp = pool.shape
+    if (hp, dhp) != (h, dh):
+        raise ValueError(f"pool heads/head_dim {(hp, dhp)} != q {(h, dh)}")
+    if qp % BLOCK_Q:
+        raise ValueError(
+            f"padded q rows {qp} must be a multiple of block_q {BLOCK_Q}")
+    if bs < MIN_KV_BLOCK:
+        raise ValueError(f"block_size {bs} < {MIN_KV_BLOCK}: the engine "
+                         f"takes KV blocks of at least {MIN_KV_BLOCK} rows")
+    if two != 2:
+        raise ValueError(f"pool axis 1 must hold K and V, got {two}")
+    if not 0 <= int(layer) < L:
+        raise ValueError(f"layer {layer} out of range [0, {L})")
+
+
+def _host(m) -> np.ndarray:
+    return m.cpu().numpy() if torch.is_tensor(m) else np.asarray(m)
+
+
+def ragged_paged_attention_plain(q, pool, layer, blk_seq, seq_qstart,
+                                 seq_pos0, tables, lo, kv_len, scale=None):
+    """The kernel's function as a plain composition, in f32, on any
+    device. Every real q block attends over its sequence's first
+    ``ceil(kv_len / bs)`` whole blocks with the ``[lo, qpos]`` mask, as
+    the kernel does, so pad rows inside a real block match too; pad
+    blocks are zeros."""
+    _check(q, pool, layer)
+    h, qp, dh = q.shape
+    bs = pool.shape[4]
+    scale = float(scale) if scale is not None else 1.0 / math.sqrt(dh)
+    blk_seq, seq_qstart, seq_pos0, lo, kv_len, tables = (
+        _host(m) for m in (blk_seq, seq_qstart, seq_pos0, lo, kv_len,
+                           tables))
+    tables = torch.from_numpy(tables.astype(np.int64)).to(pool.device)
+    out = torch.zeros((h, qp, dh), dtype=torch.float32, device=q.device)
+    for s in sorted({int(v) for v in blk_seq if v >= 0}):
+        blocks = [b for b, v in enumerate(blk_seq) if v == s]
+        rows = torch.arange(blocks[0] * BLOCK_Q, (blocks[-1] + 1) * BLOCK_Q,
+                            device=q.device)
+        n_kv = -(-int(kv_len[s]) // bs)
+        ids = tables[s, :n_kv]
+        # [n_kv, H, bs, Dh] -> [H, n_kv * bs, Dh]
+        k = pool[layer, 0, ids].float().permute(1, 0, 2, 3).reshape(
+            h, n_kv * bs, dh)
+        v = pool[layer, 1, ids].float().permute(1, 0, 2, 3).reshape(
+            h, n_kv * bs, dh)
+        qs = q[:, rows].float()                              # [H, R, Dh]
+        s_ = torch.matmul(qs, k.transpose(1, 2)) * scale     # [H, R, C]
+        qpos = int(seq_pos0[s]) + (rows - int(seq_qstart[s]))
+        cols = torch.arange(n_kv * bs, device=q.device)
+        keep = (cols[None, :] >= int(lo[s])) \
+            & (cols[None, :] <= qpos[:, None])
+        s_ = torch.where(keep[None], s_, torch.full_like(s_, _NEG_INF))
+        p = torch.exp(s_ - s_.amax(dim=-1, keepdim=True))
+        l_ = p.sum(dim=-1, keepdim=True)
+        out[:, rows] = torch.matmul(p, v) / l_.clamp_min(1e-30)
+    return out.to(q.dtype)
+
+
+def _lib():
+    lib = _build.load("ragged_paged_attention")
+    fn = lib.rpa_launch
+    if fn.argtypes is None:
+        fn.argtypes = [ctypes.c_int] + [ctypes.c_void_p] * 9 + [
+            ctypes.c_int] * 7 + [ctypes.c_float, ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+    return fn
+
+
+def ragged_paged_attention(q, pool, layer, blk_seq, seq_qstart, seq_pos0,
+                           tables, lo, kv_len, scale=None):
+    """Fused paged attention over one layer of the serving block pool.
+
+    * ``q`` — ``[H, Qp, Dh]`` flattened padded query rows (``Qp`` a
+      multiple of ``BLOCK_Q``);
+    * ``pool`` — the WHOLE block pool ``[L, 2, NB + 1, H, bs, Dh]``;
+      ``layer`` is an int and no per-layer slice is made;
+    * ``blk_seq [Qp / BLOCK_Q]``, ``seq_qstart``/``seq_pos0``/``lo``/
+      ``kv_len [S]``, ``tables [S, T]`` — int32 metadata
+      (:func:`ragged_layout` builds the first three); on the card they
+      are int32 tensors on q's device;
+    * returns ``[H, Qp, Dh]`` in ``q``'s dtype.
+    """
+    if q.device.type == "cpu":
+        return ragged_paged_attention_plain(
+            q, pool, layer, blk_seq, seq_qstart, seq_pos0, tables, lo,
+            kv_len, scale)
+    if q.device.type != "cuda":
+        raise ValueError(f"ragged_paged_attention runs on cuda or cpu "
+                         f"tensors, got {q.device}")
+    _check(q, pool, layer)
+    h, qp, dh = q.shape
+    L, _, nb1, _, bs, _ = pool.shape
+    S = int(seq_qstart.shape[0]) if torch.is_tensor(seq_qstart) else -1
+    expect = {"blk_seq": (blk_seq, (qp // BLOCK_Q,)),
+              "seq_qstart": (seq_qstart, (S,)),
+              "seq_pos0": (seq_pos0, (S,)), "lo": (lo, (S,)),
+              "kv_len": (kv_len, (S,)),
+              "tables": (tables, (S, tables.shape[-1]
+                                  if torch.is_tensor(tables) else -1))}
+    for name, (t, shape) in expect.items():
+        if not torch.is_tensor(t) or t.device != q.device \
+                or t.dtype != torch.int32 or not t.is_contiguous() \
+                or tuple(t.shape) != shape:
+            raise ValueError(
+                f"{name} must be a contiguous int32 tensor of shape "
+                f"{shape} on {q.device}, got "
+                f"{getattr(t, 'dtype', type(t).__name__)} "
+                f"{tuple(getattr(t, 'shape', ()))} on "
+                f"{getattr(t, 'device', 'host')}")
+    if pool.device != q.device or pool.dtype != q.dtype:
+        raise ValueError(f"pool {pool.dtype} on {pool.device} must match "
+                         f"q {q.dtype} on {q.device}")
+    if q.dtype not in _DTYPE_CODE:
+        raise TypeError(f"the attention kernel takes float32 or bfloat16, "
+                        f"got {q.dtype}")
+    if not (q.is_contiguous() and pool.is_contiguous()):
+        raise ValueError("q and pool must be contiguous")
+    if dh % 8 or q.data_ptr() % 16 or pool.data_ptr() % 16:
+        raise ValueError(f"the kernel loads 16-byte vectors: head_dim {dh} "
+                         f"must be a multiple of 8 and q/pool 16-byte "
+                         f"aligned")
+    scale = float(scale) if scale is not None else 1.0 / math.sqrt(dh)
+    out = torch.empty_like(q)
+    rc = _lib()(_DTYPE_CODE[q.dtype], q.data_ptr(), pool.data_ptr(),
+                out.data_ptr(), blk_seq.data_ptr(), seq_qstart.data_ptr(),
+                seq_pos0.data_ptr(), tables.data_ptr(), lo.data_ptr(),
+                kv_len.data_ptr(), h, qp, dh, nb1, bs,
+                int(tables.shape[1]), int(layer), scale,
+                torch.cuda.current_stream(q.device).cuda_stream)
+    if rc != 0:
+        raise RuntimeError(
+            f"ragged paged attention kernel launch failed: CUDA error {rc}")
+    ragged_paged_attention.launches += 1
+    return out
+
+
+ragged_paged_attention.launches = 0
+
+
+def ragged_layout(q_lens: Sequence[int], pos0s: Sequence[int], *,
+                  block_q: int = BLOCK_Q,
+                  q_bucket: int = 0) -> Tuple[np.ndarray, np.ndarray,
+                                              np.ndarray, np.ndarray, int]:
+    """Host-side row layout of a ragged batch (numpy, scheduler thread).
+
+    ``q_lens[s]`` query rows for sequence ``s`` (0 = absent this
+    launch), first token at virtual position ``pos0s[s]``. Each present
+    sequence's rows are laid out contiguously and padded to a multiple
+    of ``block_q`` so no q block straddles sequences.
+
+    Returns ``(blk_seq, seq_qstart, seq_pos0, last_row, total_rows)``:
+    ``blk_seq [q_bucket / block_q]`` int32 (-1 pads), ``seq_qstart`` /
+    ``seq_pos0`` ``[S]`` int32, ``last_row [S]`` int32 (flattened row of
+    each present sequence's LAST real token; 0 for absent sequences —
+    its logits row is garbage the caller ignores), and the unpadded
+    ``total_rows``. ``q_bucket`` (a multiple of ``block_q``) fixes the
+    padded width; 0 sizes it to the content.
+    """
+    S = len(q_lens)
+    if len(pos0s) != S:
+        raise ValueError(f"q_lens/pos0s length mismatch: {S} vs "
+                         f"{len(pos0s)}")
+    rows_padded = sum(-(-int(n) // block_q) * block_q
+                      for n in q_lens if n > 0)
+    if q_bucket:
+        if q_bucket % block_q:
+            raise ValueError(
+                f"q_bucket {q_bucket} must be a multiple of block_q "
+                f"{block_q}")
+        if q_bucket < rows_padded:
+            raise ValueError(
+                f"q_bucket {q_bucket} cannot hold {rows_padded} padded "
+                f"rows")
+    else:
+        q_bucket = max(rows_padded, block_q)
+    blk_seq = np.full(q_bucket // block_q, -1, np.int32)
+    seq_qstart = np.zeros(S, np.int32)
+    seq_pos0 = np.zeros(S, np.int32)
+    last_row = np.zeros(S, np.int32)
+    cursor = 0
+    total = 0
+    for s, n in enumerate(q_lens):
+        n = int(n)
+        if n <= 0:
+            continue
+        nblk = -(-n // block_q)
+        seq_qstart[s] = cursor
+        seq_pos0[s] = int(pos0s[s])
+        last_row[s] = cursor + n - 1
+        blk_seq[cursor // block_q: cursor // block_q + nblk] = s
+        cursor += nblk * block_q
+        total += n
+    return blk_seq, seq_qstart, seq_pos0, last_row, total
+
+
+def reference_ragged_attention(q_rows, pool, layer, row_seq, row_pos,
+                               tables, lo, scale=None):
+    """Numpy oracle (tests): per-row full-precision softmax attention
+    over the row's ``[lo, pos]`` window gathered through the page table.
+    ``q_rows [N, H, Dh]``, ``row_seq/row_pos [N]``."""
+    pool = np.asarray(pool, np.float32)
+    q_rows = np.asarray(q_rows, np.float32)
+    n, h, dh = q_rows.shape
+    bs = pool.shape[4]
+    scale = float(scale) if scale is not None else 1.0 / math.sqrt(dh)
+    out = np.zeros_like(q_rows)
+    for i in range(n):
+        s = int(row_seq[i])
+        p = int(row_pos[i])
+        cols = np.arange(int(lo[s]), p + 1)
+        k = np.stack([pool[layer, 0, tables[s][c // bs], :, c % bs, :]
+                      for c in cols])                    # [ctx, H, Dh]
+        v = np.stack([pool[layer, 1, tables[s][c // bs], :, c % bs, :]
+                      for c in cols])
+        for hh in range(h):
+            logits = (k[:, hh] @ q_rows[i, hh]) * scale
+            w = np.exp(logits - logits.max())
+            w /= w.sum()
+            out[i, hh] = w @ v[:, hh]
+    return out

@@ -1,0 +1,508 @@
+"""Continuous-batching scheduler in chunked mode (counterpart of
+``paddle_tpu/serving/scheduler.py`` as the fused ragged engine drives
+it): admit, run one fused launch, retire — every cycle.
+
+* **admit** — pop queued requests FCFS (preempted requests first) into
+  free slots while the pool has blocks for their feed. Admission is host
+  bookkeeping: the engine reserves blocks and arms
+  ``req.pending_feed``; no prefill program runs.
+* **cycle** — ONE fused ragged launch mixes up to ``prefill_budget``
+  tokens of prompt chunks with one row for every decoding slot. Decode
+  rows are never charged to the budget, so a prompt burst cannot
+  monopolize a cycle; a slot whose final chunk lands emits its first
+  token from the same launch. Block exhaustion while growing preempts
+  the youngest request, which re-queues and later replays its own
+  history as a feed.
+* **retire** — finished (EOS / token budget), cancelled and expired
+  requests free their slot at once.
+
+Threading contract: ``submit``/``cancel`` may be called from any
+thread; the loop, the pool and the slot state belong to the scheduler
+thread. The ONLY device-to-host copy of the loop is :func:`_fetch`, one
+per cycle.
+"""
+from __future__ import annotations
+
+import itertools
+import logging
+import queue
+import threading
+import time
+from collections import deque
+from typing import Callable, Dict, List, Optional
+
+import numpy as np
+
+from .paging import PoolExhaustedError
+from .tracing import RequestTrace
+
+__all__ = ["QueueFullError", "DeadlineExceeded", "RequestCancelled",
+           "GenerationRequest", "Scheduler"]
+
+
+class QueueFullError(RuntimeError):
+    """The admission queue is at capacity — shed load and retry later."""
+
+
+class DeadlineExceeded(TimeoutError):
+    """The request's deadline passed before it finished (tokens produced
+    before it were streamed)."""
+
+
+class RequestCancelled(RuntimeError):
+    """The request was cancelled via ``GenerationRequest.cancel()``."""
+
+
+_log = logging.getLogger(__name__)
+
+_DONE = object()          # stream terminator sentinel
+
+# retired-request latency samples kept for stats() percentiles
+_RESERVOIR = 4096
+
+
+def _fetch(tokens):
+    """THE one device-to-host copy of the serving loop: the step's
+    ``[num_slots + 1]`` next-token tensor, once per cycle."""
+    return tokens.cpu().numpy()
+
+
+def _percentile(sorted_vals: List[float], q: float) -> float:
+    """Linear-interpolated percentile of an already sorted list."""
+    if len(sorted_vals) == 1:
+        return sorted_vals[0]
+    k = (len(sorted_vals) - 1) * q
+    lo = int(k)
+    hi = min(lo + 1, len(sorted_vals) - 1)
+    return sorted_vals[lo] + (sorted_vals[hi] - sorted_vals[lo]) * (k - lo)
+
+
+class GenerationRequest:
+    """One submitted generation: the scheduler's work item AND the
+    caller's handle (``stream()`` / ``result()`` / ``cancel()``)."""
+
+    _ids = itertools.count()
+
+    def __init__(self, prompt: np.ndarray, max_new_tokens: int, *,
+                 do_sample: bool = False, temperature: float = 1.0,
+                 eos_token_id: Optional[int] = None, pad_token_id: int = 0,
+                 timeout: Optional[float] = None):
+        self.id = next(self._ids)
+        self.prompt = np.asarray(prompt, np.int32).reshape(-1)
+        self.max_new_tokens = int(max_new_tokens)
+        self.do_sample = bool(do_sample)
+        self.temperature = float(temperature)
+        self.eos_token_id = None if eos_token_id is None \
+            else int(eos_token_id)
+        self.pad_token_id = int(pad_token_id)
+        self._preempted = False     # replay victims outrank the queue
+        self.submitted_at = time.perf_counter()
+        self.deadline = None if timeout is None \
+            else self.submitted_at + float(timeout)
+        # scheduler-side decode state
+        self.tokens: List[int] = []     # generated so far (incl. EOS)
+        self.emitted = 0
+        self.last_token: Optional[int] = None
+        # the not-yet-fed feed tokens (prompt, plus the generated history
+        # after a preemption), drained in budgeted chunks; rebuilt at
+        # every admission
+        self.pending_feed: List[int] = []
+        self.trace = RequestTrace(self.id, t_submit=self.submitted_at)
+        self._q: "queue.Queue" = queue.Queue()
+        self._done = threading.Event()
+        self.error: Optional[BaseException] = None
+        self._cancelled = False
+
+    # -- caller side -------------------------------------------------------
+    def cancel(self) -> None:
+        """Ask the scheduler to drop this request; queued requests are
+        rejected at admission, active ones retire at the next cycle."""
+        self._cancelled = True
+
+    @property
+    def cancelled(self) -> bool:
+        return self._cancelled and not self._done.is_set()
+
+    def stream(self):
+        """Iterator of generated token ids, yielded as each is produced.
+        Raises the terminal error after any tokens produced before it."""
+        while True:
+            item = self._q.get()
+            if item is _DONE:
+                return
+            if isinstance(item, BaseException):
+                raise item
+            yield item
+
+    def result(self, timeout: Optional[float] = None) -> np.ndarray:
+        """Block until the request finishes; returns the full sequence
+        ``[prompt_len + max_new_tokens]`` int32 with post-EOS positions
+        filled with ``pad_token_id``."""
+        if not self._done.wait(timeout):
+            raise TimeoutError(
+                f"request {self.id} not finished within {timeout}s")
+        if self.error is not None:
+            raise self.error
+        pad = self.max_new_tokens - len(self.tokens)
+        return np.concatenate([
+            self.prompt, np.asarray(self.tokens, np.int32),
+            np.full(pad, self.pad_token_id, np.int32)])
+
+    def done(self) -> bool:
+        return self._done.is_set()
+
+    # -- scheduler side ----------------------------------------------------
+    def expired(self, now: Optional[float] = None) -> bool:
+        return self.deadline is not None \
+            and (now or time.perf_counter()) > self.deadline
+
+    def _emit(self, tok: int) -> None:
+        now = time.perf_counter()
+        if not self.trace.token_times:
+            self.trace.mark("first_token", t=now)
+        self.trace.stamp_token(now)
+        self.tokens.append(tok)
+        self.emitted += 1
+        self.last_token = tok
+        self._q.put(tok)
+
+    def _finish(self, error: Optional[BaseException] = None) -> None:
+        self.error = error
+        if error is None:
+            name = "finish"
+        elif isinstance(error, RequestCancelled):
+            name = "cancelled"
+        elif isinstance(error, DeadlineExceeded):
+            name = "deadline"
+        else:
+            name = "error"
+        self.trace.mark(name,
+                        **({} if error is None else {"error": repr(error)}))
+        self._done.set()
+        self._q.put(error if error is not None else _DONE)
+
+    def __repr__(self):
+        return (f"<GenerationRequest #{self.id} prompt={len(self.prompt)} "
+                f"max_new={self.max_new_tokens} emitted={self.emitted}>")
+
+
+class Scheduler:
+    """The chunked continuous-batching loop over a
+    :class:`~.paging.PagedKVPool`. Device work is delegated to
+    engine-provided callables, so the policy here stays host-pure:
+
+    * ``do_admit(request, slot)`` — reserve the slot's blocks and arm
+      ``request.pending_feed``;
+    * ``do_chunked_step(slot_requests, plan) -> [num_slots + 1] tensor``
+      — run ONE fused ragged launch with ``plan[slot]`` rows per slot and
+      return its next-token tensor un-fetched;
+    * ``do_copy(dst, src)`` — copy-on-write block copy.
+    """
+
+    def __init__(self, pool, do_admit: Callable, do_chunked_step: Callable,
+                 do_copy: Callable, *, max_queue: int = 128,
+                 prefill_budget: Optional[int] = None):
+        if max_queue < 1:
+            raise ValueError(f"max_queue must be >= 1, got {max_queue}")
+        self._pool = pool
+        self._do_admit = do_admit
+        self._do_chunked = do_chunked_step
+        self._do_copy = do_copy
+        self._max_queue = int(max_queue)
+        # prompt tokens fed per cycle; decode rows are never charged
+        self._prefill_budget = int(prefill_budget or pool.max_len)
+        if self._prefill_budget < 1:
+            raise ValueError(
+                f"prefill_budget must be >= 1, got {self._prefill_budget}")
+        self.prefill_chunks = 0          # chunk launches fed (slot-cycles)
+        self.chunk_tokens = 0            # prompt tokens fed via chunks
+        self.nonfinite_cycles = 0        # cycles whose logits held NaN/Inf
+        self.preempts = 0                # requests evicted mid-flight
+        self.steps = 0                   # fused launches run
+        self.retired = 0
+        self._ttft: deque = deque(maxlen=_RESERVOIR)
+        self._tpot: deque = deque(maxlen=_RESERVOIR)
+        self._queue: List[GenerationRequest] = []
+        self._slots: Dict[int, GenerationRequest] = {}
+        self._cond = threading.Condition()
+        self._closing = False
+        self._thread = threading.Thread(target=self._loop, daemon=True,
+                                        name="paddle-torch-serving")
+        self._thread.start()
+
+    # -- producer side -----------------------------------------------------
+    def submit(self, req: GenerationRequest) -> GenerationRequest:
+        with self._cond:
+            if self._closing:
+                raise RuntimeError("GenerationEngine is closed")
+            if len(self._queue) >= self._max_queue:
+                raise QueueFullError(
+                    f"admission queue is full ({self._max_queue} "
+                    f"requests); retry after in-flight work drains")
+            self._queue.append(req)
+            self._cond.notify_all()
+        return req
+
+    def close(self, cancel_pending: bool = False) -> None:
+        """Stop accepting work and DRAIN: every queued and in-flight
+        request runs to completion before the loop exits (with
+        ``cancel_pending`` queued requests are cancelled instead)."""
+        with self._cond:
+            self._closing = True
+            if cancel_pending:
+                for r in self._queue:
+                    r.cancel()
+            self._cond.notify_all()
+        self._thread.join()
+
+    @property
+    def queue_depth(self) -> int:
+        with self._cond:
+            return len(self._queue)
+
+    @property
+    def active(self) -> int:
+        return len(self._slots)
+
+    def latency_summary(self) -> Dict[str, Optional[dict]]:
+        """``{"ttft_ms": {...}, "tpot_ms": {...}}`` with count/p50/p95/p99
+        over retired requests (None before any sample)."""
+        def pct(vals) -> Optional[dict]:
+            if not vals:
+                return None
+            s = sorted(vals)
+            return {"count": len(s), "p50": _percentile(s, 0.5),
+                    "p95": _percentile(s, 0.95),
+                    "p99": _percentile(s, 0.99)}
+
+        with self._cond:
+            ttft, tpot = list(self._ttft), list(self._tpot)
+        return {"ttft_ms": pct(ttft), "tpot_ms": pct(tpot)}
+
+    # -- scheduler thread --------------------------------------------------
+    def _loop(self) -> None:
+        while True:
+            with self._cond:
+                while not self._closing and not self._queue \
+                        and not self._slots:
+                    self._cond.wait()
+                if self._closing and not self._queue and not self._slots:
+                    return
+            try:
+                self._sweep_queue()
+                self._admit()
+                if self._slots:
+                    self._chunked_cycle()
+            except Exception as e:                      # noqa: BLE001
+                # a step failure poisons the requests in flight, never
+                # the loop: each caller gets the error (traceback
+                # chained) and serving goes on
+                _log.exception("serving cycle failed")
+                self._fail_inflight(e)
+
+    def _note_nonfinite(self, toks) -> None:
+        """Read the logits-finite sentinel (element ``[num_slots]``)."""
+        idx = self._pool.num_slots
+        if toks.shape[0] > idx and bool(toks[idx]):
+            self.nonfinite_cycles += 1
+
+    def _fail_inflight(self, error: BaseException) -> None:
+        for slot in list(self._slots):
+            req = self._slots.pop(slot)
+            self._pool.free(slot)
+            err = RuntimeError(
+                f"serving step failed for request {req.id}: {error!r}")
+            err.__cause__ = error
+            req._finish(err)
+        # the step writes the pool in place, so a failed step may have
+        # left it half-written: start from zeros and an empty cache
+        self._pool.reset_data()
+
+    def _sweep_queue(self) -> None:
+        """Resolve cancelled / expired entries ANYWHERE in the queue."""
+        now = time.perf_counter()
+        with self._cond:
+            live = []
+            for r in self._queue:
+                if r.cancelled:
+                    r._finish(RequestCancelled(
+                        f"request {r.id} cancelled while queued"))
+                elif r.expired(now):
+                    r._finish(DeadlineExceeded(
+                        f"request {r.id} exceeded its deadline while "
+                        f"queued"))
+                else:
+                    live.append(r)
+            self._queue[:] = live
+
+    def _select_next(self) -> int:
+        """Index of the next admission candidate: a preempted replay
+        victim first (it predates every queued arrival), else the FCFS
+        head. Caller holds ``self._cond``."""
+        for i, r in enumerate(self._queue):
+            if r._preempted:
+                return i
+        return 0
+
+    def _admit(self) -> None:
+        while True:
+            with self._cond:
+                if not self._queue:
+                    return
+                idx = self._select_next()
+                req = self._queue[idx]
+                # a preempted request re-feeds its generated history
+                feed_len = len(req.prompt) + len(req.tokens)
+                if not self._pool.can_admit(feed_len):
+                    return       # block pressure: wait for retirements
+                slot = self._pool.alloc()
+                if slot is None:
+                    return       # every slot busy: a cycle will retire
+                self._queue.pop(idx)
+                req._preempted = False
+            try:
+                self._prefill(req, slot)
+            except Exception as exc:                    # noqa: BLE001
+                # the request is in neither the queue nor the slots:
+                # fail it here (or its caller hangs), then let the loop
+                # fail the rest
+                self._slots.pop(slot, None)
+                if self._pool.is_allocated(slot):
+                    self._pool.free(slot)
+                if not req.done():
+                    err = RuntimeError(
+                        f"serving step failed for request {req.id}: "
+                        f"{exc!r}")
+                    err.__cause__ = exc
+                    req._finish(err)
+                raise
+
+    def _prefill(self, req: GenerationRequest, slot: int) -> None:
+        """Admit ``req`` into ``slot``: blocks and ``pending_feed`` are
+        the engine's bookkeeping; the feed itself runs in chunks."""
+        req.trace.mark("admitted", slot=slot,
+                       feed=len(req.prompt) + len(req.tokens))
+        self._do_admit(req, slot)
+        self._slots[slot] = req
+
+    def _finished(self, req: GenerationRequest, tok: int) -> bool:
+        return (req.eos_token_id is not None and tok == req.eos_token_id) \
+            or req.emitted >= req.max_new_tokens
+
+    def _retire(self, slot: int,
+                error: Optional[BaseException] = None) -> None:
+        req = self._slots.pop(slot)
+        self._pool.free(slot)
+        self.retired += 1
+        with self._cond:
+            if req.trace.ttft_ms is not None:
+                self._ttft.append(req.trace.ttft_ms)
+            if req.trace.tpot_ms is not None:
+                self._tpot.append(req.trace.tpot_ms)
+        req._finish(error)
+
+    # -- memory pressure: preemption ---------------------------------------
+    def _preempt_youngest(self) -> bool:
+        """Evict the youngest active request to free its blocks. It is
+        not failed: it re-enters the queue at the head and replays its
+        own history on re-admission. Returns False when nothing is
+        active."""
+        if not self._slots:
+            return False
+        slot = max(self._slots, key=lambda s: self._slots[s].id)
+        req = self._slots.pop(slot)
+        self._pool.free(slot)
+        req.pending_feed = []            # rebuilt at re-admission
+        req._preempted = True
+        self.preempts += 1
+        req.trace.mark("preempt", emitted=req.emitted)
+        with self._cond:
+            self._queue.insert(0, req)
+            self._cond.notify_all()
+        return True
+
+    # -- chunked prefill ---------------------------------------------------
+    def _chunk_plan(self) -> Dict[int, int]:
+        """Rows each active slot contributes to this cycle's launch:
+        decode slots always get 1 (never budget-charged); feeding slots
+        split the prefill token budget FCFS by request age, and a slot
+        whose share is 0 waits a cycle."""
+        budget = self._prefill_budget
+        plan: Dict[int, int] = {}
+        for slot in sorted(self._slots,
+                           key=lambda s: self._slots[s].id):
+            req = self._slots[slot]
+            if req.pending_feed:
+                n = min(len(req.pending_feed), budget)
+                budget -= n
+                if n > 0:
+                    plan[slot] = n
+            else:
+                plan[slot] = 1
+        return plan
+
+    def _prepare_chunked(self, plan: Dict[int, int]) -> Dict[int, int]:
+        """Every planned slot must own writable blocks for its WHOLE row
+        range this cycle. Exhaustion preempts the youngest request;
+        evicted slots drop out of the plan."""
+        for slot in sorted(plan, key=lambda s: self._slots[s].id
+                           if s in self._slots else -1):
+            while slot in self._slots and slot in plan:
+                try:
+                    cows = self._pool.ensure_writable_range(
+                        slot, self._pool.slot_pos(slot) + plan[slot] - 1)
+                except PoolExhaustedError as e:
+                    # table swaps made before the failure need their
+                    # copies now: a retry sees refcount-1 blocks
+                    for cow in e.partial_cows:
+                        self._do_copy(*cow)
+                    self._preempt_youngest()
+                    continue
+                for cow in cows:
+                    self._do_copy(*cow)
+                break
+        return {s: n for s, n in plan.items() if s in self._slots}
+
+    def _chunked_cycle(self) -> None:
+        """One fused ragged launch: budgeted prompt chunks mixed with
+        every decode row, then one fetch of the next tokens."""
+        plan = self._prepare_chunked(self._chunk_plan())
+        if not plan:
+            return
+        active = {s: self._slots[s] for s in plan}
+        toks = _fetch(self._do_chunked(active, plan))
+        self.steps += 1
+        self._note_nonfinite(toks)
+        now = time.perf_counter()
+        for slot, req in active.items():
+            n = plan[slot]
+            feeding = bool(req.pending_feed)
+            self._pool.advance(slot, n)
+            if feeding:
+                del req.pending_feed[:n]
+                self.prefill_chunks += 1
+                self.chunk_tokens += n
+                req.trace.mark("prefill_chunk", tokens=n,
+                               remaining=len(req.pending_feed))
+            if req.cancelled:
+                self._retire(slot, RequestCancelled(
+                    f"request {req.id} cancelled mid-generation"))
+                continue
+            if req.expired(now):
+                self._retire(slot, DeadlineExceeded(
+                    f"request {req.id} exceeded its deadline after "
+                    f"{req.emitted} token(s)"))
+                continue
+            if feeding:
+                if req.pending_feed:
+                    continue             # mid-feed: row output ignored
+                # final chunk landed: publish the written feed blocks,
+                # then emit the token this same launch produced
+                self._pool.register_prefix(slot, np.concatenate(
+                    [req.prompt, np.asarray(req.tokens, np.int32)]))
+                req.trace.mark("chunked_prefill_done",
+                               emitted=req.emitted)
+            tok = int(toks[slot])
+            req._emit(tok)
+            if self._finished(req, tok):
+                self._retire(slot)
