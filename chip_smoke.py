@@ -9,21 +9,44 @@ prints no result line):
    versions, and the build of every kernel from ``paddle_tpu_torch/csrc``
    (one ``nvcc`` per source, all at once);
 2. kernel vs plain: each kernel against its plain PyTorch version on the
-   card at the serving path's widths (GPT-2: 12 heads, head_dim 64,
-   hidden 768, KV blocks of 16), in float32 and bfloat16, with the
-   errors, the median times and the bytes-over-bandwidth bounds;
+   card, in float32 and bfloat16, with the errors, the median times, the
+   bounds and the library call's time: the serving kernels at the
+   serving path's widths (GPT-2: 12 heads, head_dim 64, hidden 768, KV
+   blocks of 16), the training kernels at the training path's (flash
+   attention at [8, 1024, 12, 64] and at the ragged length 1000, causal;
+   the LayerNorm backward at [8192, 768]; AdamW on a [50304, 768]
+   parameter);
 3. engine: GPT-2 small (124M width, random weights from a seed, bf16)
    served through ``GenerationEngine(kv_layout="paged",
    attention="fused")`` — 16 concurrent requests with a chunked long
-   prompt and a shared preamble — with every kernel's launch count read
-   around that run, one real step's layer-0 attention operands checked
-   kernel against plain, and a float32 reference check of the engine's
-   greedy tokens against the model's full forward;
-4. a ``{"kernels": [...]}`` line, the card's name and power limit, and
-   last the ``{"ok": true, "device": ...}`` line.
+   prompt and a shared preamble — with the serving kernels' launch
+   counts read around that run, and a float32 reference check of the
+   engine's greedy tokens against the model's full forward;
+4. train: GPT-2 small at full width, bf16 AMP O2, AdamW with float32
+   master weights, batch 8 x 1024 with next-token labels and the LM loss
+   in 8 chunks (``bench.py``'s ``bench_gpt2`` configuration), through
+   ``Model.fit``: 2 warm-up steps, then 8 timed steps with every training
+   kernel's launch count read around them; the same batch repeated must
+   lower the loss; one float32 step of GPT-2 width at 2 layers on the
+   card (kernels) against a CPU copy of the same weights (plain
+   versions): loss, every gradient and every updated parameter;
+5. real operands: the layer-0 operands of one real step of each path
+   through kernel and plain: the engine's attention rows and LayerNorm
+   input, timed; the training step's q/k/v/dO, LayerNorm input and
+   output gradient and the token embedding's AdamW operands, each output
+   held to its own scale (max |error| over max |plain|), since the
+   gradients of a loss averaged over 8192 tokens lie below any fixed
+   atol;
+6. a ``{"kernels": [...]}`` line, the card's name and power limit, and
+   last the ``{"ok": true, "device": ...}`` line. The training kernels'
+   errors and times in it come from phase 2 at the train path's shapes
+   and dtypes (flash bf16 [8, 1024, 12, 64] causal, the LayerNorm
+   backward f32 [8192, 768], AdamW with an f32 master and a bf16
+   gradient and copy), their launches from phase 4.
 
-``--profile`` adds one more engine batch under torch.profiler after
-phase 3 and prints device time by kernel and the device's idle share.
+``--profile`` adds one more engine batch and one more train step under
+torch.profiler and prints device time by kernel and the device's idle
+share.
 
 Times come from CUDA events around single launches, median of 20,
 with the 50 MB L2 cache flushed and the device kept busy until the
@@ -48,10 +71,22 @@ PEAK_OPS = {torch.bfloat16: 989e12,   # dense tensor-core rate
             torch.float32: 67e12}     # outside the tensor cores
 TOL = {torch.float32: (1e-4, 0.0),    # (atol, rtol)
        torch.bfloat16: (2e-2, 1e-2)}  # one bf16 ulp of |y| < 4 is <= 1.6e-2
+# max |kernel - plain| over max |plain|, for the operands of a real step:
+# f32 sums in another order; a little over two bf16 ulps of the largest value
+REL_TOL = {torch.float32: 1e-5, torch.bfloat16: 2e-2}
 RPA_SRC = "paddle_tpu_torch/csrc/ragged_paged_attention.cu"
 LN_SRC = "paddle_tpu_torch/csrc/layer_norm.cu"
+FA_SRC = "paddle_tpu_torch/csrc/flash_attention.cu"
+ADAMW_SRC = "paddle_tpu_torch/csrc/adamw.cu"
 RPA_TPU = "paddle_tpu/ops/ragged_paged_attention.py:198"
 LN_TPU = "paddle_tpu/ops/pallas_kernels.py:868"
+LN_BWD_TPU = "paddle_tpu/ops/pallas_kernels.py:893"
+FA_FWD_TPU = "paddle_tpu/ops/pallas_kernels.py:269"
+FA_BWD_TPU = "paddle_tpu/ops/pallas_kernels.py:305"
+ADAMW_TPU = "paddle_tpu/ops/pallas_kernels.py:1003"
+# the bench_gpt2 configuration (bench.py:158)
+BATCH, SEQ, LM_CHUNKS, LR, WD = 8, 1024, 8, 1e-4, 0.01
+WARM_STEPS, TIMED_STEPS = 2, 8
 
 
 def log(*a):
@@ -92,8 +127,8 @@ class Timer:
         return statistics.median(times)
 
 
-def check_close(name, got, want, dtype):
-    atol, rtol = TOL[dtype]
+def check_close(name, got, want, dtype, tol=None):
+    atol, rtol = tol or TOL[dtype]
     got, want = got.float(), want.float()
     if not torch.isfinite(got).all():
         raise AssertionError(f"{name}: non-finite kernel output")
@@ -104,6 +139,24 @@ def check_close(name, got, want, dtype):
             f"{name}: {int(bad.sum())} values outside atol={atol} "
             f"rtol={rtol}; max abs err {err.max().item()}")
     return err.max().item()
+
+
+def check_scaled(name, got, want, dtype):
+    """Kernel against plain relative to the values' scale: max |got -
+    want| over max |want|, within REL_TOL. For the operands of a real
+    step, whose gradients lie far below any fixed atol (the loss is a
+    mean over 8192 tokens); a kernel that wrote zeros scores 1."""
+    got, want = got.float(), want.float()
+    if not torch.isfinite(got).all():
+        raise AssertionError(f"{name}: non-finite kernel output")
+    top = want.abs().max().item()
+    if not top > 0:
+        raise AssertionError(f"{name}: the plain version is all zeros")
+    err = (got - want).abs().max().item() / top
+    if err > REL_TOL[dtype]:
+        raise AssertionError(f"{name}: off by {err:.3e} of its largest "
+                             f"value {top:.3e}, over {REL_TOL[dtype]}")
+    return err
 
 
 # ---------------------------------------------------------------- bounds
@@ -202,13 +255,194 @@ def phase_kernels(device, timer):
                 f"{plain:.4f} library_ms {lib:.4f} bound_ms {bnd:.4f}")
 
 
+# ---------------------------------------------------------------- phase 2: training kernels
+def flash_work(q, causal, backward):
+    """Bytes and operations one flash call on self-attention at q's shape
+    must take: the forward reads q, k, v and writes o and the LSE; the
+    backward reads q, k, v, o, dO and the LSE and writes dq, dk, dv. Per
+    head-dim element of every (row, key) pair the mask keeps, the
+    forward does 4 operations (q.k, p.v), the backward 10 (q.k again,
+    dO.v, and the dV, dQ, dK products)."""
+    b, s, h, d = q.shape
+    pairs = b * h * (s * (s + 1) // 2 if causal else s * s)
+    tensor, lse = q.numel() * q.element_size(), b * h * s * 4
+    if backward:
+        return 8 * tensor + lse, 10 * d * pairs
+    return 4 * tensor + lse, 4 * d * pairs
+
+
+def flash_case(timer, q, k, v, do, causal=True):
+    """Forward and backward kernels against their plain versions on
+    (q, k, v, dO), timed beside the plain versions and beside
+    ``scaled_dot_product_attention`` and its autograd backward; returns
+    the forward's and the backward's measurements."""
+    from paddle_tpu_torch.ops import flash_attention as fa
+    dtype = q.dtype
+    o, lse = fa.flash_attention_fwd(q, k, v, causal)
+    grads = fa.flash_attention_bwd(q, k, v, o, lse, do, causal)
+    torch.cuda.synchronize()
+    want_o, want_lse = fa.flash_attention_fwd_plain(q, k, v, causal)
+    err_f = max(check_close("flash forward o", o, want_o, dtype),
+                check_close("flash forward lse", lse, want_lse,
+                            torch.float32))
+    want = fa.flash_attention_bwd_plain(q, k, v, o, lse, do, causal)
+    err_b = max(check_close(f"flash backward d{n}", g, w, dtype)
+                for n, g, w in zip("qkv", grads, want))
+    del want_o, want_lse, want
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    qt, kt, vt, dot = (t.transpose(1, 2).contiguous() for t in (q, k, v, do))
+    qg, kg, vg = (t.requires_grad_() for t in (qt, kt, vt))
+    out = sdpa(qg, kg, vg, is_causal=causal)
+    fwd = {"max_abs_err": err_f,
+           "ms": timer.ms(lambda: fa.flash_attention_fwd(q, k, v, causal)),
+           "plain_ms": timer.ms(lambda: fa.flash_attention_fwd_plain(
+               q, k, v, causal), reps=5, warmup=1),
+           "library_ms": timer.ms(lambda: sdpa(qt.detach(), kt.detach(),
+                                               vt.detach(),
+                                               is_causal=causal))}
+    bwd = {"max_abs_err": err_b,
+           "ms": timer.ms(lambda: fa.flash_attention_bwd(q, k, v, o, lse,
+                                                         do, causal)),
+           "plain_ms": timer.ms(lambda: fa.flash_attention_bwd_plain(
+               q, k, v, o, lse, do, causal), reps=5, warmup=1),
+           "library_ms": timer.ms(lambda: torch.autograd.grad(
+               out, (qg, kg, vg), dot, retain_graph=True))}
+    for row, backward in ((fwd, False), (bwd, True)):
+        row["bound_ms"], row["bound_by"] = bound(
+            *flash_work(q, causal, backward), dtype)
+    return fwd, bwd
+
+
+def ln_bwd_case(timer, x, w, g):
+    """The LayerNorm backward kernel against its plain version on
+    [rows, D] operands, timed beside aten's ``native_layer_norm_backward``.
+    dw and db sum over every row: they take rtol 1e-5 beside the atol."""
+    from paddle_tpu_torch.ops import layer_norm as ln
+    dtype = x.dtype
+    rows, d = x.shape
+    got = ln.fused_layer_norm_bwd(x, w, g)
+    torch.cuda.synchronize()
+    want = ln.layer_norm_bwd_plain(x, w, g)
+    sums = (TOL[dtype][0], max(TOL[dtype][1], 1e-5))
+    err = max(check_close(f"LayerNorm backward {n}", a, b, dtype,
+                          None if n == "dx" else sums)
+              for n, a, b in zip(("dx", "dw", "db"), got, want))
+    b = torch.zeros_like(w)
+    _, mean, rstd = torch.ops.aten.native_layer_norm(x, [d], w, b, 1e-5)
+    e = x.element_size()
+    row = {"max_abs_err": err,
+           "ms": timer.ms(lambda: ln.fused_layer_norm_bwd(x, w, g)),
+           "plain_ms": timer.ms(lambda: ln.layer_norm_bwd_plain(x, w, g)),
+           "library_ms": timer.ms(
+               lambda: torch.ops.aten.native_layer_norm_backward(
+                   g, x, [d], mean, rstd, w, b, [True, True, True]))}
+    # x and g read, dx written; w read, dw and db written
+    row["bound_ms"], row["bound_by"] = bound(
+        (3 * rows * d + 3 * d) * e, 15 * rows * d, dtype)
+    return row
+
+
+def adamw_case(timer, p, g, m, v, low, lr, beta1, beta2, eps, wd, step):
+    """The AdamW kernel against its plain version on copies of one
+    parameter's operands, timed beside ``torch.optim.AdamW(fused=True)``
+    on a float32 copy. The same float32 arithmetic with fused
+    multiply-adds: atol 1e-6 + rtol 1e-6."""
+    from paddle_tpu_torch.ops.fused_adamw import adamw_plain_, fused_adamw_
+    hyper = (lr, beta1, beta2, eps, wd, step)
+    ops = [t.clone() for t in (p, m, v)]
+    ref = [t.clone() for t in (p, m, v)]
+    low_k = None if low is None else low.clone()
+    low_r = None if low is None else low.clone()
+    fused_adamw_(ops[0], g, ops[1], ops[2], *hyper, low=low_k)
+    torch.cuda.synchronize()
+    adamw_plain_(ref[0], g, ref[1], ref[2], *hyper, low=low_r)
+    exact = (1e-6, 1e-6)
+    err = max(check_close(f"AdamW {n}", a, b, a.dtype,
+                          exact if a.dtype == torch.float32 else None)
+              for n, a, b in zip(("p", "m", "v"), ops, ref))
+    if low is not None:
+        err = max(err, check_close("AdamW bf16 copy", low_k, low_r,
+                                   torch.bfloat16))
+    lib_p = torch.nn.Parameter(p.detach().float().clone())
+    lib_p.grad = g.float()
+    lib = torch.optim.AdamW([lib_p], lr=lr, betas=(beta1, beta2), eps=eps,
+                            weight_decay=wd, fused=True)
+    n = p.numel()
+    row = {"max_abs_err": err,
+           "ms": timer.ms(lambda: fused_adamw_(ops[0], g, ops[1], ops[2],
+                                               *hyper, low=low_k)),
+           "plain_ms": timer.ms(lambda: adamw_plain_(
+               ref[0], g, ref[1], ref[2], *hyper, low=low_r)),
+           "library_ms": timer.ms(lib.step)}
+    # p, m, v read and written, g read, the bf16 copy written
+    nbytes = n * (2 * p.element_size() + g.element_size() + 16
+                  + (2 if low is not None else 0))
+    row["bound_ms"], row["bound_by"] = bound(nbytes, 16 * n, torch.float32)
+    return row
+
+
+def fmt(row):
+    return (f"max_abs_err {row['max_abs_err']:.3e} kernel_ms "
+            f"{row['ms']:.4f} plain_ms {row['plain_ms']:.4f} library_ms "
+            f"{row['library_ms']:.4f} bound_ms {row['bound_ms']:.4f} "
+            f"({row['bound_by']})")
+
+
+def phase_train_kernels(device, timer):
+    gen = torch.Generator(device=device).manual_seed(SEED)
+
+    def randn(*shape, dtype=torch.float32, scale=1.0):
+        return (scale * torch.randn(*shape, device=device,
+                                    generator=gen)).to(dtype)
+
+    main = {}          # the train path's shapes and dtypes, for the kernels line
+    for dtype in (torch.float32, torch.bfloat16):
+        name = str(dtype)[6:]
+        for seq in (SEQ, 1000):
+            q, k, v, do = (randn(BATCH, seq, 12, 64, dtype=dtype)
+                           for _ in range(4))
+            fwd, bwd = flash_case(timer, q, k, v, do)
+            if dtype == torch.bfloat16 and seq == SEQ:
+                main["flash_attention_fwd"] = fwd
+                main["flash_attention_bwd"] = bwd
+            log(f"K4/K5 flash_attention_fwd {name} [{BATCH}, {seq}, 12, 64] "
+                f"causal {fmt(fwd)}")
+            log(f"K6/K7 flash_attention_bwd {name} [{BATCH}, {seq}, 12, 64] "
+                f"causal {fmt(bwd)}")
+            del q, k, v, do
+        x = randn(BATCH * SEQ, 768, dtype=dtype)
+        w = (1 + randn(768, scale=0.1)).to(dtype)
+        g = randn(BATCH * SEQ, 768, dtype=dtype)
+        row = ln_bwd_case(timer, x, w, g)
+        log(f"K3 fused_layer_norm_bwd {name} [{BATCH * SEQ}, 768] "
+            f"{fmt(row)}")
+        if dtype == torch.float32:           # O2 runs LayerNorm in f32
+            main["fused_layer_norm_bwd"] = row
+    n = (50304, 768)
+    for p_dtype, low in ((torch.float32, True), (torch.float32, False)):
+        p = randn(*n, scale=0.02)
+        g = randn(*n, dtype=torch.bfloat16 if low else torch.float32,
+                  scale=1e-3)
+        m, v = randn(*n, scale=1e-4), randn(*n, scale=1e-4).square()
+        bf16 = torch.empty(n, dtype=torch.bfloat16, device=device) \
+            if low else None
+        row = adamw_case(timer, p, g, m, v, bf16, LR, 0.9, 0.999, 1e-8, WD,
+                         3)
+        log(f"K8 fused_adamw {'f32 master, bf16 grad and copy' if low else 'f32'}"
+            f" [50304, 768] {fmt(row)}")
+        if low:
+            main["fused_adamw"] = row
+    return main
+
+
 # ---------------------------------------------------------------- phase 3
 def reference_check(device):
     """Float32 engine greedy tokens == greedy decoding through the
     model's full forward, at GPT-2 width with the depth cut to 2."""
+    from paddle_tpu_torch import seed
     from paddle_tpu_torch.models import GPTConfig, GPTForPretraining
     from paddle_tpu_torch.serving import GenerationEngine
-    torch.manual_seed(SEED + 1)
+    seed(SEED + 1)
     cfg = GPTConfig.gpt2_small()
     cfg.num_hidden_layers = 2
     model = GPTForPretraining(cfg).to(device)
@@ -236,7 +470,6 @@ def profile_engine(eng, rng, vocab):
     """Where the engine's device time goes: one more batch of 8
     requests (256-token prompts, 32 new tokens each) under
     torch.profiler; prints device time by kernel and the idle share."""
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     prompts = [rng.randint(0, vocab, 256) for _ in range(8)]
     steps0 = eng.stats()["steps"]
@@ -247,14 +480,19 @@ def profile_engine(eng, rng, vocab):
             h.result(timeout=600)
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
-    steps = eng.stats()["steps"] - steps0
+    device_time_report("engine", prof, wall_ms, eng.stats()["steps"] - steps0)
+
+
+def device_time_report(what, prof, wall_ms, steps):
+    """Device time by kernel over a profiled window, and the idle share."""
+    from torch.autograd import DeviceType
     kernels = [(ev.self_device_time_total / 1e3, ev.count, ev.key)
                for ev in prof.key_averages()
                if ev.device_type == DeviceType.CUDA
                and ev.self_device_time_total > 0]
     busy = sum(k[0] for k in kernels)
-    log(f"profile: {steps} steps in {wall_ms:.3f} ms wall, device busy "
-        f"{busy:.3f} ms, idle share {1 - busy / wall_ms:.4f}, "
+    log(f"profile {what}: {steps} steps in {wall_ms:.3f} ms wall, device "
+        f"busy {busy:.3f} ms, idle share {1 - busy / wall_ms:.4f}, "
         f"{busy / steps:.4f} device ms per step")
     for ms, n, name in sorted(kernels, reverse=True)[:15]:
         log(f"  {ms:10.3f} ms {ms / busy:7.2%} {n:7d} calls "
@@ -268,9 +506,10 @@ def phase_engine(device, profile=False):
     from paddle_tpu_torch.ops.ragged_paged_attention import (
         ragged_paged_attention)
     from paddle_tpu_torch.serving import GenerationEngine
+    from paddle_tpu_torch import seed
 
     reference_check(device)
-    torch.manual_seed(SEED)
+    seed(SEED)
     cfg = GPTConfig.gpt2_small()
     model = GPTForPretraining(cfg).to(device=device, dtype=torch.bfloat16)
     eng = GenerationEngine(model, kv_layout="paged", attention="fused",
@@ -345,8 +584,8 @@ def phase_engine(device, profile=False):
     return launches, captured
 
 
-# ---------------------------------------------------------------- phase 4
-def phase_report(device, timer, launches, captured):
+# ---------------------------------------------------------------- phase 5
+def report_engine(device, timer, launches, captured):
     from paddle_tpu_torch.ops.layer_norm import (fused_layer_norm,
                                                  layer_norm_plain)
     from paddle_tpu_torch.ops.ragged_paged_attention import (
@@ -391,6 +630,326 @@ def phase_report(device, timer, launches, captured):
     return [rpa, ln]
 
 
+# ---------------------------------------------------------------- phase 4
+def train_counters():
+    """The launch-counting wrappers of the training path's kernels."""
+    from paddle_tpu_torch.ops import flash_attention as fa
+    from paddle_tpu_torch.ops import fused_adamw as fad
+    from paddle_tpu_torch.ops import layer_norm as ln
+    return {"flash_attention_fwd": fa.flash_attention_fwd,
+            "flash_attention_bwd": fa.flash_attention_bwd,
+            "fused_layer_norm": ln.fused_layer_norm,
+            "fused_layer_norm_bwd": ln.fused_layer_norm_bwd,
+            "fused_adamw": fad.fused_adamw_}
+
+
+def expected_launches(n_layers, n_tensors):
+    """Launches of one train step: one flash forward and backward per
+    block, a LayerNorm forward and backward at ln_1, ln_2 of every block
+    and ln_f (the checkpointed loss recomputes only the LM head), and
+    one AdamW per parameter tensor."""
+    return {"flash_attention_fwd": n_layers, "flash_attention_bwd": n_layers,
+            "fused_layer_norm": 2 * n_layers + 1,
+            "fused_layer_norm_bwd": 2 * n_layers + 1,
+            "fused_adamw": n_tensors}
+
+
+def check_launches(what, launches, per_step, steps):
+    want = {k: v * steps for k, v in per_step.items()}
+    if launches != want:
+        raise AssertionError(f"{what}: launches {launches} over {steps} "
+                             f"steps, expected {want}")
+
+
+def capture_train_operands(model, opt_module, ids, labels):
+    """Run one train step with spies on the callers of the kernels and
+    keep layer 0's operands: q, k, v and dO of its attention, x, weight
+    and the output gradient of its first LayerNorm, and the first AdamW
+    update's (the token embedding's) p, g, m, v, copy and scalars."""
+    import paddle_tpu_torch.nn.functional as nnf
+    import paddle_tpu_torch.nn.layer.norm as norm_mod
+    cap = {}
+    fa_orig, ln_orig = nnf.flash_attention, norm_mod.layer_norm
+    ad_orig = opt_module.fused_adamw_
+
+    def fa_spy(q, k, v, is_causal=False, scale=None):
+        out = fa_orig(q, k, v, is_causal=is_causal, scale=scale)
+        if "qkv" not in cap:
+            cap["qkv"] = [t.detach().clone() for t in (q, k, v)]
+            out.register_hook(lambda g: cap.update(do=g.detach().clone()))
+        return out
+
+    def ln_spy(x, w, b, epsilon=1e-5):
+        out = ln_orig(x, w, b, epsilon)
+        if "ln" not in cap:
+            cap["ln"] = [t.detach().clone() for t in (x, w)]
+            out.register_hook(lambda g: cap.update(ln_g=g.detach().clone()))
+        return out
+
+    def adamw_spy(p, g, m, v, *hyper, low=None):
+        if "adamw" not in cap:
+            cap["adamw"] = ([t.clone() for t in (p, g, m, v)],
+                            None if low is None else low.clone(), hyper)
+        return ad_orig(p, g, m, v, *hyper, low=low)
+
+    nnf.flash_attention, norm_mod.layer_norm = fa_spy, ln_spy
+    opt_module.fused_adamw_ = adamw_spy
+    try:
+        loss = model.train_batch([ids, labels])
+    finally:
+        nnf.flash_attention, norm_mod.layer_norm = fa_orig, ln_orig
+        opt_module.fused_adamw_ = ad_orig
+    if not math.isfinite(loss) or len(cap) != 5:
+        raise AssertionError(f"capture step: loss {loss}, kept {sorted(cap)}")
+    return cap
+
+
+def profile_train(model, ids, labels, steps=2):
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(steps):
+            model.train_batch([ids, labels])
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    device_time_report("train", prof, wall_ms, steps)
+
+
+def phase_train(device, profile=False):
+    """GPT-2 small, bf16 O2, through Model.fit at the bench_gpt2
+    configuration; returns the timed run's launches and the operands of
+    one more real step."""
+    import paddle_tpu_torch as pt
+    import paddle_tpu_torch.optimizer.optimizer as opt_module
+    from paddle_tpu_torch.hapi import Callback, Model
+    from paddle_tpu_torch.models import GPTConfig, GPTForPretraining
+    from paddle_tpu_torch.optimizer import AdamW
+
+    class Record(Callback):
+        """Each step's loss (log_freq=1 reads it back every step) and the
+        host clock at the end of the step."""
+
+        def __init__(self):
+            super().__init__()
+            self.losses, self.stamps = [], []
+
+        def on_train_batch_end(self, step, logs=None):
+            self.losses.append(logs["loss"])
+            self.stamps.append(time.perf_counter())
+
+    pt.seed(SEED)
+    cfg = GPTConfig.gpt2_small()
+    cfg.hidden_dropout_prob = cfg.attention_dropout_prob = 0.0
+    net = GPTForPretraining(cfg, lm_loss_chunks=LM_CHUNKS).to(device)
+    n_params = sum(p.numel() for p in net.parameters())
+    n_tensors = len(list(net.parameters()))
+    model = Model(net, inputs=["ids", "labels"])
+    model.prepare(AdamW(LR, parameters=net.parameters(), weight_decay=WD,
+                        multi_precision=True),
+                  loss=lambda loss, logits: loss,
+                  amp_configs={"level": "O2", "dtype": "bfloat16"})
+    rng = np.random.RandomState(SEED)
+    tokens = rng.randint(0, cfg.vocab_size,
+                         (BATCH * (WARM_STEPS + TIMED_STEPS), SEQ + 1))
+    ids, labels = tokens[:, :-1], tokens[:, 1:]       # next-token labels
+    split = BATCH * WARM_STEPS
+
+    def fit(i, l, callbacks=None):
+        model.fit(pt.io.TensorDataset([i, l]), batch_size=BATCH,
+                  shuffle=False, log_freq=1, verbose=0, callbacks=callbacks)
+
+    fit(ids[:split], labels[:split])                  # warm-up
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    counters = train_counters()
+    for fn in counters.values():
+        fn.launches = 0
+    rec = Record()
+    t0 = time.perf_counter()
+    fit(ids[split:], labels[split:], [rec])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {name: fn.launches for name, fn in counters.items()}
+    peak = torch.cuda.max_memory_allocated()
+    if len(rec.losses) != TIMED_STEPS or not all(
+            math.isfinite(x) for x in rec.losses):
+        raise AssertionError(f"train losses {rec.losses}")
+    check_launches("train", launches,
+                   expected_launches(cfg.num_hidden_layers, n_tensors),
+                   TIMED_STEPS)
+    step_ms = np.diff([t0] + rec.stamps) * 1e3
+    log(f"train: GPT-2 small ({n_params} parameters in {n_tensors} "
+        f"tensors), bf16 O2, AdamW multi_precision, batch {BATCH} x {SEQ}, "
+        f"{LM_CHUNKS} loss chunks, Model.fit: {TIMED_STEPS} steps in "
+        f"{wall:.3f} s: {BATCH * SEQ * TIMED_STEPS / wall:.1f} tokens/s, "
+        f"{wall / TIMED_STEPS * 1e3:.3f} ms per step (wall / steps), "
+        f"median step {float(np.median(step_ms)):.3f} ms, max memory "
+        f"allocated {peak} bytes ({peak / 2 ** 30:.3f} GiB)")
+    log("train losses: " + json.dumps(rec.losses))
+    log("train launches: " + json.dumps(launches) + f" over {TIMED_STEPS} "
+        f"steps")
+
+    rec = Record()                                    # convergence
+    fit(np.repeat(ids[:BATCH][None], 4, 0).reshape(-1, SEQ),
+        np.repeat(labels[:BATCH][None], 4, 0).reshape(-1, SEQ), [rec])
+    if not rec.losses[-1] < rec.losses[0]:
+        raise AssertionError(f"a repeated batch did not lower the loss: "
+                             f"{rec.losses}")
+    log("convergence: one batch repeated, losses " + json.dumps(rec.losses))
+    if profile:
+        profile_train(model, ids[:BATCH], labels[:BATCH])
+    cap = capture_train_operands(model, opt_module, ids[:BATCH],
+                                 labels[:BATCH])
+    return launches, cap
+
+
+def phase_f32_check(device):
+    """One float32 train step of GPT-2 width at 2 layers, sequence 512,
+    batch 2, eager (loss.backward(); opt.step()), on the card (kernels)
+    and on a CPU copy of the same weights (plain versions). The loss
+    agrees within rtol 1e-5; every gradient within 1e-3 of its tensor's
+    largest, but the attention key biases', whose true value is zero (a
+    constant per softmax row): there both sides are rounding noise below
+    1e-4 of the largest gradient. Every updated parameter agrees within
+    2 * lr: Adam's first step is lr * g / (|g| + eps), so an element whose
+    gradient's sign is rounding noise may land on the other side, and no
+    more than 1e-4 of the elements may differ by more than 1e-6."""
+    import copy
+
+    import paddle_tpu_torch as pt
+    from paddle_tpu_torch.models import GPTConfig, GPTForPretraining
+    from paddle_tpu_torch.optimizer import AdamW
+    pt.seed(SEED + 2)
+    cfg = GPTConfig.gpt2_small()
+    cfg.num_hidden_layers = 2
+    cfg.hidden_dropout_prob = cfg.attention_dropout_prob = 0.0
+    cpu_net = GPTForPretraining(cfg, lm_loss_chunks=LM_CHUNKS)
+    nets = {"cpu": (cpu_net, torch.device("cpu")),
+            "card": (copy.deepcopy(cpu_net).to(device), device)}
+    tokens = np.random.RandomState(SEED + 2).randint(0, cfg.vocab_size,
+                                                     (2, 513))
+    counters = train_counters()
+    out = {}
+    for where, (net, dev) in nets.items():      # the card's run last
+        for fn in counters.values():
+            fn.launches = 0
+        opt = AdamW(LR, parameters=net.named_parameters(), weight_decay=WD)
+        ids, labels = (torch.from_numpy(a).to(dev)
+                       for a in (tokens[:, :-1], tokens[:, 1:]))
+        loss, _ = net(ids, labels)
+        loss.backward()
+        grads = {n: p.grad.detach().cpu().clone()
+                 for n, p in net.named_parameters()}
+        opt.step()
+        opt.clear_grad()
+        out[where] = (loss.item(), grads,
+                    {n: p.detach().cpu().clone()
+                     for n, p in net.named_parameters()})
+        launches = {name: fn.launches for name, fn in counters.items()}
+    check_launches("float32 step on the card", launches,
+                   expected_launches(2, len(out["cpu"][1])), 1)
+    (l_cpu, g_cpu, p_cpu), (l_gpu, g_gpu, p_gpu) = out["cpu"], out["card"]
+    if not abs(l_gpu - l_cpu) <= 1e-5 * abs(l_cpu):
+        raise AssertionError(f"float32 loss {l_gpu} on the card, {l_cpu} "
+                             f"on the CPU")
+    top = max(g.abs().max().item() for g in g_cpu.values())
+    worst_g, off, total, worst_p = 0.0, 0, 0, 0.0
+    for name, ref in g_cpu.items():
+        diff = (g_gpu[name] - ref).abs().max().item()
+        if name.endswith("k_proj.bias"):
+            if max(ref.abs().max().item(),
+                   g_gpu[name].abs().max().item()) > 1e-4 * top:
+                raise AssertionError(f"{name}: gradient not at the "
+                                     f"rounding floor")
+            continue
+        rel = diff / max(ref.abs().max().item(), 1e-30)
+        worst_g = max(worst_g, rel)
+        if rel > 1e-3:
+            raise AssertionError(f"{name}: gradient off by {rel:.3e} of "
+                                 f"its largest")
+        d = (p_gpu[name] - p_cpu[name]).abs()
+        off += int((d > 1e-6).sum())
+        total += d.numel()
+        worst_p = max(worst_p, d.max().item())
+    if worst_p > 2 * LR * (1 + 1e-3) + 1e-6 or off > 1e-4 * total:
+        raise AssertionError(f"updated parameters: max diff {worst_p}, "
+                             f"{off} of {total} elements off by > 1e-6")
+    log(f"float32 check (GPT-2 width, 2 layers, batch 2 x 512, one AdamW "
+        f"step, card vs CPU): loss {l_gpu:.6f} vs {l_cpu:.6f}, worst "
+        f"gradient error {worst_g:.3e} of its tensor's largest, updated "
+        f"parameters max diff {worst_p:.3e}, {off} of {total} elements "
+        f"off by > 1e-6; launches {json.dumps(launches)}")
+
+
+def check_train_operands(cap):
+    """The training kernels against their plain versions on the operands
+    of one real step (layer 0's attention and first LayerNorm, the token
+    embedding's AdamW), each output relative to its scale
+    (``check_scaled``); returns the worst relative error per kernel."""
+    from paddle_tpu_torch.ops import flash_attention as fa
+    from paddle_tpu_torch.ops import layer_norm as ln
+    from paddle_tpu_torch.ops.fused_adamw import adamw_plain_, fused_adamw_
+    q, k, v = cap["qkv"]
+    do = cap["do"]
+    o, lse = fa.flash_attention_fwd(q, k, v, True)
+    grads = fa.flash_attention_bwd(q, k, v, o, lse, do, True)
+    torch.cuda.synchronize()
+    want_o, want_lse = fa.flash_attention_fwd_plain(q, k, v, True)
+    err = {"flash_attention_fwd": max(
+        check_scaled("flash forward o", o, want_o, q.dtype),
+        check_scaled("flash forward lse", lse, want_lse, torch.float32))}
+    want = fa.flash_attention_bwd_plain(q, k, v, o, lse, do, True)
+    err["flash_attention_bwd"] = max(
+        check_scaled(f"flash backward d{n}", g, w, q.dtype)
+        for n, g, w in zip("qkv", grads, want))
+    del o, lse, grads, want_o, want_lse, want
+    x, w = cap["ln"]
+    d = x.shape[-1]
+    x, g = x.reshape(-1, d), cap["ln_g"].reshape(-1, d)
+    got = ln.fused_layer_norm_bwd(x, w, g)
+    torch.cuda.synchronize()
+    err["fused_layer_norm_bwd"] = max(
+        check_scaled(f"LayerNorm backward {n}", a, b, x.dtype)
+        for n, a, b in zip(("dx", "dw", "db"), got,
+                           ln.layer_norm_bwd_plain(x, w, g)))
+    (p, g, m, v_), low, hyper = cap["adamw"]
+    ops = [t.clone() for t in (p, m, v_, low)]
+    ref = [t.clone() for t in (p, m, v_, low)]
+    fused_adamw_(ops[0], g, ops[1], ops[2], *hyper, low=ops[3])
+    torch.cuda.synchronize()
+    adamw_plain_(ref[0], g, ref[1], ref[2], *hyper, low=ref[3])
+    err["fused_adamw"] = max(
+        check_scaled(f"AdamW {n}", a, b, a.dtype)
+        for n, a, b in zip(("p", "m", "v", "bf16 copy"), ops, ref))
+    log(f"train step layer 0: q/k/v/dO {tuple(q.shape)} {q.dtype}, "
+        f"LayerNorm x {tuple(x.shape)} {x.dtype}, AdamW p "
+        f"{tuple(p.shape)} {p.dtype} grad {g.dtype}; kernel vs plain, max "
+        f"|error| over max |plain| (limits {REL_TOL[torch.float32]} f32, "
+        f"{REL_TOL[torch.bfloat16]} bf16): " + json.dumps(err))
+    return err
+
+
+def train_rows(launches, main):
+    """The kernels line's rows of the training kernels: the train path's
+    launches and the phase-2 measurements at its shapes and dtypes."""
+    rows = []
+    for name, src, tpu in (
+            ("flash_attention_fwd", FA_SRC, FA_FWD_TPU),
+            ("flash_attention_bwd", FA_SRC, FA_BWD_TPU),
+            ("fused_layer_norm_bwd", LN_SRC, LN_BWD_TPU),
+            ("fused_adamw", ADAMW_SRC, ADAMW_TPU)):
+        row = main[name]
+        rows.append({"name": name, "route": "cuda", "source": src,
+                     "replaces": tpu, "launches": launches[name],
+                     "max_abs_err": row["max_abs_err"], "ms": row["ms"],
+                     "plain_ms": row["plain_ms"],
+                     "bound_ms": row["bound_ms"],
+                     "bound_by": row["bound_by"],
+                     "library_ms": row["library_ms"]})
+    return rows
+
+
 def main() -> int:
     profile = "--profile" in sys.argv[1:]
     if not torch.cuda.is_available():
@@ -416,8 +975,15 @@ def main() -> int:
         f"sources into {_build.build_dir()}")
     timer = Timer(device)
     phase_kernels(device, timer)
+    train_main = phase_train_kernels(device, timer)
     launches, captured = phase_engine(device, profile)
-    kernels = phase_report(device, timer, launches, captured)
+    train_launches, train_cap = phase_train(device, profile)
+    phase_f32_check(device)
+    kernels = report_engine(device, timer, launches, captured)
+    # the LayerNorm forward runs on both paths: its count is the sum
+    kernels[1]["launches"] += train_launches["fused_layer_norm"]
+    check_train_operands(train_cap)
+    kernels += train_rows(train_launches, train_main)
     for k in kernels:
         for key, v in k.items():
             if isinstance(v, float) and not math.isfinite(v):

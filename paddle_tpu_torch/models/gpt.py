@@ -7,8 +7,14 @@ Module and parameter names are the JAX package's (``gpt.wte``,
 JAX parameter tree maps onto ``state_dict()`` key for key
 (``paddle_tpu_torch.convert``). Weights are initialised like the JAX
 model's (normal embeddings at ``initializer_range``, Xavier-uniform
-linear weights, zero biases) from PyTorch's global generator, so
-``torch.manual_seed`` makes a model reproducible.
+linear weights, zero biases) from the port's CPU generator, so
+``paddle_tpu_torch.seed`` makes a model reproducible.
+
+Attention is ``nn.functional.scaled_dot_product_attention`` (causal):
+the flash attention kernels with dropout off, the plain composition
+with attention dropout on, as the JAX package routes it.
+``GPTForPretraining`` carries the causal-LM loss, dense or chunked over
+the sequence (:func:`chunked_lm_loss`).
 """
 from __future__ import annotations
 
@@ -16,12 +22,18 @@ from dataclasses import dataclass
 
 import torch
 from torch import nn
-from torch.nn import functional as F
+from torch.nn import functional as TF
+from torch.utils.checkpoint import checkpoint
 
+from .. import amp
+from ..framework.random import get_generator
+from ..nn import functional as F
+from ..nn.layer.common import Dropout, Linear
 from ..nn.layer.norm import LayerNorm
-from ..nn.layer.transformer import MultiHeadAttention, causal_attention
+from ..nn.layer.transformer import MultiHeadAttention
 
-__all__ = ["GPTConfig", "GPTBlock", "GPTModel", "GPTForPretraining"]
+__all__ = ["GPTConfig", "GPTBlock", "GPTModel", "GPTForPretraining",
+           "chunked_lm_loss"]
 
 
 @dataclass
@@ -56,9 +68,9 @@ class GPTBlock(nn.Module):
         self.attn = MultiHeadAttention(h, cfg.num_attention_heads,
                                        dropout=cfg.attention_dropout_prob)
         self.ln_2 = LayerNorm(h)
-        self.mlp_fc = nn.Linear(h, cfg.intermediate_size)
-        self.mlp_proj = nn.Linear(cfg.intermediate_size, h)
-        self.dropout = nn.Dropout(cfg.hidden_dropout_prob)
+        self.mlp_fc = Linear(h, cfg.intermediate_size)
+        self.mlp_proj = Linear(cfg.intermediate_size, h)
+        self.dropout = Dropout(cfg.hidden_dropout_prob)
 
     def _qkv(self, x):
         """ln_1 + split-head q/k/v projections, each ``[B, L, H, D]``
@@ -73,13 +85,17 @@ class GPTBlock(nn.Module):
         """out-proj + residual + MLP half of the block (shared)."""
         a = self.attn.out_proj(self.attn._merge_heads(a))
         x = x + self.dropout(a)
-        m = self.mlp_proj(F.gelu(self.mlp_fc(self.ln_2(x)),
-                                 approximate="tanh"))
+        m = self.mlp_proj(TF.gelu(self.mlp_fc(self.ln_2(x)),
+                                  approximate="tanh"))
         return x + self.dropout(m)
 
     def forward(self, x):
         q, k, v = self._qkv(x)
-        return self._tail(x, causal_attention(q, k, v))
+        a = F.scaled_dot_product_attention(
+            q, k, v, is_causal=True,
+            dropout_p=self.attn.dropout if self.training else 0.0,
+            training=self.training)
+        return self._tail(x, a)
 
 
 class GPTModel(nn.Module):
@@ -88,7 +104,7 @@ class GPTModel(nn.Module):
         self.cfg = cfg
         self.wte = nn.Embedding(cfg.vocab_size, cfg.hidden_size)
         self.wpe = nn.Embedding(cfg.max_position_embeddings, cfg.hidden_size)
-        self.drop = nn.Dropout(cfg.hidden_dropout_prob)
+        self.drop = Dropout(cfg.hidden_dropout_prob)
         self.blocks = nn.ModuleList(
             [GPTBlock(cfg) for _ in range(cfg.num_hidden_layers)])
         self.ln_f = LayerNorm(cfg.hidden_size)
@@ -96,11 +112,13 @@ class GPTModel(nn.Module):
 
     @torch.no_grad()
     def _init_weights(self):
+        gen = get_generator("cpu")
         for emb in (self.wte, self.wpe):
-            emb.weight.normal_(0.0, self.cfg.initializer_range)
+            emb.weight.normal_(0.0, self.cfg.initializer_range,
+                               generator=gen)
         for mod in self.blocks.modules():
             if isinstance(mod, nn.Linear):
-                nn.init.xavier_uniform_(mod.weight)
+                nn.init.xavier_uniform_(mod.weight, generator=gen)
                 mod.bias.zero_()
 
     def forward(self, input_ids, position_ids=None):
@@ -113,23 +131,81 @@ class GPTModel(nn.Module):
         return self.ln_f(x)
 
     def logits(self, hidden):
-        """LM head tied to wte (a plain product with the embedding
+        """LM head tied to wte (the ``matmul`` op against the embedding
         table)."""
-        return torch.matmul(hidden, self.wte.weight.t())
+        hidden, table = amp.cast_inputs("matmul", hidden, self.wte.weight)
+        return torch.matmul(hidden, table.t())
+
+
+def _chunk_nll(h_c, y_c, table):
+    """Summed NLL and valid-label count of one sequence chunk: f32 logits
+    of the tied head, ``ignore_index`` -100."""
+    logits = torch.matmul(h_c.float(), table.t())
+    lse = torch.logsumexp(logits, dim=-1)
+    valid = y_c != -100
+    safe = torch.where(valid, y_c, torch.zeros_like(y_c)).long()
+    gold = logits.gather(-1, safe[..., None])[..., 0]
+    nll = torch.where(valid, lse - gold, torch.zeros_like(lse))
+    return nll.sum(), valid.sum()
+
+
+def chunked_lm_loss(hidden, labels, table, n_chunks):
+    """Tied-head softmax cross-entropy without the full ``[B, S, V]``
+    logits (``_chunked_lm_loss``): the sequence is cut into ``n_chunks``
+    chunks, each chunk's logits are made in f32 and dropped, and
+    recomputed in backward (``torch.utils.checkpoint``, the port of
+    ``jax.checkpoint``), so the peak holds one ``[B, S/n, V]`` block. The
+    mean is over labels other than -100."""
+    b, s, _ = hidden.shape
+    c = s // n_chunks
+    table = table.float()            # promoted once, as jnp promotes it
+    total = hidden.new_zeros((), dtype=torch.float32)
+    count = torch.zeros((), dtype=torch.int64, device=hidden.device)
+    for i in range(n_chunks):
+        nll, n = checkpoint(_chunk_nll, hidden[:, i * c:(i + 1) * c],
+                            labels[:, i * c:(i + 1) * c], table,
+                            use_reentrant=False)
+        total = total + nll
+        count = count + n
+    return total / count.clamp_min(1).float()
 
 
 class GPTForPretraining(nn.Module):
-    """GPT with the tied-embedding LM head. ``forward`` returns the
-    logits ``[B, S, V]``; the loss path belongs to the training slice,
-    which ROADMAP.md queues."""
+    """GPT with the tied-embedding LM head and the causal-LM loss.
 
-    def __init__(self, cfg: GPTConfig):
+    ``forward`` returns:
+
+    * ``labels is None`` — the logits ``[B, S, V]``;
+    * ``labels`` given, ``lm_loss_chunks == 1`` — ``(loss, logits)``, the
+      mean cross-entropy over the dense logits;
+    * ``labels`` given, ``lm_loss_chunks > 1`` — ``(loss, None)``: the
+      chunked loss never makes the whole logits tensor, so there are none
+      to return.
+
+    ``S`` must be divisible by ``lm_loss_chunks``: a silent dense
+    fallback would defeat the memory bound, so another length raises.
+    """
+
+    def __init__(self, cfg: GPTConfig, lm_loss_chunks: int = 1):
         super().__init__()
         self.gpt = GPTModel(cfg)
+        if lm_loss_chunks < 1:
+            raise ValueError(f"lm_loss_chunks must be >= 1, "
+                             f"got {lm_loss_chunks}")
+        self.lm_loss_chunks = int(lm_loss_chunks)
 
     def forward(self, input_ids, labels=None, position_ids=None):
-        if labels is not None:
-            raise NotImplementedError(
-                "the LM loss is part of the training slice of the port "
-                "(ROADMAP.md, queued): call without labels for logits")
-        return self.gpt.logits(self.gpt(input_ids, position_ids))
+        hidden = self.gpt(input_ids, position_ids)
+        if labels is None:
+            return self.gpt.logits(hidden)
+        if self.lm_loss_chunks > 1:
+            if hidden.shape[1] % self.lm_loss_chunks:
+                raise ValueError(
+                    f"sequence length {hidden.shape[1]} is not divisible "
+                    f"by lm_loss_chunks={self.lm_loss_chunks}")
+            return chunked_lm_loss(hidden, labels, self.gpt.wte.weight,
+                                   self.lm_loss_chunks), None
+        logits = self.gpt.logits(hidden)
+        loss = F.cross_entropy(logits.reshape(-1, logits.shape[-1]),
+                               labels.reshape(-1))
+        return loss, logits

@@ -4,16 +4,20 @@ from __future__ import annotations
 import torch
 from torch import nn
 
-from ...ops.layer_norm import fused_layer_norm
+from ... import amp
+from ...ops.layer_norm import layer_norm
 
 __all__ = ["LayerNorm"]
 
 
 class LayerNorm(nn.Module):
     """LayerNorm over the last axis with affine ``weight``/``bias``
-    (ones/zeros at init), through the fused LayerNorm kernel on the card
-    and its plain version on the CPU. Only a 1-D ``normalized_shape``
-    is taken: the kernel normalizes the last axis."""
+    (ones/zeros at init), through the fused LayerNorm kernels on the card
+    (forward, and backward under autograd) and their plain versions on
+    the CPU. ``layer_norm`` is on the AMP black list: inside
+    ``amp.auto_cast`` x, weight and bias are cast to float32 first, so
+    the output is float32. Only a 1-D ``normalized_shape`` is taken: the
+    kernels normalize the last axis."""
 
     def __init__(self, normalized_shape, epsilon: float = 1e-5,
                  device=None, dtype=None):
@@ -33,7 +37,8 @@ class LayerNorm(nn.Module):
             self._normalized_shape, device=device, dtype=dtype))
 
     def forward(self, x):
-        return fused_layer_norm(x, self.weight, self.bias, self._epsilon)
+        x, w, b = amp.cast_inputs("layer_norm", x, self.weight, self.bias)
+        return layer_norm(x, w, b, self._epsilon)
 
     def extra_repr(self):
         return (f"normalized_shape={self._normalized_shape}, "

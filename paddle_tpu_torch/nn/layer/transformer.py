@@ -1,37 +1,20 @@
 """Multi-head attention projections (counterpart of
 ``paddle_tpu/nn/layer/transformer.py``'s ``MultiHeadAttention``).
 
-The projections are ``torch.nn.Linear`` (weights ``[out, in]``; the JAX
-package's ``[in, out]`` weights are transposed when they are carried
-across, see ``paddle_tpu_torch.convert``). Heads stay in the JAX
-layout ``[B, L, H, D]``.
+The projections are the port's ``Linear`` (``torch.nn.Linear`` with the
+AMP cast; weights ``[out, in]``: the JAX package's ``[in, out]`` weights
+are transposed when they are carried across, see
+``paddle_tpu_torch.convert``). Heads stay in the JAX layout
+``[B, L, H, D]``; attention itself is
+``paddle_tpu_torch.nn.functional.scaled_dot_product_attention``.
 """
 from __future__ import annotations
 
-import math
-
-import torch
 from torch import nn
 
-__all__ = ["MultiHeadAttention", "causal_attention"]
+from .common import Linear
 
-
-def causal_attention(q, k, v):
-    """Causal softmax attention over ``[B, L, H, D]`` q/k/v, in f32, as a
-    plain composition. The model's full-sequence forward uses it; the
-    serving path never does (it runs the ragged paged attention
-    kernel), and the flash-attention kernel that will replace it is
-    queued in ROADMAP.md."""
-    b, l, h, d = q.shape
-    qf = q.float().transpose(1, 2)                      # [B, H, L, D]
-    kf = k.float().transpose(1, 2)
-    vf = v.float().transpose(1, 2)
-    s = torch.matmul(qf, kf.transpose(-1, -2)) / math.sqrt(d)
-    keep = torch.ones(l, k.shape[1], dtype=torch.bool,
-                      device=q.device).tril()
-    s = s.masked_fill(~keep, float("-inf"))
-    out = torch.matmul(torch.softmax(s, dim=-1), vf)
-    return out.transpose(1, 2).to(q.dtype)
+__all__ = ["MultiHeadAttention"]
 
 
 class MultiHeadAttention(nn.Module):
@@ -48,10 +31,10 @@ class MultiHeadAttention(nn.Module):
         self.head_dim = embed_dim // num_heads
         self.dropout = dropout
         kw = {"device": device, "dtype": dtype}
-        self.q_proj = nn.Linear(embed_dim, embed_dim, **kw)
-        self.k_proj = nn.Linear(embed_dim, embed_dim, **kw)
-        self.v_proj = nn.Linear(embed_dim, embed_dim, **kw)
-        self.out_proj = nn.Linear(embed_dim, embed_dim, **kw)
+        self.q_proj = Linear(embed_dim, embed_dim, **kw)
+        self.k_proj = Linear(embed_dim, embed_dim, **kw)
+        self.v_proj = Linear(embed_dim, embed_dim, **kw)
+        self.out_proj = Linear(embed_dim, embed_dim, **kw)
 
     def _split_heads(self, x):
         # [B, L, E] -> [B, L, H, D]

@@ -11,7 +11,9 @@ installed package has no checkout root to build into).
 :func:`build_all` starts one ``nvcc`` per source at once and waits for
 all of them, so a cold start costs the slowest build, not their sum.
 :func:`load` returns the loaded library, building it first when needed.
-Nothing here runs at import time: this module imports on hosts without
+:func:`function` binds one exported
+symbol, and :data:`DTYPE_CODE` is the dtype numbering every C interface
+takes. Nothing here runs at import time: this module imports on hosts without
 ``nvcc`` or a card, where only the plain versions of the kernels run.
 """
 from __future__ import annotations
@@ -26,15 +28,21 @@ import time
 from pathlib import Path
 from typing import Dict, List
 
-__all__ = ["NVCC_FLAGS", "SOURCES", "build_all", "load", "build_dir"]
+import torch
+
+__all__ = ["NVCC_FLAGS", "SOURCES", "DTYPE_CODE", "build_all", "load",
+           "function", "build_dir"]
 
 _CSRC = Path(__file__).resolve().parent.parent / "csrc"
 
 #: kernel sources, one shared library each
-SOURCES = ("ragged_paged_attention", "layer_norm")
+SOURCES = ("ragged_paged_attention", "layer_norm", "flash_attention", "adamw")
 
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC")
+
+#: the ``dtype`` argument of every kernel's C interface
+DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 
 _lock = threading.Lock()
 _libs: Dict[str, ctypes.CDLL] = {}
@@ -115,3 +123,13 @@ def load(name: str) -> ctypes.CDLL:
         if lib is None:
             lib = _libs[name] = ctypes.CDLL(str(_target(name)))
     return lib
+
+
+def function(name: str, symbol: str, argtypes: list):
+    """``symbol`` of ``csrc/<name>.cu``'s library, its C arguments set to
+    ``argtypes`` and its result to ``int`` (a CUDA error code)."""
+    fn = getattr(load(name), symbol)
+    if fn.argtypes is None:
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
+    return fn

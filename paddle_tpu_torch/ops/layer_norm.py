@@ -1,17 +1,24 @@
-"""Fused LayerNorm forward: the hand-written CUDA kernel and its plain
-PyTorch version.
+"""Fused LayerNorm, forward and backward: the hand-written CUDA kernels,
+their plain PyTorch versions, and the ``torch.autograd.Function`` that
+joins them.
 
-Replaces the Pallas TPU kernel ``paddle_tpu/ops/pallas_kernels.py``
-(``_ln_fwd_kernel`` via ``_fused_layer_norm_2d``/``fused_layer_norm``),
+Replaces the Pallas TPU kernels of ``paddle_tpu/ops/pallas_kernels.py``:
+``_ln_fwd_kernel`` (via ``_fused_layer_norm_2d``/``fused_layer_norm``),
 which shadows the ``layer_norm`` op at ``ln_1``, ``ln_2`` and ``ln_f`` of
-every GPT block on the serving path. The kernel is
-``csrc/layer_norm.cu``: one CTA per row, the row held in registers, f32
-statistics; it is memory-bound (``2 * rows * D + 2 * D`` elements
-moved). The source says more.
+every GPT block, and ``_ln_bwd_kernel`` (via ``_ln_bwd_rule``), its
+gradient with recomputed statistics. The kernels are in
+``csrc/layer_norm.cu``: the forward runs one CTA per row, the row held in
+registers, f32 statistics, memory-bound (``2 * rows * D + 2 * D``
+elements moved); the backward runs one CTA per run of rows with
+per-CTA dw/db partials and a second, fixed-order reduction. The source
+says more.
 
-:func:`fused_layer_norm` takes the plain version only for tensors on the
-CPU. A CUDA tensor goes to the kernel, or the call raises: there is no
-fallback. ``fused_layer_norm.launches`` counts kernel launches.
+:func:`fused_layer_norm` and :func:`fused_layer_norm_bwd` take the plain
+versions only for tensors on the CPU. A CUDA tensor goes to the kernel,
+or the call raises: there is no fallback. ``.launches`` on each counts
+its kernel launches. :func:`layer_norm` is the differentiable entry:
+under autograd it runs both kernels through ``_LayerNorm``; without it
+(the serving path) it launches the forward alone.
 """
 from __future__ import annotations
 
@@ -21,13 +28,15 @@ import torch
 
 from . import _build
 
-__all__ = ["fused_layer_norm", "layer_norm_plain", "MAX_D"]
+__all__ = ["layer_norm", "fused_layer_norm", "fused_layer_norm_bwd",
+           "layer_norm_plain", "layer_norm_bwd_plain", "MAX_D"]
 
 #: widest row the kernel holds in registers (1024 threads x 16 values)
 MAX_D = 16384
 
-_DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
-
+#: most CTAs of the backward kernel, each with a [D] pair of dw/db
+#: partials; fixed, so the reduction order depends on the shapes alone
+BWD_MAX_PARTS = 512
 
 def layer_norm_plain(x, weight, bias, epsilon: float = 1e-5):
     """LayerNorm over the last axis in f32, cast back to ``x``'s dtype —
@@ -40,50 +49,81 @@ def layer_norm_plain(x, weight, bias, epsilon: float = 1e-5):
     return y.to(x.dtype)
 
 
-def _lib():
-    lib = _build.load("layer_norm")
-    fn = lib.ln_fwd_launch
-    if fn.argtypes is None:
-        fn.argtypes = [ctypes.c_int] + [ctypes.c_void_p] * 4 + [
-            ctypes.c_int, ctypes.c_int, ctypes.c_float, ctypes.c_void_p]
-        fn.restype = ctypes.c_int
-    return fn
+def layer_norm_bwd_plain(x, weight, grad, epsilon: float = 1e-5):
+    """``(dx, dw, db)`` of LayerNorm from ``x``, ``weight`` and the output
+    gradient, with mean and rstd recomputed in f32 — the arithmetic of
+    ``_ln_bwd_kernel``. dx in ``x``'s dtype, dw/db in ``weight``'s."""
+    d = x.shape[-1]
+    xf = x.float().reshape(-1, d)
+    gf = grad.float().reshape(-1, d)
+    mean = xf.mean(dim=-1, keepdim=True)
+    xc = xf - mean
+    rstd = torch.rsqrt((xc * xc).mean(dim=-1, keepdim=True) + epsilon)
+    xhat = xc * rstd
+    gw = gf * weight.float()
+    m1 = gw.mean(dim=-1, keepdim=True)
+    m2 = (gw * xhat).mean(dim=-1, keepdim=True)
+    dx = (gw - m1 - xhat * m2) * rstd
+    return (dx.reshape(x.shape).to(x.dtype),
+            (gf * xhat).sum(dim=0).to(weight.dtype),
+            gf.sum(dim=0).to(weight.dtype))
+
+
+_FWD_ARGS = [ctypes.c_int] + [ctypes.c_void_p] * 4 + [
+    ctypes.c_int, ctypes.c_int, ctypes.c_float, ctypes.c_void_p]
+_BWD_ARGS = [ctypes.c_int] + [ctypes.c_void_p] * 7 + [
+    ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_float,
+    ctypes.c_void_p]
+
+
+def _check(x, weight, *others):
+    """Device, dtype, shape and contiguity checks of both kernels."""
+    d = x.shape[-1]
+    if x.device.type != "cuda":
+        raise ValueError(f"the LayerNorm kernels run on cuda or cpu "
+                         f"tensors, got {x.device}")
+    if any(t.device != x.device for t in (weight,) + others):
+        raise ValueError("LayerNorm operands must be on the same device")
+    if x.dtype not in _build.DTYPE_CODE:
+        raise TypeError(f"the LayerNorm kernels take float32 or bfloat16, "
+                        f"got {x.dtype}")
+    if any(t.dtype != x.dtype for t in (weight,) + others):
+        raise TypeError(f"weight/bias/grad dtypes "
+                        f"{[t.dtype for t in (weight,) + others]} must "
+                        f"match x's {x.dtype}")
+    if not all(t.is_contiguous() for t in (x, weight) + others):
+        raise ValueError("the LayerNorm kernels need contiguous tensors")
+    if not 1 <= d <= MAX_D:
+        raise ValueError(f"last axis {d} outside the kernel's [1, {MAX_D}]")
+
+
+def _check_affine(x, weight, bias):
+    d = x.shape[-1]
+    if tuple(weight.shape) != (d,) or (bias is not None
+                                       and tuple(bias.shape) != (d,)):
+        raise ValueError(
+            f"weight {tuple(weight.shape)} / bias "
+            f"{None if bias is None else tuple(bias.shape)} must be [{d}] "
+            f"to normalize the last axis of x {tuple(x.shape)}")
 
 
 def fused_layer_norm(x, weight, bias, epsilon: float = 1e-5):
     """LayerNorm over the last axis of ``x`` with affine ``weight`` and
     ``bias`` (both ``[D]``). Any number of rows; output in ``x``'s
     dtype."""
-    d = x.shape[-1]
-    if tuple(weight.shape) != (d,) or tuple(bias.shape) != (d,):
-        raise ValueError(
-            f"weight {tuple(weight.shape)} / bias {tuple(bias.shape)} must "
-            f"be [{d}] to normalize the last axis of x {tuple(x.shape)}")
+    _check_affine(x, weight, bias)
     if x.device.type == "cpu":
         return layer_norm_plain(x, weight, bias, epsilon)
-    if x.device.type != "cuda":
-        raise ValueError(f"fused_layer_norm runs on cuda or cpu tensors, "
-                         f"got {x.device}")
-    if weight.device != x.device or bias.device != x.device:
-        raise ValueError("x, weight and bias must be on the same device")
-    if x.dtype not in _DTYPE_CODE:
-        raise TypeError(f"the LayerNorm kernel takes float32 or bfloat16, "
-                        f"got {x.dtype}")
-    if weight.dtype != x.dtype or bias.dtype != x.dtype:
-        raise TypeError(f"weight/bias dtype {weight.dtype}/{bias.dtype} "
-                        f"must match x's {x.dtype}")
-    if not (x.is_contiguous() and weight.is_contiguous()
-            and bias.is_contiguous()):
-        raise ValueError("fused_layer_norm needs contiguous tensors")
-    if not 1 <= d <= MAX_D:
-        raise ValueError(f"last axis {d} outside the kernel's [1, {MAX_D}]")
+    _check(x, weight, bias)
+    d = x.shape[-1]
     out = torch.empty_like(x)
     rows = x.numel() // d
     if rows == 0:
         return out
-    rc = _lib()(_DTYPE_CODE[x.dtype], x.data_ptr(), weight.data_ptr(),
-                bias.data_ptr(), out.data_ptr(), rows, d, float(epsilon),
-                torch.cuda.current_stream(x.device).cuda_stream)
+    rc = _build.function("layer_norm", "ln_fwd_launch", _FWD_ARGS)(
+        _build.DTYPE_CODE[x.dtype], x.data_ptr(), weight.data_ptr(),
+        bias.data_ptr(), out.data_ptr(), rows, d, float(epsilon),
+        torch.cuda.current_stream(x.device).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"LayerNorm kernel launch failed: CUDA error {rc}")
     fused_layer_norm.launches += 1
@@ -91,3 +131,66 @@ def fused_layer_norm(x, weight, bias, epsilon: float = 1e-5):
 
 
 fused_layer_norm.launches = 0
+
+
+def fused_layer_norm_bwd(x, weight, grad, epsilon: float = 1e-5):
+    """LayerNorm backward: ``(dx, dw, db)`` from ``x``, ``weight`` and the
+    output gradient ``grad`` (like ``x``). dw/db are deterministic: the
+    per-CTA partials are summed in a fixed order, never atomically."""
+    _check_affine(x, weight, None)
+    if tuple(grad.shape) != tuple(x.shape):
+        raise ValueError(f"grad {tuple(grad.shape)} must be shaped like x "
+                         f"{tuple(x.shape)}")
+    if x.device.type == "cpu":
+        return layer_norm_bwd_plain(x, weight, grad, epsilon)
+    _check(x, weight, grad)
+    d = x.shape[-1]
+    rows = x.numel() // d
+    dx = torch.empty_like(x)
+    dw, db = torch.empty_like(weight), torch.empty_like(weight)
+    if rows == 0:
+        return dx, dw.zero_(), db.zero_()
+    parts = min(rows, BWD_MAX_PARTS)
+    work = torch.empty(2 * parts * d, dtype=torch.float32, device=x.device)
+    rc = _build.function("layer_norm", "ln_bwd_launch", _BWD_ARGS)(
+        _build.DTYPE_CODE[x.dtype], x.data_ptr(), weight.data_ptr(),
+        grad.data_ptr(), dx.data_ptr(), dw.data_ptr(), db.data_ptr(),
+        work.data_ptr(), rows, d, parts, float(epsilon),
+        torch.cuda.current_stream(x.device).cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"LayerNorm backward kernel launch failed: CUDA "
+                           f"error {rc}")
+    fused_layer_norm_bwd.launches += 1
+    return dx, dw, db
+
+
+fused_layer_norm_bwd.launches = 0
+
+
+class _LayerNorm(torch.autograd.Function):
+    """Forward kernel with the backward kernel as its gradient (the
+    ``jax.custom_vjp`` of ``_fused_layer_norm_2d``)."""
+
+    @staticmethod
+    def forward(ctx, x, weight, bias, epsilon):
+        ctx.save_for_backward(x, weight)
+        ctx.epsilon = epsilon
+        return fused_layer_norm(x, weight, bias, epsilon)
+
+    @staticmethod
+    def backward(ctx, grad):
+        x, weight = ctx.saved_tensors
+        dx, dw, db = fused_layer_norm_bwd(x, weight, grad.contiguous(),
+                                          ctx.epsilon)
+        return dx, dw, db, None
+
+
+def layer_norm(x, weight, bias, epsilon: float = 1e-5):
+    """Differentiable fused LayerNorm over the last axis: the forward
+    kernel, and the backward kernel as its gradient when autograd
+    records the call."""
+    x = x.contiguous()
+    if torch.is_grad_enabled() and (x.requires_grad or weight.requires_grad
+                                    or bias.requires_grad):
+        return _LayerNorm.apply(x, weight, bias, float(epsilon))
+    return fused_layer_norm(x, weight, bias, epsilon)

@@ -47,9 +47,6 @@ BLOCK_Q = 8
 # two engines take the same configurations
 MIN_KV_BLOCK = 8
 
-_DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
-
-
 def _check(q, pool, layer):
     h, qp, dh = q.shape
     L, two, nb1, hp, bs, dhp = pool.shape
@@ -111,14 +108,8 @@ def ragged_paged_attention_plain(q, pool, layer, blk_seq, seq_qstart,
     return out.to(q.dtype)
 
 
-def _lib():
-    lib = _build.load("ragged_paged_attention")
-    fn = lib.rpa_launch
-    if fn.argtypes is None:
-        fn.argtypes = [ctypes.c_int] + [ctypes.c_void_p] * 9 + [
-            ctypes.c_int] * 7 + [ctypes.c_float, ctypes.c_void_p]
-        fn.restype = ctypes.c_int
-    return fn
+_ARGS = [ctypes.c_int] + [ctypes.c_void_p] * 9 + [ctypes.c_int] * 7 + [
+    ctypes.c_float, ctypes.c_void_p]
 
 
 def ragged_paged_attention(q, pool, layer, blk_seq, seq_qstart, seq_pos0,
@@ -165,7 +156,7 @@ def ragged_paged_attention(q, pool, layer, blk_seq, seq_qstart, seq_pos0,
     if pool.device != q.device or pool.dtype != q.dtype:
         raise ValueError(f"pool {pool.dtype} on {pool.device} must match "
                          f"q {q.dtype} on {q.device}")
-    if q.dtype not in _DTYPE_CODE:
+    if q.dtype not in _build.DTYPE_CODE:
         raise TypeError(f"the attention kernel takes float32 or bfloat16, "
                         f"got {q.dtype}")
     if not (q.is_contiguous() and pool.is_contiguous()):
@@ -176,12 +167,12 @@ def ragged_paged_attention(q, pool, layer, blk_seq, seq_qstart, seq_pos0,
                          f"aligned")
     scale = float(scale) if scale is not None else 1.0 / math.sqrt(dh)
     out = torch.empty_like(q)
-    rc = _lib()(_DTYPE_CODE[q.dtype], q.data_ptr(), pool.data_ptr(),
-                out.data_ptr(), blk_seq.data_ptr(), seq_qstart.data_ptr(),
-                seq_pos0.data_ptr(), tables.data_ptr(), lo.data_ptr(),
-                kv_len.data_ptr(), h, qp, dh, nb1, bs,
-                int(tables.shape[1]), int(layer), scale,
-                torch.cuda.current_stream(q.device).cuda_stream)
+    rc = _build.function("ragged_paged_attention", "rpa_launch", _ARGS)(
+        _build.DTYPE_CODE[q.dtype], q.data_ptr(), pool.data_ptr(),
+        out.data_ptr(), blk_seq.data_ptr(), seq_qstart.data_ptr(),
+        seq_pos0.data_ptr(), tables.data_ptr(), lo.data_ptr(),
+        kv_len.data_ptr(), h, qp, dh, nb1, bs, int(tables.shape[1]),
+        int(layer), scale, torch.cuda.current_stream(q.device).cuda_stream)
     if rc != 0:
         raise RuntimeError(
             f"ragged paged attention kernel launch failed: CUDA error {rc}")

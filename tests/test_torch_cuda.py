@@ -7,12 +7,17 @@ nor the JAX package, so it also runs where only PyTorch is installed:
     python -m pytest --noconftest -m cuda tests/test_torch_cuda.py
 
 Tolerances: float32 atol 1e-4; bfloat16 atol 2e-2 + rtol 1e-2 (one bf16
-ulp of the output, after upcasting).
+ulp of the output, after upcasting). The LayerNorm backward's dw/db, sums
+over every row, take rtol 1e-5 beside atol 1e-4 in float32; AdamW, the same
+float32 arithmetic with fused multiply-adds, atol 1e-6 + rtol 1e-6.
 """
 import numpy as np
 import pytest
 import torch
 
+from paddle_tpu_torch.nn import functional as F
+from paddle_tpu_torch.ops import flash_attention as fa
+from paddle_tpu_torch.ops import fused_adamw as adamw
 from paddle_tpu_torch.ops import layer_norm as ln
 from paddle_tpu_torch.ops import ragged_paged_attention as rpa
 
@@ -87,3 +92,115 @@ def test_ragged_attention_rejects_host_metadata(cuda):
     with pytest.raises(ValueError, match="int32 tensor"):
         rpa.ragged_paged_attention(q, pool, 0, z, z, z,
                                    np.zeros((1, 1), np.int32), z, z)
+
+
+def _randn(gen, *shape, dtype=torch.float32, scale=1.0):
+    return (scale * torch.randn(*shape, device=gen.device,
+                                generator=gen)).to(dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("seq", [128, 100])
+def test_flash_attention_kernels_match_plain(cuda, dtype, causal, seq):
+    g = torch.Generator(device=cuda).manual_seed(seq)
+    q, k, v, do = (_randn(g, 2, seq, 3, 64, dtype=dtype) for _ in range(4))
+    before = (fa.flash_attention_fwd.launches,
+              fa.flash_attention_bwd.launches)
+    o, lse = fa.flash_attention_fwd(q, k, v, causal)
+    grads = fa.flash_attention_bwd(q, k, v, o, lse, do, causal)
+    torch.cuda.synchronize()
+    assert (fa.flash_attention_fwd.launches,
+            fa.flash_attention_bwd.launches) == (before[0] + 1,
+                                                 before[1] + 1)
+    want_o, want_lse = fa.flash_attention_fwd_plain(q, k, v, causal)
+    torch.testing.assert_close(o.float(), want_o.float(), **TOL[dtype])
+    torch.testing.assert_close(lse, want_lse, **TOL[torch.float32])
+    want = fa.flash_attention_bwd_plain(q, k, v, o, lse, do, causal)
+    for got, ref in zip(grads, want):
+        assert got.dtype == dtype
+        torch.testing.assert_close(got.float(), ref.float(), **TOL[dtype])
+
+
+def test_flash_attention_autograd_runs_both_kernels(cuda):
+    g = torch.Generator(device=cuda).manual_seed(1)
+    q, k, v = (_randn(g, 1, 64, 2, 32).requires_grad_() for _ in range(3))
+    before = fa.flash_attention_bwd.launches
+    fa.flash_attention(q, k, v, is_causal=True).sum().backward()
+    torch.cuda.synchronize()
+    assert fa.flash_attention_bwd.launches == before + 1
+    assert all(t.grad is not None for t in (q, k, v))
+
+
+@pytest.mark.parametrize("dtypes", [(torch.float16,) * 3,
+                                    (torch.float32, torch.bfloat16,
+                                     torch.float32)])
+def test_attention_raises_on_dtypes_the_kernels_do_not_take(cuda, dtypes):
+    """The routing sends every supported shape to the kernel wrapper,
+    which raises rather than run a plain version on the card."""
+    q, k, v = (torch.zeros(1, 16, 2, 16, device=cuda, dtype=dt)
+               for dt in dtypes)
+    before = fa.flash_attention_fwd.launches
+    with pytest.raises(TypeError, match="float32 or bfloat16"):
+        F.scaled_dot_product_attention(q, k, v, is_causal=True)
+    assert fa.flash_attention_fwd.launches == before
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("rows", [1, 300, 2049])
+def test_layer_norm_backward_kernel_matches_plain(cuda, dtype, rows):
+    g = torch.Generator(device=cuda).manual_seed(rows)
+    x = _randn(g, rows, 768, dtype=dtype)
+    w = (1 + _randn(g, 768, scale=0.1)).to(dtype)
+    dy = _randn(g, rows, 768, dtype=dtype)
+    before = ln.fused_layer_norm_bwd.launches
+    got = ln.fused_layer_norm_bwd(x, w, dy)
+    again = ln.fused_layer_norm_bwd(x, w, dy)
+    torch.cuda.synchronize()
+    assert ln.fused_layer_norm_bwd.launches == before + 2
+    want = ln.layer_norm_bwd_plain(x, w, dy)
+    tol = [TOL[dtype]] + [dict(atol=1e-4, rtol=1e-5)
+                          if dtype == torch.float32 else TOL[dtype]] * 2
+    for a, b, ref, t in zip(got, again, want, tol):
+        assert torch.equal(a, b)           # no atomics: the same bits
+        torch.testing.assert_close(a.float(), ref.float(), **t)
+
+
+@pytest.mark.parametrize("case", ["f32_master_bf16_copy", "f32", "bf16"])
+def test_adamw_kernel_matches_plain(cuda, case):
+    g = torch.Generator(device=cuda).manual_seed(7)
+    n = 100_003
+    p_dtype = torch.bfloat16 if case == "bf16" else torch.float32
+    g_dtype = torch.float32 if case == "f32" else torch.bfloat16
+    p = _randn(g, n, dtype=p_dtype)
+    grad = _randn(g, n, dtype=g_dtype)
+    m = _randn(g, n, scale=0.1)
+    v = _randn(g, n, scale=0.1).abs()
+    low = torch.empty(n, dtype=torch.bfloat16, device=cuda) \
+        if case == "f32_master_bf16_copy" else None
+    kw = dict(lr=1e-3, beta1=0.9, beta2=0.999, eps=1e-8, weight_decay=0.01,
+              step=3)
+    ref = [t.clone() for t in (p, m, v)]
+    ref_low = None if low is None else low.clone()
+    before = adamw.fused_adamw_.launches
+    adamw.fused_adamw_(p, grad, m, v, low=low, **kw)
+    torch.cuda.synchronize()
+    assert adamw.fused_adamw_.launches == before + 1
+    adamw.adamw_plain_(*ref[:1], grad, *ref[1:], low=ref_low, **kw)
+    exact = dict(atol=1e-6, rtol=1e-6)
+    for got, want in zip((p, m, v), ref):
+        torch.testing.assert_close(got.float(), want.float(),
+                                   **(exact if got.dtype == torch.float32
+                                      else TOL[torch.bfloat16]))
+    if low is not None:
+        torch.testing.assert_close(low, p.to(torch.bfloat16), atol=0, rtol=0)
+
+
+def test_adamw_rejects_a_bf16_parameter_with_an_f32_gradient(cuda):
+    """The step casts g to p's dtype first, so the kernel has no such
+    case."""
+    p = torch.zeros(8, dtype=torch.bfloat16, device=cuda)
+    m, v, g = (torch.zeros(8, device=cuda) for _ in range(3))
+    with pytest.raises(TypeError, match="bfloat16 p takes a bfloat16 g"):
+        adamw.fused_adamw_(p, g, m, v, lr=1e-3, beta1=0.9, beta2=0.999,
+                           eps=1e-8, weight_decay=0.0, step=1)
