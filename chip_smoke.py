@@ -12,16 +12,24 @@ prints no result line):
    card, in float32 and bfloat16, with the errors, the median times, the
    bounds and the library call's time: the serving kernels at the
    serving path's widths (GPT-2: 12 heads, head_dim 64, hidden 768, KV
-   blocks of 16), the training kernels at the training path's (flash
-   attention at [8, 1024, 12, 64] and at the ragged length 1000, causal;
-   the LayerNorm backward at [8192, 768]; AdamW on a [50304, 768]
-   parameter);
+   blocks of 16; the quantized KV kernel over int8 and float8_e4m3fn
+   pools in blocks of 32), the training kernels at the training path's
+   (flash attention at [8, 1024, 12, 64] and at the ragged length 1000,
+   causal; the LayerNorm backward at [8192, 768]; AdamW on a [50304,
+   768] parameter);
 3. engine: GPT-2 small (124M width, random weights from a seed, bf16)
    served through ``GenerationEngine(kv_layout="paged",
    attention="fused")`` — 16 concurrent requests with a chunked long
    prompt and a shared preamble — with the serving kernels' launch
    counts read around that run, and a float32 reference check of the
    engine's greedy tokens against the model's full forward;
+3b. quantized KV: the same 16 requests served from an int8 pool
+   (``kv_dtype="int8", block_size=32``) with the quantized kernel's
+   launches counted and the float kernel's held at 0, the share of first
+   tokens equal to phase 3's, the logit drift of one step against a bf16
+   pool holding the same prompt, then 4 requests from a float8_e4m3fn
+   pool; and the capacity line: the int8 tokens that fit phase 3's pool
+   bytes;
 4. train: GPT-2 small at full width, bf16 AMP O2, AdamW with float32
    master weights, batch 8 x 1024 with next-token labels and the LM loss
    in 8 chunks (``bench.py``'s ``bench_gpt2`` configuration), through
@@ -31,12 +39,12 @@ prints no result line):
    card (kernels) against a CPU copy of the same weights (plain
    versions): loss, every gradient and every updated parameter;
 5. real operands: the layer-0 operands of one real step of each path
-   through kernel and plain: the engine's attention rows and LayerNorm
-   input, timed; the training step's q/k/v/dO, LayerNorm input and
-   output gradient and the token embedding's AdamW operands, each output
-   held to its own scale (max |error| over max |plain|), since the
-   gradients of a loss averaged over 8192 tokens lie below any fixed
-   atol;
+   through kernel and plain: the engine's attention rows (float, int8
+   and fp8 pools) and LayerNorm input, timed; the training step's
+   q/k/v/dO, LayerNorm input and output gradient and the token
+   embedding's AdamW operands, each output held to its own scale (max
+   |error| over max |plain|), since the gradients of a loss averaged
+   over 8192 tokens lie below any fixed atol;
 6. a ``{"kernels": [...]}`` line, the card's name and power limit, and
    last the ``{"ok": true, "device": ...}`` line. The training kernels'
    errors and times in it come from phase 2 at the train path's shapes
@@ -44,9 +52,9 @@ prints no result line):
    backward f32 [8192, 768], AdamW with an f32 master and a bf16
    gradient and copy), their launches from phase 4.
 
-``--profile`` adds one more engine batch and one more train step under
-torch.profiler and prints device time by kernel and the device's idle
-share.
+``--profile`` adds one more batch to the bf16 and the int8 engines and
+two more train steps under torch.profiler and prints device time by
+kernel and the device's idle share.
 
 Times come from CUDA events around single launches, median of 20,
 with the 50 MB L2 cache flushed and the device kept busy until the
@@ -79,6 +87,8 @@ LN_SRC = "paddle_tpu_torch/csrc/layer_norm.cu"
 FA_SRC = "paddle_tpu_torch/csrc/flash_attention.cu"
 ADAMW_SRC = "paddle_tpu_torch/csrc/adamw.cu"
 RPA_TPU = "paddle_tpu/ops/ragged_paged_attention.py:198"
+QMAX = {torch.int8: 127.0, torch.float8_e4m3fn: 448.0}
+QNAME = {torch.int8: "int8", torch.float8_e4m3fn: "fp8"}
 LN_TPU = "paddle_tpu/ops/pallas_kernels.py:868"
 LN_BWD_TPU = "paddle_tpu/ops/pallas_kernels.py:893"
 FA_FWD_TPU = "paddle_tpu/ops/pallas_kernels.py:269"
@@ -160,17 +170,20 @@ def check_scaled(name, got, want, dtype):
 
 
 # ---------------------------------------------------------------- bounds
-def rpa_work(q, pool, meta):
+def rpa_work(q, pool, meta, scales=None):
     """Bytes the attention call must move and operations it must do,
     counted from this call's data: every KV block each real sequence
-    owns, read once per head; q read and o written once."""
+    owns, read once per head (and its K and V scales for a quantized
+    pool); q read and o written once."""
     blk_seq, _, _, tables, _, kv_len = (m.cpu().numpy() for m in meta)
     h, qp, dh = q.shape
     bs = pool.shape[4]
     e = q.element_size()
     seqs = sorted({int(s) for s in blk_seq if s >= 0})
-    kv_bytes = sum(-(-int(kv_len[s]) // bs) * bs for s in seqs) \
-        * h * dh * 2 * e
+    blocks = sum(-(-int(kv_len[s]) // bs) for s in seqs)
+    kv_bytes = blocks * bs * h * dh * 2 * pool.element_size()
+    if scales is not None:
+        kv_bytes += blocks * h * 2 * scales.element_size()
     meta_bytes = sum(m.numel() * 4 for m in meta)
     nbytes = kv_bytes + 2 * qp * h * dh * e + meta_bytes
     ops = 0
@@ -212,6 +225,49 @@ def random_ragged_batch(rng, dtype, device, L=12, H=12, Dh=64, bs=16,
             for a in (blk_seq, qstart, pos0, tables, np.zeros(S, np.int32),
                       kv_lens)]
     return q, pool, int(rng.randint(0, L)), meta
+
+
+def quantize_blocks(vals, storage):
+    """Float blocks ``[..., bs, Dh]`` -> (codes of ``storage``, float32
+    per-block max-abs scales ``[...]``), the pool's quantization rule."""
+    qmax = QMAX[storage]
+    sc = vals.float().abs().amax(dim=(-2, -1)) / qmax
+    codes = (vals.float() / sc.clamp_min(1e-30)[..., None, None]).round() \
+        .clamp(-qmax, qmax).to(storage)
+    return codes, sc
+
+
+def phase_quant_kernel(device, timer):
+    """K1q on random ragged batches at GPT-2 widths, KV blocks of 32:
+    int8 and fp8 pools, f32 and bf16 q, against the plain version."""
+    from paddle_tpu_torch.ops.ragged_paged_attention import (
+        ragged_paged_attention, ragged_paged_attention_plain)
+    rng = np.random.RandomState(SEED + 3)
+    torch.manual_seed(SEED + 3)
+    for storage in (torch.int8, torch.float8_e4m3fn):
+        for dtype in (torch.float32, torch.bfloat16):
+            q, vals, layer, meta = random_ragged_batch(
+                rng, torch.float32, device, bs=32)
+            q = q.to(dtype)
+            pool, scales = quantize_blocks(vals, storage)
+            del vals
+            got = ragged_paged_attention(q, pool, layer, *meta,
+                                         scales=scales)
+            torch.cuda.synchronize()
+            want = ragged_paged_attention_plain(q, pool, layer, *meta,
+                                                scales=scales)
+            name = f"ragged_paged_attention {QNAME[storage]} {dtype}"
+            err = check_close(name, got, want, dtype)
+            ms = timer.ms(lambda: ragged_paged_attention(
+                q, pool, layer, *meta, scales=scales))
+            plain = timer.ms(lambda: ragged_paged_attention_plain(
+                q, pool, layer, *meta, scales=scales), reps=5, warmup=1)
+            b_ms, b_by = bound(*rpa_work(q, pool, meta, scales), dtype)
+            log(f"K1q ragged_paged_attention {QNAME[storage]} pool, "
+                f"{str(dtype)[6:]} q{tuple(q.shape)} bs 32 max_abs_err "
+                f"{err:.3e} kernel_ms {ms:.4f} plain_ms {plain:.4f} "
+                f"bound_ms {b_ms:.6f} ({b_by})")
+            del pool, scales
 
 
 def phase_kernels(device, timer):
@@ -499,38 +555,107 @@ def device_time_report(what, prof, wall_ms, steps):
             f"{ms / steps:8.4f} ms/step  {name[:90]}")
 
 
-def phase_engine(device, profile=False):
+def serve_mix(model, prompts, max_new, profile=False, rng=None, **kw):
+    """Serve ``prompts`` at once through a fused paged engine built with
+    ``kw``, after one short warm-up request, with every serving kernel's
+    count set to 0 just before and read just after; keeps the layer-0
+    attention operands of the widest step. Returns (outputs, stats,
+    launches, steps, wall seconds, captured operands)."""
     import paddle_tpu_torch.models.generation as gen_mod
-    from paddle_tpu_torch.models import GPTConfig, GPTForPretraining
     from paddle_tpu_torch.ops.layer_norm import fused_layer_norm
     from paddle_tpu_torch.ops.ragged_paged_attention import (
         ragged_paged_attention)
     from paddle_tpu_torch.serving import GenerationEngine
+    vocab = model.gpt.cfg.vocab_size
+    eng = GenerationEngine(model, kv_layout="paged", attention="fused",
+                           num_slots=8, prefill_budget=256, seed=SEED,
+                           device=next(model.parameters()).device, **kw)
+    warm = np.random.RandomState(SEED + 9)
+    eng.submit(warm.randint(0, vocab, 24), max_new_tokens=4).result(
+        timeout=300)
+    captured = {}
+
+    def capture(q, pool, layer, *meta, scales=None, **kw2):
+        if layer == 0 and q.shape[1] > captured.get("qp", 0):
+            captured.update(
+                qp=q.shape[1], q=q.clone(), pool=pool[:1].clone(),
+                scales=None if scales is None else scales[:1].clone(),
+                meta=[m.clone() for m in meta])
+        return ragged_paged_attention(q, pool, layer, *meta, scales=scales,
+                                      **kw2)
+
+    gen_mod.ragged_paged_attention = capture
+    steps0 = eng.stats()["steps"]
+    ragged_paged_attention.launches = 0
+    ragged_paged_attention.quant_launches = 0
+    fused_layer_norm.launches = 0
+    try:
+        t0 = time.perf_counter()
+        handles = [eng.submit(p, max_new_tokens=max_new) for p in prompts]
+        outs = [h.result(timeout=600) for h in handles]
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    finally:
+        gen_mod.ragged_paged_attention = ragged_paged_attention
+    launches = {"ragged_paged_attention": ragged_paged_attention.launches,
+                "ragged_paged_attention_quant":
+                    ragged_paged_attention.quant_launches,
+                "fused_layer_norm": fused_layer_norm.launches}
+    stats = eng.stats()
+    if profile:
+        profile_engine(eng, rng, vocab)
+    eng.close()
+    steps = stats["steps"] - steps0
+    for p, h, out in zip(prompts, handles, outs):
+        if len(h.tokens) != max_new or out.shape != (len(p) + max_new,):
+            raise AssertionError(f"request {h.id}: {len(h.tokens)} tokens")
+        if not ((out >= 0) & (out < vocab)).all():
+            raise AssertionError(f"request {h.id}: token out of range")
+    if stats["nonfinite_cycles"]:
+        raise AssertionError(f"non-finite logits in "
+                             f"{stats['nonfinite_cycles']} cycles")
+    return outs, stats, launches, steps, wall, captured
+
+
+def check_serve_launches(what, launches, steps, n_layers, quantized):
+    """The attention kernel of the pool's kind once per layer per step,
+    the other one never; LayerNorm 2L + 1 times per step."""
+    attn = "ragged_paged_attention_quant" if quantized \
+        else "ragged_paged_attention"
+    want = {"ragged_paged_attention": 0, "ragged_paged_attention_quant": 0,
+            "fused_layer_norm": (2 * n_layers + 1) * steps}
+    want[attn] = n_layers * steps
+    if launches != want:
+        raise AssertionError(f"{what}: launches {launches} over {steps} "
+                             f"steps, expected {want}")
+
+
+def serve_line(what, prompts, max_new, stats, steps, wall):
+    toks = max_new * len(prompts)
+    log(f"{what}, {len(prompts)} requests x {max_new} tokens, prompts "
+        f"{min(map(len, prompts))}-{max(map(len, prompts))}, {steps} steps "
+        f"in {wall:.3f} s: {toks / wall:.1f} tokens/s, mean step "
+        f"{wall / steps * 1e3:.3f} ms (wall / steps), TTFT p50 "
+        f"{stats['ttft_ms']['p50']:.1f} ms p95 "
+        f"{stats['ttft_ms']['p95']:.1f} ms, TPOT p50 "
+        f"{stats['tpot_ms']['p50']:.2f} ms, prefix hits "
+        f"{stats['prefix_hits']}, chunks {stats['prefill_chunks']}, "
+        f"preempts {stats['preempts']}")
+
+
+def phase_engine(device, profile=False):
+    """Phase 3: GPT-2 small in bf16 through the fused engine over a bf16
+    pool. Returns the model, the request mix, the outputs, the engine's
+    stats, the launches and the captured operands."""
+    from paddle_tpu_torch.models import GPTConfig, GPTForPretraining
     from paddle_tpu_torch import seed
 
     reference_check(device)
     seed(SEED)
     cfg = GPTConfig.gpt2_small()
     model = GPTForPretraining(cfg).to(device=device, dtype=torch.bfloat16)
-    eng = GenerationEngine(model, kv_layout="paged", attention="fused",
-                           num_slots=8, block_size=16, prefill_budget=256,
-                           seed=SEED, device=device)
     rng = np.random.RandomState(SEED)
-    # warm-up: one short request outside the measured window
-    eng.submit(rng.randint(0, cfg.vocab_size, 24),
-               max_new_tokens=4).result(timeout=300)
-
-    # keep the layer-0 operands of the widest real step for phase 4
-    captured = {}
-
-    def capture(q, pool, layer, *meta, **kw):
-        if layer == 0 and q.shape[1] > captured.get("qp", 0):
-            captured.update(qp=q.shape[1], q=q.clone(),
-                            pool=pool[:1].clone(),
-                            meta=[m.clone() for m in meta])
-        return ragged_paged_attention(q, pool, layer, *meta, **kw)
-
-    gen_mod.ragged_paged_attention = capture
+    rng.randint(0, cfg.vocab_size, 24)        # the warm-up request's draw
     preamble = rng.randint(0, cfg.vocab_size, 64)
     prompts = []
     for i in range(16):
@@ -539,75 +664,144 @@ def phase_engine(device, profile=False):
         if i in (1, 12):                 # the second one admits later
             p = np.concatenate([preamble, p[:max(1, n - 64)]])
         prompts.append(p)
-    steps0 = eng.stats()["steps"]
-    ragged_paged_attention.launches = 0
-    fused_layer_norm.launches = 0
-    t0 = time.perf_counter()
-    handles = [eng.submit(p, max_new_tokens=64) for p in prompts]
-    outs = [h.result(timeout=600) for h in handles]
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
-    launches = {"ragged_paged_attention": ragged_paged_attention.launches,
-                "fused_layer_norm": fused_layer_norm.launches}
-    gen_mod.ragged_paged_attention = ragged_paged_attention
-    stats = eng.stats()
-    if profile:
-        profile_engine(eng, rng, cfg.vocab_size)
-    eng.close()
-    steps = stats["steps"] - steps0
-    for p, h, out in zip(prompts, handles, outs):
-        if len(h.tokens) != 64 or out.shape != (len(p) + 64,):
-            raise AssertionError(f"request {h.id}: {len(h.tokens)} tokens")
-        if not ((out >= 0) & (out < cfg.vocab_size)).all():
-            raise AssertionError(f"request {h.id}: token out of range")
-    L = cfg.num_hidden_layers
-    if launches["ragged_paged_attention"] != L * steps \
-            or launches["fused_layer_norm"] != (2 * L + 1) * steps:
-        raise AssertionError(f"launches {launches} over {steps} steps: "
-                             f"expected {L} and {2 * L + 1} per step")
+    outs, stats, launches, steps, wall, captured = serve_mix(
+        model, prompts, 64, profile, rng, block_size=16)
+    check_serve_launches("bf16 engine", launches, steps,
+                         cfg.num_hidden_layers, quantized=False)
     if stats["prefix_hits"] < 1 or stats["prefill_chunks"] <= len(prompts):
         raise AssertionError(f"no prefix hit or no chunked prompt: {stats}")
-    if stats["nonfinite_cycles"]:
-        raise AssertionError(f"non-finite logits in "
-                             f"{stats['nonfinite_cycles']} cycles")
-    toks = 64 * len(prompts)
-    log(f"engine: GPT-2 small bf16, {len(prompts)} requests x 64 tokens, "
-        f"prompts {min(map(len, prompts))}-{max(map(len, prompts))}, "
-        f"{steps} steps in {wall:.3f} s: {toks / wall:.1f} tokens/s, "
-        f"mean step {wall / steps * 1e3:.3f} ms (wall / steps), "
-        f"TTFT p50 {stats['ttft_ms']['p50']:.1f} ms p95 "
-        f"{stats['ttft_ms']['p95']:.1f} ms, TPOT p50 "
-        f"{stats['tpot_ms']['p50']:.2f} ms, prefix hits "
-        f"{stats['prefix_hits']}, chunks {stats['prefill_chunks']}, "
-        f"preempts {stats['preempts']}")
+    serve_line("engine: GPT-2 small bf16", prompts, 64, stats, steps, wall)
     log("engine launches: " + json.dumps(launches) + f" over {steps} steps")
-    return launches, captured
+    return model, prompts, outs, stats, launches, captured
+
+
+def logit_drift(model, prompt):
+    """One fused step feeding ``prompt`` whole into a bf16 pool and into
+    an int8 pool: max |logit difference| and max |bf16 logit|."""
+    from paddle_tpu_torch.serving import GenerationEngine
+    gpt = model.gpt
+    logits = {}
+    for kv_dtype in (None, "int8"):
+        seen = []
+
+        def keep(h, _orig=type(gpt).logits):
+            out = _orig(gpt, h)
+            seen.append(out.float().clone())
+            return out
+
+        gpt.logits = keep
+        try:
+            with GenerationEngine(model, num_slots=1, block_size=32,
+                                  prefill_budget=len(prompt),
+                                  kv_dtype=kv_dtype,
+                                  device=next(model.parameters()).device) \
+                    as eng:
+                eng.submit(prompt, max_new_tokens=1).result(timeout=300)
+        finally:
+            del gpt.logits
+        if len(seen) != 1:
+            raise AssertionError(f"{len(seen)} steps for one prompt")
+        logits[kv_dtype] = seen[0][0, 0]
+    drift = (logits["int8"] - logits[None]).abs().max().item()
+    return drift, logits[None].abs().max().item()
+
+
+def phase_engine_quant(model, prompts, bf16_outs, bf16_stats,
+                       profile=False):
+    """Phase 3b: the phase-3 mix from an int8 pool, the logit drift, the
+    fp8 pool and the capacity line. Returns launches and operands."""
+    from paddle_tpu_torch.serving.paging import PagedKVPool
+    cfg = model.gpt.cfg
+    L = cfg.num_hidden_layers
+    rng = np.random.RandomState(SEED + 4)
+    outs, stats, launches, steps, wall, cap_i8 = serve_mix(
+        model, prompts, 64, profile, rng, kv_dtype="int8", block_size=32)
+    check_serve_launches("int8 engine", launches, steps, L, quantized=True)
+    if stats["prefix_hits"] < 1 or stats["prefill_chunks"] <= len(prompts):
+        raise AssertionError(f"no prefix hit or no chunked prompt: {stats}")
+    serve_line("engine: GPT-2 small bf16, int8 KV (block 32)", prompts, 64,
+               stats, steps, wall)
+    same = sum(int(a[len(p)] == b[len(p)])
+               for p, a, b in zip(prompts, outs, bf16_outs))
+    log(f"int8 engine: {same} of {len(prompts)} first tokens equal the bf16 "
+        f"engine's (reported, not gated: random weights have thin "
+        f"margins); kv_bytes {json.dumps(stats['kv_bytes'])}; launches "
+        + json.dumps(launches) + f" over {steps} steps")
+    drift, top = logit_drift(model, prompts[0])
+    limit = 0.05 * max(top, 1.0)
+    log(f"logit drift, one step over a {len(prompts[0])}-token prompt, int8 "
+        f"pool vs bf16 pool: max |diff| {drift:.4f}, max |logit| "
+        f"{top:.4f}, limit {limit:.4f}")
+    if not drift < limit:
+        raise AssertionError(f"int8 logit drift {drift} over {limit}")
+
+    fp8_prompts = prompts[:4]
+    outs8, stats8, launches8, steps8, wall8, cap_f8 = serve_mix(
+        model, fp8_prompts, 32, kv_dtype="float8_e4m3fn", block_size=32)
+    check_serve_launches("fp8 engine", launches8, steps8, L, quantized=True)
+    serve_line("engine: GPT-2 small bf16, float8_e4m3fn KV (block 32)",
+               fp8_prompts, 32, stats8, steps8, wall8)
+
+    budget = bf16_stats["kv_pool_capacity_bytes"]
+    n_i8 = PagedKVPool.blocks_within_budget(
+        budget, num_layers=L, num_heads=cfg.num_attention_heads,
+        block_size=32,
+        head_dim=cfg.hidden_size // cfg.num_attention_heads, dtype="int8")
+    bf16_tokens = bf16_stats["num_blocks"] * bf16_stats["block_size"]
+    ratio = n_i8 * 32 / bf16_tokens
+    log(f"capacity: phase 3's bf16 pool, {budget} bytes, holds "
+        f"{bf16_tokens} tokens; int8 blocks of 32 in the same bytes: "
+        f"{n_i8} ({n_i8 * 32} tokens), {ratio:.4f}x")
+    if ratio < 1.9:
+        raise AssertionError(f"int8 capacity only {ratio:.4f}x bf16")
+    return ({"ragged_paged_attention_int8":
+                 launches["ragged_paged_attention_quant"],
+             "ragged_paged_attention_fp8":
+                 launches8["ragged_paged_attention_quant"],
+             "fused_layer_norm": launches["fused_layer_norm"]
+                 + launches8["fused_layer_norm"]},
+            {"int8": cap_i8, "fp8": cap_f8})
 
 
 # ---------------------------------------------------------------- phase 5
-def report_engine(device, timer, launches, captured):
-    from paddle_tpu_torch.ops.layer_norm import (fused_layer_norm,
-                                                 layer_norm_plain)
+def rpa_row(name, timer, captured, launches):
+    """The attention kernel (K1, or K1q for a quantized pool) against its
+    plain version on the layer-0 operands of an engine's widest step,
+    timed: one row of the kernels line."""
     from paddle_tpu_torch.ops.ragged_paged_attention import (
         ragged_paged_attention, ragged_paged_attention_plain)
     q, pool, meta = captured["q"], captured["pool"], captured["meta"]
-    dtype = q.dtype
-    got = ragged_paged_attention(q, pool, 0, *meta)
+    scales = captured["scales"]
+    got = ragged_paged_attention(q, pool, 0, *meta, scales=scales)
     torch.cuda.synchronize()
-    err = check_close("ragged_paged_attention on an engine step", got,
-                      ragged_paged_attention_plain(q, pool, 0, *meta), dtype)
-    nbytes, ops = rpa_work(q, pool, meta)
-    b_ms, b_by = bound(nbytes, ops, dtype)
-    rpa = {"name": "ragged_paged_attention", "route": "cuda",
-           "source": RPA_SRC, "replaces": RPA_TPU,
-           "launches": launches["ragged_paged_attention"],
-           "max_abs_err": err,
-           "ms": timer.ms(lambda: ragged_paged_attention(q, pool, 0, *meta)),
-           "plain_ms": timer.ms(lambda: ragged_paged_attention_plain(
-               q, pool, 0, *meta), reps=5, warmup=1),
-           "bound_ms": b_ms, "bound_by": b_by, "library_ms": None}
-    log(f"engine step layer 0: q{tuple(q.shape)}, {nbytes} bytes, "
-        f"{ops} ops")
+    err = check_close(f"{name} on an engine step", got,
+                      ragged_paged_attention_plain(q, pool, 0, *meta,
+                                                   scales=scales), q.dtype)
+    nbytes, ops = rpa_work(q, pool, meta, scales)
+    b_ms, b_by = bound(nbytes, ops, q.dtype)
+    log(f"{name}, engine step layer 0: q{tuple(q.shape)} {q.dtype}, pool "
+        f"{pool.dtype}, {nbytes} bytes, {ops} ops")
+    return {"name": name, "route": "cuda", "source": RPA_SRC,
+            "replaces": RPA_TPU, "launches": launches, "max_abs_err": err,
+            "ms": timer.ms(lambda: ragged_paged_attention(
+                q, pool, 0, *meta, scales=scales)),
+            "plain_ms": timer.ms(lambda: ragged_paged_attention_plain(
+                q, pool, 0, *meta, scales=scales), reps=5, warmup=1),
+            "bound_ms": b_ms, "bound_by": b_by, "library_ms": None}
+
+
+def report_engine(device, timer, launches, captured, quant_launches,
+                  quant_captured):
+    from paddle_tpu_torch.ops.layer_norm import (fused_layer_norm,
+                                                 layer_norm_plain)
+    rows_out = [rpa_row("ragged_paged_attention", timer, captured,
+                        launches["ragged_paged_attention"])]
+    for kind in ("int8", "fp8"):
+        name = f"ragged_paged_attention_{kind}"
+        rows_out.append(rpa_row(name, timer, quant_captured[kind],
+                                quant_launches[name]))
+    q = captured["q"]
+    dtype = q.dtype
     rows, d = q.shape[1], q.shape[0] * q.shape[2]
     torch.manual_seed(SEED)
     x = torch.randn(rows, d, device=device).to(dtype)
@@ -627,7 +821,7 @@ def report_engine(device, timer, launches, captured):
           "bound_ms": b_ms, "bound_by": b_by,
           "library_ms": timer.ms(lambda: torch.nn.functional.layer_norm(
               x, (d,), w, b, 1e-5))}
-    return [rpa, ln]
+    return rows_out + [ln]
 
 
 # ---------------------------------------------------------------- phase 4
@@ -975,13 +1169,21 @@ def main() -> int:
         f"sources into {_build.build_dir()}")
     timer = Timer(device)
     phase_kernels(device, timer)
+    phase_quant_kernel(device, timer)
     train_main = phase_train_kernels(device, timer)
-    launches, captured = phase_engine(device, profile)
+    model, prompts, outs, bf16_stats, launches, captured = phase_engine(
+        device, profile)
+    quant_launches, quant_captured = phase_engine_quant(
+        model, prompts, outs, bf16_stats, profile)
+    del model
     train_launches, train_cap = phase_train(device, profile)
     phase_f32_check(device)
-    kernels = report_engine(device, timer, launches, captured)
-    # the LayerNorm forward runs on both paths: its count is the sum
-    kernels[1]["launches"] += train_launches["fused_layer_norm"]
+    kernels = report_engine(device, timer, launches, captured,
+                            quant_launches, quant_captured)
+    # the LayerNorm forward runs on every path: its count is the sum
+    ln_row = next(k for k in kernels if k["name"] == "fused_layer_norm")
+    ln_row["launches"] += quant_launches["fused_layer_norm"] \
+        + train_launches["fused_layer_norm"]
     check_train_operands(train_cap)
     kernels += train_rows(train_launches, train_main)
     for k in kernels:

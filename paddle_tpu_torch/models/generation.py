@@ -5,10 +5,10 @@ ragged paged attention kernel walking each sequence's page table in the
 block pool.
 
 There is no jit and no donation: :func:`build_fused_step_fn` returns a
-plain function that runs eagerly and updates the pool IN PLACE (where
-the JAX step donated the pool buffer and returned a new one). Sampling
-draws from an explicit ``torch.Generator`` in place of ``jax.random``
-keys.
+plain function that runs eagerly and updates the pool (and a quantized
+pool's scales) IN PLACE, where the JAX step donated the buffers and
+returned new ones. Sampling draws from an explicit ``torch.Generator`` in
+place of ``jax.random`` keys.
 """
 from __future__ import annotations
 
@@ -44,8 +44,11 @@ def _pick_token(logits, generator, do_sample, top_k, top_p, temperature):
         return torch.argmax(logits, dim=-1).to(torch.int32)
     probs = torch.softmax(_filter_logits(logits, top_k, top_p, temperature),
                           dim=-1)
-    return torch.multinomial(probs, 1, generator=generator)[:, 0].to(
-        torch.int32)
+    # exponential race: argmax(p / E) with E ~ Exp(1) is a draw from p.
+    # Unlike torch.multinomial it takes non-finite probabilities, so NaN
+    # logits reach the finite sentinel instead of raising in the step
+    race = torch.empty_like(probs).exponential_(generator=generator)
+    return torch.argmax(probs / race, dim=-1).to(torch.int32)
 
 
 def _append_nonfinite_flag(nxt, logits):
@@ -56,12 +59,51 @@ def _append_nonfinite_flag(nxt, logits):
     return torch.cat([nxt, bad[None]])
 
 
-def _fused_tower(gpt, x, pool, write_block, write_off, blk_seq, seq_qstart,
-                 seq_pos0, tables, lo, kv_len):
+def _to_codes(x, qmax, dtype):
+    """f32 values already divided by their scale -> codes: round half to
+    even, clamp to ``±qmax``, then cast (for fp8 the cast rounds once
+    more, as in the JAX package: 17 -> 16, 300 -> 288)."""
+    return x.round().clamp(-qmax, qmax).to(dtype)
+
+
+def _quant_append(pool, scales, li, kv, wb, off, rows, qmax):
+    """Scatter per-row K/V values into a QUANTIZED block pool, in place.
+
+    ``rows [N, H, Dh]`` land at ``(block wb[n], offset off[n])`` of plane
+    ``(li, kv)``. Per-block max-abs scales only grow: a row whose
+    magnitude exceeds its block's scale raises it (scatter-max), and the
+    touched blocks are requantized to the new scale first; where the
+    scale did not change the ratio is exactly 1.0, so steady appends
+    never erode earlier rows. A NaN row makes its block's scale NaN, so
+    the corruption stays visible after dequantization.
+
+    Duplicate ``wb`` entries (a chunk writing several offsets of one
+    block, pad rows aimed at scratch block 0) are safe: every duplicate
+    sees the same old and new scales and requantizes the same block to
+    the same codes, and the row offsets of a real block are distinct."""
+    rows = rows.float()
+    rmax = rows.abs().amax(dim=-1) / qmax                       # [N, H]
+    old = scales[li, kv]                                        # [NB+1, H]
+    new = old.scatter_reduce(0, wb[:, None].expand_as(rmax), rmax,
+                             reduce="amax", include_self=True)
+    new_w = new[wb]                                             # [N, H]
+    nb = new_w.clamp_min(1e-30)
+    ratio = torch.where(new_w > 0, old[wb] / nb, 1.0)
+    blk = pool[li, kv, wb].float()                              # [N,H,bs,Dh]
+    pool[li, kv, wb] = _to_codes(blk * ratio[..., None, None], qmax,
+                                 pool.dtype)
+    qrow = torch.where(new_w[..., None] > 0, rows / nb[..., None], 0.0)
+    pool[li, kv, wb, :, off, :] = _to_codes(qrow, qmax, pool.dtype)
+    scales[li, kv] = new
+
+
+def _fused_tower(gpt, x, pool, scales, write_block, write_off, blk_seq,
+                 seq_qstart, seq_pos0, tables, lo, kv_len, qmax):
     """Per layer: scatter every flattened row's K/V into the pool through
-    its page-table-resolved write target, run the ragged paged attention
-    kernel over the pool, and apply the block tail. Returns
-    ``ln_f(x)``; ``pool`` is updated in place.
+    its page-table-resolved write target (through :func:`_quant_append`
+    when ``scales`` is given), run the ragged paged attention kernel over
+    the pool, and apply the block tail. Returns ``ln_f(x)``; ``pool`` and
+    ``scales`` are updated in place.
 
     The scatter ``pool[li, 0, write_block, :, write_off, :] = k`` puts
     its advanced indices apart (separated by a slice), so the indexed
@@ -73,17 +115,22 @@ def _fused_tower(gpt, x, pool, write_block, write_off, blk_seq, seq_qstart,
     wo = write_off.long()
     for li, block in enumerate(gpt.blocks):
         q, k, v = block._qkv(x)                        # [1, Q, H, Dh]
-        pool[li, 0, wb, :, wo, :] = k[0].to(pool.dtype)
-        pool[li, 1, wb, :, wo, :] = v[0].to(pool.dtype)
+        if scales is not None:
+            _quant_append(pool, scales, li, 0, wb, wo, k[0], qmax)
+            _quant_append(pool, scales, li, 1, wb, wo, v[0], qmax)
+        else:
+            pool[li, 0, wb, :, wo, :] = k[0].to(pool.dtype)
+            pool[li, 1, wb, :, wo, :] = v[0].to(pool.dtype)
         qh = q[0].transpose(0, 1).contiguous()         # [H, Q, Dh]
         a = ragged_paged_attention(qh, pool, li, blk_seq, seq_qstart,
-                                   seq_pos0, tables, lo, kv_len)
+                                   seq_pos0, tables, lo, kv_len,
+                                   scales=scales)
         x = block._tail(x, a.transpose(0, 1)[None])
     return gpt.ln_f(x)
 
 
 def build_fused_step_fn(model, num_slots, q_rows, table_len, block_size,
-                        top_k=0, top_p=1.0):
+                        top_k=0, top_p=1.0, quantized=False, qmax=127.0):
     """Build THE fused ragged serving step for one ``(q_rows,
     table_len)`` bucket.
 
@@ -108,6 +155,12 @@ def build_fused_step_fn(model, num_slots, q_rows, table_len, block_size,
       token this launch, whose hidden state gives the slot's next token;
     * ``sample_mask [num_slots]`` bool, ``temperature [num_slots]`` f32.
 
+    ``quantized=True`` serves a quantized pool (int8 or float8_e4m3fn
+    codes, ``qmax`` the largest code): the function takes the pool's
+    scales right after it, ``fn(pool, scales, token_ids, ...)``, rows
+    land through :func:`_quant_append`, and the kernel dequantizes each
+    block as it reads it. Both are updated in place.
+
     The step enters ``torch.inference_mode()`` itself: grad mode is
     thread-local, and the engine calls the step from its scheduler
     thread.
@@ -125,17 +178,19 @@ def build_fused_step_fn(model, num_slots, q_rows, table_len, block_size,
         raise ValueError(f"block_size must be >= 1, got {block_size}")
     top_k = min(int(top_k), gpt.cfg.vocab_size)
 
-    def fn(pool, token_ids, qpos, write_block, write_off, blk_seq,
-           seq_qstart, seq_pos0, tables, lo, kv_len, last_row, sample_mask,
-           temperature, generator):
+    def fn(pool, *rest):
+        (scales, token_ids, qpos, write_block, write_off, blk_seq,
+         seq_qstart, seq_pos0, tables, lo, kv_len, last_row, sample_mask,
+         temperature, generator) = rest if quantized else (None,) + rest
         if token_ids.shape != (Q,) or tables.shape != (S, T):
             raise ValueError(
                 f"step built for q_rows={Q}, tables [{S}, {T}]; got "
                 f"{tuple(token_ids.shape)} and {tuple(tables.shape)}")
         with torch.inference_mode():
             x = gpt.wte(token_ids[None, :]) + gpt.wpe(qpos[None, :])
-            x = _fused_tower(gpt, x, pool, write_block, write_off, blk_seq,
-                             seq_qstart, seq_pos0, tables, lo, kv_len)
+            x = _fused_tower(gpt, x, pool, scales, write_block, write_off,
+                             blk_seq, seq_qstart, seq_pos0, tables, lo,
+                             kv_len, qmax)
             last = x[0, last_row.long()]                       # [S, E]
             logits = gpt.logits(last[:, None, :])[:, 0].float()
             greedy = _pick_token(logits, generator, False, top_k, top_p,

@@ -1,10 +1,13 @@
-"""Ragged paged attention: the hand-written CUDA kernel of the fused
-serving step, its plain PyTorch version, and the host-side row layout.
+"""Ragged paged attention: the hand-written CUDA kernels of the fused
+serving step, their plain PyTorch version, and the host-side row layout.
 
 Replaces the Pallas TPU kernel ``paddle_tpu/ops/ragged_paged_attention.py``
 (``_rpa_kernel`` via ``ragged_paged_attention``) with
-``csrc/ragged_paged_attention.cu``. The layout contract is unchanged, so
-the engine's host operands are the JAX engine's:
+``csrc/ragged_paged_attention.cu``: K1 over float pools (float32 or
+bfloat16, q's dtype) and K1q over quantized pools (int8 or float8_e4m3fn
+codes with a per-(layer, K/V, block, head) f32 max-abs scale, dequantized
+in registers). The layout contract is unchanged, so the engine's host
+operands are the JAX engine's:
 
 * queries are FLATTENED over the batch, ``[H, Qp, Dh]``: each sequence's
   ``q_len[s]`` rows sit contiguously, padded to a multiple of
@@ -15,12 +18,15 @@ the engine's host operands are the JAX engine's:
   ``kv_len`` bounds the KV walk and ``lo`` is the window floor;
 * a row at position ``p`` attends to cache columns ``[lo, p]`` of the
   pool ``[L, 2, NB + 1, H, bs, Dh]``, whose ``layer`` plane is read in
-  place.
+  place;
+* a quantized pool comes with ``scales [L, 2, NB + 1, H]``: each block
+  reads as ``code * scale`` rounded to q's dtype, as in the JAX kernel.
 
 :func:`ragged_paged_attention` takes the plain version only for tensors
 on the CPU. A CUDA tensor goes to the kernel, or the call raises: there
-is no fallback. ``ragged_paged_attention.launches`` counts kernel
-launches.
+is no fallback and no dequantized copy of the pool.
+``ragged_paged_attention.launches`` counts K1's launches,
+``ragged_paged_attention.quant_launches`` K1q's.
 """
 from __future__ import annotations
 
@@ -35,7 +41,7 @@ from . import _build
 
 __all__ = ["ragged_paged_attention", "ragged_paged_attention_plain",
            "ragged_layout", "reference_ragged_attention", "BLOCK_Q",
-           "MIN_KV_BLOCK"]
+           "MIN_KV_BLOCK", "min_kv_block_for"]
 
 _NEG_INF = -1e30
 
@@ -47,7 +53,27 @@ BLOCK_Q = 8
 # two engines take the same configurations
 MIN_KV_BLOCK = 8
 
-def _check(q, pool, layer):
+# quantized storage: the TPU kernel needed 32-row blocks for 1-byte types
+# (their sublane count); the floor is kept from that contract, not from
+# this card, so both engines accept the same configurations
+_MIN_KV_BLOCK_BY_DTYPE = {"int8": 32, "float8_e4m3fn": 32}
+
+# quantized pool storage types -> the ``storage`` argument of
+# rpa_quant_launch
+_QUANT_CODE = {torch.int8: 0, torch.float8_e4m3fn: 1}
+
+
+def _dtype_name(dtype) -> str:
+    return str(dtype).removeprefix("torch.")
+
+
+def min_kv_block_for(dtype) -> int:
+    """Smallest KV ``block_size`` the engine takes for a pool storage
+    type (a torch dtype or its name)."""
+    return _MIN_KV_BLOCK_BY_DTYPE.get(_dtype_name(dtype), MIN_KV_BLOCK)
+
+
+def _check(q, pool, layer, scales):
     h, qp, dh = q.shape
     L, two, nb1, hp, bs, dhp = pool.shape
     if (hp, dhp) != (h, dh):
@@ -55,13 +81,27 @@ def _check(q, pool, layer):
     if qp % BLOCK_Q:
         raise ValueError(
             f"padded q rows {qp} must be a multiple of block_q {BLOCK_Q}")
-    if bs < MIN_KV_BLOCK:
-        raise ValueError(f"block_size {bs} < {MIN_KV_BLOCK}: the engine "
-                         f"takes KV blocks of at least {MIN_KV_BLOCK} rows")
+    min_bs = min_kv_block_for(pool.dtype)
+    if bs < min_bs:
+        raise ValueError(f"block_size {bs} < {min_bs}: the engine takes "
+                         f"{_dtype_name(pool.dtype)} KV blocks of at least "
+                         f"{min_bs} rows")
     if two != 2:
         raise ValueError(f"pool axis 1 must hold K and V, got {two}")
     if not 0 <= int(layer) < L:
         raise ValueError(f"layer {layer} out of range [0, {L})")
+    if pool.dtype in _QUANT_CODE:
+        if scales is None:
+            raise ValueError(
+                f"a {_dtype_name(pool.dtype)} pool is quantized storage: "
+                f"pass the per-block scale array (PagedKVPool.scales)")
+        if tuple(scales.shape) != (L, 2, nb1, h):
+            raise ValueError(
+                f"scales shape {tuple(scales.shape)} != per-block layout "
+                f"{(L, 2, nb1, h)}")
+    elif scales is not None:
+        raise ValueError(f"scales given for a {_dtype_name(pool.dtype)} "
+                         f"pool: only int8/float8_e4m3fn pools are scaled")
 
 
 def _host(m) -> np.ndarray:
@@ -69,13 +109,16 @@ def _host(m) -> np.ndarray:
 
 
 def ragged_paged_attention_plain(q, pool, layer, blk_seq, seq_qstart,
-                                 seq_pos0, tables, lo, kv_len, scale=None):
-    """The kernel's function as a plain composition, in f32, on any
+                                 seq_pos0, tables, lo, kv_len, scale=None,
+                                 scales=None):
+    """The kernels' function as a plain composition, in f32, on any
     device. Every real q block attends over its sequence's first
     ``ceil(kv_len / bs)`` whole blocks with the ``[lo, qpos]`` mask, as
-    the kernel does, so pad rows inside a real block match too; pad
-    blocks are zeros."""
-    _check(q, pool, layer)
+    the kernels do, so pad rows inside a real block match too; pad
+    blocks are zeros. The kernels' roundings are repeated: a quantized
+    block is dequantized (``code * scale``) and rounded to q's dtype, and
+    the probabilities are rounded to V's dtype before the PV product."""
+    _check(q, pool, layer, scales)
     h, qp, dh = q.shape
     bs = pool.shape[4]
     scale = float(scale) if scale is not None else 1.0 / math.sqrt(dh)
@@ -83,6 +126,18 @@ def ragged_paged_attention_plain(q, pool, layer, blk_seq, seq_qstart,
         _host(m) for m in (blk_seq, seq_qstart, seq_pos0, lo, kv_len,
                            tables))
     tables = torch.from_numpy(tables.astype(np.int64)).to(pool.device)
+    # V's dtype in the kernels: the pool's, or q's once a block is
+    # dequantized
+    v_dtype = q.dtype if scales is not None else pool.dtype
+
+    def block(kv, ids):
+        """Blocks ``ids`` of plane (layer, kv) as f32 ``[n, H, bs, Dh]``."""
+        if scales is None:
+            return pool[layer, kv, ids].float()
+        deq = pool[layer, kv, ids].float() \
+            * scales[layer, kv, ids].float()[:, :, None, None]
+        return deq.to(q.dtype).float()
+
     out = torch.zeros((h, qp, dh), dtype=torch.float32, device=q.device)
     for s in sorted({int(v) for v in blk_seq if v >= 0}):
         blocks = [b for b, v in enumerate(blk_seq) if v == s]
@@ -91,10 +146,8 @@ def ragged_paged_attention_plain(q, pool, layer, blk_seq, seq_qstart,
         n_kv = -(-int(kv_len[s]) // bs)
         ids = tables[s, :n_kv]
         # [n_kv, H, bs, Dh] -> [H, n_kv * bs, Dh]
-        k = pool[layer, 0, ids].float().permute(1, 0, 2, 3).reshape(
-            h, n_kv * bs, dh)
-        v = pool[layer, 1, ids].float().permute(1, 0, 2, 3).reshape(
-            h, n_kv * bs, dh)
+        k, v = (block(kv, ids).permute(1, 0, 2, 3).reshape(h, n_kv * bs, dh)
+                for kv in (0, 1))
         qs = q[:, rows].float()                              # [H, R, Dh]
         s_ = torch.matmul(qs, k.transpose(1, 2)) * scale     # [H, R, C]
         qpos = int(seq_pos0[s]) + (rows - int(seq_qstart[s]))
@@ -104,22 +157,31 @@ def ragged_paged_attention_plain(q, pool, layer, blk_seq, seq_qstart,
         s_ = torch.where(keep[None], s_, torch.full_like(s_, _NEG_INF))
         p = torch.exp(s_ - s_.amax(dim=-1, keepdim=True))
         l_ = p.sum(dim=-1, keepdim=True)
-        out[:, rows] = torch.matmul(p, v) / l_.clamp_min(1e-30)
+        out[:, rows] = torch.matmul(p.to(v_dtype).float(), v) \
+            / l_.clamp_min(1e-30)
     return out.to(q.dtype)
 
 
 _ARGS = [ctypes.c_int] + [ctypes.c_void_p] * 9 + [ctypes.c_int] * 7 + [
     ctypes.c_float, ctypes.c_void_p]
+# rpa_quant_launch: storage code, q dtype code, then q, pool, scales, out
+# and the metadata as in rpa_launch
+_QUANT_ARGS = [ctypes.c_int] * 2 + [ctypes.c_void_p] * 10 \
+    + [ctypes.c_int] * 7 + [ctypes.c_float, ctypes.c_void_p]
 
 
 def ragged_paged_attention(q, pool, layer, blk_seq, seq_qstart, seq_pos0,
-                           tables, lo, kv_len, scale=None):
+                           tables, lo, kv_len, scale=None, scales=None):
     """Fused paged attention over one layer of the serving block pool.
 
     * ``q`` — ``[H, Qp, Dh]`` flattened padded query rows (``Qp`` a
-      multiple of ``BLOCK_Q``);
+      multiple of ``BLOCK_Q``), float32 or bfloat16;
     * ``pool`` — the WHOLE block pool ``[L, 2, NB + 1, H, bs, Dh]``;
-      ``layer`` is an int and no per-layer slice is made;
+      ``layer`` is an int and no per-layer slice is made. A float pool
+      has q's dtype; an int8 or float8_e4m3fn pool is quantized storage;
+    * ``scales`` — required for a quantized pool, and only then: the
+      per-block max-abs scales ``[L, 2, NB + 1, H]`` float32
+      (``PagedKVPool.scales``), read whole like the pool;
     * ``blk_seq [Qp / BLOCK_Q]``, ``seq_qstart``/``seq_pos0``/``lo``/
       ``kv_len [S]``, ``tables [S, T]`` — int32 metadata
       (:func:`ragged_layout` builds the first three); on the card they
@@ -129,11 +191,11 @@ def ragged_paged_attention(q, pool, layer, blk_seq, seq_qstart, seq_pos0,
     if q.device.type == "cpu":
         return ragged_paged_attention_plain(
             q, pool, layer, blk_seq, seq_qstart, seq_pos0, tables, lo,
-            kv_len, scale)
+            kv_len, scale, scales)
     if q.device.type != "cuda":
         raise ValueError(f"ragged_paged_attention runs on cuda or cpu "
                          f"tensors, got {q.device}")
-    _check(q, pool, layer)
+    _check(q, pool, layer, scales)
     h, qp, dh = q.shape
     L, _, nb1, _, bs, _ = pool.shape
     S = int(seq_qstart.shape[0]) if torch.is_tensor(seq_qstart) else -1
@@ -153,34 +215,54 @@ def ragged_paged_attention(q, pool, layer, blk_seq, seq_qstart, seq_pos0,
                 f"{getattr(t, 'dtype', type(t).__name__)} "
                 f"{tuple(getattr(t, 'shape', ()))} on "
                 f"{getattr(t, 'device', 'host')}")
-    if pool.device != q.device or pool.dtype != q.dtype:
+    quantized = pool.dtype in _QUANT_CODE
+    if pool.device != q.device or (pool.dtype != q.dtype and not quantized):
         raise ValueError(f"pool {pool.dtype} on {pool.device} must match "
-                         f"q {q.dtype} on {q.device}")
+                         f"q {q.dtype} on {q.device}, or be an int8/"
+                         f"float8_e4m3fn pool there")
     if q.dtype not in _build.DTYPE_CODE:
-        raise TypeError(f"the attention kernel takes float32 or bfloat16, "
-                        f"got {q.dtype}")
+        raise TypeError(f"the attention kernel takes float32 or bfloat16 "
+                        f"q, got {q.dtype}")
     if not (q.is_contiguous() and pool.is_contiguous()):
         raise ValueError("q and pool must be contiguous")
-    if dh % 8 or q.data_ptr() % 16 or pool.data_ptr() % 16:
+    vec = 16 // pool.element_size()
+    if dh % max(vec, 8) or q.data_ptr() % 16 or pool.data_ptr() % 16:
         raise ValueError(f"the kernel loads 16-byte vectors: head_dim {dh} "
-                         f"must be a multiple of 8 and q/pool 16-byte "
-                         f"aligned")
+                         f"must be a multiple of {max(vec, 8)} and q/pool "
+                         f"16-byte aligned")
     scale = float(scale) if scale is not None else 1.0 / math.sqrt(dh)
     out = torch.empty_like(q)
-    rc = _build.function("ragged_paged_attention", "rpa_launch", _ARGS)(
-        _build.DTYPE_CODE[q.dtype], q.data_ptr(), pool.data_ptr(),
-        out.data_ptr(), blk_seq.data_ptr(), seq_qstart.data_ptr(),
-        seq_pos0.data_ptr(), tables.data_ptr(), lo.data_ptr(),
-        kv_len.data_ptr(), h, qp, dh, nb1, bs, int(tables.shape[1]),
-        int(layer), scale, torch.cuda.current_stream(q.device).cuda_stream)
+    meta = (blk_seq.data_ptr(), seq_qstart.data_ptr(), seq_pos0.data_ptr(),
+            tables.data_ptr(), lo.data_ptr(), kv_len.data_ptr(), h, qp, dh,
+            nb1, bs, int(tables.shape[1]), int(layer), scale,
+            torch.cuda.current_stream(q.device).cuda_stream)
+    if quantized:
+        if scales.device != q.device or scales.dtype != torch.float32 \
+                or not scales.is_contiguous():
+            raise ValueError(f"scales must be a contiguous float32 tensor "
+                             f"on {q.device}, got {scales.dtype} on "
+                             f"{scales.device}")
+        rc = _build.function("ragged_paged_attention", "rpa_quant_launch",
+                             _QUANT_ARGS)(
+            _QUANT_CODE[pool.dtype], _build.DTYPE_CODE[q.dtype],
+            q.data_ptr(), pool.data_ptr(), scales.data_ptr(),
+            out.data_ptr(), *meta)
+    else:
+        rc = _build.function("ragged_paged_attention", "rpa_launch", _ARGS)(
+            _build.DTYPE_CODE[q.dtype], q.data_ptr(), pool.data_ptr(),
+            out.data_ptr(), *meta)
     if rc != 0:
         raise RuntimeError(
             f"ragged paged attention kernel launch failed: CUDA error {rc}")
-    ragged_paged_attention.launches += 1
+    if quantized:
+        ragged_paged_attention.quant_launches += 1
+    else:
+        ragged_paged_attention.launches += 1
     return out
 
 
 ragged_paged_attention.launches = 0
+ragged_paged_attention.quant_launches = 0
 
 
 def ragged_layout(q_lens: Sequence[int], pos0s: Sequence[int], *,
@@ -240,11 +322,14 @@ def ragged_layout(q_lens: Sequence[int], pos0s: Sequence[int], *,
 
 
 def reference_ragged_attention(q_rows, pool, layer, row_seq, row_pos,
-                               tables, lo, scale=None):
+                               tables, lo, scale=None, scales=None):
     """Numpy oracle (tests): per-row full-precision softmax attention
     over the row's ``[lo, pos]`` window gathered through the page table.
-    ``q_rows [N, H, Dh]``, ``row_seq/row_pos [N]``."""
+    ``q_rows [N, H, Dh]``, ``row_seq/row_pos [N]``; ``scales
+    [L, 2, NB + 1, H]`` dequantizes a quantized pool's codes up front."""
     pool = np.asarray(pool, np.float32)
+    if scales is not None:
+        pool = pool * np.asarray(scales, np.float32)[..., None, None]
     q_rows = np.asarray(q_rows, np.float32)
     n, h, dh = q_rows.shape
     bs = pool.shape[4]

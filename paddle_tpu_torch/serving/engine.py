@@ -20,7 +20,8 @@ import torch
 
 from .._device import resolve_device
 from ..models.generation import build_fused_step_fn
-from ..ops.ragged_paged_attention import BLOCK_Q, MIN_KV_BLOCK, ragged_layout
+from ..ops.ragged_paged_attention import (BLOCK_Q, MIN_KV_BLOCK,
+                                          min_kv_block_for, ragged_layout)
 from .paging import PagedKVPool, PoolCapacityError
 from .scheduler import GenerationRequest, Scheduler
 
@@ -45,7 +46,10 @@ class GenerationEngine:
       admission gates on blocks, growth preempts, full prompt blocks are
       shared through the prefix cache);
     * ``prefill_budget`` — prompt tokens fed per cycle;
-    * the pool stores K/V in the model's parameter dtype;
+    * ``kv_dtype`` — ``None`` stores K/V in the model's parameter dtype;
+      ``"int8"`` or ``"float8_e4m3fn"`` stores 1-byte codes with a
+      float32 max-abs scale per (layer, K/V, block, head), about half the
+      bytes of a bf16 pool, and needs ``block_size >= 32``;
     * ``top_k``/``top_p`` — the sampled path's truncation, fixed per
       engine; ``seed`` seeds the engine's ``torch.Generator``.
 
@@ -62,7 +66,8 @@ class GenerationEngine:
                  seed: int = 0, kv_layout: str = "paged",
                  block_size: int = 16,
                  num_blocks: Optional[int] = None,
-                 attention: str = "fused", device=None):
+                 attention: str = "fused", kv_dtype: Optional[str] = None,
+                 device=None):
         self._device = resolve_device(device)
         if kv_layout != "paged":
             raise NotImplementedError(
@@ -70,9 +75,18 @@ class GenerationEngine:
         if attention != "fused":
             raise NotImplementedError(
                 f"attention={attention!r} is not ported yet: {_QUEUED}")
-        if int(block_size) < MIN_KV_BLOCK:
+        if kv_dtype is not None and kv_dtype not in PagedKVPool._QUANT_QMAX:
             raise ValueError(
-                f"attention='fused' requires block_size >= {MIN_KV_BLOCK}")
+                f"kv_dtype must be None (the parameter dtype) or one of "
+                f"{sorted(PagedKVPool._QUANT_QMAX)}, got {kv_dtype!r}")
+        need = min_kv_block_for(kv_dtype) if kv_dtype is not None \
+            else MIN_KV_BLOCK
+        if int(block_size) < need:
+            raise ValueError(
+                f"attention='fused' requires block_size >= {need} for "
+                f"kv_dtype={kv_dtype or 'float'}: the floor of the JAX "
+                f"engine's kernel, kept so both engines take the same "
+                f"configurations")
         gpt = model.gpt if hasattr(model, "gpt") else model
         cfg = gpt.cfg
         param = next(model.parameters())
@@ -95,7 +109,7 @@ class GenerationEngine:
         self._pool = PagedKVPool(
             cfg.num_hidden_layers, num_slots, cfg.num_attention_heads,
             max_len, head_dim, block_size=block_size, num_blocks=num_blocks,
-            dtype=param.dtype, device=self._device)
+            dtype=kv_dtype or param.dtype, device=self._device)
         self._gen = torch.Generator(device=self._device)
         self._gen.manual_seed(int(seed))
         self._steps = {}                  # (q bucket, table bucket) -> fn
@@ -176,6 +190,10 @@ class GenerationEngine:
         s = {
             "kv_layout": "paged",
             "attention": "fused",
+            "kv_dtype": pool.dtype_name,
+            # block storage vs the scale array (0 for float pools)
+            "kv_bytes": {"blocks": pool.block_storage_bytes,
+                         "scales": pool.scales_bytes},
             "device": str(self._device),
             "queue_depth": sched.queue_depth,
             "active_requests": sched.active,
@@ -285,12 +303,15 @@ class GenerationEngine:
         flat = torch.from_numpy(np.concatenate([a.reshape(-1) for a in ops]))
         parts = flat.to(self._device).split(sizes)
         dev_ops = [p.view(a.shape) for p, a in zip(parts, ops)]
+        pool = self._pool
         step = self._steps.get((Q, T))
         if step is None:
             step = self._steps[(Q, T)] = build_fused_step_fn(
-                self._model, self._pool.num_slots, Q, T,
-                self._pool.block_size, top_k=self._top_k, top_p=self._top_p)
-        return step(self._pool.data, *dev_ops,
+                self._model, pool.num_slots, Q, T, pool.block_size,
+                top_k=self._top_k, top_p=self._top_p,
+                quantized=pool.quantized, qmax=pool.qmax)
+        scales = (pool.scales,) if pool.quantized else ()
+        return step(pool.data, *scales, *dev_ops,
                     torch.from_numpy(sample_mask).to(self._device),
                     torch.from_numpy(temps).to(self._device), self._gen)
 
@@ -303,6 +324,10 @@ class GenerationEngine:
 
     def _run_copy(self, dst: int, src: int) -> None:
         """Copy-on-write: copy block ``src`` over block ``dst`` across
-        every layer/kv plane, in place on the device."""
+        every layer/kv plane, in place on the device; a quantized pool's
+        scales go with the codes, so the copy reads back the same."""
+        pool = self._pool
         with torch.inference_mode():
-            self._pool.data[:, :, dst] = self._pool.data[:, :, src]
+            pool.data[:, :, dst] = pool.data[:, :, src]
+            if pool.quantized:
+                pool.scales[:, :, dst] = pool.scales[:, :, src]

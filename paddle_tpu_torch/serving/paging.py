@@ -23,6 +23,13 @@ Host-side manager (scheduler-thread-owned, the JAX package's logic):
 
 Paged sequences are aligned at virtual index 0 (``lo == 0``), so block
 contents depend only on the token prefix.
+
+**Quantized blocks** (``dtype="int8"`` or ``"float8_e4m3fn"``): the pool
+holds codes, and ``scales [layers, 2, num_blocks + 1, heads]`` float32
+holds each (block, head)'s max-abs scale, so a value is ``code * scale``.
+Scale 0 marks an untouched block, which reads as the zeros a fresh float
+pool holds. The byte accounting counts the scales, so pools of different
+storage types compare at the same budget.
 """
 from __future__ import annotations
 
@@ -77,6 +84,16 @@ class _TrieNode:
         self.children: set = set()      # child keys (one block longer)
 
 
+def _storage_dtype(dtype) -> torch.dtype:
+    """A torch dtype, or its name as the JAX pool takes it."""
+    if isinstance(dtype, str):
+        dtype = getattr(torch, dtype, None)
+    if not isinstance(dtype, torch.dtype):
+        raise ValueError(f"pool dtype must be a torch dtype or its name, "
+                         f"got {dtype!r}")
+    return dtype
+
+
 class PagedKVPool(SlotPoolBase):
     """Block-pooled KV cache + page-table/prefix-cache manager.
 
@@ -84,11 +101,17 @@ class PagedKVPool(SlotPoolBase):
     block_size, head_dim]`` on ``device`` (``None`` = the card; index 0 =
     scratch). The serving step writes it in place. ``num_slots`` bounds
     concurrent requests, ``num_blocks`` their total KV footprint.
+    ``dtype`` is a torch dtype or its name; ``"int8"`` and
+    ``"float8_e4m3fn"`` make a quantized pool with ``scales``.
     """
 
     _slot_cls = _PagedSlot
     _capacity_noun = "virtual capacity"
     _admission_law = "prompt + max_new <= max_len"
+
+    #: largest code of each quantized storage type (its max-abs scale
+    #: maps a block's largest magnitude there)
+    _QUANT_QMAX = {"int8": 127.0, "float8_e4m3fn": 448.0}
 
     def __init__(self, num_layers: int, num_slots: int, num_heads: int,
                  max_len: int, head_dim: int, *, block_size: int = 16,
@@ -121,9 +144,18 @@ class PagedKVPool(SlotPoolBase):
         # +1: physical block 0 is the reserved scratch block
         self.shape = (self.num_layers, 2, self.num_blocks + 1,
                       self.num_heads, self.block_size, self.head_dim)
-        self.dtype = dtype
+        self.dtype = _storage_dtype(dtype)
+        self.dtype_name = str(self.dtype).removeprefix("torch.")
         self.device = resolve_device(device)
-        self.data = torch.zeros(self.shape, dtype=dtype, device=self.device)
+        self.data = torch.zeros(self.shape, dtype=self.dtype,
+                                device=self.device)
+        self.quantized = self.dtype_name in self._QUANT_QMAX
+        self.qmax = self._QUANT_QMAX.get(self.dtype_name)
+        self.scales_shape = (self.num_layers, 2, self.num_blocks + 1,
+                             self.num_heads)
+        self.scales = (torch.zeros(self.scales_shape, dtype=torch.float32,
+                                   device=self.device)
+                       if self.quantized else None)
         self._free: List[int] = list(range(1, self.num_blocks + 1))
         self._ref: Dict[int, int] = {}            # block -> request refs
         self._trie: Dict[Tuple[int, ...], _TrieNode] = {}
@@ -151,6 +183,10 @@ class PagedKVPool(SlotPoolBase):
             raise RuntimeError(
                 "reset_data with live slots: fail and free them first")
         super().reset_data()
+        if self.quantized:
+            self.scales = torch.zeros(self.scales_shape,
+                                      dtype=torch.float32,
+                                      device=self.device)
         self._trie.clear()
         self._block_key.clear()
         self._lru.clear()
@@ -178,9 +214,42 @@ class PagedKVPool(SlotPoolBase):
         return len(self._trie)
 
     @property
+    def block_storage_bytes(self) -> int:
+        """Device bytes of the block array alone."""
+        return int(np.prod(self.shape)) * self.dtype.itemsize
+
+    @property
+    def scales_bytes(self) -> int:
+        """Device bytes of the per-block scale array (0 for float
+        pools)."""
+        return int(np.prod(self.scales_shape)) * 4 if self.quantized else 0
+
+    @property
+    def capacity_bytes(self) -> int:
+        """Device bytes of the whole pool: the blocks plus, for a
+        quantized pool, their scales."""
+        return self.block_storage_bytes + self.scales_bytes
+
+    @property
     def block_bytes(self) -> int:
-        """Device bytes of ONE block across every layer/kv plane."""
+        """Device bytes of ONE block across every layer/kv plane, its
+        scales included."""
         return self.capacity_bytes // (self.num_blocks + 1)
+
+    @classmethod
+    def blocks_within_budget(cls, budget_bytes: int, *, num_layers: int,
+                             num_heads: int, block_size: int,
+                             head_dim: int, dtype="float32") -> int:
+        """Largest ``num_blocks`` whose pool (the scratch block and, for
+        a quantized type, the scale array included) fits
+        ``budget_bytes``: the same-budget sizing rule."""
+        dtype = _storage_dtype(dtype)
+        per_block = num_layers * 2 * num_heads * block_size * head_dim \
+            * dtype.itemsize
+        if str(dtype).removeprefix("torch.") in cls._QUANT_QMAX:
+            per_block += num_layers * 2 * num_heads * 4
+        # num_blocks + 1 physical blocks (scratch) must fit
+        return max(0, int(budget_bytes) // per_block - 1)
 
     @property
     def bytes_in_use(self) -> int:
@@ -197,6 +266,12 @@ class PagedKVPool(SlotPoolBase):
             self._evict_one()            # raises PoolExhaustedError
         b = heapq.heappop(self._free)
         self._ref[b] = 1
+        if self.quantized:
+            # a recycled block keeps its last tenant's scale, and appends
+            # only grow scales: a stale coarse scale would crush the new
+            # tenant's rows to few codes. Blocks adopted from the prefix
+            # cache never pass here and keep theirs.
+            self.scales[:, :, b] = 0.0
         return b
 
     def _unref(self, b: int) -> None:

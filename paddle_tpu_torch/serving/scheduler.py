@@ -314,8 +314,9 @@ class Scheduler:
                 f"serving step failed for request {req.id}: {error!r}")
             err.__cause__ = error
             req._finish(err)
-        # the step writes the pool in place, so a failed step may have
-        # left it half-written: start from zeros and an empty cache
+        # the step writes the pool (and a quantized pool's scales) in
+        # place, so a failed step may have left them half-written: start
+        # from zeros, zero scales and an empty cache
         self._pool.reset_data()
 
     def _sweep_queue(self) -> None:

@@ -7,9 +7,11 @@ nor the JAX package, so it also runs where only PyTorch is installed:
     python -m pytest --noconftest -m cuda tests/test_torch_cuda.py
 
 Tolerances: float32 atol 1e-4; bfloat16 atol 2e-2 + rtol 1e-2 (one bf16
-ulp of the output, after upcasting). The LayerNorm backward's dw/db, sums
-over every row, take rtol 1e-5 beside atol 1e-4 in float32; AdamW, the same
-float32 arithmetic with fused multiply-adds, atol 1e-6 + rtol 1e-6.
+ulp of the output, after upcasting); the quantized KV kernel takes its q
+dtype's, since kernel and plain dequantize to the same values. The
+LayerNorm backward's dw/db, sums over every row, take rtol 1e-5 beside
+atol 1e-4 in float32; AdamW, the same float32 arithmetic with fused
+multiply-adds, atol 1e-6 + rtol 1e-6.
 """
 import numpy as np
 import pytest
@@ -83,6 +85,127 @@ def test_ragged_attention_kernel_matches_plain(cuda, dtype):
     want = rpa.ragged_paged_attention_plain(q, pool, 1, *meta)
     torch.testing.assert_close(got.float(), want.float(), **TOL[dtype])
     assert torch.all(got[:, qp - 16:] == 0)
+
+
+def _quantize_blocks(vals, storage):
+    """Float blocks ``[..., bs, Dh]`` -> codes of ``storage`` and their
+    per-block max-abs scales ``[...]``."""
+    qmax = 127.0 if storage == torch.int8 else 448.0
+    sc = vals.abs().amax(dim=(-2, -1)) / qmax
+    codes = (vals / sc.clamp_min(1e-30)[..., None, None]).round().clamp(
+        -qmax, qmax).to(storage)
+    return codes, sc
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("storage", [torch.int8, torch.float8_e4m3fn])
+def test_quantized_ragged_attention_kernel_matches_plain(cuda, dtype,
+                                                         storage):
+    rng = np.random.RandomState(1)
+    L, H, bs, Dh, S, T = 2, 12, 32, 64, 5, 8
+    nb = S * T
+    g = torch.Generator(device=cuda).manual_seed(3)
+    vals = torch.randn(L, 2, nb + 1, H, bs, Dh, device=cuda, generator=g)
+    pool, scales = _quantize_blocks(vals, storage)
+    tables = np.zeros((S, T), np.int32)
+    free = rng.permutation(np.arange(1, nb + 1)).tolist()
+    q_lens, pos0s, kv_lens = [], [], []
+    for s in range(S):
+        kv = int(rng.randint(1, T * bs + 1))
+        q = 0 if s == 2 else 1 if s % 2 == 0 else int(rng.randint(1, kv + 1))
+        nblk = -(-kv // bs)
+        tables[s, :nblk] = [free.pop() for _ in range(nblk)]
+        q_lens.append(q)
+        pos0s.append(kv - q)
+        kv_lens.append(kv if q else 0)
+    qp = (len(rpa.ragged_layout(q_lens, pos0s)[0]) + 2) * 8
+    blk_seq, qstart, pos0, _, _ = rpa.ragged_layout(q_lens, pos0s,
+                                                    q_bucket=qp)
+    q = torch.randn(H, qp, Dh, device=cuda, generator=g).to(dtype)
+    meta = [torch.from_numpy(np.asarray(a, np.int32)).to(cuda)
+            for a in (blk_seq, qstart, pos0, tables, np.zeros(S, np.int32),
+                      kv_lens)]
+    before = (rpa.ragged_paged_attention.launches,
+              rpa.ragged_paged_attention.quant_launches)
+    got = rpa.ragged_paged_attention(q, pool, 1, *meta, scales=scales)
+    torch.cuda.synchronize()
+    assert (rpa.ragged_paged_attention.launches,
+            rpa.ragged_paged_attention.quant_launches) == (before[0],
+                                                           before[1] + 1)
+    want = rpa.ragged_paged_attention_plain(q, pool, 1, *meta, scales=scales)
+    assert got.dtype == dtype
+    torch.testing.assert_close(got.float(), want.float(), **TOL[dtype])
+    assert torch.all(got[:, qp - 16:] == 0)
+    # a NaN scale reaches the rows that read its block
+    scales[1, 1, tables[1, 0]] = float("nan")
+    got = rpa.ragged_paged_attention(q, pool, 1, *meta, scales=scales)
+    torch.cuda.synchronize()
+    rows = slice(int(qstart[1]), int(qstart[1]) + q_lens[1])
+    assert torch.isnan(got[:, rows]).all()
+    assert torch.isfinite(got[:, int(qstart[0])]).all()
+
+
+def test_quantized_ragged_attention_raises_without_its_kernel_inputs(cuda):
+    q = torch.zeros(2, 8, 16, device=cuda)
+    pool = torch.zeros(1, 2, 3, 2, 32, 16, dtype=torch.int8, device=cuda)
+    meta = [torch.zeros(1, dtype=torch.int32, device=cuda)] * 3 + [
+        torch.zeros(1, 1, dtype=torch.int32, device=cuda)] + [
+        torch.zeros(1, dtype=torch.int32, device=cuda)] * 2
+    with pytest.raises(ValueError, match="per-block scale array"):
+        rpa.ragged_paged_attention(q, pool, 0, *meta)
+    with pytest.raises(ValueError, match="float32 tensor"):
+        rpa.ragged_paged_attention(
+            q, pool, 0, *meta,
+            scales=torch.zeros(1, 2, 3, 2, dtype=torch.bfloat16,
+                               device=cuda))
+    with pytest.raises(ValueError, match="multiple of 16"):
+        rpa.ragged_paged_attention(
+            torch.zeros(2, 8, 8, device=cuda),
+            torch.zeros(1, 2, 3, 2, 32, 8, dtype=torch.int8, device=cuda),
+            0, *meta, scales=torch.zeros(1, 2, 3, 2, device=cuda))
+
+
+def _ordinal(codes):
+    """Each code's rank among its type's codes: neighbours differ by 1
+    (fp8 bits are sign-magnitude)."""
+    if codes.dtype == torch.int8:
+        return codes.long()
+    bits = codes.view(torch.uint8).long()
+    return torch.where(bits >= 0x80, -(bits & 0x7F), bits & 0x7F)
+
+
+@pytest.mark.parametrize("storage", [torch.int8, torch.float8_e4m3fn])
+def test_quant_append_on_the_card_matches_the_cpu(cuda, storage):
+    """The scale update's scatter-max keeps NaN on the card as on the
+    CPU, and the codes agree within one."""
+    from paddle_tpu_torch.models.generation import _quant_append
+    qmax = 127.0 if storage == torch.int8 else 448.0
+    g = torch.Generator().manual_seed(5)
+    wb = torch.tensor([2] * 20 + [4] + [0] * 11)
+    off = torch.tensor(list(range(20)) + [3] + [0] * 11)
+    rows = torch.randn(32, 12, 64, generator=g)
+    rows[21:] = rows[21]                        # identical pad rows
+    big = 3 * torch.randn(3, 12, 64, generator=g)
+    nan = torch.full((1, 12, 64), float("nan"))
+    state = {}
+    for dev in ("cpu", cuda):
+        p = torch.zeros(2, 2, 6, 12, 32, 64, dtype=storage, device=dev)
+        s = torch.zeros(2, 2, 6, 12, device=dev)
+        for li, kv in ((0, 0), (0, 1), (1, 0)):
+            _quant_append(p, s, li, kv, wb.to(dev), off.to(dev),
+                          rows.to(dev), qmax)
+        _quant_append(p, s, 0, 0, torch.tensor([2, 2, 4], device=dev),
+                      torch.tensor([20, 21, 4], device=dev), big.to(dev),
+                      qmax)
+        _quant_append(p, s, 1, 0, torch.tensor([4], device=dev),
+                      torch.tensor([5], device=dev), nan.to(dev), qmax)
+        state[str(dev)] = (_ordinal(p.cpu()), s.cpu())
+    (p_cpu, s_cpu), (p_gpu, s_gpu) = state["cpu"], state[str(cuda)]
+    assert torch.isnan(s_gpu[1, 0, 4]).all() and torch.isnan(
+        s_cpu[1, 0, 4]).all()
+    torch.testing.assert_close(s_gpu, s_cpu, rtol=1e-5, atol=0,
+                               equal_nan=True)
+    assert (p_gpu - p_cpu).abs().max() <= 1
 
 
 def test_ragged_attention_rejects_host_metadata(cuda):
