@@ -6,8 +6,10 @@ Phases, each fatal on failure (the script then exits non-zero and
 prints no result line):
 
 1. environment: the card's name and power limit, torch/CUDA/nvcc
-   versions, and the build of every kernel from ``paddle_tpu_torch/csrc``
-   (one ``nvcc`` per source, all at once);
+   versions, the build of every kernel from ``paddle_tpu_torch/csrc``
+   (one ``nvcc`` per source, all at once), and the count of ``HGMMA``
+   (wgmma) and ``UTMALDG`` (TMA load) instructions in the SASS of the
+   tensor-core flash library, each of which must be above 0;
 2. kernel vs plain: each kernel against its plain PyTorch version on the
    card, in float32 and bfloat16, with the errors, the median times, the
    bounds and the library call's time: the serving kernels at the
@@ -15,8 +17,10 @@ prints no result line):
    blocks of 16; the quantized KV kernel over int8 and float8_e4m3fn
    pools in blocks of 32), the training kernels at the training path's
    (flash attention at [8, 1024, 12, 64] and at the ragged length 1000,
-   causal; the LayerNorm backward at [8192, 768]; AdamW on a [50304,
-   768] parameter);
+   causal, on both routes: bfloat16 on the tensor-core kernels, also at
+   head_dim 128, float32 and the same bfloat16 operands at an unaligned
+   base on the CUDA-core kernels; the LayerNorm backward at [8192, 768];
+   AdamW on a [50304, 768] parameter);
 3. engine: GPT-2 small (124M width, random weights from a seed, bf16)
    served through ``GenerationEngine(kv_layout="paged",
    attention="fused")`` — 16 concurrent requests with a chunked long
@@ -34,9 +38,10 @@ prints no result line):
    master weights, batch 8 x 1024 with next-token labels and the LM loss
    in 8 chunks (``bench.py``'s ``bench_gpt2`` configuration), through
    ``Model.fit``: 2 warm-up steps, then 8 timed steps with every training
-   kernel's launch count read around them; the same batch repeated must
-   lower the loss; one float32 step of GPT-2 width at 2 layers on the
-   card (kernels) against a CPU copy of the same weights (plain
+   kernel's launch count read around them, every flash launch on the
+   tensor-core route; the same batch repeated must lower the loss; one
+   float32 step of GPT-2 width at 2 layers on the card (kernels, flash on
+   the CUDA-core route) against a CPU copy of the same weights (plain
    versions): loss, every gradient and every updated parameter;
 5. real operands: the layer-0 operands of one real step of each path
    through kernel and plain: the engine's attention rows (float, int8
@@ -50,7 +55,9 @@ prints no result line):
    errors and times in it come from phase 2 at the train path's shapes
    and dtypes (flash bf16 [8, 1024, 12, 64] causal, the LayerNorm
    backward f32 [8192, 768], AdamW with an f32 master and a bf16
-   gradient and copy), their launches from phase 4.
+   gradient and copy), their launches from phase 4; the ``_f32`` flash
+   rows (the CUDA-core kernels) take phase 2's float32 flash case and
+   the float32 step's launches.
 
 ``--profile`` adds one more batch to the bf16 and the int8 engines and
 two more train steps under torch.profiler and prints device time by
@@ -85,6 +92,7 @@ REL_TOL = {torch.float32: 1e-5, torch.bfloat16: 2e-2}
 RPA_SRC = "paddle_tpu_torch/csrc/ragged_paged_attention.cu"
 LN_SRC = "paddle_tpu_torch/csrc/layer_norm.cu"
 FA_SRC = "paddle_tpu_torch/csrc/flash_attention.cu"
+FA_TC_SRC = "paddle_tpu_torch/csrc/flash_attention_sm90.cu"
 ADAMW_SRC = "paddle_tpu_torch/csrc/adamw.cu"
 RPA_TPU = "paddle_tpu/ops/ragged_paged_attention.py:198"
 QMAX = {torch.int8: 127.0, torch.float8_e4m3fn: 448.0}
@@ -167,6 +175,25 @@ def check_scaled(name, got, want, dtype):
         raise AssertionError(f"{name}: off by {err:.3e} of its largest "
                              f"value {top:.3e}, over {REL_TOL[dtype]}")
     return err
+
+
+def sass_check():
+    """``HGMMA`` (wgmma) and ``UTMALDG`` (TMA tile load) instructions in the
+    SASS of the built tensor-core flash library: the proof that its
+    products run on wgmma and its tiles arrive by TMA. Fails if either
+    count is 0."""
+    from pathlib import Path
+
+    from paddle_tpu_torch.ops import _build
+    lib = _build.load("flash_attention_sm90")._name
+    tool = Path(_build._nvcc()).with_name("cuobjdump")
+    sass = subprocess.run([str(tool), "-sass", lib], capture_output=True,
+                          text=True, check=True).stdout
+    counts = {op: sum(op in line for line in sass.splitlines())
+              for op in ("HGMMA", "UTMALDG")}
+    log(f"SASS of {Path(lib).name}: {json.dumps(counts)} instructions")
+    if not all(counts.values()):
+        raise AssertionError(f"tensor-core flash library: {counts}")
 
 
 # ---------------------------------------------------------------- bounds
@@ -327,24 +354,58 @@ def flash_work(q, causal, backward):
     return 4 * tensor + lse, 4 * d * pairs
 
 
-def flash_case(timer, q, k, v, do, causal=True):
-    """Forward and backward kernels against their plain versions on
-    (q, k, v, dO), timed beside the plain versions and beside
-    ``scaled_dot_product_attention`` and its autograd backward; returns
-    the forward's and the backward's measurements."""
+def flash_counts():
+    """(total, tensor-core, CUDA-core) launches of the flash wrappers."""
+    from paddle_tpu_torch.ops import flash_attention as fa
+    return [(w.launches, w.tc_launches, w.core_launches)
+            for w in (fa.flash_attention_fwd, fa.flash_attention_bwd)]
+
+
+def unaligned(t):
+    """A contiguous copy of ``t`` whose base lies one element past a
+    16-byte boundary: TMA cannot read it, so the wrappers send it to the
+    CUDA-core kernels."""
+    buf = torch.empty(t.numel() + 1, dtype=t.dtype, device=t.device)
+    return buf[1:].view(t.shape).copy_(t)
+
+
+def flash_check(q, k, v, do, causal, route):
+    """Forward and backward kernels against their plain versions on (q, k,
+    v, dO); each wrapper must count the call once, on ``route``. Returns
+    the forward's and the backward's max |error| and the forward's (o,
+    lse)."""
     from paddle_tpu_torch.ops import flash_attention as fa
     dtype = q.dtype
+    before = flash_counts()
     o, lse = fa.flash_attention_fwd(q, k, v, causal)
     grads = fa.flash_attention_bwd(q, k, v, o, lse, do, causal)
     torch.cuda.synchronize()
+    moved = [tuple(a - b for a, b in zip(x, y))
+             for x, y in zip(flash_counts(), before)]
+    step = (1, 1, 0) if route == "tc" else (1, 0, 1)
+    if moved != [step, step]:
+        raise AssertionError(f"flash {dtype} {tuple(q.shape)}: counts moved "
+                             f"{moved}, expected {step} on the {route} route")
     want_o, want_lse = fa.flash_attention_fwd_plain(q, k, v, causal)
-    err_f = max(check_close("flash forward o", o, want_o, dtype),
-                check_close("flash forward lse", lse, want_lse,
+    err_f = max(check_close(f"flash {route} forward o", o, want_o, dtype),
+                check_close(f"flash {route} forward lse", lse, want_lse,
                             torch.float32))
     want = fa.flash_attention_bwd_plain(q, k, v, o, lse, do, causal)
-    err_b = max(check_close(f"flash backward d{n}", g, w, dtype)
+    err_b = max(check_close(f"flash {route} backward d{n}", g, w, dtype)
                 for n, g, w in zip("qkv", grads, want))
-    del want_o, want_lse, want
+    return err_f, err_b, o, lse
+
+
+def flash_case(timer, q, k, v, do, causal=True, route="tc", core=False):
+    """Forward and backward kernels of ``route`` against their plain
+    versions on (q, k, v, dO), timed beside the plain versions and beside
+    ``scaled_dot_product_attention`` and its autograd backward; with
+    ``core``, the same operands at an unaligned base through the CUDA-core
+    kernels too, checked and timed (``core_ms``). Returns the forward's
+    and the backward's measurements."""
+    from paddle_tpu_torch.ops import flash_attention as fa
+    dtype = q.dtype
+    err_f, err_b, o, lse = flash_check(q, k, v, do, causal, route)
     sdpa = torch.nn.functional.scaled_dot_product_attention
     qt, kt, vt, dot = (t.transpose(1, 2).contiguous() for t in (q, k, v, do))
     qg, kg, vg = (t.requires_grad_() for t in (qt, kt, vt))
@@ -363,6 +424,15 @@ def flash_case(timer, q, k, v, do, causal=True):
                q, k, v, o, lse, do, causal), reps=5, warmup=1),
            "library_ms": timer.ms(lambda: torch.autograd.grad(
                out, (qg, kg, vg), dot, retain_graph=True))}
+    del out, qt, kt, vt, dot, qg, kg, vg
+    if core:
+        qc, kc, vc, doc = (unaligned(t) for t in (q, k, v, do))
+        fwd["core_err"], bwd["core_err"], oc, lc = flash_check(
+            qc, kc, vc, doc, causal, "cuda_core")
+        fwd["core_ms"] = timer.ms(lambda: fa.flash_attention_fwd(
+            qc, kc, vc, causal))
+        bwd["core_ms"] = timer.ms(lambda: fa.flash_attention_bwd(
+            qc, kc, vc, oc, lc, doc, causal))
     for row, backward in ((fwd, False), (bwd, True)):
         row["bound_ms"], row["bound_by"] = bound(
             *flash_work(q, causal, backward), dtype)
@@ -438,10 +508,14 @@ def adamw_case(timer, p, g, m, v, low, lr, beta1, beta2, eps, wd, step):
 
 
 def fmt(row):
-    return (f"max_abs_err {row['max_abs_err']:.3e} kernel_ms "
-            f"{row['ms']:.4f} plain_ms {row['plain_ms']:.4f} library_ms "
-            f"{row['library_ms']:.4f} bound_ms {row['bound_ms']:.4f} "
+    line = (f"max_abs_err {row['max_abs_err']:.3e} kernel_ms "
+            f"{row['ms']:.5f} plain_ms {row['plain_ms']:.4f} library_ms "
+            f"{row['library_ms']:.5f} bound_ms {row['bound_ms']:.5f} "
             f"({row['bound_by']})")
+    if "core_ms" in row:
+        line += (f"; CUDA-core route on the same operands: max_abs_err "
+                 f"{row['core_err']:.3e} kernel_ms {row['core_ms']:.5f}")
+    return line
 
 
 def phase_train_kernels(device, timer):
@@ -452,20 +526,26 @@ def phase_train_kernels(device, timer):
                                     generator=gen)).to(dtype)
 
     main = {}          # the train path's shapes and dtypes, for the kernels line
+    for dtype, seq, d, route in (
+            (torch.float32, SEQ, 64, "cuda_core"),
+            (torch.float32, 1000, 64, "cuda_core"),
+            (torch.bfloat16, SEQ, 64, "tc"),
+            (torch.bfloat16, 1000, 64, "tc"),
+            (torch.bfloat16, SEQ, 128, "tc")):
+        q, k, v, do = (randn(BATCH, seq, 12, d, dtype=dtype)
+                       for _ in range(4))
+        fwd, bwd = flash_case(timer, q, k, v, do, route=route,
+                              core=route == "tc" and d == 64)
+        if seq == SEQ and d == 64:
+            tail = "" if dtype == torch.bfloat16 else "_f32"
+            main["flash_attention_fwd" + tail] = fwd
+            main["flash_attention_bwd" + tail] = bwd
+        shape = f"{str(dtype)[6:]} [{BATCH}, {seq}, 12, {d}] causal"
+        log(f"K4/K5 flash_attention_fwd {route} route {shape} {fmt(fwd)}")
+        log(f"K6/K7 flash_attention_bwd {route} route {shape} {fmt(bwd)}")
+        del q, k, v, do
     for dtype in (torch.float32, torch.bfloat16):
         name = str(dtype)[6:]
-        for seq in (SEQ, 1000):
-            q, k, v, do = (randn(BATCH, seq, 12, 64, dtype=dtype)
-                           for _ in range(4))
-            fwd, bwd = flash_case(timer, q, k, v, do)
-            if dtype == torch.bfloat16 and seq == SEQ:
-                main["flash_attention_fwd"] = fwd
-                main["flash_attention_bwd"] = bwd
-            log(f"K4/K5 flash_attention_fwd {name} [{BATCH}, {seq}, 12, 64] "
-                f"causal {fmt(fwd)}")
-            log(f"K6/K7 flash_attention_bwd {name} [{BATCH}, {seq}, 12, 64] "
-                f"causal {fmt(bwd)}")
-            del q, k, v, do
         x = randn(BATCH * SEQ, 768, dtype=dtype)
         w = (1 + randn(768, scale=0.1)).to(dtype)
         g = randn(BATCH * SEQ, 768, dtype=dtype)
@@ -540,7 +620,8 @@ def profile_engine(eng, rng, vocab):
 
 
 def device_time_report(what, prof, wall_ms, steps):
-    """Device time by kernel over a profiled window, and the idle share."""
+    """Device time by kernel over a profiled window (the 15 largest and
+    every hand-written kernel), and the idle share."""
     from torch.autograd import DeviceType
     kernels = [(ev.self_device_time_total / 1e3, ev.count, ev.key)
                for ev in prof.key_averages()
@@ -550,7 +631,12 @@ def device_time_report(what, prof, wall_ms, steps):
     log(f"profile {what}: {steps} steps in {wall_ms:.3f} ms wall, device "
         f"busy {busy:.3f} ms, idle share {1 - busy / wall_ms:.4f}, "
         f"{busy / steps:.4f} device ms per step")
-    for ms, n, name in sorted(kernels, reverse=True)[:15]:
+    ranked = sorted(kernels, reverse=True)
+    # the top 15, then the port's own kernels (csrc/*.cu keeps them in an
+    # anonymous namespace at the top level) below them
+    shown = ranked[:15] + [k for k in ranked[15:]
+                           if k[2].startswith("void (anonymous namespace)::")]
+    for ms, n, name in shown:
         log(f"  {ms:10.3f} ms {ms / busy:7.2%} {n:7d} calls "
             f"{ms / steps:8.4f} ms/step  {name[:90]}")
 
@@ -848,6 +934,29 @@ def expected_launches(n_layers, n_tensors):
             "fused_adamw": n_tensors}
 
 
+def reset_counts(counters):
+    """Every launch count of the wrappers to 0 (the flash wrappers' per-route
+    counts too)."""
+    for fn in counters.values():
+        for attr in ("launches", "tc_launches", "core_launches"):
+            if hasattr(fn, attr):
+                setattr(fn, attr, 0)
+
+
+def check_flash_route(what, counters, route):
+    """Every flash launch since the counts were set to 0 took ``route``."""
+    for name in ("flash_attention_fwd", "flash_attention_bwd"):
+        fn = counters[name]
+        on = fn.tc_launches if route == "tc" else fn.core_launches
+        if not (fn.launches > 0 and on == fn.launches
+                and fn.tc_launches + fn.core_launches == fn.launches):
+            raise AssertionError(
+                f"{what}: {name} launched {fn.launches} times, "
+                f"{fn.tc_launches} on the tensor-core route and "
+                f"{fn.core_launches} on the CUDA-core route; all should "
+                f"be {route}")
+
+
 def check_launches(what, launches, per_step, steps):
     want = {k: v * steps for k, v in per_step.items()}
     if launches != want:
@@ -957,8 +1066,7 @@ def phase_train(device, profile=False):
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     counters = train_counters()
-    for fn in counters.values():
-        fn.launches = 0
+    reset_counts(counters)
     rec = Record()
     t0 = time.perf_counter()
     fit(ids[split:], labels[split:], [rec])
@@ -972,6 +1080,7 @@ def phase_train(device, profile=False):
     check_launches("train", launches,
                    expected_launches(cfg.num_hidden_layers, n_tensors),
                    TIMED_STEPS)
+    check_flash_route("train", counters, "tc")
     step_ms = np.diff([t0] + rec.stamps) * 1e3
     log(f"train: GPT-2 small ({n_params} parameters in {n_tensors} "
         f"tensors), bf16 O2, AdamW multi_precision, batch {BATCH} x {SEQ}, "
@@ -1026,8 +1135,7 @@ def phase_f32_check(device):
     counters = train_counters()
     out = {}
     for where, (net, dev) in nets.items():      # the card's run last
-        for fn in counters.values():
-            fn.launches = 0
+        reset_counts(counters)
         opt = AdamW(LR, parameters=net.named_parameters(), weight_decay=WD)
         ids, labels = (torch.from_numpy(a).to(dev)
                        for a in (tokens[:, :-1], tokens[:, 1:]))
@@ -1043,6 +1151,7 @@ def phase_f32_check(device):
         launches = {name: fn.launches for name, fn in counters.items()}
     check_launches("float32 step on the card", launches,
                    expected_launches(2, len(out["cpu"][1])), 1)
+    check_flash_route("float32 step on the card", counters, "cuda_core")
     (l_cpu, g_cpu, p_cpu), (l_gpu, g_gpu, p_gpu) = out["cpu"], out["card"]
     if not abs(l_gpu - l_cpu) <= 1e-5 * abs(l_cpu):
         raise AssertionError(f"float32 loss {l_gpu} on the card, {l_cpu} "
@@ -1073,7 +1182,9 @@ def phase_f32_check(device):
         f"step, card vs CPU): loss {l_gpu:.6f} vs {l_cpu:.6f}, worst "
         f"gradient error {worst_g:.3e} of its tensor's largest, updated "
         f"parameters max diff {worst_p:.3e}, {off} of {total} elements "
-        f"off by > 1e-6; launches {json.dumps(launches)}")
+        f"off by > 1e-6; launches {json.dumps(launches)}, flash on the "
+        f"CUDA-core route")
+    return launches
 
 
 def check_train_operands(cap):
@@ -1124,18 +1235,27 @@ def check_train_operands(cap):
     return err
 
 
-def train_rows(launches, main):
+def train_rows(launches, f32_launches, main):
     """The kernels line's rows of the training kernels: the train path's
-    launches and the phase-2 measurements at its shapes and dtypes."""
+    launches and the phase-2 measurements at its shapes and dtypes; the
+    ``_f32`` flash rows, the CUDA-core kernels, the float32 step's
+    launches and phase 2's float32 case."""
     rows = []
-    for name, src, tpu in (
-            ("flash_attention_fwd", FA_SRC, FA_FWD_TPU),
-            ("flash_attention_bwd", FA_SRC, FA_BWD_TPU),
-            ("fused_layer_norm_bwd", LN_SRC, LN_BWD_TPU),
-            ("fused_adamw", ADAMW_SRC, ADAMW_TPU)):
+    for name, src, tpu, count in (
+            ("flash_attention_fwd", FA_TC_SRC, FA_FWD_TPU,
+             launches["flash_attention_fwd"]),
+            ("flash_attention_bwd", FA_TC_SRC, FA_BWD_TPU,
+             launches["flash_attention_bwd"]),
+            ("flash_attention_fwd_f32", FA_SRC, FA_FWD_TPU,
+             f32_launches["flash_attention_fwd"]),
+            ("flash_attention_bwd_f32", FA_SRC, FA_BWD_TPU,
+             f32_launches["flash_attention_bwd"]),
+            ("fused_layer_norm_bwd", LN_SRC, LN_BWD_TPU,
+             launches["fused_layer_norm_bwd"]),
+            ("fused_adamw", ADAMW_SRC, ADAMW_TPU, launches["fused_adamw"])):
         row = main[name]
         rows.append({"name": name, "route": "cuda", "source": src,
-                     "replaces": tpu, "launches": launches[name],
+                     "replaces": tpu, "launches": count,
                      "max_abs_err": row["max_abs_err"], "ms": row["ms"],
                      "plain_ms": row["plain_ms"],
                      "bound_ms": row["bound_ms"],
@@ -1167,6 +1287,7 @@ def main() -> int:
         f"{torch.cuda.get_device_name(0)} x{torch.cuda.device_count()}")
     log(f"kernel build: {_build.build_all():.2f} s for {len(_build.SOURCES)} "
         f"sources into {_build.build_dir()}")
+    sass_check()
     timer = Timer(device)
     phase_kernels(device, timer)
     phase_quant_kernel(device, timer)
@@ -1177,7 +1298,7 @@ def main() -> int:
         model, prompts, outs, bf16_stats, profile)
     del model
     train_launches, train_cap = phase_train(device, profile)
-    phase_f32_check(device)
+    f32_launches = phase_f32_check(device)
     kernels = report_engine(device, timer, launches, captured,
                             quant_launches, quant_captured)
     # the LayerNorm forward runs on every path: its count is the sum
@@ -1185,7 +1306,7 @@ def main() -> int:
     ln_row["launches"] += quant_launches["fused_layer_norm"] \
         + train_launches["fused_layer_norm"]
     check_train_operands(train_cap)
-    kernels += train_rows(train_launches, train_main)
+    kernels += train_rows(train_launches, f32_launches, train_main)
     for k in kernels:
         for key, v in k.items():
             if isinstance(v, float) and not math.isfinite(v):

@@ -35,11 +35,13 @@
 // between CTAs and nothing needs atomics. Causal CTAs skip tiles wholly
 // above the diagonal, and the longest q tiles are scheduled first.
 //
-// Bound: at the GPT-2 training shape ([8, 1024, 12, 64] bf16, causal) the
-// forward moves ~50 MB and does ~13 GFLOP, so on the card's tensor cores
-// the two bounds are close. This kernel runs its products on CUDA cores
-// (67 TFLOP/s f32 peak), so it is compute-bound by design and far from
-// both bounds; wgmma tiles are the next step (ROADMAP).
+// Bound: at the GPT-2 training shape ([8, 1024, 12, 64], causal) the
+// forward moves ~50 MB and does ~13 GFLOP. This kernel runs its products
+// on CUDA cores (67 TFLOP/s f32 peak), so it is compute-bound by design.
+// bfloat16 at head widths 64 and 128 with 16-byte-aligned bases runs
+// flash_attention_sm90.cu's tensor-core kernels instead
+// (ops/flash_attention.py chooses); these take float32, where the f32
+// products keep the float32 step within 1e-3 of the CPU, and the rest.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>

@@ -3,10 +3,11 @@
 Each ``csrc/<name>.cu`` exports a plain C interface (no PyTorch headers,
 so a build takes seconds, not minutes) and compiles on its own into
 ``build/paddle_tpu_torch/<name>-<hash>.so`` at the root of the checkout,
-where ``<hash>`` covers the source text and the compiler flags: an
-edited source rebuilds, an unchanged one loads the library already
-there. ``PADDLE_TPU_TORCH_BUILD_DIR`` moves the build directory (an
-installed package has no checkout root to build into).
+where ``<hash>`` covers the source text, the text of every shared header
+``csrc/*.cuh`` and the compiler flags: an edited source or header
+rebuilds, an unchanged one loads the library already there.
+``PADDLE_TPU_TORCH_BUILD_DIR`` moves the build directory (an installed
+package has no checkout root to build into).
 
 :func:`build_all` starts one ``nvcc`` per source at once and waits for
 all of them, so a cold start costs the slowest build, not their sum.
@@ -36,7 +37,8 @@ __all__ = ["NVCC_FLAGS", "SOURCES", "DTYPE_CODE", "build_all", "load",
 _CSRC = Path(__file__).resolve().parent.parent / "csrc"
 
 #: kernel sources, one shared library each
-SOURCES = ("ragged_paged_attention", "layer_norm", "flash_attention", "adamw")
+SOURCES = ("ragged_paged_attention", "layer_norm", "flash_attention",
+           "flash_attention_sm90", "adamw")
 
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC")
@@ -66,8 +68,10 @@ def _nvcc() -> str:
 
 
 def _target(name: str) -> Path:
-    src = (_CSRC / f"{name}.cu").read_bytes()
-    digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode())
+    digest = hashlib.sha256((_CSRC / f"{name}.cu").read_bytes())
+    for header in sorted(_CSRC.glob("*.cuh")):   # any source may include one
+        digest.update(header.name.encode() + header.read_bytes())
+    digest.update(" ".join(NVCC_FLAGS).encode())
     return build_dir() / f"{name}-{digest.hexdigest()[:16]}.so"
 
 

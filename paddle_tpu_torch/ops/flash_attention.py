@@ -6,10 +6,19 @@ Replaces the Pallas TPU kernels of ``paddle_tpu/ops/pallas_kernels.py``:
 the streaming forward ``_fa_fwd_kernel`` (``_fa_call_fwd``) and its
 VMEM-resident twin (``_fa_call_fwd_resident``), and the backward pairs
 ``_fa_dq_kernel``/``_fa_dkv_kernel`` (``_fa_call_bwd``,
-``_fa_call_bwd_resident``). ``csrc/flash_attention.cu`` holds one
-forward kernel and one backward pair (a dQ kernel and a dK/dV kernel)
-for every length; the source says how they are built and what bounds
-them.
+``_fa_call_bwd_resident``). Two routes, each a forward kernel and a
+backward pair (a dQ kernel and a dK/dV kernel), both hand-written:
+
+- ``"tc"``, ``csrc/flash_attention_sm90.cu``: bfloat16 at head width 64
+  or 128 with 16-byte-aligned base pointers; products on the tensor
+  cores (``wgmma``), tiles loaded by TMA;
+- ``"cuda_core"``, ``csrc/flash_attention.cu``: everything else the
+  wrappers take (float32; bfloat16 at any other width up to 256 or an
+  unaligned base); products on CUDA cores in f32.
+
+:func:`flash_route` chooses from the operands, before the launch; a
+failed launch raises and is never retried on the other route. The
+sources say how the kernels are built and what bounds them.
 
 Layout ``[B, S, H, D]`` (the framework's attention layout), read in
 place by the kernels; the row log-sum-exp is ``[B, H, Sq]`` f32. Any
@@ -17,10 +26,11 @@ sequence length: ragged tails are masked, where the TPU kernels demanded
 ``S % block == 0``. ``D <= 256``.
 
 :func:`flash_attention_fwd` and :func:`flash_attention_bwd` take the
-plain versions only for tensors on the CPU. A CUDA tensor goes to the
+plain versions only for tensors on the CPU. A CUDA tensor goes to a
 kernel, or the call raises: there is no fallback. Each counts its
-kernel launches in ``.launches`` (the backward wrapper launches the dQ
-and dK/dV kernels together and counts one).
+kernel launches in ``.launches`` and, by route, in ``.tc_launches`` and
+``.core_launches`` (the backward wrapper launches the dQ and dK/dV
+kernels together and counts one).
 """
 from __future__ import annotations
 
@@ -33,12 +43,15 @@ from . import _build
 
 __all__ = ["flash_attention", "flash_attention_fwd", "flash_attention_bwd",
            "flash_attention_fwd_plain", "flash_attention_bwd_plain",
-           "attention_delta", "MAX_HEAD_DIM"]
+           "attention_delta", "flash_route", "flash_route_of", "MAX_HEAD_DIM",
+           "TC_HEAD_DIMS"]
 
 _NEG_INF = -1e30
 
 #: widest head the kernels tile (their shared-memory budget)
 MAX_HEAD_DIM = 256
+#: head widths of the tensor-core route (one or two 128-byte column blocks)
+TC_HEAD_DIMS = (64, 128)
 
 def _scale(q, scale):
     return float(scale) if scale is not None else 1.0 / math.sqrt(q.shape[-1])
@@ -122,9 +135,36 @@ def _check(q, k, v, *more):
         raise ValueError(f"batch * heads {b * h} exceeds the grid's 65535")
 
 
+def flash_route(dtype, head_dim, aligned):
+    """The route for operands of ``dtype`` and ``head_dim``, ``aligned``
+    when every base pointer is 16-byte aligned: ``"tc"`` (the tensor-core
+    kernels: bfloat16 at a width in ``TC_HEAD_DIMS``, tiles TMA can read)
+    or ``"cuda_core"`` (everything else that ``_check`` accepts)."""
+    if dtype == torch.bfloat16 and head_dim in TC_HEAD_DIMS and aligned:
+        return "tc"
+    return "cuda_core"
+
+
+def flash_route_of(q, *operands):
+    """:func:`flash_route` of q and the other operands a kernel reads
+    through tensor maps (k, v, and dO for the backward)."""
+    return flash_route(q.dtype, q.shape[-1],
+                       all(t.data_ptr() % 16 == 0 for t in (q,) + operands))
+
+
+def _count(wrapper, route):
+    wrapper.launches += 1
+    if route == "tc":
+        wrapper.tc_launches += 1
+    else:
+        wrapper.core_launches += 1
+
+
 _I, _P, _F = ctypes.c_int, ctypes.c_void_p, ctypes.c_float
 _FWD_ARGS = [_I] + [_P] * 5 + [_I] * 5 + [_F, _I, _P]
 _BWD_ARGS = [_I] + [_P] * 9 + [_I] * 5 + [_F, _I, _P]
+# the tensor-core route takes bfloat16 only, so no dtype argument
+_TC_FWD_ARGS, _TC_BWD_ARGS = _FWD_ARGS[1:], _BWD_ARGS[1:]
 
 
 def flash_attention_fwd(q, k, v, causal=False, scale=None):
@@ -138,15 +178,20 @@ def flash_attention_fwd(q, k, v, causal=False, scale=None):
     lse = torch.empty(b, h, sq, dtype=torch.float32, device=q.device)
     if o.numel() == 0 or k.shape[1] == 0:
         return o.zero_(), lse.fill_(_NEG_INF)
-    rc = _build.function("flash_attention", "fa_fwd_launch", _FWD_ARGS)(
-        _build.DTYPE_CODE[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(),
-        o.data_ptr(), lse.data_ptr(), b, h, sq, k.shape[1], d,
-        _scale(q, scale), int(bool(causal)),
-        torch.cuda.current_stream(q.device).cuda_stream)
+    route = flash_route_of(q, k, v)
+    args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+            lse.data_ptr(), b, h, sq, k.shape[1], d, _scale(q, scale),
+            int(bool(causal)), torch.cuda.current_stream(q.device).cuda_stream)
+    if route == "tc":
+        rc = _build.function("flash_attention_sm90", "fa_tc_fwd_launch",
+                             _TC_FWD_ARGS)(*args)
+    else:
+        rc = _build.function("flash_attention", "fa_fwd_launch", _FWD_ARGS)(
+            _build.DTYPE_CODE[q.dtype], *args)
     if rc != 0:
-        raise RuntimeError(f"flash attention forward kernel launch failed: "
-                           f"CUDA error {rc}")
-    flash_attention_fwd.launches += 1
+        raise RuntimeError(f"flash attention forward kernel ({route} route) "
+                           f"launch failed: CUDA error {rc}")
+    _count(flash_attention_fwd, route)
     return o, lse
 
 
@@ -164,21 +209,26 @@ def flash_attention_bwd(q, k, v, o, lse, do, causal=False, scale=None):
     if dq.numel() == 0 or dk.numel() == 0:
         return dq.zero_(), dk.zero_(), dv.zero_()
     delta = attention_delta(o, do)
-    rc = _build.function("flash_attention", "fa_bwd_launch", _BWD_ARGS)(
-        _build.DTYPE_CODE[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(),
-        do.data_ptr(), lse.data_ptr(), delta.data_ptr(), dq.data_ptr(),
-        dk.data_ptr(), dv.data_ptr(), b, h, sq, k.shape[1], d,
-        _scale(q, scale), int(bool(causal)),
-        torch.cuda.current_stream(q.device).cuda_stream)
+    route = flash_route_of(q, k, v, do)
+    args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
+            lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), dk.data_ptr(),
+            dv.data_ptr(), b, h, sq, k.shape[1], d, _scale(q, scale),
+            int(bool(causal)), torch.cuda.current_stream(q.device).cuda_stream)
+    if route == "tc":
+        rc = _build.function("flash_attention_sm90", "fa_tc_bwd_launch",
+                             _TC_BWD_ARGS)(*args)
+    else:
+        rc = _build.function("flash_attention", "fa_bwd_launch", _BWD_ARGS)(
+            _build.DTYPE_CODE[q.dtype], *args)
     if rc != 0:
-        raise RuntimeError(f"flash attention backward kernel launch failed: "
-                           f"CUDA error {rc}")
-    flash_attention_bwd.launches += 1
+        raise RuntimeError(f"flash attention backward kernels ({route} "
+                           f"route) launch failed: CUDA error {rc}")
+    _count(flash_attention_bwd, route)
     return dq, dk, dv
 
 
-flash_attention_fwd.launches = 0
-flash_attention_bwd.launches = 0
+for _wrapper in (flash_attention_fwd, flash_attention_bwd):
+    _wrapper.launches = _wrapper.tc_launches = _wrapper.core_launches = 0
 
 
 class _FlashAttention(torch.autograd.Function):

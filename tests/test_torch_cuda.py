@@ -327,3 +327,86 @@ def test_adamw_rejects_a_bf16_parameter_with_an_f32_gradient(cuda):
     with pytest.raises(TypeError, match="bfloat16 p takes a bfloat16 g"):
         adamw.fused_adamw_(p, g, m, v, lr=1e-3, beta1=0.9, beta2=0.999,
                            eps=1e-8, weight_decay=0.0, step=1)
+
+
+_FLASH = (fa.flash_attention_fwd, fa.flash_attention_bwd)
+
+
+def _route_counts():
+    return [(w.launches, w.tc_launches, w.core_launches) for w in _FLASH]
+
+
+def _flash_route_matches_plain(q, k, v, do, causal, route):
+    """One forward and one backward call against the plain versions at
+    ``TOL[q.dtype]`` (the LSE at float32's); each wrapper counts the call
+    once, in its total and on ``route``, and the other route not at all.
+    Returns the backward's gradients."""
+    before = _route_counts()
+    o, lse = fa.flash_attention_fwd(q, k, v, causal)
+    grads = fa.flash_attention_bwd(q, k, v, o, lse, do, causal)
+    torch.cuda.synchronize()
+    step = (1, 1, 0) if route == "tc" else (1, 0, 1)
+    assert _route_counts() == [tuple(a + s for a, s in zip(counts, step))
+                               for counts in before]
+    want_o, want_lse = fa.flash_attention_fwd_plain(q, k, v, causal)
+    torch.testing.assert_close(o.float(), want_o.float(), **TOL[q.dtype])
+    torch.testing.assert_close(lse, want_lse, **TOL[torch.float32])
+    want = fa.flash_attention_bwd_plain(q, k, v, o, lse, do, causal)
+    for name, got, ref in zip("qkv", grads, want):
+        assert got.dtype == q.dtype, name
+        torch.testing.assert_close(got.float(), ref.float(), **TOL[q.dtype],
+                                   msg=lambda m: f"d{name}: {m}")
+    return grads
+
+
+@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("seq", [64, 100, 1000, 1024])
+@pytest.mark.parametrize("causal", [False, True])
+def test_flash_tensor_core_route_matches_plain(cuda, d, seq, causal):
+    g = torch.Generator(device=cuda).manual_seed(seq + d)
+    q, k, v, do = (_randn(g, 2, seq, 3, d, dtype=torch.bfloat16)
+                   for _ in range(4))
+    _flash_route_matches_plain(q, k, v, do, causal, "tc")
+
+
+@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("sq, sk", [(100, 1000), (1024, 64), (64, 100)])
+def test_flash_tensor_core_route_cross_lengths(cuda, d, sq, sk):
+    """Sq != Sk, not causal: the q side and the k side tile separately."""
+    g = torch.Generator(device=cuda).manual_seed(sq * sk + d)
+    q, do = (_randn(g, 2, sq, 3, d, dtype=torch.bfloat16) for _ in range(2))
+    k, v = (_randn(g, 2, sk, 3, d, dtype=torch.bfloat16) for _ in range(2))
+    _flash_route_matches_plain(q, k, v, do, False, "tc")
+
+
+@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("causal", [False, True])
+def test_flash_tensor_core_route_over_many_waves(cuda, d, causal):
+    """batch * heads = 192, more CTAs per q or k tile than the card's 132
+    SMs; the backward gives the same bits on a second run."""
+    g = torch.Generator(device=cuda).manual_seed(d)
+    q, k, v, do = (_randn(g, 4, 256, 48, d, dtype=torch.bfloat16)
+                   for _ in range(4))
+    grads = _flash_route_matches_plain(q, k, v, do, causal, "tc")
+    o, lse = fa.flash_attention_fwd(q, k, v, causal)
+    again = fa.flash_attention_bwd(q, k, v, o, lse, do, causal)
+    assert all(torch.equal(a, b) for a, b in zip(grads, again))
+
+
+@pytest.mark.parametrize("dtype, d", [(torch.bfloat16, 32),
+                                      (torch.float32, 64)])
+def test_flash_cuda_core_route_takes_what_wgmma_does_not(cuda, dtype, d):
+    g = torch.Generator(device=cuda).manual_seed(d)
+    q, k, v, do = (_randn(g, 2, 100, 3, d, dtype=dtype) for _ in range(4))
+    _flash_route_matches_plain(q, k, v, do, True, "cuda_core")
+
+
+def test_flash_cuda_core_route_takes_an_unaligned_base(cuda):
+    """A contiguous bf16 view 2 bytes off a 16-byte boundary, which TMA
+    cannot read, goes to the CUDA-core kernels."""
+    g = torch.Generator(device=cuda).manual_seed(7)
+    shape, n = (2, 100, 3, 64), 2 * 100 * 3 * 64
+    q, k, v, do = (_randn(g, n + 1, dtype=torch.bfloat16)[1:].view(shape)
+                   for _ in range(4))
+    assert q.is_contiguous() and q.data_ptr() % 16 != 0
+    _flash_route_matches_plain(q, k, v, do, True, "cuda_core")
