@@ -19,8 +19,12 @@ prints no result line):
    (flash attention at [8, 1024, 12, 64] and at the ragged length 1000,
    causal, on both routes: bfloat16 on the tensor-core kernels, also at
    head_dim 128, float32 and the same bfloat16 operands at an unaligned
-   base on the CUDA-core kernels; the LayerNorm backward at [8192, 768];
-   AdamW on a [50304, 768] parameter);
+   base on the CUDA-core kernels; the LayerNorm forward and backward at
+   [8192, 768]; AdamW on a [50304, 768] parameter). Each LayerNorm case
+   runs on the warp-row kernels and, on the same operands at an unaligned
+   base, on the CTA-per-row kernels, checked and timed on both; and both
+   LayerNorm routes are held against the plain versions at D 1, 768,
+   1024, 1600, 2049 and 16384 by 1, 7, 300 and 8192 rows in both dtypes;
 3. engine: GPT-2 small (124M width, random weights from a seed, bf16)
    served through ``GenerationEngine(kv_layout="paged",
    attention="fused")`` — 16 concurrent requests with a chunked long
@@ -39,10 +43,12 @@ prints no result line):
    in 8 chunks (``bench.py``'s ``bench_gpt2`` configuration), through
    ``Model.fit``: 2 warm-up steps, then 8 timed steps with every training
    kernel's launch count read around them, every flash launch on the
-   tensor-core route; the same batch repeated must lower the loss; one
-   float32 step of GPT-2 width at 2 layers on the card (kernels, flash on
-   the CUDA-core route) against a CPU copy of the same weights (plain
-   versions): loss, every gradient and every updated parameter;
+   tensor-core route and every LayerNorm launch on the warp-row route (as
+   in each engine run of phase 3); the same batch repeated must lower the
+   loss; one float32 step of GPT-2 width at 2 layers on the card
+   (kernels, flash on the CUDA-core route) against a CPU copy of the same
+   weights (plain versions): loss, every gradient and every updated
+   parameter;
 5. real operands: the layer-0 operands of one real step of each path
    through kernel and plain: the engine's attention rows (float, int8
    and fp8 pools) and LayerNorm input, timed; the training step's
@@ -54,10 +60,12 @@ prints no result line):
    last the ``{"ok": true, "device": ...}`` line. The training kernels'
    errors and times in it come from phase 2 at the train path's shapes
    and dtypes (flash bf16 [8, 1024, 12, 64] causal, the LayerNorm
-   backward f32 [8192, 768], AdamW with an f32 master and a bf16
-   gradient and copy), their launches from phase 4; the ``_f32`` flash
-   rows (the CUDA-core kernels) take phase 2's float32 flash case and
-   the float32 step's launches.
+   forward (``fused_layer_norm_train``) and backward f32 [8192, 768],
+   AdamW with an f32 master and a bf16 gradient and copy), their
+   launches from phase 4; the ``fused_layer_norm`` row times the
+   engine's widest step's rows and counts the three engine runs; the
+   ``_f32`` flash rows (the CUDA-core kernels) take phase 2's float32
+   flash case and the float32 step's launches.
 
 ``--profile`` adds one more batch to the bf16 and the int8 engines and
 two more train steps under torch.profiler and prints device time by
@@ -298,8 +306,6 @@ def phase_quant_kernel(device, timer):
 
 
 def phase_kernels(device, timer):
-    from paddle_tpu_torch.ops.layer_norm import (fused_layer_norm,
-                                                 layer_norm_plain)
     from paddle_tpu_torch.ops.ragged_paged_attention import (
         ragged_paged_attention, ragged_paged_attention_plain)
     rng = np.random.RandomState(SEED)
@@ -322,20 +328,9 @@ def phase_kernels(device, timer):
             x = torch.randn(rows, 768, device=device).to(dtype)
             w = (1 + 0.1 * torch.randn(768, device=device)).to(dtype)
             b = (0.1 * torch.randn(768, device=device)).to(dtype)
-            got = fused_layer_norm(x, w, b)
-            torch.cuda.synchronize()
-            err = check_close(f"fused_layer_norm {dtype} rows={rows}", got,
-                              layer_norm_plain(x, w, b), dtype)
-            ms = timer.ms(lambda: fused_layer_norm(x, w, b))
-            plain = timer.ms(lambda: layer_norm_plain(x, w, b))
-            lib = timer.ms(lambda: torch.nn.functional.layer_norm(
-                x, (768,), w, b, 1e-5))
-            e = x.element_size()
-            bnd = bound(2 * rows * 768 * e + 2 * 768 * e, 7 * rows * 768,
-                        dtype)[0]
+            row = ln_fwd_case(timer, x, w, b)
             log(f"K2 fused_layer_norm {str(dtype)[6:]} [{rows}, 768] "
-                f"max_abs_err {err:.3e} kernel_ms {ms:.4f} plain_ms "
-                f"{plain:.4f} library_ms {lib:.4f} bound_ms {bnd:.4f}")
+                f"{fmt(row)}")
 
 
 # ---------------------------------------------------------------- phase 2: training kernels
@@ -367,6 +362,114 @@ def unaligned(t):
     CUDA-core kernels."""
     buf = torch.empty(t.numel() + 1, dtype=t.dtype, device=t.device)
     return buf[1:].view(t.shape).copy_(t)
+
+
+def ln_call(fn, route, *args):
+    """``fn(*args)`` for a LayerNorm wrapper, which must count the call
+    once, in its total and on ``route``."""
+    counts = ("launches", "warp_launches", "row_launches")
+    before = [getattr(fn, c) for c in counts]
+    out = fn(*args)
+    torch.cuda.synchronize()
+    moved = tuple(getattr(fn, c) - b for c, b in zip(counts, before))
+    if moved != ((1, 1, 0) if route == "warp" else (1, 0, 1)):
+        raise AssertionError(f"{fn.__name__}: counts moved {moved}, expected "
+                             f"one launch on the {route} route")
+    return out
+
+
+def ln_fwd_case(timer, x, w, b):
+    """The LayerNorm forward on the warp-row route against its plain
+    version on [rows, D] operands, timed beside ``F.layer_norm``; the same
+    operands at an unaligned base through the row route, checked and timed
+    too (``row_ms``)."""
+    from paddle_tpu_torch.ops import layer_norm as ln
+    dtype = x.dtype
+    rows, d = x.shape
+    want = ln.layer_norm_plain(x, w, b)
+    xu = unaligned(x)
+    err = {route: check_close(
+        f"fused_layer_norm {route} route {dtype} [{rows}, {d}]",
+        ln_call(ln.fused_layer_norm, route, xr, w, b), want, dtype)
+        for route, xr in (("warp", x), ("row", xu))}
+    e = x.element_size()
+    row = {"max_abs_err": err["warp"], "row_err": err["row"],
+           "ms": timer.ms(lambda: ln.fused_layer_norm(x, w, b)),
+           "row_ms": timer.ms(lambda: ln.fused_layer_norm(xu, w, b)),
+           "plain_ms": timer.ms(lambda: ln.layer_norm_plain(x, w, b)),
+           "library_ms": timer.ms(lambda: torch.nn.functional.layer_norm(
+               x, (d,), w, b, 1e-5))}
+    # x read and y written, w and b read
+    row["bound_ms"], row["bound_by"] = bound(
+        2 * rows * d * e + 2 * d * e, 7 * rows * d, dtype)
+    return row
+
+
+def ln_bwd_check(x, w, g, route, want):
+    """The LayerNorm backward on ``route`` against ``want`` (the plain
+    version's dx, dw, db); a second call must give the same bits. dw and
+    db sum over every row: they take rtol 1e-5 beside the atol."""
+    from paddle_tpu_torch.ops import layer_norm as ln
+    dtype = x.dtype
+    got = ln_call(ln.fused_layer_norm_bwd, route, x, w, g)
+    again = ln.fused_layer_norm_bwd(x, w, g)
+    torch.cuda.synchronize()
+    sums = (TOL[dtype][0], max(TOL[dtype][1], 1e-5))
+    err = 0.0
+    for n, a, a2, ref in zip(("dx", "dw", "db"), got, again, want):
+        if not torch.equal(a, a2):
+            raise AssertionError(f"LayerNorm backward {route} route {n}: "
+                                 f"another call, other bits")
+        err = max(err, check_close(
+            f"LayerNorm backward {route} route {dtype} {tuple(x.shape)} {n}",
+            a, ref, dtype, None if n == "dx" else sums))
+    return err
+
+
+def phase_ln_routes(device):
+    """Both routes of both LayerNorm kernels against their plain versions
+    at widths on both sides of the route boundary (1, GPT-2's 768, 1024
+    and 1600, 2049, and the widest, 16384) and 1, 7, 300 and 8192 rows, in
+    float32 and bfloat16: aligned operands take the warp-row route where
+    it applies, unaligned ones the row route; dw/db repeat their bits."""
+    from paddle_tpu_torch.ops import layer_norm as ln
+    gen = torch.Generator(device=device).manual_seed(SEED + 5)
+
+    def randn(*shape, dtype, scale=1.0):
+        return (scale * torch.randn(*shape, device=device,
+                                    generator=gen)).to(dtype)
+
+    worst, cases = {}, 0
+    for d in (1, 768, 1024, 1600, 2049, 16384):
+        for rows in (1, 7, 300, 8192):
+            for dtype in (torch.float32, torch.bfloat16):
+                x, g = (randn(rows, d, dtype=dtype) for _ in range(2))
+                w = (1 + randn(d, dtype=torch.float32, scale=0.1)).to(dtype)
+                b = randn(d, dtype=dtype, scale=0.1)
+                y_want = ln.layer_norm_plain(x, w, b)
+                bwd_want = ln.layer_norm_bwd_plain(x, w, g)
+                fits = d <= ln.WARP_MAX_D and d * x.element_size() % 16 == 0
+                for xs, gs, route in (
+                        (x, g, "warp" if fits else "row"),
+                        (unaligned(x), unaligned(g), "row")):
+                    if ln.ln_route(xs, w, b) != route:
+                        raise AssertionError(f"LayerNorm {dtype} D={d}: "
+                                             f"route {ln.ln_route(xs, w, b)}"
+                                             f", expected {route}")
+                    err = check_close(
+                        f"fused_layer_norm {route} route {dtype} "
+                        f"[{rows}, {d}]",
+                        ln_call(ln.fused_layer_norm, route, xs, w, b),
+                        y_want, dtype)
+                    err = max(err, ln_bwd_check(xs, w, gs, route, bwd_want))
+                    key = f"{route} {str(dtype)[6:]}"
+                    worst[key] = max(worst.get(key, 0.0), err)
+                    cases += 1
+                del x, g, y_want, bwd_want
+    log(f"LayerNorm routes vs plain: {cases} cases (forward and backward "
+        f"each), D 1/768/1024/1600/2049/16384 x rows 1/7/300/8192 x "
+        f"f32/bf16, aligned and unaligned; dw/db repeat their bits; max "
+        f"abs err by route: " + json.dumps(worst))
 
 
 def flash_check(q, k, v, do, causal, route):
@@ -440,24 +543,23 @@ def flash_case(timer, q, k, v, do, causal=True, route="tc", core=False):
 
 
 def ln_bwd_case(timer, x, w, g):
-    """The LayerNorm backward kernel against its plain version on
-    [rows, D] operands, timed beside aten's ``native_layer_norm_backward``.
-    dw and db sum over every row: they take rtol 1e-5 beside the atol."""
+    """The LayerNorm backward kernel on the warp-row route against its
+    plain version on [rows, D] operands, timed beside aten's
+    ``native_layer_norm_backward``; the same operands at an unaligned base
+    through the row route, checked and timed too (``row_ms``)."""
     from paddle_tpu_torch.ops import layer_norm as ln
     dtype = x.dtype
     rows, d = x.shape
-    got = ln.fused_layer_norm_bwd(x, w, g)
-    torch.cuda.synchronize()
     want = ln.layer_norm_bwd_plain(x, w, g)
-    sums = (TOL[dtype][0], max(TOL[dtype][1], 1e-5))
-    err = max(check_close(f"LayerNorm backward {n}", a, b, dtype,
-                          None if n == "dx" else sums)
-              for n, a, b in zip(("dx", "dw", "db"), got, want))
+    xu, gu = unaligned(x), unaligned(g)
+    err = ln_bwd_check(x, w, g, "warp", want)
+    row_err = ln_bwd_check(xu, w, gu, "row", want)
     b = torch.zeros_like(w)
     _, mean, rstd = torch.ops.aten.native_layer_norm(x, [d], w, b, 1e-5)
     e = x.element_size()
-    row = {"max_abs_err": err,
+    row = {"max_abs_err": err, "row_err": row_err,
            "ms": timer.ms(lambda: ln.fused_layer_norm_bwd(x, w, g)),
+           "row_ms": timer.ms(lambda: ln.fused_layer_norm_bwd(xu, w, gu)),
            "plain_ms": timer.ms(lambda: ln.layer_norm_bwd_plain(x, w, g)),
            "library_ms": timer.ms(
                lambda: torch.ops.aten.native_layer_norm_backward(
@@ -515,6 +617,10 @@ def fmt(row):
     if "core_ms" in row:
         line += (f"; CUDA-core route on the same operands: max_abs_err "
                  f"{row['core_err']:.3e} kernel_ms {row['core_ms']:.5f}")
+    if "row_ms" in row:
+        line += (f"; row route (the CTA-per-row kernels) on the same "
+                 f"operands: max_abs_err {row['row_err']:.3e} kernel_ms "
+                 f"{row['row_ms']:.5f}")
     return line
 
 
@@ -552,8 +658,11 @@ def phase_train_kernels(device, timer):
         row = ln_bwd_case(timer, x, w, g)
         log(f"K3 fused_layer_norm_bwd {name} [{BATCH * SEQ}, 768] "
             f"{fmt(row)}")
+        fwd = ln_fwd_case(timer, x, w, randn(768, dtype=dtype, scale=0.1))
+        log(f"K2 fused_layer_norm {name} [{BATCH * SEQ}, 768] {fmt(fwd)}")
         if dtype == torch.float32:           # O2 runs LayerNorm in f32
             main["fused_layer_norm_bwd"] = row
+            main["fused_layer_norm_train"] = fwd
     n = (50304, 768)
     for p_dtype, low in ((torch.float32, True), (torch.float32, False)):
         p = randn(*n, scale=0.02)
@@ -674,7 +783,8 @@ def serve_mix(model, prompts, max_new, profile=False, rng=None, **kw):
     steps0 = eng.stats()["steps"]
     ragged_paged_attention.launches = 0
     ragged_paged_attention.quant_launches = 0
-    fused_layer_norm.launches = 0
+    fused_layer_norm.launches = fused_layer_norm.warp_launches = 0
+    fused_layer_norm.row_launches = 0
     try:
         t0 = time.perf_counter()
         handles = [eng.submit(p, max_new_tokens=max_new) for p in prompts]
@@ -687,6 +797,7 @@ def serve_mix(model, prompts, max_new, profile=False, rng=None, **kw):
                 "ragged_paged_attention_quant":
                     ragged_paged_attention.quant_launches,
                 "fused_layer_norm": fused_layer_norm.launches}
+    check_ln_route("engine", (fused_layer_norm,))
     stats = eng.stats()
     if profile:
         profile_engine(eng, rng, vocab)
@@ -878,8 +989,6 @@ def rpa_row(name, timer, captured, launches):
 
 def report_engine(device, timer, launches, captured, quant_launches,
                   quant_captured):
-    from paddle_tpu_torch.ops.layer_norm import (fused_layer_norm,
-                                                 layer_norm_plain)
     rows_out = [rpa_row("ragged_paged_attention", timer, captured,
                         launches["ragged_paged_attention"])]
     for kind in ("int8", "fp8"):
@@ -893,20 +1002,13 @@ def report_engine(device, timer, launches, captured, quant_launches,
     x = torch.randn(rows, d, device=device).to(dtype)
     w = (1 + 0.1 * torch.randn(d, device=device)).to(dtype)
     b = (0.1 * torch.randn(d, device=device)).to(dtype)
-    got = fused_layer_norm(x, w, b)
-    torch.cuda.synchronize()
-    err = check_close("fused_layer_norm at the engine step's rows", got,
-                      layer_norm_plain(x, w, b), dtype)
-    e = x.element_size()
-    b_ms, b_by = bound(2 * rows * d * e + 2 * d * e, 7 * rows * d, dtype)
+    row = ln_fwd_case(timer, x, w, b)
+    log(f"K2 fused_layer_norm at the engine step's rows, {str(dtype)[6:]} "
+        f"[{rows}, {d}] {fmt(row)}")
     ln = {"name": "fused_layer_norm", "route": "cuda", "source": LN_SRC,
-          "replaces": LN_TPU, "launches": launches["fused_layer_norm"],
-          "max_abs_err": err,
-          "ms": timer.ms(lambda: fused_layer_norm(x, w, b)),
-          "plain_ms": timer.ms(lambda: layer_norm_plain(x, w, b)),
-          "bound_ms": b_ms, "bound_by": b_by,
-          "library_ms": timer.ms(lambda: torch.nn.functional.layer_norm(
-              x, (d,), w, b, 1e-5))}
+          "replaces": LN_TPU, "launches": launches["fused_layer_norm"]}
+    ln.update({k: row[k] for k in ("max_abs_err", "ms", "plain_ms",
+                                   "bound_ms", "bound_by", "library_ms")})
     return rows_out + [ln]
 
 
@@ -935,10 +1037,11 @@ def expected_launches(n_layers, n_tensors):
 
 
 def reset_counts(counters):
-    """Every launch count of the wrappers to 0 (the flash wrappers' per-route
-    counts too)."""
+    """Every launch count of the wrappers to 0 (the flash and LayerNorm
+    wrappers' per-route counts too)."""
     for fn in counters.values():
-        for attr in ("launches", "tc_launches", "core_launches"):
+        for attr in ("launches", "tc_launches", "core_launches",
+                     "warp_launches", "row_launches"):
             if hasattr(fn, attr):
                 setattr(fn, attr, 0)
 
@@ -955,6 +1058,18 @@ def check_flash_route(what, counters, route):
                 f"{fn.tc_launches} on the tensor-core route and "
                 f"{fn.core_launches} on the CUDA-core route; all should "
                 f"be {route}")
+
+
+def check_ln_route(what, wrappers):
+    """Every LayerNorm launch since the counts were set to 0 took the
+    warp-row route (the path's rows are 768 wide and freshly allocated)."""
+    for fn in wrappers:
+        if not (fn.launches > 0 and fn.warp_launches == fn.launches
+                and fn.row_launches == 0):
+            raise AssertionError(
+                f"{what}: {fn.__name__} launched {fn.launches} times, "
+                f"{fn.warp_launches} on the warp-row route and "
+                f"{fn.row_launches} on the row route; all should be warp")
 
 
 def check_launches(what, launches, per_step, steps):
@@ -1081,6 +1196,8 @@ def phase_train(device, profile=False):
                    expected_launches(cfg.num_hidden_layers, n_tensors),
                    TIMED_STEPS)
     check_flash_route("train", counters, "tc")
+    check_ln_route("train", (counters["fused_layer_norm"],
+                             counters["fused_layer_norm_bwd"]))
     step_ms = np.diff([t0] + rec.stamps) * 1e3
     log(f"train: GPT-2 small ({n_params} parameters in {n_tensors} "
         f"tensors), bf16 O2, AdamW multi_precision, batch {BATCH} x {SEQ}, "
@@ -1091,7 +1208,9 @@ def phase_train(device, profile=False):
         f"allocated {peak} bytes ({peak / 2 ** 30:.3f} GiB)")
     log("train losses: " + json.dumps(rec.losses))
     log("train launches: " + json.dumps(launches) + f" over {TIMED_STEPS} "
-        f"steps")
+        f"steps; LayerNorm on the warp-row route: "
+        f"{counters['fused_layer_norm'].warp_launches} forward, "
+        f"{counters['fused_layer_norm_bwd'].warp_launches} backward")
 
     rec = Record()                                    # convergence
     fit(np.repeat(ids[:BATCH][None], 4, 0).reshape(-1, SEQ),
@@ -1152,6 +1271,9 @@ def phase_f32_check(device):
     check_launches("float32 step on the card", launches,
                    expected_launches(2, len(out["cpu"][1])), 1)
     check_flash_route("float32 step on the card", counters, "cuda_core")
+    check_ln_route("float32 step on the card",
+                   (counters["fused_layer_norm"],
+                    counters["fused_layer_norm_bwd"]))
     (l_cpu, g_cpu, p_cpu), (l_gpu, g_gpu, p_gpu) = out["cpu"], out["card"]
     if not abs(l_gpu - l_cpu) <= 1e-5 * abs(l_cpu):
         raise AssertionError(f"float32 loss {l_gpu} on the card, {l_cpu} "
@@ -1237,9 +1359,10 @@ def check_train_operands(cap):
 
 def train_rows(launches, f32_launches, main):
     """The kernels line's rows of the training kernels: the train path's
-    launches and the phase-2 measurements at its shapes and dtypes; the
-    ``_f32`` flash rows, the CUDA-core kernels, the float32 step's
-    launches and phase 2's float32 case."""
+    launches and the phase-2 measurements at its shapes and dtypes (the
+    LayerNorm forward's as ``fused_layer_norm_train``); the ``_f32`` flash
+    rows, the CUDA-core kernels, the float32 step's launches and phase
+    2's float32 case."""
     rows = []
     for name, src, tpu, count in (
             ("flash_attention_fwd", FA_TC_SRC, FA_FWD_TPU,
@@ -1250,6 +1373,8 @@ def train_rows(launches, f32_launches, main):
              f32_launches["flash_attention_fwd"]),
             ("flash_attention_bwd_f32", FA_SRC, FA_BWD_TPU,
              f32_launches["flash_attention_bwd"]),
+            ("fused_layer_norm_train", LN_SRC, LN_TPU,
+             launches["fused_layer_norm"]),
             ("fused_layer_norm_bwd", LN_SRC, LN_BWD_TPU,
              launches["fused_layer_norm_bwd"]),
             ("fused_adamw", ADAMW_SRC, ADAMW_TPU, launches["fused_adamw"])):
@@ -1290,6 +1415,7 @@ def main() -> int:
     sass_check()
     timer = Timer(device)
     phase_kernels(device, timer)
+    phase_ln_routes(device)
     phase_quant_kernel(device, timer)
     train_main = phase_train_kernels(device, timer)
     model, prompts, outs, bf16_stats, launches, captured = phase_engine(
@@ -1301,10 +1427,10 @@ def main() -> int:
     f32_launches = phase_f32_check(device)
     kernels = report_engine(device, timer, launches, captured,
                             quant_launches, quant_captured)
-    # the LayerNorm forward runs on every path: its count is the sum
+    # the engine row of the LayerNorm forward counts the three serving
+    # runs; its fused_layer_norm_train row, the train path's
     ln_row = next(k for k in kernels if k["name"] == "fused_layer_norm")
-    ln_row["launches"] += quant_launches["fused_layer_norm"] \
-        + train_launches["fused_layer_norm"]
+    ln_row["launches"] += quant_launches["fused_layer_norm"]
     check_train_operands(train_cap)
     kernels += train_rows(train_launches, f32_launches, train_main)
     for k in kernels:

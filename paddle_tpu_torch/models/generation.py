@@ -27,7 +27,10 @@ def _filter_logits(logits, top_k, top_p, temperature):
         kth = torch.topk(logits, top_k, dim=-1).values[..., -1:]
         logits = torch.where(logits < kth, float("-inf"), logits)
     if top_p < 1.0:
-        sorted_logits, sort_idx = torch.sort(logits, dim=-1, descending=True)
+        # stable, as jnp.argsort(-logits) is: tied logits keep ascending
+        # index order, so the cutoff keeps the same ties as the reference
+        sorted_logits, sort_idx = torch.sort(logits, dim=-1, descending=True,
+                                             stable=True)
         probs = torch.softmax(sorted_logits, dim=-1)
         cum_excl = torch.cumsum(probs, dim=-1) - probs
         keep_sorted = cum_excl < top_p          # always keeps the top-1

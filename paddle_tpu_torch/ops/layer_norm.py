@@ -6,19 +6,29 @@ Replaces the Pallas TPU kernels of ``paddle_tpu/ops/pallas_kernels.py``:
 ``_ln_fwd_kernel`` (via ``_fused_layer_norm_2d``/``fused_layer_norm``),
 which shadows the ``layer_norm`` op at ``ln_1``, ``ln_2`` and ``ln_f`` of
 every GPT block, and ``_ln_bwd_kernel`` (via ``_ln_bwd_rule``), its
-gradient with recomputed statistics. The kernels are in
-``csrc/layer_norm.cu``: the forward runs one CTA per row, the row held in
-registers, f32 statistics, memory-bound (``2 * rows * D + 2 * D``
-elements moved); the backward runs one CTA per run of rows with
-per-CTA dw/db partials and a second, fixed-order reduction. The source
-says more.
+gradient with recomputed statistics. Both kernels have two routes in
+``csrc/layer_norm.cu``, chosen by :func:`ln_route` before the launch:
+
+- ``"warp"``: D <= :data:`WARP_MAX_D` that fills whole 16-byte vectors,
+  with 16-byte-aligned bases. One warp owns a row, 16-byte loads and
+  stores, warp-shuffle reductions; the backward keeps the next row's
+  loads in flight while it reduces the current one, and a second kernel
+  sums its CTAs' dw/db partials in an order fixed by the shapes;
+- ``"row"``: everything else up to :data:`MAX_D` (odd widths, unaligned
+  bases, wide rows). One CTA per row in the forward; per-CTA dw/db
+  partials and a second, fixed-order reduction in the backward.
+
+A contiguous view one element past its storage's start
+(``buf[1:].view(shape)``) forces the row route on the card. The source
+says what bounds each kernel and what its design does about it.
 
 :func:`fused_layer_norm` and :func:`fused_layer_norm_bwd` take the plain
-versions only for tensors on the CPU. A CUDA tensor goes to the kernel,
-or the call raises: there is no fallback. ``.launches`` on each counts
-its kernel launches. :func:`layer_norm` is the differentiable entry:
-under autograd it runs both kernels through ``_LayerNorm``; without it
-(the serving path) it launches the forward alone.
+versions only for tensors on the CPU. A CUDA tensor goes to a kernel, or
+the call raises: there is no fallback. ``.launches`` on each counts its
+kernel launches, and ``.warp_launches``/``.row_launches`` count them by
+route. :func:`layer_norm` is the differentiable entry: under autograd it
+runs both kernels through ``_LayerNorm``; without it (the serving path)
+it launches the forward alone.
 """
 from __future__ import annotations
 
@@ -29,7 +39,8 @@ import torch
 from . import _build
 
 __all__ = ["layer_norm", "fused_layer_norm", "fused_layer_norm_bwd",
-           "layer_norm_plain", "layer_norm_bwd_plain", "MAX_D"]
+           "layer_norm_plain", "layer_norm_bwd_plain", "ln_route",
+           "warp_bwd_grid", "MAX_D", "WARP_MAX_D"]
 
 #: widest row the kernel holds in registers (1024 threads x 16 values)
 MAX_D = 16384
@@ -37,6 +48,47 @@ MAX_D = 16384
 #: most CTAs of the backward kernel, each with a [D] pair of dw/db
 #: partials; fixed, so the reduction order depends on the shapes alone
 BWD_MAX_PARTS = 512
+
+#: widest row of the warp-row route (one warp holds it)
+WARP_MAX_D = 2048
+
+#: most CTAs of the warp-row backward
+WARP_BWD_MAX_CTAS = 128
+
+#: fewest rows a warp-row backward CTA takes, until the cap is reached
+WARP_BWD_MIN_ROWS = 16
+
+
+def ln_route(x, *operands):
+    """The route of a LayerNorm kernel over ``x`` ``[..., D]`` and its other
+    operands (weight, bias or grad, output): ``"warp"`` when D is at most
+    :data:`WARP_MAX_D` and fills whole 16-byte vectors and every base
+    pointer is 16-byte aligned, else ``"row"``."""
+    d = x.shape[-1]
+    if (d <= WARP_MAX_D and d * x.element_size() % 16 == 0
+            and all(t.data_ptr() % 16 == 0 for t in (x,) + operands)):
+        return "warp"
+    return "row"
+
+
+def warp_bwd_grid(rows: int):
+    """``(ctas, rows_per_cta)`` of the warp-row backward: runs of
+    ``rows_per_cta`` consecutive rows, the last one shorter, at most
+    :data:`WARP_BWD_MAX_CTAS` of them. A function of the row count alone
+    (never of the card), so the order of the dw/db sums is fixed by the
+    shapes."""
+    ctas = min(WARP_BWD_MAX_CTAS, -(-rows // WARP_BWD_MIN_ROWS))
+    per = -(-rows // ctas)
+    return -(-rows // per), per
+
+
+def _count(wrapper, route):
+    wrapper.launches += 1
+    if route == "warp":
+        wrapper.warp_launches += 1
+    else:
+        wrapper.row_launches += 1
+
 
 def layer_norm_plain(x, weight, bias, epsilon: float = 1e-5):
     """LayerNorm over the last axis in f32, cast back to ``x``'s dtype —
@@ -74,6 +126,8 @@ _FWD_ARGS = [ctypes.c_int] + [ctypes.c_void_p] * 4 + [
 _BWD_ARGS = [ctypes.c_int] + [ctypes.c_void_p] * 7 + [
     ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_float,
     ctypes.c_void_p]
+_BWD_WARP_ARGS = [ctypes.c_int] + [ctypes.c_void_p] * 7 + [
+    ctypes.c_int] * 4 + [ctypes.c_float, ctypes.c_void_p]
 
 
 def _check(x, weight, *others):
@@ -120,23 +174,29 @@ def fused_layer_norm(x, weight, bias, epsilon: float = 1e-5):
     rows = x.numel() // d
     if rows == 0:
         return out
-    rc = _build.function("layer_norm", "ln_fwd_launch", _FWD_ARGS)(
+    route = ln_route(x, weight, bias, out)
+    symbol = "ln_fwd_warp_launch" if route == "warp" else "ln_fwd_launch"
+    rc = _build.function("layer_norm", symbol, _FWD_ARGS)(
         _build.DTYPE_CODE[x.dtype], x.data_ptr(), weight.data_ptr(),
         bias.data_ptr(), out.data_ptr(), rows, d, float(epsilon),
         torch.cuda.current_stream(x.device).cuda_stream)
     if rc != 0:
-        raise RuntimeError(f"LayerNorm kernel launch failed: CUDA error {rc}")
-    fused_layer_norm.launches += 1
+        raise RuntimeError(f"LayerNorm kernel launch failed ({route} route): "
+                           f"CUDA error {rc}")
+    _count(fused_layer_norm, route)
     return out
 
 
 fused_layer_norm.launches = 0
+fused_layer_norm.warp_launches = 0
+fused_layer_norm.row_launches = 0
 
 
 def fused_layer_norm_bwd(x, weight, grad, epsilon: float = 1e-5):
     """LayerNorm backward: ``(dx, dw, db)`` from ``x``, ``weight`` and the
     output gradient ``grad`` (like ``x``). dw/db are deterministic: the
-    per-CTA partials are summed in a fixed order, never atomically."""
+    per-CTA partials are summed in an order fixed by the shapes, never
+    atomically."""
     _check_affine(x, weight, None)
     if tuple(grad.shape) != tuple(x.shape):
         raise ValueError(f"grad {tuple(grad.shape)} must be shaped like x "
@@ -150,21 +210,31 @@ def fused_layer_norm_bwd(x, weight, grad, epsilon: float = 1e-5):
     dw, db = torch.empty_like(weight), torch.empty_like(weight)
     if rows == 0:
         return dx, dw.zero_(), db.zero_()
-    parts = min(rows, BWD_MAX_PARTS)
-    work = torch.empty(2 * parts * d, dtype=torch.float32, device=x.device)
-    rc = _build.function("layer_norm", "ln_bwd_launch", _BWD_ARGS)(
-        _build.DTYPE_CODE[x.dtype], x.data_ptr(), weight.data_ptr(),
-        grad.data_ptr(), dx.data_ptr(), dw.data_ptr(), db.data_ptr(),
-        work.data_ptr(), rows, d, parts, float(epsilon),
-        torch.cuda.current_stream(x.device).cuda_stream)
+    route = ln_route(x, weight, grad, dx)
+    stream = torch.cuda.current_stream(x.device).cuda_stream
+    code, ptrs = _build.DTYPE_CODE[x.dtype], (
+        x.data_ptr(), weight.data_ptr(), grad.data_ptr(), dx.data_ptr(),
+        dw.data_ptr(), db.data_ptr())
+    if route == "warp":
+        grid = warp_bwd_grid(rows)
+        fn = _build.function("layer_norm", "ln_bwd_warp_launch",
+                             _BWD_WARP_ARGS)
+    else:
+        grid = (min(rows, BWD_MAX_PARTS),)
+        fn = _build.function("layer_norm", "ln_bwd_launch", _BWD_ARGS)
+    work = torch.empty(2 * grid[0] * d, dtype=torch.float32, device=x.device)
+    rc = fn(code, *ptrs, work.data_ptr(), rows, d, *grid, float(epsilon),
+            stream)
     if rc != 0:
-        raise RuntimeError(f"LayerNorm backward kernel launch failed: CUDA "
-                           f"error {rc}")
-    fused_layer_norm_bwd.launches += 1
+        raise RuntimeError(f"LayerNorm backward kernel launch failed "
+                           f"({route} route): CUDA error {rc}")
+    _count(fused_layer_norm_bwd, route)
     return dx, dw, db
 
 
 fused_layer_norm_bwd.launches = 0
+fused_layer_norm_bwd.warp_launches = 0
+fused_layer_norm_bwd.row_launches = 0
 
 
 class _LayerNorm(torch.autograd.Function):

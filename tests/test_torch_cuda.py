@@ -410,3 +410,127 @@ def test_flash_cuda_core_route_takes_an_unaligned_base(cuda):
                    for _ in range(4))
     assert q.is_contiguous() and q.data_ptr() % 16 != 0
     _flash_route_matches_plain(q, k, v, do, True, "cuda_core")
+
+
+# ---------------------------------------------------------------- LayerNorm routes
+_LN = (ln.fused_layer_norm, ln.fused_layer_norm_bwd)
+_LN_COUNTS = ("launches", "warp_launches", "row_launches")
+
+
+def _ln_counts():
+    return [tuple(getattr(f, c) for c in _LN_COUNTS) for f in _LN]
+
+
+def _ln_expected_route(d, dtype, aligned):
+    """The warp-row route takes aligned rows of at most 2048 values that
+    fill whole 16-byte vectors; the row route everything else."""
+    size = torch.finfo(dtype).bits // 8
+    return "warp" if aligned and d <= 2048 and d * size % 16 == 0 else "row"
+
+
+def _ln_operands(seed, rows, d, dtype, aligned):
+    """x, w, b, g of a LayerNorm call; with ``aligned`` False, x and g are
+    contiguous views one element past their storage's start."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    x = _randn(g, rows, d, dtype=dtype)
+    w = (1 + _randn(g, d, scale=0.1)).to(dtype)
+    b = _randn(g, d, dtype=dtype, scale=0.1)
+    dy = _randn(g, rows, d, dtype=dtype)
+    if not aligned:
+        x, dy = (torch.empty(t.numel() + 1, dtype=dtype, device=t.device)
+                 [1:].view(t.shape).copy_(t) for t in (x, dy))
+    return x, w, b, dy
+
+
+def _ln_routes_match_plain(x, w, b, dy, route):
+    """Both kernels against their plain versions, each counted once in its
+    total and on ``route``; the backward run twice gives the same bits.
+    Returns the backward's outputs."""
+    dtype = x.dtype
+    step = (1, 1, 0) if route == "warp" else (1, 0, 1)
+    before = _ln_counts()
+    y = ln.fused_layer_norm(x, w, b)
+    got = ln.fused_layer_norm_bwd(x, w, dy)
+    again = ln.fused_layer_norm_bwd(x, w, dy)
+    torch.cuda.synchronize()
+    after = _ln_counts()
+    assert after[0] == tuple(a + s for a, s in zip(before[0], step))
+    assert after[1] == tuple(a + 2 * s for a, s in zip(before[1], step))
+    torch.testing.assert_close(y.float(), ln.layer_norm_plain(x, w, b).float(),
+                               **TOL[dtype])
+    want = ln.layer_norm_bwd_plain(x, w, dy)
+    tol = [TOL[dtype]] + [dict(atol=1e-4, rtol=1e-5)
+                          if dtype == torch.float32 else TOL[dtype]] * 2
+    for name, a, a2, ref, t in zip(("dx", "dw", "db"), got, again, want, tol):
+        assert a.dtype == dtype, name
+        assert torch.equal(a, a2), f"{name}: another run, other bits"
+        torch.testing.assert_close(a.float(), ref.float(), **t,
+                                   msg=lambda m: f"{name}: {m}")
+    return got
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("rows", [1, 7, 300, 8192])
+@pytest.mark.parametrize("d", [1, 768, 1024, 1600, 2049, 16384])
+def test_layer_norm_routes_match_plain(cuda, d, rows, dtype):
+    """Every width on both sides of the route boundary, aligned (the
+    warp-row route where it applies) and unaligned (the row route)."""
+    for aligned in (True, False):
+        ops = _ln_operands(d * 31 + rows, rows, d, dtype, aligned)
+        assert ln.ln_route(*ops) == _ln_expected_route(d, dtype, aligned)
+        _ln_routes_match_plain(*ops, _ln_expected_route(d, dtype, aligned))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_layer_norm_routes_agree_with_each_other(cuda, dtype):
+    """The same operands through both routes: the same values within the
+    dtype's tolerance (the sums run in other orders)."""
+    fast = _ln_operands(5, 2049, 768, dtype, True)
+    slow = tuple(torch.empty(t.numel() + 1, dtype=dtype, device=t.device)
+                 [1:].view(t.shape).copy_(t) for t in fast)
+    a = _ln_routes_match_plain(*fast, "warp")
+    b = _ln_routes_match_plain(*slow, "row")
+    tol = dict(atol=1e-4, rtol=1e-5) if dtype == torch.float32 else TOL[dtype]
+    for x, y in zip(a, b):
+        torch.testing.assert_close(x.float(), y.float(), **tol)
+
+
+@pytest.mark.parametrize("aligned", [True, False])
+def test_layer_norm_zero_rows_on_both_routes(cuda, aligned):
+    """No rows: empty outputs, zero dw/db, no launch on either route."""
+    x, w, b, dy = _ln_operands(0, 0, 768, torch.float32, aligned)
+    before = _ln_counts()
+    y = ln.fused_layer_norm(x, w, b)
+    dx, dw, db = ln.fused_layer_norm_bwd(x, w, dy)
+    torch.cuda.synchronize()
+    assert _ln_counts() == before
+    assert y.shape == (0, 768) and dx.shape == (0, 768)
+    assert not dw.any() and not db.any()
+
+
+def test_layer_norm_backward_launches_back_to_back(cuda):
+    """Many warp-row backward launches queued with no sync between them,
+    over grids of 1 to 128 CTAs: every one sums its own dw/db partials."""
+    outs, refs = [], []
+    for rows in (1, 20, 300, 2049, 8192, 17, 8192):
+        x, w, _, dy = _ln_operands(rows, rows, 1024, torch.float32, True)
+        outs.append(ln.fused_layer_norm_bwd(x, w, dy)[1:])
+        refs.append(ln.layer_norm_bwd_plain(x, w, dy)[1:])
+    torch.cuda.synchronize()
+    for got, want in zip(outs, refs):
+        for a, r in zip(got, want):
+            torch.testing.assert_close(a, r, atol=1e-4, rtol=1e-5)
+
+
+def test_layer_norm_module_under_autograd_takes_the_warp_route(cuda):
+    """GPT-2's LayerNorm at width 768 through nn.LayerNorm and autograd:
+    one forward and one backward launch, both on the warp-row route."""
+    from paddle_tpu_torch.nn import LayerNorm
+    layer = LayerNorm(768).to(cuda)
+    g = torch.Generator(device=cuda).manual_seed(3)
+    x = _randn(g, 4, 64, 768).requires_grad_()
+    before = _ln_counts()
+    layer(x).square().sum().backward()
+    torch.cuda.synchronize()
+    assert _ln_counts() == [tuple(c + s for c, s in zip(counts, (1, 1, 0)))
+                            for counts in before]
