@@ -9,7 +9,10 @@ prints no result line):
    versions, the build of every kernel from ``paddle_tpu_torch/csrc``
    (one ``nvcc`` per source, all at once), and the count of ``HGMMA``
    (wgmma) and ``UTMALDG`` (TMA load) instructions in the SASS of the
-   tensor-core flash library, each of which must be above 0;
+   tensor-core flash library, each of which must be above 0, and of
+   ``HMMA`` (mma.sync, above 0) and ``LDGSTS``/``UBLKCP`` (cp.async or
+   bulk copies, above 0 together) in the tensor-core ragged attention
+   library;
 2. kernel vs plain: each kernel against its plain PyTorch version on the
    card, in float32 and bfloat16, with the errors, the median times, the
    bounds and the library call's time: the serving kernels at the
@@ -29,8 +32,9 @@ prints no result line):
    served through ``GenerationEngine(kv_layout="paged",
    attention="fused")`` — 16 concurrent requests with a chunked long
    prompt and a shared preamble — with the serving kernels' launch
-   counts read around that run, and a float32 reference check of the
-   engine's greedy tokens against the model's full forward;
+   counts read around that run (every attention launch on the
+   tensor-core route), and a float32 reference check of the engine's
+   greedy tokens against the model's full forward;
 3b. quantized KV: the same 16 requests served from an int8 pool
    (``kv_dtype="int8", block_size=32``) with the quantized kernel's
    launches counted and the float kernel's held at 0, the share of first
@@ -51,7 +55,12 @@ prints no result line):
    parameter;
 5. real operands: the layer-0 operands of one real step of each path
    through kernel and plain: the engine's attention rows (float, int8
-   and fp8 pools) and LayerNorm input, timed; the training step's
+   and fp8 pools) at its widest step and at its last decode-only step
+   with the most sequences, each with a "work shape" line (q blocks,
+   tiles, splits, CTAs, the longest page walk, the CUDA-core kernel's
+   grid), through the tensor-core route and through the CUDA-core
+   kernel's C entry on the same operands, both checked and timed, and a
+   second call's bits; the engine's LayerNorm input, timed; the training step's
    q/k/v/dO, LayerNorm input and output gradient and the token
    embedding's AdamW operands, each output held to its own scale (max
    |error| over max |plain|), since the gradients of a loss averaged
@@ -98,11 +107,14 @@ TOL = {torch.float32: (1e-4, 0.0),    # (atol, rtol)
 # f32 sums in another order; a little over two bf16 ulps of the largest value
 REL_TOL = {torch.float32: 1e-5, torch.bfloat16: 2e-2}
 RPA_SRC = "paddle_tpu_torch/csrc/ragged_paged_attention.cu"
+RPA_TC_SRC = "paddle_tpu_torch/csrc/ragged_paged_attention_sm90.cu"
 LN_SRC = "paddle_tpu_torch/csrc/layer_norm.cu"
 FA_SRC = "paddle_tpu_torch/csrc/flash_attention.cu"
 FA_TC_SRC = "paddle_tpu_torch/csrc/flash_attention_sm90.cu"
 ADAMW_SRC = "paddle_tpu_torch/csrc/adamw.cu"
 RPA_TPU = "paddle_tpu/ops/ragged_paged_attention.py:198"
+RPA_COUNTS = ("launches", "quant_launches", "tc_launches", "core_launches",
+              "combine_launches")
 QMAX = {torch.int8: 127.0, torch.float8_e4m3fn: 448.0}
 QNAME = {torch.int8: "int8", torch.float8_e4m3fn: "fp8"}
 LN_TPU = "paddle_tpu/ops/pallas_kernels.py:868"
@@ -185,23 +197,36 @@ def check_scaled(name, got, want, dtype):
     return err
 
 
-def sass_check():
-    """``HGMMA`` (wgmma) and ``UTMALDG`` (TMA tile load) instructions in the
-    SASS of the built tensor-core flash library: the proof that its
-    products run on wgmma and its tiles arrive by TMA. Fails if either
-    count is 0."""
+def sass_counts(source, ops):
+    """How many SASS instructions of each of ``ops`` the built library of
+    ``csrc/<source>.cu`` holds (``cuobjdump -sass``)."""
     from pathlib import Path
 
     from paddle_tpu_torch.ops import _build
-    lib = _build.load("flash_attention_sm90")._name
+    lib = _build.load(source)._name
     tool = Path(_build._nvcc()).with_name("cuobjdump")
     sass = subprocess.run([str(tool), "-sass", lib], capture_output=True,
                           text=True, check=True).stdout
     counts = {op: sum(op in line for line in sass.splitlines())
-              for op in ("HGMMA", "UTMALDG")}
+              for op in ops}
     log(f"SASS of {Path(lib).name}: {json.dumps(counts)} instructions")
+    return counts
+
+
+def sass_check():
+    """The proof that the tensor-core libraries run on the tensor cores
+    and keep loads in flight: ``HGMMA`` (wgmma) and ``UTMALDG`` (TMA tile
+    load) in the flash library; ``HMMA`` (mma.sync) and ``LDGSTS``
+    (cp.async) or ``UBLKCP`` (bulk copy) in the ragged attention library.
+    Fails if a count is 0."""
+    counts = sass_counts("flash_attention_sm90", ("HGMMA", "UTMALDG"))
     if not all(counts.values()):
         raise AssertionError(f"tensor-core flash library: {counts}")
+    counts = sass_counts("ragged_paged_attention_sm90",
+                         ("HMMA", "LDGSTS", "UBLKCP"))
+    if not counts["HMMA"] or not counts["LDGSTS"] + counts["UBLKCP"]:
+        raise AssertionError(f"tensor-core ragged attention library: "
+                             f"{counts}")
 
 
 # ---------------------------------------------------------------- bounds
@@ -276,7 +301,7 @@ def phase_quant_kernel(device, timer):
     """K1q on random ragged batches at GPT-2 widths, KV blocks of 32:
     int8 and fp8 pools, f32 and bf16 q, against the plain version."""
     from paddle_tpu_torch.ops.ragged_paged_attention import (
-        ragged_paged_attention, ragged_paged_attention_plain)
+        ragged_paged_attention, ragged_paged_attention_plain, rpa_route)
     rng = np.random.RandomState(SEED + 3)
     torch.manual_seed(SEED + 3)
     for storage in (torch.int8, torch.float8_e4m3fn):
@@ -299,7 +324,9 @@ def phase_quant_kernel(device, timer):
                 q, pool, layer, *meta, scales=scales), reps=5, warmup=1)
             b_ms, b_by = bound(*rpa_work(q, pool, meta, scales), dtype)
             log(f"K1q ragged_paged_attention {QNAME[storage]} pool, "
-                f"{str(dtype)[6:]} q{tuple(q.shape)} bs 32 max_abs_err "
+                f"{str(dtype)[6:]} q{tuple(q.shape)} bs 32 "
+                f"{rpa_route(q.dtype, pool.dtype, q.shape[2], 32)} route "
+                f"max_abs_err "
                 f"{err:.3e} kernel_ms {ms:.4f} plain_ms {plain:.4f} "
                 f"bound_ms {b_ms:.6f} ({b_by})")
             del pool, scales
@@ -307,7 +334,7 @@ def phase_quant_kernel(device, timer):
 
 def phase_kernels(device, timer):
     from paddle_tpu_torch.ops.ragged_paged_attention import (
-        ragged_paged_attention, ragged_paged_attention_plain)
+        ragged_paged_attention, ragged_paged_attention_plain, rpa_route)
     rng = np.random.RandomState(SEED)
     torch.manual_seed(SEED)
     for dtype in (torch.float32, torch.bfloat16):
@@ -321,6 +348,8 @@ def phase_kernels(device, timer):
         plain = timer.ms(lambda: ragged_paged_attention_plain(
             q, pool, layer, *meta), reps=5, warmup=1)
         log(f"K1 ragged_paged_attention {str(dtype)[6:]} q{tuple(q.shape)} "
+            f"{rpa_route(q.dtype, pool.dtype, q.shape[2], pool.shape[4])} "
+            f"route "
             f"max_abs_err {err:.3e} kernel_ms {ms:.4f} plain_ms "
             f"{plain:.4f} bound_ms {bound(nbytes, ops, dtype)[0]:.4f}")
         del pool
@@ -753,9 +782,12 @@ def device_time_report(what, prof, wall_ms, steps):
 def serve_mix(model, prompts, max_new, profile=False, rng=None, **kw):
     """Serve ``prompts`` at once through a fused paged engine built with
     ``kw``, after one short warm-up request, with every serving kernel's
-    count set to 0 just before and read just after; keeps the layer-0
-    attention operands of the widest step. Returns (outputs, stats,
-    launches, steps, wall seconds, captured operands)."""
+    count set to 0 just before and read just after; every attention
+    launch must take the tensor-core route. Keeps the layer-0 attention
+    operands of the widest step and of the last of the decode-only steps
+    (one row a sequence) with the most sequences. Returns (outputs,
+    stats, launches, steps, wall seconds, captured operands: ``{"wide":
+    ..., "decode": ...}``)."""
     import paddle_tpu_torch.models.generation as gen_mod
     from paddle_tpu_torch.ops.layer_norm import fused_layer_norm
     from paddle_tpu_torch.ops.ragged_paged_attention import (
@@ -768,21 +800,42 @@ def serve_mix(model, prompts, max_new, profile=False, rng=None, **kw):
     warm = np.random.RandomState(SEED + 9)
     eng.submit(warm.randint(0, vocab, 24), max_new_tokens=4).result(
         timeout=300)
-    captured = {}
+    captured = {"wide": {}, "decode": {}}
+    # the step being run, from its host operands (no device sync):
+    # decode-only when every present sequence feeds one row
+    # (kv_len - pos0 == 1), and how many sequences it has
+    step = {}
+    operands = eng._ragged_operands
+
+    def spy(*a, **k):
+        out = operands(*a, **k)
+        blk_seq, _, pos0, _, _, kv_len = out[2][4:10]
+        seqs = {int(x) for x in blk_seq if x >= 0}
+        step.update(seqs=len(seqs), decode=all(
+            int(kv_len[x]) - int(pos0[x]) == 1 for x in seqs))
+        return out
+
+    def keep(slot, q, pool, meta, scales, **info):
+        slot.update(q=q.clone(), pool=pool[:1].clone(),
+                    scales=None if scales is None else scales[:1].clone(),
+                    meta=[m.clone() for m in meta], **info)
 
     def capture(q, pool, layer, *meta, scales=None, **kw2):
-        if layer == 0 and q.shape[1] > captured.get("qp", 0):
-            captured.update(
-                qp=q.shape[1], q=q.clone(), pool=pool[:1].clone(),
-                scales=None if scales is None else scales[:1].clone(),
-                meta=[m.clone() for m in meta])
+        if layer == 0:
+            if q.shape[1] > captured["wide"].get("qp", 0):
+                keep(captured["wide"], q, pool, meta, scales, qp=q.shape[1])
+            if step["decode"] and step["seqs"] >= captured["decode"].get(
+                    "seqs", 0):
+                keep(captured["decode"], q, pool, meta, scales,
+                     seqs=step["seqs"])
         return ragged_paged_attention(q, pool, layer, *meta, scales=scales,
                                       **kw2)
 
     gen_mod.ragged_paged_attention = capture
+    eng._ragged_operands = spy
     steps0 = eng.stats()["steps"]
-    ragged_paged_attention.launches = 0
-    ragged_paged_attention.quant_launches = 0
+    for attr in RPA_COUNTS:
+        setattr(ragged_paged_attention, attr, 0)
     fused_layer_norm.launches = fused_layer_norm.warp_launches = 0
     fused_layer_norm.row_launches = 0
     try:
@@ -793,11 +846,16 @@ def serve_mix(model, prompts, max_new, profile=False, rng=None, **kw):
         wall = time.perf_counter() - t0
     finally:
         gen_mod.ragged_paged_attention = ragged_paged_attention
+        del eng._ragged_operands
     launches = {"ragged_paged_attention": ragged_paged_attention.launches,
                 "ragged_paged_attention_quant":
                     ragged_paged_attention.quant_launches,
                 "fused_layer_norm": fused_layer_norm.launches}
     check_ln_route("engine", (fused_layer_norm,))
+    check_rpa_route("engine")
+    launches["combine"] = ragged_paged_attention.combine_launches
+    if not captured["decode"]:
+        raise AssertionError("no decode-only step in the engine run")
     stats = eng.stats()
     if profile:
         profile_engine(eng, rng, vocab)
@@ -814,6 +872,19 @@ def serve_mix(model, prompts, max_new, profile=False, rng=None, **kw):
     return outs, stats, launches, steps, wall, captured
 
 
+def check_rpa_route(what):
+    """Every attention launch since the counts were set to 0 took the
+    tensor-core route."""
+    from paddle_tpu_torch.ops.ragged_paged_attention import (
+        ragged_paged_attention as fn)
+    total = fn.launches + fn.quant_launches
+    if not (total > 0 and fn.tc_launches == total and fn.core_launches == 0):
+        raise AssertionError(
+            f"{what}: {total} attention launches, {fn.tc_launches} on the "
+            f"tensor-core route and {fn.core_launches} on the CUDA-core "
+            f"route; all should be on the tensor-core route")
+
+
 def check_serve_launches(what, launches, steps, n_layers, quantized):
     """The attention kernel of the pool's kind once per layer per step,
     the other one never; LayerNorm 2L + 1 times per step."""
@@ -822,6 +893,7 @@ def check_serve_launches(what, launches, steps, n_layers, quantized):
     want = {"ragged_paged_attention": 0, "ragged_paged_attention_quant": 0,
             "fused_layer_norm": (2 * n_layers + 1) * steps}
     want[attn] = n_layers * steps
+    launches = {k: v for k, v in launches.items() if k != "combine"}
     if launches != want:
         raise AssertionError(f"{what}: launches {launches} over {steps} "
                              f"steps, expected {want}")
@@ -953,49 +1025,146 @@ def phase_engine_quant(model, prompts, bf16_outs, bf16_stats,
         raise AssertionError(f"int8 capacity only {ratio:.4f}x bf16")
     return ({"ragged_paged_attention_int8":
                  launches["ragged_paged_attention_quant"],
+             "ragged_paged_attention_int8_combine": launches["combine"],
              "ragged_paged_attention_fp8":
                  launches8["ragged_paged_attention_quant"],
+             "ragged_paged_attention_fp8_combine": launches8["combine"],
              "fused_layer_norm": launches["fused_layer_norm"]
                  + launches8["fused_layer_norm"]},
             {"int8": cap_i8, "fp8": cap_f8})
 
 
 # ---------------------------------------------------------------- phase 5
-def rpa_row(name, timer, captured, launches):
-    """The attention kernel (K1, or K1q for a quantized pool) against its
-    plain version on the layer-0 operands of an engine's widest step,
-    timed: one row of the kernels line."""
+def rpa_core(q, pool, meta, scales=None):
+    """The CUDA-core kernel (``csrc/ragged_paged_attention.cu``) on layer 0
+    of the operands, through its C entry: the wrapper sends bf16 operands
+    at these widths to the tensor-core kernel, so this is how the old
+    kernel is held and timed on the same operands. Counts nothing."""
+    from paddle_tpu_torch.ops import _build
+    from paddle_tpu_torch.ops import ragged_paged_attention as rpa
+    out = torch.empty_like(q)
+    h, qp, dh = q.shape
+    args = (*(m.data_ptr() for m in meta), h, qp, dh, pool.shape[2],
+            pool.shape[4], meta[3].shape[1], 0, 1.0 / math.sqrt(dh),
+            torch.cuda.current_stream().cuda_stream)
+    if scales is None:
+        rc = _build.function("ragged_paged_attention", "rpa_launch",
+                             rpa._ARGS)(
+            _build.DTYPE_CODE[q.dtype], q.data_ptr(), pool.data_ptr(),
+            out.data_ptr(), *args)
+    else:
+        rc = _build.function("ragged_paged_attention", "rpa_quant_launch",
+                             rpa._QUANT_ARGS)(
+            rpa._QUANT_CODE[pool.dtype], _build.DTYPE_CODE[q.dtype],
+            q.data_ptr(), pool.data_ptr(), scales.data_ptr(),
+            out.data_ptr(), *args)
+    if rc != 0:
+        raise RuntimeError(f"CUDA-core attention kernel: CUDA error {rc}")
+    return out
+
+
+def work_shape(what, q, pool, meta):
+    """What each route launches on these operands: real q blocks, tiles,
+    splits, CTAs, the longest page walk of any CTA; and the CUDA-core
+    kernel's grid and longest walk."""
+    from paddle_tpu_torch.ops import ragged_paged_attention as rpa
+    blk_seq, qstart, pos0, tables, lo, kv_len = (m.cpu().numpy()
+                                                 for m in meta)
+    h, qp, _ = q.shape
+    bs = pool.shape[4]
+    z = rpa.split_count(tables.shape[1], bs)
+    tiles = rpa.tc_plan(blk_seq, qstart, pos0, lo, kv_len, bs)
+    per_split = rpa.SPLIT_COLS // bs
+    walks = [min(t["p_end"], (zz + 1) * per_split)
+             - max(t["p_begin"], zz * per_split)
+             for t in tiles for zz in range(t["z_first"], t["z_last"] + 1)]
+    real = [int(s) for s in blk_seq if s >= 0]
+    slots = rpa.tile_slots(qp, len(qstart))
+    shape = {"q_rows": qp, "real_q_blocks": len(real), "tiles": len(tiles),
+             "tile_splits": len(walks),
+             "multi_split_tiles": sum(t["z_last"] > t["z_first"]
+                                      for t in tiles),
+             "grid": [slots, h, z],
+             "ctas_launched": slots * h * z + (qp // 8 * h if z > 1 else 0),
+             "ctas_with_work": len(walks) * h,
+             "longest_walk_pages": max(walks, default=0),
+             "old_grid": [qp // 8, h], "old_ctas_with_work": len(real) * h,
+             "old_longest_walk_pages": max(
+                 (-(-int(kv_len[s]) // bs) for s in real), default=0)}
+    log(f"work shape, {what}: " + json.dumps(shape))
+
+
+def rpa_case(name, timer, cap):
+    """The attention kernel through the wrapper (the tensor-core route)
+    and the CUDA-core kernel on the same operands, each against the plain
+    version and timed; the bound from these operands."""
     from paddle_tpu_torch.ops.ragged_paged_attention import (
         ragged_paged_attention, ragged_paged_attention_plain)
-    q, pool, meta = captured["q"], captured["pool"], captured["meta"]
-    scales = captured["scales"]
+    q, pool, meta, scales = cap["q"], cap["pool"], cap["meta"], cap["scales"]
+    want = ragged_paged_attention_plain(q, pool, 0, *meta, scales=scales)
     got = ragged_paged_attention(q, pool, 0, *meta, scales=scales)
+    old = rpa_core(q, pool, meta, scales)
     torch.cuda.synchronize()
-    err = check_close(f"{name} on an engine step", got,
-                      ragged_paged_attention_plain(q, pool, 0, *meta,
-                                                   scales=scales), q.dtype)
+    err = check_close(f"{name} on an engine step", got, want, q.dtype)
+    core_err = check_close(f"{name}, CUDA-core kernel, on an engine step",
+                           old, want, q.dtype)
+    again = ragged_paged_attention(q, pool, 0, *meta, scales=scales)
+    torch.cuda.synchronize()
+    if not torch.equal(got, again):
+        raise AssertionError(f"{name}: another call, other bits")
     nbytes, ops = rpa_work(q, pool, meta, scales)
     b_ms, b_by = bound(nbytes, ops, q.dtype)
-    log(f"{name}, engine step layer 0: q{tuple(q.shape)} {q.dtype}, pool "
-        f"{pool.dtype}, {nbytes} bytes, {ops} ops")
-    return {"name": name, "route": "cuda", "source": RPA_SRC,
-            "replaces": RPA_TPU, "launches": launches, "max_abs_err": err,
-            "ms": timer.ms(lambda: ragged_paged_attention(
-                q, pool, 0, *meta, scales=scales)),
-            "plain_ms": timer.ms(lambda: ragged_paged_attention_plain(
-                q, pool, 0, *meta, scales=scales), reps=5, warmup=1),
-            "bound_ms": b_ms, "bound_by": b_by, "library_ms": None}
+    row = {"max_abs_err": err, "core_err": core_err,
+           "ms": timer.ms(lambda: ragged_paged_attention(
+               q, pool, 0, *meta, scales=scales)),
+           "core_ms": timer.ms(lambda: rpa_core(q, pool, meta, scales)),
+           "plain_ms": timer.ms(lambda: ragged_paged_attention_plain(
+               q, pool, 0, *meta, scales=scales), reps=5, warmup=1),
+           "bound_ms": b_ms, "bound_by": b_by}
+    log(f"{name}: q{tuple(q.shape)} {q.dtype}, pool {pool.dtype}, {nbytes} "
+        f"bytes, {ops} ops; tensor-core route max_abs_err {err:.3e} "
+        f"kernel_ms {row['ms']:.5f}; CUDA-core kernel max_abs_err "
+        f"{core_err:.3e} kernel_ms {row['core_ms']:.5f}; plain_ms "
+        f"{row['plain_ms']:.4f} bound_ms {b_ms:.6f} ({b_by})")
+    return row
+
+
+def rpa_row(name, timer, captured, launches):
+    """One row of the kernels line for the attention kernel (K1, or K1q
+    for a quantized pool) on the layer-0 operands of an engine's widest
+    step; its decode-only step's numbers and the CUDA-core kernel's on
+    the same operands as extra keys (``decode_*``, ``core_*``)."""
+    for k in ("wide", "decode"):
+        work_shape(f"{name} {k} step", captured[k]["q"], captured[k]["pool"],
+                   captured[k]["meta"])
+    wide = rpa_case(f"{name}, widest step layer 0", timer, captured["wide"])
+    dec = rpa_case(f"{name}, decode-only step layer 0", timer,
+                   captured["decode"])
+    row = {"name": name, "route": "cuda", "source": RPA_TC_SRC,
+           "replaces": RPA_TPU, "launches": launches["attn"],
+           "max_abs_err": wide["max_abs_err"], "ms": wide["ms"],
+           "plain_ms": wide["plain_ms"], "bound_ms": wide["bound_ms"],
+           "bound_by": wide["bound_by"], "library_ms": None,
+           "combine_launches": launches["combine"],
+           "core_source": RPA_SRC, "core_ms": wide["core_ms"],
+           "core_err": wide["core_err"]}
+    row.update({f"decode_{k}": dec[k] for k in (
+        "max_abs_err", "ms", "core_ms", "core_err", "plain_ms", "bound_ms",
+        "bound_by")})
+    return row
 
 
 def report_engine(device, timer, launches, captured, quant_launches,
                   quant_captured):
     rows_out = [rpa_row("ragged_paged_attention", timer, captured,
-                        launches["ragged_paged_attention"])]
+                        {"attn": launches["ragged_paged_attention"],
+                         "combine": launches["combine"]})]
     for kind in ("int8", "fp8"):
         name = f"ragged_paged_attention_{kind}"
-        rows_out.append(rpa_row(name, timer, quant_captured[kind],
-                                quant_launches[name]))
-    q = captured["q"]
+        counts = {"attn": quant_launches[name],
+                  "combine": quant_launches[name + "_combine"]}
+        rows_out.append(rpa_row(name, timer, quant_captured[kind], counts))
+    q = captured["wide"]["q"]
     dtype = q.dtype
     rows, d = q.shape[1], q.shape[0] * q.shape[2]
     torch.manual_seed(SEED)

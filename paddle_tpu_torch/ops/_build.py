@@ -37,8 +37,8 @@ __all__ = ["NVCC_FLAGS", "SOURCES", "DTYPE_CODE", "build_all", "load",
 _CSRC = Path(__file__).resolve().parent.parent / "csrc"
 
 #: kernel sources, one shared library each
-SOURCES = ("ragged_paged_attention", "layer_norm", "flash_attention",
-           "flash_attention_sm90", "adamw")
+SOURCES = ("ragged_paged_attention", "ragged_paged_attention_sm90",
+           "layer_norm", "flash_attention", "flash_attention_sm90", "adamw")
 
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC")

@@ -22,11 +22,27 @@ operands are the JAX engine's:
 * a quantized pool comes with ``scales [L, 2, NB + 1, H]``: each block
   reads as ``code * scale`` rounded to q's dtype, as in the JAX kernel.
 
+Two routes, both hand-written, chosen by :func:`rpa_route` before the
+launch from q's and the pool's dtypes, the head width and the block size:
+
+- ``"tc"``, ``csrc/ragged_paged_attention_sm90.cu``: bfloat16 q over a
+  bfloat16, int8 or float8_e4m3fn pool at head width 64 or 128 and KV
+  blocks of 16, 32 or 64 rows; products on the tensor cores
+  (``mma.sync``) over q tiles of up to 64 rows of one sequence, the
+  walk stopped at the diagonal and split every :data:`SPLIT_COLS` KV
+  columns (:func:`split_count`, :func:`tc_plan`); a second launch
+  combines the splits when there is more than one;
+- ``"cuda_core"``, ``csrc/ragged_paged_attention.cu``: everything else
+  (float32 q, other widths and block sizes), one CTA per (8-row block,
+  head) on CUDA cores in f32.
+
 :func:`ragged_paged_attention` takes the plain version only for tensors
-on the CPU. A CUDA tensor goes to the kernel, or the call raises: there
+on the CPU. A CUDA tensor goes to a kernel, or the call raises: there
 is no fallback and no dequantized copy of the pool.
-``ragged_paged_attention.launches`` counts K1's launches,
-``ragged_paged_attention.quant_launches`` K1q's.
+``ragged_paged_attention.launches`` counts calls over float pools,
+``.quant_launches`` over int8/fp8 pools; ``.tc_launches`` and
+``.core_launches`` count the calls of each route, and
+``.combine_launches`` the tensor-core route's combine launches.
 """
 from __future__ import annotations
 
@@ -41,7 +57,9 @@ from . import _build
 
 __all__ = ["ragged_paged_attention", "ragged_paged_attention_plain",
            "ragged_layout", "reference_ragged_attention", "BLOCK_Q",
-           "MIN_KV_BLOCK", "min_kv_block_for"]
+           "MIN_KV_BLOCK", "min_kv_block_for", "rpa_route", "split_count",
+           "tile_slots", "tc_plan", "TC_HEAD_DIMS", "TC_BLOCK_SIZES",
+           "TILE_BLOCKS", "SPLIT_COLS"]
 
 _NEG_INF = -1e30
 
@@ -61,6 +79,86 @@ _MIN_KV_BLOCK_BY_DTYPE = {"int8": 32, "float8_e4m3fn": 32}
 # quantized pool storage types -> the ``storage`` argument of
 # rpa_quant_launch
 _QUANT_CODE = {torch.int8: 0, torch.float8_e4m3fn: 1}
+
+#: head widths and KV block sizes of the tensor-core route
+TC_HEAD_DIMS = (64, 128)
+TC_BLOCK_SIZES = (16, 32, 64)
+#: layout blocks a tensor-core q tile takes at most (64 rows)
+TILE_BLOCKS = 8
+#: KV columns of a split of the tensor-core route's walk
+SPLIT_COLS = 128
+
+# pool storage -> the ``storage`` argument of rpa_tc_launch
+_TC_CODE = {torch.bfloat16: 0, torch.int8: 1, torch.float8_e4m3fn: 2}
+
+
+def rpa_route(q_dtype, pool_dtype, head_dim, block_size):
+    """The kernel route for q of ``q_dtype`` over a pool of ``pool_dtype``
+    at ``head_dim`` and KV ``block_size``: ``"tc"`` (the tensor-core
+    kernel: bfloat16 q over a bfloat16, int8 or float8_e4m3fn pool at a
+    width in :data:`TC_HEAD_DIMS` and a block size in
+    :data:`TC_BLOCK_SIZES`) or ``"cuda_core"``. Float32 q stays on CUDA
+    cores: a TF32 product would change the function."""
+    if (q_dtype == torch.bfloat16 and pool_dtype in _TC_CODE
+            and head_dim in TC_HEAD_DIMS and block_size in TC_BLOCK_SIZES):
+        return "tc"
+    return "cuda_core"
+
+
+def split_count(table_len: int, block_size: int) -> int:
+    """Splits of the tensor-core route's grid (``grid.z``): enough
+    :data:`SPLIT_COLS`-column splits to cover a page table of
+    ``table_len`` blocks. A function of the operands' shapes alone."""
+    return max(1, -(-int(table_len) * int(block_size) // SPLIT_COLS))
+
+
+def tile_slots(q_rows: int, n_seqs: int) -> int:
+    """CTAs of the tensor-core route's grid per head and split
+    (``grid.x``): ``ceil(q_rows / 64) + n_seqs``, a bound on its tiles (a
+    sequence of k layout blocks makes at most k / 8 + 1 of them)."""
+    return -(-int(q_rows) // (TILE_BLOCKS * BLOCK_Q)) + int(n_seqs)
+
+
+def tc_plan(blk_seq, seq_qstart, seq_pos0, lo, kv_len, block_size):
+    """The tensor-core route's decomposition, as the kernel computes it on
+    the device: one dict a q tile with its sequence ``seq``, ``first``
+    layout block, ``rows`` (8 a block, at most :data:`TILE_BLOCKS`
+    blocks of one sequence, starting at every 8th block of it),
+    ``qpos0`` (the virtual position of its row 0), the pages it walks,
+    ``[p_begin, p_end)`` (from the page holding ``lo`` to the one holding
+    its last row's position, within ``ceil(kv_len / bs)``; all of them
+    when a row lies below ``lo``), and the splits ``[z_first, z_last]``
+    those pages fall in."""
+    blk_seq, seq_qstart, seq_pos0, lo, kv_len = (
+        _host(m) for m in (blk_seq, seq_qstart, seq_pos0, lo, kv_len))
+    bs = int(block_size)
+    tiles = []
+    for b, s in enumerate(blk_seq):
+        s = int(s)
+        b0 = int(seq_qstart[s]) // BLOCK_Q if s >= 0 else 0
+        if s < 0 or (b - b0) % TILE_BLOCKS:
+            continue
+        n = 1
+        while n < TILE_BLOCKS and b + n < len(blk_seq) \
+                and int(blk_seq[b + n]) == s:
+            n += 1
+        rows = n * BLOCK_Q
+        qpos0 = int(seq_pos0[s]) + (b - b0) * BLOCK_Q
+        floor, n_kv = int(lo[s]), -(-int(kv_len[s]) // bs)
+        if qpos0 < floor:
+            p_begin, p_end = 0, n_kv
+        else:
+            p_begin = floor // bs
+            p_end = min(n_kv, (qpos0 + rows - 1) // bs + 1)
+        if p_end <= p_begin:
+            p_begin = p_end = z_first = z_last = 0
+        else:
+            z_first = p_begin * bs // SPLIT_COLS
+            z_last = (p_end * bs - 1) // SPLIT_COLS
+        tiles.append(dict(seq=s, first=b, rows=rows, qpos0=qpos0,
+                          p_begin=p_begin, p_end=p_end, z_first=z_first,
+                          z_last=z_last))
+    return tiles
 
 
 def _dtype_name(dtype) -> str:
@@ -168,6 +266,11 @@ _ARGS = [ctypes.c_int] + [ctypes.c_void_p] * 9 + [ctypes.c_int] * 7 + [
 # and the metadata as in rpa_launch
 _QUANT_ARGS = [ctypes.c_int] * 2 + [ctypes.c_void_p] * 10 \
     + [ctypes.c_int] * 7 + [ctypes.c_float, ctypes.c_void_p]
+# rpa_tc_launch: storage code, q, pool, scales, out, the three partial
+# buffers, the metadata, H, Qp, S, Dh, NB + 1, bs, T, layer, scale, the
+# slot and split counts, the stream
+_TC_ARGS = [ctypes.c_int] + [ctypes.c_void_p] * 13 + [ctypes.c_int] * 8 + [
+    ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
 
 
 def ragged_paged_attention(q, pool, layer, blk_seq, seq_qstart, seq_pos0,
@@ -231,38 +334,66 @@ def ragged_paged_attention(q, pool, layer, blk_seq, seq_qstart, seq_pos0,
                          f"must be a multiple of {max(vec, 8)} and q/pool "
                          f"16-byte aligned")
     scale = float(scale) if scale is not None else 1.0 / math.sqrt(dh)
+    if quantized and (scales.device != q.device
+                      or scales.dtype != torch.float32
+                      or not scales.is_contiguous()):
+        raise ValueError(f"scales must be a contiguous float32 tensor "
+                         f"on {q.device}, got {scales.dtype} on "
+                         f"{scales.device}")
     out = torch.empty_like(q)
-    meta = (blk_seq.data_ptr(), seq_qstart.data_ptr(), seq_pos0.data_ptr(),
-            tables.data_ptr(), lo.data_ptr(), kv_len.data_ptr(), h, qp, dh,
-            nb1, bs, int(tables.shape[1]), int(layer), scale,
-            torch.cuda.current_stream(q.device).cuda_stream)
-    if quantized:
-        if scales.device != q.device or scales.dtype != torch.float32 \
-                or not scales.is_contiguous():
-            raise ValueError(f"scales must be a contiguous float32 tensor "
-                             f"on {q.device}, got {scales.dtype} on "
-                             f"{scales.device}")
-        rc = _build.function("ragged_paged_attention", "rpa_quant_launch",
-                             _QUANT_ARGS)(
-            _QUANT_CODE[pool.dtype], _build.DTYPE_CODE[q.dtype],
-            q.data_ptr(), pool.data_ptr(), scales.data_ptr(),
-            out.data_ptr(), *meta)
+    T = int(tables.shape[1])
+    ints = (blk_seq.data_ptr(), seq_qstart.data_ptr(), seq_pos0.data_ptr(),
+            tables.data_ptr(), lo.data_ptr(), kv_len.data_ptr())
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    sc = scales.data_ptr() if quantized else None
+    route = rpa_route(q.dtype, pool.dtype, dh, bs)
+    if route == "tc":
+        z = split_count(T, bs)
+        # partials of multi-split tiles and each block's split range, for
+        # the combine launch
+        n = (h * qp * z * dh, h * qp * z * 2, qp // BLOCK_Q) if z > 1 \
+            else (0, 0, 0)
+        part = [torch.empty(k, dtype=t, device=q.device) for k, t in zip(
+            n, (torch.float32, torch.float32, torch.int32))]
+        rc = _build.function("ragged_paged_attention_sm90", "rpa_tc_launch",
+                             _TC_ARGS)(
+            _TC_CODE[pool.dtype], q.data_ptr(), pool.data_ptr(), sc,
+            out.data_ptr(), *(t.data_ptr() for t in part), *ints, h, qp, S,
+            dh, nb1, bs, T, int(layer), scale, tile_slots(qp, S), z, stream)
     else:
-        rc = _build.function("ragged_paged_attention", "rpa_launch", _ARGS)(
-            _build.DTYPE_CODE[q.dtype], q.data_ptr(), pool.data_ptr(),
-            out.data_ptr(), *meta)
+        meta = (*ints, h, qp, dh, nb1, bs, T, int(layer), scale, stream)
+        if quantized:
+            rc = _build.function("ragged_paged_attention",
+                                 "rpa_quant_launch", _QUANT_ARGS)(
+                _QUANT_CODE[pool.dtype], _build.DTYPE_CODE[q.dtype],
+                q.data_ptr(), pool.data_ptr(), sc, out.data_ptr(), *meta)
+        else:
+            rc = _build.function("ragged_paged_attention", "rpa_launch",
+                                 _ARGS)(
+                _build.DTYPE_CODE[q.dtype], q.data_ptr(), pool.data_ptr(),
+                out.data_ptr(), *meta)
     if rc != 0:
         raise RuntimeError(
-            f"ragged paged attention kernel launch failed: CUDA error {rc}")
+            f"ragged paged attention kernel launch failed ({route} route): "
+            f"CUDA error {rc}")
+    fn = ragged_paged_attention
     if quantized:
-        ragged_paged_attention.quant_launches += 1
+        fn.quant_launches += 1
     else:
-        ragged_paged_attention.launches += 1
+        fn.launches += 1
+    if route == "tc":
+        fn.tc_launches += 1
+        fn.combine_launches += z > 1
+    else:
+        fn.core_launches += 1
     return out
 
 
 ragged_paged_attention.launches = 0
 ragged_paged_attention.quant_launches = 0
+ragged_paged_attention.tc_launches = 0
+ragged_paged_attention.core_launches = 0
+ragged_paged_attention.combine_launches = 0
 
 
 def ragged_layout(q_lens: Sequence[int], pos0s: Sequence[int], *,

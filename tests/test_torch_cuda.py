@@ -534,3 +534,162 @@ def test_layer_norm_module_under_autograd_takes_the_warp_route(cuda):
     torch.cuda.synchronize()
     assert _ln_counts() == [tuple(c + s for c, s in zip(counts, (1, 1, 0)))
                             for counts in before]
+
+
+# ---------------------------------------------------------------- ragged attention routes
+_RPA = rpa.ragged_paged_attention
+_RPA_COUNTS = ("launches", "quant_launches", "tc_launches", "core_launches",
+               "combine_launches")
+
+# (q_len, pos0, kv_len, lo) a sequence: the tensor-core route's edge cases
+# in one ragged batch. A decode row at position 0; kv_len ending mid-page
+# with pad rows in its block; a chunk whose rows cross pages; a chunk
+# whose 64-row tile spans a split boundary, so its first rows see nothing
+# in the second split; a decode row past several splits; a chunk there;
+# lo > 0 cutting a split; rows below lo (wholly masked: the mean of
+# every page, as the plain version has it).
+_RPA_EDGES = [(1, 0, 1, 0), (5, 32, 37, 0), (30, 10, 40, 0),
+              (64, 230, 294, 0), (1, 1316, 1317, 0), (100, 1200, 1300, 0),
+              (1, 699, 700, 300), (16, 10, 26, 20)]
+
+
+def _rpa_edge_batch(dev, storage, dh, bs, extra_t=0, pad_blocks=2, seed=0):
+    """``_RPA_EDGES`` over a random page table of ``bs``-row blocks, as
+    (q, pool, scales, meta): q bf16, the pool of ``storage`` (int8/fp8
+    codes with per-block scales), 2 layers; ``extra_t`` more table
+    columns than the longest sequence needs, ``pad_blocks`` pad blocks."""
+    rng = np.random.RandomState(seed)
+    S, H = len(_RPA_EDGES), 2
+    T = max(-(-kv // bs) for _, _, kv, _ in _RPA_EDGES) + extra_t
+    nb = sum(-(-kv // bs) for _, _, kv, _ in _RPA_EDGES)
+    vals = torch.from_numpy(rng.randn(2, 2, nb + 1, H, bs, dh)
+                            .astype(np.float32)).to(dev)
+    if storage == torch.bfloat16:
+        pool, scales = vals.to(storage), None
+    else:
+        pool, scales = _quantize_blocks(vals, storage)
+    tables = np.zeros((S, T), np.int32)
+    free = rng.permutation(np.arange(1, nb + 1)).tolist()
+    for s, (_, _, kv, _) in enumerate(_RPA_EDGES):
+        n = -(-kv // bs)
+        tables[s, :n] = [free.pop() for _ in range(n)]
+    q_lens = [e[0] for e in _RPA_EDGES]
+    pos0s = [e[1] for e in _RPA_EDGES]
+    qp = (len(rpa.ragged_layout(q_lens, pos0s)[0]) + pad_blocks) * 8
+    blk_seq, qstart, pos0, _, _ = rpa.ragged_layout(q_lens, pos0s,
+                                                    q_bucket=qp)
+    q = torch.from_numpy(rng.randn(H, qp, dh).astype(np.float32)).to(
+        dev, torch.bfloat16)
+    meta = [torch.from_numpy(np.asarray(a, np.int32)).to(dev)
+            for a in (blk_seq, qstart, pos0, tables,
+                      [e[3] for e in _RPA_EDGES], [e[2] for e in _RPA_EDGES])]
+    return q, pool, scales, meta
+
+
+def _rpa_counts():
+    return tuple(getattr(_RPA, c) for c in _RPA_COUNTS)
+
+
+def _rpa_call(q, pool, scales, meta, route, layer=1):
+    """One call, which must count once in its pool kind's total and on
+    ``route`` (and the combine once when the tensor-core route splits)."""
+    before = _rpa_counts()
+    out = _RPA(q, pool, layer, *meta, scales=scales)
+    torch.cuda.synchronize()
+    quant = pool.dtype in (torch.int8, torch.float8_e4m3fn)
+    splits = rpa.split_count(meta[3].shape[1], pool.shape[4])
+    step = (int(not quant), int(quant), int(route == "tc"),
+            int(route != "tc"), int(route == "tc" and splits > 1))
+    assert _rpa_counts() == tuple(b + s for b, s in zip(before, step))
+    return out
+
+
+@pytest.mark.parametrize("storage, bs", [
+    (torch.bfloat16, 16), (torch.bfloat16, 32), (torch.bfloat16, 64),
+    (torch.int8, 32), (torch.int8, 64),
+    (torch.float8_e4m3fn, 32), (torch.float8_e4m3fn, 64)])
+@pytest.mark.parametrize("dh", [64, 128])
+def test_ragged_attention_tensor_core_route_matches_plain(cuda, storage, bs,
+                                                          dh):
+    """The edge-case batch through the tensor-core route against the plain
+    version, every row (pad rows of real blocks included); pad blocks are
+    zeros and a second call gives the same bits."""
+    q, pool, scales, meta = _rpa_edge_batch(cuda, storage, dh, bs)
+    assert rpa.rpa_route(q.dtype, pool.dtype, dh, bs) == "tc"
+    got = _rpa_call(q, pool, scales, meta, "tc")
+    want = rpa.ragged_paged_attention_plain(q, pool, 1, *meta, scales=scales)
+    assert got.dtype == torch.bfloat16
+    torch.testing.assert_close(got.float(), want.float(),
+                               **TOL[torch.bfloat16])
+    assert torch.all(got[:, -16:] == 0)
+    again = _RPA(q, pool, 1, *meta, scales=scales)
+    torch.cuda.synchronize()
+    assert torch.equal(got, again)
+
+
+@pytest.mark.parametrize("storage", [torch.bfloat16, torch.int8])
+def test_ragged_attention_tensor_core_route_with_a_long_table(cuda, storage):
+    """T far larger than any walk needs: more splits in the grid than any
+    tile uses; the CTAs past a tile's walk exit."""
+    q, pool, scales, meta = _rpa_edge_batch(cuda, storage, 64, 32,
+                                            extra_t=100, seed=1)
+    got = _rpa_call(q, pool, scales, meta, "tc")
+    want = rpa.ragged_paged_attention_plain(q, pool, 1, *meta, scales=scales)
+    torch.testing.assert_close(got.float(), want.float(),
+                               **TOL[torch.bfloat16])
+
+
+@pytest.mark.parametrize("storage", [torch.bfloat16, torch.int8])
+def test_ragged_attention_tensor_core_route_in_a_wide_bucket(cuda, storage):
+    """200 pad blocks after the batch: the CTAs scan blk_seq 128 blocks at
+    a time, and every pad block, in either chunk, is zeros."""
+    q, pool, scales, meta = _rpa_edge_batch(cuda, storage, 64, 32,
+                                            pad_blocks=200, seed=5)
+    assert meta[0].shape[0] > 128
+    got = _rpa_call(q, pool, scales, meta, "tc")
+    want = rpa.ragged_paged_attention_plain(q, pool, 1, *meta, scales=scales)
+    torch.testing.assert_close(got.float(), want.float(),
+                               **TOL[torch.bfloat16])
+    assert torch.all(got[:, -200 * 8:] == 0)
+
+
+@pytest.mark.parametrize("storage", [torch.bfloat16, torch.float8_e4m3fn])
+def test_ragged_attention_tensor_core_route_all_pad_blocks(cuda, storage):
+    q, pool, scales, meta = _rpa_edge_batch(cuda, storage, 64, 32, seed=2)
+    meta[0] = torch.full_like(meta[0], -1)
+    got = _rpa_call(q, pool, scales, meta, "tc")
+    assert torch.all(got == 0)
+
+
+def test_ragged_attention_tensor_core_route_agrees_with_the_cuda_core_kernel(
+        cuda):
+    """The same bf16 operands through both kernels, the old one by its C
+    entry (which the wrapper no longer takes for them)."""
+    from paddle_tpu_torch.ops import _build
+    q, pool, _, meta = _rpa_edge_batch(cuda, torch.bfloat16, 64, 16, seed=3)
+    got = _rpa_call(q, pool, None, meta, "tc")
+    old = torch.empty_like(q)
+    rc = _build.function("ragged_paged_attention", "rpa_launch", rpa._ARGS)(
+        1, q.data_ptr(), pool.data_ptr(), old.data_ptr(),
+        *(m.data_ptr() for m in meta[:3]), meta[3].data_ptr(),
+        meta[4].data_ptr(), meta[5].data_ptr(), 2, q.shape[1], 64,
+        pool.shape[2], 16, meta[3].shape[1], 1, 0.125,
+        torch.cuda.current_stream().cuda_stream)
+    torch.cuda.synchronize()
+    assert rc == 0
+    torch.testing.assert_close(got.float(), old.float(),
+                               **TOL[torch.bfloat16])
+
+
+@pytest.mark.parametrize("case", ["float32 q", "bf16 Dh 32", "bf16 bs 8"])
+def test_ragged_attention_cuda_core_route_takes_the_rest(cuda, case):
+    dh, bs = (32, 16) if case == "bf16 Dh 32" else (64, 16)
+    if case == "bf16 bs 8":
+        bs = 8
+    q, pool, _, meta = _rpa_edge_batch(cuda, torch.bfloat16, dh, bs, seed=4)
+    if case == "float32 q":
+        q, pool = q.float(), pool.float()
+    assert rpa.rpa_route(q.dtype, pool.dtype, dh, bs) == "cuda_core"
+    got = _rpa_call(q, pool, None, meta, "cuda_core")
+    want = rpa.ragged_paged_attention_plain(q, pool, 1, *meta)
+    torch.testing.assert_close(got.float(), want.float(), **TOL[q.dtype])
