@@ -42,6 +42,19 @@ prints no result line):
    pool holding the same prompt, then 4 requests from a float8_e4m3fn
    pool; and the capacity line: the int8 tokens that fit phase 3's pool
    bytes;
+3c. generate: ``model.generate`` on the same bf16 model (GPT-2 small at
+   full width and depth): 8 unmasked prompts of 512 tokens, 64 new
+   tokens, greedy, then sampled (top-k 50, top-p 0.9, seed 1); 4
+   left-padded prompts of 96-256 real tokens in a 256-wide batch, 32 new
+   tokens. Each run's K2 and K4 launches are counted around it and held
+   to (2L + 1) x N and L (0 when masked), every K2 launch on the
+   warp-row route and every K4 launch on the tensor-core route;
+   generated tokens/s, prefill ms (a ``max_new_tokens=1`` call) and
+   decode ms per token step; ``call_op``'s host cost per call. Then the
+   unmasked greedy case in float32 at GPT-2 width cut to 2 layers, on
+   the card and on a CPU copy (plain versions): the first step's logits
+   within ``GEN_TOL``, and each row's tokens equal up to the first step
+   where the CPU's top-2 logit margin falls below ``GEN_TOL``;
 4. train: GPT-2 small at full width, bf16 AMP O2, AdamW with float32
    master weights, batch 8 x 1024 with next-token labels and the LM loss
    in 8 chunks (``bench.py``'s ``bench_gpt2`` configuration), through
@@ -74,11 +87,15 @@ prints no result line):
    launches from phase 4; the ``fused_layer_norm`` row times the
    engine's widest step's rows and counts the three engine runs; the
    ``_f32`` flash rows (the CUDA-core kernels) take phase 2's float32
-   flash case and the float32 step's launches.
+   flash case and the float32 step's launches (and the forward, the
+   float32 generate's); ``fused_layer_norm_generate`` (K2 at a decode
+   step's rows, bf16 [8, 768]) and ``flash_attention_fwd_generate`` (K4
+   at the prefill's shape, bf16 [8, 512, 12, 64] causal) count phase
+   3c's runs.
 
-``--profile`` adds one more batch to the bf16 and the int8 engines and
-two more train steps under torch.profiler and prints device time by
-kernel and the device's idle share.
+``--profile`` adds one more batch to the bf16 and the int8 engines, one
+more greedy generate and two more train steps under torch.profiler and
+prints device time by kernel and the device's idle share.
 
 Times come from CUDA events around single launches, median of 20,
 with the 50 MB L2 cache flushed and the device kept busy until the
@@ -87,6 +104,7 @@ overhead enters them. Float32 products run without TF32.
 """
 from __future__ import annotations
 
+import gc
 import json
 import math
 import statistics
@@ -125,6 +143,13 @@ ADAMW_TPU = "paddle_tpu/ops/pallas_kernels.py:1003"
 # the bench_gpt2 configuration (bench.py:158)
 BATCH, SEQ, LM_CHUNKS, LR, WD = 8, 1024, 8, 1e-4, 0.01
 WARM_STEPS, TIMED_STEPS = 2, 8
+# generate: 8 prompts x 512 tokens, 64 new; 4 left-padded rows of a
+# 256-wide batch, 32 new
+GEN_BATCH, GEN_PROMPT, GEN_NEW = 8, 512, 64
+GEN_MASKED = (4, 256, 32)
+# float32 first-step logits, card vs CPU: the same f32 arithmetic summed
+# in other orders over 2 blocks and a 768-wide head, |logits| ~ 1
+GEN_TOL = 2e-4
 
 
 def log(*a):
@@ -1034,6 +1059,270 @@ def phase_engine_quant(model, prompts, bf16_outs, bf16_stats,
             {"int8": cap_i8, "fp8": cap_f8})
 
 
+# ---------------------------------------------------------------- phase 3c
+def gen_counters():
+    """The launch-counting wrappers of the kernels ``generate`` runs."""
+    from paddle_tpu_torch.ops import flash_attention as fa
+    from paddle_tpu_torch.ops import layer_norm as ln
+    return {"fused_layer_norm": ln.fused_layer_norm,
+            "flash_attention_fwd": fa.flash_attention_fwd}
+
+
+def gen_want(n_layers, new_tokens, masked):
+    """K2 and K4 launches of one greedy or sampled ``generate``: K2 at
+    ln_1, ln_2 of every block and ln_f in the prefill and in each of the
+    N - 1 decode steps; K4 once a layer in an unmasked prefill, never in
+    a masked one (the decode steps attend over the cache through the
+    plain masked composition, as in the JAX package)."""
+    return {"fused_layer_norm": (2 * n_layers + 1) * new_tokens,
+            "flash_attention_fwd": 0 if masked else n_layers}
+
+
+def op_calls():
+    """Every ``op_count/<name>`` counter of ``call_op``, summed."""
+    from paddle_tpu_torch.framework import monitor
+    return sum(v for k, v in monitor.all_stats().items()
+               if k.startswith("op_count/"))
+
+
+def gen_run(what, model, ids, want, flash_route, **kw):
+    """One ``model.generate(ids, **kw)`` with the counts set to 0 just
+    before and read just after: they must equal ``want``, every
+    LayerNorm launch on the warp-row route and every flash launch on
+    ``flash_route``. Returns (tokens, wall seconds, launches, call_op
+    calls)."""
+    counters = gen_counters()
+    reset_counts(counters)
+    calls0 = op_calls()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = model.generate(ids, **kw)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {name: fn.launches for name, fn in counters.items()}
+    if launches != want:
+        raise AssertionError(f"{what}: launches {launches}, expected {want}")
+    check_ln_route(what, (counters["fused_layer_norm"],))
+    fa_fn = counters["flash_attention_fwd"]
+    on = fa_fn.tc_launches if flash_route == "tc" else fa_fn.core_launches
+    if on != fa_fn.launches:
+        raise AssertionError(f"{what}: {fa_fn.launches} flash launches, "
+                             f"{on} on the {flash_route} route")
+    n = kw["max_new_tokens"]
+    vocab = model.gpt.cfg.vocab_size
+    if not (out.is_cuda == ids.is_cuda and tuple(out.shape) == (
+            ids.shape[0], ids.shape[1] + n)):
+        raise AssertionError(f"{what}: tokens {tuple(out.shape)} on "
+                             f"{out.device}")
+    if not (torch.equal(out[:, :ids.shape[1]].long(), ids.long())
+            and bool(((out >= 0) & (out < vocab)).all())):
+        raise AssertionError(f"{what}: prompt changed or token out of range")
+    return out, wall, launches, op_calls() - calls0
+
+
+def call_op_cost(device):
+    """Host µs that ``call_op`` adds to one op on the card: ``reshape``
+    (a view, no launch) and the ``layer_norm`` op (predicate, override,
+    K2 launch) against calling ``torch.reshape`` and the K2 wrapper
+    directly, 500 calls a batch (under the launch queue's depth), median
+    of 9 batches."""
+    from paddle_tpu_torch.framework.dispatch import call_op
+    from paddle_tpu_torch.ops.layer_norm import layer_norm
+    x = torch.randn(8, 768, device=device, dtype=torch.bfloat16)
+    w, b = torch.ones_like(x[0]), torch.zeros_like(x[0])
+    pairs = {"reshape": (lambda: call_op("reshape", x, (2, 4, 768)),
+                         lambda: torch.reshape(x, (2, 4, 768))),
+             "layer_norm": (lambda: call_op("layer_norm", x, w, b,
+                                            epsilon=1e-5),
+                            lambda: layer_norm(x, w, b, 1e-5))}
+    cost = {}
+    for name, fns in pairs.items():
+        per = []
+        for fn in fns:
+            runs = []
+            for _ in range(9):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                for _ in range(500):
+                    fn()
+                runs.append((time.perf_counter() - t0) / 500 * 1e6)
+                torch.cuda.synchronize()
+            per.append(statistics.median(runs))
+        cost[name] = {"call_op_us": per[0], "direct_us": per[1],
+                      "added_us": per[0] - per[1]}
+    return cost
+
+
+def profile_generate(model, ids, new_tokens):
+    """Device time by kernel and the idle share over one more greedy
+    generate, under torch.profiler."""
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        model.generate(ids, max_new_tokens=new_tokens)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    device_time_report("generate", prof, wall_ms, new_tokens)
+
+
+def phase_generate(model, device, profile=False):
+    """Phase 3c: ``model.generate`` on GPT-2 small in bf16 (the engine's
+    model): 8 unmasked prompts of 512 tokens, 64 new tokens, greedy, then
+    sampled (top-k 50, top-p 0.9, seed 1); 4 left-padded prompts of
+    96-256 real tokens in a 256-wide batch, 32 new tokens. Returns the
+    K2 and K4 launches of those runs."""
+    cfg = model.gpt.cfg
+    L, vocab = cfg.num_hidden_layers, cfg.vocab_size
+    rng = np.random.RandomState(SEED + 6)
+    ids = torch.from_numpy(rng.randint(0, vocab, (GEN_BATCH, GEN_PROMPT))
+                           ).to(device)
+    model.generate(ids, max_new_tokens=2)                   # warm-up
+    first, prefill_s, pre_l, _ = gen_run(
+        "generate prefill", model, ids, gen_want(L, 1, False), "tc",
+        max_new_tokens=1)
+    greedy, wall, launches, calls = gen_run(
+        "generate greedy", model, ids, gen_want(L, GEN_NEW, False), "tc",
+        max_new_tokens=GEN_NEW)
+    if not torch.equal(first[:, GEN_PROMPT], greedy[:, GEN_PROMPT]):
+        raise AssertionError("generate: the first greedy token differs "
+                             "between two calls")
+    toks = GEN_BATCH * GEN_NEW
+    decode_ms = (wall - prefill_s) / (GEN_NEW - 1) * 1e3
+    log(f"generate: GPT-2 small bf16, {GEN_BATCH} prompts x {GEN_PROMPT} "
+        f"tokens, {GEN_NEW} new, greedy: {wall:.4f} s, {toks / wall:.1f} "
+        f"generated tokens/s; prefill (max_new_tokens=1) "
+        f"{prefill_s * 1e3:.3f} ms; decode {decode_ms:.4f} ms per token "
+        f"step ((wall - prefill) / {GEN_NEW - 1}); launches "
+        f"{json.dumps(launches)}; call_op calls {calls:.0f} "
+        f"({calls / GEN_NEW:.1f} per token step)")
+    sampled, s_wall, s_launches, _ = gen_run(
+        "generate sampled", model, ids, gen_want(L, GEN_NEW, False), "tc",
+        max_new_tokens=GEN_NEW, do_sample=True, top_k=50, top_p=0.9, seed=1)
+    if torch.equal(sampled, greedy):
+        raise AssertionError("sampled generate equals the greedy one")
+    log(f"generate sampled (top_k 50, top_p 0.9, seed 1): {s_wall:.4f} s, "
+        f"{toks / s_wall:.1f} tokens/s; launches {json.dumps(s_launches)}")
+    rows, width, new = GEN_MASKED
+    lens = [96, 256] + [int(n) for n in rng.randint(96, 257, rows - 2)]
+    mids = torch.from_numpy(rng.randint(0, vocab, (rows, width))).to(device)
+    mask = torch.zeros(rows, width, dtype=torch.int64, device=device)
+    for i, n in enumerate(lens):
+        mask[i, width - n:] = 1
+    masked, m_wall, m_launches, _ = gen_run(
+        "generate left-padded", model, mids * mask,
+        gen_want(L, new, True), "tc", max_new_tokens=new,
+        attention_mask=mask)
+    log(f"generate left-padded: {rows} prompts of {lens} real tokens in a "
+        f"{width}-wide batch, {new} new, greedy: {m_wall:.4f} s, "
+        f"{rows * new / m_wall:.1f} tokens/s; launches "
+        f"{json.dumps(m_launches)}")
+    cost = call_op_cost(device)
+    log("call_op host cost on the card, µs per call (call_op, direct, "
+        "added): " + json.dumps(cost))
+    if profile:
+        profile_generate(model, ids, GEN_NEW)
+    return {name: pre_l[name] + launches[name] + s_launches[name]
+            + m_launches[name] for name in launches}
+
+
+def phase_generate_f32(device):
+    """The unmasked greedy case in float32, GPT-2 width at 2 layers: on the
+    card (K2; K4 on the CUDA-core route) and on a CPU copy of the same
+    weights (plain versions). The first step's logits agree within
+    GEN_TOL; each row's tokens are equal up to the first step where the
+    CPU's top-2 logit margin is below GEN_TOL (there rounding may pick
+    either token). Returns the card run's launches."""
+    import copy
+
+    import paddle_tpu_torch as pt
+    from paddle_tpu_torch.models import GPTConfig, GPTForPretraining
+    pt.seed(SEED + 3)
+    cfg = GPTConfig.gpt2_small()
+    cfg.num_hidden_layers = 2
+    cpu_net = GPTForPretraining(cfg).eval()
+    card_net = copy.deepcopy(cpu_net).to(device)
+    ids = torch.from_numpy(np.random.RandomState(SEED + 6).randint(
+        0, cfg.vocab_size, (GEN_BATCH, GEN_PROMPT)))
+    seen = {}
+    for where, net in (("cpu", cpu_net), ("card", card_net)):
+        gpt, rec = net.gpt, seen.setdefault(where, [])
+
+        def keep(h, _gpt=gpt, _rec=rec):
+            out = type(_gpt).logits(_gpt, h)
+            top2 = out[:, 0].float().topk(2, dim=-1).values
+            _rec.append((out[:, 0].float().cpu() if not _rec else None,
+                         (top2[:, 0] - top2[:, 1]).cpu()))
+            return out
+
+        gpt.logits = keep
+    try:
+        card, _, launches, _ = gen_run(
+            "generate float32 on the card", card_net, ids.to(device),
+            gen_want(2, GEN_NEW, False), "cuda_core",
+            max_new_tokens=GEN_NEW)
+        cpu = cpu_net.generate(ids, max_new_tokens=GEN_NEW)
+    finally:
+        del cpu_net.gpt.logits, card_net.gpt.logits
+    err = (seen["card"][0][0] - seen["cpu"][0][0]).abs().max().item()
+    if not err <= GEN_TOL:
+        raise AssertionError(f"float32 first-step logits: card vs CPU off by "
+                             f"{err}, over {GEN_TOL}")
+    margins = torch.stack([m for _, m in seen["cpu"]])      # [steps, B]
+    card, cpu = card.cpu()[:, GEN_PROMPT:], cpu[:, GEN_PROMPT:]
+    tie = [int(torch.nonzero(margins[:, b] < GEN_TOL)[0])
+           if bool((margins[:, b] < GEN_TOL).any()) else GEN_NEW
+           for b in range(GEN_BATCH)]
+    for b, t in enumerate(tie):
+        if not torch.equal(card[b, :t], cpu[b, :t]):
+            raise AssertionError(
+                f"float32 generate row {b}: card tokens {card[b, :t]} != CPU "
+                f"{cpu[b, :t]} before its first near-tie at step {t}")
+    same = int((card == cpu).all(dim=1).sum())
+    log(f"generate float32 check (GPT-2 width, 2 layers, {GEN_BATCH} x "
+        f"{GEN_PROMPT}, {GEN_NEW} new, card vs CPU): first-step logits max "
+        f"|diff| {err:.3e} (limit {GEN_TOL}); first CPU top-2 margin below "
+        f"{GEN_TOL} per row at step {tie} ({GEN_NEW} = none); tokens equal "
+        f"before it in every row, all {GEN_NEW} equal in {same} of "
+        f"{GEN_BATCH} rows; launches {json.dumps(launches)}, flash on the "
+        f"CUDA-core route")
+    return launches
+
+
+def generate_rows(device, timer, launches):
+    """The kernels line's rows of the generate path: K2 at a decode step's
+    rows (bf16 [8, 768], most of its launches) and K4 at the prefill's
+    shape (bf16 [8, 512, 12, 64] causal, tensor-core route), each with the
+    launches of ``launches`` (the generate runs). K2 at the prefill's rows
+    is logged."""
+    gen = torch.Generator(device=device).manual_seed(SEED + 7)
+
+    def randn(*shape, scale=1.0):
+        return (scale * torch.randn(*shape, device=device, generator=gen)
+                ).to(torch.bfloat16)
+
+    rows = []
+    for n, step in ((GEN_BATCH * GEN_PROMPT, "prefill"),
+                    (GEN_BATCH, "decode")):
+        row = ln_fwd_case(timer, randn(n, 768), 1 + randn(768, scale=0.1),
+                          randn(768, scale=0.1))
+        log(f"K2 fused_layer_norm at the generate path's {step} rows, bf16 "
+            f"[{n}, 768] {fmt(row)}")
+    rows.append(("fused_layer_norm_generate", LN_SRC, LN_TPU, row,
+                 launches["fused_layer_norm"]))
+    q, k, v, do = (randn(GEN_BATCH, GEN_PROMPT, 12, 64) for _ in range(4))
+    fwd, _ = flash_case(timer, q, k, v, do, route="tc")
+    log(f"K4/K5 flash_attention_fwd at the generate prefill's shape, bf16 "
+        f"[{GEN_BATCH}, {GEN_PROMPT}, 12, 64] causal, tc route {fmt(fwd)}")
+    rows.append(("flash_attention_fwd_generate", FA_TC_SRC, FA_FWD_TPU, fwd,
+                 launches["flash_attention_fwd"]))
+    return [{"name": name, "route": "cuda", "source": src, "replaces": tpu,
+             "launches": count,
+             **{k: row[k] for k in ("max_abs_err", "ms", "plain_ms",
+                                    "bound_ms", "bound_by", "library_ms")}}
+            for name, src, tpu, row, count in rows]
+
+
 # ---------------------------------------------------------------- phase 5
 def rpa_core(q, pool, meta, scales=None):
     """The CUDA-core kernel (``csrc/ragged_paged_attention.cu``) on layer 0
@@ -1348,6 +1637,9 @@ def phase_train(device, profile=False):
 
     fit(ids[:split], labels[:split])                  # warm-up
     torch.cuda.synchronize()
+    # the peak counts what the steps hold, not what earlier phases left
+    # for the garbage collector (an engine's pool in a reference cycle)
+    gc.collect()
     torch.cuda.reset_peak_memory_stats()
     counters = train_counters()
     reset_counts(counters)
@@ -1591,7 +1883,9 @@ def main() -> int:
         device, profile)
     quant_launches, quant_captured = phase_engine_quant(
         model, prompts, outs, bf16_stats, profile)
+    gen_launches = phase_generate(model, device, profile)
     del model
+    gen_f32_launches = phase_generate_f32(device)
     train_launches, train_cap = phase_train(device, profile)
     f32_launches = phase_f32_check(device)
     kernels = report_engine(device, timer, launches, captured,
@@ -1602,6 +1896,15 @@ def main() -> int:
     ln_row["launches"] += quant_launches["fused_layer_norm"]
     check_train_operands(train_cap)
     kernels += train_rows(train_launches, f32_launches, train_main)
+    # the float32 generate's K2 launches join the generate row, its K4
+    # launches (the CUDA-core route) the _f32 flash row
+    kernels += generate_rows(device, timer, {
+        "fused_layer_norm": gen_launches["fused_layer_norm"]
+        + gen_f32_launches["fused_layer_norm"],
+        "flash_attention_fwd": gen_launches["flash_attention_fwd"]})
+    f32_fwd = next(k for k in kernels
+                   if k["name"] == "flash_attention_fwd_f32")
+    f32_fwd["launches"] += gen_f32_launches["flash_attention_fwd"]
     for k in kernels:
         for key, v in k.items():
             if isinstance(v, float) and not math.isfinite(v):

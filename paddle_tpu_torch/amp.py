@@ -10,9 +10,10 @@ the custom op lists are not ported: asking for them raises.
 
 The policy is the JAX package's ``amp_cast_inputs`` at O2: inside
 ``auto_cast``, an op on the black list runs on float32 inputs and every
-other float op on bf16 inputs. The port has no op dispatcher, so each
-module of the GPT training path applies it where the JAX package's
-dispatcher would (:func:`cast_inputs`), per op:
+other float op on bf16 inputs. ``framework.dispatch.call_op`` applies
+it (:func:`cast_inputs`) to every op routed through it, as the JAX
+package's dispatcher does; the cross-entropy, which does not go through
+``call_op``, applies it itself. Per op:
 
 ==================================  =====  ============================
 op (module)                         list   at O2
@@ -41,7 +42,7 @@ import threading
 import torch
 
 __all__ = ["auto_cast", "decorate", "GradScaler", "cast_inputs",
-           "black_list"]
+           "is_auto_cast_enabled", "black_list"]
 
 black_list = {
     "softmax", "log_softmax", "layer_norm", "batch_norm", "group_norm",
@@ -74,6 +75,10 @@ def auto_cast(enable=True, level="O2", dtype="bfloat16"):
         yield
     finally:
         _state.dtype = old
+
+
+def is_auto_cast_enabled() -> bool:
+    return getattr(_state, "dtype", None) is not None
 
 
 def cast_inputs(op_name: str, *tensors):

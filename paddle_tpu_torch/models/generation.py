@@ -1,22 +1,50 @@
-"""The fused ragged serving step (counterpart of the fused path of
-``paddle_tpu/models/generation.py``): one launch advances a RAGGED batch
-of mixed prefill-chunk and decode rows through every layer, with the
-ragged paged attention kernel walking each sequence's page table in the
-block pool.
+"""Decoding (counterpart of ``paddle_tpu/models/generation.py``): the
+static-cache :func:`generate` and the fused ragged serving step.
 
-There is no jit and no donation: :func:`build_fused_step_fn` returns a
-plain function that runs eagerly and updates the pool (and a quantized
-pool's scales) IN PLACE, where the JAX step donated the buffers and
-returned new ones. Sampling draws from an explicit ``torch.Generator`` in
-place of ``jax.random`` keys.
+:func:`generate` decodes a batch of prompts through ``GPTModel.prefill``
+and ``decode_step`` over a fixed per-layer K/V cache, greedily or by
+sampling. The JAX package compiles that loop into one program
+(``lax.while_loop``) and caches it per shape; here it is a Python loop
+that runs eagerly and stops when every row is finished, with no compile
+cache.
+
+The fused step (:func:`build_fused_step_fn`) advances a RAGGED batch of
+mixed prefill-chunk and decode rows through every layer in one call, with
+the ragged paged attention kernel walking each sequence's page table in
+the block pool. There is no jit and no donation: it runs eagerly and
+updates the pool (and a quantized pool's scales) IN PLACE, where the JAX
+step donated the buffers and returned new ones.
+
+Sampling draws from an explicit ``torch.Generator`` in place of
+``jax.random`` keys.
 """
 from __future__ import annotations
 
+from dataclasses import dataclass
+from typing import Optional
+
+import numpy as np
 import torch
 
+from ..framework.dispatch import call_op
+from ..framework.random import get_generator
 from ..ops.ragged_paged_attention import BLOCK_Q, ragged_paged_attention
 
-__all__ = ["build_fused_step_fn"]
+__all__ = ["GenerationConfig", "generate", "build_fused_step_fn"]
+
+
+@dataclass
+class GenerationConfig:
+    max_new_tokens: int = 32
+    do_sample: bool = False
+    temperature: float = 1.0
+    top_k: int = 0            # 0 = disabled
+    top_p: float = 1.0        # 1.0 = disabled
+    eos_token_id: Optional[int] = None
+    pad_token_id: int = 0
+    seed: Optional[int] = None
+    num_beams: int = 1        # >1 = beam search (not ported yet)
+    length_penalty: float = 0.0   # GNMT ((5+len)/6)^alpha; 0 = off
 
 
 def _filter_logits(logits, top_k, top_p, temperature):
@@ -204,3 +232,213 @@ def build_fused_step_fn(model, num_slots, q_rows, table_len, block_size,
             return _append_nonfinite_flag(nxt, logits)
 
     return fn
+
+
+# -- static-cache generate ------------------------------------------------
+
+def _mask_preamble(attn_mask, batch, max_new):
+    """``(key_valid [B, total_len] bool over the prompt, real_len [B, 1])``
+    for a left-padded prompt mask."""
+    key_valid = call_op("concat", [
+        attn_mask.to(torch.bool),
+        torch.zeros((batch, max_new), dtype=torch.bool,
+                    device=attn_mask.device)], axis=1)
+    real_len = attn_mask.to(torch.int32).sum(dim=1, keepdim=True,
+                                             dtype=torch.int32)
+    return key_valid, real_len
+
+
+def _step_mask(key_valid, real_len, prompt_len, total_len, pos):
+    """Key validity of decode step ``pos`` (the prompt mask, and the
+    generated rows up to ``pos``) and each row's logical position."""
+    r = call_op("arange", total_len, device=key_valid.device)
+    kv = key_valid | ((r >= prompt_len) & (r <= pos))[None, :]
+    return kv, real_len + (pos - prompt_len)
+
+
+def _decode(model, ids, mask, max_new, do_sample, top_k, top_p,
+            temperature, eos, pad, generator):
+    """The greedy/sampling loop of ``_build_generate_fn``, run eagerly:
+    prefill, the first token, then one ``decode_step`` a token until the
+    budget is spent or every row has emitted ``eos``."""
+    gpt = model.gpt if hasattr(model, "gpt") else model
+    batch, prompt_len = ids.shape
+    total_len = prompt_len + max_new
+    device = ids.device
+    caches = gpt.init_cache(batch, total_len,
+                            next(model.parameters()).dtype, device)
+    if mask is not None:
+        # ragged (left-padded) prompts: pads are masked out of attention
+        # forever; logical positions count only real tokens, so each row
+        # decodes at real_len + t
+        key_valid, real_len = _mask_preamble(mask, batch, max_new)
+    else:
+        key_valid = real_len = None
+    temp = torch.full((), float(temperature), device=device)
+
+    def pick(hidden):
+        logits = gpt.logits(hidden)[:, 0].float()
+        return _pick_token(logits, generator, do_sample, top_k, top_p, temp)
+
+    hidden, caches = gpt.prefill(
+        ids, caches,
+        key_valid=None if key_valid is None else key_valid[:, :prompt_len])
+    first = pick(hidden)
+    tokens = call_op("concat", [
+        ids.to(torch.int32),
+        call_op("full", (batch, max_new), pad, dtype=torch.int32,
+                device=device)], axis=1)
+    tokens[:, prompt_len] = first
+    finished = None if eos is None else first == eos
+    for pos in range(prompt_len, total_len - 1):
+        # the host reads `finished` only when an eos can end the loop
+        if finished is not None and bool(finished.all()):
+            break
+        if key_valid is not None:
+            kv, positions = _step_mask(key_valid, real_len, prompt_len,
+                                       total_len, pos)
+        else:
+            kv = positions = None
+        hidden, caches = gpt.decode_step(tokens[:, pos:pos + 1], caches,
+                                         pos, key_valid=kv,
+                                         positions=positions)
+        nxt = pick(hidden)
+        if finished is not None:
+            nxt = torch.where(finished, pad, nxt)
+            finished = finished | (nxt == eos)
+        tokens[:, pos + 1] = nxt
+    return tokens
+
+
+class _UnsetType:
+    """Per-kwarg sentinel of :func:`generate`: tells 'not passed' from
+    'explicitly passed its default', so an explicit kwarg always
+    conflicts with ``config=``."""
+
+    def __repr__(self):
+        return "<unset>"
+
+
+_UNSET = _UnsetType()
+
+# signature defaults of generate(), applied when neither the kwarg nor a
+# config supplies a value
+_GEN_DEFAULTS = {
+    "max_new_tokens": 32, "do_sample": False, "temperature": 1.0,
+    "top_k": 0, "top_p": 1.0, "eos_token_id": None, "pad_token_id": 0,
+    "seed": None, "num_beams": 1, "length_penalty": 0.0,
+}
+
+
+def _check_mask(attention_mask, shape):
+    """The left-padded ``attention_mask`` as numpy, or None when it masks
+    nothing; raises on a misshapen, right-padded or all-pad mask."""
+    m = attention_mask
+    if isinstance(m, torch.Tensor):
+        m = m.detach().cpu().numpy()
+    m = np.asarray(m)
+    if m.shape != shape:
+        raise ValueError(f"attention_mask shape {m.shape} != input_ids "
+                         f"shape {shape}")
+    # decode logits come from the LAST prompt column, so real tokens
+    # must be right-aligned (left padding, the batched-serve layout)
+    if (np.diff(m.astype(np.int8), axis=1) < 0).any():
+        raise ValueError(
+            "attention_mask must be left-padded (0s then 1s per row)")
+    if (m.sum(axis=1) < 1).any():
+        raise ValueError("attention_mask has an all-pad row")
+    return None if m.all() else m      # all ones: the uniform path
+
+
+def generate(model, input_ids, max_new_tokens=_UNSET, do_sample=_UNSET,
+             temperature=_UNSET, top_k=_UNSET, top_p=_UNSET,
+             eos_token_id=_UNSET, pad_token_id=_UNSET, seed=_UNSET,
+             num_beams=_UNSET, length_penalty=_UNSET,
+             attention_mask=None, config=None):
+    """Generate ``max_new_tokens`` continuations of ``input_ids [B, S]``.
+
+    Returns an int32 tensor ``[B, S + max_new_tokens]`` on the model's
+    device; positions after an ``eos_token_id`` hold ``pad_token_id``.
+    Ragged prompts take ``attention_mask [B, S]`` (1 = real token, 0 =
+    pad): prompts must be LEFT-padded, so the last column is each row's
+    final real token; pads are invisible to attention and to position
+    embeddings. A ``GenerationConfig`` may be passed as ``config=``
+    instead of the keyword arguments.
+
+    Greedy decoding draws no random number. Sampling draws from a
+    ``torch.Generator`` on the model's device, seeded from ``seed``, or,
+    without one, the port's generator of that device
+    (``paddle_tpu_torch.seed``). ``num_beams > 1`` (beam search) is not
+    ported yet and raises.
+    """
+    passed = {
+        "max_new_tokens": max_new_tokens, "do_sample": do_sample,
+        "temperature": temperature, "top_k": top_k, "top_p": top_p,
+        "eos_token_id": eos_token_id, "pad_token_id": pad_token_id,
+        "seed": seed, "num_beams": num_beams,
+        "length_penalty": length_penalty,
+    }
+    explicit = sorted(k for k, v in passed.items() if v is not _UNSET)
+    if config is not None:
+        if explicit:
+            raise ValueError(
+                f"pass either config= or individual kwargs, not both "
+                f"(got config plus {explicit})")
+        r = {k: getattr(config, k) for k in passed}
+    else:
+        r = {k: (_GEN_DEFAULTS[k] if v is _UNSET else v)
+             for k, v in passed.items()}
+    if r["num_beams"] < 1:
+        raise ValueError(f"num_beams must be >= 1, got {r['num_beams']}")
+    if r["num_beams"] > 1:
+        raise NotImplementedError(
+            "beam search (num_beams > 1) is not ported yet: ROADMAP.md "
+            "Queue 1 item 2")
+    if r["length_penalty"] != 0.0:
+        raise ValueError("length_penalty requires num_beams > 1")
+    gpt = model.gpt if hasattr(model, "gpt") else model
+    max_new, top_p = int(r["max_new_tokens"]), float(r["top_p"])
+    if max_new < 1:
+        raise ValueError(f"max_new_tokens must be >= 1, got {max_new}")
+    if not 0.0 < top_p <= 1.0:
+        # top_p=0 would mask EVERY logit and every draw would be token 0
+        raise ValueError(f"top_p must be in (0, 1], got {top_p}")
+    if int(r["top_k"]) < 0:
+        raise ValueError(f"top_k must be >= 0, got {r['top_k']}")
+    top_k = min(int(r["top_k"]), gpt.cfg.vocab_size)
+
+    device = next(model.parameters()).device
+    ids = input_ids.detach() if isinstance(input_ids, torch.Tensor) \
+        else torch.from_numpy(np.asarray(input_ids))
+    ids = ids.to(device=device, dtype=torch.int64)
+    if ids.dim() == 1:
+        ids = ids[None, :]
+    total_len = ids.shape[1] + max_new
+    if total_len > gpt.cfg.max_position_embeddings:
+        raise ValueError(
+            f"prompt_len+max_new_tokens={total_len} exceeds "
+            f"max_position_embeddings={gpt.cfg.max_position_embeddings}")
+    mask = None
+    if attention_mask is not None:
+        m = _check_mask(attention_mask, tuple(ids.shape))
+        if m is not None:
+            mask = torch.from_numpy(m.astype(np.int32)).to(device)
+    generator = None
+    if r["do_sample"]:
+        if r["seed"] is None:
+            generator = get_generator(device)
+        else:
+            generator = torch.Generator(device=device)
+            generator.manual_seed(int(r["seed"]))
+    eos = r["eos_token_id"]
+    was_training = model.training
+    model.eval()
+    try:
+        with torch.no_grad():
+            return _decode(model, ids, mask, max_new, bool(r["do_sample"]),
+                           top_k, top_p, float(r["temperature"]),
+                           None if eos is None else int(eos),
+                           int(r["pad_token_id"]), generator)
+    finally:
+        if was_training:
+            model.train()

@@ -14,7 +14,15 @@ Attention is ``nn.functional.scaled_dot_product_attention`` (causal):
 the flash attention kernels with dropout off, the plain composition
 with attention dropout on, as the JAX package routes it.
 ``GPTForPretraining`` carries the causal-LM loss, dense or chunked over
-the sequence (:func:`chunked_lm_loss`).
+the sequence (:func:`chunked_lm_loss`), and ``generate``.
+
+The static-cache decode path (``init_cache``, ``prefill``,
+``decode_step``) keeps one fixed ``[B, total_len, H, D]`` K/V pair per
+layer and writes into it in place (``cache[:, pos] = k``), where the JAX
+package returns a new array from ``dynamic_update_slice``. An unmasked
+prefill is causal with ``Sq == Sk``, so it reaches the flash kernel; a
+left-padded (masked) prefill and every decode step run the masked plain
+composition over the cache, as in the JAX package.
 """
 from __future__ import annotations
 
@@ -22,10 +30,9 @@ from dataclasses import dataclass
 
 import torch
 from torch import nn
-from torch.nn import functional as TF
 from torch.utils.checkpoint import checkpoint
 
-from .. import amp
+from ..framework.dispatch import call_op
 from ..framework.random import get_generator
 from ..nn import functional as F
 from ..nn.layer.common import Dropout, Linear
@@ -85,8 +92,8 @@ class GPTBlock(nn.Module):
         """out-proj + residual + MLP half of the block (shared)."""
         a = self.attn.out_proj(self.attn._merge_heads(a))
         x = x + self.dropout(a)
-        m = self.mlp_proj(TF.gelu(self.mlp_fc(self.ln_2(x)),
-                                  approximate="tanh"))
+        m = self.mlp_proj(call_op("gelu", self.mlp_fc(self.ln_2(x)),
+                                  approximate=True))
         return x + self.dropout(m)
 
     def forward(self, x):
@@ -95,6 +102,32 @@ class GPTBlock(nn.Module):
             q, k, v, is_causal=True,
             dropout_p=self.attn.dropout if self.training else 0.0,
             training=self.training)
+        return self._tail(x, a)
+
+    def prefill(self, x, cache_k, cache_v, key_valid=None):
+        """The whole prompt ``x [B, S, E]``: write its K/V into the cache's
+        rows ``[0, S)`` in place and return the block's output.
+        ``key_valid`` (bool ``[B, S]``) marks real tokens: False keys
+        (left pads) are invisible to every query."""
+        q, k, v = self._qkv(x)
+        s = x.shape[1]
+        cache_k[:, :s] = k
+        cache_v[:, :s] = v
+        mask = None if key_valid is None else key_valid[:, None, None, :]
+        a = F.scaled_dot_product_attention(q, k, v, attn_mask=mask,
+                                           is_causal=True, training=False)
+        return self._tail(x, a)
+
+    def decode_step(self, x, cache_k, cache_v, pos, key_valid):
+        """One token a row, ``x [B, 1, E]``: write its K/V at cache row
+        ``pos`` in place and attend over the cache rows that
+        ``key_valid`` (bool ``[B or 1, total_len]``) marks."""
+        q, k, v = self._qkv(x)
+        cache_k[:, pos] = k[:, 0]
+        cache_v[:, pos] = v[:, 0]
+        a = F.scaled_dot_product_attention(
+            q, cache_k, cache_v, attn_mask=key_valid[:, None, None, :],
+            training=False)
         return self._tail(x, a)
 
 
@@ -121,11 +154,15 @@ class GPTModel(nn.Module):
                 nn.init.xavier_uniform_(mod.weight, generator=gen)
                 mod.bias.zero_()
 
+    def _embed(self, input_ids, position_ids):
+        return (call_op("embedding", input_ids, self.wte.weight)
+                + call_op("embedding", position_ids, self.wpe.weight))
+
     def forward(self, input_ids, position_ids=None):
         if position_ids is None:
             position_ids = torch.arange(input_ids.shape[1],
                                         device=input_ids.device)[None, :]
-        x = self.drop(self.wte(input_ids) + self.wpe(position_ids))
+        x = self.drop(self._embed(input_ids, position_ids))
         for block in self.blocks:
             x = block(x)
         return self.ln_f(x)
@@ -133,8 +170,63 @@ class GPTModel(nn.Module):
     def logits(self, hidden):
         """LM head tied to wte (the ``matmul`` op against the embedding
         table)."""
-        hidden, table = amp.cast_inputs("matmul", hidden, self.wte.weight)
-        return torch.matmul(hidden, table.t())
+        return call_op("matmul", hidden, self.wte.weight, transpose_y=True)
+
+    # -- static-cache decode path --------------------------------------
+    def init_cache(self, batch, max_len, dtype, device=None):
+        """Per-layer ``(k, v)`` buffers of zeros, each ``[batch, max_len,
+        num_heads, head_dim]``, on ``device`` (the parameters' by
+        default)."""
+        cfg = self.cfg
+        if device is None:
+            device = self.wte.weight.device
+        shape = (batch, max_len, cfg.num_attention_heads,
+                 cfg.hidden_size // cfg.num_attention_heads)
+        return tuple(
+            tuple(call_op("zeros", shape, dtype=dtype, device=device)
+                  for _ in range(2))
+            for _ in range(cfg.num_hidden_layers))
+
+    def prefill(self, input_ids, caches, key_valid=None):
+        """Run the prompt ``input_ids [B, S]`` through every block,
+        filling ``caches`` in place. ``key_valid`` (bool ``[B, S]``) marks
+        the real tokens of left-padded prompts: pads take position 0 and
+        the real tokens count 0, 1, 2, ... Returns the last position's
+        hidden state ``[B, 1, E]`` and ``caches``."""
+        seq = input_ids.shape[1]
+        if key_valid is None:
+            position_ids = call_op("arange", seq,
+                                   device=input_ids.device)[None, :]
+        else:
+            position_ids = call_op("maximum", call_op(
+                "cumsum", key_valid.to(torch.int32), axis=1) - 1,
+                torch.zeros((), dtype=torch.int32, device=input_ids.device))
+        x = self._embed(input_ids, position_ids)
+        for block, (ck, cv) in zip(self.blocks, caches):
+            x = block.prefill(x, ck, cv, key_valid=key_valid)
+        x = self.ln_f(x)
+        return call_op("slice", x, axes=[1], starts=[seq - 1],
+                       ends=[seq]), caches
+
+    def decode_step(self, token_ids, caches, pos, key_valid=None,
+                    positions=None):
+        """One decode step: ``token_ids [B, 1]`` at cache row ``pos`` (a
+        Python int). ``key_valid`` (bool ``[B, total_len]``) marks the
+        cache rows each row attends over, by default rows ``[0, pos]``;
+        ``positions`` (``[B, 1]``) are the rows' logical positions for
+        ragged prompts, by default ``pos``. Returns the hidden state
+        ``[B, 1, E]`` and ``caches``, updated in place."""
+        device = token_ids.device
+        if positions is None:
+            positions = call_op("full", (1, 1), pos, dtype=torch.int32,
+                                device=device)
+        if key_valid is None:
+            key_valid = call_op("arange", caches[0][0].shape[1],
+                                device=device)[None, :] <= pos
+        x = self._embed(token_ids, positions)
+        for block, (ck, cv) in zip(self.blocks, caches):
+            x = block.decode_step(x, ck, cv, pos, key_valid)
+        return self.ln_f(x), caches
 
 
 def _chunk_nll(h_c, y_c, table):
@@ -209,3 +301,9 @@ class GPTForPretraining(nn.Module):
         loss = F.cross_entropy(logits.reshape(-1, logits.shape[-1]),
                                labels.reshape(-1))
         return loss, logits
+
+    def generate(self, input_ids, **kwargs):
+        """Static-cache autoregressive decode; see
+        ``models.generation.generate``."""
+        from .generation import generate
+        return generate(self, input_ids, **kwargs)

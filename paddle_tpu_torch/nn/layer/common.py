@@ -1,27 +1,26 @@
 """Linear and Dropout (counterparts of ``paddle_tpu/nn/layer/common.py``).
 
-``Linear`` is ``torch.nn.Linear`` (weight ``[out, in]``) with the AMP
-cast of the ``linear`` op applied to its inputs; ``Dropout`` draws its
-mask from the port's seeded generators.
+``Linear`` is ``torch.nn.Linear`` (weight ``[out, in]``) run through the
+``linear`` op; ``Dropout`` draws its mask from the port's seeded
+generators.
 """
 from __future__ import annotations
 
 from torch import nn
-from torch.nn import functional as TF
 
-from ... import amp
+from ...framework.dispatch import call_op
 from .. import functional as F
 
 __all__ = ["Linear", "Dropout"]
 
 
 class Linear(nn.Linear):
-    """``y = x W^T + b``; under ``amp.auto_cast`` x, W and b run in
-    bf16."""
+    """``y = x W^T + b``, the ``linear`` op (which takes ``W^T``, the JAX
+    package's ``[in, out]`` layout); under ``amp.auto_cast`` x, W and b
+    run in bf16."""
 
     def forward(self, x):
-        x, w, b = amp.cast_inputs("linear", x, self.weight, self.bias)
-        return TF.linear(x, w, b)
+        return call_op("linear", x, self.weight.t(), self.bias)
 
 
 class Dropout(nn.Module):

@@ -693,3 +693,76 @@ def test_ragged_attention_cuda_core_route_takes_the_rest(cuda, case):
     got = _rpa_call(q, pool, None, meta, "cuda_core")
     want = rpa.ragged_paged_attention_plain(q, pool, 1, *meta)
     torch.testing.assert_close(got.float(), want.float(), **TOL[q.dtype])
+
+
+# -- generate() and the op layer on the card --------------------------------
+
+def test_layer_norm_op_takes_the_kernel_or_raises(cuda):
+    """On the card the ``layer_norm`` op reaches K2 through its override,
+    and a dtype the kernels do not take raises there: no plain fallback."""
+    from paddle_tpu_torch.framework.dispatch import call_op
+    x = torch.randn(4, 768, device=cuda)
+    w, b = torch.ones(768, device=cuda), torch.zeros(768, device=cuda)
+    before = ln.fused_layer_norm.launches
+    got = call_op("layer_norm", x, w, b, epsilon=1e-5)
+    torch.cuda.synchronize()
+    assert ln.fused_layer_norm.launches == before + 1
+    torch.testing.assert_close(got, ln.layer_norm_plain(x, w, b),
+                               **TOL[torch.float32])
+    with pytest.raises(TypeError, match="float32 or bfloat16"):
+        call_op("layer_norm", x.half(), w.half(), b.half())
+
+
+def _tiny_gpt(cuda, dtype, hidden=64, heads=4):
+    from paddle_tpu_torch import seed
+    from paddle_tpu_torch.models import GPTConfig, GPTForPretraining
+    seed(0)
+    cfg = GPTConfig.tiny()
+    cfg.hidden_size, cfg.num_attention_heads = hidden, heads
+    cfg.max_position_embeddings = 128
+    return GPTForPretraining(cfg).to(cuda, dtype).eval()
+
+
+@pytest.mark.parametrize("masked", [False, True])
+def test_generate_launch_counts(cuda, masked):
+    """One greedy generate of N tokens at L layers launches K2 (2L + 1) x N
+    times (the prefill and N - 1 decode steps) and K4 L times for an
+    unmasked prompt, 0 for a left-padded one."""
+    net = _tiny_gpt(cuda, torch.float32)
+    n, layers = 5, net.gpt.cfg.num_hidden_layers
+    ids = torch.randint(1, 256, (2, 16), device=cuda)
+    mask = torch.ones_like(ids)
+    mask[0, :3] = 0
+    ln0, fa0 = ln.fused_layer_norm.launches, fa.flash_attention_fwd.launches
+    out = net.generate(ids, max_new_tokens=n,
+                       attention_mask=mask if masked else None)
+    torch.cuda.synchronize()
+    assert out.is_cuda and tuple(out.shape) == (2, 16 + n)
+    assert ln.fused_layer_norm.launches - ln0 == (2 * layers + 1) * n
+    assert fa.flash_attention_fwd.launches - fa0 == (0 if masked else layers)
+
+
+def test_generate_bf16_first_token_equals_f32(cuda):
+    """bf16 (flash on the tensor-core route at head width 64) and f32 (the
+    CUDA-core route) greedy decodes of the same weights pick the same
+    first token in every row whose f32 top-2 logit margin exceeds twice
+    the largest bf16-vs-f32 logit difference."""
+    f32 = _tiny_gpt(cuda, torch.float32, hidden=128, heads=2)
+    bf16 = _tiny_gpt(cuda, torch.bfloat16, hidden=128, heads=2)
+    ids = torch.randint(1, 256, (16, 64), device=cuda,
+                        generator=torch.Generator(cuda).manual_seed(1))
+    tc0 = fa.flash_attention_fwd.tc_launches
+    a = bf16.generate(ids, max_new_tokens=1)[:, 64]
+    assert fa.flash_attention_fwd.tc_launches - tc0 == 2
+    b = f32.generate(ids, max_new_tokens=1)[:, 64]
+    with torch.no_grad():
+        logits = []
+        for net in (f32, bf16):
+            g = net.gpt
+            h, _ = g.prefill(ids, g.init_cache(16, 65, g.wte.weight.dtype))
+            logits.append(g.logits(h)[:, 0].float())
+    err = (logits[1] - logits[0]).abs().max()
+    top2 = logits[0].topk(2, dim=-1).values
+    clear = (top2[:, 0] - top2[:, 1]) > 2 * err
+    assert clear.any()
+    assert torch.equal(a[clear], b[clear])
