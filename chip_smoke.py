@@ -54,7 +54,30 @@ prints no result line):
    unmasked greedy case in float32 at GPT-2 width cut to 2 layers, on
    the card and on a CPU copy (plain versions): the first step's logits
    within ``GEN_TOL``, and each row's tokens equal up to the first step
-   where the CPU's top-2 logit margin falls below ``GEN_TOL``;
+   where the CPU's top-2 logit margin falls below ``GEN_TOL``. Beam
+   search (``num_beams=4``, 32 new tokens) on the 8 unmasked prompts (K4
+   L times in the prefill, K2 (2L + 1) x steps at [32, 768] rows) and on
+   the left-padded batch with ``length_penalty=0.6`` and an
+   ``eos_token_id`` (no K4; the steps counted by a spy); beam tokens/s
+   and ms a step; then a float32 2-layer beam search on the card and on
+   a CPU copy: every row whose K + 1 best candidates never come within
+   ``GEN_TOL`` of each other gives the same tokens;
+3d. gather engines: phase 3's 16 requests (64 new tokens, greedy) on the
+   same bf16 model through ``GenerationEngine(kv_layout="dense",
+   attention="gather", min_bucket=32)``, ``kv_layout="paged",
+   attention="gather", block_size=16`` and the same with
+   ``kv_dtype="int8", block_size=32``: tokens/s, mean step ms, TTFT;
+   K2 launches equal to (2L + 1) x (prefills + decode steps), K4 and
+   K1/K1q held at 0 launches (the gather path computes attention
+   without them). Then float32 at GPT-2 width cut to 2 layers: the dense
+   and paged gather engines on the card against a CPU copy (first-step
+   logits within ``GEN_TOL``), and the dense, paged gather and fused
+   engines on the card agreeing token for token up to each request's
+   first top-2 logit margin below ``GEN_TOL``; the int8 paged gather
+   engine on the card against a CPU copy, one request at a time (every
+   step's logits within ``QUANT_GEN_TOL``, tokens equal up to the first
+   top-2 margin below it), and to that step the concurrent int8 gather
+   and int8 fused engines on the card giving the same tokens;
 4. train: GPT-2 small at full width, bf16 AMP O2, AdamW with float32
    master weights, batch 8 x 1024 with next-token labels and the LM loss
    in 8 chunks (``bench.py``'s ``bench_gpt2`` configuration), through
@@ -88,13 +111,20 @@ prints no result line):
    engine's widest step's rows and counts the three engine runs; the
    ``_f32`` flash rows (the CUDA-core kernels) take phase 2's float32
    flash case and the float32 step's launches (and the forward, the
-   float32 generate's); ``fused_layer_norm_generate`` (K2 at a decode
-   step's rows, bf16 [8, 768]) and ``flash_attention_fwd_generate`` (K4
-   at the prefill's shape, bf16 [8, 512, 12, 64] causal) count phase
-   3c's runs.
+   float32 generate's and beam search's); ``fused_layer_norm_generate``,
+   ``fused_layer_norm_beam`` and ``fused_layer_norm_gather`` count the K2
+   launches of phase 3c's generate runs, of its beam searches and of
+   phase 3d's gather engines: forward pre-hooks on the model's LayerNorm
+   modules record the dtype and rows of each of those launches, every
+   such shape is held against the plain version and timed, and each row
+   reports the largest error and the times at its decode step's rows
+   (bf16 [8, 768], [32, 768] and [8, 768]);
+   ``flash_attention_fwd_generate`` (K4 at the prefill's shape, bf16 [8,
+   512, 12, 64] causal) counts the unmasked generate and beam prefills.
 
-``--profile`` adds one more batch to the bf16 and the int8 engines, one
-more greedy generate and two more train steps under torch.profiler and
+``--profile`` adds one more batch to the bf16 and the int8 engines and
+to the dense and paged gather engines, one more greedy generate, one
+more beam search and two more train steps under torch.profiler and
 prints device time by kernel and the device's idle share.
 
 Times come from CUDA events around single launches, median of 20,
@@ -104,6 +134,8 @@ overhead enters them. Float32 products run without TF32.
 """
 from __future__ import annotations
 
+import collections
+import contextlib
 import gc
 import json
 import math
@@ -147,9 +179,18 @@ WARM_STEPS, TIMED_STEPS = 2, 8
 # 256-wide batch, 32 new
 GEN_BATCH, GEN_PROMPT, GEN_NEW = 8, 512, 64
 GEN_MASKED = (4, 256, 32)
+# beam search: 4 beams, 32 new tokens, on the generate prompts
+BEAM_K, BEAM_NEW = 4, 32
 # float32 first-step logits, card vs CPU: the same f32 arithmetic summed
 # in other orders over 2 blocks and a 768-wide head, |logits| ~ 1
 GEN_TOL = 2e-4
+# float32 logits over an int8 pool, card vs CPU: a K/V value that lies
+# within float32 rounding of a code boundary takes the neighbouring code
+# on one side, and one such code moves a logit by far more than GEN_TOL
+QUANT_GEN_TOL = 5e-3
+# the dtype and [rows, D] of every LayerNorm a path ran, under the
+# kernels line's row that counts its launches (see ln_shapes)
+LN_SHAPES = collections.defaultdict(collections.Counter)
 
 
 def log(*a):
@@ -459,6 +500,56 @@ def ln_fwd_case(timer, x, w, b):
     return row
 
 
+@contextlib.contextmanager
+def ln_shapes(model, row):
+    """Record under ``LN_SHAPES[row]`` the dtype and [rows, D] of every
+    LayerNorm that ``model`` (on the card) runs inside the block, each one
+    K2 launch, through forward pre-hooks on its LayerNorm modules."""
+    from paddle_tpu_torch.nn.layer.norm import LayerNorm
+    seen = LN_SHAPES[row]
+
+    def hook(_module, args):
+        x = args[0]
+        seen[(x.dtype, x.numel() // x.shape[-1], x.shape[-1])] += 1
+
+    handles = [m.register_forward_pre_hook(hook) for m in model.modules()
+               if isinstance(m, LayerNorm)]
+    try:
+        yield
+    finally:
+        for h in handles:
+            h.remove()
+
+
+def ln_shape_row(timer, name, launches, main):
+    """The kernels line's LayerNorm-forward row ``name``: K2 against its
+    plain version (both routes, timed) at every dtype and [rows, D] that
+    the row's ``launches`` ran at (``LN_SHAPES[name]``, which must count
+    them all); the row reports the largest warp-route error of any shape
+    (the route every path launch took) and the times of ``main``, a
+    (dtype, rows, D) key."""
+    shapes = LN_SHAPES[name]
+    if sum(shapes.values()) != launches or main not in shapes:
+        raise AssertionError(f"{name}: {launches} launches, LayerNorm "
+                             f"calls by shape {dict(shapes)}")
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 7)
+
+    def randn(*shape, dtype, scale=1.0):
+        return (scale * torch.randn(*shape, device="cuda", generator=gen)
+                ).to(dtype)
+
+    rows, err = {}, 0.0
+    for dtype, n, d in sorted(shapes, key=lambda k: (str(k[0]), k[1])):
+        row = ln_fwd_case(timer, randn(n, d, dtype=dtype),
+                          1 + randn(d, dtype=dtype, scale=0.1),
+                          randn(d, dtype=dtype, scale=0.1))
+        rows[(dtype, n, d)] = row
+        err = max(err, row["max_abs_err"])
+        log(f"K2 {name}: {str(dtype)[6:]} [{n}, {d}], "
+            f"{shapes[(dtype, n, d)]} launches {fmt(row)}")
+    return dict(rows[main], max_abs_err=err)
+
+
 def ln_bwd_check(x, w, g, route, want):
     """The LayerNorm backward on ``route`` against ``want`` (the plain
     version's dx, dw, db); a second call must give the same bits. dw and
@@ -747,8 +838,9 @@ def reference_check(device):
     model = GPTForPretraining(cfg).to(device)
     rng = np.random.RandomState(SEED + 1)
     prompts = [rng.randint(0, cfg.vocab_size, n) for n in (40, 7)]
-    with GenerationEngine(model, num_slots=2, block_size=16,
-                          prefill_budget=32, device=device) as eng:
+    with GenerationEngine(model, kv_layout="paged", attention="fused",
+                          num_slots=2, block_size=16, prefill_budget=32,
+                          device=device) as eng:
         outs = [h.result(timeout=300) for h in
                 [eng.submit(p, max_new_tokens=8) for p in prompts]]
     with torch.no_grad():
@@ -985,8 +1077,9 @@ def logit_drift(model, prompt):
 
         gpt.logits = keep
         try:
-            with GenerationEngine(model, num_slots=1, block_size=32,
-                                  prefill_budget=len(prompt),
+            with GenerationEngine(model, kv_layout="paged",
+                                  attention="fused", num_slots=1,
+                                  block_size=32, prefill_budget=len(prompt),
                                   kv_dtype=kv_dtype,
                                   device=next(model.parameters()).device) \
                     as eng:
@@ -1059,6 +1152,307 @@ def phase_engine_quant(model, prompts, bf16_outs, bf16_stats,
             {"int8": cap_i8, "fp8": cap_f8})
 
 
+# ---------------------------------------------------------------- phase 3d
+def gather_counters():
+    """The launch-counting wrappers a gather engine's run is held to:
+    K2 at every LayerNorm, and K4 and K1/K1q, which must not launch."""
+    from paddle_tpu_torch.ops import flash_attention as fa
+    from paddle_tpu_torch.ops import layer_norm as ln
+    from paddle_tpu_torch.ops.ragged_paged_attention import (
+        ragged_paged_attention)
+    return {"fused_layer_norm": ln.fused_layer_norm,
+            "flash_attention_fwd": fa.flash_attention_fwd,
+            "ragged_paged_attention": ragged_paged_attention}
+
+
+def gather_launches(counters):
+    rpa = counters["ragged_paged_attention"]
+    return {"fused_layer_norm": counters["fused_layer_norm"].launches,
+            "flash_attention_fwd": counters["flash_attention_fwd"].launches,
+            "ragged_paged_attention": rpa.launches + rpa.quant_launches}
+
+
+def gather_want(n_layers, programs):
+    """K2 at ln_1, ln_2 of every block and ln_f in each prefill and each
+    decode step; the prefills are masked (left- or right-padded in their
+    bucket) and every decode attends through the masked plain
+    composition, so K4 never launches, and the gather path never reaches
+    K1/K1q."""
+    return {"fused_layer_norm": (2 * n_layers + 1) * programs,
+            "flash_attention_fwd": 0, "ragged_paged_attention": 0}
+
+
+def serve_gather(what, model, prompts, max_new, profile=False, rng=None,
+                 **kw):
+    """Serve ``prompts`` at once through a gather engine built with
+    ``kw``, after one short warm-up request, with the counts set to 0 just
+    before and read just after: they must equal :func:`gather_want` over
+    the prefills and decode steps the engine ran, every K2 launch on the
+    warp-row route. Returns (outputs, stats, launches, steps, prefills,
+    wall seconds)."""
+    from paddle_tpu_torch.serving import GenerationEngine
+    vocab = model.gpt.cfg.vocab_size
+    L = model.gpt.cfg.num_hidden_layers
+    eng = GenerationEngine(model, num_slots=8, seed=SEED,
+                           device=next(model.parameters()).device, **kw)
+    warm = np.random.RandomState(SEED + 9)
+    eng.submit(warm.randint(0, vocab, 24), max_new_tokens=4).result(
+        timeout=300)
+    counters = gather_counters()
+    reset_counts(counters)
+    for attr in RPA_COUNTS:
+        setattr(counters["ragged_paged_attention"], attr, 0)
+    s0 = eng.stats()
+    with ln_shapes(model, "fused_layer_norm_gather"):
+        t0 = time.perf_counter()
+        handles = [eng.submit(p, max_new_tokens=max_new) for p in prompts]
+        outs = [h.result(timeout=600) for h in handles]
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    stats = eng.stats()
+    launches = gather_launches(counters)
+    steps = stats["steps"] - s0["steps"]
+    prefills = stats["prefills"] - s0["prefills"]
+    want = gather_want(L, steps + prefills)
+    if launches != want:
+        raise AssertionError(f"{what}: launches {launches} over {prefills} "
+                             f"prefills and {steps} decode steps, expected "
+                             f"{want}")
+    check_ln_route(what, (counters["fused_layer_norm"],))
+    if profile:
+        profile_engine(eng, rng, vocab)
+    eng.close()
+    for p, h, out in zip(prompts, handles, outs):
+        if len(h.tokens) != max_new or out.shape != (len(p) + max_new,):
+            raise AssertionError(f"{what}: request {h.id}: "
+                                 f"{len(h.tokens)} tokens")
+        if not ((out >= 0) & (out < vocab)).all():
+            raise AssertionError(f"{what}: request {h.id}: token out of "
+                                 f"range")
+    if stats["nonfinite_cycles"]:
+        raise AssertionError(f"{what}: non-finite logits in "
+                             f"{stats['nonfinite_cycles']} cycles")
+    return outs, stats, launches, steps, prefills, wall
+
+
+def phase_gather(model, prompts, fused_outs, profile=False):
+    """Phase 3d: phase 3's 16 requests (64 new tokens, greedy) through
+    the dense engine, the paged gather engine and the int8 paged gather
+    engine on the bf16 model; then the float32 check. Returns the K2
+    launches of the phase: the gather engines' and the float32 fused
+    engines'."""
+    L = model.gpt.cfg.num_hidden_layers
+    rng = np.random.RandomState(SEED + 8)
+    total = 0
+    for what, kw in (
+            ("dense engine", dict(kv_layout="dense", attention="gather",
+                                  min_bucket=32)),
+            ("paged gather engine", dict(kv_layout="paged",
+                                         attention="gather",
+                                         block_size=16)),
+            ("int8 paged gather engine", dict(kv_layout="paged",
+                                              attention="gather",
+                                              kv_dtype="int8",
+                                              block_size=32))):
+        outs, stats, launches, steps, prefills, wall = serve_gather(
+            what, model, prompts, 64, profile and "int8" not in what, rng,
+            **kw)
+        total += launches["fused_layer_norm"]
+        toks = 64 * len(prompts)
+        same = sum(int(a[len(p)] == b[len(p)])
+                   for p, a, b in zip(prompts, outs, fused_outs))
+        hits = stats.get("prefix_hits", 0)
+        log(f"{what}: GPT-2 small bf16, {len(prompts)} requests x 64 "
+            f"tokens, {prefills} prefills and {steps} decode steps in "
+            f"{wall:.3f} s: {toks / wall:.1f} tokens/s, mean step "
+            f"{wall / steps * 1e3:.3f} ms (wall / decode steps), TTFT p50 "
+            f"{stats['ttft_ms']['p50']:.1f} ms p95 "
+            f"{stats['ttft_ms']['p95']:.1f} ms, TPOT p50 "
+            f"{stats['tpot_ms']['p50']:.2f} ms, prefix hits {hits}, "
+            f"preempts {stats['preempts']}; launches {json.dumps(launches)} "
+            f"(K1/K1q held at 0); {same} of {len(prompts)} first tokens "
+            f"equal the fused engine's (reported, not gated: bf16 paths "
+            f"round differently and random weights have thin margins)")
+    f32 = phase_gather_f32(next(model.parameters()).device)
+    return {"gather": total + f32["gather"], "fused": f32["fused"]}
+
+
+def engine_run(net, prompts, new, spy, row=None, num_slots=4, alone=1,
+               **kw):
+    """``prompts[:alone]`` one after another, then the rest at once,
+    through an engine built with ``kw``; ``spy`` stands in for the head
+    (``gpt.logits``). With ``row``, the LayerNorm shapes are recorded
+    under it. Returns the outputs and the K2 launches."""
+    from paddle_tpu_torch.serving import GenerationEngine
+    counters = gather_counters()
+    reset_counts(counters)
+    net.gpt.logits = spy
+    try:
+        with contextlib.ExitStack() as stack:
+            if row is not None:
+                stack.enter_context(ln_shapes(net, row))
+            eng = stack.enter_context(GenerationEngine(
+                net, num_slots=num_slots,
+                device=next(net.parameters()).device, **kw))
+            outs = [eng.submit(p, max_new_tokens=new).result(timeout=300)
+                    for p in prompts[:alone]]
+            outs += [h.result(timeout=300) for h in
+                     [eng.submit(p, max_new_tokens=new)
+                      for p in prompts[alone:]]]
+    finally:
+        del net.gpt.logits
+    return outs, counters["fused_layer_norm"].launches
+
+
+def first_near_tie(margins, tol):
+    """Per request, the first step whose top-2 logit margin (``margins
+    [R, steps]``) is below ``tol``; ``steps`` where none is."""
+    low = margins < tol
+    return [int(torch.nonzero(m)[0]) if bool(m.any()) else len(m)
+            for m in low]
+
+
+def hold_tokens(what, outs, ref, prompts, ties):
+    """``outs`` equal to ``ref`` for every request before its near-tie
+    step in ``ties``; returns how many are equal in full."""
+    for i, (p, t) in enumerate(zip(prompts, ties)):
+        got, want = outs[i][len(p):len(p) + t], ref[i][len(p):len(p) + t]
+        if not np.array_equal(got, want):
+            raise AssertionError(f"float32 request {i}: {what} tokens {got} "
+                                 f"!= {want} before its first near-tie at "
+                                 f"step {t}")
+    return sum(np.array_equal(a, b) for a, b in zip(outs, ref))
+
+
+def phase_gather_f32(device):
+    """Float32 at GPT-2 width cut to 2 layers, 4 requests of 16 tokens,
+    the first alone and then three at once. Float pools: the dense and
+    paged gather engines on the card and on a CPU copy of the same
+    weights (plain versions), the first prefill's logits within
+    ``GEN_TOL``, and the dense, paged gather and fused engines' greedy
+    tokens on the card equal up to each request's first step whose top-2
+    logit margin (a full forward over the fused engine's tokens) falls
+    below ``GEN_TOL``. The int8 pool: the paged gather engine's first
+    prefill logits card vs CPU within ``GEN_TOL``; then the requests one
+    at a time (one slot) on the card and on the CPU, every step's logits
+    within ``QUANT_GEN_TOL`` and the tokens equal up to each request's
+    first CPU top-2 margin below ``QUANT_GEN_TOL``, and to that step the
+    concurrent int8 gather and int8 fused engines on the card give the
+    same tokens (the fused engine takes each prompt in one chunk, so
+    both quantize the same blocks from the same rows). Returns the card
+    runs' K2 launches: the gather engines' and the fused engines'."""
+    import copy
+
+    import paddle_tpu_torch as pt
+    from paddle_tpu_torch.models import GPTConfig, GPTForPretraining
+    pt.seed(SEED + 5)
+    cfg = GPTConfig.gpt2_small()
+    cfg.num_hidden_layers = 2
+    cpu_net = GPTForPretraining(cfg).eval()
+    card_net = copy.deepcopy(cpu_net).to(device)
+    rng = np.random.RandomState(SEED + 5)
+    prompts = [rng.randint(0, cfg.vocab_size, n) for n in (40, 7, 100, 300)]
+    new = 16
+    int8 = dict(kv_layout="paged", kv_dtype="int8", block_size=32)
+    engines = {"dense": dict(kv_layout="dense", min_bucket=32),
+               "paged gather": dict(kv_layout="paged", block_size=16),
+               "int8 paged gather": int8,
+               "fused": dict(kv_layout="paged", attention="fused",
+                             block_size=16, prefill_budget=128),
+               "int8 fused": dict(int8, attention="fused",
+                                  prefill_budget=512)}
+    card, errs = {}, {}
+    launches = {"gather": 0, "fused": 0}
+    for kind, kw in engines.items():
+        fused = "fused" in kind
+        first = {}
+        for where, net in (("cpu", cpu_net), ("card", card_net)):
+            if fused and where == "cpu":
+                continue
+
+            def spy(h, _gpt=net.gpt, _rec=first, _where=where):
+                out = type(_gpt).logits(_gpt, h)
+                _rec.setdefault(_where, out[:, -1].float().cpu())
+                return out
+
+            row = None if fused or where == "cpu" \
+                else "fused_layer_norm_gather"
+            outs, n = engine_run(net, prompts, new, spy, row, **kw)
+            if where == "card":
+                card[kind] = outs
+                launches["fused" if fused else "gather"] += n
+        if not fused:
+            errs[kind] = (first["card"] - first["cpu"]).abs().max().item()
+            if not errs[kind] <= GEN_TOL:
+                raise AssertionError(
+                    f"float32 {kind} engine: first-step logits card vs CPU "
+                    f"off by {errs[kind]}, over {GEN_TOL}")
+    with torch.no_grad():
+        margins = []
+        for i, p in enumerate(prompts):
+            seq = torch.from_numpy(card["fused"][i]).long().to(device)
+            top2 = card_net(seq[None])[0, len(p) - 1:-1].float().topk(
+                2, dim=-1).values
+            margins.append((top2[:, 0] - top2[:, 1]).cpu())
+    ties = first_near_tie(torch.stack(margins), GEN_TOL)
+    full = min(hold_tokens(f"{k} engine", card[k], card["fused"], prompts,
+                           ties) for k in ("dense", "paged gather"))
+    log(f"gather engines float32 check (GPT-2 width, 2 layers, "
+        f"{len(prompts)} requests of {[len(p) for p in prompts]} tokens, "
+        f"{new} new): first-step logits card vs CPU max |diff| dense "
+        f"{errs['dense']:.3e}, paged gather {errs['paged gather']:.3e} "
+        f"(limit {GEN_TOL}); on the card the dense, paged gather and fused "
+        f"engines' tokens agree before each request's first top-2 margin "
+        f"below {GEN_TOL} (step {ties}, {new} = none), all {new} equal in "
+        f"{full} of {len(prompts)} requests")
+
+    # the int8 pool, one request at a time: every logits call is one
+    # step of one request, in order
+    steps = {}
+    for where, net in (("cpu", cpu_net), ("card", card_net)):
+        rec = []
+
+        def spy(h, _gpt=net.gpt, _rec=rec):
+            out = type(_gpt).logits(_gpt, h)
+            _rec.append(out[:, -1].float().cpu())
+            return out
+
+        outs, n = engine_run(
+            net, prompts, new, spy,
+            None if where == "cpu" else "fused_layer_norm_gather",
+            num_slots=1, alone=len(prompts), **int8)
+        if len(rec) != len(prompts) * new:
+            raise AssertionError(f"int8 gather engine, one slot: "
+                                 f"{len(rec)} logits calls")
+        steps[where] = (outs, torch.cat(rec).view(len(prompts), new, -1))
+        if where == "card":
+            launches["gather"] += n
+    (cpu_outs, cpu_l), (card_outs, card_l) = steps["cpu"], steps["card"]
+    top2 = cpu_l.topk(2, dim=-1).values
+    qties = first_near_tie(top2[..., 0] - top2[..., 1], QUANT_GEN_TOL)
+    # steps up to the near-tie feed the same tokens on both sides
+    diff = (card_l - cpu_l).abs().amax(dim=-1)                  # [R, new]
+    qerr = max(diff[i, :t + 1].max().item() for i, t in enumerate(qties))
+    if not qerr <= QUANT_GEN_TOL:
+        raise AssertionError(f"float32 int8 gather engine: step logits card "
+                             f"vs CPU off by {qerr}, over {QUANT_GEN_TOL}")
+    same = [hold_tokens(what, outs, card_outs, prompts, qties)
+            for what, outs in (
+                ("int8 gather engine one slot, CPU", cpu_outs),
+                ("int8 gather engine", card["int8 paged gather"]),
+                ("int8 fused engine", card["int8 fused"]))]
+    log(f"int8 gather engine float32 check (block 32, same requests): "
+        f"first-step logits card vs CPU max |diff| "
+        f"{errs['int8 paged gather']:.3e} (limit {GEN_TOL}); one slot, "
+        f"every step's logits card vs CPU up to each request's first CPU "
+        f"top-2 margin below {QUANT_GEN_TOL} (step {qties}, {new} = none) "
+        f"within {qerr:.3e} (limit {QUANT_GEN_TOL}); before it the card's "
+        f"tokens equal the CPU's, the concurrent int8 gather engine's and "
+        f"the int8 fused engine's, all {new} equal in {same} of "
+        f"{len(prompts)} requests; K2 launches {json.dumps(launches)}")
+    return launches
+
+
 # ---------------------------------------------------------------- phase 3c
 def gen_counters():
     """The launch-counting wrappers of the kernels ``generate`` runs."""
@@ -1095,10 +1489,11 @@ def gen_run(what, model, ids, want, flash_route, **kw):
     reset_counts(counters)
     calls0 = op_calls()
     torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    out = model.generate(ids, **kw)
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
+    with ln_shapes(model, "fused_layer_norm_generate"):
+        t0 = time.perf_counter()
+        out = model.generate(ids, **kw)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
     launches = {name: fn.launches for name, fn in counters.items()}
     if launches != want:
         raise AssertionError(f"{what}: launches {launches}, expected {want}")
@@ -1118,6 +1513,153 @@ def gen_run(what, model, ids, want, flash_route, **kw):
             and bool(((out >= 0) & (out < vocab)).all())):
         raise AssertionError(f"{what}: prompt changed or token out of range")
     return out, wall, launches, op_calls() - calls0
+
+
+def beam_run(what, model, ids, flash_want, flash_route, **kw):
+    """One beam-search ``model.generate(ids, **kw)`` with the counts set
+    to 0 just before and read just after. Its steps (the prefill and
+    each decode step, counted by a spy on ``decode_step``) give the want:
+    K2 (2L + 1) x steps, K4 ``flash_want`` (L in an unmasked prefill at
+    ``[B]``, 0 masked), every K2 launch on the warp-row route and every
+    K4 launch on ``flash_route``. Returns (tokens, wall seconds,
+    launches, steps)."""
+    gpt = model.gpt
+    L = gpt.cfg.num_hidden_layers
+    counters = gen_counters()
+    reset_counts(counters)
+    calls = []
+    decode = gpt.decode_step
+    gpt.decode_step = lambda *a, **k: calls.append(1) or decode(*a, **k)
+    try:
+        torch.cuda.synchronize()
+        with ln_shapes(model, "fused_layer_norm_beam"):
+            t0 = time.perf_counter()
+            out = model.generate(ids, **kw)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+    finally:
+        del gpt.decode_step
+    steps = len(calls) + 1
+    launches = {name: fn.launches for name, fn in counters.items()}
+    want = {"fused_layer_norm": (2 * L + 1) * steps,
+            "flash_attention_fwd": flash_want}
+    if launches != want:
+        raise AssertionError(f"{what}: launches {launches} over {steps} "
+                             f"steps, expected {want}")
+    if kw.get("eos_token_id") is None and steps != kw["max_new_tokens"]:
+        raise AssertionError(f"{what}: {steps} steps for "
+                             f"{kw['max_new_tokens']} tokens")
+    check_ln_route(what, (counters["fused_layer_norm"],))
+    fa_fn = counters["flash_attention_fwd"]
+    on = fa_fn.tc_launches if flash_route == "tc" else fa_fn.core_launches
+    if on != fa_fn.launches:
+        raise AssertionError(f"{what}: {fa_fn.launches} flash launches, "
+                             f"{on} on the {flash_route} route")
+    vocab = gpt.cfg.vocab_size
+    if not (tuple(out.shape) == (ids.shape[0],
+                                 ids.shape[1] + kw["max_new_tokens"])
+            and torch.equal(out[:, :ids.shape[1]].long(), ids.long())
+            and bool(((out >= 0) & (out < vocab)).all())):
+        raise AssertionError(f"{what}: tokens {tuple(out.shape)}, prompt "
+                             f"changed or token out of range")
+    return out, wall, launches, steps
+
+
+def profile_beam(model, ids):
+    """Device time by kernel and the idle share over one more beam
+    search, under torch.profiler."""
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        model.generate(ids, max_new_tokens=BEAM_NEW, num_beams=BEAM_K)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    device_time_report("beam search", prof, wall_ms, BEAM_NEW)
+
+
+def phase_beam(model, ids, mids, mask, eos, profile=False):
+    """Beam search on the bf16 model: ``num_beams=4``, 32 new tokens, on
+    phase 3c's 8 unmasked 512-token prompts (K4 in the prefill at [8],
+    K2 at [32, 768] rows a decode step), then on its left-padded batch
+    with ``length_penalty=0.6`` and an ``eos_token_id``. Returns the
+    launches."""
+    L = model.gpt.cfg.num_hidden_layers
+    beam, wall, launches, steps = beam_run(
+        "beam search", model, ids, L, "tc", max_new_tokens=BEAM_NEW,
+        num_beams=BEAM_K)
+    log(f"beam search: GPT-2 small bf16, {ids.shape[0]} prompts x "
+        f"{ids.shape[1]} tokens, num_beams {BEAM_K}, {BEAM_NEW} new: "
+        f"{wall:.4f} s, {ids.shape[0] * BEAM_NEW / wall:.1f} generated "
+        f"tokens/s ({ids.shape[0] * BEAM_K * BEAM_NEW / wall:.1f} beam "
+        f"rows/s), {wall / steps * 1e3:.3f} ms a step (wall / {steps} "
+        f"steps, the prefill included); launches {json.dumps(launches)}")
+    m_beam, m_wall, m_launches, m_steps = beam_run(
+        "beam search left-padded", model, mids, 0, "tc",
+        max_new_tokens=GEN_MASKED[2], num_beams=BEAM_K, length_penalty=0.6,
+        eos_token_id=eos, attention_mask=mask)
+    log(f"beam search left-padded: {mids.shape[0]} prompts in a "
+        f"{mids.shape[1]}-wide batch, num_beams {BEAM_K}, length_penalty "
+        f"0.6, eos {eos}, {GEN_MASKED[2]} new: {m_steps} steps in "
+        f"{m_wall:.4f} s, {m_wall / m_steps * 1e3:.3f} ms a step; "
+        f"launches {json.dumps(m_launches)}; rows ending in eos "
+        f"{int((m_beam[:, mids.shape[1]:] == eos).any(dim=1).sum())}")
+    if profile:
+        profile_beam(model, ids)
+    return {k: launches[k] + m_launches[k] for k in launches}
+
+
+def phase_beam_f32(device):
+    """Beam search in float32 at GPT-2 width cut to 2 layers, on the card
+    (K2; K4 on the CUDA-core route) and on a CPU copy of the same weights
+    (plain versions). A spy on ``_beam_topk`` records, each step, the
+    smallest gap between neighbours among each row's K + 1 best
+    candidates on the CPU: a row whose gaps all stay at or above
+    ``GEN_TOL`` must give the same tokens on both (the final pick, with
+    no length penalty and no eos, is the first of the last step's K).
+    Returns the card run's launches."""
+    import copy
+
+    import paddle_tpu_torch as pt
+    import paddle_tpu_torch.models.generation as gen_mod
+    from paddle_tpu_torch.models import GPTConfig, GPTForPretraining
+    pt.seed(SEED + 10)
+    cfg = GPTConfig.gpt2_small()
+    cfg.num_hidden_layers = 2
+    cpu_net = GPTForPretraining(cfg).eval()
+    card_net = copy.deepcopy(cpu_net).to(device)
+    ids = torch.from_numpy(np.random.RandomState(SEED + 10).randint(
+        0, cfg.vocab_size, (4, 128)))
+    gaps = []
+    topk = gen_mod._beam_topk
+
+    def spy(cand, k):
+        if not cand.is_cuda:
+            best = cand.topk(k + 1, dim=-1).values
+            gaps.append((best[:, :-1] - best[:, 1:]).min(dim=1).values)
+        return topk(cand, k)
+
+    gen_mod._beam_topk = spy
+    try:
+        card, _, launches, _ = beam_run(
+            "beam search float32 on the card", card_net, ids.to(device), 2,
+            "cuda_core", max_new_tokens=16, num_beams=BEAM_K)
+        cpu = cpu_net.generate(ids, max_new_tokens=16, num_beams=BEAM_K)
+    finally:
+        gen_mod._beam_topk = topk
+    near = (torch.stack(gaps) < GEN_TOL).any(dim=0)           # [B]
+    same = (card.cpu() == cpu).all(dim=1)
+    if bool((~near & ~same).any()):
+        raise AssertionError(
+            f"float32 beam search: rows {torch.nonzero(~near & ~same)} "
+            f"differ between the card and the CPU with no near-tie")
+    log(f"beam search float32 check (GPT-2 width, 2 layers, 4 x 128, "
+        f"num_beams {BEAM_K}, 16 new, card vs CPU): rows with a gap below "
+        f"{GEN_TOL} among the K + 1 best candidates: {int(near.sum())}; "
+        f"tokens equal in {int(same.sum())} of 4 rows, every row without "
+        f"a near-tie equal; launches {json.dumps(launches)}, flash on the "
+        f"CUDA-core route")
+    return launches
 
 
 def call_op_cost(device):
@@ -1170,8 +1712,9 @@ def phase_generate(model, device, profile=False):
     """Phase 3c: ``model.generate`` on GPT-2 small in bf16 (the engine's
     model): 8 unmasked prompts of 512 tokens, 64 new tokens, greedy, then
     sampled (top-k 50, top-p 0.9, seed 1); 4 left-padded prompts of
-    96-256 real tokens in a 256-wide batch, 32 new tokens. Returns the
-    K2 and K4 launches of those runs."""
+    96-256 real tokens in a 256-wide batch, 32 new tokens; beam search.
+    Returns the K2 and K4 launches of the generate runs and of the beam
+    searches."""
     cfg = model.gpt.cfg
     L, vocab = cfg.num_hidden_layers, cfg.vocab_size
     rng = np.random.RandomState(SEED + 6)
@@ -1217,13 +1760,15 @@ def phase_generate(model, device, profile=False):
         f"{width}-wide batch, {new} new, greedy: {m_wall:.4f} s, "
         f"{rows * new / m_wall:.1f} tokens/s; launches "
         f"{json.dumps(m_launches)}")
+    b_launches = phase_beam(model, ids, mids * mask, mask,
+                            int(masked[0, width]), profile)
     cost = call_op_cost(device)
     log("call_op host cost on the card, µs per call (call_op, direct, "
         "added): " + json.dumps(cost))
     if profile:
         profile_generate(model, ids, GEN_NEW)
-    return {name: pre_l[name] + launches[name] + s_launches[name]
-            + m_launches[name] for name in launches}
+    return ({name: pre_l[name] + launches[name] + s_launches[name]
+             + m_launches[name] for name in launches}, b_launches)
 
 
 def phase_generate_f32(device):
@@ -1290,27 +1835,25 @@ def phase_generate_f32(device):
 
 
 def generate_rows(device, timer, launches):
-    """The kernels line's rows of the generate path: K2 at a decode step's
-    rows (bf16 [8, 768], most of its launches) and K4 at the prefill's
-    shape (bf16 [8, 512, 12, 64] causal, tensor-core route), each with the
-    launches of ``launches`` (the generate runs). K2 at the prefill's rows
-    is logged."""
+    """The kernels line's rows of the generate path, each with its count
+    in ``launches``: K2 for greedy and sampled generate (timed at a
+    decode step's rows, bf16 [8, 768]), for beam search (at a beam decode
+    step's [B*K, 768] rows, bf16 [32, 768]) and for the gather engines
+    (at a decode step's slots, bf16 [8, 768]), each also held against
+    its plain version at every other shape its launches ran at; and K4
+    at the prefill's shape (bf16 [8, 512, 12, 64] causal, tensor-core
+    route), which generate and beam search share."""
+    bf16 = torch.bfloat16
+    rows = [(name, LN_SRC, LN_TPU, ln_shape_row(
+                timer, name, launches[name], (bf16, n, 768)),
+             launches[name])
+            for name, n in (("fused_layer_norm_generate", GEN_BATCH),
+                            ("fused_layer_norm_beam", GEN_BATCH * BEAM_K),
+                            ("fused_layer_norm_gather", 8))]
     gen = torch.Generator(device=device).manual_seed(SEED + 7)
-
-    def randn(*shape, scale=1.0):
-        return (scale * torch.randn(*shape, device=device, generator=gen)
-                ).to(torch.bfloat16)
-
-    rows = []
-    for n, step in ((GEN_BATCH * GEN_PROMPT, "prefill"),
-                    (GEN_BATCH, "decode")):
-        row = ln_fwd_case(timer, randn(n, 768), 1 + randn(768, scale=0.1),
-                          randn(768, scale=0.1))
-        log(f"K2 fused_layer_norm at the generate path's {step} rows, bf16 "
-            f"[{n}, 768] {fmt(row)}")
-    rows.append(("fused_layer_norm_generate", LN_SRC, LN_TPU, row,
-                 launches["fused_layer_norm"]))
-    q, k, v, do = (randn(GEN_BATCH, GEN_PROMPT, 12, 64) for _ in range(4))
+    q, k, v, do = (
+        torch.randn(GEN_BATCH, GEN_PROMPT, 12, 64, device=device,
+                    generator=gen).to(bf16) for _ in range(4))
     fwd, _ = flash_case(timer, q, k, v, do, route="tc")
     log(f"K4/K5 flash_attention_fwd at the generate prefill's shape, bf16 "
         f"[{GEN_BATCH}, {GEN_PROMPT}, 12, 64] causal, tc route {fmt(fwd)}")
@@ -1883,28 +2426,37 @@ def main() -> int:
         device, profile)
     quant_launches, quant_captured = phase_engine_quant(
         model, prompts, outs, bf16_stats, profile)
-    gen_launches = phase_generate(model, device, profile)
+    gen_launches, beam_launches = phase_generate(model, device, profile)
+    gather_ln = phase_gather(model, prompts, outs, profile)
     del model
     gen_f32_launches = phase_generate_f32(device)
+    beam_f32_launches = phase_beam_f32(device)
     train_launches, train_cap = phase_train(device, profile)
     f32_launches = phase_f32_check(device)
     kernels = report_engine(device, timer, launches, captured,
                             quant_launches, quant_captured)
-    # the engine row of the LayerNorm forward counts the three serving
-    # runs; its fused_layer_norm_train row, the train path's
+    # the engine row of the LayerNorm forward counts the fused engines'
+    # runs (phase 3d's float32 ones too); its fused_layer_norm_train row,
+    # the train path's
     ln_row = next(k for k in kernels if k["name"] == "fused_layer_norm")
-    ln_row["launches"] += quant_launches["fused_layer_norm"]
+    ln_row["launches"] += quant_launches["fused_layer_norm"] \
+        + gather_ln["fused"]
     check_train_operands(train_cap)
     kernels += train_rows(train_launches, f32_launches, train_main)
-    # the float32 generate's K2 launches join the generate row, its K4
+    # the float32 runs' K2 launches join their path's row, their K4
     # launches (the CUDA-core route) the _f32 flash row
     kernels += generate_rows(device, timer, {
-        "fused_layer_norm": gen_launches["fused_layer_norm"]
+        "fused_layer_norm_generate": gen_launches["fused_layer_norm"]
         + gen_f32_launches["fused_layer_norm"],
-        "flash_attention_fwd": gen_launches["flash_attention_fwd"]})
+        "fused_layer_norm_beam": beam_launches["fused_layer_norm"]
+        + beam_f32_launches["fused_layer_norm"],
+        "fused_layer_norm_gather": gather_ln["gather"],
+        "flash_attention_fwd": gen_launches["flash_attention_fwd"]
+        + beam_launches["flash_attention_fwd"]})
     f32_fwd = next(k for k in kernels
                    if k["name"] == "flash_attention_fwd_f32")
-    f32_fwd["launches"] += gen_f32_launches["flash_attention_fwd"]
+    f32_fwd["launches"] += gen_f32_launches["flash_attention_fwd"] \
+        + beam_f32_launches["flash_attention_fwd"]
     for k in kernels:
         for key, v in k.items():
             if isinstance(v, float) and not math.isfinite(v):

@@ -1,5 +1,5 @@
 """Models of the port: GPT-2 (:mod:`.gpt`), its static-cache
-``generate`` and its fused serving step (:mod:`.generation`)."""
+``generate`` and its serving steps (:mod:`.generation`)."""
 from .generation import GenerationConfig, build_fused_step_fn, generate
 from .gpt import GPTBlock, GPTConfig, GPTForPretraining, GPTModel
 

@@ -41,7 +41,7 @@ import numpy as np
 import torch
 
 from .._device import resolve_device
-from .kv_pool import SlotPoolBase
+from .kv_pool import SlotPoolBase, _storage_dtype
 
 __all__ = ["PagedKVPool", "PoolCapacityError", "PoolExhaustedError",
            "BlockError"]
@@ -84,16 +84,6 @@ class _TrieNode:
         self.children: set = set()      # child keys (one block longer)
 
 
-def _storage_dtype(dtype) -> torch.dtype:
-    """A torch dtype, or its name as the JAX pool takes it."""
-    if isinstance(dtype, str):
-        dtype = getattr(torch, dtype, None)
-    if not isinstance(dtype, torch.dtype):
-        raise ValueError(f"pool dtype must be a torch dtype or its name, "
-                         f"got {dtype!r}")
-    return dtype
-
-
 class PagedKVPool(SlotPoolBase):
     """Block-pooled KV cache + page-table/prefix-cache manager.
 
@@ -103,9 +93,12 @@ class PagedKVPool(SlotPoolBase):
     concurrent requests, ``num_blocks`` their total KV footprint.
     ``dtype`` is a torch dtype or its name; ``"int8"`` and
     ``"float8_e4m3fn"`` make a quantized pool with ``scales``.
+    ``min_bucket`` (a whole number of blocks; ``None`` = one block)
+    floors the gather engine's prefill buckets.
     """
 
     _slot_cls = _PagedSlot
+    is_paged = True
     _capacity_noun = "virtual capacity"
     _admission_law = "prompt + max_new <= max_len"
 
@@ -116,21 +109,30 @@ class PagedKVPool(SlotPoolBase):
     def __init__(self, num_layers: int, num_slots: int, num_heads: int,
                  max_len: int, head_dim: int, *, block_size: int = 16,
                  num_blocks: Optional[int] = None, dtype=torch.float32,
-                 device=None):
+                 min_bucket: Optional[int] = None, device=None):
         if num_slots < 1:
             raise ValueError(f"num_slots must be >= 1, got {num_slots}")
         if block_size < 1 or (block_size & (block_size - 1)):
             raise ValueError(
                 f"block_size must be a power of two, got {block_size}")
-        if max_len < block_size:
+        if min_bucket is None:
+            min_bucket = block_size
+        if min_bucket < block_size or min_bucket % block_size:
             raise ValueError(
-                f"max_len={max_len} is below block_size={block_size}")
+                f"min_bucket={min_bucket} must be a multiple of "
+                f"block_size={block_size} (prefill buckets scatter whole "
+                f"blocks)")
+        if max_len < min_bucket:
+            raise ValueError(
+                f"max_len={max_len} is below min_bucket={min_bucket}: no "
+                f"prompt could ever be admitted")
         self.num_layers = int(num_layers)
         self.num_slots = int(num_slots)
         self.num_heads = int(num_heads)
         self.max_len = int(max_len)
         self.head_dim = int(head_dim)
         self.block_size = int(block_size)
+        self.min_bucket = int(min_bucket)
         # blocks a single request can ever hold (covers [0, max_len))
         self.max_table_len = -(-self.max_len // self.block_size)
         if num_blocks is None:
@@ -389,6 +391,14 @@ class PagedKVPool(SlotPoolBase):
                 parent.children.add(key)
 
     # -- growth + copy-on-write --------------------------------------------
+    def ensure_writable(self, slot: int) -> Optional[Tuple[int, int]]:
+        """Guarantee the block holding virtual index ``pos`` exists and
+        is exclusively owned before a decode step writes into it.
+        Returns the ``(dst, src)`` copy-on-write order, else None. May
+        raise :class:`PoolExhaustedError`: the scheduler then preempts."""
+        st = self._require(slot)
+        return self._ensure_block(slot, st, st.pos // self.block_size)
+
     def ensure_writable_range(self, slot: int,
                               last_pos: int) -> List[Tuple[int, int]]:
         """Guarantee EVERY block covering virtual indices ``[pos,

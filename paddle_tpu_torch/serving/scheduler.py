@@ -1,20 +1,28 @@
-"""Continuous-batching scheduler in chunked mode (counterpart of
-``paddle_tpu/serving/scheduler.py`` as the fused ragged engine drives
-it): admit, run one fused launch, retire — every cycle.
+"""Continuous-batching scheduler (counterpart of
+``paddle_tpu/serving/scheduler.py``): admit, run one step, retire, every
+cycle. Two modes, as the engine picks:
 
-* **admit** — pop queued requests FCFS (preempted requests first) into
-  free slots while the pool has blocks for their feed. Admission is host
-  bookkeeping: the engine reserves blocks and arms
-  ``req.pending_feed``; no prefill program runs.
-* **cycle** — ONE fused ragged launch mixes up to ``prefill_budget``
-  tokens of prompt chunks with one row for every decoding slot. Decode
-  rows are never charged to the budget, so a prompt burst cannot
-  monopolize a cycle; a slot whose final chunk lands emits its first
-  token from the same launch. Block exhaustion while growing preempts
-  the youngest request, which re-queues and later replays its own
-  history as a feed.
-* **retire** — finished (EOS / token budget), cancelled and expired
-  requests free their slot at once.
+* **bucketed** (the dense and paged gather engines) — admission pops
+  queued requests FCFS (preempted requests first) into free slots and
+  runs the prefill program of each one's pow2 capacity bucket, which
+  returns its first token. While slots decode, the prefills of one
+  cycle may spend at most ``prefill_budget`` bucket tokens; a paged
+  prefix hit runs no program and costs nothing, its uncovered tail (and
+  a preempted request's own history) then replays through the decode
+  step one token a cycle. Each cycle is then ONE decode step over every
+  slot; paged slots first get a writable block at their position (copy
+  on write), and block exhaustion preempts the youngest request.
+* **chunked** (the fused engine) — admission is host bookkeeping: the
+  engine reserves blocks and arms ``req.pending_feed``. Each cycle is
+  ONE fused ragged launch mixing up to ``prefill_budget`` tokens of
+  prompt chunks with one row for every decoding slot. Decode rows are
+  never charged to the budget, so a prompt burst cannot monopolize a
+  cycle; a slot whose final chunk lands emits its first token from the
+  same launch. Block exhaustion while growing preempts the youngest
+  request, which re-queues and later replays its own history as a feed.
+
+Finished (EOS / token budget), cancelled and expired requests free their
+slot at once.
 
 Threading contract: ``submit``/``cancel`` may be called from any
 thread; the loop, the pool and the slot state belong to the scheduler
@@ -103,9 +111,13 @@ class GenerationRequest:
         self.tokens: List[int] = []     # generated so far (incl. EOS)
         self.emitted = 0
         self.last_token: Optional[int] = None
-        # the not-yet-fed feed tokens (prompt, plus the generated history
-        # after a preemption), drained in budgeted chunks; rebuilt at
-        # every admission
+        # bucketed paged engines: known tokens still to go through the
+        # decode step without emitting (a prefix hit's tail, a preempted
+        # request's history); rebuilt at every admission
+        self.replay: List[int] = []
+        # chunked engines: the not-yet-fed feed tokens (prompt, plus the
+        # generated history after a preemption), drained in budgeted
+        # chunks; rebuilt at every admission
         self.pending_feed: List[int] = []
         self.trace = RequestTrace(self.id, t_submit=self.submitted_at)
         self._q: "queue.Queue" = queue.Queue()
@@ -187,29 +199,54 @@ class GenerationRequest:
 
 
 class Scheduler:
-    """The chunked continuous-batching loop over a
-    :class:`~.paging.PagedKVPool`. Device work is delegated to
-    engine-provided callables, so the policy here stays host-pure:
+    """The continuous-batching loop over a
+    :class:`~.kv_pool.KVCachePool` or a :class:`~.paging.PagedKVPool`.
+    Device work is delegated to engine-provided callables, so the policy
+    here stays host-pure:
 
-    * ``do_admit(request, slot)`` — reserve the slot's blocks and arm
-      ``request.pending_feed``;
-    * ``do_chunked_step(slot_requests, plan) -> [num_slots + 1] tensor``
-      — run ONE fused ragged launch with ``plan[slot]`` rows per slot and
-      return its next-token tensor un-fetched;
-    * ``do_copy(dst, src)`` — copy-on-write block copy.
+    * bucketed mode (the gather engines):
+      ``do_prefill(request, slot, bucket) -> first token`` runs the
+      bucket's prefill and writes the slot (a paged engine returns None
+      on a prefix hit: no program ran, ``request.replay`` is armed);
+      ``do_decode(slot_requests) -> [num_slots + 1] tensor`` runs ONE
+      decode step over every slot and returns its next-token tensor
+      un-fetched (garbage for free slots);
+    * chunked mode (the fused engine): ``do_admit(request, slot)``
+      reserves the slot's blocks and arms ``request.pending_feed``;
+      ``do_chunked_step(slot_requests, plan) -> [num_slots + 1] tensor``
+      runs ONE fused ragged launch with ``plan[slot]`` rows per slot;
+    * ``do_copy(dst, src)`` — copy-on-write block copy (paged pools).
+
+    The pair of callables given picks the mode; the pool's ``is_paged``
+    picks the layout.
     """
 
-    def __init__(self, pool, do_admit: Callable, do_chunked_step: Callable,
-                 do_copy: Callable, *, max_queue: int = 128,
+    def __init__(self, pool, *, do_prefill: Optional[Callable] = None,
+                 do_decode: Optional[Callable] = None,
+                 do_admit: Optional[Callable] = None,
+                 do_chunked_step: Optional[Callable] = None,
+                 do_copy: Optional[Callable] = None, max_queue: int = 128,
                  prefill_budget: Optional[int] = None):
         if max_queue < 1:
             raise ValueError(f"max_queue must be >= 1, got {max_queue}")
+        self._chunked = do_chunked_step is not None
+        mode = (do_admit, do_chunked_step) if self._chunked \
+            else (do_prefill, do_decode)
+        other = (do_prefill, do_decode) if self._chunked else (do_admit,)
+        if any(f is None for f in mode) or any(f is not None for f in other):
+            raise ValueError(
+                "pass do_prefill and do_decode (bucketed mode) or do_admit "
+                "and do_chunked_step (chunked mode)")
         self._pool = pool
+        self._do_prefill = do_prefill
+        self._do_decode = do_decode
         self._do_admit = do_admit
         self._do_chunked = do_chunked_step
         self._do_copy = do_copy
         self._max_queue = int(max_queue)
-        # prompt tokens fed per cycle; decode rows are never charged
+        # chunked: prompt tokens fed per cycle (decode rows are never
+        # charged); bucketed: bucket tokens prefilled per cycle while
+        # slots decode (an idle pool admits unthrottled)
         self._prefill_budget = int(prefill_budget or pool.max_len)
         if self._prefill_budget < 1:
             raise ValueError(
@@ -218,7 +255,8 @@ class Scheduler:
         self.chunk_tokens = 0            # prompt tokens fed via chunks
         self.nonfinite_cycles = 0        # cycles whose logits held NaN/Inf
         self.preempts = 0                # requests evicted mid-flight
-        self.steps = 0                   # fused launches run
+        self.steps = 0                   # decode steps or fused launches
+        self.prefills = 0                # prefill programs run (bucketed)
         self.retired = 0
         self._ttft: deque = deque(maxlen=_RESERVOIR)
         self._tpot: deque = deque(maxlen=_RESERVOIR)
@@ -292,7 +330,10 @@ class Scheduler:
                 self._sweep_queue()
                 self._admit()
                 if self._slots:
-                    self._chunked_cycle()
+                    if self._chunked:
+                        self._chunked_cycle()
+                    else:
+                        self._decode_cycle()
             except Exception as e:                      # noqa: BLE001
                 # a step failure poisons the requests in flight, never
                 # the loop: each caller gets the error (traceback
@@ -346,23 +387,34 @@ class Scheduler:
         return 0
 
     def _admit(self) -> None:
+        decode_waiting = bool(self._slots)
+        budget = self._prefill_budget
         while True:
             with self._cond:
                 if not self._queue:
                     return
                 idx = self._select_next()
                 req = self._queue[idx]
-                # a preempted request re-feeds its generated history
-                feed_len = len(req.prompt) + len(req.tokens)
-                if not self._pool.can_admit(feed_len):
+                # a paged re-admission (after a preemption) re-feeds its
+                # generated history; a dense one starts over
+                feed_len = len(req.prompt) + (
+                    len(req.tokens) if self._pool.is_paged else 0)
+                bucket = None if self._chunked \
+                    else self._pool.bucket_for(feed_len)
+                if self._pool.is_paged and not self._pool.can_admit(feed_len):
                     return       # block pressure: wait for retirements
+                if not self._chunked and decode_waiting \
+                        and budget < bucket:
+                    # this cycle's prefill budget is spent: decode the
+                    # active slots first; the head keeps its place
+                    return
                 slot = self._pool.alloc()
                 if slot is None:
                     return       # every slot busy: a cycle will retire
                 self._queue.pop(idx)
                 req._preempted = False
             try:
-                self._prefill(req, slot)
+                ran = self._prefill(req, slot, bucket)
             except Exception as exc:                    # noqa: BLE001
                 # the request is in neither the queue nor the slots:
                 # fail it here (or its caller hangs), then let the loop
@@ -377,14 +429,40 @@ class Scheduler:
                     err.__cause__ = exc
                     req._finish(err)
                 raise
+            if ran:
+                # a prefix hit ran no program, so it costs the cycle's
+                # budget nothing
+                budget -= bucket
 
-    def _prefill(self, req: GenerationRequest, slot: int) -> None:
-        """Admit ``req`` into ``slot``: blocks and ``pending_feed`` are
-        the engine's bookkeeping; the feed itself runs in chunks."""
-        req.trace.mark("admitted", slot=slot,
+    def _prefill(self, req: GenerationRequest, slot: int,
+                 bucket: Optional[int]) -> bool:
+        """Admit ``req`` into ``slot``. Returns whether a prefill
+        program ran (chunked admission and a paged prefix hit run
+        none)."""
+        req.trace.mark("admitted", slot=slot, bucket=bucket,
                        feed=len(req.prompt) + len(req.tokens))
-        self._do_admit(req, slot)
+        if self._chunked:
+            # blocks and pending_feed are the engine's bookkeeping; the
+            # feed itself runs in chunks
+            self._do_admit(req, slot)
+            self._slots[slot] = req
+            return False
+        req.trace.mark("prefill_start", bucket=bucket)
+        first = self._do_prefill(req, slot, bucket)
+        req.trace.mark("prefill_end", bucket=bucket, ran=first is not None)
+        if not self._pool.is_paged:
+            # the first generated token lands at cache index `bucket`;
+            # the slot's valid keys start past the bucket's left pad
+            self._pool.set_slot(slot, pos=bucket,
+                                lo=bucket - len(req.prompt))
         self._slots[slot] = req
+        if first is None:
+            return False         # prefix hit: the replay feeds the tail
+        self.prefills += 1
+        req._emit(int(first))
+        if self._finished(req, int(first)):
+            self._retire(slot)
+        return True
 
     def _finished(self, req: GenerationRequest, tok: int) -> bool:
         return (req.eos_token_id is not None and tok == req.eos_token_id) \
@@ -413,7 +491,8 @@ class Scheduler:
         slot = max(self._slots, key=lambda s: self._slots[s].id)
         req = self._slots.pop(slot)
         self._pool.free(slot)
-        req.pending_feed = []            # rebuilt at re-admission
+        req.replay = []                  # rebuilt at re-admission
+        req.pending_feed = []
         req._preempted = True
         self.preempts += 1
         req.trace.mark("preempt", emitted=req.emitted)
@@ -421,6 +500,60 @@ class Scheduler:
             self._queue.insert(0, req)
             self._cond.notify_all()
         return True
+
+    # -- bucketed decode -----------------------------------------------------
+    def _prepare_paged(self) -> bool:
+        """Before a paged decode step: every active slot must own a
+        writable block at its position. Exhaustion preempts the youngest
+        request (oldest first, so the youngest is the victim, never the
+        beneficiary). Returns False when no slot survives."""
+        for slot in sorted(self._slots, key=lambda s: self._slots[s].id):
+            while slot in self._slots:
+                try:
+                    cow = self._pool.ensure_writable(slot)
+                except PoolExhaustedError:
+                    # the slot itself is active, so there is always a
+                    # youngest to evict, possibly this slot
+                    self._preempt_youngest()
+                    continue
+                if cow is not None:
+                    self._do_copy(*cow)
+                break
+        return bool(self._slots)
+
+    def _decode_cycle(self) -> None:
+        """One decode step over every slot, then one fetch of the next
+        tokens. A slot replaying known tokens feeds the next one and
+        emits nothing until its replay drains."""
+        if self._pool.is_paged and not self._prepare_paged():
+            return
+        active = dict(self._slots)
+        toks = _fetch(self._do_decode(active))
+        self.steps += 1
+        self._note_nonfinite(toks)
+        now = time.perf_counter()
+        for slot, req in active.items():
+            self._pool.advance(slot)
+            if req.cancelled:
+                self._retire(slot, RequestCancelled(
+                    f"request {req.id} cancelled mid-generation"))
+                continue
+            if req.expired(now):
+                self._retire(slot, DeadlineExceeded(
+                    f"request {req.id} exceeded its deadline after "
+                    f"{req.emitted} token(s)"))
+                continue
+            if req.replay:
+                # this cycle fed one known token: its prediction is
+                # dropped and the next known token queued
+                req.last_token = req.replay.pop(0)
+                if not req.replay:
+                    req.trace.mark("replay_done", emitted=req.emitted)
+                continue
+            tok = int(toks[slot])
+            req._emit(tok)
+            if self._finished(req, tok):
+                self._retire(slot)
 
     # -- chunked prefill ---------------------------------------------------
     def _chunk_plan(self) -> Dict[int, int]:

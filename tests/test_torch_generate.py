@@ -409,9 +409,12 @@ def test_bad_attention_masks_raise(models):
 
 
 def test_beam_search_is_not_ported_yet(models):
+    """Beam search is ported now (tests/test_torch_beam.py holds it
+    against the JAX package): ``num_beams=3`` decodes, and the argument
+    checks stay."""
     _, port = models
-    with pytest.raises(NotImplementedError, match="Queue 1 item 2"):
-        _port_generate(port, _prompt(), max_new_tokens=2, num_beams=3)
+    out = _port_generate(port, _prompt(), max_new_tokens=2, num_beams=3)
+    assert out.shape == (2, 10) and out.dtype == np.int32
     with pytest.raises(ValueError, match="num_beams"):
         _port_generate(port, _prompt(), max_new_tokens=2, num_beams=0)
     with pytest.raises(ValueError, match="length_penalty"):

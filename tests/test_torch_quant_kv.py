@@ -451,6 +451,7 @@ def test_copy_on_write_and_reset_carry_the_scales(models, kv):
     _, tmodel = models
     rng = np.random.RandomState(3)
     eng = GenerationEngine(tmodel, num_slots=2, max_len=64, block_size=BS,
+                           kv_layout="paged", attention="fused",
                            kv_dtype=kv, device="cpu")
     try:
         pool = eng._pool
@@ -578,6 +579,7 @@ def test_nonfinite_sentinel_trips_through_quantized_pool(models, kv):
     with torch.no_grad():
         next(poisoned.parameters()).fill_(float("nan"))
     with GenerationEngine(poisoned, num_slots=2, max_len=64, block_size=BS,
+                          kv_layout="paged", attention="fused",
                           kv_dtype=kv, device="cpu") as eng:
         out = eng.submit(np.arange(1, 6), max_new_tokens=4).result(
             timeout=120)

@@ -260,6 +260,7 @@ def test_engine_greedy_tokens_match_jax_fused_engine(models):
 def test_stream_close_cancel_and_deadline(models):
     _, tmodel = models
     eng = GenerationEngine(tmodel, num_slots=2, max_len=64, block_size=8,
+                           kv_layout="paged", attention="fused",
                            device="cpu")
     p = np.arange(1, 8)
     h = eng.submit(p, max_new_tokens=6)
@@ -292,11 +293,13 @@ def test_concurrent_submitters_lose_no_request(models):
     prompts = [rng.randint(1, VOCAB, int(rng.randint(2, 12)))
                for _ in range(16)]
     with GenerationEngine(tmodel, num_slots=4, max_len=32, block_size=8,
+                          kv_layout="paged", attention="fused",
                           device="cpu") as eng:
         alone = [eng.submit(p, max_new_tokens=3).result(timeout=60)
                  for p in prompts]
     eng = GenerationEngine(tmodel, num_slots=4, max_len=32, block_size=8,
-                           num_blocks=6, device="cpu")
+                           num_blocks=6, kv_layout="paged",
+                           attention="fused", device="cpu")
     outs = [None] * len(prompts)
 
     def client(i):
@@ -324,6 +327,7 @@ def test_concurrent_submitters_lose_no_request(models):
 def test_failed_step_fails_its_requests_and_serving_goes_on(models):
     _, tmodel = models
     with GenerationEngine(tmodel, num_slots=2, max_len=32, block_size=8,
+                          kv_layout="paged", attention="fused",
                           device="cpu") as eng:
         p = np.arange(1, 6)
         want = eng.submit(p, max_new_tokens=4).result(timeout=60)
@@ -346,13 +350,15 @@ def test_failed_step_fails_its_requests_and_serving_goes_on(models):
 def test_engine_validation(models):
     _, tmodel = models
     for kw, exc, match in (
-            (dict(kv_layout="dense"), NotImplementedError, "ROADMAP"),
-            (dict(attention="gather"), NotImplementedError, "ROADMAP"),
+            (dict(mesh=object()), NotImplementedError, "ROADMAP"),
+            (dict(spec_draft=object()), NotImplementedError, "ROADMAP"),
             (dict(block_size=4), ValueError, "block_size >= 8"),
             (dict(max_len=128), ValueError, "max_position_embeddings")):
         with pytest.raises(exc, match=match):
-            GenerationEngine(tmodel, device="cpu", **kw)
+            GenerationEngine(tmodel, kv_layout="paged", attention="fused",
+                             device="cpu", **kw)
     with GenerationEngine(tmodel, max_len=32, block_size=8,
+                          kv_layout="paged", attention="fused",
                           device="cpu") as eng:
         with pytest.raises(PoolCapacityError):
             eng.submit(np.arange(1, 30), max_new_tokens=8)
@@ -365,6 +371,6 @@ def test_engine_defaults_to_the_card(models):
         pytest.skip("this host has a CUDA device; the default is usable")
     _, tmodel = models
     with pytest.raises(RuntimeError, match='device="cpu"'):
-        GenerationEngine(tmodel)
+        GenerationEngine(tmodel, kv_layout="paged", attention="fused")
     with pytest.raises(RuntimeError, match='device="cpu"'):
         tpaging.PagedKVPool(1, 1, 1, 16, 8, block_size=8)
