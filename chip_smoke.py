@@ -89,6 +89,38 @@ prints no result line):
    (kernels, flash on the CUDA-core route) against a CPU copy of the same
    weights (plain versions): loss, every gradient and every updated
    parameter;
+4b. the recipe: GPT-2 small (full width and depth) trained through
+   ``Model.fit`` the way it is trained: AdamW with f32 masters, bf16 O2,
+   ``LinearWarmup(CosineAnnealingDecay(6e-4))`` over 4 warmup steps,
+   ``ClipGradByGlobalNorm(1.0)``, no decay on biases and LayerNorm, 2
+   epochs of 8 batches of 8 x 1024 tokens, 2 held-out batches evaluated
+   after each epoch, checkpoints in a temporary ``save_dir``,
+   ``History`` and ``EarlyStopping``: each step's lr equal to the
+   scheduler's closed form, each step's pre-clip global norm logged
+   (GPT-2's stays below 1.0 here, so after the fit one more step runs
+   with the clip norm at half the smallest, and its clipped gradients
+   must have that global norm), the launches as phase 4 derives them plus
+   the evaluated batches' forward kernels, and no call of any plain
+   version; ``evaluate``'s loss the mean of ``eval_batch``'s; a fresh
+   ``Model`` loaded from the ``final`` checkpoint evaluates and takes two
+   more train steps within ``RESUME_TOL`` of the live one;
+4c. float16: GPT-2 small in float16 O2 through the eager loop
+   ``scaler.scale(loss).backward(); scaler.step(opt); scaler.update()``
+   (``GradScaler(2**15, decr_every_n_nan_or_inf=1)``, AdamW with f32
+   masters), 8 steps: flash on the CUDA-core route in float16, AdamW on
+   f32 masters with float16 gradients and copies, one AdamW launch per
+   parameter of each step the scaler applied, no plain version; then one
+   step whose gradient a hook makes non-finite: parameters, masters and
+   moments keep their bits, AdamW launches 0 times, the scale halves, the
+   optimizer's step stays; the next step applies. Then the same loop at
+   GPT-2 width cut to 2 layers (batch 2 x 128) on the card and on a CPU
+   copy: losses within ``FP16_LOSS_TOL`` and the same loss scales;
+4d. bf16 O1: GPT-2 small with float32 parameters through ``Model.fit``
+   at ``amp_configs={"level": "O1"}``, 8 steps on one repeated batch:
+   AdamW on f32 parameters and gradients (no master), flash in bf16 on
+   the tensor-core route, LayerNorm in f32, the loss finite and falling.
+   Each of 4b-4d prints tokens/s, ms a step (wall / steps and the median
+   step) and the peak memory, with the card's name and power limit;
 5. real operands: the layer-0 operands of one real step of each path
    through kernel and plain: the engine's attention rows (float, int8
    and fp8 pools) at its widest step and at its last decode-only step
@@ -121,6 +153,16 @@ prints no result line):
    (bf16 [8, 768], [32, 768] and [8, 768]);
    ``flash_attention_fwd_generate`` (K4 at the prefill's shape, bf16 [8,
    512, 12, 64] causal) counts the unmasked generate and beam prefills.
+   The float16 rows (``_f16``: flash [8, 1024, 12, 64] causal on the
+   CUDA-core kernels beside SDPA in float16, the LayerNorm forward and
+   backward at [8192, 768], AdamW with an f32 master and a float16
+   gradient and copy) and ``fused_adamw_f32`` (an f32 parameter and
+   gradient) come from phase 2 too; the float16 rows count phase 4c's
+   launches, ``fused_adamw_f32`` phase 4d's and the float32 step's. The
+   float16 LayerNorm rows count 0, with the reason: LayerNorm is on the
+   AMP black list, so every AMP path runs it in float32, and the f32
+   rows count phases 4, 4b, 4c and 4d; the bf16 tensor-core flash rows
+   count phases 4, 4b and 4d.
 
 ``--profile`` adds one more batch to the bf16 and the int8 engines and
 to the dense and paged gather engines, one more greedy generate, one
@@ -139,6 +181,7 @@ import contextlib
 import gc
 import json
 import math
+import os
 import statistics
 import subprocess
 import sys
@@ -150,12 +193,14 @@ import torch
 SEED = 0
 HBM_BYTES_PER_S = 3.35e12            # H100 SXM data sheet
 PEAK_OPS = {torch.bfloat16: 989e12,   # dense tensor-core rate
+            torch.float16: 989e12,
             torch.float32: 67e12}     # outside the tensor cores
 TOL = {torch.float32: (1e-4, 0.0),    # (atol, rtol)
-       torch.bfloat16: (2e-2, 1e-2)}  # one bf16 ulp of |y| < 4 is <= 1.6e-2
+       torch.bfloat16: (2e-2, 1e-2),  # one bf16 ulp of |y| < 4 is <= 1.6e-2
+       torch.float16: (5e-3, 5e-3)}   # a few f16 ulps (P, dS rounded to f16)
 # max |kernel - plain| over max |plain|, for the operands of a real step:
 # f32 sums in another order; a little over two bf16 ulps of the largest value
-REL_TOL = {torch.float32: 1e-5, torch.bfloat16: 2e-2}
+REL_TOL = {torch.float32: 1e-5, torch.bfloat16: 2e-2, torch.float16: 5e-3}
 RPA_SRC = "paddle_tpu_torch/csrc/ragged_paged_attention.cu"
 RPA_TC_SRC = "paddle_tpu_torch/csrc/ragged_paged_attention_sm90.cu"
 LN_SRC = "paddle_tpu_torch/csrc/layer_norm.cu"
@@ -172,6 +217,9 @@ LN_BWD_TPU = "paddle_tpu/ops/pallas_kernels.py:893"
 FA_FWD_TPU = "paddle_tpu/ops/pallas_kernels.py:269"
 FA_BWD_TPU = "paddle_tpu/ops/pallas_kernels.py:305"
 ADAMW_TPU = "paddle_tpu/ops/pallas_kernels.py:1003"
+# the kernels line's row suffix of each dtype's measurements
+DTYPE_TAIL = {torch.bfloat16: "", torch.float32: "_f32",
+              torch.float16: "_f16"}
 # the bench_gpt2 configuration (bench.py:158)
 BATCH, SEQ, LM_CHUNKS, LR, WD = 8, 1024, 8, 1e-4, 0.01
 WARM_STEPS, TIMED_STEPS = 2, 8
@@ -734,8 +782,8 @@ def adamw_case(timer, p, g, m, v, low, lr, beta1, beta2, eps, wd, step):
                           exact if a.dtype == torch.float32 else None)
               for n, a, b in zip(("p", "m", "v"), ops, ref))
     if low is not None:
-        err = max(err, check_close("AdamW bf16 copy", low_k, low_r,
-                                   torch.bfloat16))
+        err = max(err, check_close(f"AdamW {low.dtype} copy", low_k, low_r,
+                                   low.dtype))
     lib_p = torch.nn.Parameter(p.detach().float().clone())
     lib_p.grad = g.float()
     lib = torch.optim.AdamW([lib_p], lr=lr, betas=(beta1, beta2), eps=eps,
@@ -747,7 +795,7 @@ def adamw_case(timer, p, g, m, v, low, lr, beta1, beta2, eps, wd, step):
            "plain_ms": timer.ms(lambda: adamw_plain_(
                ref[0], g, ref[1], ref[2], *hyper, low=low_r)),
            "library_ms": timer.ms(lib.step)}
-    # p, m, v read and written, g read, the bf16 copy written
+    # p, m, v read and written, g read, the 16-bit copy written
     nbytes = n * (2 * p.element_size() + g.element_size() + 16
                   + (2 if low is not None else 0))
     row["bound_ms"], row["bound_by"] = bound(nbytes, 16 * n, torch.float32)
@@ -782,20 +830,21 @@ def phase_train_kernels(device, timer):
             (torch.float32, 1000, 64, "cuda_core"),
             (torch.bfloat16, SEQ, 64, "tc"),
             (torch.bfloat16, 1000, 64, "tc"),
-            (torch.bfloat16, SEQ, 128, "tc")):
+            (torch.bfloat16, SEQ, 128, "tc"),
+            (torch.float16, SEQ, 64, "cuda_core")):
         q, k, v, do = (randn(BATCH, seq, 12, d, dtype=dtype)
                        for _ in range(4))
         fwd, bwd = flash_case(timer, q, k, v, do, route=route,
                               core=route == "tc" and d == 64)
         if seq == SEQ and d == 64:
-            tail = "" if dtype == torch.bfloat16 else "_f32"
+            tail = DTYPE_TAIL[dtype]
             main["flash_attention_fwd" + tail] = fwd
             main["flash_attention_bwd" + tail] = bwd
         shape = f"{str(dtype)[6:]} [{BATCH}, {seq}, 12, {d}] causal"
         log(f"K4/K5 flash_attention_fwd {route} route {shape} {fmt(fwd)}")
         log(f"K6/K7 flash_attention_bwd {route} route {shape} {fmt(bwd)}")
         del q, k, v, do
-    for dtype in (torch.float32, torch.bfloat16):
+    for dtype in (torch.float32, torch.bfloat16, torch.float16):
         name = str(dtype)[6:]
         x = randn(BATCH * SEQ, 768, dtype=dtype)
         w = (1 + randn(768, scale=0.1)).to(dtype)
@@ -805,23 +854,27 @@ def phase_train_kernels(device, timer):
             f"{fmt(row)}")
         fwd = ln_fwd_case(timer, x, w, randn(768, dtype=dtype, scale=0.1))
         log(f"K2 fused_layer_norm {name} [{BATCH * SEQ}, 768] {fmt(fwd)}")
-        if dtype == torch.float32:           # O2 runs LayerNorm in f32
+        if dtype == torch.float32:           # AMP runs LayerNorm in f32
             main["fused_layer_norm_bwd"] = row
             main["fused_layer_norm_train"] = fwd
+        if dtype == torch.float16:
+            main["fused_layer_norm_bwd_f16"] = row
+            main["fused_layer_norm_f16"] = fwd
     n = (50304, 768)
-    for p_dtype, low in ((torch.float32, True), (torch.float32, False)):
+    # (grad and copy dtype or None): the O2 bf16 master, the O1 / float32
+    # parameter, the O2 float16 master
+    for half in (torch.bfloat16, None, torch.float16):
         p = randn(*n, scale=0.02)
-        g = randn(*n, dtype=torch.bfloat16 if low else torch.float32,
-                  scale=1e-3)
+        g = randn(*n, dtype=half or torch.float32, scale=1e-3)
         m, v = randn(*n, scale=1e-4), randn(*n, scale=1e-4).square()
-        bf16 = torch.empty(n, dtype=torch.bfloat16, device=device) \
-            if low else None
-        row = adamw_case(timer, p, g, m, v, bf16, LR, 0.9, 0.999, 1e-8, WD,
+        low = None if half is None else torch.empty(n, dtype=half,
+                                                    device=device)
+        row = adamw_case(timer, p, g, m, v, low, LR, 0.9, 0.999, 1e-8, WD,
                          3)
-        log(f"K8 fused_adamw {'f32 master, bf16 grad and copy' if low else 'f32'}"
-            f" [50304, 768] {fmt(row)}")
-        if low:
-            main["fused_adamw"] = row
+        what = "f32" if half is None else \
+            f"f32 master, {str(half)[6:]} grad and copy"
+        log(f"K8 fused_adamw {what} [50304, 768] {fmt(row)}")
+        main["fused_adamw" + DTYPE_TAIL[half or torch.float32]] = row
     return main
 
 
@@ -2313,6 +2366,540 @@ def phase_f32_check(device):
     return launches
 
 
+# ------------------------------------------------------- phases 4b to 4d
+# the recipe: 8 batches of BATCH x SEQ tokens for 2 epochs, 2 held-out
+# batches evaluated after each epoch
+RECIPE_BATCHES, RECIPE_EVAL, RECIPE_EPOCHS = 8, 2, 2
+RECIPE_LR, RECIPE_WARMUP, RECIPE_WD = 6e-4, 4, 0.1
+# a fresh Model loaded from the recipe's final checkpoint evaluates and
+# trains as the live one: the same kernels on the same bits
+RESUME_TOL = 1e-6
+# the clipped gradients' global norm against the clip norm, relative
+CLIP_TOL = 1e-4
+FP16_STEPS = 8
+# float16 O2 at GPT-2 width cut to 2 layers, card vs CPU: activations in
+# float16 (11 bits) rounded at other places by cuBLAS and the CPU's
+# products, a loss of ~10.9 whose f16-level noise is ~1e-3 of it
+FP16_LOSS_TOL = 2e-2
+O1_STEPS = 8
+PLAIN = (("ops.fused_adamw", "adamw_plain_"),
+         ("ops.layer_norm", "layer_norm_plain"),
+         ("ops.layer_norm", "layer_norm_bwd_plain"),
+         ("ops.flash_attention", "flash_attention_fwd_plain"),
+         ("ops.flash_attention", "flash_attention_bwd_plain"))
+
+
+@contextlib.contextmanager
+def count_plain():
+    """Count the calls of every kernel's plain version while the block
+    runs (the wrappers call them by their module's name); yields the
+    counts, which must stay 0 on the card."""
+    import importlib
+    counts = collections.Counter()
+    saved = []
+    for mod_name, fn_name in PLAIN:
+        mod = importlib.import_module(f"paddle_tpu_torch.{mod_name}")
+        orig = getattr(mod, fn_name)
+
+        def spy(*a, _orig=orig, _name=fn_name, **kw):
+            counts[_name] += 1
+            return _orig(*a, **kw)
+
+        saved.append((mod, fn_name, orig))
+        setattr(mod, fn_name, spy)
+    try:
+        yield counts
+    finally:
+        for mod, fn_name, orig in saved:
+            setattr(mod, fn_name, orig)
+
+
+@contextlib.contextmanager
+def adamw_dtypes(opt_module):
+    """The (p, g, copy) dtypes of every AdamW launch the optimizers make
+    while the block runs."""
+    seen = collections.Counter()
+    orig = opt_module.fused_adamw_
+
+    def spy(p, g, m, v, *hyper, low=None):
+        seen[(str(p.dtype)[6:], str(g.dtype)[6:],
+              None if low is None else str(low.dtype)[6:])] += 1
+        return orig(p, g, m, v, *hyper, low=low)
+
+    opt_module.fused_adamw_ = spy
+    try:
+        yield seen
+    finally:
+        opt_module.fused_adamw_ = orig
+
+
+def gpt2_small(seed, device, layers=None, dtype=None):
+    import paddle_tpu_torch as pt
+    from paddle_tpu_torch.models import GPTConfig, GPTForPretraining
+    pt.seed(seed)
+    cfg = GPTConfig.gpt2_small()
+    cfg.hidden_dropout_prob = cfg.attention_dropout_prob = 0.0
+    if layers is not None:
+        cfg.num_hidden_layers = layers
+    return GPTForPretraining(cfg, lm_loss_chunks=LM_CHUNKS).to(device), cfg
+
+
+def next_token_batches(seed, vocab, rows, seq=None):
+    """``rows`` random sequences of ``seq`` (default SEQ) tokens and their
+    next-token labels."""
+    seq = seq or SEQ
+    tokens = np.random.RandomState(seed).randint(0, vocab, (rows, seq + 1))
+    return tokens[:, :-1], tokens[:, 1:]
+
+
+def no_decay(name):
+    """The recipe's decay filter: biases and LayerNorm take no decay."""
+    return not (name.endswith(".bias") or ".ln_" in name
+                or name.startswith("gpt.ln_f"))
+
+
+def recipe_lr(t):
+    """The lr of train step t (0-based) in closed form: linear warmup from
+    0 over RECIPE_WARMUP steps, then cosine decay over T_max = all the
+    steps, as LinearWarmup(CosineAnnealingDecay) computes it."""
+    if t < RECIPE_WARMUP:
+        return (RECIPE_LR - 0.0) * t / RECIPE_WARMUP + 0.0
+    t_max = RECIPE_BATCHES * RECIPE_EPOCHS
+    return 0 + (RECIPE_LR - 0) * (
+        1 + math.cos(math.pi * (t - RECIPE_WARMUP) / t_max)) / 2
+
+
+def recipe_model(net, device):
+    """``Model`` over ``net`` with the recipe's optimizer, bf16 O2."""
+    from paddle_tpu_torch.hapi import Model
+    from paddle_tpu_torch.nn import ClipGradByGlobalNorm
+    from paddle_tpu_torch.optimizer import AdamW
+    from paddle_tpu_torch.optimizer.lr import (CosineAnnealingDecay,
+                                               LinearWarmup)
+    sched = LinearWarmup(
+        CosineAnnealingDecay(RECIPE_LR,
+                             T_max=RECIPE_BATCHES * RECIPE_EPOCHS),
+        warmup_steps=RECIPE_WARMUP, start_lr=0.0, end_lr=RECIPE_LR)
+    model = Model(net, inputs=["ids", "labels"], device=device)
+    model.prepare(AdamW(sched, parameters=net.named_parameters(),
+                        weight_decay=RECIPE_WD,
+                        apply_decay_param_fun=no_decay,
+                        grad_clip=ClipGradByGlobalNorm(1.0),
+                        multi_precision=True),
+                  loss=lambda loss, logits: loss,
+                  amp_configs={"level": "O2", "dtype": "bfloat16"})
+    return model
+
+
+def step_times(what, card, steps, wall, durations, peak):
+    """The phase's line: tokens/s and ms a step over the train steps
+    (wall / steps, and the median step), peak memory, the card."""
+    log(f"{what}: {steps} steps in {wall:.3f} s: "
+        f"{BATCH * SEQ * steps / wall:.1f} tokens/s, "
+        f"{wall / steps * 1e3:.3f} ms per step (wall / steps), median step "
+        f"{float(np.median(durations)) * 1e3:.3f} ms, max memory allocated "
+        f"{peak} bytes ({peak / 2 ** 30:.3f} GiB) on {card}")
+
+
+def phase_recipe(device, card):
+    """4b: GPT-2 small trained through Model.fit the way it is trained:
+    warmup then cosine decay, a global-norm clip at 1.0, no decay on
+    biases and LayerNorm, AdamW with f32 masters, bf16 O2, a held-out
+    evaluation after each epoch, checkpoints, then a resume from the
+    final one. Returns the fit's launches."""
+    import tempfile
+
+    import paddle_tpu_torch as pt
+    import paddle_tpu_torch.optimizer.optimizer as opt_module
+    from paddle_tpu_torch.callbacks import Callback, EarlyStopping, History
+
+    class Steps(Callback):
+        """Each step's lr (before the scheduler steps), loss and time, and
+        each evaluation's loss."""
+
+        def __init__(self):
+            super().__init__()
+            self.lr, self.loss, self.spans, self.evals = [], [], [], []
+
+        def on_eval_end(self, logs=None):
+            self.evals.append(logs["loss"])
+
+        def on_train_batch_begin(self, step, logs=None):
+            self._t0 = time.perf_counter()
+
+        def on_train_batch_end(self, step, logs=None):
+            self.spans.append(time.perf_counter() - self._t0)
+            self.lr.append(self.model._optimizer.get_lr())
+            self.loss.append(logs["loss"])
+
+    gc.collect()
+    net, cfg = gpt2_small(SEED + 4, device)
+    n_tensors = len(list(net.parameters()))
+    model = recipe_model(net, device)
+    norms = []
+    clip = model._optimizer._grad_clip
+    clip_with_norm = clip.clip_with_norm
+
+    def watched(pairs):
+        out, norm = clip_with_norm(pairs)
+        norms.append(norm.detach())
+        return out, norm
+
+    clip.clip_with_norm = watched
+    rows = BATCH * (RECIPE_BATCHES + RECIPE_EVAL)
+    ids, labels = next_token_batches(SEED + 4, cfg.vocab_size, rows)
+    split = BATCH * RECIPE_BATCHES
+    train = pt.io.TensorDataset([ids[:split], labels[:split]])
+    held = pt.io.TensorDataset([ids[split:], labels[split:]])
+    steps = RECIPE_BATCHES * RECIPE_EPOCHS
+    evals = RECIPE_EPOCHS * RECIPE_EVAL
+    rec, hist = Steps(), History()
+    stop = EarlyStopping(monitor="loss", patience=5, verbose=0)
+    counters = train_counters()
+    with tempfile.TemporaryDirectory() as save_dir:
+        torch.cuda.synchronize()
+        gc.collect()
+        torch.cuda.reset_peak_memory_stats()
+        reset_counts(counters)
+        with count_plain() as plain, adamw_dtypes(opt_module) as kinds:
+            t0 = time.perf_counter()
+            model.fit(train, eval_data=held, batch_size=BATCH,
+                      epochs=RECIPE_EPOCHS, eval_freq=1, log_freq=1,
+                      save_dir=save_dir, save_freq=2, shuffle=False,
+                      verbose=0, callbacks=[rec, hist, stop])
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        launches = {name: fn.launches for name, fn in counters.items()}
+        peak = torch.cuda.max_memory_allocated()
+        per_step = expected_launches(cfg.num_hidden_layers, n_tensors)
+        want = {k: v * steps for k, v in per_step.items()}
+        # each evaluated batch runs the forward kernels once more
+        want["flash_attention_fwd"] += cfg.num_hidden_layers * evals
+        want["fused_layer_norm"] += (2 * cfg.num_hidden_layers + 1) * evals
+        if launches != want or sum(plain.values()):
+            raise AssertionError(f"recipe: launches {launches}, plain "
+                                 f"versions {dict(plain)}; expected {want} "
+                                 f"and no plain call")
+        if set(kinds) != {("float32", "bfloat16", "bfloat16")}:
+            raise AssertionError(f"recipe: AdamW launches {dict(kinds)}")
+        check_flash_route("recipe", counters, "tc")
+        check_ln_route("recipe", (counters["fused_layer_norm"],
+                                  counters["fused_layer_norm_bwd"]))
+        files = sorted(os.listdir(save_dir))
+        if files != ["0.pdopt", "0.pdparams", "final.pdopt",
+                     "final.pdparams"]:
+            raise AssertionError(f"recipe checkpoints: {files}")
+        want_lr = [recipe_lr(t) for t in range(steps)]
+        if len(rec.lr) != steps or not all(
+                math.isclose(a, b, rel_tol=1e-12, abs_tol=0.0)
+                for a, b in zip(rec.lr, want_lr)):
+            raise AssertionError(f"recipe lr {rec.lr}, closed form "
+                                 f"{want_lr}")
+        pre_clip = [float(n) for n in norms]
+        if len(pre_clip) != steps or not all(
+                math.isfinite(x) for x in rec.loss + pre_clip):
+            raise AssertionError(f"recipe: pre-clip norms {pre_clip}, "
+                                 f"losses {rec.loss}")
+        if len(hist.history.get("loss", ())) != RECIPE_EPOCHS \
+                or len(rec.evals) != RECIPE_EPOCHS or model.stop_training:
+            raise AssertionError(f"recipe: history {hist.history}, "
+                                 f"evaluations {rec.evals}")
+        # evaluate's loss is the mean of eval_batch's, batch by batch
+        logs = model.evaluate(held, batch_size=BATCH, verbose=0)
+        per = [model.eval_batch([ids[i:i + BATCH], labels[i:i + BATCH]])
+               for i in range(split, rows, BATCH)]
+        if not math.isclose(logs["loss"], sum(per) / len(per),
+                            rel_tol=1e-12):
+            raise AssertionError(f"evaluate {logs}, eval_batch {per}")
+        # a fresh Model from the final checkpoint
+        fresh_net, _ = gpt2_small(SEED + 5, device)
+        fresh = recipe_model(fresh_net, device)
+        fresh.load(os.path.join(save_dir, "final"))
+    diffs = {}
+    got = fresh.evaluate(held, batch_size=BATCH, verbose=0)["loss"]
+    diffs["eval"] = abs(got - logs["loss"]) / abs(logs["loss"])
+    for i in range(2):
+        b = [ids[i * BATCH:(i + 1) * BATCH], labels[i * BATCH:(i + 1) * BATCH]]
+        live_loss, fresh_loss = model.train_batch(b), fresh.train_batch(b)
+        diffs[f"train step {i + 1}"] = abs(fresh_loss - live_loss) / abs(
+            live_loss)
+    if fresh._optimizer._step_count != model._optimizer._step_count or \
+            max(diffs.values()) > RESUME_TOL:
+        raise AssertionError(f"resume from the final checkpoint: relative "
+                             f"differences {diffs}, limit {RESUME_TOL}")
+    del fresh, fresh_net
+    bite = clip_bites(model, clip, clip_with_norm, pre_clip,
+                      [ids[:BATCH], labels[:BATCH]])
+    step_times(f"recipe: GPT-2 small, bf16 O2, Model.fit with warmup + "
+               f"cosine lr, clip 1.0, batch {BATCH} x {SEQ}, "
+               f"{RECIPE_EPOCHS} epochs x {RECIPE_BATCHES} batches",
+               card, steps, sum(rec.spans), rec.spans, peak)
+    log(f"recipe: fit {wall:.3f} s in all (with {evals} evaluated batches "
+        f"and 2 checkpoints); losses {json.dumps(rec.loss)}; held-out "
+        f"losses after each epoch {json.dumps(rec.evals)}; lr "
+        f"{json.dumps(rec.lr)}; pre-clip "
+        f"global norms {json.dumps(pre_clip)} (clipped at 1.0 in "
+        f"{sum(x > 1.0 for x in pre_clip)} of {steps} steps)")
+    log(f"recipe launches: {json.dumps(launches)} over {steps} steps and "
+        f"{evals} evaluated batches, plain versions {dict(plain)}; resume "
+        f"from the final checkpoint, relative differences "
+        f"{json.dumps(diffs)} (limit {RESUME_TOL}); {bite}")
+    del model, net
+    return launches
+
+
+def clip_bites(model, clip, clip_with_norm, pre_clip, batch):
+    """One more step of the recipe's model with the clip norm set to half
+    the smallest pre-clip norm the fit saw: the gradients the optimizer
+    receives have that global norm within CLIP_TOL. The scale multiplies
+    in float32 and each bf16 element rounds once, independently, so the
+    norm moves by far less than a bf16 ulp (2**-8); a scale rounded to
+    bf16 first would move it by up to 2**-9. Returns the line's text."""
+    target = 0.5 * min(pre_clip)
+    seen = []
+
+    def watched(pairs):
+        out, norm = clip_with_norm(pairs)
+        post = torch._foreach_norm([g for _, g in out], 2,
+                                   dtype=torch.float32)
+        seen.append((float(norm), float(torch.linalg.vector_norm(
+            torch.stack(post)))))
+        return out, norm
+
+    clip.clip_with_norm, clip.clip_norm = watched, target
+    try:
+        model.train_batch(batch)
+    finally:
+        clip.clip_with_norm, clip.clip_norm = clip_with_norm, 1.0
+    (pre, post), = seen
+    if not (pre > target and abs(post - target) <= CLIP_TOL * target):
+        raise AssertionError(f"clip at {target}: norm {pre} before, {post} "
+                             f"after")
+    return (f"a step clipped at {target:.6f}: global norm {pre:.6f} before, "
+            f"{post:.6f} after")
+
+
+def fp16_step(net, opt, scaler, ids, labels, device):
+    """One step of the float16 eager loop; returns the loss (a device
+    scalar) and whether the scaler found a non-finite gradient."""
+    from paddle_tpu_torch import amp
+    ids, labels = (torch.from_numpy(a).to(device) for a in (ids, labels))
+    with amp.auto_cast(level="O2", dtype="float16"):
+        loss, _ = net(ids, labels)
+    scaler.scale(loss).backward()
+    scaler.step(opt)
+    found = scaler.state()["found_inf"]
+    scaler.update()
+    opt.clear_grad()
+    return loss.detach(), found
+
+
+def fp16_loop(net, device, rows_ids, rows_labels, batch):
+    """The eager float16 O2 loop of phase 4c over ``batch``-row batches;
+    returns the optimizer, the scaler, and per step the loss, the scale
+    after it and whether it was skipped."""
+    from paddle_tpu_torch import amp
+    from paddle_tpu_torch.optimizer import AdamW
+    amp.decorate(net, level="O2", dtype="float16")
+    opt = AdamW(LR, parameters=net.named_parameters(), weight_decay=WD,
+                multi_precision=True)
+    scaler = amp.GradScaler(init_loss_scaling=2. ** 15,
+                            decr_every_n_nan_or_inf=1)
+    trace, stamps = [], [time.perf_counter()]
+    for i in range(0, len(rows_ids), batch):
+        loss, found = fp16_step(net, opt, scaler, rows_ids[i:i + batch],
+                                rows_labels[i:i + batch], device)
+        trace.append((loss, scaler.get_loss_scaling(), found))
+        stamps.append(time.perf_counter())   # the scaler read its flag
+    return opt, scaler, [(float(l), s, f) for l, s, f in trace], \
+        np.diff(stamps)
+
+
+def phase_fp16(device, card):
+    """4c: GPT-2 small in float16 O2 through the eager loop with dynamic
+    loss scaling, then one step whose gradient is made non-finite (a hook
+    on one parameter's gradient), then the loop goes on. Returns the
+    loop's launches."""
+    import paddle_tpu_torch.optimizer.optimizer as opt_module
+    gc.collect()
+    net, cfg = gpt2_small(SEED + 6, device)
+    n_tensors = len(list(net.parameters()))
+    ids, labels = next_token_batches(SEED + 6, cfg.vocab_size,
+                                     BATCH * (FP16_STEPS + 2))
+    loop = BATCH * FP16_STEPS
+    counters = train_counters()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts(counters)
+    with count_plain() as plain, adamw_dtypes(opt_module) as kinds:
+        t0 = time.perf_counter()
+        opt, scaler, trace, spans = fp16_loop(net, device, ids[:loop],
+                                              labels[:loop], BATCH)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    launches = {name: fn.launches for name, fn in counters.items()}
+    peak = torch.cuda.max_memory_allocated()
+    applied = sum(not found for _, _, found in trace)
+    per_step = expected_launches(cfg.num_hidden_layers, n_tensors)
+    want = {k: v * (applied if k == "fused_adamw" else FP16_STEPS)
+            for k, v in per_step.items()}
+    if launches != want or sum(plain.values()) or not applied:
+        raise AssertionError(f"float16 loop: launches {launches}, plain "
+                             f"versions {dict(plain)}, {applied} steps "
+                             f"applied; expected {want}")
+    if set(kinds) != {("float32", "float16", "float16")}:
+        raise AssertionError(f"float16 loop: AdamW launches {dict(kinds)}")
+    check_flash_route("float16 loop", counters, "cuda_core")
+    check_ln_route("float16 loop", (counters["fused_layer_norm"],
+                                    counters["fused_layer_norm_bwd"]))
+    if not all(math.isfinite(l) for l, _, _ in trace):
+        raise AssertionError(f"float16 loop losses {trace}")
+
+    # one step with a non-finite gradient: nothing moves, the scale halves
+    state = [t.clone() for t in net.parameters()] + [
+        t.clone() for slots in opt._slots.values() for t in slots.values()]
+    steps_before, scale_before = opt._step_count, scaler.get_loss_scaling()
+    victim = net.gpt.blocks[0].attn.q_proj.weight
+    hook = victim.register_hook(lambda g: g * float("inf"))
+    reset_counts(counters)
+    _, found = fp16_step(net, opt, scaler, ids[loop:loop + BATCH],
+                         labels[loop:loop + BATCH], device)
+    hook.remove()
+    after = [t for t in net.parameters()] + [
+        t for slots in opt._slots.values() for t in slots.values()]
+    same = all(torch.equal(a, b) for a, b in zip(state, after))
+    if not (found and same and len(after) == len(state)
+            and counters["fused_adamw"].launches == 0
+            and opt._step_count == steps_before
+            and scaler.get_loss_scaling() == max(scale_before * 0.5, 1.0)):
+        raise AssertionError(
+            f"non-finite step: found {found}, state unchanged {same}, "
+            f"AdamW launches {counters['fused_adamw'].launches}, step "
+            f"{opt._step_count} (was {steps_before}), scale "
+            f"{scaler.get_loss_scaling()} (was {scale_before})")
+    del state, after
+    held = victim.detach().clone()
+    reset_counts(counters)
+    loss, found = fp16_step(net, opt, scaler, ids[loop + BATCH:],
+                            labels[loop + BATCH:], device)
+    moved = opt._step_count == steps_before + 1 and \
+        not torch.equal(victim, held)
+    if found or not moved or counters["fused_adamw"].launches != n_tensors \
+            or not math.isfinite(float(loss)):
+        raise AssertionError(f"after the non-finite step: found {found}, "
+                             f"step {opt._step_count}, AdamW launches "
+                             f"{counters['fused_adamw'].launches}")
+    step_times(f"float16 O2 eager loop: GPT-2 small, AdamW multi_precision,"
+               f" GradScaler(2**15), batch {BATCH} x {SEQ}", card,
+               FP16_STEPS, wall, spans, peak)
+    log(f"float16 loop: (loss, scale after, skipped) per step "
+        f"{json.dumps(trace)}; launches {json.dumps(launches)}, plain "
+        f"versions {dict(plain)}, AdamW (p, g, copy) dtypes {dict(kinds)}; "
+        f"the injected non-finite step: nothing moved, no AdamW launch, "
+        f"scale {scale_before} -> {scale_before * 0.5}; the next step "
+        f"applied (loss {float(loss):.6f})")
+    del net, opt
+    return launches
+
+
+def phase_fp16_check(device):
+    """4c, then: the float16 loop at GPT-2 width cut to 2 layers, batch 2
+    x 128, on the card and on a CPU copy of the same weights (plain
+    versions): the losses within FP16_LOSS_TOL and the same loss-scale
+    trajectory."""
+    import copy
+    cpu_net, cfg = gpt2_small(SEED + 7, torch.device("cpu"), layers=2)
+    ids, labels = next_token_batches(SEED + 7, cfg.vocab_size,
+                                     2 * FP16_STEPS, seq=128)
+    out = {}
+    for where, net, dev in (("card", copy.deepcopy(cpu_net).to(device),
+                             device),
+                            ("cpu", cpu_net, torch.device("cpu"))):
+        out[where] = fp16_loop(net, dev, ids, labels, 2)[2]
+    diff = max(abs(a[0] - b[0]) for a, b in zip(out["card"], out["cpu"]))
+    scales = [[s for _, s, _ in out[w]] for w in ("card", "cpu")]
+    if diff > FP16_LOSS_TOL or scales[0] != scales[1]:
+        raise AssertionError(f"float16 2-layer loop, card vs CPU: "
+                             f"{out}; largest loss difference {diff}")
+    log(f"float16 check (GPT-2 width, 2 layers, batch 2 x 128, "
+        f"{FP16_STEPS} steps of the loop, card vs CPU): largest loss "
+        f"difference {diff:.3e} (limit {FP16_LOSS_TOL}), loss scales "
+        f"{scales[0]} on both; card {json.dumps(out['card'])}")
+
+
+def phase_o1(device, card):
+    """4d: GPT-2 small at bf16 O1 through Model.fit: float32 parameters
+    and no master (K8 on f32 p and f32 g), attention in bf16 on the
+    tensor-core route, 8 steps over one repeated batch."""
+    import paddle_tpu_torch as pt
+    import paddle_tpu_torch.optimizer.optimizer as opt_module
+    from paddle_tpu_torch.callbacks import Callback
+    from paddle_tpu_torch.hapi import Model
+    from paddle_tpu_torch.optimizer import AdamW
+
+    class Steps(Callback):
+        def __init__(self):
+            super().__init__()
+            self.loss, self.spans = [], []
+
+        def on_train_batch_begin(self, step, logs=None):
+            self._t0 = time.perf_counter()
+
+        def on_train_batch_end(self, step, logs=None):
+            self.spans.append(time.perf_counter() - self._t0)
+            self.loss.append(logs["loss"])
+
+    gc.collect()
+    net, cfg = gpt2_small(SEED + 8, device)
+    n_tensors = len(list(net.parameters()))
+    model = Model(net, inputs=["ids", "labels"], device=device)
+    model.prepare(AdamW(LR, parameters=net.named_parameters(),
+                        weight_decay=WD, multi_precision=True),
+                  loss=lambda loss, logits: loss,
+                  amp_configs={"level": "O1", "dtype": "bfloat16"})
+    ids, labels = next_token_batches(SEED + 8, cfg.vocab_size, BATCH)
+    data = pt.io.TensorDataset([np.tile(ids, (O1_STEPS, 1)),
+                                np.tile(labels, (O1_STEPS, 1))])
+    counters = train_counters()
+    rec = Steps()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts(counters)
+    with count_plain() as plain, adamw_dtypes(opt_module) as kinds:
+        t0 = time.perf_counter()
+        model.fit(data, batch_size=BATCH, shuffle=False, log_freq=1,
+                  verbose=0, callbacks=[rec])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    launches = {name: fn.launches for name, fn in counters.items()}
+    peak = torch.cuda.max_memory_allocated()
+    if any(p.dtype != torch.float32 for p in net.parameters()) or any(
+            "master_weight" in s for s in model._optimizer._slots.values()):
+        raise AssertionError("O1: parameters must stay float32 without "
+                             "masters")
+    check_launches("O1", launches,
+                   expected_launches(cfg.num_hidden_layers, n_tensors),
+                   O1_STEPS)
+    if sum(plain.values()) or set(kinds) != {("float32", "float32", None)}:
+        raise AssertionError(f"O1: plain versions {dict(plain)}, AdamW "
+                             f"launches {dict(kinds)}")
+    check_flash_route("O1", counters, "tc")
+    check_ln_route("O1", (counters["fused_layer_norm"],
+                          counters["fused_layer_norm_bwd"]))
+    if len(rec.loss) != O1_STEPS or not all(
+            math.isfinite(x) for x in rec.loss) \
+            or not rec.loss[-1] < rec.loss[0]:
+        raise AssertionError(f"O1 losses on a repeated batch: {rec.loss}")
+    step_times(f"bf16 O1: GPT-2 small, float32 parameters, Model.fit, batch "
+               f"{BATCH} x {SEQ}, one batch repeated", card, O1_STEPS,
+               wall, rec.spans, peak)
+    log(f"O1 losses {json.dumps(rec.loss)}; launches {json.dumps(launches)}"
+        f", plain versions {dict(plain)}, AdamW (p, g, copy) dtypes "
+        f"{dict(kinds)}")
+    del model, net
+    return launches
+
+
 def check_train_operands(cap):
     """The training kernels against their plain versions on the operands
     of one real step (layer 0's attention and first LayerNorm, the token
@@ -2361,35 +2948,43 @@ def check_train_operands(cap):
     return err
 
 
-def train_rows(launches, f32_launches, main):
-    """The kernels line's rows of the training kernels: the train path's
-    launches and the phase-2 measurements at its shapes and dtypes (the
-    LayerNorm forward's as ``fused_layer_norm_train``); the ``_f32`` flash
-    rows, the CUDA-core kernels, the float32 step's launches and phase
-    2's float32 case."""
+TRAIN_ROWS = (
+    ("flash_attention_fwd", FA_TC_SRC, FA_FWD_TPU),
+    ("flash_attention_bwd", FA_TC_SRC, FA_BWD_TPU),
+    ("flash_attention_fwd_f32", FA_SRC, FA_FWD_TPU),
+    ("flash_attention_bwd_f32", FA_SRC, FA_BWD_TPU),
+    ("fused_layer_norm_train", LN_SRC, LN_TPU),
+    ("fused_layer_norm_bwd", LN_SRC, LN_BWD_TPU),
+    ("fused_adamw", ADAMW_SRC, ADAMW_TPU),
+    ("flash_attention_fwd_f16", FA_SRC, FA_FWD_TPU),
+    ("flash_attention_bwd_f16", FA_SRC, FA_BWD_TPU),
+    ("fused_layer_norm_f16", LN_SRC, LN_TPU),
+    ("fused_layer_norm_bwd_f16", LN_SRC, LN_BWD_TPU),
+    ("fused_adamw_f16", ADAMW_SRC, ADAMW_TPU),
+    ("fused_adamw_f32", ADAMW_SRC, ADAMW_TPU))
+
+# why a float16 row counts no launch on the main path
+F16_LN_NOTE = ("LayerNorm is on the AMP black list: the float16 paths run "
+               "it in float32 (fused_layer_norm_train, fused_layer_norm_bwd)")
+
+
+def train_rows(counts, main):
+    """The kernels line's rows of the training kernels: phase 2's
+    measurements at the train path's shapes, one row per dtype (the
+    LayerNorm forward's f32 one as ``fused_layer_norm_train``), each with
+    the launches ``counts`` gives it from the paths that ran it."""
     rows = []
-    for name, src, tpu, count in (
-            ("flash_attention_fwd", FA_TC_SRC, FA_FWD_TPU,
-             launches["flash_attention_fwd"]),
-            ("flash_attention_bwd", FA_TC_SRC, FA_BWD_TPU,
-             launches["flash_attention_bwd"]),
-            ("flash_attention_fwd_f32", FA_SRC, FA_FWD_TPU,
-             f32_launches["flash_attention_fwd"]),
-            ("flash_attention_bwd_f32", FA_SRC, FA_BWD_TPU,
-             f32_launches["flash_attention_bwd"]),
-            ("fused_layer_norm_train", LN_SRC, LN_TPU,
-             launches["fused_layer_norm"]),
-            ("fused_layer_norm_bwd", LN_SRC, LN_BWD_TPU,
-             launches["fused_layer_norm_bwd"]),
-            ("fused_adamw", ADAMW_SRC, ADAMW_TPU, launches["fused_adamw"])):
+    for name, src, tpu in TRAIN_ROWS:
         row = main[name]
         rows.append({"name": name, "route": "cuda", "source": src,
-                     "replaces": tpu, "launches": count,
+                     "replaces": tpu, "launches": counts[name],
                      "max_abs_err": row["max_abs_err"], "ms": row["ms"],
                      "plain_ms": row["plain_ms"],
                      "bound_ms": row["bound_ms"],
                      "bound_by": row["bound_by"],
                      "library_ms": row["library_ms"]})
+        if name in ("fused_layer_norm_f16", "fused_layer_norm_bwd_f16"):
+            rows[-1]["launches_note"] = F16_LN_NOTE
     return rows
 
 
@@ -2433,6 +3028,10 @@ def main() -> int:
     beam_f32_launches = phase_beam_f32(device)
     train_launches, train_cap = phase_train(device, profile)
     f32_launches = phase_f32_check(device)
+    recipe = phase_recipe(device, card)
+    fp16 = phase_fp16(device, card)
+    phase_fp16_check(device)
+    o1 = phase_o1(device, card)
     kernels = report_engine(device, timer, launches, captured,
                             quant_launches, quant_captured)
     # the engine row of the LayerNorm forward counts the fused engines'
@@ -2442,7 +3041,32 @@ def main() -> int:
     ln_row["launches"] += quant_launches["fused_layer_norm"] \
         + gather_ln["fused"]
     check_train_operands(train_cap)
-    kernels += train_rows(train_launches, f32_launches, train_main)
+    # each row counts the paths that ran its kernel at its dtype: the bf16
+    # tensor-core flash rows phase 4, the recipe and O1; the f32 LayerNorm
+    # rows every AMP path (LayerNorm is on the black list); AdamW's rows
+    # by (grad, copy) dtype
+    counts = {
+        "flash_attention_fwd": train_launches["flash_attention_fwd"]
+        + recipe["flash_attention_fwd"] + o1["flash_attention_fwd"],
+        "flash_attention_bwd": train_launches["flash_attention_bwd"]
+        + recipe["flash_attention_bwd"] + o1["flash_attention_bwd"],
+        "flash_attention_fwd_f32": f32_launches["flash_attention_fwd"],
+        "flash_attention_bwd_f32": f32_launches["flash_attention_bwd"],
+        "fused_layer_norm_train": sum(
+            r["fused_layer_norm"] for r in (train_launches, recipe, fp16,
+                                            o1)),
+        "fused_layer_norm_bwd": sum(
+            r["fused_layer_norm_bwd"] for r in (train_launches, recipe,
+                                                fp16, o1)),
+        "fused_adamw": train_launches["fused_adamw"]
+        + recipe["fused_adamw"],
+        "flash_attention_fwd_f16": fp16["flash_attention_fwd"],
+        "flash_attention_bwd_f16": fp16["flash_attention_bwd"],
+        "fused_layer_norm_f16": 0,
+        "fused_layer_norm_bwd_f16": 0,
+        "fused_adamw_f16": fp16["fused_adamw"],
+        "fused_adamw_f32": o1["fused_adamw"] + f32_launches["fused_adamw"]}
+    kernels += train_rows(counts, train_main)
     # the float32 runs' K2 launches join their path's row, their K4
     # launches (the CUDA-core route) the _f32 flash row
     kernels += generate_rows(device, timer, {

@@ -42,8 +42,10 @@ The tensor is ``torch.Tensor`` itself.
 
     out = net.generate(pt.to_tensor(ids), max_new_tokens=64)   # greedy
 """
-from . import io, nn, ops
+from . import (amp, callbacks, io, metric, nn, ops, optimizer,
+               regularizer)
 from .framework.dispatch import call_op
+from .framework.io import load, save
 from .framework.dtypes import NAMES as _DTYPES
 from .framework.place import get_device, set_device
 from .framework.random import seed
@@ -51,7 +53,9 @@ from .framework.tensor import (Parameter, grad_enabled_guard,
                                is_grad_enabled, no_grad, to_tensor)
 from .ops.registry import op_names as _op_names
 
-__all__ = ["seed", "io", "nn", "ops", "call_op", "get_device", "set_device",
+__all__ = ["seed", "amp", "callbacks", "io", "metric", "nn", "ops",
+           "optimizer", "regularizer", "save", "load", "call_op",
+           "get_device", "set_device",
            "Parameter", "grad_enabled_guard", "is_grad_enabled", "no_grad",
            "to_tensor"]
 

@@ -1,5 +1,5 @@
-// Flash attention, forward and backward, for Hopper (sm_90a), float32 and
-// bfloat16.
+// Flash attention, forward and backward, for Hopper (sm_90a), float32,
+// bfloat16 and float16.
 //
 // Replaces the Pallas TPU kernels of paddle_tpu/ops/pallas_kernels.py:
 //   forward   _fa_fwd_kernel (_fa_call_fwd) and its VMEM-resident twin
@@ -41,9 +41,13 @@
 // bfloat16 at head widths 64 and 128 with 16-byte-aligned bases runs
 // flash_attention_sm90.cu's tensor-core kernels instead
 // (ops/flash_attention.py chooses); these take float32, where the f32
-// products keep the float32 step within 1e-3 of the CPU, and the rest.
+// products keep the float32 step within 1e-3 of the CPU, float16 (the
+// tensor-core kernels are bfloat16-only) and the rest. A float16 operand
+// is widened with __half2float and its P, dS rounded with
+// __float2half_rn, as the TPU kernel's `.astype(float16)` would.
 
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -56,6 +60,7 @@ __device__ __forceinline__ float to_f32(float x) { return x; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
   return __bfloat162float(x);
 }
+__device__ __forceinline__ float to_f32(__half x) { return __half2float(x); }
 
 template <typename T>
 __device__ __forceinline__ T from_f32(float x);
@@ -64,6 +69,10 @@ __device__ __forceinline__ float from_f32<float>(float x) { return x; }
 template <>
 __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float x) {
   return __float2bfloat16(x);
+}
+template <>
+__device__ __forceinline__ __half from_f32<__half>(float x) {
+  return __float2half_rn(x);
 }
 
 // x rounded to T's precision and widened back (the TPU's `.astype(T)`
@@ -568,7 +577,7 @@ int bwd_d(const void* q, const void* k, const void* v, const void* dout,
 
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16 (q, k, v, o share it). q/o [B, Sq, H, D],
+// dtype: 0 = float32, 1 = bfloat16, 2 = float16 (q, k, v, o share it). q/o [B, Sq, H, D],
 // k/v [B, Sk, H, D] contiguous; lse [B, H, Sq] f32. 1 <= D <= 256.
 // Returns cudaGetLastError() after the asynchronous launch on `stream`.
 extern "C" int fa_fwd_launch(int dtype, const void* q, const void* k,
@@ -581,6 +590,8 @@ extern "C" int fa_fwd_launch(int dtype, const void* q, const void* k,
   if (dtype == 1)
     return fwd_d<__nv_bfloat16>(q, k, v, o, lse, B, H, Sq, Sk, D, scale,
                                 causal, s);
+  if (dtype == 2)
+    return fwd_d<__half>(q, k, v, o, lse, B, H, Sq, Sk, D, scale, causal, s);
   return (int)cudaErrorInvalidValue;
 }
 
@@ -599,5 +610,8 @@ extern "C" int fa_bwd_launch(int dtype, const void* q, const void* k,
   if (dtype == 1)
     return bwd_d<__nv_bfloat16>(q, k, v, dout, lse, delta, dq, dk, dv, B, H,
                                 Sq, Sk, D, scale, causal, s);
+  if (dtype == 2)
+    return bwd_d<__half>(q, k, v, dout, lse, delta, dq, dk, dv, B, H, Sq, Sk,
+                         D, scale, causal, s);
   return (int)cudaErrorInvalidValue;
 }

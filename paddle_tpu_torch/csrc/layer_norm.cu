@@ -1,5 +1,5 @@
-// Fused LayerNorm forward and backward for Hopper (sm_90a), float32 and
-// bfloat16, on two routes that the wrapper (ops/layer_norm.py, ln_route)
+// Fused LayerNorm forward and backward for Hopper (sm_90a), float32,
+// bfloat16 and float16, on two routes that the wrapper (ops/layer_norm.py, ln_route)
 // chooses before the launch.
 //
 // Forward replaces the Pallas TPU kernel paddle_tpu/ops/pallas_kernels.py
@@ -60,6 +60,7 @@
 // threads a CTA, in a backward kernel bounded to fit them (it spills).
 
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -73,6 +74,7 @@ __device__ __forceinline__ float to_f32(float x) { return x; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
   return __bfloat162float(x);
 }
+__device__ __forceinline__ float to_f32(__half x) { return __half2float(x); }
 
 template <typename T>
 __device__ __forceinline__ T from_f32(float x);
@@ -81,6 +83,10 @@ __device__ __forceinline__ float from_f32<float>(float x) { return x; }
 template <>
 __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float x) {
   return __float2bfloat16(x);
+}
+template <>
+__device__ __forceinline__ __half from_f32<__half>(float x) {
+  return __float2half_rn(x);
 }
 
 // Sum over the CTA; every thread gets the total. `red` holds 33 floats.
@@ -327,6 +333,28 @@ struct Vec<__nv_bfloat16> {
   }
   __device__ static __forceinline__ uint32_t pair(float a, float b) {
     __nv_bfloat162 h = __floats2bfloat162_rn(a, b);
+    return *reinterpret_cast<uint32_t*>(&h);
+  }
+  __device__ static __forceinline__ void unpack(const uint4& u, float* f) {
+    float2 t;
+    t = unpair(u.x); f[0] = t.x; f[1] = t.y;
+    t = unpair(u.y); f[2] = t.x; f[3] = t.y;
+    t = unpair(u.z); f[4] = t.x; f[5] = t.y;
+    t = unpair(u.w); f[6] = t.x; f[7] = t.y;
+  }
+  __device__ static __forceinline__ uint4 pack(const float* f) {
+    return make_uint4(pair(f[0], f[1]), pair(f[2], f[3]), pair(f[4], f[5]),
+                      pair(f[6], f[7]));
+  }
+};
+template <>
+struct Vec<__half> {
+  static constexpr int N = 8;
+  __device__ static __forceinline__ float2 unpair(uint32_t u) {
+    return __half22float2(*reinterpret_cast<const __half2*>(&u));
+  }
+  __device__ static __forceinline__ uint32_t pair(float a, float b) {
+    __half2 h = __floats2half2_rn(a, b);
     return *reinterpret_cast<uint32_t*>(&h);
   }
   __device__ static __forceinline__ void unpack(const uint4& u, float* f) {
@@ -674,7 +702,8 @@ inline bool warp_ok(int D, size_t elem,
 
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16 (x, w, b and y share it). D <= 16384.
+// dtype: 0 = float32, 1 = bfloat16, 2 = float16 (x, w, b and y share it).
+// D <= 16384.
 // Returns cudaGetLastError() after the asynchronous launch on `stream`.
 // The row route.
 extern "C" int ln_fwd_launch(int dtype, const void* x, const void* w,
@@ -683,11 +712,12 @@ extern "C" int ln_fwd_launch(int dtype, const void* x, const void* w,
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0) return launch<float>(x, w, b, y, rows, D, eps, s);
   if (dtype == 1) return launch<__nv_bfloat16>(x, w, b, y, rows, D, eps, s);
+  if (dtype == 2) return launch<__half>(x, w, b, y, rows, D, eps, s);
   return (int)cudaErrorInvalidValue;
 }
 
 // LayerNorm backward, the row route: x, w, g, dx, dw, db share `dtype` (0 =
-// float32, 1 = bfloat16); `part` is an f32 workspace of 2 * n_part * D
+// float32, 1 = bfloat16, 2 = float16); `part` is an f32 workspace of 2 * n_part * D
 // floats; the rows split into n_part runs of ceil(rows / n_part). D <= 16384.
 extern "C" int ln_bwd_launch(int dtype, const void* x, const void* w,
                              const void* g, void* dx, void* dw, void* db,
@@ -699,6 +729,9 @@ extern "C" int ln_bwd_launch(int dtype, const void* x, const void* w,
   if (dtype == 1)
     return launch_bwd<__nv_bfloat16>(x, w, g, dx, dw, db, part, rows, D,
                                      n_part, eps, s);
+  if (dtype == 2)
+    return launch_bwd<__half>(x, w, g, dx, dw, db, part, rows, D, n_part, eps,
+                              s);
   return (int)cudaErrorInvalidValue;
 }
 
@@ -710,10 +743,12 @@ extern "C" int ln_fwd_warp_launch(int dtype, const void* x, const void* w,
                                   float eps, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const size_t elem = dtype == 0 ? 4 : 2;
-  if ((dtype != 0 && dtype != 1) || rows < 1 || !warp_ok(D, elem, {x, w, b, y}))
+  if (dtype < 0 || dtype > 2 || rows < 1 || !warp_ok(D, elem, {x, w, b, y}))
     return (int)cudaErrorInvalidValue;
   if (dtype == 0)
     return by_width<float, FwdWarp>(D, x, w, b, y, rows, D, eps, s);
+  if (dtype == 2)
+    return by_width<__half, FwdWarp>(D, x, w, b, y, rows, D, eps, s);
   return by_width<__nv_bfloat16, FwdWarp>(D, x, w, b, y, rows, D, eps, s);
 }
 
@@ -728,7 +763,7 @@ extern "C" int ln_bwd_warp_launch(int dtype, const void* x, const void* w,
                                   int rows_per_cta, float eps, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const size_t elem = dtype == 0 ? 4 : 2;
-  if ((dtype != 0 && dtype != 1) || rows < 1 || n_cta < 1 ||
+  if (dtype < 0 || dtype > 2 || rows < 1 || n_cta < 1 ||
       rows_per_cta < 1 || (int64_t)n_cta * rows_per_cta < rows ||
       (int64_t)(n_cta - 1) * rows_per_cta >= rows ||
       !warp_ok(D, elem, {x, w, g, dx}))
@@ -736,6 +771,9 @@ extern "C" int ln_bwd_warp_launch(int dtype, const void* x, const void* w,
   if (dtype == 0)
     return by_width<float, BwdWarp>(D, x, w, g, dx, dw, db, part, rows, D,
                                     n_cta, rows_per_cta, eps, s);
+  if (dtype == 2)
+    return by_width<__half, BwdWarp>(D, x, w, g, dx, dw, db, part, rows, D,
+                                     n_cta, rows_per_cta, eps, s);
   return by_width<__nv_bfloat16, BwdWarp>(D, x, w, g, dx, dw, db, part, rows,
                                           D, n_cta, rows_per_cta, eps, s);
 }

@@ -13,8 +13,8 @@ backward pair (a dQ kernel and a dK/dV kernel), both hand-written:
   or 128 with 16-byte-aligned base pointers; products on the tensor
   cores (``wgmma``), tiles loaded by TMA;
 - ``"cuda_core"``, ``csrc/flash_attention.cu``: everything else the
-  wrappers take (float32; bfloat16 at any other width up to 256 or an
-  unaligned base); products on CUDA cores in f32.
+  wrappers take (float32; float16; bfloat16 at any other width up to 256
+  or an unaligned base); products on CUDA cores in f32.
 
 :func:`flash_route` chooses from the operands, before the launch; a
 failed launch raises and is never retried on the other route. The
@@ -123,8 +123,9 @@ def _check(q, k, v, *more):
         raise ValueError("flash attention operands must share a device")
     if q.dtype not in _build.DTYPE_CODE or any(t.dtype != q.dtype
                                          for t in (k, v) + more):
-        raise TypeError(f"the flash attention kernels take float32 or "
-                        f"bfloat16 q, k, v (and dO) of one dtype, got "
+        raise TypeError(f"the flash attention kernels take float32, "
+                        f"bfloat16 or float16 q, k, v (and dO) of one "
+                        f"dtype, got "
                         f"{[t.dtype for t in (q, k, v) + more]}")
     if not all(t.is_contiguous() for t in tensors):
         raise ValueError("flash attention needs contiguous tensors")

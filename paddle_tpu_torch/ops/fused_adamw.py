@@ -6,7 +6,7 @@ Replaces the Pallas TPU kernel ``paddle_tpu/ops/pallas_kernels.py``
 which the eager optimizer step launches once per parameter
 (``Adam._maybe_fused``). The kernel is ``csrc/adamw.cu``: one
 elementwise pass that updates p, m and v in place and may write the bf16
-copy of an f32 master in the same pass; it is memory-bound. The source
+or f16 copy of an f32 master in the same pass; it is memory-bound. The source
 says more.
 
 :func:`fused_adamw_` takes the plain version only for tensors on the
@@ -49,17 +49,19 @@ def adamw_plain_(p, g, m, v, lr, beta1, beta2, eps, weight_decay, step,
         low.copy_(new_p)
 
 
-_ARGS = [ctypes.c_int, ctypes.c_int] + [ctypes.c_void_p] * 5 + [
+_ARGS = [ctypes.c_int] * 3 + [ctypes.c_void_p] * 5 + [
     ctypes.c_int64] + [ctypes.c_float] * 7 + [ctypes.c_void_p]
+
+_LOW_DTYPES = (torch.bfloat16, torch.float16)
 
 
 def fused_adamw_(p, g, m, v, lr, beta1, beta2, eps, weight_decay, step,
                  low=None):
     """AdamW on one parameter, in place: ``p`` (f32 master or parameter,
-    or a bf16 parameter), gradient ``g`` (f32 or bf16 beside an f32
-    ``p``, bf16 beside a bf16 one), moments ``m``, ``v`` (f32), and
-    ``low`` (bf16, optional, only with an f32 ``p``) set to the updated
-    ``p`` rounded down."""
+    or a bf16/f16 parameter), gradient ``g`` (f32, bf16 or f16 beside an
+    f32 ``p``; of ``p``'s dtype beside a bf16 or f16 one), moments ``m``,
+    ``v`` (f32), and ``low`` (bf16 or f16, optional, only with an f32
+    ``p``) set to the updated ``p`` rounded down."""
     if p.device.type == "cpu":
         adamw_plain_(p, g, m, v, lr, beta1, beta2, eps, weight_decay, step,
                      low)
@@ -76,20 +78,22 @@ def fused_adamw_(p, g, m, v, lr, beta1, beta2, eps, weight_decay, step,
     if not all(t.is_contiguous() for t in tensors):
         raise ValueError("fused_adamw_ needs contiguous tensors")
     if p.dtype not in _build.DTYPE_CODE or g.dtype not in _build.DTYPE_CODE:
-        raise TypeError(f"the AdamW kernel takes float32 or bfloat16 p and "
-                        f"g, got {p.dtype} and {g.dtype}")
-    if p.dtype == torch.bfloat16 and g.dtype != torch.bfloat16:
-        raise TypeError("a bfloat16 p takes a bfloat16 g (the step casts "
-                        "the gradient to the parameter's dtype)")
+        raise TypeError(f"the AdamW kernel takes float32, bfloat16 or "
+                        f"float16 p and g, got {p.dtype} and {g.dtype}")
+    if p.dtype != torch.float32 and g.dtype != p.dtype:
+        name = str(p.dtype).removeprefix("torch.")
+        raise TypeError(f"a {name} p takes a {name} g (the step casts the "
+                        f"gradient to the parameter's dtype)")
     if m.dtype != torch.float32 or v.dtype != torch.float32:
         raise TypeError("the AdamW moments must be float32")
-    if low is not None and (low.dtype != torch.bfloat16
+    if low is not None and (low.dtype not in _LOW_DTYPES
                             or p.dtype != torch.float32):
-        raise TypeError("the low-precision copy must be bfloat16, beside "
-                        "a float32 p")
+        raise TypeError("the low-precision copy must be bfloat16 or "
+                        "float16, beside a float32 p")
     bc1, bc2 = bias_corrections(beta1, beta2, step)
     rc = _build.function("adamw", "adamw_launch", _ARGS)(
-        _build.DTYPE_CODE[p.dtype], _build.DTYPE_CODE[g.dtype], p.data_ptr(),
+        _build.DTYPE_CODE[p.dtype], _build.DTYPE_CODE[g.dtype],
+        0 if low is None else _build.DTYPE_CODE[low.dtype], p.data_ptr(),
         g.data_ptr(), m.data_ptr(), v.data_ptr(),
         None if low is None else low.data_ptr(), p.numel(), float(lr),
         float(beta1), float(beta2), float(eps), float(weight_decay),

@@ -139,8 +139,8 @@ def _check(x, weight, *others):
     if any(t.device != x.device for t in (weight,) + others):
         raise ValueError("LayerNorm operands must be on the same device")
     if x.dtype not in _build.DTYPE_CODE:
-        raise TypeError(f"the LayerNorm kernels take float32 or bfloat16, "
-                        f"got {x.dtype}")
+        raise TypeError(f"the LayerNorm kernels take float32, bfloat16 "
+                        f"or float16, got {x.dtype}")
     if any(t.dtype != x.dtype for t in (weight,) + others):
         raise TypeError(f"weight/bias/grad dtypes "
                         f"{[t.dtype for t in (weight,) + others]} must "

@@ -323,7 +323,7 @@ def ragged_paged_attention(q, pool, layer, blk_seq, seq_qstart, seq_pos0,
         raise ValueError(f"pool {pool.dtype} on {pool.device} must match "
                          f"q {q.dtype} on {q.device}, or be an int8/"
                          f"float8_e4m3fn pool there")
-    if q.dtype not in _build.DTYPE_CODE:
+    if q.dtype not in (torch.float32, torch.bfloat16):
         raise TypeError(f"the attention kernel takes float32 or bfloat16 "
                         f"q, got {q.dtype}")
     if not (q.is_contiguous() and pool.is_contiguous()):

@@ -7,7 +7,9 @@ nor the JAX package, so it also runs where only PyTorch is installed:
     python -m pytest --noconftest -m cuda tests/test_torch_cuda.py
 
 Tolerances: float32 atol 1e-4; bfloat16 atol 2e-2 + rtol 1e-2 (one bf16
-ulp of the output, after upcasting); the quantized KV kernel takes its q
+ulp of the output, after upcasting); float16 atol 5e-3 + rtol 5e-3 (a few
+f16 ulps: P and dS are rounded to f16 where the f32 sums of kernel and
+plain version may differ in their last bits); the quantized KV kernel takes its q
 dtype's, since kernel and plain dequantize to the same values. The
 LayerNorm backward's dw/db, sums over every row, take rtol 1e-5 beside
 atol 1e-4 in float32; AdamW, the same float32 arithmetic with fused
@@ -26,7 +28,9 @@ from paddle_tpu_torch.ops import ragged_paged_attention as rpa
 pytestmark = pytest.mark.cuda
 
 TOL = {torch.float32: dict(atol=1e-4, rtol=0),
-       torch.bfloat16: dict(atol=2e-2, rtol=1e-2)}
+       torch.bfloat16: dict(atol=2e-2, rtol=1e-2),
+       torch.float16: dict(atol=5e-3, rtol=5e-3)}
+_F16 = [torch.float32, torch.bfloat16, torch.float16]
 
 
 @pytest.fixture
@@ -37,7 +41,7 @@ def cuda():
     return torch.device("cuda")
 
 
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("dtype", _F16)
 @pytest.mark.parametrize("rows", [1, 8, 300])
 def test_layer_norm_kernel_matches_plain(cuda, dtype, rows):
     g = torch.Generator(device=cuda).manual_seed(rows)
@@ -222,7 +226,7 @@ def _randn(gen, *shape, dtype=torch.float32, scale=1.0):
                                 generator=gen)).to(dtype)
 
 
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("dtype", _F16)
 @pytest.mark.parametrize("causal", [False, True])
 @pytest.mark.parametrize("seq", [128, 100])
 def test_flash_attention_kernels_match_plain(cuda, dtype, causal, seq):
@@ -255,7 +259,7 @@ def test_flash_attention_autograd_runs_both_kernels(cuda):
     assert all(t.grad is not None for t in (q, k, v))
 
 
-@pytest.mark.parametrize("dtypes", [(torch.float16,) * 3,
+@pytest.mark.parametrize("dtypes", [(torch.float64,) * 3,
                                     (torch.float32, torch.bfloat16,
                                      torch.float32)])
 def test_attention_raises_on_dtypes_the_kernels_do_not_take(cuda, dtypes):
@@ -264,12 +268,12 @@ def test_attention_raises_on_dtypes_the_kernels_do_not_take(cuda, dtypes):
     q, k, v = (torch.zeros(1, 16, 2, 16, device=cuda, dtype=dt)
                for dt in dtypes)
     before = fa.flash_attention_fwd.launches
-    with pytest.raises(TypeError, match="float32 or bfloat16"):
+    with pytest.raises(TypeError, match="float32, bfloat16 or float16"):
         F.scaled_dot_product_attention(q, k, v, is_causal=True)
     assert fa.flash_attention_fwd.launches == before
 
 
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("dtype", _F16)
 @pytest.mark.parametrize("rows", [1, 300, 2049])
 def test_layer_norm_backward_kernel_matches_plain(cuda, dtype, rows):
     g = torch.Generator(device=cuda).manual_seed(rows)
@@ -289,18 +293,20 @@ def test_layer_norm_backward_kernel_matches_plain(cuda, dtype, rows):
         torch.testing.assert_close(a.float(), ref.float(), **t)
 
 
-@pytest.mark.parametrize("case", ["f32_master_bf16_copy", "f32", "bf16"])
+@pytest.mark.parametrize("case", ["f32_master_bf16_copy", "f32", "bf16",
+                                  "f32_master_f16_copy", "f16"])
 def test_adamw_kernel_matches_plain(cuda, case):
     g = torch.Generator(device=cuda).manual_seed(7)
     n = 100_003
-    p_dtype = torch.bfloat16 if case == "bf16" else torch.float32
-    g_dtype = torch.float32 if case == "f32" else torch.bfloat16
+    half = torch.float16 if "f16" in case else torch.bfloat16
+    p_dtype = half if case in ("bf16", "f16") else torch.float32
+    g_dtype = torch.float32 if case == "f32" else half
     p = _randn(g, n, dtype=p_dtype)
     grad = _randn(g, n, dtype=g_dtype)
     m = _randn(g, n, scale=0.1)
     v = _randn(g, n, scale=0.1).abs()
-    low = torch.empty(n, dtype=torch.bfloat16, device=cuda) \
-        if case == "f32_master_bf16_copy" else None
+    low = torch.empty(n, dtype=half, device=cuda) \
+        if case.startswith("f32_master") else None
     kw = dict(lr=1e-3, beta1=0.9, beta2=0.999, eps=1e-8, weight_decay=0.01,
               step=3)
     ref = [t.clone() for t in (p, m, v)]
@@ -314,9 +320,9 @@ def test_adamw_kernel_matches_plain(cuda, case):
     for got, want in zip((p, m, v), ref):
         torch.testing.assert_close(got.float(), want.float(),
                                    **(exact if got.dtype == torch.float32
-                                      else TOL[torch.bfloat16]))
+                                      else TOL[got.dtype]))
     if low is not None:
-        torch.testing.assert_close(low, p.to(torch.bfloat16), atol=0, rtol=0)
+        torch.testing.assert_close(low, p.to(half), atol=0, rtol=0)
 
 
 def test_adamw_rejects_a_bf16_parameter_with_an_f32_gradient(cuda):
@@ -394,7 +400,9 @@ def test_flash_tensor_core_route_over_many_waves(cuda, d, causal):
 
 
 @pytest.mark.parametrize("dtype, d", [(torch.bfloat16, 32),
-                                      (torch.float32, 64)])
+                                      (torch.float32, 64),
+                                      (torch.float16, 64),
+                                      (torch.float16, 128)])
 def test_flash_cuda_core_route_takes_what_wgmma_does_not(cuda, dtype, d):
     g = torch.Generator(device=cuda).manual_seed(d)
     q, k, v, do = (_randn(g, 2, 100, 3, d, dtype=dtype) for _ in range(4))
@@ -469,7 +477,7 @@ def _ln_routes_match_plain(x, w, b, dy, route):
     return got
 
 
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("dtype", _F16)
 @pytest.mark.parametrize("rows", [1, 7, 300, 8192])
 @pytest.mark.parametrize("d", [1, 768, 1024, 1600, 2049, 16384])
 def test_layer_norm_routes_match_plain(cuda, d, rows, dtype):
@@ -709,8 +717,8 @@ def test_layer_norm_op_takes_the_kernel_or_raises(cuda):
     assert ln.fused_layer_norm.launches == before + 1
     torch.testing.assert_close(got, ln.layer_norm_plain(x, w, b),
                                **TOL[torch.float32])
-    with pytest.raises(TypeError, match="float32 or bfloat16"):
-        call_op("layer_norm", x.half(), w.half(), b.half())
+    with pytest.raises(TypeError, match="float32, bfloat16 or float16"):
+        call_op("layer_norm", x.double(), w.double(), b.double())
 
 
 def _tiny_gpt(cuda, dtype, hidden=64, heads=4):
@@ -766,3 +774,22 @@ def test_generate_bf16_first_token_equals_f32(cuda):
     clear = (top2[:, 0] - top2[:, 1]) > 2 * err
     assert clear.any()
     assert torch.equal(a[clear], b[clear])
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16,
+                                   torch.float32])
+def test_global_norm_clip_multiplies_in_float32_on_the_card(cuda, dtype):
+    """The clip's scale multiplies each gradient in float32 and rounds
+    once, as the JAX package's ``(g * scale).astype(g.dtype)``: the card's
+    fused product of a 16-bit list and an f32 scalar would round the
+    scale to 16 bits first."""
+    from paddle_tpu_torch.nn import ClipGradByGlobalNorm
+    g = torch.Generator(device=cuda).manual_seed(3)
+    grads = [_randn(g, n, dtype=dtype) for n in (1000, 4096, 33)]
+    pairs = [(torch.nn.Parameter(torch.zeros(1, device=cuda)), x)
+             for x in grads]
+    out, norm = ClipGradByGlobalNorm(0.3).clip_with_norm(pairs)
+    scale = 0.3 / norm.clamp_min(0.3)
+    for (_, got), x in zip(out, grads):
+        assert got.dtype == dtype
+        assert torch.equal(got, (x.float() * scale).to(dtype))

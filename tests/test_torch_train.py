@@ -18,8 +18,9 @@ the same batches through both.
   places), and falling on a repeated batch.
 * The port's forward logits equal the model of ``__graft_entry__.entry()``
   on the same weights within 1e-4 (float32).
-* ``Model`` runs on the card unless asked for the CPU; AMP takes level
-  O2 in bf16 and raises on the rest; ``fit(verbose=2)`` prints progress.
+* ``Model`` runs on the card unless asked for the CPU; AMP takes levels
+  O1 and O2 in bf16 and float16 and raises on the rest;
+  ``fit(verbose=2)`` prints progress.
 """
 import numpy as np
 import pytest
@@ -243,38 +244,53 @@ def test_model_runs_on_the_card_unless_asked_for_the_cpu(monkeypatch):
 
 
 def test_amp_takes_o2_bf16_and_raises_on_the_rest():
+    """O1 and float16 run (the name is the test's, from when only O2 bf16
+    did); an unknown level or dtype raises."""
     net = torch.nn.Linear(4, 4)
-    for kw in ({"level": "O1"}, {"dtype": "float16"}):
-        with pytest.raises(NotImplementedError, match="not ported"):
+    for kw in ({"level": "O3"}, {"dtype": "int8"}):
+        with pytest.raises(ValueError, match="AMP"):
             with amp.auto_cast(**kw):
                 pass
-        with pytest.raises(NotImplementedError, match="not ported"):
+        with pytest.raises(ValueError, match="AMP"):
             amp.decorate(net, **kw)
-    with pytest.raises(NotImplementedError, match="not ported"):
-        Model(net, device="cpu").prepare(
-            AdamW(LR, parameters=net.parameters()), loss=lambda o: o,
-            amp_configs={"dtype": "bfloat16"})        # the level is O1
-    with pytest.raises(NotImplementedError, match="loss scaling"):
-        amp.GradScaler(enable=True)
-    assert net.weight.dtype == torch.float32
+        with pytest.raises(ValueError, match="AMP"):
+            Model(net, device="cpu").prepare(
+                AdamW(LR, parameters=net.parameters()), loss=lambda o: o,
+                amp_configs=kw)
+    model = Model(net, device="cpu").prepare(
+        AdamW(LR, parameters=net.parameters()), loss=lambda o: o,
+        amp_configs={"dtype": "bfloat16"})            # the level is O1
+    assert net.weight.dtype == torch.float32           # O1 casts no weight
+    assert (model._amp_level, model._amp_dtype) == ("O1", "bfloat16")
     x = torch.ones(2, 4)
-    with amp.auto_cast():
-        assert amp.cast_inputs("linear", x)[0].dtype == torch.bfloat16
-        assert amp.cast_inputs("layer_norm", x.bfloat16())[0].dtype == \
-            torch.float32
-        with amp.auto_cast(enable=False):
-            assert amp.cast_inputs("linear", x)[0] is x
+    for level, dtype, want in (("O1", "bfloat16", torch.bfloat16),
+                               ("O1", "float16", torch.float16),
+                               ("O2", "float16", torch.float16)):
+        with amp.auto_cast(level=level, dtype=dtype):
+            assert amp.cast_inputs("linear", x)[0].dtype == want
+            assert amp.cast_inputs("layer_norm", x.to(want))[0].dtype == \
+                torch.float32
+            # off the lists: as given at O1, the AMP dtype at O2
+            assert amp.cast_inputs("gelu", x)[0].dtype == (
+                torch.float32 if level == "O1" else want)
+            with amp.auto_cast(enable=False):
+                assert amp.cast_inputs("linear", x)[0] is x
     assert amp.cast_inputs("linear", x)[0] is x
+    half = amp.decorate(torch.nn.Linear(4, 4), level="O2", dtype="float16")
+    assert half.weight.dtype == torch.float16
 
 
 def test_grad_scaler_passes_the_loss_through():
+    """``GradScaler(enable=False)`` passes the loss and the step through
+    (``GradScaler()`` scales now, as in the JAX package)."""
     net, model = _linear_model()
     before = net.weight.detach().clone()
-    scaler = amp.GradScaler()
+    scaler = amp.GradScaler(enable=False)
     loss = (net(torch.ones(2, 4)) ** 2).mean()
     assert scaler.scale(loss) is loss
     scaler.minimize(model._optimizer, loss)
     assert not torch.equal(net.weight, before)
+    assert amp.GradScaler().scale(loss) is not loss
 
 
 def test_fit_verbose_prints_progress(capsys):
