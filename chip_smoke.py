@@ -14,14 +14,15 @@ prints no result line):
    bulk copies, above 0 together) in the tensor-core ragged attention
    library;
 2. kernel vs plain: each kernel against its plain PyTorch version on the
-   card, in float32 and bfloat16, with the errors, the median times, the
-   bounds and the library call's time: the serving kernels at the
-   serving path's widths (GPT-2: 12 heads, head_dim 64, hidden 768, KV
-   blocks of 16; the quantized KV kernel over int8 and float8_e4m3fn
+   card, in float32, bfloat16 and float16, with the errors, the median
+   times, the bounds and the library call's time: the serving kernels at
+   the serving path's widths (GPT-2: 12 heads, head_dim 64, hidden 768,
+   KV blocks of 16; the quantized KV kernel over int8 and float8_e4m3fn
    pools in blocks of 32), the training kernels at the training path's
    (flash attention at [8, 1024, 12, 64] and at the ragged length 1000,
-   causal, on both routes: bfloat16 on the tensor-core kernels, also at
-   head_dim 128, float32 and the same bfloat16 operands at an unaligned
+   causal, on both routes: bfloat16 and float16 on the tensor-core
+   kernels (a second call must give the same bits), bfloat16 also at
+   head_dim 128, float32 and the same 16-bit operands at an unaligned
    base on the CUDA-core kernels; the LayerNorm forward and backward at
    [8192, 768]; AdamW on a [50304, 768] parameter). Each LayerNorm case
    runs on the warp-row kernels and, on the same operands at an unaligned
@@ -78,6 +79,21 @@ prints no result line):
    step's logits within ``QUANT_GEN_TOL``, tokens equal up to the first
    top-2 margin below it), and to that step the concurrent int8 gather
    and int8 fused engines on the card giving the same tokens;
+3e. float16 serving: GPT-2 small in float16 (full width and depth,
+   random weights from a seed) through the fused engine over a float16
+   pool (blocks of 16) and over int8 and fp8 pools (blocks of 32), phase
+   3's 16 requests each: K1/K1q 12 launches a step, all on the
+   tensor-core route, K2 (2L + 1) a step, tokens/s, TTFT, mean step ms;
+   the float16 dense gather engine on the same requests as the card's
+   oracle (K1/K1q at 0; its tokens equal the fused float16 engine's up
+   to each request's first top-2 logit margin below ``F16_GEN_TOL``);
+   the int8 pool's one-step logit drift against a float16 pool within
+   phase 3b's bound; ``generate`` over 8 unmasked prompts of 512, 32 new
+   tokens (K4 float16 on the tensor-core route in the prefill); no plain
+   version on the card; then a 2-layer float16 fused engine on the card
+   and on a CPU copy: the first step's logits within ``F16_GEN_TOL``.
+   Forward pre-hooks record the shape of every float16 K2 launch of the
+   phase under ``fused_layer_norm_serve_f16``;
 4. train: GPT-2 small at full width, bf16 AMP O2, AdamW with float32
    master weights, batch 8 x 1024 with next-token labels and the LM loss
    in 8 chunks (``bench.py``'s ``bench_gpt2`` configuration), through
@@ -94,20 +110,23 @@ prints no result line):
    ``LinearWarmup(CosineAnnealingDecay(6e-4))`` over 4 warmup steps,
    ``ClipGradByGlobalNorm(1.0)``, no decay on biases and LayerNorm, 2
    epochs of 8 batches of 8 x 1024 tokens, 2 held-out batches evaluated
-   after each epoch, checkpoints in a temporary ``save_dir``,
-   ``History`` and ``EarlyStopping``: each step's lr equal to the
+   after each epoch, checkpoints in a temporary ``save_dir`` and
+   ``History``: each step's lr equal to the
    scheduler's closed form, each step's pre-clip global norm logged
    (GPT-2's stays below 1.0 here, so after the fit one more step runs
    with the clip norm at half the smallest, and its clipped gradients
    must have that global norm), the launches as phase 4 derives them plus
    the evaluated batches' forward kernels, and no call of any plain
-   version; ``evaluate``'s loss the mean of ``eval_batch``'s; a fresh
-   ``Model`` loaded from the ``final`` checkpoint evaluates and takes two
-   more train steps within ``RESUME_TOL`` of the live one;
+   version; ``evaluate`` and ``eval_batch`` give 0.0 (GPT's labels are
+   among its inputs, so there is no label batch: the JAX package's
+   value), and the held-out loss is read from ``predict``'s first output
+   (the network's own loss) and must be finite; a fresh ``Model`` loaded
+   from the ``final`` checkpoint gives the same held-out loss and takes
+   two more train steps within ``RESUME_TOL`` of the live one;
 4c. float16: GPT-2 small in float16 O2 through the eager loop
    ``scaler.scale(loss).backward(); scaler.step(opt); scaler.update()``
    (``GradScaler(2**15, decr_every_n_nan_or_inf=1)``, AdamW with f32
-   masters), 8 steps: flash on the CUDA-core route in float16, AdamW on
+   masters), 8 steps: flash on the tensor-core route in float16, AdamW on
    f32 masters with float16 gradients and copies, one AdamW launch per
    parameter of each step the scaler applied, no plain version; then one
    step whose gradient a hook makes non-finite: parameters, masters and
@@ -154,7 +173,9 @@ prints no result line):
    ``flash_attention_fwd_generate`` (K4 at the prefill's shape, bf16 [8,
    512, 12, 64] causal) counts the unmasked generate and beam prefills.
    The float16 rows (``_f16``: flash [8, 1024, 12, 64] causal on the
-   CUDA-core kernels beside SDPA in float16, the LayerNorm forward and
+   tensor-core kernels beside SDPA in float16, with the CUDA-core
+   kernels' time on the same operands as ``core_ms``, the LayerNorm
+   forward and
    backward at [8192, 768], AdamW with an f32 master and a float16
    gradient and copy) and ``fused_adamw_f32`` (an f32 parameter and
    gradient) come from phase 2 too; the float16 rows count phase 4c's
@@ -162,7 +183,15 @@ prints no result line):
    float16 LayerNorm rows count 0, with the reason: LayerNorm is on the
    AMP black list, so every AMP path runs it in float32, and the f32
    rows count phases 4, 4b, 4c and 4d; the bf16 tensor-core flash rows
-   count phases 4, 4b and 4d.
+   count phases 4, 4b and 4d. Phase 3e's rows: K1 float16 and K1q
+   int8/fp8 with float16 q (``ragged_paged_attention_f16``,
+   ``_int8_f16``, ``_fp8_f16``) on the layer-0 operands of each float16
+   engine's widest and decode-only steps, with the CUDA-core kernel on
+   the same operands (``core_ms``); ``fused_layer_norm_serve_f16``
+   (every float16 K2 launch of phase 3e, held at each shape, timed at
+   the widest fused step's rows, the row route as ``core_ms``);
+   ``flash_attention_fwd_generate_f16`` (K4 float16 at [8, 512, 12,
+   64] causal, the float16 generate's prefill).
 
 ``--profile`` adds one more batch to the bf16 and the int8 engines and
 to the dense and paged gather engines, one more greedy generate, one
@@ -236,6 +265,13 @@ GEN_TOL = 2e-4
 # within float32 rounding of a code boundary takes the neighbouring code
 # on one side, and one such code moves a logit by far more than GEN_TOL
 QUANT_GEN_TOL = 5e-3
+# float16 serving (phase 3e): logits of |x| < ~3 carry float16 rounding
+# at every block; one float16 forward of GPT-2 small lies within 3.7e-3
+# of the float32 one (measured on the CPU), so two float16 paths may
+# pick either of two tokens whose logits are closer than this
+F16_GEN_TOL = 1e-2
+# float16 generate: 8 unmasked prompts of 512 tokens, 32 new
+F16_GEN = (8, 512, 32)
 # the dtype and [rows, D] of every LayerNorm a path ran, under the
 # kernels line's row that counts its launches (see ln_shapes)
 LN_SHAPES = collections.defaultdict(collections.Counter)
@@ -413,13 +449,13 @@ def quantize_blocks(vals, storage):
 
 def phase_quant_kernel(device, timer):
     """K1q on random ragged batches at GPT-2 widths, KV blocks of 32:
-    int8 and fp8 pools, f32 and bf16 q, against the plain version."""
+    int8 and fp8 pools, f32, bf16 and f16 q, against the plain version."""
     from paddle_tpu_torch.ops.ragged_paged_attention import (
         ragged_paged_attention, ragged_paged_attention_plain, rpa_route)
     rng = np.random.RandomState(SEED + 3)
     torch.manual_seed(SEED + 3)
     for storage in (torch.int8, torch.float8_e4m3fn):
-        for dtype in (torch.float32, torch.bfloat16):
+        for dtype in (torch.float32, torch.bfloat16, torch.float16):
             q, vals, layer, meta = random_ragged_batch(
                 rng, torch.float32, device, bs=32)
             q = q.to(dtype)
@@ -451,7 +487,7 @@ def phase_kernels(device, timer):
         ragged_paged_attention, ragged_paged_attention_plain, rpa_route)
     rng = np.random.RandomState(SEED)
     torch.manual_seed(SEED)
-    for dtype in (torch.float32, torch.bfloat16):
+    for dtype in (torch.float32, torch.bfloat16, torch.float16):
         q, pool, layer, meta = random_ragged_batch(rng, dtype, device)
         got = ragged_paged_attention(q, pool, layer, *meta)
         torch.cuda.synchronize()
@@ -689,19 +725,28 @@ def flash_check(q, k, v, do, causal, route):
     want = fa.flash_attention_bwd_plain(q, k, v, o, lse, do, causal)
     err_b = max(check_close(f"flash {route} backward d{n}", g, w, dtype)
                 for n, g, w in zip("qkv", grads, want))
-    return err_f, err_b, o, lse
+    return err_f, err_b, o, lse, grads
 
 
 def flash_case(timer, q, k, v, do, causal=True, route="tc", core=False):
     """Forward and backward kernels of ``route`` against their plain
     versions on (q, k, v, dO), timed beside the plain versions and beside
-    ``scaled_dot_product_attention`` and its autograd backward; with
+    ``scaled_dot_product_attention`` and its autograd backward (on the
+    tensor-core route a second call must give the same bits); with
     ``core``, the same operands at an unaligned base through the CUDA-core
     kernels too, checked and timed (``core_ms``). Returns the forward's
     and the backward's measurements."""
     from paddle_tpu_torch.ops import flash_attention as fa
     dtype = q.dtype
-    err_f, err_b, o, lse = flash_check(q, k, v, do, causal, route)
+    err_f, err_b, o, lse, grads = flash_check(q, k, v, do, causal, route)
+    if route == "tc":      # no output is shared between CTAs
+        again = (*fa.flash_attention_fwd(q, k, v, causal),
+                 *fa.flash_attention_bwd(q, k, v, o, lse, do, causal))
+        torch.cuda.synchronize()
+        if not all(torch.equal(a, b) for a, b in zip((o, lse, *grads),
+                                                     again)):
+            raise AssertionError(f"flash tc {dtype} {tuple(q.shape)}: a "
+                                 f"second call gave other bits")
     sdpa = torch.nn.functional.scaled_dot_product_attention
     qt, kt, vt, dot = (t.transpose(1, 2).contiguous() for t in (q, k, v, do))
     qg, kg, vg = (t.requires_grad_() for t in (qt, kt, vt))
@@ -723,7 +768,7 @@ def flash_case(timer, q, k, v, do, causal=True, route="tc", core=False):
     del out, qt, kt, vt, dot, qg, kg, vg
     if core:
         qc, kc, vc, doc = (unaligned(t) for t in (q, k, v, do))
-        fwd["core_err"], bwd["core_err"], oc, lc = flash_check(
+        fwd["core_err"], bwd["core_err"], oc, lc, _ = flash_check(
             qc, kc, vc, doc, causal, "cuda_core")
         fwd["core_ms"] = timer.ms(lambda: fa.flash_attention_fwd(
             qc, kc, vc, causal))
@@ -831,7 +876,8 @@ def phase_train_kernels(device, timer):
             (torch.bfloat16, SEQ, 64, "tc"),
             (torch.bfloat16, 1000, 64, "tc"),
             (torch.bfloat16, SEQ, 128, "tc"),
-            (torch.float16, SEQ, 64, "cuda_core")):
+            (torch.float16, SEQ, 64, "tc"),
+            (torch.float16, 1000, 64, "tc")):
         q, k, v, do = (randn(BATCH, seq, 12, d, dtype=dtype)
                        for _ in range(4))
         fwd, bwd = flash_case(timer, q, k, v, do, route=route,
@@ -949,11 +995,14 @@ def device_time_report(what, prof, wall_ms, steps):
             f"{ms / steps:8.4f} ms/step  {name[:90]}")
 
 
-def serve_mix(model, prompts, max_new, profile=False, rng=None, **kw):
+def serve_mix(model, prompts, max_new, profile=False, rng=None,
+              ln_row=None, **kw):
     """Serve ``prompts`` at once through a fused paged engine built with
     ``kw``, after one short warm-up request, with every serving kernel's
     count set to 0 just before and read just after; every attention
-    launch must take the tensor-core route. Keeps the layer-0 attention
+    launch must take the tensor-core route. With ``ln_row``, the shape of
+    every LayerNorm launch of the counted window is recorded under that
+    kernels-line row. Keeps the layer-0 attention
     operands of the widest step and of the last of the decode-only steps
     (one row a sequence) with the most sequences. Returns (outputs,
     stats, launches, steps, wall seconds, captured operands: ``{"wide":
@@ -1009,11 +1058,15 @@ def serve_mix(model, prompts, max_new, profile=False, rng=None, **kw):
     fused_layer_norm.launches = fused_layer_norm.warp_launches = 0
     fused_layer_norm.row_launches = 0
     try:
-        t0 = time.perf_counter()
-        handles = [eng.submit(p, max_new_tokens=max_new) for p in prompts]
-        outs = [h.result(timeout=600) for h in handles]
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
+        with contextlib.ExitStack() as stack:
+            if ln_row is not None:
+                stack.enter_context(ln_shapes(model, ln_row))
+            t0 = time.perf_counter()
+            handles = [eng.submit(p, max_new_tokens=max_new)
+                       for p in prompts]
+            outs = [h.result(timeout=600) for h in handles]
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
     finally:
         gen_mod.ragged_paged_attention = ragged_paged_attention
         del eng._ragged_operands
@@ -1236,7 +1289,7 @@ def gather_want(n_layers, programs):
 
 
 def serve_gather(what, model, prompts, max_new, profile=False, rng=None,
-                 **kw):
+                 ln_row="fused_layer_norm_gather", **kw):
     """Serve ``prompts`` at once through a gather engine built with
     ``kw``, after one short warm-up request, with the counts set to 0 just
     before and read just after: they must equal :func:`gather_want` over
@@ -1256,7 +1309,7 @@ def serve_gather(what, model, prompts, max_new, profile=False, rng=None,
     for attr in RPA_COUNTS:
         setattr(counters["ragged_paged_attention"], attr, 0)
     s0 = eng.stats()
-    with ln_shapes(model, "fused_layer_norm_gather"):
+    with ln_shapes(model, ln_row):
         t0 = time.perf_counter()
         handles = [eng.submit(p, max_new_tokens=max_new) for p in prompts]
         outs = [h.result(timeout=600) for h in handles]
@@ -1371,7 +1424,7 @@ def hold_tokens(what, outs, ref, prompts, ties):
     for i, (p, t) in enumerate(zip(prompts, ties)):
         got, want = outs[i][len(p):len(p) + t], ref[i][len(p):len(p) + t]
         if not np.array_equal(got, want):
-            raise AssertionError(f"float32 request {i}: {what} tokens {got} "
+            raise AssertionError(f"request {i}: {what} tokens {got} "
                                  f"!= {want} before its first near-tie at "
                                  f"step {t}")
     return sum(np.array_equal(a, b) for a, b in zip(outs, ref))
@@ -1532,7 +1585,8 @@ def op_calls():
                if k.startswith("op_count/"))
 
 
-def gen_run(what, model, ids, want, flash_route, **kw):
+def gen_run(what, model, ids, want, flash_route,
+            ln_row="fused_layer_norm_generate", **kw):
     """One ``model.generate(ids, **kw)`` with the counts set to 0 just
     before and read just after: they must equal ``want``, every
     LayerNorm launch on the warp-row route and every flash launch on
@@ -1542,7 +1596,7 @@ def gen_run(what, model, ids, want, flash_route, **kw):
     reset_counts(counters)
     calls0 = op_calls()
     torch.cuda.synchronize()
-    with ln_shapes(model, "fused_layer_norm_generate"):
+    with ln_shapes(model, ln_row):
         t0 = time.perf_counter()
         out = model.generate(ids, **kw)
         torch.cuda.synchronize()
@@ -1917,6 +1971,198 @@ def generate_rows(device, timer, launches):
              **{k: row[k] for k in ("max_abs_err", "ms", "plain_ms",
                                     "bound_ms", "bound_by", "library_ms")}}
             for name, src, tpu, row, count in rows]
+
+
+# ---------------------------------------------------------------- phase 3e
+F16_KINDS = (("f16", dict(block_size=16)),
+             ("int8_f16", dict(kv_dtype="int8", block_size=32)),
+             ("fp8_f16", dict(kv_dtype="float8_e4m3fn", block_size=32)))
+F16_LN_ROW = "fused_layer_norm_serve_f16"
+
+
+def phase_serve_f16(device, prompts, profile=False):
+    """Phase 3e: GPT-2 small in float16 (full width and depth, random
+    weights from a seed) served through the fused engine over a float16
+    pool (blocks of 16) and over int8 and fp8 pools (blocks of 32), phase
+    3's 16 requests each, 64 new tokens: K1/K1q 12 launches a step, every
+    one on the tensor-core route, K2 (2L + 1) a step. Then the card's
+    oracle, the float16 dense gather engine (no K1) over the same
+    requests: the fused float16 engine's tokens equal its tokens up to
+    each request's first step whose top-2 logit margin (a float16 full
+    forward over the fused tokens) falls below ``F16_GEN_TOL``; the int8
+    pool's logit drift against a float16 pool on one step, within phase
+    3b's bound; and ``generate`` (8 unmasked prompts of 512, 32 new,
+    greedy: K4 float16 on the tensor-core route in the prefill). No plain
+    version runs. Returns the launches and the captured attention
+    operands."""
+    from paddle_tpu_torch import seed
+    from paddle_tpu_torch.models import GPTConfig, GPTForPretraining
+    seed(SEED + 10)
+    cfg = GPTConfig.gpt2_small()
+    model = GPTForPretraining(cfg).to(device=device, dtype=torch.float16)
+    model.eval()
+    L, vocab = cfg.num_hidden_layers, cfg.vocab_size
+    rng = np.random.RandomState(SEED + 10)
+    out = {"captured": {}, "attn": {}, "combine": {}, "wide_rows": 0,
+           "fused_layer_norm": 0}
+    fused = {}
+    with count_plain() as plain:
+        for kind, kw in F16_KINDS:
+            outs, stats, launches, steps, wall, cap = serve_mix(
+                model, prompts, 64, profile and kind == "f16", rng,
+                ln_row=F16_LN_ROW, **kw)
+            quant = kind != "f16"
+            check_serve_launches(f"float16 {kind} engine", launches, steps,
+                                 L, quantized=quant)
+            serve_line(f"engine: GPT-2 small float16, {kind} pool (block "
+                       f"{kw['block_size']})", prompts, 64, stats, steps,
+                       wall)
+            log(f"float16 {kind} engine launches: {json.dumps(launches)} "
+                f"over {steps} steps; kv_bytes "
+                f"{json.dumps(stats['kv_bytes'])}")
+            fused[kind] = outs
+            out["captured"][kind] = cap
+            out["attn"][kind] = launches["ragged_paged_attention_quant"
+                                         if quant else
+                                         "ragged_paged_attention"]
+            out["combine"][kind] = launches["combine"]
+            out["fused_layer_norm"] += launches["fused_layer_norm"]
+        out["wide_rows"] = out["captured"]["f16"]["wide"]["qp"]
+
+        # the card's oracle: the dense gather engine, plain attention
+        g_outs, g_stats, g_launches, g_steps, g_prefills, g_wall = \
+            serve_gather("float16 dense engine", model, prompts, 64,
+                         ln_row=F16_LN_ROW, kv_layout="dense",
+                         attention="gather", min_bucket=32)
+        out["fused_layer_norm"] += g_launches["fused_layer_norm"]
+        with torch.no_grad():
+            margins = []
+            for p, seq in zip(prompts, fused["f16"]):
+                ids = torch.from_numpy(seq).long().to(device)[None]
+                top2 = model(ids)[0, len(p) - 1:-1].float().topk(
+                    2, dim=-1).values
+                margins.append((top2[:, 0] - top2[:, 1]).cpu())
+        ties = first_near_tie(torch.stack(margins), F16_GEN_TOL)
+        full = hold_tokens("float16 dense gather engine", g_outs,
+                           fused["f16"], prompts, ties)
+        log(f"float16 dense engine (the oracle), {len(prompts)} requests x "
+            f"64 tokens, {g_prefills} prefills and {g_steps} decode steps "
+            f"in {g_wall:.3f} s: {64 * len(prompts) / g_wall:.1f} tokens/s, "
+            f"mean step {g_wall / g_steps * 1e3:.3f} ms, TTFT p50 "
+            f"{g_stats['ttft_ms']['p50']:.1f} ms p95 "
+            f"{g_stats['ttft_ms']['p95']:.1f} ms; launches "
+            f"{json.dumps(g_launches)} (K1/K1q held at 0); its tokens equal "
+            f"the fused float16 engine's before each request's first top-2 "
+            f"margin below {F16_GEN_TOL} (step {ties}, 64 = none), all 64 "
+            f"in {full} of {len(prompts)} requests")
+        drift, top = logit_drift(model, prompts[0])
+        limit = 0.05 * max(top, 1.0)
+        log(f"float16 logit drift, one step over a {len(prompts[0])}-token "
+            f"prompt, int8 pool vs float16 pool: max |diff| {drift:.4f}, "
+            f"max |logit| {top:.4f}, limit {limit:.4f}")
+        if not drift < limit:
+            raise AssertionError(f"float16 int8 logit drift {drift} over "
+                                 f"{limit}")
+
+        n, width, new = F16_GEN
+        ids = torch.from_numpy(rng.randint(0, vocab, (n, width))).to(device)
+        model.generate(ids[:, :32], max_new_tokens=2)            # warm-up
+        toks, wall, launches, _ = gen_run(
+            "generate float16", model, ids, gen_want(L, new, False), "tc",
+            ln_row=F16_LN_ROW, max_new_tokens=new)
+        out["fused_layer_norm"] += launches["fused_layer_norm"]
+        out["generate_flash"] = launches["flash_attention_fwd"]
+        log(f"generate float16: GPT-2 small, {n} prompts x {width} tokens, "
+            f"{new} new, greedy: {wall:.4f} s, {n * new / wall:.1f} "
+            f"generated tokens/s; launches {json.dumps(launches)} (K4 on "
+            f"the tensor-core route)")
+    if sum(plain.values()):
+        raise AssertionError(f"float16 serving: plain versions ran on the "
+                             f"card: {dict(plain)}")
+    del model
+    out["fused_layer_norm"] += phase_serve_f16_check(device)
+    return out
+
+
+def phase_serve_f16_check(device):
+    """Phase 3e, then: the fused engine over a float16 pool at GPT-2 width
+    cut to 2 layers, float16 weights, on the card and on a CPU copy
+    (plain versions), 4 requests of 16 new tokens: the first step's
+    logits within ``F16_GEN_TOL``. Returns the card run's K2 launches."""
+    import copy
+
+    import paddle_tpu_torch as pt
+    from paddle_tpu_torch.models import GPTConfig, GPTForPretraining
+    pt.seed(SEED + 11)
+    cfg = GPTConfig.gpt2_small()
+    cfg.num_hidden_layers = 2
+    cpu_net = GPTForPretraining(cfg).to(torch.float16).eval()
+    card_net = copy.deepcopy(cpu_net).to(device)
+    rng = np.random.RandomState(SEED + 11)
+    prompts = [rng.randint(0, cfg.vocab_size, n) for n in (40, 7, 100, 300)]
+    first, outs, launches = {}, {}, 0
+    for where, net in (("cpu", cpu_net), ("card", card_net)):
+        def spy(h, _gpt=net.gpt, _where=where):
+            logits = type(_gpt).logits(_gpt, h)
+            first.setdefault(_where, logits[:, -1].float().cpu())
+            return logits
+
+        outs[where], n = engine_run(
+            net, prompts, 16, spy, F16_LN_ROW if where == "card" else None,
+            kv_layout="paged", attention="fused", block_size=16,
+            prefill_budget=128)
+        if where == "card":
+            launches = n
+    err = (first["card"] - first["cpu"]).abs().max().item()
+    if not err <= F16_GEN_TOL:
+        raise AssertionError(f"float16 fused engine: first-step logits card "
+                             f"vs CPU off by {err}, over {F16_GEN_TOL}")
+    same = sum(np.array_equal(a, b) for a, b in zip(outs["card"],
+                                                     outs["cpu"]))
+    log(f"float16 fused engine check (GPT-2 width, 2 layers, "
+        f"{len(prompts)} requests of {[len(p) for p in prompts]} tokens, 16 "
+        f"new, card vs CPU): first-step logits max |diff| {err:.3e} (limit "
+        f"{F16_GEN_TOL}); all 16 tokens equal in {same} of {len(prompts)} "
+        f"requests (reported)")
+    return launches
+
+
+def serve_f16_rows(device, timer, f16):
+    """The kernels line's rows of phase 3e: K1 float16 and K1q int8/fp8
+    with float16 q on the layer-0 operands of each engine's widest and
+    decode-only steps (tensor-core route, the CUDA-core kernel beside it);
+    K2 float16 at every shape its launches ran at, timed at the widest
+    fused step's rows; K4 float16 at the generate prefill's shape."""
+    rows = [rpa_row(f"ragged_paged_attention_{kind}", timer,
+                    f16["captured"][kind],
+                    {"attn": f16["attn"][kind],
+                     "combine": f16["combine"][kind]})
+            for kind, _ in F16_KINDS]
+    ln = ln_shape_row(timer, F16_LN_ROW, f16["fused_layer_norm"],
+                      (torch.float16, f16["wide_rows"], 768))
+    rows.append({"name": F16_LN_ROW, "route": "cuda", "source": LN_SRC,
+                 "replaces": LN_TPU, "launches": f16["fused_layer_norm"],
+                 **{k: ln[k] for k in ("max_abs_err", "ms", "plain_ms",
+                                       "bound_ms", "bound_by",
+                                       "library_ms")},
+                 "core_route": "row", "core_ms": ln["row_ms"],
+                 "core_err": ln["row_err"]})
+    n, width, _ = F16_GEN
+    gen = torch.Generator(device=device).manual_seed(SEED + 12)
+    q, k, v, do = (torch.randn(n, width, 12, 64, device=device,
+                               generator=gen).half() for _ in range(4))
+    fwd, _ = flash_case(timer, q, k, v, do, route="tc", core=True)
+    log(f"K4/K5 flash_attention_fwd at the float16 generate prefill's "
+        f"shape, float16 [{n}, {width}, 12, 64] causal, tc route {fmt(fwd)}")
+    rows.append({"name": "flash_attention_fwd_generate_f16", "route": "cuda",
+                 "source": FA_TC_SRC, "replaces": FA_FWD_TPU,
+                 "launches": f16["generate_flash"],
+                 **{k: fwd[k] for k in ("max_abs_err", "ms", "plain_ms",
+                                        "bound_ms", "bound_by",
+                                        "library_ms")},
+                 "core_source": FA_SRC, "core_ms": fwd["core_ms"],
+                 "core_err": fwd["core_err"]})
+    return rows
 
 
 # ---------------------------------------------------------------- phase 5
@@ -2382,7 +2628,8 @@ FP16_STEPS = 8
 # products, a loss of ~10.9 whose f16-level noise is ~1e-3 of it
 FP16_LOSS_TOL = 2e-2
 O1_STEPS = 8
-PLAIN = (("ops.fused_adamw", "adamw_plain_"),
+PLAIN = (("ops.ragged_paged_attention", "ragged_paged_attention_plain"),
+         ("ops.fused_adamw", "adamw_plain_"),
          ("ops.layer_norm", "layer_norm_plain"),
          ("ops.layer_norm", "layer_norm_bwd_plain"),
          ("ops.flash_attention", "flash_attention_fwd_plain"),
@@ -2469,6 +2716,13 @@ def recipe_lr(t):
         1 + math.cos(math.pi * (t - RECIPE_WARMUP) / t_max)) / 2
 
 
+def predicted_loss(model, data):
+    """The mean over ``data``'s batches of the network's own loss, the
+    first of ``Model.predict``'s outputs (GPT fed ``(ids, labels)``)."""
+    losses = model.predict(data, batch_size=BATCH)[0]
+    return float(np.mean([float(x) for x in losses]))
+
+
 def recipe_model(net, device):
     """``Model`` over ``net`` with the recipe's optimizer, bf16 O2."""
     from paddle_tpu_torch.hapi import Model
@@ -2511,7 +2765,7 @@ def phase_recipe(device, card):
 
     import paddle_tpu_torch as pt
     import paddle_tpu_torch.optimizer.optimizer as opt_module
-    from paddle_tpu_torch.callbacks import Callback, EarlyStopping, History
+    from paddle_tpu_torch.callbacks import Callback, History
 
     class Steps(Callback):
         """Each step's lr (before the scheduler steps), loss and time, and
@@ -2554,7 +2808,6 @@ def phase_recipe(device, card):
     steps = RECIPE_BATCHES * RECIPE_EPOCHS
     evals = RECIPE_EPOCHS * RECIPE_EVAL
     rec, hist = Steps(), History()
-    stop = EarlyStopping(monitor="loss", patience=5, verbose=0)
     counters = train_counters()
     with tempfile.TemporaryDirectory() as save_dir:
         torch.cuda.synchronize()
@@ -2566,7 +2819,7 @@ def phase_recipe(device, card):
             model.fit(train, eval_data=held, batch_size=BATCH,
                       epochs=RECIPE_EPOCHS, eval_freq=1, log_freq=1,
                       save_dir=save_dir, save_freq=2, shuffle=False,
-                      verbose=0, callbacks=[rec, hist, stop])
+                      verbose=0, callbacks=[rec, hist])
             torch.cuda.synchronize()
             wall = time.perf_counter() - t0
         launches = {name: fn.launches for name, fn in counters.items()}
@@ -2600,24 +2853,30 @@ def phase_recipe(device, card):
                 math.isfinite(x) for x in rec.loss + pre_clip):
             raise AssertionError(f"recipe: pre-clip norms {pre_clip}, "
                                  f"losses {rec.loss}")
-        if len(hist.history.get("loss", ())) != RECIPE_EPOCHS \
-                or len(rec.evals) != RECIPE_EPOCHS or model.stop_training:
-            raise AssertionError(f"recipe: history {hist.history}, "
-                                 f"evaluations {rec.evals}")
-        # evaluate's loss is the mean of eval_batch's, batch by batch
-        logs = model.evaluate(held, batch_size=BATCH, verbose=0)
+        # GPT takes its labels among its inputs (an inputs-only spec):
+        # fit's evaluations, evaluate and eval_batch give 0.0, as in the
+        # JAX package; the held-out loss is predict's first output, the
+        # network's own loss
         per = [model.eval_batch([ids[i:i + BATCH], labels[i:i + BATCH]])
                for i in range(split, rows, BATCH)]
-        if not math.isclose(logs["loss"], sum(per) / len(per),
-                            rel_tol=1e-12):
-            raise AssertionError(f"evaluate {logs}, eval_batch {per}")
+        if len(hist.history.get("loss", ())) != RECIPE_EPOCHS \
+                or rec.evals != [0.0] * RECIPE_EPOCHS \
+                or model.evaluate(held, batch_size=BATCH,
+                                  verbose=0) != {"loss": 0.0} \
+                or per != [0.0] * RECIPE_EVAL or model.stop_training:
+            raise AssertionError(f"recipe: history {hist.history}, "
+                                 f"evaluations {rec.evals}, eval_batch "
+                                 f"{per}")
+        held_loss = predicted_loss(model, held)
+        if not math.isfinite(held_loss):
+            raise AssertionError(f"recipe: held-out loss {held_loss}")
         # a fresh Model from the final checkpoint
         fresh_net, _ = gpt2_small(SEED + 5, device)
         fresh = recipe_model(fresh_net, device)
         fresh.load(os.path.join(save_dir, "final"))
     diffs = {}
-    got = fresh.evaluate(held, batch_size=BATCH, verbose=0)["loss"]
-    diffs["eval"] = abs(got - logs["loss"]) / abs(logs["loss"])
+    got = predicted_loss(fresh, held)
+    diffs["held-out loss"] = abs(got - held_loss) / abs(held_loss)
     for i in range(2):
         b = [ids[i * BATCH:(i + 1) * BATCH], labels[i * BATCH:(i + 1) * BATCH]]
         live_loss, fresh_loss = model.train_batch(b), fresh.train_batch(b)
@@ -2635,8 +2894,10 @@ def phase_recipe(device, card):
                f"{RECIPE_EPOCHS} epochs x {RECIPE_BATCHES} batches",
                card, steps, sum(rec.spans), rec.spans, peak)
     log(f"recipe: fit {wall:.3f} s in all (with {evals} evaluated batches "
-        f"and 2 checkpoints); losses {json.dumps(rec.loss)}; held-out "
-        f"losses after each epoch {json.dumps(rec.evals)}; lr "
+        f"and 2 checkpoints); losses {json.dumps(rec.loss)}; evaluate's "
+        f"loss after each epoch {json.dumps(rec.evals)} (no label batch: "
+        f"0.0, as in the JAX package); held-out loss from predict "
+        f"{held_loss:.6f}; lr "
         f"{json.dumps(rec.lr)}; pre-clip "
         f"global norms {json.dumps(pre_clip)} (clipped at 1.0 in "
         f"{sum(x > 1.0 for x in pre_clip)} of {steps} steps)")
@@ -2749,7 +3010,7 @@ def phase_fp16(device, card):
                              f"applied; expected {want}")
     if set(kinds) != {("float32", "float16", "float16")}:
         raise AssertionError(f"float16 loop: AdamW launches {dict(kinds)}")
-    check_flash_route("float16 loop", counters, "cuda_core")
+    check_flash_route("float16 loop", counters, "tc")
     check_ln_route("float16 loop", (counters["fused_layer_norm"],
                                     counters["fused_layer_norm_bwd"]))
     if not all(math.isfinite(l) for l, _, _ in trace):
@@ -2956,8 +3217,8 @@ TRAIN_ROWS = (
     ("fused_layer_norm_train", LN_SRC, LN_TPU),
     ("fused_layer_norm_bwd", LN_SRC, LN_BWD_TPU),
     ("fused_adamw", ADAMW_SRC, ADAMW_TPU),
-    ("flash_attention_fwd_f16", FA_SRC, FA_FWD_TPU),
-    ("flash_attention_bwd_f16", FA_SRC, FA_BWD_TPU),
+    ("flash_attention_fwd_f16", FA_TC_SRC, FA_FWD_TPU),
+    ("flash_attention_bwd_f16", FA_TC_SRC, FA_BWD_TPU),
     ("fused_layer_norm_f16", LN_SRC, LN_TPU),
     ("fused_layer_norm_bwd_f16", LN_SRC, LN_BWD_TPU),
     ("fused_adamw_f16", ADAMW_SRC, ADAMW_TPU),
@@ -2983,6 +3244,9 @@ def train_rows(counts, main):
                      "bound_ms": row["bound_ms"],
                      "bound_by": row["bound_by"],
                      "library_ms": row["library_ms"]})
+        if "core_ms" in row:   # the CUDA-core kernels on the same operands
+            rows[-1].update(core_source=FA_SRC, core_ms=row["core_ms"],
+                            core_err=row["core_err"])
         if name in ("fused_layer_norm_f16", "fused_layer_norm_bwd_f16"):
             rows[-1]["launches_note"] = F16_LN_NOTE
     return rows
@@ -3024,6 +3288,7 @@ def main() -> int:
     gen_launches, beam_launches = phase_generate(model, device, profile)
     gather_ln = phase_gather(model, prompts, outs, profile)
     del model
+    f16 = phase_serve_f16(device, prompts, profile)
     gen_f32_launches = phase_generate_f32(device)
     beam_f32_launches = phase_beam_f32(device)
     train_launches, train_cap = phase_train(device, profile)
@@ -3037,6 +3302,7 @@ def main() -> int:
     # the engine row of the LayerNorm forward counts the fused engines'
     # runs (phase 3d's float32 ones too); its fused_layer_norm_train row,
     # the train path's
+    kernels += serve_f16_rows(device, timer, f16)
     ln_row = next(k for k in kernels if k["name"] == "fused_layer_norm")
     ln_row["launches"] += quant_launches["fused_layer_norm"] \
         + gather_ln["fused"]

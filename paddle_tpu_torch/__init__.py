@@ -78,4 +78,56 @@ def _op_function(name):
 for _name in _op_names():
     globals()[_name] = _op_function(_name)
     __all__.append(_name)
+
+
+# the ops the JAX package exports under its own public signatures
+# (``name`` is taken and unused there too; ``device`` places a new tensor)
+def add(x, y, name=None):
+    return call_op("add", x, y)
+
+
+def multiply(x, y, name=None):
+    return call_op("multiply", x, y)
+
+
+def maximum(x, y, name=None):
+    return call_op("maximum", x, y)
+
+
+def matmul(x, y, transpose_x=False, transpose_y=False, name=None):
+    return call_op("matmul", x, y, transpose_x=transpose_x,
+                   transpose_y=transpose_y)
+
+
+def cumsum(x, axis=None, name=None):
+    return call_op("cumsum", x, axis=axis)
+
+
+def concat(x, axis=0, name=None):
+    return call_op("concat", x, axis=axis)
+
+
+def reshape(x, shape, name=None):
+    return call_op("reshape", x, shape)
+
+
+def transpose(x, perm, name=None):
+    return call_op("transpose", x, perm)
+
+
+def slice(input, axes, starts, ends):
+    return call_op("slice", input, axes, starts, ends)
+
+
+def full(shape, fill_value, dtype=None, name=None, *, device=None):
+    return call_op("full", shape, fill_value, dtype=dtype, device=device)
+
+
+def zeros(shape, dtype=None, name=None, *, device=None):
+    return call_op("zeros", shape, dtype=dtype, device=device)
+
+
+def arange(start=0, end=None, step=1, dtype=None, name=None, *,
+           device=None):
+    return call_op("arange", start, end, step, dtype=dtype, device=device)
 del _name

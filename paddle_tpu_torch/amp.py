@@ -135,10 +135,14 @@ def cast_inputs(op_name: str, *tensors):
                  and t.dtype != target else t for t in tensors)
 
 
-def decorate(models, optimizers=None, level="O2", dtype="bfloat16"):
+def decorate(models, optimizers=None, level="O2", dtype="bfloat16",
+             master_weight=None, save_dtype=None):
     """At O2, cast each model's parameters and buffers to the AMP dtype in
     place (the same ``Parameter`` objects, so an optimizer built earlier
-    still holds them); at O1 leave them float32."""
+    still holds them); at O1 leave them float32. ``master_weight`` and
+    ``save_dtype`` change nothing, as in the JAX package: float32 masters
+    are the optimizer's (``multi_precision=True``), and a checkpoint
+    keeps each parameter's dtype."""
     amp_dtype = _amp_dtype(level, dtype)
     single = not isinstance(models, (list, tuple))
     model_list = [models] if single else list(models)

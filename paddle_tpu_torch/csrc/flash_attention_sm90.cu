@@ -1,5 +1,5 @@
-// Flash attention on Hopper's tensor cores (sm_90a), bfloat16, head widths
-// 64 and 128: the forward and the backward pair, with every product a
+// Flash attention on Hopper's tensor cores (sm_90a), bfloat16 or float16,
+// head widths 64 and 128: the forward and the backward pair, with every product a
 // wgmma and every tile loaded by TMA.
 //
 // Replaces the Pallas TPU kernels of paddle_tpu/ops/pallas_kernels.py:
@@ -14,12 +14,18 @@
 // Layout and numerics are flash_attention.cu's: q/o [B, Sq, H, D], k/v
 // [B, Sk, H, D] read in place, lse [B, H, Sq] f32; scores (q . k) * scale
 // in f32, masked to -1e30 (causal: row >= col, top-left aligned); online
-// softmax with f32 m, l and accumulator; P rounded to bf16 before PV;
-// max(l, 1e-30); lse = m + log(l_safe). The backward recomputes P from
-// lse, takes delta = rowsum(dO * O) from the caller, and rounds dS (for dQ
-// and dK) and P (for dV) to bf16. On wgmma those roundings are where the
-// operands enter the second product: P and dS are bf16 A fragments packed
-// from the first product's f32 accumulator, in registers.
+// softmax with f32 m, l and accumulator; P rounded to the operand type T
+// (bf16 or f16) before PV; max(l, 1e-30); lse = m + log(l_safe). The
+// backward recomputes P from lse, takes delta = rowsum(dO * O) from the
+// caller, and rounds dS (for dQ and dK) and P (for dV) to T, as the Pallas
+// kernels round them (pallas_kernels.py :153, :205, :253, :260). On wgmma
+// those roundings are where the operands enter the second product: P and
+// dS are T A fragments packed from the first product's f32 accumulator,
+// in registers. Every kernel is one template over T: the two types differ
+// only in the wgmma instruction's operand type, the packing of pairs and
+// the tensor maps' data type (sm90.cuh). In float16 a dS scaled by a large
+// loss scale may round to inf; that is the reference's rounding too, and
+// the loss scaler then skips the step.
 //
 // Design: one warpgroup (128 threads) per CTA and 64-row tiles. The
 // forward and dQ kernels run one CTA per (q tile, batch*head), longest
@@ -50,6 +56,7 @@
 // against products, persistent CTAs, 2-CTA clusters sharing K/V, fp8.
 
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -97,40 +104,42 @@ __device__ __forceinline__ uint64_t desc_mn(const uint8_t* tile, int kk) {
   return sm90::desc_sw128(tile + kk * 16 * 128, kBlockBytes);
 }
 
-// s = a . b^T over D, a and b [64, D] tiles in shared memory
-template <int D>
+// s = a . b^T over D, a and b [64, D] tiles of T in shared memory
+template <typename T, int D>
 __device__ __forceinline__ void product_abt(float (&s)[32], const uint8_t* a,
                                             const uint8_t* b) {
 #pragma unroll
   for (int kk = 0; kk < D / 16; ++kk)
-    sm90::wgmma_ss_n64(s, desc_k(a, kk), desc_k(b, kk), kk > 0);
+    sm90::wgmma_ss_n64<T>(s, desc_k(a, kk), desc_k(b, kk), kk > 0);
 }
 
-// acc += p . tile, p a 64 x 64 bf16 operand in registers (four k-steps of
+// acc += p . tile, p a 64 x 64 T operand in registers (four k-steps of
 // A fragments), tile [64, D] in shared memory
-template <int D>
+template <typename T, int D>
 __device__ __forceinline__ void product_pt(float (&acc)[D / 2],
                                            const uint32_t (&p)[4][4],
                                            const uint8_t* tile) {
 #pragma unroll
   for (int kk = 0; kk < 4; ++kk) {
     if constexpr (D == 64)
-      sm90::wgmma_rs_n64(acc, p[kk], desc_mn(tile, kk));
+      sm90::wgmma_rs_n64<T>(acc, p[kk], desc_mn(tile, kk));
     else
-      sm90::wgmma_rs_n128(acc, p[kk], desc_mn(tile, kk));
+      sm90::wgmma_rs_n128<T>(acc, p[kk], desc_mn(tile, kk));
   }
 }
 
-// A 64 x 64 accumulator as bf16 A fragments: element 4j + 2h + c holds row
-// 16 warp + lane / 4 + 8h, column 8j + 2 (lane % 4) + c, which is the A
-// layout of k-step j / 2, register 2 (j % 2) + h
+// A 64 x 64 accumulator as T A fragments (each value rounded to T once):
+// element 4j + 2h + c holds row 16 warp + lane / 4 + 8h, column 8j + 2
+// (lane % 4) + c, which is the A layout of k-step j / 2, register
+// 2 (j % 2) + h
+template <typename T>
 __device__ __forceinline__ void to_frags(uint32_t (&p)[4][4],
                                          const float (&s)[32]) {
 #pragma unroll
   for (int kk = 0; kk < 4; ++kk)
 #pragma unroll
     for (int i = 0; i < 4; ++i)
-      p[kk][i] = sm90::pack_bf16(s[8 * kk + 2 * i], s[8 * kk + 2 * i + 1]);
+      p[kk][i] = sm90::pack2<T>(s[8 * kk + 2 * i], s[8 * kk + 2 * i + 1]);
 }
 
 template <int N>
@@ -142,18 +151,17 @@ __device__ __forceinline__ void zero(float (&a)[N]) {
 // this thread's half `hh` of a [64, D] accumulator (its row `row`), over
 // `div`, into row `row` of head h, batch b of a [B, S, H, D] output; rows
 // >= S are not written
-template <int D>
-__device__ __forceinline__ void store_rows(bf16* out, const float (&acc)[D / 2],
+template <typename T, int D>
+__device__ __forceinline__ void store_rows(T* out, const float (&acc)[D / 2],
                                            int hh, int row, int S, int H,
                                            int b, int h, float div) {
   if (row >= S) return;
   const int t = threadIdx.x % 4;
-  bf16* dst = out + (((int64_t)b * S + row) * H + h) * D;
+  T* dst = out + (((int64_t)b * S + row) * H + h) * D;
 #pragma unroll
   for (int j = 0; j < D / 8; ++j)
-    *reinterpret_cast<__nv_bfloat162*>(dst + 8 * j + 2 * t) =
-        __floats2bfloat162_rn(acc[4 * j + 2 * hh] / div,
-                              acc[4 * j + 2 * hh + 1] / div);
+    *reinterpret_cast<uint32_t*>(dst + 8 * j + 2 * t) = sm90::pack2<T>(
+        acc[4 * j + 2 * hh] / div, acc[4 * j + 2 * hh + 1] / div);
 }
 
 __device__ __forceinline__ void init_barriers(uint64_t* bar) {
@@ -165,12 +173,12 @@ __device__ __forceinline__ void init_barriers(uint64_t* bar) {
 }
 
 // ------------------------------------------------------------ forward
-template <int D>
+template <typename T, int D>
 __global__ void __launch_bounds__(kThreads)
 fa_fwd_tc_kernel(const __grid_constant__ CUtensorMap tm_q,
                  const __grid_constant__ CUtensorMap tm_k,
                  const __grid_constant__ CUtensorMap tm_v,
-                 bf16* __restrict__ o, float* __restrict__ lse, int H, int Sq,
+                 T* __restrict__ o, float* __restrict__ lse, int H, int Sq,
                  int Sk, float scale, int causal) {
   constexpr int kTile = Tile<D>::kBytes;
   extern __shared__ uint8_t smem_raw[];
@@ -211,7 +219,7 @@ fa_fwd_tc_kernel(const __grid_constant__ CUtensorMap tm_q,
     float s[32];
     zero(s);
     sm90::wgmma_fence();
-    product_abt<D>(s, q_s, k_t);
+    product_abt<T, D>(s, q_s, k_t);
     sm90::wgmma_commit();
     sm90::wgmma_wait_all();
     sm90::fence_regs(s);
@@ -255,10 +263,10 @@ fa_fwd_tc_kernel(const __grid_constant__ CUtensorMap tm_q,
       }
     }
     uint32_t p[4][4];
-    to_frags(p, s);
+    to_frags<T>(p, s);
     sm90::fence_regs(acc);
     sm90::wgmma_fence();
-    product_pt<D>(acc, p, v_t);
+    product_pt<T, D>(acc, p, v_t);
     sm90::wgmma_commit();
     sm90::wgmma_wait_all();
     sm90::fence_regs(acc);
@@ -275,21 +283,21 @@ fa_fwd_tc_kernel(const __grid_constant__ CUtensorMap tm_q,
   for (int hh = 0; hh < 2; ++hh) {
     const int row = r_lo + 8 * hh;
     const float l_safe = fmaxf(l_run[hh], 1e-30f);
-    store_rows<D>(o, acc, hh, row, Sq, H, b, h, l_safe);
+    store_rows<T, D>(o, acc, hh, row, Sq, H, b, h, l_safe);
     if (t == 0 && row < Sq)
       lse[(int64_t)bh * Sq + row] = m_run[hh] + logf(l_safe);
   }
 }
 
 // ------------------------------------------------------------ backward: dQ
-template <int D>
+template <typename T, int D>
 __global__ void __launch_bounds__(kThreads)
 fa_dq_tc_kernel(const __grid_constant__ CUtensorMap tm_q,
                 const __grid_constant__ CUtensorMap tm_k,
                 const __grid_constant__ CUtensorMap tm_v,
                 const __grid_constant__ CUtensorMap tm_do,
                 const float* __restrict__ lse, const float* __restrict__ delta,
-                bf16* __restrict__ dq, int H, int Sq, int Sk, float scale,
+                T* __restrict__ dq, int H, int Sq, int Sk, float scale,
                 int causal) {
   constexpr int kTile = Tile<D>::kBytes;
   extern __shared__ uint8_t smem_raw[];
@@ -339,8 +347,8 @@ fa_dq_tc_kernel(const __grid_constant__ CUtensorMap tm_q,
     zero(s);
     zero(dp);
     sm90::wgmma_fence();
-    product_abt<D>(s, q_s, k_t);
-    product_abt<D>(dp, do_s, v_t);
+    product_abt<T, D>(s, q_s, k_t);
+    product_abt<T, D>(dp, do_s, v_t);
     sm90::wgmma_commit();
     sm90::wgmma_wait_all();
     sm90::fence_regs(s);
@@ -363,10 +371,10 @@ fa_dq_tc_kernel(const __grid_constant__ CUtensorMap tm_q,
         }
     }
     uint32_t ds[4][4];
-    to_frags(ds, s);
+    to_frags<T>(ds, s);
     sm90::fence_regs(acc);
     sm90::wgmma_fence();
-    product_pt<D>(acc, ds, k_t);
+    product_pt<T, D>(acc, ds, k_t);
     sm90::wgmma_commit();
     sm90::wgmma_wait_all();
     sm90::fence_regs(acc);
@@ -381,19 +389,19 @@ fa_dq_tc_kernel(const __grid_constant__ CUtensorMap tm_q,
   }
 #pragma unroll
   for (int hh = 0; hh < 2; ++hh)
-    store_rows<D>(dq, acc, hh, r_lo + 8 * hh, Sq, H, b, h, 1.f);
+    store_rows<T, D>(dq, acc, hh, r_lo + 8 * hh, Sq, H, b, h, 1.f);
 }
 
 // ------------------------------------------------------------ backward: dK, dV
-template <int D>
+template <typename T, int D>
 __global__ void __launch_bounds__(kThreads)
 fa_dkv_tc_kernel(const __grid_constant__ CUtensorMap tm_q,
                  const __grid_constant__ CUtensorMap tm_k,
                  const __grid_constant__ CUtensorMap tm_v,
                  const __grid_constant__ CUtensorMap tm_do,
                  const float* __restrict__ lse,
-                 const float* __restrict__ delta, bf16* __restrict__ dk,
-                 bf16* __restrict__ dv, int H, int Sq, int Sk, float scale,
+                 const float* __restrict__ delta, T* __restrict__ dk,
+                 T* __restrict__ dv, int H, int Sq, int Sk, float scale,
                  int causal) {
   constexpr int kTile = Tile<D>::kBytes;
   extern __shared__ uint8_t smem_raw[];
@@ -447,8 +455,8 @@ fa_dkv_tc_kernel(const __grid_constant__ CUtensorMap tm_q,
     zero(s);
     zero(dp);
     sm90::wgmma_fence();
-    product_abt<D>(s, k_s, q_t);
-    product_abt<D>(dp, v_s, do_t);
+    product_abt<T, D>(s, k_s, q_t);
+    product_abt<T, D>(dp, v_s, do_t);
     sm90::wgmma_commit();
     sm90::wgmma_wait_all();
     sm90::fence_regs(s);
@@ -472,13 +480,13 @@ fa_dkv_tc_kernel(const __grid_constant__ CUtensorMap tm_q,
         }
     }
     uint32_t pf[4][4], dsf[4][4];
-    to_frags(pf, s);
-    to_frags(dsf, dp);
+    to_frags<T>(pf, s);
+    to_frags<T>(dsf, dp);
     sm90::fence_regs(gv);
     sm90::fence_regs(gk);
     sm90::wgmma_fence();
-    product_pt<D>(gv, pf, do_t);
-    product_pt<D>(gk, dsf, q_t);
+    product_pt<T, D>(gv, pf, do_t);
+    product_pt<T, D>(gk, dsf, q_t);
     sm90::wgmma_commit();
     sm90::wgmma_wait_all();
     sm90::fence_regs(gv);
@@ -494,8 +502,8 @@ fa_dkv_tc_kernel(const __grid_constant__ CUtensorMap tm_q,
   }
 #pragma unroll
   for (int hh = 0; hh < 2; ++hh) {
-    store_rows<D>(dk, gk, hh, r_lo + 8 * hh, Sk, H, b, h, 1.f);
-    store_rows<D>(dv, gv, hh, r_lo + 8 * hh, Sk, H, b, h, 1.f);
+    store_rows<T, D>(dk, gk, hh, r_lo + 8 * hh, Sk, H, b, h, 1.f);
+    store_rows<T, D>(dv, gv, hh, r_lo + 8 * hh, Sk, H, b, h, 1.f);
   }
 }
 
@@ -518,84 +526,101 @@ cudaError_t allow_smem(K kernel, size_t bytes) {
 // an operand could not be described to TMA (no tensor-map encoder)
 constexpr int kEncodeFailed = (int)cudaErrorNotSupported;
 
-template <int D>
+template <typename T, int D>
 int fwd(const void* q, const void* k, const void* v, void* o, float* lse,
         int B, int H, int Sq, int Sk, float scale, int causal,
         cudaStream_t stream) {
   CUtensorMap mq, mk, mv;
-  if (!sm90::encode_bshd(&mq, q, B, Sq, H, D, kRows) ||
-      !sm90::encode_bshd(&mk, k, B, Sk, H, D, kRows) ||
-      !sm90::encode_bshd(&mv, v, B, Sk, H, D, kRows))
+  if (!sm90::encode_bshd<T>(&mq, q, B, Sq, H, D, kRows) ||
+      !sm90::encode_bshd<T>(&mk, k, B, Sk, H, D, kRows) ||
+      !sm90::encode_bshd<T>(&mv, v, B, Sk, H, D, kRows))
     return kEncodeFailed;
   const size_t smem = smem_bytes<D>(1 + 2 * kStages);
-  cudaError_t e = allow_smem(fa_fwd_tc_kernel<D>, smem);
+  cudaError_t e = allow_smem(fa_fwd_tc_kernel<T, D>, smem);
   if (e != cudaSuccess) return (int)e;
   const dim3 grid((Sq + kRows - 1) / kRows, B * H);
-  fa_fwd_tc_kernel<D><<<grid, kThreads, smem, stream>>>(
-      mq, mk, mv, static_cast<bf16*>(o), lse, H, Sq, Sk, scale, causal);
+  fa_fwd_tc_kernel<T, D><<<grid, kThreads, smem, stream>>>(
+      mq, mk, mv, static_cast<T*>(o), lse, H, Sq, Sk, scale, causal);
   return (int)cudaGetLastError();
 }
 
-template <int D>
+template <typename T, int D>
 int bwd(const void* q, const void* k, const void* v, const void* dout,
         const float* lse, const float* delta, void* dq, void* dk, void* dv,
         int B, int H, int Sq, int Sk, float scale, int causal,
         cudaStream_t stream) {
   CUtensorMap mq, mk, mv, mdo;
-  if (!sm90::encode_bshd(&mq, q, B, Sq, H, D, kRows) ||
-      !sm90::encode_bshd(&mk, k, B, Sk, H, D, kRows) ||
-      !sm90::encode_bshd(&mv, v, B, Sk, H, D, kRows) ||
-      !sm90::encode_bshd(&mdo, dout, B, Sq, H, D, kRows))
+  if (!sm90::encode_bshd<T>(&mq, q, B, Sq, H, D, kRows) ||
+      !sm90::encode_bshd<T>(&mk, k, B, Sk, H, D, kRows) ||
+      !sm90::encode_bshd<T>(&mv, v, B, Sk, H, D, kRows) ||
+      !sm90::encode_bshd<T>(&mdo, dout, B, Sq, H, D, kRows))
     return kEncodeFailed;
   const size_t smem_dq = smem_bytes<D>(2 + 2 * kStages);
   const size_t smem_dkv = smem_bytes<D>(2 + 2 * kStages, 2 * kRows * sizeof(float));
-  cudaError_t e = allow_smem(fa_dq_tc_kernel<D>, smem_dq);
+  cudaError_t e = allow_smem(fa_dq_tc_kernel<T, D>, smem_dq);
   if (e != cudaSuccess) return (int)e;
-  e = allow_smem(fa_dkv_tc_kernel<D>, smem_dkv);
+  e = allow_smem(fa_dkv_tc_kernel<T, D>, smem_dkv);
   if (e != cudaSuccess) return (int)e;
   const dim3 grid_q((Sq + kRows - 1) / kRows, B * H);
-  fa_dq_tc_kernel<D><<<grid_q, kThreads, smem_dq, stream>>>(
-      mq, mk, mv, mdo, lse, delta, static_cast<bf16*>(dq), H, Sq, Sk, scale,
+  fa_dq_tc_kernel<T, D><<<grid_q, kThreads, smem_dq, stream>>>(
+      mq, mk, mv, mdo, lse, delta, static_cast<T*>(dq), H, Sq, Sk, scale,
       causal);
   e = cudaGetLastError();
   if (e != cudaSuccess) return (int)e;
   const dim3 grid_k((Sk + kRows - 1) / kRows, B * H);
-  fa_dkv_tc_kernel<D><<<grid_k, kThreads, smem_dkv, stream>>>(
-      mq, mk, mv, mdo, lse, delta, static_cast<bf16*>(dk),
-      static_cast<bf16*>(dv), H, Sq, Sk, scale, causal);
+  fa_dkv_tc_kernel<T, D><<<grid_k, kThreads, smem_dkv, stream>>>(
+      mq, mk, mv, mdo, lse, delta, static_cast<T*>(dk),
+      static_cast<T*>(dv), H, Sq, Sk, scale, causal);
   return (int)cudaGetLastError();
 }
 
+// the launcher F<T, D>::run for q's dtype (1 = bfloat16, 2 = float16,
+// as _build.DTYPE_CODE numbers them) and head width D
+template <template <typename, int> class F, typename... A>
+int dispatch(int dtype, int D, A... args) {
+  if (dtype == 1 && D == 64) return F<bf16, 64>::run(args...);
+  if (dtype == 1 && D == 128) return F<bf16, 128>::run(args...);
+  if (dtype == 2 && D == 64) return F<__half, 64>::run(args...);
+  if (dtype == 2 && D == 128) return F<__half, 128>::run(args...);
+  return (int)cudaErrorInvalidValue;
+}
+
+template <typename T, int D>
+struct Fwd {
+  template <typename... A>
+  static int run(A... args) { return fwd<T, D>(args...); }
+};
+template <typename T, int D>
+struct Bwd {
+  template <typename... A>
+  static int run(A... args) { return bwd<T, D>(args...); }
+};
+
 }  // namespace
 
-// bfloat16 q/o [B, Sq, H, D], k/v [B, Sk, H, D], contiguous, base pointers
-// 16-byte aligned; D is 64 or 128; lse [B, H, Sq] f32. Returns
-// cudaGetLastError() after the asynchronous launch on `stream`, or
-// cudaErrorNotSupported when the tensor maps cannot be encoded.
-extern "C" int fa_tc_fwd_launch(const void* q, const void* k, const void* v,
-                                void* o, float* lse, int B, int H, int Sq,
-                                int Sk, int D, float scale, int causal,
-                                void* stream) {
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (D == 64) return fwd<64>(q, k, v, o, lse, B, H, Sq, Sk, scale, causal, s);
-  if (D == 128) return fwd<128>(q, k, v, o, lse, B, H, Sq, Sk, scale, causal, s);
-  return (int)cudaErrorInvalidValue;
+// q/o [B, Sq, H, D], k/v [B, Sk, H, D] of dtype 1 = bfloat16 or 2 =
+// float16, contiguous, base pointers 16-byte aligned; D is 64 or 128; lse
+// [B, H, Sq] f32. Returns cudaGetLastError() after the asynchronous launch
+// on `stream`, or cudaErrorNotSupported when the tensor maps cannot be
+// encoded.
+extern "C" int fa_tc_fwd_launch(int dtype, const void* q, const void* k,
+                                const void* v, void* o, float* lse, int B,
+                                int H, int Sq, int Sk, int D, float scale,
+                                int causal, void* stream) {
+  return dispatch<Fwd>(dtype, D, q, k, v, o, lse, B, H, Sq, Sk, scale, causal,
+                       static_cast<cudaStream_t>(stream));
 }
 
 // The backward pair: dQ (one CTA per q tile) then dK/dV (one CTA per k
 // tile), both on `stream`. dout like q; delta [B, H, Sq] f32 =
-// rowsum(dout * o); dq like q, dk/dv like k.
-extern "C" int fa_tc_bwd_launch(const void* q, const void* k, const void* v,
-                                const void* dout, const float* lse,
-                                const float* delta, void* dq, void* dk,
-                                void* dv, int B, int H, int Sq, int Sk, int D,
-                                float scale, int causal, void* stream) {
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (D == 64)
-    return bwd<64>(q, k, v, dout, lse, delta, dq, dk, dv, B, H, Sq, Sk, scale,
-                   causal, s);
-  if (D == 128)
-    return bwd<128>(q, k, v, dout, lse, delta, dq, dk, dv, B, H, Sq, Sk, scale,
-                    causal, s);
-  return (int)cudaErrorInvalidValue;
+// rowsum(dout * o); dq like q, dk/dv like k; dtype as for the forward.
+extern "C" int fa_tc_bwd_launch(int dtype, const void* q, const void* k,
+                                const void* v, const void* dout,
+                                const float* lse, const float* delta,
+                                void* dq, void* dk, void* dv, int B, int H,
+                                int Sq, int Sk, int D, float scale,
+                                int causal, void* stream) {
+  return dispatch<Bwd>(dtype, D, q, k, v, dout, lse, delta, dq, dk, dv, B, H,
+                       Sq, Sk, scale, causal,
+                       static_cast<cudaStream_t>(stream));
 }

@@ -1,10 +1,12 @@
 // Ragged paged attention for Hopper (sm_90a): K1 over float pools
-// (float32, bfloat16) and K1q over quantized pools (int8, float8_e4m3fn).
+// (float32, bfloat16, float16) and K1q over quantized pools (int8,
+// float8_e4m3fn).
 //
 // Replaces the Pallas TPU kernel paddle_tpu/ops/ragged_paged_attention.py
 // (_rpa_kernel, launched by ragged_paged_attention, with its quantized
 // branch for int8/fp8 pools). Same contract:
-//   q      [H, Qp, Dh]                 flattened padded query rows, f32/bf16
+//   q      [H, Qp, Dh]                 flattened padded query rows,
+//                                      f32/bf16/f16
 //   pool   [L, 2, NB+1, H, bs, Dh]     the whole KV block pool; `layer`
 //                                      selects a plane by pointer offset,
 //                                      no per-layer slice is made
@@ -48,6 +50,7 @@
 // finite masked values nobody reads; pad blocks (blk_seq < 0) write 0.
 
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <cuda_fp8.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -62,6 +65,7 @@ __device__ __forceinline__ float to_f32(float x) { return x; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
   return __bfloat162float(x);
 }
+__device__ __forceinline__ float to_f32(__half x) { return __half2float(x); }
 __device__ __forceinline__ float to_f32(int8_t x) { return (float)x; }
 __device__ __forceinline__ float to_f32(__nv_fp8_e4m3 x) { return (float)x; }
 
@@ -72,6 +76,10 @@ __device__ __forceinline__ float from_f32<float>(float x) { return x; }
 template <>
 __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float x) {
   return __float2bfloat16(x);
+}
+template <>
+__device__ __forceinline__ __half from_f32<__half>(float x) {
+  return __float2half_rn(x);
 }
 
 // x rounded to C and widened back: the value a C operand holds
@@ -275,12 +283,17 @@ int launch_quant(int dtype, const void* q, const void* pool, const float* scales
     return launch<S, __nv_bfloat16>(q, pool, scales, out, blk_seq, seq_qstart,
                                     seq_pos0, tables, lo, kv_len, H, Qp, Dh, NB1,
                                     bs, T_len, layer, scale, s);
+  if (dtype == 2)
+    return launch<S, __half>(q, pool, scales, out, blk_seq, seq_qstart,
+                             seq_pos0, tables, lo, kv_len, H, Qp, Dh, NB1, bs,
+                             T_len, layer, scale, s);
   return (int)cudaErrorInvalidValue;
 }
 
 }  // namespace
 
-// K1, float pools. dtype: 0 = float32, 1 = bfloat16, for q, pool and out.
+// K1, float pools. dtype: 0 = float32, 1 = bfloat16, 2 = float16, for q,
+// pool and out.
 // Returns cudaGetLastError() after the launch (0 = success); the launch
 // is asynchronous on `stream`.
 extern "C" int rpa_launch(int dtype, const void* q, const void* pool, void* out,
@@ -298,12 +311,16 @@ extern "C" int rpa_launch(int dtype, const void* q, const void* pool, void* out,
     return launch<__nv_bfloat16, __nv_bfloat16>(
         q, pool, nullptr, out, blk_seq, seq_qstart, seq_pos0, tables, lo, kv_len,
         H, Qp, Dh, NB1, bs, T_len, layer, scale, s);
+  if (dtype == 2)
+    return launch<__half, __half>(q, pool, nullptr, out, blk_seq, seq_qstart,
+                                  seq_pos0, tables, lo, kv_len, H, Qp, Dh,
+                                  NB1, bs, T_len, layer, scale, s);
   return (int)cudaErrorInvalidValue;
 }
 
 // K1q, quantized pools. storage: 0 = int8, 1 = float8_e4m3fn codes in the
-// pool; dtype: 0 = float32, 1 = bfloat16 for q and out. scales is the
-// float32 [L, 2, NB+1, H] array. Returns cudaGetLastError() after the
+// pool; dtype: 0 = float32, 1 = bfloat16, 2 = float16 for q and out.
+// scales is the float32 [L, 2, NB+1, H] array. Returns cudaGetLastError() after the
 // launch; asynchronous on `stream`.
 extern "C" int rpa_quant_launch(int storage, int dtype, const void* q,
                                 const void* pool, const float* scales, void* out,

@@ -1,6 +1,6 @@
-// Ragged paged attention on Hopper's tensor cores (sm_90a), bfloat16 q:
-// K1 over bfloat16 pools and K1q over int8 / float8_e4m3fn pools, at head
-// widths 64 and 128 and KV blocks of 16, 32 or 64 rows.
+// Ragged paged attention on Hopper's tensor cores (sm_90a), bfloat16 or
+// float16 q: K1 over pools of q's dtype and K1q over int8 / float8_e4m3fn
+// pools, at head widths 64 and 128 and KV blocks of 16, 32 or 64 rows.
 //
 // Replaces the Pallas TPU kernel paddle_tpu/ops/ragged_paged_attention.py
 // (_rpa_kernel, launched by ragged_paged_attention, with its quantized
@@ -8,20 +8,26 @@
 // q, other head widths or block sizes) runs csrc/ragged_paged_attention.cu's
 // CUDA-core kernel; ops/ragged_paged_attention.py picks the route before
 // the launch. The layout contract is that kernel's:
-//   q      [H, Qp, Dh] bf16            flattened padded query rows
-//   pool   [L, 2, NB+1, H, bs, Dh]     bf16, int8 or fp8 codes, read whole
+//   q      [H, Qp, Dh] bf16 or f16     flattened padded query rows
+//   pool   [L, 2, NB+1, H, bs, Dh]     q's dtype, int8 or fp8 codes, read
+//                                      whole
 //   scales [L, 2, NB+1, H] f32         K1q only: per-(block, head) scale
 //   blk_seq [Qp/8], seq_qstart/seq_pos0/lo/kv_len [S], tables [S, T] int32
-//   out    [H, Qp, Dh] bf16
+//   out    [H, Qp, Dh] in q's dtype
 // A row at virtual position p attends to cache columns [lo, p].
 //
 // Numerics are those of the JAX kernel and the CUDA-core kernel: scores
 // (q . k) accumulated in f32, times scale, masked to [lo, qpos] with a
-// -1e30 fill; an online softmax in f32; P rounded to bf16 before the PV
-// product while l sums the unrounded P; out = acc / max(l, 1e-30), rounded
-// once. A quantized code enters a product as round_to_bf16(code * scale),
-// computed in f32 (_rpa_kernel's dequantization, :162-165); the products
-// stay bf16 x bf16.
+// -1e30 fill; an online softmax in f32; P rounded to q's dtype T (V's)
+// before the PV product while l sums the unrounded P; out = acc / max(l,
+// 1e-30), rounded once. A quantized code enters a product as
+// round_to_T(code * scale), computed in f32 (_rpa_kernel's dequantization,
+// :162-165); the products stay T x T. Only P, the dequantized codes and
+// the output are rounded to T: the scores, the softmax and the
+// accumulators stay f32, which is what float16's narrow range needs (an
+// fp8 code times its scale is bounded by the float16 values it was
+// quantized from). bf16 and f16 differ only in the instruction's operand
+// type and the packing of pairs: one kernel template serves both.
 //
 // Design, and why:
 // - Tiles of up to 64 rows (8 layout blocks) of ONE sequence, 4 warps of
@@ -34,12 +40,13 @@
 //   tile count known on the host): each CTA finds the slot-th leader by a
 //   ballot over blk_seq, so a step padded to a wide q bucket launches ~8x
 //   fewer CTAs than one per block, most of which would exit at once.
-// - Products on tensor cores with mma.sync.m16n8k16 (bf16 x bf16 into
-//   f32), FlashAttention-2 style: Q fragments stay in registers for the
-//   whole walk, K and V fragments come from shared memory through ldmatrix
-//   (.trans for V), S and P never touch shared memory. A decode row is one
-//   8-row block inside an m16 tile, which wgmma's 64-row tiles would waste;
-//   the kernel is bound by bytes and latency, not by tensor-core rate.
+// - Products on tensor cores with mma.sync.m16n8k16 (bf16 x bf16 or
+//   f16 x f16 into f32), FlashAttention-2 style: Q fragments stay in
+//   registers for the whole walk, K and V fragments come from shared
+//   memory through ldmatrix (.trans for V; 16-bit lanes either way), S
+//   and P never touch shared memory. A decode row is one 8-row block
+//   inside an m16 tile, which wgmma's 64-row tiles would waste; the
+//   kernel is bound by bytes and latency, not by tensor-core rate.
 //   A tile of at most 16 rows (decode rows, short chunks) would leave 3
 //   warps idle, so there every warp takes all its rows and a quarter of
 //   each step's columns (a tile of at most 32 rows: two groups of two
@@ -86,7 +93,8 @@
 //   of two key rows, so the output's n8 tiles interleave even and odd
 //   columns. The epilogue maps both back. An int8 code becomes an f32 by
 //   its bits (2^23 + code + 128, less the offset: exact, at full rate where
-//   I2F runs at 1/8), an fp8 pair by one e4m3x2 -> f16x2 conversion.
+//   I2F runs at 1/8), an fp8 pair by one e4m3x2 -> f16x2 conversion; both
+//   then times the scale in f32 and rounded once to T.
 //
 // Bound: bytes. Each (page, head) tile a tile walks is read once per q
 // tile; the engine's widest step moves ~4 MB at ~54 operations a byte,
@@ -102,6 +110,8 @@
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 namespace {
 
@@ -153,46 +163,61 @@ __device__ __forceinline__ void ldsm_x4_t(uint32_t addr, uint32_t (&r)[4]) {
       : "r"(addr));
 }
 
-// d (+)= A[16 x 16] . B[16 x 8], bf16 operands, f32 accumulator
-__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4],
-                                         uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, "
-      "{%0, %1, %2, %3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
+template <typename T>
+constexpr bool kHalf = std::is_same<T, __half>::value;
 
-// two floats rounded to bf16 in one register, `lo` in the low half
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&v);
+// d (+)= A[16 x 16] . B[16 x 8], T operands (bf16 or f16), f32 accumulator
+#define RPA_MMA(TY)                                                  \
+  asm volatile("mma.sync.aligned.m16n8k16.row.col.f32." TY "." TY   \
+               ".f32 {%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, " \
+               "{%0, %1, %2, %3};\n"                                 \
+               : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])      \
+               : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), \
+                 "r"(b1))
+template <typename T>
+__device__ __forceinline__ void mma16816(float (&d)[4],
+                                         const uint32_t (&a)[4], uint32_t b0,
+                                         uint32_t b1) {
+  if constexpr (kHalf<T>)
+    RPA_MMA("f16");
+  else
+    RPA_MMA("bf16");
+}
+#undef RPA_MMA
+
+// two floats rounded to T in one register, `lo` in the low half
+template <typename T>
+__device__ __forceinline__ uint32_t pack2(float lo, float hi) {
+  if constexpr (kHalf<T>) {
+    __half2 v = __floats2half2_rn(lo, hi);
+    return *reinterpret_cast<uint32_t*>(&v);
+  } else {
+    __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+    return *reinterpret_cast<uint32_t*>(&v);
+  }
 }
 
 // ------------------------------------------------------------ codes
-// bf16 pair (round(code_i * s), round(code_j * s)) of bytes i and j of w,
-// code_i in the low half; each code * s is computed in f32
-template <typename S>
-__device__ __forceinline__ uint32_t deq2(uint32_t w, int i, int j, float s);
-template <>
-__device__ __forceinline__ uint32_t deq2<int8_t>(uint32_t w, int i, int j,
-                                                 float s) {
-  // 2^23 + (code + 128) as an f32 built from its bits, less 2^23 + 128:
-  // exact, one byte permute and one add a code (I2F runs at 1/8 the rate)
-  const uint32_t u = w ^ 0x80808080u;
-  const float lo = __uint_as_float(__byte_perm(u, 0x4B000000u, 0x7440 | i));
-  const float hi = __uint_as_float(__byte_perm(u, 0x4B000000u, 0x7440 | j));
-  return pack_bf16((lo - 8388736.f) * s, (hi - 8388736.f) * s);
-}
-template <>
-__device__ __forceinline__ uint32_t deq2<__nv_fp8_e4m3>(uint32_t w, int i,
-                                                        int j, float s) {
-  // both codes in one e4m3x2 -> f16x2 conversion (exact), then f32
-  const __half2 h2 = __nv_cvt_fp8x2_to_halfraw2(
-      (__nv_fp8x2_storage_t)__byte_perm(w, 0, 0x4400 | j << 4 | i), __NV_E4M3);
-  const float2 f = __half22float2(h2);
-  return pack_bf16(f.x * s, f.y * s);
+// T pair (round(code_i * s), round(code_j * s)) of bytes i and j of w,
+// code_i in the low half; each code * s is computed in f32 and rounded
+// once to T
+template <typename S, typename T>
+__device__ __forceinline__ uint32_t deq2(uint32_t w, int i, int j, float s) {
+  if constexpr (std::is_same<S, int8_t>::value) {
+    // 2^23 + (code + 128) as an f32 built from its bits, less 2^23 + 128:
+    // exact, one byte permute and one add a code (I2F runs at 1/8 the rate)
+    const uint32_t u = w ^ 0x80808080u;
+    const float lo = __uint_as_float(__byte_perm(u, 0x4B000000u, 0x7440 | i));
+    const float hi = __uint_as_float(__byte_perm(u, 0x4B000000u, 0x7440 | j));
+    return pack2<T>((lo - 8388736.f) * s, (hi - 8388736.f) * s);
+  } else {
+    // both codes in one e4m3x2 -> f16x2 conversion (exact), then f32
+    const __half2 h2 = __nv_cvt_fp8x2_to_halfraw2(
+        (__nv_fp8x2_storage_t)__byte_perm(w, 0, 0x4400 | j << 4 | i),
+        __NV_E4M3);
+    const float2 f = __half22float2(h2);
+    return pack2<T>(f.x * s, f.y * s);
+  }
 }
 
 // ------------------------------------------------------------ the tile plan
@@ -243,7 +268,7 @@ __device__ __forceinline__ int swz(int r, int c) {
 }
 
 // Head-dim column of accumulator entry o[j][e]: the natural n8 layout
-// for bf16 V, even/odd columns interleaved for 1-byte V.
+// for 16-bit V, even/odd columns interleaved for 1-byte V.
 template <bool kQuant>
 __device__ __forceinline__ int dh_col(int j, int e, int a) {
   if constexpr (kQuant)
@@ -288,10 +313,10 @@ __device__ __forceinline__ void merge_warps(const float* acc_s,
   }
 }
 
-template <typename S, int DH, int BS>
+template <typename T, typename S, int DH, int BS>
 __global__ void __launch_bounds__(kThreads)
-rpa_tc_kernel(const bf16* __restrict__ q, const S* __restrict__ pool,
-              const float* __restrict__ scales, bf16* __restrict__ out,
+rpa_tc_kernel(const T* __restrict__ q, const S* __restrict__ pool,
+              const float* __restrict__ scales, T* __restrict__ out,
               float* __restrict__ part_acc, float* __restrict__ part_ml,
               int* __restrict__ part_z, const int* __restrict__ blk_seq,
               const int* __restrict__ seq_qstart,
@@ -392,7 +417,7 @@ rpa_tc_kernel(const bf16* __restrict__ q, const S* __restrict__ pool,
   // are needed, so their loads overlap
   uint32_t qf[KT][4];
   {
-    const bf16* qh = q + ((int64_t)h * Qp + (int64_t)b * kBlockQ) * DH;
+    const T* qh = q + ((int64_t)h * Qp + (int64_t)b * kBlockQ) * DH;
 #pragma unroll
     for (int kt = 0; kt < KT; ++kt) {
 #pragma unroll
@@ -400,7 +425,7 @@ rpa_tc_kernel(const bf16* __restrict__ q, const S* __restrict__ pool,
         const int r = half ? r_hi : r_lo;
         uint32_t x = 0, y = 0;
         if (r < P.n_rows) {
-          const bf16* row = qh + (int64_t)r * DH + 16 * kt;
+          const T* row = qh + (int64_t)r * DH + 16 * kt;
           if constexpr (kQuant) {   // columns 4a..4a+3: k-slots 2a.., 2a+8..
             const uint2 v = *reinterpret_cast<const uint2*>(row + 4 * a);
             x = v.x;
@@ -515,8 +540,8 @@ rpa_tc_kernel(const bf16* __restrict__ q, const S* __restrict__ pool,
             ldsm_x4(kb + swz<ROWB>(row, c4 + (lane >> 3)), w);
 #pragma unroll
             for (int i = 0; i < 4; ++i)
-              mma_bf16(s[t], qf[c4 + i], deq2<S>(w[i], 0, 1, ks),
-                       deq2<S>(w[i], 2, 3, ks));
+              mma16816<T>(s[t], qf[c4 + i], deq2<S, T>(w[i], 0, 1, ks),
+                          deq2<S, T>(w[i], 2, 3, ks));
           }
         }
       } else {
@@ -527,8 +552,8 @@ rpa_tc_kernel(const bf16* __restrict__ q, const S* __restrict__ pool,
           for (int kt = 0; kt < KT; ++kt) {
             uint32_t w[4];
             ldsm_x4(kb + swz<ROWB>(row, 2 * kt + ((lane >> 3) & 1)), w);
-            mma_bf16(s[2 * t2], qf[kt], w[0], w[1]);
-            mma_bf16(s[2 * t2 + 1], qf[kt], w[2], w[3]);
+            mma16816<T>(s[2 * t2], qf[kt], w[0], w[1]);
+            mma16816<T>(s[2 * t2 + 1], qf[kt], w[2], w[3]);
           }
         }
       }
@@ -574,13 +599,13 @@ rpa_tc_kernel(const bf16* __restrict__ q, const S* __restrict__ pool,
         }
       }
 
-      // O += P V, 16 keys a slice; P rounded to bf16 as it is packed
+      // O += P V, 16 keys a slice; P rounded to T as it is packed
 #pragma unroll
       for (int kk = 0; kk < NT / 2; ++kk) {
-        const uint32_t pa[4] = {pack_bf16(s[2 * kk][0], s[2 * kk][1]),
-                                pack_bf16(s[2 * kk][2], s[2 * kk][3]),
-                                pack_bf16(s[2 * kk + 1][0], s[2 * kk + 1][1]),
-                                pack_bf16(s[2 * kk + 1][2], s[2 * kk + 1][3])};
+        const uint32_t pa[4] = {pack2<T>(s[2 * kk][0], s[2 * kk][1]),
+                                pack2<T>(s[2 * kk][2], s[2 * kk][3]),
+                                pack2<T>(s[2 * kk + 1][0], s[2 * kk + 1][1]),
+                                pack2<T>(s[2 * kk + 1][2], s[2 * kk + 1][3])};
         const int key = win0 + 16 * kk;
         const int row = key + (((lane >> 3) & 1) << 3) + (lane & 7);
         if constexpr (kQuant) {
@@ -593,10 +618,11 @@ rpa_tc_kernel(const bf16* __restrict__ q, const S* __restrict__ pool,
             for (int i = 0; i < 2; ++i) {
               const uint32_t lo8 = w[2 * i], hi8 = w[2 * i + 1];
               // bytes: (key 2a, col 2g), (2a, 2g+1), (2a+1, 2g), (2a+1, 2g+1)
-              mma_bf16(o[2 * (cx + i)], pa, deq2<S>(lo8, 0, 2, vs),
-                       deq2<S>(hi8, 0, 2, vs));
-              mma_bf16(o[2 * (cx + i) + 1], pa, deq2<S>(lo8, 1, 3, vs),
-                       deq2<S>(hi8, 1, 3, vs));
+              mma16816<T>(o[2 * (cx + i)], pa, deq2<S, T>(lo8, 0, 2, vs),
+                          deq2<S, T>(hi8, 0, 2, vs));
+              mma16816<T>(o[2 * (cx + i) + 1], pa,
+                          deq2<S, T>(lo8, 1, 3, vs),
+                          deq2<S, T>(hi8, 1, 3, vs));
             }
           }
         } else {
@@ -604,8 +630,8 @@ rpa_tc_kernel(const bf16* __restrict__ q, const S* __restrict__ pool,
           for (int jj = 0; jj < NO / 2; ++jj) {   // n8 tiles 2 jj, 2 jj + 1
             uint32_t w[4];
             ldsm_x4_t(vb + swz<ROWB>(row, 2 * jj + (lane >> 4)), w);
-            mma_bf16(o[2 * jj], pa, w[0], w[1]);
-            mma_bf16(o[2 * jj + 1], pa, w[2], w[3]);
+            mma16816<T>(o[2 * jj], pa, w[0], w[1]);
+            mma16816<T>(o[2 * jj + 1], pa, w[2], w[3]);
           }
         }
       }
@@ -666,8 +692,8 @@ rpa_tc_kernel(const bf16* __restrict__ q, const S* __restrict__ pool,
     if (single) {
       const float inv = 1.f / fmaxf(l, 1e-30f);
       *reinterpret_cast<uint2*>(out + row * DH + d) =
-          make_uint2(pack_bf16(acc.x * inv, acc.y * inv),
-                     pack_bf16(acc.z * inv, acc.w * inv));
+          make_uint2(pack2<T>(acc.x * inv, acc.y * inv),
+                     pack2<T>(acc.z * inv, acc.w * inv));
     } else {   // a split's partials: unnormalised acc, m and l of each row
       const int64_t at = row * n_splits + z;
       *reinterpret_cast<float4*>(part_acc + at * DH + d) = acc;
@@ -683,10 +709,11 @@ rpa_tc_kernel(const bf16* __restrict__ q, const S* __restrict__ pool,
 // attention kernel finished (one split, or a pad block). Launched as a
 // programmatic dependent of the attention kernel: its launch overlaps
 // that kernel's run, and griddepcontrol.wait holds it until the attention
-// kernel has finished and its writes are visible.
-template <int DH>
+// kernel has finished and its writes are visible. The partials are f32;
+// only the final write is rounded to T.
+template <typename T, int DH>
 __global__ void __launch_bounds__(kThreads)
-rpa_tc_combine_kernel(bf16* __restrict__ out,
+rpa_tc_combine_kernel(T* __restrict__ out,
                       const float* __restrict__ part_acc,
                       const float* __restrict__ part_ml,
                       const int* __restrict__ part_z, int Qp, int n_splits) {
@@ -720,8 +747,8 @@ rpa_tc_combine_kernel(bf16* __restrict__ out,
     }
     const float inv = 1.f / fmaxf(l, 1e-30f);
     *reinterpret_cast<uint2*>(out + row * DH + c) =
-        make_uint2(pack_bf16(acc.x * inv, acc.y * inv),
-                   pack_bf16(acc.z * inv, acc.w * inv));
+        make_uint2(pack2<T>(acc.x * inv, acc.y * inv),
+                   pack2<T>(acc.z * inv, acc.w * inv));
   }
 }
 
@@ -741,7 +768,7 @@ struct Args {
   cudaStream_t stream;
 };
 
-template <typename S, int DH, int BS>
+template <typename T, typename S, int DH, int BS>
 int launch(const Args& x) {
   constexpr int kRowBytes = DH * (int)sizeof(S);
   const size_t smem = 2 * (size_t)kStages * kStepCols * kRowBytes +
@@ -749,16 +776,16 @@ int launch(const Args& x) {
   static bool sized = false;   // the attribute outlives the launch
   cudaError_t e;
   if (!sized) {
-    e = cudaFuncSetAttribute(rpa_tc_kernel<S, DH, BS>,
+    e = cudaFuncSetAttribute(rpa_tc_kernel<T, S, DH, BS>,
                              cudaFuncAttributeMaxDynamicSharedMemorySize,
                              (int)smem);
     if (e != cudaSuccess) return (int)e;
     sized = true;
   }
   const dim3 grid(x.n_slots, x.H, x.n_splits);
-  rpa_tc_kernel<S, DH, BS><<<grid, kThreads, smem, x.stream>>>(
-      static_cast<const bf16*>(x.q), static_cast<const S*>(x.pool), x.scales,
-      static_cast<bf16*>(x.out), x.part_acc, x.part_ml, x.part_z, x.blk_seq,
+  rpa_tc_kernel<T, S, DH, BS><<<grid, kThreads, smem, x.stream>>>(
+      static_cast<const T*>(x.q), static_cast<const S*>(x.pool), x.scales,
+      static_cast<T*>(x.out), x.part_acc, x.part_ml, x.part_z, x.blk_seq,
       x.seq_qstart, x.seq_pos0, x.tables, x.lo, x.kv_len, x.H, x.Qp, x.NB1,
       x.T_len, x.layer, x.scale, x.n_splits);
   e = cudaGetLastError();
@@ -772,35 +799,45 @@ int launch(const Args& x) {
   attr[0].val.programmaticStreamSerializationAllowed = 1;
   cfg.attrs = attr;
   cfg.numAttrs = 1;
-  return (int)cudaLaunchKernelEx(&cfg, rpa_tc_combine_kernel<DH>,
-                                 static_cast<bf16*>(x.out),
+  return (int)cudaLaunchKernelEx(&cfg, rpa_tc_combine_kernel<T, DH>,
+                                 static_cast<T*>(x.out),
                                  (const float*)x.part_acc,
                                  (const float*)x.part_ml,
                                  (const int*)x.part_z, x.Qp, x.n_splits);
 }
 
-template <typename S, int DH>
+template <typename T, typename S, int DH>
 int launch_bs(int bs, const Args& x) {
   if constexpr (sizeof(S) == 2) {   // 1-byte pools take blocks of >= 32
-    if (bs == 16) return launch<S, DH, 16>(x);
+    if (bs == 16) return launch<T, S, DH, 16>(x);
   }
-  if (bs == 32) return launch<S, DH, 32>(x);
-  if (bs == 64) return launch<S, DH, 64>(x);
+  if (bs == 32) return launch<T, S, DH, 32>(x);
+  if (bs == 64) return launch<T, S, DH, 64>(x);
   return (int)cudaErrorInvalidValue;
 }
 
-template <typename S>
+template <typename T, typename S>
 int launch_dh(int dh, int bs, const Args& x) {
-  if (dh == 64) return launch_bs<S, 64>(bs, x);
-  if (dh == 128) return launch_bs<S, 128>(bs, x);
+  if (dh == 64) return launch_bs<T, S, 64>(bs, x);
+  if (dh == 128) return launch_bs<T, S, 128>(bs, x);
+  return (int)cudaErrorInvalidValue;
+}
+
+// the pool's storage: 0 = q's dtype T, 1 = int8, 2 = float8_e4m3fn codes
+template <typename T>
+int launch_storage(int storage, int dh, int bs, const Args& x) {
+  if (storage == 0) return launch_dh<T, T>(dh, bs, x);
+  if (storage == 1) return launch_dh<T, int8_t>(dh, bs, x);
+  if (storage == 2) return launch_dh<T, __nv_fp8_e4m3>(dh, bs, x);
   return (int)cudaErrorInvalidValue;
 }
 
 }  // namespace
 
-// K1 (storage 0: bfloat16 pool) and K1q (1: int8, 2: float8_e4m3fn codes
-// with the float32 scales [L, 2, NB+1, H]) on the tensor cores; q and out
-// bfloat16, Dh 64 or 128, bs 16 (bfloat16 pools), 32 or 64; S sequences.
+// K1 (storage 0: a pool of q's dtype) and K1q (1: int8, 2: float8_e4m3fn
+// codes with the float32 scales [L, 2, NB+1, H]) on the tensor cores; q and
+// out of dtype 1 = bfloat16 or 2 = float16 (_build.DTYPE_CODE), Dh 64 or
+// 128, bs 16 (16-bit pools), 32 or 64; S sequences.
 // n_slots = ceil(Qp / 64) + S bounds the tile count (a sequence of k
 // blocks makes at most k / 8 + 1 tiles); n_splits = ceil(T * bs / 128).
 // Above one split, the float32 scratch part_acc [H, Qp, n_splits, Dh] and
@@ -808,9 +845,10 @@ int launch_dh(int dh, int bs, const Args& x) {
 // part_z [Qp / 8] each block's split range, and a second launch combines
 // them. Returns cudaGetLastError() after the launches (0 = success);
 // asynchronous on `stream`.
-extern "C" int rpa_tc_launch(int storage, const void* q, const void* pool,
-                             const float* scales, void* out, float* part_acc,
-                             float* part_ml, int* part_z, const int* blk_seq,
+extern "C" int rpa_tc_launch(int storage, int dtype, const void* q,
+                             const void* pool, const float* scales, void* out,
+                             float* part_acc, float* part_ml, int* part_z,
+                             const int* blk_seq,
                              const int* seq_qstart, const int* seq_pos0,
                              const int* tables, const int* lo,
                              const int* kv_len, int H, int Qp, int S,
@@ -825,8 +863,7 @@ extern "C" int rpa_tc_launch(int storage, const void* q, const void* pool,
                seq_qstart, seq_pos0, tables, lo, kv_len, H, Qp, NB1, T_len,
                layer, scale, n_slots, n_splits,
                static_cast<cudaStream_t>(stream)};
-  if (storage == 0) return launch_dh<bf16>(Dh, bs, x);
-  if (storage == 1) return launch_dh<int8_t>(Dh, bs, x);
-  if (storage == 2) return launch_dh<__nv_fp8_e4m3>(Dh, bs, x);
+  if (dtype == 1) return launch_storage<bf16>(storage, Dh, bs, x);
+  if (dtype == 2) return launch_storage<__half>(storage, Dh, bs, x);
   return (int)cudaErrorInvalidValue;
 }

@@ -4,7 +4,8 @@ The port's tensor is ``torch.Tensor`` itself, with no facade class: a
 wrapper would duplicate torch autograd and add host cost to every op.
 Paddle's semantics map onto torch directly: a new tensor is
 ``stop_gradient=True``, which is ``requires_grad=False``; a ``Parameter``
-is trainable, which is ``nn.Parameter``; ``detach()`` stops the gradient.
+is trainable, which is ``nn.Parameter`` (:class:`Parameter` builds one
+the JAX package's way); ``detach()`` stops the gradient.
 The Paddle-only methods of the JAX ``Tensor`` (``.stop_gradient``,
 ``.place``, ``clear_grad``, ``_rebind``) are not ported.
 """
@@ -25,7 +26,25 @@ is_grad_enabled = torch.is_grad_enabled
 #: grad recording set to ``mode`` for a ``with`` block (True re-enables
 #: it inside an enclosing ``no_grad``)
 grad_enabled_guard = torch.set_grad_enabled
-Parameter = torch.nn.Parameter
+
+
+class Parameter(torch.nn.Parameter):
+    """``Parameter(data, name=None, trainable=True)``, the JAX package's
+    constructor: an ``nn.Parameter`` over ``data`` whose
+    ``requires_grad`` is ``trainable``. ``name`` is taken and not kept
+    (a torch tensor's ``name`` cannot be set). The layers' own parameters
+    are plain ``nn.Parameter``s."""
+
+    def __new__(cls, data, name=None, trainable=True):
+        return super().__new__(cls, data, requires_grad=bool(trainable))
+
+    def __deepcopy__(self, memo):
+        # nn.Parameter's would pass requires_grad where name goes
+        if id(self) not in memo:
+            memo[id(self)] = type(self)(
+                self.data.clone(memory_format=torch.preserve_format),
+                trainable=self.requires_grad)
+        return memo[id(self)]
 
 
 def to_tensor(data, dtype=None, place=None, stop_gradient=True):

@@ -407,6 +407,7 @@ class ProfilerCallback(Callback):
     """Not ported: it drives the span profiler (``profiler/``), which
     waits for ROADMAP Queue 1 item 3."""
 
-    def __init__(self, *args, **kwargs):
+    def __init__(self, start_step=1, stop_step=4, chrome_trace_path=None,
+                 prometheus_path=None, summary=True, verbose=1):
         raise NotImplementedError("ProfilerCallback is not ported yet "
                                   "(ROADMAP Queue 1 item 3)")

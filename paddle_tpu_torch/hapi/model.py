@@ -33,9 +33,15 @@ saves ``save_dir/<epoch>``), then every ``eval_freq`` epochs an
 package's format (``framework/io.py``).
 
 Not ported, each raising ``NotImplementedError`` that names its ROADMAP
-item: ``save(training=False)``, ``summary``, static mode and
-``fit(prefetch=, analyze=)`` (Queue 1 item 5), ``fit(numerics=)``
+item: ``save(training=False)``, ``summary``, static mode,
+``fit(prefetch=, analyze=)``, ``evaluate(prefetch=)`` and
+``train_batch(update=False)`` (Queue 1 item 5), ``fit(numerics=)``
 (item 3), ``fit(zero=, grad_comm=)`` (item 4).
+
+``eval_batch``/``evaluate`` give the loss only for batches with labels,
+as the JAX package does: under an ``inputs``-only spec (GPT, which takes
+its labels among its inputs and returns its loss) the loss is 0.0, and
+the network's own loss is the first of ``predict``'s outputs.
 """
 from __future__ import annotations
 
@@ -171,24 +177,30 @@ class Model:
         return names
 
     # -- single batches -----------------------------------------------------
-    def train_batch(self, inputs, labels=None):
-        """One optimizer step on one batch: the loss as a float, with the
-        metrics' results beside it when there are metrics."""
+    def train_batch(self, inputs, labels=None, update=True,
+                    return_numpy=True):
+        """One optimizer step on one batch: the loss as a float (with
+        ``return_numpy=False`` a device scalar, read back by nobody), with
+        the metrics' results beside it when there are metrics. Every call
+        steps: ``update=False`` (gradients without a step) is not ported
+        yet (ROADMAP Queue 1 item 5)."""
+        if not update:
+            raise _not_ported("train_batch(update=False)", 5)
         self.network.train()
         labels = self._to_device(_to_list(labels))
         loss, outs = self._train_step(self._to_device(_to_list(inputs)),
                                       labels)
         metrics = self._update_metrics(outs, labels)
-        return (float(loss), metrics) if metrics else float(loss)
+        if return_numpy:
+            loss = float(loss)
+        return (loss, metrics) if metrics else loss
 
     def eval_batch(self, inputs, labels=None):
         """The loss of one batch under ``torch.no_grad()`` in eval mode,
         with the metrics' results beside it when there are metrics. The
-        loss is computed as in training when the batch has labels or the
-        ``Model`` has an ``inputs`` spec (a network that takes its labels
-        among its inputs and returns its loss, as GPT does); else it is
-        0.0, and so is it without a loss. The JAX package needs labels:
-        it gives 0.0 for such a network."""
+        loss is computed as in training when the batch has labels; else
+        (an ``inputs``-only spec, as GPT's) it is 0.0, and so is it
+        without a loss, as in the JAX package's eval step."""
         labels = self._to_device(_to_list(labels))
         was_training = self.network.training
         self.network.eval()
@@ -196,7 +208,7 @@ class Model:
             with torch.no_grad():
                 outs, loss = self._forward(
                     self._to_device(_to_list(inputs)), labels,
-                    self._loss is not None and bool(labels or self._inputs))
+                    self._loss is not None and bool(labels))
         finally:
             self.network.train(was_training)
         metrics = self._update_metrics(outs, labels)
@@ -205,7 +217,9 @@ class Model:
 
     def predict_batch(self, inputs):
         """The network's outputs on one batch as numpy arrays, under
-        ``torch.no_grad()`` in eval mode."""
+        ``torch.no_grad()`` in eval mode (an output that is not a tensor,
+        such as GPT's ``None`` logits beside its chunked loss, as
+        ``np.asarray`` makes it, as in the JAX package)."""
         was_training = self.network.training
         self.network.eval()
         try:
@@ -214,7 +228,8 @@ class Model:
                                         [], with_loss=False)
         finally:
             self.network.train(was_training)
-        return [o.float().cpu().numpy() if o.is_floating_point()
+        return [np.asarray(o) if not torch.is_tensor(o)
+                else o.float().cpu().numpy() if o.is_floating_point()
                 else o.cpu().numpy() for o in outs]
 
     # -- fit / evaluate / predict -------------------------------------------
@@ -227,12 +242,13 @@ class Model:
     def fit(self, train_data=None, eval_data=None, batch_size=1, epochs=1,
             eval_freq=1, log_freq=10, save_dir=None, save_freq=1, verbose=2,
             drop_last=False, shuffle=True, num_workers=0, callbacks=None,
-            prefetch=None, analyze=None, numerics=None, zero=None,
-            grad_comm=None):
+            prefetch=None, prefetch_buffer_size=2, analyze=None,
+            numerics=None, zero=None, grad_comm=None):
         """Train over ``train_data`` (a ``Dataset`` or an iterable of
         batches) for ``epochs`` epochs, evaluating on ``eval_data`` every
         ``eval_freq`` epochs and, with ``save_dir``, checkpointing every
-        ``save_freq`` epochs and at the end."""
+        ``save_freq`` epochs and at the end. ``prefetch_buffer_size``
+        sizes ``prefetch``'s buffer, which is not ported."""
         for opt, value, item in (("prefetch", prefetch, 5),
                                  ("analyze", analyze, 5),
                                  ("numerics", numerics, 3),
@@ -287,9 +303,13 @@ class Model:
             raise
 
     def evaluate(self, eval_data, batch_size=1, log_freq=10, verbose=2,
-                 num_workers=0, callbacks=None, _inside_fit=False):
-        """The mean of the batches' losses (``"loss"``) and each metric's
-        accumulated value over ``eval_data``."""
+                 num_workers=0, callbacks=None, prefetch=None,
+                 _inside_fit=False):
+        """The mean of the batches' losses (``"loss"``, 0.0 for batches
+        without labels) and each metric's accumulated value over
+        ``eval_data``."""
+        if prefetch not in (None, False, 0):
+            raise _not_ported("evaluate(prefetch=...)", 5)
         loader = self._as_loader(eval_data, batch_size, False, num_workers,
                                  False)
         for m in self._metrics:

@@ -46,11 +46,33 @@ class TensorDataset(Dataset):
         return self.tensors[0].shape[0]
 
 
-def DataLoader(dataset, batch_size=1, shuffle=False, drop_last=False,
-               num_workers=0):
-    """A ``torch.utils.data.DataLoader`` over ``dataset``; a shuffled one
-    draws its order from the port's CPU generator."""
+def DataLoader(dataset, feed_list=None, places=None, return_list=True,
+               batch_sampler=None, batch_size=1, shuffle=False,
+               drop_last=False, collate_fn=None, num_workers=0,
+               use_buffer_reader=True, prefetch_factor=2,
+               use_shared_memory=True, timeout=0, worker_init_fn=None,
+               persistent_workers=False):
+    """A ``torch.utils.data.DataLoader`` over ``dataset`` with the JAX
+    package's parameters; a shuffled one draws its order from the port's
+    CPU generator. ``batch_sampler`` (which then fixes the batches),
+    ``collate_fn``, ``num_workers`` and, with workers, ``prefetch_factor``,
+    ``timeout``, ``worker_init_fn`` and ``persistent_workers`` pass to
+    torch's loader; ``use_buffer_reader`` and ``use_shared_memory`` are
+    hints that change no batch. Static-mode ``feed_list``/``places`` and
+    ``return_list=False`` are not ported yet (ROADMAP Queue 1 item 5)."""
+    if feed_list is not None or places is not None or not return_list:
+        raise NotImplementedError(
+            "DataLoader(feed_list=, places=, return_list=False) is not "
+            "ported yet (ROADMAP Queue 1 item 5)")
+    workers = dict(prefetch_factor=prefetch_factor, timeout=timeout,
+                   worker_init_fn=worker_init_fn,
+                   persistent_workers=persistent_workers) \
+        if num_workers > 0 else {}
+    if batch_sampler is not None:
+        return _data.DataLoader(dataset, batch_sampler=batch_sampler,
+                                collate_fn=collate_fn,
+                                num_workers=num_workers, **workers)
     return _data.DataLoader(
         dataset, batch_size=batch_size, shuffle=shuffle, drop_last=drop_last,
-        num_workers=num_workers,
-        generator=get_generator("cpu") if shuffle else None)
+        collate_fn=collate_fn, num_workers=num_workers,
+        generator=get_generator("cpu") if shuffle else None, **workers)

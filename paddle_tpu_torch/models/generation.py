@@ -455,7 +455,8 @@ def build_paged_prefill_fn(model, bucket_len, block_size, top_k=0,
 
 
 def build_paged_decode_fn(model, num_slots, table_len, block_size, top_k=0,
-                          top_p=1.0, quantized=False, qmax=127.0):
+                          top_p=1.0, quantized=False, qmax=127.0,
+                          debug_logits=False):
     """Build the decode step of the paged gather engine for one pow2
     table bucket: attention over the virtual cache GATHERED through the
     page tables.
@@ -475,8 +476,14 @@ def build_paged_decode_fn(model, num_slots, table_len, block_size, top_k=0,
       composition (never the ragged paged kernel);
     * ``quantized=True`` takes the pool's scales right after it: appends
       go through :func:`_quant_append` and the gathered cache is
-      dequantized by :func:`_dequant_gather`.
+      dequantized by :func:`_dequant_gather`;
+    * ``debug_logits=True`` (the step's logits beside its tokens) is not
+      ported yet (ROADMAP Queue 1 item 3).
     """
+    if debug_logits:
+        raise NotImplementedError("build_paged_decode_fn(debug_logits=True) "
+                                  "is not ported yet (ROADMAP Queue 1 item "
+                                  "3)")
     gpt = model.gpt if hasattr(model, "gpt") else model
     S, T, bs = int(num_slots), int(table_len), int(block_size)
     if S < 1:

@@ -96,13 +96,23 @@ class GPTBlock(nn.Module):
                                   approximate=True))
         return x + self.dropout(m)
 
-    def forward(self, x):
+    def forward(self, x, cache=None):
+        """The block over ``x [B, S, E]``; with ``cache`` (a
+        ``MultiHeadAttention.Cache`` of earlier keys and values) the
+        new K/V are appended to it, causal attention aligns the rows to
+        the end, and ``(x, new cache)`` is returned, as in the JAX
+        block."""
         q, k, v = self._qkv(x)
+        if cache is not None:
+            k = call_op("concat", [cache.k, k], axis=1)
+            v = call_op("concat", [cache.v, v], axis=1)
+            cache = MultiHeadAttention.Cache(k, v)
         a = F.scaled_dot_product_attention(
             q, k, v, is_causal=True,
             dropout_p=self.attn.dropout if self.training else 0.0,
             training=self.training)
-        return self._tail(x, a)
+        x = self._tail(x, a)
+        return x if cache is None else (x, cache)
 
     def prefill(self, x, cache_k, cache_v, key_valid=None):
         """The whole prompt ``x [B, S, E]``: write its K/V into the cache's
@@ -118,13 +128,17 @@ class GPTBlock(nn.Module):
                                            is_causal=True, training=False)
         return self._tail(x, a)
 
-    def decode_step(self, x, cache_k, cache_v, pos, key_valid):
+    def decode_step(self, x, cache_k, cache_v, pos, key_valid=None):
         """One token a row, ``x [B, 1, E]``: write its K/V at cache row
         ``pos`` in place and attend over the cache rows that
-        ``key_valid`` (bool ``[B or 1, total_len]``) marks."""
+        ``key_valid`` (bool ``[B or 1, total_len]``) marks, by default
+        rows ``[0, pos]``."""
         q, k, v = self._qkv(x)
         cache_k[:, pos] = k[:, 0]
         cache_v[:, pos] = v[:, 0]
+        if key_valid is None:
+            key_valid = (torch.arange(cache_k.shape[1], device=x.device)
+                         <= pos)[None]
         a = F.scaled_dot_product_attention(
             q, cache_k, cache_v, attn_mask=key_valid[:, None, None, :],
             training=False)

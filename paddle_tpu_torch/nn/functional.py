@@ -51,22 +51,64 @@ register_override(
 
 def scaled_dot_product_attention(query, key, value, attn_mask=None,
                                  dropout_p=0.0, is_causal=False,
-                                 training=True):
+                                 training=True, name=None):
     """Attention over ``[batch, seq, num_heads, head_dim]`` inputs."""
     p = float(dropout_p) if training else 0.0
     return call_op("scaled_dot_product_attention", query, key, value,
                    mask=attn_mask, dropout_p=p, is_causal=is_causal)
 
 
-def cross_entropy(input, label, ignore_index=-100):
-    """Hard-label softmax cross-entropy over the last axis in f32 (the
-    ``cross_entropy`` op, ``reduction="mean"``): labels equal to
-    ``ignore_index`` count nothing, and the mean is over the valid
-    labels."""
+def cross_entropy(input, label, weight=None, ignore_index=-100,
+                  reduction="mean", soft_label=False, axis=-1,
+                  use_softmax=True, label_smoothing=0.0, name=None):
+    """Softmax cross-entropy over ``axis`` in f32, the JAX package's
+    ``cross_entropy`` op: hard labels (an int per row, or a size-1
+    ``axis``) or ``soft_label`` distributions; ``use_softmax=False``
+    takes ``input`` as probabilities; ``label_smoothing`` mixes in the
+    uniform distribution; ``weight [classes]`` weighs each row by its
+    label's class. Hard labels equal to ``ignore_index`` count nothing.
+    ``reduction="mean"`` divides by the valid rows, or by the summed
+    weights when there are weights; ``"sum"``; ``"none"`` keeps a loss a
+    row."""
+    if reduction not in ("mean", "sum", "none"):
+        raise ValueError(f"reduction must be 'mean', 'sum' or 'none', got "
+                         f"{reduction!r}")
     (input,) = amp.cast_inputs("cross_entropy", input)
-    logp = torch.log_softmax(input.float(), dim=-1)
-    valid = label != ignore_index
-    safe = torch.where(valid, label, torch.zeros_like(label)).long()
-    nll = -logp.gather(-1, safe[..., None])[..., 0]
-    loss = torch.where(valid, nll, torch.zeros_like(nll))
-    return (loss.sum() / valid.sum().float().clamp_min(1.0)).to(input.dtype)
+    axis = axis % input.dim()
+    lf = input.float()
+    logp = torch.log_softmax(lf, dim=axis) if use_softmax \
+        else torch.log(lf.clamp_min(1e-30))
+    n_cls = input.shape[axis]
+    w = None
+    if soft_label:
+        sl = label.float()
+        if label_smoothing > 0:
+            sl = sl * (1 - label_smoothing) + label_smoothing / n_cls
+        loss = -(sl * logp).sum(dim=axis)
+        valid = torch.ones_like(loss, dtype=torch.bool)
+        if weight is not None:
+            w = (sl * weight.float().reshape((1,) * axis + (-1,))).sum(
+                dim=axis)
+    else:
+        lbl = label
+        if lbl.dim() == input.dim() and lbl.shape[axis] == 1:
+            lbl = lbl.squeeze(axis)
+        valid = lbl != ignore_index
+        safe = torch.where(valid, lbl, torch.zeros_like(lbl)).long()
+        nll = -logp.gather(axis, safe.unsqueeze(axis)).squeeze(axis)
+        if label_smoothing > 0:
+            nll = (1 - label_smoothing) * nll \
+                + label_smoothing * -logp.mean(dim=axis)
+        loss = torch.where(valid, nll, torch.zeros_like(nll))
+        if weight is not None:
+            w = torch.where(valid, weight.float()[safe],
+                            torch.zeros_like(nll))
+    if w is not None:
+        loss = loss * w
+    if reduction == "mean":
+        denom = w.sum().clamp_min(1e-12) if w is not None \
+            else valid.sum().float().clamp_min(1.0)
+        return (loss.sum() / denom).to(input.dtype)
+    if reduction == "sum":
+        return loss.sum().to(input.dtype)
+    return loss.to(input.dtype)

@@ -2,10 +2,11 @@
 the per-parameter attributes the optimizer and the clips read.
 
 The JAX package's ``Layer.create_parameter`` sets them on the
-``Parameter`` it makes (:159-161). The port's layers are ``torch.nn``
-modules whose constructors keep their signatures, so
+``Parameter`` it makes (:159-161), from a layer's ``weight_attr`` and
+``bias_attr``. The port's layers are ``torch.nn`` modules, so
 :func:`set_param_attr` sets the same attributes on a torch ``Parameter``
-that exists already:
+that exists already (``Linear`` and ``LayerNorm`` do it for every
+parameter they make, as ``create_parameter`` does):
 
 * ``optimize_attr = {"learning_rate": attr.learning_rate}``, the scale
   the optimizer's step puts on its learning rate for this parameter;
@@ -28,6 +29,25 @@ class ParamAttr:
         self.regularizer = regularizer
         self.trainable = trainable
         self.need_clip = need_clip
+
+    @staticmethod
+    def _to_attr(attr):
+        """A layer's ``weight_attr``/``bias_attr`` as the JAX package reads
+        it: ``None`` is the default ``ParamAttr()``, ``False`` no parameter
+        (returned as is), a string its name. An initializer (or a
+        ``ParamAttr`` holding one) raises: ``nn.initializer`` is not
+        ported yet (ROADMAP Queue 1 item 6)."""
+        if attr is None:
+            return ParamAttr()
+        if attr is False:
+            return False
+        if isinstance(attr, str):
+            return ParamAttr(name=attr)
+        if not isinstance(attr, ParamAttr) or attr.initializer is not None:
+            raise NotImplementedError(
+                "parameter initializers (nn.initializer) are not ported yet "
+                "(ROADMAP Queue 1 item 6)")
+        return attr
 
 
 def set_param_attr(param, attr: ParamAttr):

@@ -12,6 +12,7 @@ from torch import nn
 from ...framework.dispatch import call_op
 from ...ops.layer_norm import MAX_D, layer_norm
 from ...ops.registry import register_override
+from .layers import ParamAttr, set_param_attr
 
 __all__ = ["LayerNorm", "ln_supported"]
 
@@ -45,11 +46,15 @@ class LayerNorm(nn.Module):
     plain body on the CPU. ``layer_norm`` is on the AMP black list: inside
     ``amp.auto_cast`` x, weight and bias are cast to float32 first, so
     the output is float32. Only a 1-D ``normalized_shape`` is taken: the
-    kernels normalize the last axis."""
+    kernels normalize the last axis. ``weight_attr``/``bias_attr`` go
+    onto the parameters as in the JAX layer (``False``: no such
+    parameter); ``device``/``dtype`` (keyword-only) place them."""
 
-    def __init__(self, normalized_shape, epsilon: float = 1e-5,
-                 device=None, dtype=None):
+    def __init__(self, normalized_shape, epsilon=1e-5, weight_attr=None,
+                 bias_attr=None, name=None, *, device=None, dtype=None):
         super().__init__()
+        w_attr = ParamAttr._to_attr(weight_attr)
+        b_attr = ParamAttr._to_attr(bias_attr)
         if not isinstance(normalized_shape, int):
             shape = list(normalized_shape)
             if len(shape) != 1:
@@ -59,10 +64,12 @@ class LayerNorm(nn.Module):
             normalized_shape = shape[0]
         self._normalized_shape = [int(normalized_shape)]
         self._epsilon = float(epsilon)
-        self.weight = nn.Parameter(torch.ones(
-            self._normalized_shape, device=device, dtype=dtype))
-        self.bias = nn.Parameter(torch.zeros(
-            self._normalized_shape, device=device, dtype=dtype))
+        self.weight = None if w_attr is False else set_param_attr(
+            nn.Parameter(torch.ones(self._normalized_shape, device=device,
+                                    dtype=dtype)), w_attr)
+        self.bias = None if b_attr is False else set_param_attr(
+            nn.Parameter(torch.zeros(self._normalized_shape, device=device,
+                                     dtype=dtype)), b_attr)
 
     def forward(self, x):
         return call_op("layer_norm", x, self.weight, self.bias,

@@ -43,8 +43,7 @@ SOURCES = ("ragged_paged_attention", "ragged_paged_attention_sm90",
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC")
 
-#: the ``dtype`` argument of every kernel's C interface (float16: the
-#: LayerNorm, CUDA-core flash and AdamW kernels only)
+#: the ``dtype`` argument of every kernel's C interface
 DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 
 _lock = threading.Lock()

@@ -9,12 +9,12 @@ VMEM-resident twin (``_fa_call_fwd_resident``), and the backward pairs
 ``_fa_call_bwd_resident``). Two routes, each a forward kernel and a
 backward pair (a dQ kernel and a dK/dV kernel), both hand-written:
 
-- ``"tc"``, ``csrc/flash_attention_sm90.cu``: bfloat16 at head width 64
-  or 128 with 16-byte-aligned base pointers; products on the tensor
-  cores (``wgmma``), tiles loaded by TMA;
+- ``"tc"``, ``csrc/flash_attention_sm90.cu``: bfloat16 or float16 at
+  head width 64 or 128 with 16-byte-aligned base pointers; products on
+  the tensor cores (``wgmma``), tiles loaded by TMA;
 - ``"cuda_core"``, ``csrc/flash_attention.cu``: everything else the
-  wrappers take (float32; float16; bfloat16 at any other width up to 256
-  or an unaligned base); products on CUDA cores in f32.
+  wrappers take (float32; bfloat16 or float16 at any other width up to
+  256 or an unaligned base); products on CUDA cores in f32.
 
 :func:`flash_route` chooses from the operands, before the launch; a
 failed launch raises and is never retried on the other route. The
@@ -44,7 +44,7 @@ from . import _build
 __all__ = ["flash_attention", "flash_attention_fwd", "flash_attention_bwd",
            "flash_attention_fwd_plain", "flash_attention_bwd_plain",
            "attention_delta", "flash_route", "flash_route_of", "MAX_HEAD_DIM",
-           "TC_HEAD_DIMS"]
+           "TC_HEAD_DIMS", "TC_DTYPES"]
 
 _NEG_INF = -1e30
 
@@ -52,6 +52,8 @@ _NEG_INF = -1e30
 MAX_HEAD_DIM = 256
 #: head widths of the tensor-core route (one or two 128-byte column blocks)
 TC_HEAD_DIMS = (64, 128)
+#: operand dtypes of the tensor-core route (wgmma's 16-bit inputs)
+TC_DTYPES = (torch.bfloat16, torch.float16)
 
 def _scale(q, scale):
     return float(scale) if scale is not None else 1.0 / math.sqrt(q.shape[-1])
@@ -139,9 +141,10 @@ def _check(q, k, v, *more):
 def flash_route(dtype, head_dim, aligned):
     """The route for operands of ``dtype`` and ``head_dim``, ``aligned``
     when every base pointer is 16-byte aligned: ``"tc"`` (the tensor-core
-    kernels: bfloat16 at a width in ``TC_HEAD_DIMS``, tiles TMA can read)
-    or ``"cuda_core"`` (everything else that ``_check`` accepts)."""
-    if dtype == torch.bfloat16 and head_dim in TC_HEAD_DIMS and aligned:
+    kernels: bfloat16 or float16 at a width in ``TC_HEAD_DIMS``, tiles TMA
+    can read) or ``"cuda_core"`` (everything else that ``_check``
+    accepts)."""
+    if dtype in TC_DTYPES and head_dim in TC_HEAD_DIMS and aligned:
         return "tc"
     return "cuda_core"
 
@@ -162,10 +165,10 @@ def _count(wrapper, route):
 
 
 _I, _P, _F = ctypes.c_int, ctypes.c_void_p, ctypes.c_float
+# both routes' C entries: the dtype code, the pointers, the shapes, the
+# scale, the causal flag and the stream
 _FWD_ARGS = [_I] + [_P] * 5 + [_I] * 5 + [_F, _I, _P]
 _BWD_ARGS = [_I] + [_P] * 9 + [_I] * 5 + [_F, _I, _P]
-# the tensor-core route takes bfloat16 only, so no dtype argument
-_TC_FWD_ARGS, _TC_BWD_ARGS = _FWD_ARGS[1:], _BWD_ARGS[1:]
 
 
 def flash_attention_fwd(q, k, v, causal=False, scale=None):
@@ -183,12 +186,10 @@ def flash_attention_fwd(q, k, v, causal=False, scale=None):
     args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
             lse.data_ptr(), b, h, sq, k.shape[1], d, _scale(q, scale),
             int(bool(causal)), torch.cuda.current_stream(q.device).cuda_stream)
-    if route == "tc":
-        rc = _build.function("flash_attention_sm90", "fa_tc_fwd_launch",
-                             _TC_FWD_ARGS)(*args)
-    else:
-        rc = _build.function("flash_attention", "fa_fwd_launch", _FWD_ARGS)(
-            _build.DTYPE_CODE[q.dtype], *args)
+    lib, entry = (("flash_attention_sm90", "fa_tc_fwd_launch")
+                  if route == "tc" else ("flash_attention", "fa_fwd_launch"))
+    rc = _build.function(lib, entry, _FWD_ARGS)(_build.DTYPE_CODE[q.dtype],
+                                                *args)
     if rc != 0:
         raise RuntimeError(f"flash attention forward kernel ({route} route) "
                            f"launch failed: CUDA error {rc}")
@@ -215,12 +216,10 @@ def flash_attention_bwd(q, k, v, o, lse, do, causal=False, scale=None):
             lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), dk.data_ptr(),
             dv.data_ptr(), b, h, sq, k.shape[1], d, _scale(q, scale),
             int(bool(causal)), torch.cuda.current_stream(q.device).cuda_stream)
-    if route == "tc":
-        rc = _build.function("flash_attention_sm90", "fa_tc_bwd_launch",
-                             _TC_BWD_ARGS)(*args)
-    else:
-        rc = _build.function("flash_attention", "fa_bwd_launch", _BWD_ARGS)(
-            _build.DTYPE_CODE[q.dtype], *args)
+    lib, entry = (("flash_attention_sm90", "fa_tc_bwd_launch")
+                  if route == "tc" else ("flash_attention", "fa_bwd_launch"))
+    rc = _build.function(lib, entry, _BWD_ARGS)(_build.DTYPE_CODE[q.dtype],
+                                                *args)
     if rc != 0:
         raise RuntimeError(f"flash attention backward kernels ({route} "
                            f"route) launch failed: CUDA error {rc}")

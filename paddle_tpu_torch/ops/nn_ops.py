@@ -18,17 +18,33 @@ __all__ = ["dropout", "sdpa_reference"]
 _NEG_INF = -1e30
 
 
-def dropout(x, p=0.5, training=True):
-    """``upscale_in_train`` dropout: keep each element with probability
-    ``1 - p`` and scale it by ``1 / (1 - p)``. Draws from the port's
+def dropout(x, p=0.5, axis=None, training=True, mode="upscale_in_train",
+            name=None):
+    """Dropout as the JAX package's ``dropout``/``dropout_raw``: keep each
+    element with probability ``1 - p``; ``mode="upscale_in_train"``
+    scales the kept ones by ``1 / (1 - p)`` in training, and
+    ``"downscale_in_infer"`` keeps them as they are and scales by ``1 -
+    p`` in eval. With ``axis`` (an int or a list) the mask is drawn over
+    those axes and broadcast over the rest. Draws from the port's
     generator of ``x``'s device."""
+    if mode not in ("upscale_in_train", "downscale_in_infer"):
+        raise ValueError(f"dropout mode must be 'upscale_in_train' or "
+                         f"'downscale_in_infer', got {mode!r}")
     if not training or p == 0.0:
+        if not training and mode == "downscale_in_infer" and p > 0.0:
+            return x * (1.0 - float(p))
         return x
     if p == 1.0:
         return torch.zeros_like(x)
-    keep = torch.rand(x.shape, generator=get_generator(x.device),
+    shape = x.shape
+    if axis is not None:
+        axes = {a % x.dim() for a in ((axis,) if isinstance(axis, int)
+                                      else axis)}
+        shape = tuple(d if i in axes else 1 for i, d in enumerate(x.shape))
+    keep = torch.rand(shape, generator=get_generator(x.device),
                       device=x.device) < 1.0 - p
-    return torch.where(keep, x / (1.0 - p), torch.zeros_like(x))
+    kept = x / (1.0 - p) if mode == "upscale_in_train" else x
+    return torch.where(keep, kept, torch.zeros_like(x))
 
 
 @register_op("embedding")
@@ -99,7 +115,7 @@ def sdpa_reference(q, k, v, mask=None, dropout_p=0.0, is_causal=False,
             logits = logits + mask.float()
     probs = torch.softmax(logits, dim=-1)
     if dropout_p > 0.0:
-        probs = dropout(probs, dropout_p, True)
+        probs = dropout(probs, dropout_p)
     out = torch.einsum("bhqk,bkhd->bqhd", probs.to(v.dtype).float(),
                        v.float())
     return out.to(q.dtype)

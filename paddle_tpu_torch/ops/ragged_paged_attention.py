@@ -3,8 +3,8 @@ serving step, their plain PyTorch version, and the host-side row layout.
 
 Replaces the Pallas TPU kernel ``paddle_tpu/ops/ragged_paged_attention.py``
 (``_rpa_kernel`` via ``ragged_paged_attention``) with
-``csrc/ragged_paged_attention.cu``: K1 over float pools (float32 or
-bfloat16, q's dtype) and K1q over quantized pools (int8 or float8_e4m3fn
+``csrc/ragged_paged_attention.cu``: K1 over float pools (float32,
+bfloat16 or float16, q's dtype) and K1q over quantized pools (int8 or float8_e4m3fn
 codes with a per-(layer, K/V, block, head) f32 max-abs scale, dequantized
 in registers). The layout contract is unchanged, so the engine's host
 operands are the JAX engine's:
@@ -25,8 +25,9 @@ operands are the JAX engine's:
 Two routes, both hand-written, chosen by :func:`rpa_route` before the
 launch from q's and the pool's dtypes, the head width and the block size:
 
-- ``"tc"``, ``csrc/ragged_paged_attention_sm90.cu``: bfloat16 q over a
-  bfloat16, int8 or float8_e4m3fn pool at head width 64 or 128 and KV
+- ``"tc"``, ``csrc/ragged_paged_attention_sm90.cu``: bfloat16 or float16
+  q over a pool of q's dtype, int8 or float8_e4m3fn at head width 64 or
+  128 and KV
   blocks of 16, 32 or 64 rows; products on the tensor cores
   (``mma.sync``) over q tiles of up to 64 rows of one sequence, the
   walk stopped at the diagonal and split every :data:`SPLIT_COLS` KV
@@ -59,6 +60,7 @@ __all__ = ["ragged_paged_attention", "ragged_paged_attention_plain",
            "ragged_layout", "reference_ragged_attention", "BLOCK_Q",
            "MIN_KV_BLOCK", "min_kv_block_for", "rpa_route", "split_count",
            "tile_slots", "tc_plan", "TC_HEAD_DIMS", "TC_BLOCK_SIZES",
+           "TC_DTYPES",
            "TILE_BLOCKS", "SPLIT_COLS"]
 
 _NEG_INF = -1e30
@@ -88,18 +90,22 @@ TILE_BLOCKS = 8
 #: KV columns of a split of the tensor-core route's walk
 SPLIT_COLS = 128
 
-# pool storage -> the ``storage`` argument of rpa_tc_launch
-_TC_CODE = {torch.bfloat16: 0, torch.int8: 1, torch.float8_e4m3fn: 2}
+#: q dtypes of the tensor-core route (mma.sync's 16-bit operands)
+TC_DTYPES = (torch.bfloat16, torch.float16)
+# quantized pool storage -> the ``storage`` argument of rpa_tc_launch (0
+# is a pool of q's dtype)
+_TC_QUANT_CODE = {torch.int8: 1, torch.float8_e4m3fn: 2}
 
 
 def rpa_route(q_dtype, pool_dtype, head_dim, block_size):
     """The kernel route for q of ``q_dtype`` over a pool of ``pool_dtype``
     at ``head_dim`` and KV ``block_size``: ``"tc"`` (the tensor-core
-    kernel: bfloat16 q over a bfloat16, int8 or float8_e4m3fn pool at a
-    width in :data:`TC_HEAD_DIMS` and a block size in
+    kernel: bfloat16 or float16 q over a pool of q's dtype, int8 or
+    float8_e4m3fn at a width in :data:`TC_HEAD_DIMS` and a block size in
     :data:`TC_BLOCK_SIZES`) or ``"cuda_core"``. Float32 q stays on CUDA
     cores: a TF32 product would change the function."""
-    if (q_dtype == torch.bfloat16 and pool_dtype in _TC_CODE
+    if (q_dtype in TC_DTYPES
+            and (pool_dtype == q_dtype or pool_dtype in _TC_QUANT_CODE)
             and head_dim in TC_HEAD_DIMS and block_size in TC_BLOCK_SIZES):
         return "tc"
     return "cuda_core"
@@ -266,19 +272,19 @@ _ARGS = [ctypes.c_int] + [ctypes.c_void_p] * 9 + [ctypes.c_int] * 7 + [
 # and the metadata as in rpa_launch
 _QUANT_ARGS = [ctypes.c_int] * 2 + [ctypes.c_void_p] * 10 \
     + [ctypes.c_int] * 7 + [ctypes.c_float, ctypes.c_void_p]
-# rpa_tc_launch: storage code, q, pool, scales, out, the three partial
-# buffers, the metadata, H, Qp, S, Dh, NB + 1, bs, T, layer, scale, the
-# slot and split counts, the stream
-_TC_ARGS = [ctypes.c_int] + [ctypes.c_void_p] * 13 + [ctypes.c_int] * 8 + [
+# rpa_tc_launch: storage code, q dtype code, q, pool, scales, out, the
+# three partial buffers, the metadata, H, Qp, S, Dh, NB + 1, bs, T, layer,
+# scale, the slot and split counts, the stream
+_TC_ARGS = [ctypes.c_int] * 2 + [ctypes.c_void_p] * 13 + [ctypes.c_int] * 8 + [
     ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
 
 
 def ragged_paged_attention(q, pool, layer, blk_seq, seq_qstart, seq_pos0,
-                           tables, lo, kv_len, scale=None, scales=None):
+                           tables, lo, kv_len, *, scales=None, scale=None):
     """Fused paged attention over one layer of the serving block pool.
 
     * ``q`` — ``[H, Qp, Dh]`` flattened padded query rows (``Qp`` a
-      multiple of ``BLOCK_Q``), float32 or bfloat16;
+      multiple of ``BLOCK_Q``), float32, bfloat16 or float16;
     * ``pool`` — the WHOLE block pool ``[L, 2, NB + 1, H, bs, Dh]``;
       ``layer`` is an int and no per-layer slice is made. A float pool
       has q's dtype; an int8 or float8_e4m3fn pool is quantized storage;
@@ -294,7 +300,7 @@ def ragged_paged_attention(q, pool, layer, blk_seq, seq_qstart, seq_pos0,
     if q.device.type == "cpu":
         return ragged_paged_attention_plain(
             q, pool, layer, blk_seq, seq_qstart, seq_pos0, tables, lo,
-            kv_len, scale, scales)
+            kv_len, scale=scale, scales=scales)
     if q.device.type != "cuda":
         raise ValueError(f"ragged_paged_attention runs on cuda or cpu "
                          f"tensors, got {q.device}")
@@ -323,9 +329,9 @@ def ragged_paged_attention(q, pool, layer, blk_seq, seq_qstart, seq_pos0,
         raise ValueError(f"pool {pool.dtype} on {pool.device} must match "
                          f"q {q.dtype} on {q.device}, or be an int8/"
                          f"float8_e4m3fn pool there")
-    if q.dtype not in (torch.float32, torch.bfloat16):
-        raise TypeError(f"the attention kernel takes float32 or bfloat16 "
-                        f"q, got {q.dtype}")
+    if q.dtype not in _build.DTYPE_CODE:
+        raise TypeError(f"the attention kernels take float32, bfloat16 or "
+                        f"float16 q, got {q.dtype}")
     if not (q.is_contiguous() and pool.is_contiguous()):
         raise ValueError("q and pool must be contiguous")
     vec = 16 // pool.element_size()
@@ -357,7 +363,8 @@ def ragged_paged_attention(q, pool, layer, blk_seq, seq_qstart, seq_pos0,
             n, (torch.float32, torch.float32, torch.int32))]
         rc = _build.function("ragged_paged_attention_sm90", "rpa_tc_launch",
                              _TC_ARGS)(
-            _TC_CODE[pool.dtype], q.data_ptr(), pool.data_ptr(), sc,
+            _TC_QUANT_CODE.get(pool.dtype, 0), _build.DTYPE_CODE[q.dtype],
+            q.data_ptr(), pool.data_ptr(), sc,
             out.data_ptr(), *(t.data_ptr() for t in part), *ints, h, qp, S,
             dh, nb1, bs, T, int(layer), scale, tile_slots(qp, S), z, stream)
     else:

@@ -219,10 +219,22 @@ class Optimizer:
 
     clear_gradients = clear_grad
 
-    def minimize(self, loss):
+    def minimize(self, loss, startup_program=None, parameters=None,
+                 no_grad_set=None):
+        """``loss.backward()``, one step and ``clear_grad()``; returns
+        ``(None, None)`` as the JAX package's eager ``minimize`` does.
+        ``startup_program`` (static mode) and a ``parameters`` or
+        ``no_grad_set`` subset are not ported yet (ROADMAP Queue 1 item
+        5)."""
+        if startup_program is not None or parameters is not None \
+                or no_grad_set is not None:
+            raise NotImplementedError(
+                "minimize(startup_program=, parameters=, no_grad_set=) is "
+                "not ported yet (ROADMAP Queue 1 item 5)")
         loss.backward()
         self.step()
         self.clear_grad()
+        return None, None
 
 
 class SGD(Optimizer):

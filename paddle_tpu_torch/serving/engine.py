@@ -51,6 +51,7 @@ __all__ = ["GenerationEngine"]
 _NOT_PORTED = {
     "spec_draft": "Queue 1 item 2 (speculative decoding)",
     "host_tier_bytes": "Queue 1 item 2 (serving/host_tier.py)",
+    "lane_weights": "Queue 1 item 2 (weighted admission over lanes)",
     "hbm_budget_bytes": "Queue 1 item 3 (the static HBM plan)",
     "mesh": "Queue 1 item 4 (tensor-parallel serving)",
 }
@@ -101,12 +102,16 @@ class GenerationEngine:
                  kv_layout: str = "dense", block_size: int = 16,
                  num_blocks: Optional[int] = None,
                  attention: str = "gather", kv_dtype: Optional[str] = None,
-                 spec_draft=None, mesh=None,
-                 hbm_budget_bytes: Optional[int] = None,
+                 spec_draft=None, spec_k: int = 4, mesh=None,
+                 mp_axis: str = "mp", hbm_budget_bytes: Optional[int] = None,
+                 lane_weights: Optional[dict] = None,
                  host_tier_bytes: Optional[int] = None, device=None):
+        # spec_k and mp_axis only shape spec_draft's and mesh's work,
+        # which raise here
         self._device = resolve_device(device)
         given = {"spec_draft": spec_draft, "host_tier_bytes": host_tier_bytes,
-                 "hbm_budget_bytes": hbm_budget_bytes, "mesh": mesh}
+                 "hbm_budget_bytes": hbm_budget_bytes, "mesh": mesh,
+                 "lane_weights": lane_weights}
         for name, value in given.items():
             if value is not None:
                 raise NotImplementedError(
@@ -203,15 +208,22 @@ class GenerationEngine:
                do_sample: bool = False, temperature: float = 1.0,
                top_k: Optional[int] = None, top_p: Optional[float] = None,
                eos_token_id: Optional[int] = None,
-               timeout: Optional[float] = None) -> GenerationRequest:
+               timeout: Optional[float] = None, tenant: str = "default",
+               lane: str = "interactive") -> GenerationRequest:
         """Enqueue one generation; returns its handle immediately
         (``handle.stream()``, ``handle.result()``, ``handle.cancel()``).
         ``timeout`` is a hard deadline in seconds. ``top_k``/``top_p``
         are fixed per engine: a differing value raises ``ValueError``. A
         full queue raises ``QueueFullError``; a request that can never
-        fit raises ``PoolCapacityError``."""
+        fit raises ``PoolCapacityError``. The port admits in arrival
+        order: another ``tenant`` or ``lane`` than the defaults raises
+        ``NotImplementedError`` (ROADMAP Queue 1 item 2)."""
         if self._closed:
             raise RuntimeError("GenerationEngine is closed")
+        if tenant != "default" or lane != "interactive":
+            raise NotImplementedError(
+                "tenants and lanes (weighted admission) are not ported "
+                "yet: ROADMAP.md Queue 1 item 2")
         if top_k is not None and int(top_k) != self._top_k:
             raise ValueError(
                 f"per-request top_k={top_k} differs from the engine's "

@@ -93,8 +93,10 @@ class PagedKVPool(SlotPoolBase):
     concurrent requests, ``num_blocks`` their total KV footprint.
     ``dtype`` is a torch dtype or its name; ``"int8"`` and
     ``"float8_e4m3fn"`` make a quantized pool with ``scales``.
-    ``min_bucket`` (a whole number of blocks; ``None`` = one block)
-    floors the gather engine's prefill buckets.
+    ``min_bucket`` (a whole number of blocks, 8 as in the JAX pool, so
+    a pool of larger blocks names it) floors the gather engine's prefill
+    buckets. ``mesh``/``mp_axis`` (a head-sharded pool) raise
+    ``NotImplementedError`` unless ``mesh`` is None.
     """
 
     _slot_cls = _PagedSlot
@@ -109,14 +111,17 @@ class PagedKVPool(SlotPoolBase):
     def __init__(self, num_layers: int, num_slots: int, num_heads: int,
                  max_len: int, head_dim: int, *, block_size: int = 16,
                  num_blocks: Optional[int] = None, dtype=torch.float32,
-                 min_bucket: Optional[int] = None, device=None):
+                 min_bucket: int = 8, mesh=None, mp_axis: str = "mp",
+                 device=None):
+        if mesh is not None:
+            raise NotImplementedError(
+                "mesh= (a head-sharded pool) is not ported yet: ROADMAP.md "
+                "Queue 1 item 4")
         if num_slots < 1:
             raise ValueError(f"num_slots must be >= 1, got {num_slots}")
         if block_size < 1 or (block_size & (block_size - 1)):
             raise ValueError(
                 f"block_size must be a power of two, got {block_size}")
-        if min_bucket is None:
-            min_bucket = block_size
         if min_bucket < block_size or min_bucket % block_size:
             raise ValueError(
                 f"min_bucket={min_bucket} must be a multiple of "

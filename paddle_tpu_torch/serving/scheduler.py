@@ -49,12 +49,28 @@ __all__ = ["QueueFullError", "DeadlineExceeded", "RequestCancelled",
 
 
 class QueueFullError(RuntimeError):
-    """The admission queue is at capacity — shed load and retry later."""
+    """The admission queue is at capacity — shed load and retry later.
+    ``queue_depth`` and ``est_wait_s`` are the load hints a front door
+    reads (None where the raiser has none)."""
+
+    def __init__(self, message: str = "", *,
+                 queue_depth: Optional[int] = None,
+                 est_wait_s: Optional[float] = None):
+        super().__init__(message)
+        self.queue_depth = queue_depth
+        self.est_wait_s = est_wait_s
 
 
 class DeadlineExceeded(TimeoutError):
     """The request's deadline passed before it finished (tokens produced
-    before it were streamed)."""
+    before it were streamed); the load hints as ``QueueFullError``'s."""
+
+    def __init__(self, message: str = "", *,
+                 queue_depth: Optional[int] = None,
+                 est_wait_s: Optional[float] = None):
+        super().__init__(message)
+        self.queue_depth = queue_depth
+        self.est_wait_s = est_wait_s
 
 
 class RequestCancelled(RuntimeError):
@@ -94,8 +110,10 @@ class GenerationRequest:
     def __init__(self, prompt: np.ndarray, max_new_tokens: int, *,
                  do_sample: bool = False, temperature: float = 1.0,
                  eos_token_id: Optional[int] = None, pad_token_id: int = 0,
-                 timeout: Optional[float] = None):
+                 timeout: Optional[float] = None, tenant: str = "default",
+                 lane: str = "interactive"):
         self.id = next(self._ids)
+        self.tenant, self.lane = tenant, lane
         self.prompt = np.asarray(prompt, np.int32).reshape(-1)
         self.max_new_tokens = int(max_new_tokens)
         self.do_sample = bool(do_sample)
@@ -119,7 +137,8 @@ class GenerationRequest:
         # generated history after a preemption), drained in budgeted
         # chunks; rebuilt at every admission
         self.pending_feed: List[int] = []
-        self.trace = RequestTrace(self.id, t_submit=self.submitted_at)
+        self.trace = RequestTrace(self.id, t_submit=self.submitted_at,
+                                  tenant=tenant, lane=lane)
         self._q: "queue.Queue" = queue.Queue()
         self._done = threading.Event()
         self.error: Optional[BaseException] = None
@@ -217,16 +236,28 @@ class Scheduler:
       runs ONE fused ragged launch with ``plan[slot]`` rows per slot;
     * ``do_copy(dst, src)`` — copy-on-write block copy (paged pools).
 
-    The pair of callables given picks the mode; the pool's ``is_paged``
-    picks the layout.
+    The pair of callables given picks the mode (``do_prefill`` and
+    ``do_decode`` are None in chunked mode); the pool's ``is_paged`` picks
+    the layout. Admission is first come, first served: speculative steps
+    (``do_spec_step``, ``spec_k``), the flight recorder (``recorder``) and
+    weighted lanes (``lane_weights``) raise ``NotImplementedError``
+    (ROADMAP Queue 1 item 2).
     """
 
-    def __init__(self, pool, *, do_prefill: Optional[Callable] = None,
-                 do_decode: Optional[Callable] = None,
-                 do_admit: Optional[Callable] = None,
+    def __init__(self, pool, do_prefill: Optional[Callable] = None,
+                 do_decode: Optional[Callable] = None, *,
+                 max_queue: int = 128,
+                 prefill_budget: Optional[int] = None,
+                 do_copy: Optional[Callable] = None,
                  do_chunked_step: Optional[Callable] = None,
-                 do_copy: Optional[Callable] = None, max_queue: int = 128,
-                 prefill_budget: Optional[int] = None):
+                 do_spec_step: Optional[Callable] = None, spec_k: int = 0,
+                 recorder=None, lane_weights: Optional[Dict] = None,
+                 do_admit: Optional[Callable] = None):
+        if do_spec_step is not None or spec_k or recorder is not None \
+                or lane_weights is not None:
+            raise NotImplementedError(
+                "speculative steps, the flight recorder and weighted lanes "
+                "are not ported yet: ROADMAP.md Queue 1 item 2")
         if max_queue < 1:
             raise ValueError(f"max_queue must be >= 1, got {max_queue}")
         self._chunked = do_chunked_step is not None

@@ -23,10 +23,12 @@ class RequestTrace:
     """Timestamped lifecycle of one generation request. The scheduler
     thread writes it; callers read it after ``handle.result()``."""
 
-    __slots__ = ("request_id", "events", "token_times")
+    __slots__ = ("request_id", "events", "token_times", "tenant", "lane")
 
-    def __init__(self, request_id: int, t_submit: Optional[float] = None):
+    def __init__(self, request_id: int, t_submit: Optional[float] = None,
+                 tenant: Optional[str] = None, lane: Optional[str] = None):
         self.request_id = int(request_id)
+        self.tenant, self.lane = tenant, lane
         self.events: List[Tuple[str, float, Optional[dict]]] = [
             ("submit", t_submit if t_submit is not None
              else time.perf_counter(), None)]

@@ -57,7 +57,7 @@ def test_layer_norm_kernel_matches_plain(cuda, dtype, rows):
                                **TOL[dtype])
 
 
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("dtype", _F16)
 def test_ragged_attention_kernel_matches_plain(cuda, dtype):
     rng = np.random.RandomState(0)
     L, H, bs, Dh, S, T = 2, 12, 16, 64, 5, 8
@@ -101,7 +101,7 @@ def _quantize_blocks(vals, storage):
     return codes, sc
 
 
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("dtype", _F16)
 @pytest.mark.parametrize("storage", [torch.int8, torch.float8_e4m3fn])
 def test_quantized_ragged_attention_kernel_matches_plain(cuda, dtype,
                                                          storage):
@@ -401,12 +401,42 @@ def test_flash_tensor_core_route_over_many_waves(cuda, d, causal):
 
 @pytest.mark.parametrize("dtype, d", [(torch.bfloat16, 32),
                                       (torch.float32, 64),
-                                      (torch.float16, 64),
-                                      (torch.float16, 128)])
+                                      (torch.float16, 32),
+                                      (torch.float16, 96)])
 def test_flash_cuda_core_route_takes_what_wgmma_does_not(cuda, dtype, d):
     g = torch.Generator(device=cuda).manual_seed(d)
     q, k, v, do = (_randn(g, 2, 100, 3, d, dtype=dtype) for _ in range(4))
     _flash_route_matches_plain(q, k, v, do, True, "cuda_core")
+
+
+@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("seq", [64, 100, 1024])
+@pytest.mark.parametrize("causal", [False, True])
+def test_flash_f16_tensor_core_route_matches_plain_and_the_cuda_cores(
+        cuda, d, seq, causal):
+    """float16 on the tensor-core route against the plain versions at
+    float16's tolerance, against the CUDA-core kernels on the same
+    operands at an unaligned base (the same tolerance: both round P and
+    dS to float16 once), and the same bits on a second call."""
+    g = torch.Generator(device=cuda).manual_seed(seq + d + causal)
+    q, k, v, do = (_randn(g, 2, seq, 3, d, dtype=torch.float16)
+                   for _ in range(4))
+    grads = _flash_route_matches_plain(q, k, v, do, causal, "tc")
+    o, lse = fa.flash_attention_fwd(q, k, v, causal)
+    again = fa.flash_attention_bwd(q, k, v, o, lse, do, causal)
+    assert all(torch.equal(a, b) for a, b in zip(grads, again))
+    o2, _ = fa.flash_attention_fwd(q, k, v, causal)
+    assert torch.equal(o, o2)
+    n = q.numel()
+    qc, kc, vc, doc = (torch.empty(n + 1, dtype=torch.float16,
+                                   device=cuda)[1:].view(q.shape).copy_(t)
+                       for t in (q, k, v, do))
+    core = _flash_route_matches_plain(qc, kc, vc, doc, causal, "cuda_core")
+    oc, _ = fa.flash_attention_fwd(qc, kc, vc, causal)
+    torch.testing.assert_close(o.float(), oc.float(), **TOL[torch.float16])
+    for name, a, b in zip("qkv", grads, core):
+        torch.testing.assert_close(a.float(), b.float(), **TOL[torch.float16],
+                                   msg=lambda m: f"d{name}: {m}")
 
 
 def test_flash_cuda_core_route_takes_an_unaligned_base(cuda):
@@ -561,18 +591,20 @@ _RPA_EDGES = [(1, 0, 1, 0), (5, 32, 37, 0), (30, 10, 40, 0),
               (1, 699, 700, 300), (16, 10, 26, 20)]
 
 
-def _rpa_edge_batch(dev, storage, dh, bs, extra_t=0, pad_blocks=2, seed=0):
+def _rpa_edge_batch(dev, storage, dh, bs, extra_t=0, pad_blocks=2, seed=0,
+                    q_dtype=torch.bfloat16):
     """``_RPA_EDGES`` over a random page table of ``bs``-row blocks, as
-    (q, pool, scales, meta): q bf16, the pool of ``storage`` (int8/fp8
-    codes with per-block scales), 2 layers; ``extra_t`` more table
-    columns than the longest sequence needs, ``pad_blocks`` pad blocks."""
+    (q, pool, scales, meta): q of ``q_dtype``, the pool of ``storage``
+    (q's dtype, or int8/fp8 codes with per-block scales), 2 layers;
+    ``extra_t`` more table columns than the longest sequence needs,
+    ``pad_blocks`` pad blocks."""
     rng = np.random.RandomState(seed)
     S, H = len(_RPA_EDGES), 2
     T = max(-(-kv // bs) for _, _, kv, _ in _RPA_EDGES) + extra_t
     nb = sum(-(-kv // bs) for _, _, kv, _ in _RPA_EDGES)
     vals = torch.from_numpy(rng.randn(2, 2, nb + 1, H, bs, dh)
                             .astype(np.float32)).to(dev)
-    if storage == torch.bfloat16:
+    if storage in (torch.bfloat16, torch.float16):
         pool, scales = vals.to(storage), None
     else:
         pool, scales = _quantize_blocks(vals, storage)
@@ -587,7 +619,7 @@ def _rpa_edge_batch(dev, storage, dh, bs, extra_t=0, pad_blocks=2, seed=0):
     blk_seq, qstart, pos0, _, _ = rpa.ragged_layout(q_lens, pos0s,
                                                     q_bucket=qp)
     q = torch.from_numpy(rng.randn(H, qp, dh).astype(np.float32)).to(
-        dev, torch.bfloat16)
+        dev, q_dtype)
     meta = [torch.from_numpy(np.asarray(a, np.int32)).to(dev)
             for a in (blk_seq, qstart, pos0, tables,
                       [e[3] for e in _RPA_EDGES], [e[2] for e in _RPA_EDGES])]
@@ -687,6 +719,73 @@ def test_ragged_attention_tensor_core_route_agrees_with_the_cuda_core_kernel(
     assert rc == 0
     torch.testing.assert_close(got.float(), old.float(),
                                **TOL[torch.bfloat16])
+
+
+def _rpa_core(q, pool, scales, meta, layer=1):
+    """The CUDA-core kernel on (q, pool) by its C entry, whatever route
+    the wrapper would take; counts nothing."""
+    from paddle_tpu_torch.ops import _build
+    out = torch.empty_like(q)
+    h, qp, dh = q.shape
+    args = (*(m.data_ptr() for m in meta), h, qp, dh, pool.shape[2],
+            pool.shape[4], meta[3].shape[1], layer, 1.0 / dh ** 0.5,
+            torch.cuda.current_stream().cuda_stream)
+    if scales is None:
+        rc = _build.function("ragged_paged_attention", "rpa_launch",
+                             rpa._ARGS)(
+            _build.DTYPE_CODE[q.dtype], q.data_ptr(), pool.data_ptr(),
+            out.data_ptr(), *args)
+    else:
+        rc = _build.function("ragged_paged_attention", "rpa_quant_launch",
+                             rpa._QUANT_ARGS)(
+            rpa._QUANT_CODE[pool.dtype], _build.DTYPE_CODE[q.dtype],
+            q.data_ptr(), pool.data_ptr(), scales.data_ptr(),
+            out.data_ptr(), *args)
+    torch.cuda.synchronize()
+    assert rc == 0
+    return out
+
+
+@pytest.mark.parametrize("storage, bs", [
+    (torch.float16, 16), (torch.float16, 32), (torch.float16, 64),
+    (torch.int8, 32), (torch.int8, 64),
+    (torch.float8_e4m3fn, 32), (torch.float8_e4m3fn, 64)])
+@pytest.mark.parametrize("dh", [64, 128])
+def test_ragged_attention_f16_on_both_routes_matches_plain(cuda, storage, bs,
+                                                           dh):
+    """float16 q over a float16, int8 or fp8 pool: the edge-case batch
+    through the tensor-core route (the wrapper's) and through the
+    CUDA-core kernel, each against the plain version at float16's
+    tolerance, every row; pad blocks are zeros and a second call gives
+    the same bits."""
+    q, pool, scales, meta = _rpa_edge_batch(cuda, storage, dh, bs,
+                                            q_dtype=torch.float16)
+    assert rpa.rpa_route(q.dtype, pool.dtype, dh, bs) == "tc"
+    got = _rpa_call(q, pool, scales, meta, "tc")
+    want = rpa.ragged_paged_attention_plain(q, pool, 1, *meta, scales=scales)
+    assert got.dtype == torch.float16
+    torch.testing.assert_close(got.float(), want.float(),
+                               **TOL[torch.float16])
+    assert torch.all(got[:, -16:] == 0)
+    again = _RPA(q, pool, 1, *meta, scales=scales)
+    torch.cuda.synchronize()
+    assert torch.equal(got, again)
+    old = _rpa_core(q, pool, scales, meta)
+    torch.testing.assert_close(old.float(), want.float(),
+                               **TOL[torch.float16])
+
+
+@pytest.mark.parametrize("storage", [torch.float16, torch.int8])
+def test_ragged_attention_f16_tensor_core_route_with_a_long_table(cuda,
+                                                                  storage):
+    """float16 with more splits than any tile uses, and the combine."""
+    q, pool, scales, meta = _rpa_edge_batch(cuda, storage, 64, 32,
+                                            extra_t=100, seed=1,
+                                            q_dtype=torch.float16)
+    got = _rpa_call(q, pool, scales, meta, "tc")
+    want = rpa.ragged_paged_attention_plain(q, pool, 1, *meta, scales=scales)
+    torch.testing.assert_close(got.float(), want.float(),
+                               **TOL[torch.float16])
 
 
 @pytest.mark.parametrize("case", ["float32 q", "bf16 Dh 32", "bf16 bs 8"])

@@ -1,8 +1,8 @@
 """The route choice of the port's flash attention wrappers
-(paddle_tpu_torch/ops/flash_attention.py): bfloat16 operands at head
-width 64 or 128 with 16-byte-aligned bases go to the tensor-core kernels
-(csrc/flash_attention_sm90.cu), everything else the wrappers take to the
-CUDA-core kernels (csrc/flash_attention.cu). The choice is plain Python
+(paddle_tpu_torch/ops/flash_attention.py): bfloat16 or float16 operands
+at head width 64 or 128 with 16-byte-aligned bases go to the tensor-core
+kernels (csrc/flash_attention_sm90.cu), everything else the wrappers take
+to the CUDA-core kernels (csrc/flash_attention.cu). The choice is plain Python
 over dtype, width and base pointers, so it is tested here on CPU tensors;
 the kernels themselves run only on the card (tests/test_torch_cuda.py).
 
@@ -38,6 +38,11 @@ BF16_TOL = dict(atol=3e-2, rtol=3e-2)
     (torch.bfloat16, 256, True, "cuda_core"),
     (torch.float32, 64, True, "cuda_core"),
     (torch.float32, 128, True, "cuda_core"),
+    (torch.float16, 64, True, "tc"),
+    (torch.float16, 128, True, "tc"),
+    (torch.float16, 64, False, "cuda_core"),
+    (torch.float16, 32, True, "cuda_core"),
+    (torch.float16, 256, True, "cuda_core"),
 ])
 def test_route_follows_dtype_width_and_alignment(dtype, d, aligned, route):
     assert fa.flash_route(dtype, d, aligned) == route

@@ -232,21 +232,26 @@ def test_eval_and_predict_batch_run_without_grad_in_eval_mode():
 
 def test_gpt_eval_loss_is_the_loss_of_the_batch():
     """A network that takes its labels among its inputs (an ``inputs``
-    spec) is evaluated on its own loss; ``evaluate`` is the batches'
-    mean."""
+    spec) has no label batch, so ``eval_batch`` and ``evaluate`` give a
+    loss of 0.0, as the JAX package's eval step does; the loss of the
+    batch is the network's own first output, which ``predict_batch``
+    returns."""
     ids, labels = _batches(6, 2)
     _, params = _gpt(7)
     model, net = _port_model(params, 4)
     per = [model.eval_batch([ids[i:i + 2], labels[i:i + 2]])
            for i in (0, 2)]
+    assert per == [0.0, 0.0]
+    logs = model.evaluate(TensorDataset([ids, labels]), batch_size=2,
+                          verbose=0)
+    assert logs == {"loss": 0.0}
     with torch.no_grad():
         want = [net.eval()(torch.from_numpy(ids[i:i + 2]),
                            torch.from_numpy(labels[i:i + 2]))[0].item()
                 for i in (0, 2)]
-    np.testing.assert_allclose(per, want, rtol=1e-6)
-    logs = model.evaluate(TensorDataset([ids, labels]), batch_size=2,
-                          verbose=0)
-    np.testing.assert_allclose(logs["loss"], np.mean(per), rtol=1e-6)
+    got = [float(model.predict_batch([ids[i:i + 2], labels[i:i + 2]])[0])
+           for i in (0, 2)]
+    np.testing.assert_allclose(got, want, rtol=1e-6)
 
 
 METRIC_CASES = {

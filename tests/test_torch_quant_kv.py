@@ -362,7 +362,7 @@ def _pools(kv, num_slots=4, num_blocks=6):
     max_len 64."""
     args = (2, num_slots, 4, 64, 16)
     kw = dict(block_size=BS, num_blocks=num_blocks, dtype=kv)
-    return (tpaging.PagedKVPool(*args, device="cpu", **kw),
+    return (tpaging.PagedKVPool(*args, min_bucket=BS, device="cpu", **kw),
             jpaging.PagedKVPool(*args, min_bucket=BS, **kw))
 
 
@@ -392,13 +392,13 @@ def test_same_budget_quantized_admits_2x_vs_fp32(kv):
     """Mirrors the JAX suite's test_same_budget_int8_admits_2x_vs_fp32:
     at the byte budget of an f32 pool (scales counted) a quantized pool
     admits at least twice the concurrent requests."""
-    fp = tpaging.PagedKVPool(2, 64, 4, 64, 16, block_size=BS, num_blocks=16,
-                             device="cpu")
+    fp = tpaging.PagedKVPool(2, 64, 4, 64, 16, block_size=BS, min_bucket=BS,
+                             num_blocks=16, device="cpu")
     budget = fp.capacity_bytes
     blocks = tpaging.PagedKVPool.blocks_within_budget(
         budget, num_layers=2, num_heads=4, block_size=BS, head_dim=16,
         dtype=kv)
-    q = tpaging.PagedKVPool(2, 64, 4, 64, 16, block_size=BS,
+    q = tpaging.PagedKVPool(2, 64, 4, 64, 16, block_size=BS, min_bucket=BS,
                             num_blocks=blocks, dtype=kv, device="cpu")
     assert q.capacity_bytes <= budget
 

@@ -164,7 +164,14 @@ def _tc_model(q, pool, layer, meta, scales=None, parts_out=None):
     (torch.bfloat16, torch.bfloat16, 64, 8, "cuda_core"),
     (torch.bfloat16, torch.bfloat16, 64, 128, "cuda_core"),
     (torch.bfloat16, torch.int8, 16, 32, "cuda_core"),
-    (torch.float16, torch.float16, 64, 16, "cuda_core"),
+    (torch.float16, torch.float16, 64, 16, "tc"),
+    (torch.float16, torch.float16, 128, 64, "tc"),
+    (torch.float16, torch.int8, 64, 32, "tc"),
+    (torch.float16, torch.float8_e4m3fn, 128, 32, "tc"),
+    (torch.float16, torch.float16, 32, 16, "cuda_core"),
+    (torch.float16, torch.float16, 64, 8, "cuda_core"),
+    (torch.float16, torch.bfloat16, 64, 16, "cuda_core"),
+    (torch.bfloat16, torch.float16, 64, 16, "cuda_core"),
 ])
 def test_route_table(q_dtype, pool_dtype, dh, bs, route):
     assert trpa.rpa_route(q_dtype, pool_dtype, dh, bs) == route
