@@ -94,6 +94,24 @@ prints no result line):
    and on a CPU copy: the first step's logits within ``F16_GEN_TOL``.
    Forward pre-hooks record the shape of every float16 K2 launch of the
    phase under ``fused_layer_norm_serve_f16``;
+3f. speculative serving: phase 3's 16 requests on the bf16 model
+   through ``GenerationEngine(..., spec_draft=..., spec_k=4)``: the
+   default 2-layer draft (``"auto"``) over a bf16 pool (blocks of 16),
+   the agreeing draft (the target itself) over the same pool, and the
+   2-layer draft over an int8 pool (blocks of 32). Each: tokens/s, TTFT,
+   mean cycle ms, accept rate and tokens per slot-cycle from the flight
+   recorder (dumped to JSON and read back), one draft dispatch on every
+   speculative cycle; K1/K1q 12 launches a fused launch, every one on
+   the tensor-core route; K2 (2L + 1) a target launch plus (2 Ld + 1) a
+   draft step or draft prefill, on the warp-row route, every shape
+   recorded under ``fused_layer_norm_spec``; every draft and verify call
+   under ``torch.cuda.set_sync_debug_mode("error")``; no plain version;
+   the tokens equal phase 3's (phase 3b's for the int8 pool) before each
+   request's first top-2 margin below ``SPEC_TIE_TOL`` (int8:
+   ``SPEC_QUANT_TIE_TOL``). Then a 2-layer float32 speculative engine (a
+   1-layer draft) on the card and on a CPU copy: the first verify
+   launch's logits within ``GEN_TOL``, the tokens equal before each
+   request's first CPU near-tie;
 4. train: GPT-2 small at full width, bf16 AMP O2, AdamW with float32
    master weights, batch 8 x 1024 with next-token labels and the LM loss
    in 8 chunks (``bench.py``'s ``bench_gpt2`` configuration), through
@@ -191,10 +209,18 @@ prints no result line):
    (every float16 K2 launch of phase 3e, held at each shape, timed at
    the widest fused step's rows, the row route as ``core_ms``);
    ``flash_attention_fwd_generate_f16`` (K4 float16 at [8, 512, 12,
-   64] causal, the float16 generate's prefill).
+   64] causal, the float16 generate's prefill). Phase 3f's rows:
+   ``ragged_paged_attention_spec`` (K1, the bf16 engines' launches) and
+   ``ragged_paged_attention_int8_spec`` (K1q) on the layer-0 operands of
+   the 2-layer-draft engines' widest verify launch (``verify_only_*``:
+   their last launch in which every sequence verifies), with the
+   CUDA-core kernel on the same operands; ``fused_layer_norm_spec``
+   (every K2 launch of phase 3f, held at each shape, timed at the widest
+   verify launch's rows).
 
-``--profile`` adds one more batch to the bf16 and the int8 engines and
-to the dense and paged gather engines, one more greedy generate, one
+``--profile`` adds one more batch to the bf16 and the int8 engines, to
+the speculative engine with the 2-layer draft (phase 3f) and to the
+dense and paged gather engines, one more greedy generate, one
 more beam search and two more train steps under torch.profiler and
 prints device time by kernel and the device's idle share.
 
@@ -1002,11 +1028,18 @@ def serve_mix(model, prompts, max_new, profile=False, rng=None,
     count set to 0 just before and read just after; every attention
     launch must take the tensor-core route. With ``ln_row``, the shape of
     every LayerNorm launch of the counted window is recorded under that
-    kernels-line row. Keeps the layer-0 attention
+    kernels-line row (the draft model's too). Keeps the layer-0 attention
     operands of the widest step and of the last of the decode-only steps
-    (one row a sequence) with the most sequences. Returns (outputs,
-    stats, launches, steps, wall seconds, captured operands: ``{"wide":
-    ..., "decode": ...}``)."""
+    (one row a sequence) with the most sequences, and on a speculative
+    engine (``spec_draft`` in ``kw``) those of the widest verify launch
+    and of the last verify-only launch (every sequence speculating) with
+    the most sequences.
+    A speculative engine's draft calls are counted in the window (draft
+    steps, draft prefills), and its draft and verify calls run under
+    ``torch.cuda.set_sync_debug_mode("error")``: a host sync in them
+    fails the cycle. Returns (outputs, stats, launches, steps, wall
+    seconds, captured operands: ``{"wide": ..., "decode": ...,
+    "verify": ..., "verify_only": ..., "draft": counts}``)."""
     import paddle_tpu_torch.models.generation as gen_mod
     from paddle_tpu_torch.ops.layer_norm import fused_layer_norm
     from paddle_tpu_torch.ops.ragged_paged_attention import (
@@ -1019,10 +1052,12 @@ def serve_mix(model, prompts, max_new, profile=False, rng=None,
     warm = np.random.RandomState(SEED + 9)
     eng.submit(warm.randint(0, vocab, 24), max_new_tokens=4).result(
         timeout=300)
-    captured = {"wide": {}, "decode": {}}
+    settle(eng)
+    captured = {"wide": {}, "decode": {}, "verify": {}, "verify_only": {}}
     # the step being run, from its host operands (no device sync):
     # decode-only when every present sequence feeds one row
-    # (kv_len - pos0 == 1), and how many sequences it has
+    # (kv_len - pos0 == 1), and how many sequences it has; a verify
+    # launch when it has speculating slots
     step = {}
     operands = eng._ragged_operands
 
@@ -1031,7 +1066,9 @@ def serve_mix(model, prompts, max_new, profile=False, rng=None,
         blk_seq, _, pos0, _, _, kv_len = out[2][4:10]
         seqs = {int(x) for x in blk_seq if x >= 0}
         step.update(seqs=len(seqs), decode=all(
-            int(kv_len[x]) - int(pos0[x]) == 1 for x in seqs))
+            int(kv_len[x]) - int(pos0[x]) == 1 for x in seqs),
+            verify=bool(out[3].any()),
+            verify_only=bool(seqs) and all(out[3][x] > 0 for x in seqs))
         return out
 
     def keep(slot, q, pool, meta, scales, **info):
@@ -1047,12 +1084,24 @@ def serve_mix(model, prompts, max_new, profile=False, rng=None,
                     "seqs", 0):
                 keep(captured["decode"], q, pool, meta, scales,
                      seqs=step["seqs"])
+            if step["verify"] and q.shape[1] > captured["verify"].get(
+                    "qp", 0):
+                keep(captured["verify"], q, pool, meta, scales,
+                     qp=q.shape[1])
+            if step["verify_only"] and step["seqs"] >= captured[
+                    "verify_only"].get("seqs", 0):
+                keep(captured["verify_only"], q, pool, meta, scales,
+                     seqs=step["seqs"])
         return ragged_paged_attention(q, pool, layer, *meta, scales=scales,
                                       **kw2)
 
     gen_mod.ragged_paged_attention = capture
     eng._ragged_operands = spy
-    steps0 = eng.stats()["steps"]
+    if eng._spec:
+        captured["draft"] = watch_spec(eng)
+    s0 = eng.stats()
+    steps0 = s0["steps"]
+    cycle0 = eng.flight_recorder.cycles_recorded
     for attr in RPA_COUNTS:
         setattr(ragged_paged_attention, attr, 0)
     fused_layer_norm.launches = fused_layer_norm.warp_launches = 0
@@ -1061,6 +1110,8 @@ def serve_mix(model, prompts, max_new, profile=False, rng=None,
         with contextlib.ExitStack() as stack:
             if ln_row is not None:
                 stack.enter_context(ln_shapes(model, ln_row))
+                if eng._spec and eng._draft_model is not model:
+                    stack.enter_context(ln_shapes(eng._draft_model, ln_row))
             t0 = time.perf_counter()
             handles = [eng.submit(p, max_new_tokens=max_new)
                        for p in prompts]
@@ -1077,9 +1128,15 @@ def serve_mix(model, prompts, max_new, profile=False, rng=None,
     check_ln_route("engine", (fused_layer_norm,))
     check_rpa_route("engine")
     launches["combine"] = ragged_paged_attention.combine_launches
-    if not captured["decode"]:
-        raise AssertionError("no decode-only step in the engine run")
+    if not captured["verify_only" if eng._spec else "decode"]:
+        raise AssertionError("no decode-only step (or, speculating, no "
+                             "verify launch) in the engine run")
     stats = eng.stats()
+    if eng._spec:
+        settle(eng)
+        spec_window(eng, s0, cycle0, captured["draft"])
+        # the window's counts: a profiled batch below counts on
+        captured["draft"] = dict(captured["draft"])
     if profile:
         profile_engine(eng, rng, vocab)
     eng.close()
@@ -1093,6 +1150,17 @@ def serve_mix(model, prompts, max_new, profile=False, rng=None,
         raise AssertionError(f"non-finite logits in "
                              f"{stats['nonfinite_cycles']} cycles")
     return outs, stats, launches, steps, wall, captured
+
+
+def settle(eng):
+    """Wait until the engine's scheduler is idle with its last cycle
+    recorded: a request's result is out before its cycle's record and
+    counters are."""
+    t0 = time.perf_counter()
+    while eng._sched._rec is not None or eng._sched.active:
+        if time.perf_counter() - t0 > 60:
+            raise AssertionError("the scheduler did not go idle")
+        time.sleep(0.001)
 
 
 def check_rpa_route(what):
@@ -1202,7 +1270,8 @@ def logit_drift(model, prompt):
 def phase_engine_quant(model, prompts, bf16_outs, bf16_stats,
                        profile=False):
     """Phase 3b: the phase-3 mix from an int8 pool, the logit drift, the
-    fp8 pool and the capacity line. Returns launches and operands."""
+    fp8 pool and the capacity line. Returns launches, operands and the
+    int8 engine's outputs."""
     from paddle_tpu_torch.serving.paging import PagedKVPool
     cfg = model.gpt.cfg
     L = cfg.num_hidden_layers
@@ -1255,7 +1324,7 @@ def phase_engine_quant(model, prompts, bf16_outs, bf16_stats,
              "ragged_paged_attention_fp8_combine": launches8["combine"],
              "fused_layer_norm": launches["fused_layer_norm"]
                  + launches8["fused_layer_norm"]},
-            {"int8": cap_i8, "fp8": cap_f8})
+            {"int8": cap_i8, "fp8": cap_f8}, outs)
 
 
 # ---------------------------------------------------------------- phase 3d
@@ -2162,6 +2231,305 @@ def serve_f16_rows(device, timer, f16):
                                         "library_ms")},
                  "core_source": FA_SRC, "core_ms": fwd["core_ms"],
                  "core_err": fwd["core_err"]})
+    return rows
+
+
+# ---------------------------------------------------------------- phase 3f
+SPEC_K = 4
+# near-ties of two bf16 paths through GPT-2 small (random weights): the
+# verify launch scores up to SPEC_K rows a slot where the plain fused step
+# scores one, so their products round differently; tokens are held equal
+# only before a step whose top-2 logit margin (a bf16 full forward over
+# the reference tokens) is below this. An int8 pool adds its own rounding
+# and the scales that rejected rows grew, so its bound is wider.
+SPEC_TIE_TOL = 0.1
+SPEC_QUANT_TIE_TOL = 0.25
+SPEC_LN_ROW = "fused_layer_norm_spec"
+
+
+def watch_spec(eng):
+    """From now on, count a speculative engine's draft calls (proposal
+    chains and the draft steps in them, draft prefills) and run every
+    draft and verify call under ``torch.cuda.set_sync_debug_mode(
+    "error")``: a host sync inside raises in the cycle, which fails its
+    requests. The operands' host-to-device copy happens before these
+    calls, and the scheduler's one fetch after them."""
+    counts = {"steps": 0, "scans": 0, "prefills": 0}
+    scan_fn, prefill_fn = eng._draft_scan_fn, eng._draft_prefill_fn
+    verify_fn = eng._spec_step_fn
+
+    def no_sync(fn):
+        def run(*a, **k):
+            torch.cuda.set_sync_debug_mode("error")
+            try:
+                return fn(*a, **k)
+            finally:
+                torch.cuda.set_sync_debug_mode(0)
+        return run
+
+    def scan(kmax):
+        counts["steps"] += kmax
+        counts["scans"] += 1
+        return no_sync(scan_fn(kmax))
+
+    def prefill(bucket):
+        counts["prefills"] += 1
+        return no_sync(prefill_fn(bucket))
+
+    eng._draft_scan_fn, eng._draft_prefill_fn = scan, prefill
+    eng._spec_step_fn = lambda q, t: no_sync(verify_fn(q, t))
+    return counts
+
+
+def spec_window(eng, s0, cycle0, counts):
+    """The speculative figures of the counted window, from the engine's
+    flight recorder (its cycles after ``cycle0``) and its stats against
+    ``s0``: one draft dispatch on every speculative cycle, each cycle
+    recording its proposed/accepted/emitted tokens, accept rate, tokens
+    per slot-cycle, mean cycle ms; ``dump_flight_recorder`` writes JSON
+    that parses. Adds them to ``counts``."""
+    import tempfile
+    s = eng.stats()
+    with tempfile.TemporaryDirectory() as d:
+        path = os.path.join(d, "flight.json")
+        eng.dump_flight_recorder(path)
+        with open(path) as f:
+            doc = json.load(f)
+    cycles = [c for c in doc["cycles"] if c["cycle"] > cycle0]
+    if doc["cycles_recorded"] - cycle0 != len(cycles):
+        raise AssertionError(f"the ring lost cycles of the window: "
+                             f"{doc['cycles_recorded'] - cycle0} recorded, "
+                             f"{len(cycles)} kept")
+    spec = [c for c in cycles if "spec_proposed" in c]
+    if len(spec) != s["spec_cycles"] - s0["spec_cycles"] or not spec:
+        raise AssertionError(f"{len(spec)} speculative cycles in the ring, "
+                             f"{s['spec_cycles'] - s0['spec_cycles']} counted")
+    bad = [c for c in spec if c.get("spec_draft_dispatches") != 1
+           or not {"spec_accepted", "spec_emitted"} <= set(c)]
+    if bad or counts["scans"] != len(spec):
+        raise AssertionError(f"draft dispatches: {counts['scans']} chains "
+                             f"over {len(spec)} speculative cycles; "
+                             f"{len(bad)} cycle records without exactly one")
+    proposed = s["spec_proposed"] - s0["spec_proposed"]
+    accepted = s["spec_accepted"] - s0["spec_accepted"]
+    counts.update(
+        verify=len(spec), cycles=len(cycles), proposed=proposed,
+        accepted=accepted, accept_rate=accepted / max(1, proposed),
+        tokens_per_slot_cycle=sum(c["spec_emitted"] for c in spec)
+        / sum(c["spec_slots"] for c in spec),
+        cycle_ms=statistics.mean(c["cycle_ms"] for c in cycles),
+        draft_bytes=s["kv_bytes"]["draft"], draft_layers=s["draft_layers"])
+
+
+def bf16_margins(model, prompts, seqs):
+    """Each request's top-2 logit margin at each generated step of
+    ``seqs``, from a full forward of the model in its dtype."""
+    device = next(model.parameters()).device
+    out = []
+    with torch.no_grad():
+        for p, seq in zip(prompts, seqs):
+            ids = torch.from_numpy(seq).long().to(device)[None]
+            top2 = model(ids)[0, len(p) - 1:-1].float().topk(
+                2, dim=-1).values
+            out.append((top2[:, 0] - top2[:, 1]).cpu())
+    return torch.stack(out)
+
+
+def phase_spec(model, prompts, fused_outs, int8_outs, profile=False):
+    """Phase 3f: phase 3's 16 requests (64 new tokens, greedy) served
+    speculatively (``spec_k=4``) by GPT-2 small bf16 through three fused
+    engines: the default 2-layer draft over a bf16 pool (blocks of 16),
+    the agreeing draft (the target itself) over the same pool, and the
+    2-layer draft over an int8 pool (blocks of 32). Each: K1 (or K1q) 12
+    launches a fused launch, every one on the tensor-core route; K2 (2L +
+    1) a target launch plus (2 Ld + 1) a draft step or draft prefill,
+    every one on the warp-row route and recorded by shape; one draft
+    dispatch a speculative cycle (the flight recorder); no host sync in
+    the draft and verify calls; no plain version; tokens/s, TTFT, mean
+    cycle ms, accept rate, tokens per slot-cycle. The tokens equal phase
+    3's (phase 3b's for the int8 pool) before each request's first
+    near-tie. Then the 2-layer float32 check, card against CPU. With
+    ``profile``, the 2-layer bf16 engine serves one more batch under
+    torch.profiler. Returns the launches and the verify launches'
+    operands."""
+    L = model.gpt.cfg.num_hidden_layers
+    kinds = (("2-layer draft, bf16 pool (block 16)", "auto",
+              dict(spec_draft="auto", block_size=16), "bf16",
+              SPEC_TIE_TOL),
+             ("agreeing draft (the target), bf16 pool (block 16)", "agree",
+              dict(spec_draft=model, block_size=16), "bf16", SPEC_TIE_TOL),
+             ("2-layer draft, int8 pool (block 32)", "int8",
+              dict(spec_draft="auto", kv_dtype="int8", block_size=32),
+              "int8", SPEC_QUANT_TIE_TOL))
+    refs = {"bf16": fused_outs, "int8": int8_outs}
+    margins = {k: bf16_margins(model, prompts, v) for k, v in refs.items()}
+    out = {"attn": 0, "quant": 0, "combine": 0, "quant_combine": 0,
+           "fused_layer_norm": 0, "captured": {}}
+    rng = np.random.RandomState(SEED + 14)
+    with count_plain() as plain:
+        for what, kind, kw, ref, tol in kinds:
+            outs, stats, launches, steps, wall, cap = serve_mix(
+                model, prompts, 64, profile and kind == "auto", rng,
+                ln_row=SPEC_LN_ROW, spec_k=SPEC_K, **kw)
+            quant = "kv_dtype" in kw
+            d = cap["draft"]
+            ld = d["draft_layers"]
+            want = {"ragged_paged_attention": 0,
+                    "ragged_paged_attention_quant": 0,
+                    "fused_layer_norm": (2 * L + 1) * steps
+                    + (2 * ld + 1) * (d["steps"] + d["prefills"])}
+            attn = "ragged_paged_attention_quant" if quant \
+                else "ragged_paged_attention"
+            want[attn] = L * steps
+            got = {k: v for k, v in launches.items() if k != "combine"}
+            if got != want:
+                raise AssertionError(
+                    f"speculative {what}: launches {got} over {steps} "
+                    f"launches ({d['verify']} verify), {d['steps']} draft "
+                    f"steps and {d['prefills']} draft prefills, expected "
+                    f"{want}")
+            ties = first_near_tie(margins[ref], tol)
+            full = hold_tokens(f"speculative {what}", outs, refs[ref],
+                               prompts, ties)
+            toks = 64 * len(prompts)
+            log(f"speculative engine, {what}, spec_k {SPEC_K}, "
+                f"{len(prompts)} requests x 64 tokens: {steps} fused "
+                f"launches ({d['verify']} verify) in {wall:.3f} s: "
+                f"{toks / wall:.1f} tokens/s, mean cycle {d['cycle_ms']:.3f} "
+                f"ms (recorder), wall / launches {wall / steps * 1e3:.3f} ms, "
+                f"TTFT p50 {stats['ttft_ms']['p50']:.1f} ms p95 "
+                f"{stats['ttft_ms']['p95']:.1f} ms, TPOT p50 "
+                f"{stats['tpot_ms']['p50']:.2f} ms; accept rate "
+                f"{d['accept_rate']:.4f} ({d['accepted']} of "
+                f"{d['proposed']}), {d['tokens_per_slot_cycle']:.4f} tokens "
+                f"per slot-cycle, 1 draft dispatch on each of {d['verify']} "
+                f"speculative cycles, {d['steps']} draft steps, "
+                f"{d['prefills']} draft prefills; draft {ld} layers, "
+                f"{d['draft_bytes']} bytes; launches {json.dumps(launches)}; "
+                f"tokens equal the {ref} fused engine's before each "
+                f"request's first top-2 margin below {tol} (steps {ties}, "
+                f"64 = none), all 64 in {full} of {len(prompts)}")
+            if quant:
+                out["quant"] += launches[attn]
+                out["quant_combine"] += launches["combine"]
+            else:
+                out["attn"] += launches[attn]
+                out["combine"] += launches["combine"]
+            out["fused_layer_norm"] += launches["fused_layer_norm"]
+            out["captured"].setdefault("int8" if quant else "bf16", cap)
+    if sum(plain.values()):
+        raise AssertionError(f"speculative serving: plain versions ran on "
+                             f"the card: {dict(plain)}")
+    out["fused_layer_norm"] += phase_spec_f32(next(model.parameters()).device)
+    return out
+
+
+def phase_spec_f32(device):
+    """Phase 3f, then: a speculative fused engine at GPT-2 width cut to 2
+    layers, float32, its draft ``make_draft_model(net, 1)``, on the card
+    and on a CPU copy (plain versions), 4 requests of 16 new tokens: the
+    first verify launch's logits within ``GEN_TOL``, and the tokens equal
+    before each request's first CPU top-2 margin below it. Returns the
+    card run's K2 launches (target and draft)."""
+    import copy
+
+    import paddle_tpu_torch as pt
+    from paddle_tpu_torch.models import GPTConfig, GPTForPretraining
+    from paddle_tpu_torch.models.generation import make_draft_model
+    pt.seed(SEED + 13)
+    cfg = GPTConfig.gpt2_small()
+    cfg.num_hidden_layers = 2
+    cpu_net = GPTForPretraining(cfg).eval()
+    card_net = copy.deepcopy(cpu_net).to(device)
+    rng = np.random.RandomState(SEED + 13)
+    prompts = [rng.randint(0, cfg.vocab_size, n) for n in (40, 7, 100, 300)]
+    verify_rows = 4 * SPEC_K + 4          # 4 slots: S * K + S head rows
+    first, outs, launches = {}, {}, 0
+    for where, net in (("cpu", cpu_net), ("card", card_net)):
+        def spy(h, _gpt=net.gpt, _where=where):
+            logits = type(_gpt).logits(_gpt, h)
+            if h.shape[0] == verify_rows:
+                first.setdefault(_where, logits[:, 0].float().cpu())
+            return logits
+
+        draft = make_draft_model(net, 1)
+        with contextlib.ExitStack() as stack:
+            if where == "card":
+                stack.enter_context(ln_shapes(draft, SPEC_LN_ROW))
+            outs[where], n = engine_run(
+                net, prompts, 16, spy,
+                SPEC_LN_ROW if where == "card" else None,
+                kv_layout="paged", attention="fused", block_size=16,
+                prefill_budget=128, spec_draft=draft, spec_k=SPEC_K)
+        if where == "card":
+            launches = n
+    err = (first["card"] - first["cpu"]).abs().max().item()
+    if not err <= GEN_TOL:
+        raise AssertionError(f"float32 speculative engine: first verify "
+                             f"launch's logits card vs CPU off by {err}, "
+                             f"over {GEN_TOL}")
+    with torch.no_grad():
+        margins = []
+        for p, seq in zip(prompts, outs["cpu"]):
+            ids = torch.from_numpy(seq).long()[None]
+            top2 = cpu_net(ids)[0, len(p) - 1:-1].topk(2, dim=-1).values
+            margins.append(top2[:, 0] - top2[:, 1])
+    ties = first_near_tie(torch.stack(margins), GEN_TOL)
+    full = hold_tokens("float32 speculative engine, card vs CPU",
+                       outs["card"], outs["cpu"], prompts, ties)
+    log(f"float32 speculative engine check (GPT-2 width, 2 layers, a "
+        f"1-layer draft, spec_k {SPEC_K}, {len(prompts)} requests of "
+        f"{[len(p) for p in prompts]} tokens, 16 new, card vs CPU): first "
+        f"verify launch's logits max |diff| {err:.3e} (limit {GEN_TOL}); "
+        f"tokens equal before each request's first CPU top-2 margin below "
+        f"{GEN_TOL} (steps {ties}, 16 = none), all 16 in {full} of "
+        f"{len(prompts)}")
+    return launches
+
+
+def spec_rows(timer, spec):
+    """The kernels line's rows of phase 3f: K1 (bf16 pool) and K1q (int8
+    pool) on the layer-0 operands of the widest verify launch of the
+    2-layer-draft engines, and of their last verify-only launch with the
+    most sequences (``verify_only_*`` keys), through the tensor-core
+    route and the CUDA-core kernel, against the plain version; K2 at
+    every shape its launches ran at in phase 3f, timed at the widest
+    verify launch's rows."""
+    rows = []
+    for name, kind, attn, combine in (
+            ("ragged_paged_attention_spec", "bf16", spec["attn"],
+             spec["combine"]),
+            ("ragged_paged_attention_int8_spec", "int8", spec["quant"],
+             spec["quant_combine"])):
+        cap = spec["captured"][kind]
+        for k, what in (("verify", "widest verify launch"),
+                        ("verify_only", "verify-only launch")):
+            work_shape(f"{name} {what}", cap[k]["q"], cap[k]["pool"],
+                       cap[k]["meta"])
+        r = rpa_case(f"{name}, widest verify launch layer 0", timer,
+                     cap["verify"])
+        v = rpa_case(f"{name}, verify-only launch layer 0", timer,
+                     cap["verify_only"])
+        rows.append({"name": name, "route": "cuda", "source": RPA_TC_SRC,
+                     "replaces": RPA_TPU, "launches": attn,
+                     **{k: r[k] for k in ("max_abs_err", "ms", "plain_ms",
+                                          "bound_ms", "bound_by")},
+                     "library_ms": None, "combine_launches": combine,
+                     "core_source": RPA_SRC, "core_ms": r["core_ms"],
+                     "core_err": r["core_err"],
+                     **{f"verify_only_{k}": v[k] for k in (
+                         "max_abs_err", "ms", "core_ms", "core_err",
+                         "plain_ms", "bound_ms", "bound_by")}})
+    q = spec["captured"]["bf16"]["verify"]["q"]
+    ln = ln_shape_row(timer, SPEC_LN_ROW, spec["fused_layer_norm"],
+                      (q.dtype, q.shape[1], q.shape[0] * q.shape[2]))
+    rows.append({"name": SPEC_LN_ROW, "route": "cuda", "source": LN_SRC,
+                 "replaces": LN_TPU, "launches": spec["fused_layer_norm"],
+                 **{k: ln[k] for k in ("max_abs_err", "ms", "plain_ms",
+                                       "bound_ms", "bound_by",
+                                       "library_ms")},
+                 "core_route": "row", "core_ms": ln["row_ms"],
+                 "core_err": ln["row_err"]})
     return rows
 
 
@@ -3283,10 +3651,11 @@ def main() -> int:
     train_main = phase_train_kernels(device, timer)
     model, prompts, outs, bf16_stats, launches, captured = phase_engine(
         device, profile)
-    quant_launches, quant_captured = phase_engine_quant(
+    quant_launches, quant_captured, int8_outs = phase_engine_quant(
         model, prompts, outs, bf16_stats, profile)
     gen_launches, beam_launches = phase_generate(model, device, profile)
     gather_ln = phase_gather(model, prompts, outs, profile)
+    spec = phase_spec(model, prompts, outs, int8_outs, profile)
     del model
     f16 = phase_serve_f16(device, prompts, profile)
     gen_f32_launches = phase_generate_f32(device)
@@ -3303,6 +3672,7 @@ def main() -> int:
     # runs (phase 3d's float32 ones too); its fused_layer_norm_train row,
     # the train path's
     kernels += serve_f16_rows(device, timer, f16)
+    kernels += spec_rows(timer, spec)
     ln_row = next(k for k in kernels if k["name"] == "fused_layer_norm")
     ln_row["launches"] += quant_launches["fused_layer_norm"] \
         + gather_ln["fused"]

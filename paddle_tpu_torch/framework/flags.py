@@ -1,6 +1,7 @@
 """``FLAGS_*`` get and set (counterpart of ``paddle_tpu/framework/
 flags.py``): the flags that ``call_op`` reads. A flag may be seeded from
-an environment variable of its name. ``FLAGS_pallas_force`` has no
+an environment variable of its name (``FLAGS_flight_dump_dir`` is read
+from the environment at each dump). ``FLAGS_pallas_force`` has no
 counterpart: on the card the kernels are always used."""
 from __future__ import annotations
 
@@ -22,6 +23,9 @@ _DEFAULTS = {
                             "per op: for debugging)"),
     "FLAGS_benchmark": (False, "Time every op to its end (a device sync "
                         "per op) into the op_time_ms/<name> counters"),
+    "FLAGS_flight_dump_dir": ("", "Directory of the serving flight "
+                              "recorder's automatic dumps when a cycle "
+                              "fails (empty: the system temp directory)"),
 }
 
 _values: Dict[str, Any] = {

@@ -24,6 +24,15 @@ the block pool. There is no jit and no donation: it runs eagerly and
 updates the pool (and a quantized pool's scales) IN PLACE, where the JAX
 step donated the buffers and returned new ones.
 
+Speculative decoding pairs a draft model's proposals with one fused
+verify launch: :func:`build_draft_prefill_fn` and
+:func:`build_draft_propose_scan_fn` run the draft over its dense slot
+pool (masked plain attention, as in the JAX package), and
+:func:`build_spec_verify_fn` scores every candidate as an extra ragged
+row of the target's fused launch and runs the rejection sampling
+(:func:`_spec_accept`) on the device; :func:`make_draft_model` builds the
+default draft.
+
 Sampling draws from an explicit ``torch.Generator`` in place of
 ``jax.random`` keys.
 """
@@ -42,7 +51,10 @@ from ..ops.ragged_paged_attention import BLOCK_Q, ragged_paged_attention
 
 __all__ = ["GenerationConfig", "generate", "build_fused_step_fn",
            "build_slot_prefill_fn", "build_slot_decode_fn",
-           "build_paged_prefill_fn", "build_paged_decode_fn"]
+           "build_paged_prefill_fn", "build_paged_decode_fn",
+           "build_spec_verify_fn", "build_draft_prefill_fn",
+           "build_draft_propose_fn", "build_draft_propose_scan_fn",
+           "make_draft_model"]
 
 
 @dataclass
@@ -92,6 +104,71 @@ def _pick_token(logits, generator, do_sample, top_k, top_p, temperature):
     # logits reach the finite sentinel instead of raising in the step
     race = torch.empty_like(probs).exponential_(generator=generator)
     return torch.argmax(probs / race, dim=-1).to(torch.int32)
+
+
+def _sample_probs(logits, sample_mask, top_k, top_p, temperature):
+    """Each row's SAMPLING DISTRIBUTION as explicit probabilities ``[N,
+    V]`` f32, what the speculative rejection sampling needs on both
+    sides: sampled rows the softmax of the :func:`_filter_logits`
+    truncation, greedy rows the one-hot at the argmax (so greedy
+    acceptance is token equality). ``sample_mask [N]`` bool and
+    ``temperature [N]`` are tensors."""
+    onehot = torch.zeros_like(logits, dtype=torch.float32).scatter_(
+        -1, torch.argmax(logits, dim=-1, keepdim=True), 1.0)
+    soft = torch.softmax(
+        _filter_logits(logits, top_k, top_p, temperature[..., None]),
+        dim=-1)
+    return torch.where(sample_mask[..., None], soft, onehot)
+
+
+def _categorical_probs(generator, probs):
+    """Draw one token per row from explicit probabilities ``[..., V]``
+    with ``generator``: the exponential race ``argmax(p / E)``, ``E ~
+    Exp(1)``, over the entries with ``p > 0`` only, so a zero-probability
+    token is never drawn and a one-hot row always gives its token."""
+    race = torch.empty_like(probs).exponential_(generator=generator)
+    score = torch.where(probs > 0, probs / race, -1.0)
+    return torch.argmax(score, dim=-1).to(torch.int32)
+
+
+def _spec_accept(p_probs, q_probs, drafts, n_spec, base_probs, generator):
+    """Speculative rejection sampling of one cycle, on the device.
+
+    Per slot ``s`` the draft proposed ``drafts[s, :n_spec[s]]``;
+    ``p_probs [S, K, V]`` is the target's sampling distribution at each
+    candidate's row and ``q_probs [S, K, V]`` the draft's proposal
+    distribution. Candidate ``d`` is accepted while ``u * q(d) < p(d)``
+    (``u ~ U[0, 1)``); the first rejected position draws from the
+    residual ``max(p - q, 0)``, renormalized. One-hot (greedy) rows make
+    this exact argmax equality and an argmax correction.
+    ``base_probs [S, V]`` is each slot's last-row distribution, drawn
+    for slots that verified nothing (``n_spec == 0``: a prefill chunk
+    whose feed ends emits its first token from it).
+
+    Returns ``(accepted [S] int32, token [S] int32)``: ``token`` is the
+    residual draw after a rejection, the base draw when ``n_spec == 0``,
+    and unused when every candidate was accepted."""
+    s_, k_, _ = p_probs.shape
+    dev = p_probs.device
+    u = torch.rand((s_, k_), generator=generator, device=dev)
+    d = drafts.long()[..., None]
+    pd = p_probs.gather(-1, d)[..., 0]
+    qd = q_probs.gather(-1, d)[..., 0]
+    valid = torch.arange(k_, device=dev)[None, :] < n_spec[:, None]
+    acc = valid & (u * qd < pd)
+    accepted = torch.cumprod(acc.to(torch.int32), dim=1).sum(dim=1)
+    ridx = accepted.clamp(max=k_ - 1)
+    rows = torch.arange(s_, device=dev)
+    pr, qr = p_probs[rows, ridx], q_probs[rows, ridx]
+    res = (pr - qr).clamp_min(0.0)
+    rsum = res.sum(dim=-1, keepdim=True)
+    # a rejection implies p != q somewhere, so the residual has mass;
+    # the p fallback only guards numerically identical distributions
+    res = torch.where(rsum > 0, res / rsum.clamp_min(1e-38), pr)
+    rejected = (accepted < n_spec) & (n_spec > 0)
+    token = torch.where(rejected, _categorical_probs(generator, res),
+                        _categorical_probs(generator, base_probs))
+    return accepted.to(torch.int32), token
 
 
 def _append_nonfinite_flag(nxt, logits):
@@ -531,6 +608,268 @@ def build_paged_decode_fn(model, num_slots, table_len, block_size, top_k=0,
                                 temperature, top_k, top_p)
 
     return fn
+
+
+# -- speculative decoding ---------------------------------------------------
+
+def _no_probe(probe):
+    if probe is not None:
+        raise NotImplementedError(
+            "trace probes are not ported yet: ROADMAP.md Queue 1 item 3")
+
+
+def build_spec_verify_fn(model, num_slots, q_rows, spec_k, table_len,
+                         block_size, top_k=0, top_p=1.0, probe=None,
+                         quantized=False, qmax=127.0):
+    """The VERIFY launch of speculative decoding: the multi-row twin of
+    :func:`build_fused_step_fn`, one fused ragged launch in which each
+    speculating slot feeds its candidate rows ``[last_token, d_1, ...,
+    d_{n-1}]`` (extra ragged rows, as a prefill chunk's) and the rows'
+    logits drive :func:`_spec_accept`. Slots mid-prefill keep chunking
+    through the same launch (``n_spec == 0``).
+
+    Returns ``fn(pool, [scales,] token_ids, qpos, write_block, write_off,
+    blk_seq, seq_qstart, seq_pos0, tables, lo, kv_len, last_row, n_spec,
+    draft_toks, draft_probs, sample_mask, temperature, generator) ->
+    out``, the pool (and scales) updated in place, where
+
+    * ``n_spec [S]`` int32: candidates verified per slot (0 = plain feed
+      or decode rows);
+    * ``draft_toks [S, spec_k]`` int32 / ``draft_probs [S, spec_k, V]``
+      f32: the draft's proposals, which never left the device; row
+      ``seq_qstart + 1 + j`` of ``token_ids`` takes ``draft_toks[:, j]``
+      here, on the device;
+    * ``out [2S + S*spec_k + 1]`` int32: ``[accepted (S) | corrected
+      token (S) | draft tokens echoed (S*spec_k) | logits-finite
+      sentinel]``, all the scheduler's one fetch needs.
+
+    Only the ``S*spec_k`` candidate rows and each slot's last row go
+    through the LM head. ``probe`` (trace probes) raises
+    ``NotImplementedError``: ROADMAP Queue 1 item 3.
+    """
+    _no_probe(probe)
+    gpt = model.gpt if hasattr(model, "gpt") else model
+    S, Q, K, T = int(num_slots), int(q_rows), int(spec_k), int(table_len)
+    if S < 1:
+        raise ValueError(f"num_slots must be >= 1, got {S}")
+    if K < 1:
+        raise ValueError(f"spec_k must be >= 1, got {K}")
+    if Q < BLOCK_Q or Q % BLOCK_Q:
+        raise ValueError(
+            f"q_rows must be a positive multiple of {BLOCK_Q}, got {Q}")
+    if T < 1:
+        raise ValueError(f"table_len must be >= 1, got {T}")
+    top_k = min(int(top_k), gpt.cfg.vocab_size)
+
+    def fn(pool, *rest):
+        (scales, token_ids, qpos, write_block, write_off, blk_seq,
+         seq_qstart, seq_pos0, tables, lo, kv_len, last_row, n_spec,
+         draft_toks, draft_probs, sample_mask, temperature,
+         generator) = rest if quantized else (None,) + rest
+        if token_ids.shape != (Q,) or tables.shape != (S, T) \
+                or draft_toks.shape != (S, K):
+            raise ValueError(
+                f"verify built for q_rows={Q}, tables [{S}, {T}], drafts "
+                f"[{S}, {K}]; got {tuple(token_ids.shape)}, "
+                f"{tuple(tables.shape)}, {tuple(draft_toks.shape)}")
+        with torch.inference_mode():
+            dev = token_ids.device
+            j = torch.arange(K, device=dev)
+            qstart = seq_qstart.long()
+            # the fed token of verify row j + 1 is draft_toks[:, j]; rows
+            # past a slot's candidates go to a sink row Q, dropped
+            rows = qstart[:, None] + 1 + j[None, :]
+            ok = j[None, :] < (n_spec.long()[:, None] - 1)
+            sink = torch.cat([token_ids, token_ids.new_zeros(1)])
+            sink.scatter_(0, torch.where(ok, rows, Q).reshape(-1),
+                          draft_toks.reshape(-1).to(sink.dtype))
+            token_ids = sink[:Q]
+            x = gpt.wte(token_ids[None, :]) + gpt.wpe(qpos[None, :])
+            x = _fused_tower(gpt, x, pool, scales, write_block, write_off,
+                             blk_seq, seq_qstart, seq_pos0, tables, lo,
+                             kv_len, qmax)
+            # the LM head only over the rows whose logits are read
+            vrows = (qstart[:, None] + j[None, :]).clamp(0, Q - 1)
+            sel = x[0][torch.cat([vrows.reshape(-1), last_row.long()])]
+            logits = gpt.logits(sel[:, None, :])[:, 0].float()
+            p = _sample_probs(logits[:S * K],
+                              sample_mask.repeat_interleave(K), top_k,
+                              top_p, temperature.repeat_interleave(K)
+                              ).reshape(S, K, -1)
+            base = _sample_probs(logits[S * K:], sample_mask, top_k, top_p,
+                                 temperature)
+            accepted, token = _spec_accept(p, draft_probs, draft_toks,
+                                           n_spec, base, generator)
+            bad = (~torch.isfinite(logits)).any().to(torch.int32)
+            return torch.cat([accepted, token,
+                              draft_toks.to(torch.int32).reshape(-1),
+                              bad[None]])
+
+    return fn
+
+
+def build_draft_prefill_fn(model, bucket_len, max_len, probe=None):
+    """The DRAFT model's context prefill into its dense slot pool: when a
+    slot starts speculating, the draft's cache must cover the target's
+    context ``[0, pos)``. The context is RIGHT-padded into the bucket
+    (virtual index 0, ``lo == 0``), so draft positions equal target
+    positions token for token.
+
+    Returns ``fn(pool, ids, key_valid, slot) -> pool`` over the draft
+    pool ``[draft_layers, 2, slots, draft_heads, max_len, head_dim]``,
+    written in place at row ``slot``, indices ``[0, bucket_len)``; no
+    token is drawn. ``probe`` raises ``NotImplementedError`` (ROADMAP
+    Queue 1 item 3).
+    """
+    _no_probe(probe)
+    gpt = model.gpt if hasattr(model, "gpt") else model
+    Lb = int(bucket_len)
+    if Lb < 1:
+        raise ValueError(f"bucket_len must be >= 1, got {Lb}")
+    if Lb > int(max_len):
+        raise ValueError(f"bucket_len {Lb} exceeds pool max_len {max_len}")
+    _check_len(gpt, "bucket_len", Lb)
+
+    def fn(pool, ids, key_valid, slot):
+        if tuple(ids.shape) != (1, Lb):
+            raise ValueError(f"draft prefill built for [1, {Lb}], got "
+                             f"{tuple(ids.shape)}")
+        with torch.inference_mode():
+            # the slot's [H, Lb, Dh] rows, seen as the [1, Lb, H, Dh]
+            # cache that GPTBlock.prefill writes
+            caches = tuple(
+                tuple(pool[li, kv, slot, :, :Lb].transpose(0, 1)[None]
+                      for kv in range(2))
+                for li in range(pool.shape[0]))
+            gpt.prefill(ids, caches, key_valid=key_valid)
+        return pool
+
+    return fn
+
+
+def _draft_step(gpt, pool, feed, pj, lo, sample_mask, temperature,
+                generator, top_k, top_p):
+    """One draft token a slot: feed ``feed [S]`` at position ``pj [S]``
+    of the dense draft pool (written in place), attend over ``[lo, pj]``
+    through the masked plain composition, and draw the proposal from the
+    draft's sampling distribution. Returns ``(proposal [S] int32, probs
+    [S, V] f32)``."""
+    S, L = pool.shape[2], pool.shape[4]
+    r = torch.arange(L, device=pool.device)
+    sl = torch.arange(S, device=pool.device)
+    x = gpt._embed(feed[:, None], (pj - lo)[:, None])
+    key_valid = (r[None, :] >= lo[:, None]) & (r[None, :] <= pj[:, None])
+    mask = key_valid[:, None, None, :]
+    p = pj.long()
+    for li, block in enumerate(gpt.blocks):
+        q, k, v = block._qkv(x)                        # [S, 1, H, Dh]
+        pool[li, 0, sl, :, p, :] = k[:, 0].to(pool.dtype)
+        pool[li, 1, sl, :, p, :] = v[:, 0].to(pool.dtype)
+        a = F.scaled_dot_product_attention(
+            q, pool[li, 0].transpose(1, 2), pool[li, 1].transpose(1, 2),
+            attn_mask=mask, training=False)
+        x = block._tail(x, a)
+    logits = gpt.logits(gpt.ln_f(x))[:, 0].float()
+    probs = _sample_probs(logits, sample_mask, top_k, top_p, temperature)
+    return _categorical_probs(generator, probs), probs
+
+
+def _draft_checks(gpt, num_slots, max_len):
+    S, L = int(num_slots), int(max_len)
+    if S < 1:
+        raise ValueError(f"num_slots must be >= 1, got {S}")
+    _check_len(gpt, "max_len", L)
+    return S, L
+
+
+def build_draft_propose_fn(model, num_slots, max_len, top_k=0, top_p=1.0,
+                           probe=None):
+    """ONE draft proposal step of speculative decoding.
+
+    Returns ``fn(pool, feed_tok, pos, lo, sample_mask, temperature,
+    generator) -> (proposal [S] int32, probs [S, V] f32)``: each slot
+    feeds ``feed_tok`` at ``pos`` of the dense draft pool (in place) and
+    draws its proposal from the draft's sampling distribution ``probs``
+    (one-hot for greedy slots), which the verify's rejection sampling
+    takes as ``q``. ``probe`` raises ``NotImplementedError`` (ROADMAP
+    Queue 1 item 3).
+    """
+    _no_probe(probe)
+    gpt = model.gpt if hasattr(model, "gpt") else model
+    _draft_checks(gpt, num_slots, max_len)
+    top_k = min(int(top_k), gpt.cfg.vocab_size)
+
+    def fn(pool, feed_tok, pos, lo, sample_mask, temperature, generator):
+        with torch.inference_mode():
+            return _draft_step(gpt, pool, feed_tok, pos, lo, sample_mask,
+                               temperature, generator, top_k, top_p)
+
+    return fn
+
+
+def build_draft_propose_scan_fn(model, num_slots, max_len, spec_k, top_k=0,
+                                top_p=1.0, probe=None):
+    """The WHOLE draft proposal chain as one call: ``spec_k`` steps of
+    :func:`build_draft_propose_fn`, each feeding the previous step's
+    proposal, which stays on the device (the chain reads nothing back to
+    the host).
+
+    Returns ``fn(pool, feed_tok, pos, lo, sample_mask, temperature,
+    generator) -> (proposals [S, spec_k] int32, probs [S, spec_k, V]
+    f32)``: ``feed_tok [S]`` is each slot's last accepted token, and
+    step ``j`` writes at position ``min(pos + j, max_len - 1)``.
+    ``probe`` raises ``NotImplementedError`` (ROADMAP Queue 1 item 3).
+    """
+    _no_probe(probe)
+    gpt = model.gpt if hasattr(model, "gpt") else model
+    _, L = _draft_checks(gpt, num_slots, max_len)
+    K = int(spec_k)
+    if K < 1:
+        raise ValueError(f"spec_k must be >= 1, got {K}")
+    top_k = min(int(top_k), gpt.cfg.vocab_size)
+
+    def fn(pool, feed_tok, pos, lo, sample_mask, temperature, generator):
+        with torch.inference_mode():
+            feed, props, probs = feed_tok, [], []
+            for j in range(K):
+                feed, pr = _draft_step(
+                    gpt, pool, feed, torch.clamp(pos + j, max=L - 1), lo,
+                    sample_mask, temperature, generator, top_k, top_p)
+                props.append(feed)
+                probs.append(pr)
+            return torch.stack(props, dim=1), torch.stack(probs, dim=1)
+
+    return fn
+
+
+def make_draft_model(model, num_layers=2):
+    """The default speculative draft: a GPT of the target's config cut to
+    ``num_layers`` blocks that SHARES the target's token and position
+    embeddings (the same modules: no extra embedding memory, and the
+    tied LM head keeps the target's vocabulary) and whose blocks and
+    final LayerNorm start as copies of the target's first
+    ``num_layers`` blocks and ``ln_f``, on the target's device and in
+    its dtype."""
+    from dataclasses import replace
+
+    from .gpt import GPTModel
+
+    gpt = model.gpt if hasattr(model, "gpt") else model
+    n = int(num_layers)
+    if not 1 <= n <= gpt.cfg.num_hidden_layers:
+        raise ValueError(
+            f"num_layers must be in [1, {gpt.cfg.num_hidden_layers}], "
+            f"got {num_layers}")
+    draft = GPTModel(replace(gpt.cfg, num_hidden_layers=n))
+    draft.wte = gpt.wte            # SHARED modules, not copies
+    draft.wpe = gpt.wpe
+    ref = gpt.wte.weight
+    for mine, theirs in [(draft.blocks[i], gpt.blocks[i])
+                         for i in range(n)] + [(draft.ln_f, gpt.ln_f)]:
+        mine.to(device=ref.device, dtype=ref.dtype)
+        mine.load_state_dict(theirs.state_dict())
+    draft.eval()
+    return draft
 
 
 # -- static-cache generate ------------------------------------------------

@@ -19,7 +19,20 @@ Two KV layouts and two attention paths share this surface:
 * ``kv_layout="paged", attention="fused"`` — ONE fused launch a cycle
   over a ragged batch: prompts feed in ``prefill_budget``-token chunks
   mixed with one row per decoding slot, and the ragged paged attention
-  kernel walks each sequence's page table in the block pool.
+  kernel walks each sequence's page table in the block pool. With
+  ``spec_draft`` (speculative decoding) a small draft model proposes
+  ``spec_k`` tokens for each decoding slot in one call over its own
+  dense slot pool, and the fused launch verifies them all as extra
+  rows: greedy output stays token-identical, sampled output keeps the
+  target's distribution (rejection sampling on the device).
+
+Telemetry: the scheduler's always-on flight recorder
+(:attr:`GenerationEngine.flight_recorder`,
+:meth:`GenerationEngine.dump_flight_recorder`) gives ``stats()`` its
+latency percentiles and ring-window throughput; each engine publishes
+its ``stats()`` through the metrics registry (``{engine=<id>}`` series,
+pulled at scrape time) and a line of the ``serving engines`` statusz
+section.
 
 The JAX package caches one jitted program per bucket; here each bucket
 (capacity bucket, table bucket, or q-row and table bucket) keeps one
@@ -29,15 +42,21 @@ steps run eagerly and write the pool in place.
 from __future__ import annotations
 
 import threading
+import weakref
 from typing import Iterator, Optional
 
 import numpy as np
 import torch
 
 from .._device import resolve_device
-from ..models.generation import (build_fused_step_fn, build_paged_decode_fn,
+from ..framework import metrics as _metrics
+from ..framework.monitor import stat_add
+from ..models.generation import (build_draft_prefill_fn,
+                                 build_draft_propose_scan_fn,
+                                 build_fused_step_fn, build_paged_decode_fn,
                                  build_paged_prefill_fn,
-                                 build_slot_decode_fn, build_slot_prefill_fn)
+                                 build_slot_decode_fn, build_slot_prefill_fn,
+                                 build_spec_verify_fn, make_draft_model)
 from ..ops.ragged_paged_attention import (BLOCK_Q, MIN_KV_BLOCK,
                                           min_kv_block_for, ragged_layout)
 from .kv_pool import KVCachePool
@@ -49,12 +68,109 @@ __all__ = ["GenerationEngine"]
 # the JAX engine's arguments for parts of the system the port has not
 # taken yet, each with the ROADMAP.md queue that holds it
 _NOT_PORTED = {
-    "spec_draft": "Queue 1 item 2 (speculative decoding)",
     "host_tier_bytes": "Queue 1 item 2 (serving/host_tier.py)",
     "lane_weights": "Queue 1 item 2 (weighted admission over lanes)",
     "hbm_budget_bytes": "Queue 1 item 3 (the static HBM plan)",
     "mesh": "Queue 1 item 4 (tensor-parallel serving)",
 }
+
+_engine_seq = 0
+_engine_seq_lock = threading.Lock()
+
+# live engines for the statusz console (weak: a collected or closed
+# engine drops out by itself); the section is registered once, at the
+# first engine's construction
+_LIVE_ENGINES: "weakref.WeakSet" = weakref.WeakSet()
+_statusz_registered = False
+_statusz_lock = threading.Lock()
+
+
+def _next_engine_id() -> int:
+    global _engine_seq
+    with _engine_seq_lock:
+        _engine_seq += 1
+        return _engine_seq
+
+
+def _engine_section() -> str:
+    """statusz section: one line of load, cache and health per live
+    engine, then its flight recorder's failed cycles and last dump."""
+    engines = [e for e in list(_LIVE_ENGINES) if not e._closed]
+    if not engines:
+        return "(no live engines)"
+    lines = []
+    for e in sorted(engines, key=lambda e: e._eid):
+        try:
+            s = e.stats()
+            head = (f"engine #{e._eid} [{s['kv_layout']}/"
+                    f"{s['attention']}] queue={s['queue_depth']} "
+                    f"active={s['active_requests']} "
+                    f"slots={s['slots_in_use']}/{s['num_slots']}")
+            if "kv_blocks_in_use" in s:
+                head += (f" blocks={s['kv_blocks_in_use']}/"
+                         f"{s['num_blocks']}")
+            if "prefix_hit_ratio" in s:
+                head += f" prefix_hit={s['prefix_hit_ratio']:.2f}"
+            if "spec_accept_rate" in s:
+                head += f" spec_accept={s['spec_accept_rate']:.2f}"
+            lines.append(head)
+            ttft = s.get("ttft_ms")
+            if ttft:
+                lines.append(f"  ttft p50 {ttft['p50']:.1f} ms  "
+                             f"p95 {ttft['p95']:.1f} ms  "
+                             f"(n={ttft['count']})")
+            if s.get("nonfinite_cycles"):
+                lines.append(f"  !! nonfinite decode cycles: "
+                             f"{s['nonfinite_cycles']}")
+            rec = e.flight_recorder
+            failed = [c for c in rec.snapshot()["cycles"]
+                      if c.get("failed")]
+            if failed:
+                lines.append(f"  !! {len(failed)} failed cycles in the "
+                             f"ring; last: {failed[-1].get('failed')}")
+            if rec.last_dump_path:
+                lines.append(f"  last auto-dump: {rec.last_dump_path}")
+        except Exception as err:                         # noqa: BLE001
+            lines.append(f"engine #{e._eid}: (stats error: {err!r})")
+    return "\n".join(lines)
+
+
+def _register_engine_telemetry(engine: "GenerationEngine") -> None:
+    """Join the statusz console and publish ``engine.stats()`` through
+    the metrics registry as ``{engine=<id>}`` gauges and counters,
+    pulled only when a scrape asks."""
+    global _statusz_registered
+    with _statusz_lock:
+        if not _statusz_registered:
+            _metrics.register_statusz_section("serving engines",
+                                              _engine_section)
+            _statusz_registered = True
+    _LIVE_ENGINES.add(engine)
+    ref = weakref.ref(engine)
+
+    def _collect():
+        e = ref()
+        if e is None or e._closed:
+            return ()
+        s = e.stats()
+        labels = {"engine": str(e._eid)}
+        out = [("gauge", "serving_queue_depth", labels, s["queue_depth"]),
+               ("gauge", "serving_slots_in_use", labels,
+                s["slots_in_use"]),
+               ("gauge", "serving_kv_bytes_in_use", labels,
+                s["kv_bytes_in_use"]),
+               ("counter", "serving_requests_retired", labels,
+                s["requests_retired"]),
+               ("counter", "serving_preempts", labels, s["preempts"]),
+               ("counter", "serving_nonfinite_cycles", labels,
+                s["nonfinite_cycles"])]
+        if "kv_blocks_in_use" in s:
+            out.append(("gauge", "serving_kv_blocks_in_use", labels,
+                        s["kv_blocks_in_use"]))
+            out.append(("gauge", "serving_prefix_hit_ratio", labels,
+                        s["prefix_hit_ratio"]))
+        return out
+    _metrics.register_collector(f"serving_engine/{engine._eid}", _collect)
 
 
 class GenerationEngine:
@@ -88,7 +204,13 @@ class GenerationEngine:
     * ``top_k``/``top_p`` — the sampled path's truncation, fixed per
       engine; ``seed`` seeds the engine's ``torch.Generator``.
 
-    ``spec_draft``, ``host_tier_bytes``, ``hbm_budget_bytes`` and
+    * ``spec_draft`` — fused only: speculative decoding with a draft
+      model (``"auto"``: :func:`~..models.generation.make_draft_model`,
+      the target's first 2 blocks over its shared embeddings; or any
+      port GPT of the same vocabulary on ``device``), ``spec_k`` draft
+      tokens verified per decoding slot a cycle.
+
+    ``host_tier_bytes``, ``hbm_budget_bytes``, ``lane_weights`` and
     ``mesh`` are not ported yet and raise ``NotImplementedError``. Greedy
     output is token-identical to the JAX engine of the same configuration
     on the same weights.
@@ -106,10 +228,9 @@ class GenerationEngine:
                  mp_axis: str = "mp", hbm_budget_bytes: Optional[int] = None,
                  lane_weights: Optional[dict] = None,
                  host_tier_bytes: Optional[int] = None, device=None):
-        # spec_k and mp_axis only shape spec_draft's and mesh's work,
-        # which raise here
+        # mp_axis only shapes mesh's work, which raises here
         self._device = resolve_device(device)
-        given = {"spec_draft": spec_draft, "host_tier_bytes": host_tier_bytes,
+        given = {"host_tier_bytes": host_tier_bytes,
                  "hbm_budget_bytes": hbm_budget_bytes, "mesh": mesh,
                  "lane_weights": lane_weights}
         for name, value in given.items():
@@ -147,6 +268,11 @@ class GenerationEngine:
                     f"kv_dtype={kv_dtype or 'float'}: the floor of the JAX "
                     f"engine's kernel, kept so both engines take the same "
                     f"configurations")
+        if spec_draft is not None and attention != "fused":
+            raise ValueError(
+                "spec_draft (speculative decoding) requires "
+                "attention='fused': the verify is one fused ragged launch, "
+                "each slot's candidate tokens extra ragged rows")
         gpt = model.gpt if hasattr(model, "gpt") else model
         cfg = gpt.cfg
         param = next(model.parameters())
@@ -188,12 +314,22 @@ class GenerationEngine:
         self._prefill_steps = {}          # capacity bucket -> prefill fn
         self._decode_steps = {}           # table bucket (dense: None) -> fn
         self._steps = {}                  # (q bucket, table bucket) -> fn
+        self._spec_steps = {}             # (q, table) -> verify step
+        self._eid = _next_engine_id()
         self._closed = False
         self._close_lock = threading.Lock()
+        self._spec = spec_draft is not None
+        self._spec_k = int(spec_k)
+        if self._spec:
+            if self._spec_k < 1:
+                raise ValueError(f"spec_k must be >= 1, got {spec_k}")
+            self._init_draft(spec_draft, max_len)
         if self._fused:
             self._sched = Scheduler(
                 self._pool, do_admit=self._run_fused_admit,
                 do_chunked_step=self._run_fused_step,
+                do_spec_step=self._run_spec_step if self._spec else None,
+                spec_k=self._spec_k if self._spec else 0,
                 do_copy=self._run_copy, max_queue=max_queue,
                 prefill_budget=prefill_budget)
         else:
@@ -202,6 +338,7 @@ class GenerationEngine:
                 do_decode=self._run_decode,
                 do_copy=self._run_copy if self._pool.is_paged else None,
                 max_queue=max_queue, prefill_budget=prefill_budget)
+        _register_engine_telemetry(self)
 
     # -- client side -------------------------------------------------------
     def submit(self, prompt_ids, max_new_tokens: int = 32, *,
@@ -271,7 +408,9 @@ class GenerationEngine:
             ids, max_new_tokens, do_sample=do_sample,
             temperature=temperature, eos_token_id=eos_token_id,
             pad_token_id=self._pad, timeout=timeout)
-        return self._sched.submit(req)
+        handle = self._sched.submit(req)    # QueueFullError propagates
+        stat_add("serving/requests")        # counts accepted requests
+        return handle
 
     def stream(self, prompt_ids, **kwargs) -> Iterator[int]:
         """``submit(...).stream()`` in one call."""
@@ -286,6 +425,9 @@ class GenerationEngine:
                 return
             self._closed = True
         self._sched.close(cancel_pending=cancel_pending)
+        # a closed engine is no longer a scraped source or statusz row
+        _metrics.unregister_collector(f"serving_engine/{self._eid}")
+        _LIVE_ENGINES.discard(self)
 
     def __enter__(self):
         return self
@@ -295,11 +437,27 @@ class GenerationEngine:
         return False
 
     # -- introspection -----------------------------------------------------
+    @property
+    def flight_recorder(self):
+        """This engine's always-on :class:`~.flight_recorder.
+        FlightRecorder`."""
+        return self._sched.recorder
+
+    def dump_flight_recorder(self, path: Optional[str] = None) -> dict:
+        """The flight recorder's snapshot (the last cycle records and
+        request events, latency percentiles, tail traces) plus this
+        engine's :meth:`stats`; written to ``path`` as JSON when given.
+        A failed cycle dumps it by itself (the path in
+        ``flight_recorder.last_dump_path``)."""
+        return self._sched.recorder.dump(path, extra={"engine":
+                                                      self.stats()})
+
     def stats(self) -> dict:
         """Operator snapshot (host bookkeeping only, no device sync):
         queue, slots, steps, the paged pool's blocks and prefix cache,
-        chunked prefill, and TTFT/TPOT percentiles over this engine's
-        retired requests."""
+        chunked prefill, the speculative figures, and TTFT/TPOT
+        percentiles over this engine's retired requests (from its flight
+        recorder)."""
         pool, sched = self._pool, self._sched
         s = {
             "kv_layout": "paged" if self._pool.is_paged else "dense",
@@ -312,7 +470,7 @@ class GenerationEngine:
             "slots_in_use": pool.n_active,
             "slot_utilization": pool.n_active / pool.num_slots,
             "preempts": sched.preempts,
-            "requests_retired": sched.retired,
+            "requests_retired": sched.recorder.retired,
             "nonfinite_cycles": sched.nonfinite_cycles,
             "steps": sched.steps,
             "kv_pool_capacity_bytes": pool.capacity_bytes,
@@ -335,12 +493,31 @@ class GenerationEngine:
                 "prefill_tokens_saved": pool.tokens_saved,
                 "prefix_evictions": pool.evictions,
             })
+        s.update(sched.recorder.latency_summary())
         if self._fused:
             s["prefill_chunks"] = sched.prefill_chunks
             s["chunked_prefill_tokens"] = sched.chunk_tokens
+            thr = sched.recorder.cycle_throughput()
+            if thr["cycle_secs"] > 0 and thr["chunk_tokens"] > 0:
+                s["chunked_prefill_tokens_per_sec"] = \
+                    thr["chunk_tokens"] / thr["cycle_secs"]
         else:
             s["prefills"] = sched.prefills
-        s.update(sched.latency_summary())
+        if self._spec:
+            # how often the draft agrees, and how many tokens a decoding
+            # slot nets a cycle (1.0 = plain decode)
+            s["spec_k"] = self._spec_k
+            s["spec_cycles"] = sched.spec_cycles
+            s["spec_proposed"] = sched.spec_proposed
+            s["spec_accepted"] = sched.spec_accepted
+            s["spec_accept_rate"] = sched.spec_accepted \
+                / max(1, sched.spec_proposed)
+            if thr["spec_slots"] > 0:
+                s["spec_tokens_per_cycle"] = \
+                    thr["spec_emitted"] / thr["spec_slots"]
+            s["draft_layers"] = self._draft_gpt.cfg.num_hidden_layers
+            s["kv_bytes"]["draft"] = self._draft_pool.numel() \
+                * self._draft_pool.element_size()
         return s
 
     # -- scheduler callbacks (scheduler thread) ----------------------------
@@ -482,6 +659,10 @@ class GenerationEngine:
         (any tail length: chunks drain it), and the remaining tokens arm
         ``req.pending_feed``."""
         pool = self._pool
+        if self._spec:
+            # the slot's previous occupant's draft cache is stale: the
+            # next speculative cycle re-syncs it with a draft prefill
+            self._draft_synced[slot] = False
         feed = np.concatenate(
             [req.prompt, np.asarray(req.tokens, np.int32)])
         cached = pool.match_prefix(feed)
@@ -497,10 +678,14 @@ class GenerationEngine:
             pool.set_slot(slot, pos=0, lo=0)
             req.pending_feed = [int(t) for t in feed]
 
-    def _ragged_operands(self, slot_requests, plan):
-        """Host-side flattened ragged-row operands of one launch:
+    def _ragged_operands(self, slot_requests, plan, spec=None):
+        """Host-side flattened ragged-row operands of one launch (numpy):
         per-slot contiguous padded rows, page-table-resolved write
-        targets and the kernel's metadata (numpy)."""
+        targets and the kernel's metadata, shared by the fused step and
+        the speculative verify. Speculating slots (``spec``) contribute
+        their candidate rows with only ``last_token`` known here: the
+        draft tokens are overlaid on the device by the verify step.
+        Returns ``(Q, T, ops, n_spec, sample_mask, temps)``."""
         pool = self._pool
         S = pool.num_slots
         bs = pool.block_size
@@ -510,6 +695,7 @@ class GenerationEngine:
         kv_len = np.zeros(S, np.int32)
         sample_mask = np.zeros(S, bool)
         temps = np.ones(S, np.float32)
+        n_spec = np.zeros(S, np.int32)
         for slot, req in slot_requests.items():
             n = int(plan.get(slot, 0))
             if n < 1:
@@ -520,8 +706,13 @@ class GenerationEngine:
             kv_len[slot] = p + n
             sample_mask[slot] = req.do_sample
             temps[slot] = req.temperature
-            row_tokens[slot] = (req.pending_feed[:n] if req.pending_feed
-                                else [req.last_token])
+            if spec and slot in spec:
+                n_spec[slot] = n
+                row_tokens[slot] = [req.last_token]
+            else:
+                row_tokens[slot] = (req.pending_feed[:n]
+                                    if req.pending_feed
+                                    else [req.last_token])
         padded = sum(-(-n // BLOCK_Q) * BLOCK_Q for n in q_lens if n)
         Q = self._q_bucket(padded)
         blk_seq, qstart, pos0, last_row, _ = ragged_layout(
@@ -544,12 +735,12 @@ class GenerationEngine:
         lo = np.zeros(S, np.int32)            # paged virtual floor
         return (Q, T, (token_ids, qpos, write_block, write_off, blk_seq,
                        qstart, pos0, tables, lo, kv_len, last_row),
-                sample_mask, temps)
+                n_spec, sample_mask, temps)
 
     def _run_fused_step(self, slot_requests, plan):
         """Run ONE fused ragged launch; returns the next-token tensor
         (``[num_slots + 1]``, on the device) un-fetched."""
-        Q, T, ops, sample_mask, temps = self._ragged_operands(
+        Q, T, ops, _, sample_mask, temps = self._ragged_operands(
             slot_requests, plan)
         dev_ops = self._put(*ops)
         pool = self._pool
@@ -580,3 +771,167 @@ class GenerationEngine:
             pool.data[:, :, dst] = pool.data[:, :, src]
             if pool.quantized:
                 pool.scales[:, :, dst] = pool.scales[:, :, src]
+
+    # -- speculative decoding: draft proposals, fused verify ---------------
+    def _init_draft(self, spec_draft, max_len) -> None:
+        """The draft side of speculative decoding: resolve the draft
+        model (``"auto"`` builds :func:`make_draft_model`'s 2-layer GPT
+        over the target's embeddings) and allocate its DENSE slot pool
+        ``[draft layers, 2, slots, draft heads, max_len, draft head
+        dim]`` in its parameters' dtype. Draft positions mirror the
+        target pool's ``slot_pos`` (both write a row's K/V when the row
+        is fed), so the only per-slot draft state is a synced flag."""
+        if isinstance(spec_draft, str):
+            if spec_draft != "auto":
+                raise ValueError(
+                    f"spec_draft must be 'auto' or a GPT model, got "
+                    f"{spec_draft!r}")
+            spec_draft = make_draft_model(self._model)
+        dgpt = spec_draft.gpt if hasattr(spec_draft, "gpt") else spec_draft
+        if dgpt.cfg.vocab_size != self._gpt.cfg.vocab_size:
+            raise ValueError(
+                f"draft vocab {dgpt.cfg.vocab_size} != target vocab "
+                f"{self._gpt.cfg.vocab_size}: rejection sampling "
+                f"compares distributions over the SAME vocabulary")
+        if max_len > dgpt.cfg.max_position_embeddings:
+            raise ValueError(
+                f"max_len {max_len} exceeds the draft's "
+                f"max_position_embeddings="
+                f"{dgpt.cfg.max_position_embeddings}")
+        dparam = next(spec_draft.parameters())
+        if dparam.device.type != self._device.type:
+            raise ValueError(
+                f"the draft's parameters are on {dparam.device}, the "
+                f"engine serves on {self._device}: move the draft first")
+        spec_draft.eval()
+        self._draft_model = spec_draft
+        self._draft_gpt = dgpt
+        dcfg = dgpt.cfg
+        self._draft_max_len = int(max_len)
+        self._draft_shape = (dcfg.num_hidden_layers, 2,
+                             self._pool.num_slots,
+                             dcfg.num_attention_heads, self._draft_max_len,
+                             dcfg.hidden_size // dcfg.num_attention_heads)
+        self._draft_dtype = dparam.dtype
+        self._draft_pool = torch.zeros(self._draft_shape,
+                                       dtype=self._draft_dtype,
+                                       device=self._device)
+        self._draft_synced = np.zeros(self._pool.num_slots, bool)
+        self._draft_prefill_steps = {}    # bucket -> draft prefill
+        self._draft_scan_steps = {}       # kmax -> proposal chain
+
+    def _reset_draft(self) -> None:
+        """After a failed cycle: a zero draft pool and no slot synced."""
+        self._draft_pool.zero_()
+        self._draft_synced[:] = False
+
+    def _draft_bucket(self, n: int) -> int:
+        """pow2 context bucket of a draft prefill, capped at the draft
+        pool's max_len (a slot's context is always below it)."""
+        b = 8
+        while b < n:
+            b *= 2
+        return min(b, self._draft_max_len)
+
+    def _draft_prefill_fn(self, bucket: int):
+        fn = self._draft_prefill_steps.get(bucket)
+        if fn is None:
+            fn = self._draft_prefill_steps[bucket] = build_draft_prefill_fn(
+                self._draft_model, bucket, self._draft_max_len)
+        return fn
+
+    def _draft_scan_fn(self, kmax: int):
+        """The whole proposal chain of ``kmax`` draft steps as ONE call
+        (:func:`build_draft_propose_scan_fn`); one per distinct
+        ``kmax``."""
+        fn = self._draft_scan_steps.get(kmax)
+        if fn is None:
+            fn = self._draft_scan_steps[kmax] = build_draft_propose_scan_fn(
+                self._draft_model, self._pool.num_slots,
+                self._draft_max_len, kmax, top_k=self._top_k,
+                top_p=self._top_p)
+        return fn
+
+    def _spec_step_fn(self, q_rows: int, table_len: int):
+        key = (q_rows, table_len)
+        fn = self._spec_steps.get(key)
+        if fn is None:
+            pool = self._pool
+            fn = self._spec_steps[key] = build_spec_verify_fn(
+                self._model, pool.num_slots, q_rows, self._spec_k,
+                table_len, pool.block_size, top_k=self._top_k,
+                top_p=self._top_p, quantized=pool.quantized,
+                qmax=pool.qmax or 127.0)
+        return fn
+
+    def _sync_draft(self, slot: int, req: GenerationRequest) -> None:
+        """Bring the draft's cache of ``slot`` up to the target's context
+        ``[0, pos)``: one right-padded draft prefill of ``prompt +
+        generated`` less the last (not yet written) token. Runs when a
+        slot starts, or resumes after a preemption or reuse, speculative
+        decoding."""
+        feed = np.concatenate(
+            [req.prompt, np.asarray(req.tokens, np.int32)])
+        ctx = feed[:-1]
+        if ctx.size:
+            b = self._draft_bucket(ctx.size)
+            ids = np.zeros((1, b), np.int32)
+            ids[0, :ctx.size] = ctx
+            key_valid = np.zeros((1, b), np.int32)
+            key_valid[0, :ctx.size] = 1
+            ids_d, kv_d = self._put(ids, key_valid)
+            self._draft_prefill_fn(b)(self._draft_pool, ids_d.long(),
+                                      kv_d.bool(), slot)
+        self._draft_synced[slot] = True
+
+    def _run_spec_step(self, slot_requests, plan, spec):
+        """ONE speculative cycle, with no device-to-host copy: (1)
+        unsynced slots' draft caches catch up by a draft prefill; (2)
+        ONE call proposes ``max(spec.values())`` tokens a slot, each step
+        feeding the previous step's proposal on the device; (3) ONE fused
+        verify launch scores every candidate row beside the cycle's
+        prefill-chunk rows and runs the rejection sampling. Returns
+        ``[accepted | corrected | draft echo | sentinel]`` un-fetched."""
+        try:
+            return self._run_spec_inner(slot_requests, plan, spec)
+        except Exception:
+            # the draft pool is written in place: a failure may have
+            # left it half-written, as the target's
+            self._reset_draft()
+            raise
+
+    def _run_spec_inner(self, slot_requests, plan, spec):
+        pool = self._pool
+        S, K = pool.num_slots, self._spec_k
+        for slot in spec:
+            if not self._draft_synced[slot]:
+                self._sync_draft(slot, slot_requests[slot])
+        feed0 = np.zeros(S, np.int32)
+        pos_d = np.zeros(S, np.int32)
+        for slot in spec:
+            feed0[slot] = slot_requests[slot].last_token
+            pos_d[slot] = pool.slot_pos(slot)
+        Q, T, ops, n_spec, sample_mask, temps = self._ragged_operands(
+            slot_requests, plan, spec=spec)
+        # every host operand of the cycle in one copy, the float
+        # temperatures as their bits
+        dev = self._put(feed0, pos_d, n_spec, sample_mask.astype(np.int32),
+                        temps.view(np.int32), *ops)
+        feed_d, pos_dd, n_spec_d, samp_d, temps_d = dev[:5]
+        samp_d, temps_d = samp_d.bool(), temps_d.view(torch.float32)
+        dev_ops = dev[5:]
+        lo_d = dev_ops[8]                 # the paged floor: all zeros
+        # only as many draft steps as the cycle's largest candidate
+        # count; the verify takes [S, K], zero-padded past kmax
+        kmax = max(spec.values())
+        d_dev, q_dev = self._draft_scan_fn(kmax)(
+            self._draft_pool, feed_d, pos_dd, lo_d, samp_d, temps_d,
+            self._gen)
+        self._sched.note_spec_dispatches(1)
+        if kmax < K:
+            d_dev = torch.nn.functional.pad(d_dev, (0, K - kmax))
+            q_dev = torch.nn.functional.pad(q_dev, (0, 0, 0, K - kmax))
+        scales = (pool.scales,) if pool.quantized else ()
+        return self._spec_step_fn(Q, T)(
+            pool.data, *scales, *dev_ops, n_spec_d, d_dev, q_dev, samp_d,
+            temps_d, self._gen)

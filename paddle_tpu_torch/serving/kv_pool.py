@@ -121,8 +121,12 @@ class SlotPoolBase:
 
     def advance(self, slot: int, n: int = 1) -> int:
         """``n`` tokens landed (one decode row, or one prefill chunk):
-        the slot's write position moves ``n`` cache indices later.
-        Returns the new ``pos``."""
+        the slot's write position moves ``n`` cache indices later. ``n``
+        is a SIGNED delta: the speculative scheduler rolls back the rows
+        of rejected draft tokens with a negative ``n`` (paged tables
+        address by ``pos``, so the stale K/V past the new ``pos`` are
+        masked out and overwritten by the next append). Returns the new
+        ``pos``."""
         if n == 0:
             raise ValueError("advance needs n != 0")
         st = self._slots[slot]
@@ -134,8 +138,9 @@ class SlotPoolBase:
                 f"({self._admission_law}) is broken")
         if new_pos < st.lo:
             raise RuntimeError(
-                f"slot {slot}: position {new_pos} below the slot's floor "
-                f"lo={st.lo}")
+                f"slot {slot}: rollback below the slot's floor "
+                f"(pos={new_pos} < lo={st.lo}) — a speculative rollback "
+                f"may only unwind rows written this cycle")
         st.pos = new_pos
         return st.pos
 

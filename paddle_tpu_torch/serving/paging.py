@@ -396,6 +396,17 @@ class PagedKVPool(SlotPoolBase):
                 parent.children.add(key)
 
     # -- growth + copy-on-write --------------------------------------------
+    def unpublish_from(self, slot: int, pos: int) -> None:
+        """Drop the prefix-cache registration of the slot's blocks from
+        virtual index ``pos`` on: after a speculative rollback, rows of
+        rejected draft tokens must not leave a published block whose
+        contents no longer match its token key."""
+        st = self._require(slot)
+        for vb in range(int(pos) // self.block_size, len(st.table)):
+            key = self._block_key.get(st.table[vb])
+            if key is not None:
+                self._drop_node(key)
+
     def ensure_writable(self, slot: int) -> Optional[Tuple[int, int]]:
         """Guarantee the block holding virtual index ``pos`` exists and
         is exclusively owned before a decode step writes into it.

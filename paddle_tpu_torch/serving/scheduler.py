@@ -20,9 +20,26 @@ cycle. Two modes, as the engine picks:
   cycle; a slot whose final chunk lands emits its first token from the
   same launch. Block exhaustion while growing preempts the youngest
   request, which re-queues and later replays its own history as a feed.
+  With a speculative step (``do_spec_step``), each decoding slot feeds
+  up to ``spec_k`` draft candidates as rows of the same launch instead
+  of one: the accepted ones (and, after a rejection, one corrected
+  token) are emitted, and the slot's position rolls back over the
+  rejected rows.
 
 Finished (EOS / token budget), cancelled and expired requests free their
-slot at once.
+slot at once. A full queue raises :class:`QueueFullError` and an expired
+request ends with :class:`DeadlineExceeded`, both carrying the queue
+depth and an estimated wait (depth x the EWMA interval between
+admissions, None before two admissions).
+
+Observability: every request carries a :class:`~.tracing.RequestTrace`,
+every cycle writes a record into the always-on
+:class:`~.flight_recorder.FlightRecorder` (the sweep / admit / prefill /
+dispatch / fetch breakdown, occupancy, queue depth, emitted tokens, the
+speculative figures), which dumps itself when a cycle fails, and the
+``serving/*`` counters and distributions of the monitor are fed as in
+the JAX scheduler. The JAX scheduler's profiler spans are not ported
+(ROADMAP Queue 1 item 3).
 
 Threading contract: ``submit``/``cancel`` may be called from any
 thread; the loop, the pool and the slot state belong to the scheduler
@@ -36,11 +53,12 @@ import logging
 import queue
 import threading
 import time
-from collections import deque
 from typing import Callable, Dict, List, Optional
 
 import numpy as np
 
+from ..framework.monitor import stat_add, stat_observe
+from .flight_recorder import FlightRecorder
 from .paging import PoolExhaustedError
 from .tracing import RequestTrace
 
@@ -50,8 +68,9 @@ __all__ = ["QueueFullError", "DeadlineExceeded", "RequestCancelled",
 
 class QueueFullError(RuntimeError):
     """The admission queue is at capacity — shed load and retry later.
-    ``queue_depth`` and ``est_wait_s`` are the load hints a front door
-    reads (None where the raiser has none)."""
+    ``queue_depth`` (entries queued when the submit was refused) and
+    ``est_wait_s`` (depth x the EWMA interval between admissions, None
+    before two admissions) are stamped when it is raised."""
 
     def __init__(self, message: str = "", *,
                  queue_depth: Optional[int] = None,
@@ -63,7 +82,8 @@ class QueueFullError(RuntimeError):
 
 class DeadlineExceeded(TimeoutError):
     """The request's deadline passed before it finished (tokens produced
-    before it were streamed); the load hints as ``QueueFullError``'s."""
+    before it were streamed); ``queue_depth``/``est_wait_s`` as
+    ``QueueFullError``'s, stamped when it is raised."""
 
     def __init__(self, message: str = "", *,
                  queue_depth: Optional[int] = None,
@@ -81,24 +101,12 @@ _log = logging.getLogger(__name__)
 
 _DONE = object()          # stream terminator sentinel
 
-# retired-request latency samples kept for stats() percentiles
-_RESERVOIR = 4096
-
 
 def _fetch(tokens):
-    """THE one device-to-host copy of the serving loop: the step's
-    ``[num_slots + 1]`` next-token tensor, once per cycle."""
+    """THE one device-to-host copy of the serving loop: the step's token
+    tensor (``[num_slots + 1]``, or a speculative step's ``[2S + S*K +
+    1]``), once per cycle."""
     return tokens.cpu().numpy()
-
-
-def _percentile(sorted_vals: List[float], q: float) -> float:
-    """Linear-interpolated percentile of an already sorted list."""
-    if len(sorted_vals) == 1:
-        return sorted_vals[0]
-    k = (len(sorted_vals) - 1) * q
-    lo = int(k)
-    hi = min(lo + 1, len(sorted_vals) - 1)
-    return sorted_vals[lo] + (sorted_vals[hi] - sorted_vals[lo]) * (k - lo)
 
 
 class GenerationRequest:
@@ -137,8 +145,11 @@ class GenerationRequest:
         # generated history after a preemption), drained in budgeted
         # chunks; rebuilt at every admission
         self.pending_feed: List[int] = []
+        self.first_token_at: Optional[float] = None
+        self._last_token_at: Optional[float] = None
         self.trace = RequestTrace(self.id, t_submit=self.submitted_at,
                                   tenant=tenant, lane=lane)
+        self._recorder: Optional[FlightRecorder] = None   # set at submit
         self._q: "queue.Queue" = queue.Queue()
         self._done = threading.Event()
         self.error: Optional[BaseException] = None
@@ -189,8 +200,18 @@ class GenerationRequest:
 
     def _emit(self, tok: int) -> None:
         now = time.perf_counter()
-        if not self.trace.token_times:
+        if self.first_token_at is None:
+            self.first_token_at = now
+            stat_observe("serving/ttft_ms",
+                         (now - self.submitted_at) * 1e3)
             self.trace.mark("first_token", t=now)
+            if self._recorder is not None:
+                self._recorder.record_event(self.id, "first_token", t=now)
+        else:
+            # one inter-token sample per decoded token after the first
+            stat_observe("serving/tpot_ms",
+                         (now - self._last_token_at) * 1e3)
+        self._last_token_at = now
         self.trace.stamp_token(now)
         self.tokens.append(tok)
         self.emitted += 1
@@ -209,6 +230,11 @@ class GenerationRequest:
             name = "error"
         self.trace.mark(name,
                         **({} if error is None else {"error": repr(error)}))
+        if self._recorder is not None:
+            self._recorder.record_event(
+                self.id, name,
+                meta=None if error is None else {"error": repr(error)})
+            self._recorder.retire(self.trace)
         self._done.set()
         self._q.put(error if error is not None else _DONE)
 
@@ -234,14 +260,20 @@ class Scheduler:
       reserves the slot's blocks and arms ``request.pending_feed``;
       ``do_chunked_step(slot_requests, plan) -> [num_slots + 1] tensor``
       runs ONE fused ragged launch with ``plan[slot]`` rows per slot;
+      with ``do_spec_step(slot_requests, plan, spec) -> [2S + S*spec_k +
+      1] tensor`` a cycle with decoding slots runs the speculative
+      verify launch instead, ``spec[slot]`` candidate rows for each
+      decoding slot: ``[accepted (S) | corrected token (S) | draft echo
+      (S*spec_k) | logits-finite sentinel]``;
     * ``do_copy(dst, src)`` — copy-on-write block copy (paged pools).
 
     The pair of callables given picks the mode (``do_prefill`` and
     ``do_decode`` are None in chunked mode); the pool's ``is_paged`` picks
-    the layout. Admission is first come, first served: speculative steps
-    (``do_spec_step``, ``spec_k``), the flight recorder (``recorder``) and
-    weighted lanes (``lane_weights``) raise ``NotImplementedError``
-    (ROADMAP Queue 1 item 2).
+    the layout. ``recorder`` is the :class:`~.flight_recorder.
+    FlightRecorder` the cycles and events go to (a fresh one by
+    default). Admission is first come, first served: weighted lanes
+    (``lane_weights``) raise ``NotImplementedError`` (ROADMAP Queue 1
+    item 2).
     """
 
     def __init__(self, pool, do_prefill: Optional[Callable] = None,
@@ -251,13 +283,13 @@ class Scheduler:
                  do_copy: Optional[Callable] = None,
                  do_chunked_step: Optional[Callable] = None,
                  do_spec_step: Optional[Callable] = None, spec_k: int = 0,
-                 recorder=None, lane_weights: Optional[Dict] = None,
+                 recorder: Optional[FlightRecorder] = None,
+                 lane_weights: Optional[Dict] = None,
                  do_admit: Optional[Callable] = None):
-        if do_spec_step is not None or spec_k or recorder is not None \
-                or lane_weights is not None:
+        if lane_weights is not None:
             raise NotImplementedError(
-                "speculative steps, the flight recorder and weighted lanes "
-                "are not ported yet: ROADMAP.md Queue 1 item 2")
+                "weighted lanes are not ported yet: ROADMAP.md Queue 1 "
+                "item 2")
         if max_queue < 1:
             raise ValueError(f"max_queue must be >= 1, got {max_queue}")
         self._chunked = do_chunked_step is not None
@@ -268,11 +300,20 @@ class Scheduler:
             raise ValueError(
                 "pass do_prefill and do_decode (bucketed mode) or do_admit "
                 "and do_chunked_step (chunked mode)")
+        self._spec = do_spec_step is not None
+        self._spec_k = int(spec_k)
+        if self._spec and not self._chunked:
+            raise ValueError(
+                "do_spec_step requires do_chunked_step: speculative "
+                "verify rows ride the fused ragged launch")
+        if self._spec and self._spec_k < 1:
+            raise ValueError(f"spec_k must be >= 1, got {spec_k}")
         self._pool = pool
         self._do_prefill = do_prefill
         self._do_decode = do_decode
         self._do_admit = do_admit
         self._do_chunked = do_chunked_step
+        self._do_spec = do_spec_step
         self._do_copy = do_copy
         self._max_queue = int(max_queue)
         # chunked: prompt tokens fed per cycle (decode rows are never
@@ -284,13 +325,20 @@ class Scheduler:
                 f"prefill_budget must be >= 1, got {self._prefill_budget}")
         self.prefill_chunks = 0          # chunk launches fed (slot-cycles)
         self.chunk_tokens = 0            # prompt tokens fed via chunks
+        self.spec_cycles = 0             # cycles that verified >= 1 slot
+        self.spec_proposed = 0           # draft tokens verified
+        self.spec_accepted = 0           # draft tokens accepted
         self.nonfinite_cycles = 0        # cycles whose logits held NaN/Inf
         self.preempts = 0                # requests evicted mid-flight
         self.steps = 0                   # decode steps or fused launches
         self.prefills = 0                # prefill programs run (bucketed)
-        self.retired = 0
-        self._ttft: deque = deque(maxlen=_RESERVOIR)
-        self._tpot: deque = deque(maxlen=_RESERVOIR)
+        self.recorder = recorder if recorder is not None \
+            else FlightRecorder()
+        self._cycle = 0
+        self._rec: Optional[dict] = None   # the current cycle's record
+        # EWMA of the interval between admissions: est_wait_s's evidence
+        self._admit_stamp: Optional[float] = None
+        self._admit_interval_s: Optional[float] = None
         self._queue: List[GenerationRequest] = []
         self._slots: Dict[int, GenerationRequest] = {}
         self._cond = threading.Condition()
@@ -300,15 +348,32 @@ class Scheduler:
         self._thread.start()
 
     # -- producer side -----------------------------------------------------
+    def _est_wait_s(self, depth: int) -> Optional[float]:
+        """Estimated queue wait for ``depth`` entries: depth x the EWMA
+        interval between admissions (None before two admissions)."""
+        if self._admit_interval_s is None:
+            return None
+        return depth * self._admit_interval_s
+
     def submit(self, req: GenerationRequest) -> GenerationRequest:
         with self._cond:
             if self._closing:
                 raise RuntimeError("GenerationEngine is closed")
             if len(self._queue) >= self._max_queue:
+                stat_add("serving/queue_full")
+                depth = len(self._queue)
                 raise QueueFullError(
                     f"admission queue is full ({self._max_queue} "
-                    f"requests); retry after in-flight work drains")
+                    f"requests); retry after in-flight work drains",
+                    queue_depth=depth, est_wait_s=self._est_wait_s(depth))
+            req._recorder = self.recorder
+            # recorded before notify: the event ring never shows this
+            # request admitted ahead of its own submit
+            self.recorder.record_event(
+                req.id, "submit", t=req.submitted_at,
+                meta={"tenant": req.tenant, "lane": req.lane})
             self._queue.append(req)
+            stat_observe("serving/queue_depth", len(self._queue))
             self._cond.notify_all()
         return req
 
@@ -333,21 +398,6 @@ class Scheduler:
     def active(self) -> int:
         return len(self._slots)
 
-    def latency_summary(self) -> Dict[str, Optional[dict]]:
-        """``{"ttft_ms": {...}, "tpot_ms": {...}}`` with count/p50/p95/p99
-        over retired requests (None before any sample)."""
-        def pct(vals) -> Optional[dict]:
-            if not vals:
-                return None
-            s = sorted(vals)
-            return {"count": len(s), "p50": _percentile(s, 0.5),
-                    "p95": _percentile(s, 0.95),
-                    "p99": _percentile(s, 0.99)}
-
-        with self._cond:
-            ttft, tpot = list(self._ttft), list(self._tpot)
-        return {"ttft_ms": pct(ttft), "tpot_ms": pct(tpot)}
-
     # -- scheduler thread --------------------------------------------------
     def _loop(self) -> None:
         while True:
@@ -357,9 +407,24 @@ class Scheduler:
                     self._cond.wait()
                 if self._closing and not self._queue and not self._slots:
                     return
+            self._cycle += 1
+            t0 = time.perf_counter()
+            # the cycle record is always taken: host dicts, a bounded ring
+            rec = self._rec = {
+                "cycle": self._cycle, "t": t0, "sweep_ms": 0.0,
+                "admit_ms": 0.0, "prefill_ms": 0.0,
+                "decode_dispatch_ms": 0.0, "fetch_ms": 0.0,
+                "admitted": [], "retired": [], "emitted": 0,
+                "preempts": 0, "active": 0, "occupancy": 0.0,
+            }
+            failed = None
             try:
+                t = time.perf_counter()
                 self._sweep_queue()
+                rec["sweep_ms"] = (time.perf_counter() - t) * 1e3
+                t = time.perf_counter()
                 self._admit()
+                rec["admit_ms"] = (time.perf_counter() - t) * 1e3
                 if self._slots:
                     if self._chunked:
                         self._chunked_cycle()
@@ -370,13 +435,42 @@ class Scheduler:
                 # the loop: each caller gets the error (traceback
                 # chained) and serving goes on
                 _log.exception("serving cycle failed")
+                failed = e
                 self._fail_inflight(e)
+            finally:
+                with self._cond:
+                    rec["queue_depth"] = len(self._queue)
+                if self._pool.is_paged:
+                    rec["blocks_in_use"] = self._pool.blocks_in_use
+                if failed is not None:
+                    rec["failed"] = repr(failed)
+                rec["cycle_ms"] = (time.perf_counter() - t0) * 1e3
+                stat_observe("serving/cycle_ms", rec["cycle_ms"])
+                self.recorder.record_cycle(rec)
+                self._rec = None
+                if failed is not None:
+                    # the postmortem: the rings, this cycle included
+                    self.recorder.auto_dump(reason=repr(failed))
 
-    def _note_nonfinite(self, toks) -> None:
-        """Read the logits-finite sentinel (element ``[num_slots]``)."""
-        idx = self._pool.num_slots
+    def _note_nonfinite(self, toks, rec, idx: Optional[int] = None) -> None:
+        """Read the logits-finite sentinel: element ``[num_slots]`` of the
+        fetched row, or ``idx`` (the speculative layout's, past the draft
+        echo). A tripped flag counts the cycle and marks its record."""
+        idx = self._pool.num_slots if idx is None else int(idx)
         if toks.shape[0] > idx and bool(toks[idx]):
             self.nonfinite_cycles += 1
+            stat_add("serving/nonfinite_cycles")
+            if rec is not None:
+                rec["nonfinite"] = True
+
+    def note_spec_dispatches(self, n: int) -> None:
+        """Count the draft-proposal calls made THIS cycle into its record
+        (the engine's speculative step calls it, on the scheduler
+        thread): the whole proposal chain is one call, so each
+        speculative cycle should record 1."""
+        if self._rec is not None:
+            self._rec["spec_draft_dispatches"] = \
+                self._rec.get("spec_draft_dispatches", 0) + int(n)
 
     def _fail_inflight(self, error: BaseException) -> None:
         for slot in list(self._slots):
@@ -391,6 +485,13 @@ class Scheduler:
         # from zeros, zero scales and an empty cache
         self._pool.reset_data()
 
+    def _deadline(self, req: GenerationRequest, where: str,
+                  depth: int) -> DeadlineExceeded:
+        stat_add("serving/deadline_exceeded")
+        return DeadlineExceeded(
+            f"request {req.id} exceeded its deadline {where}",
+            queue_depth=depth, est_wait_s=self._est_wait_s(depth))
+
     def _sweep_queue(self) -> None:
         """Resolve cancelled / expired entries ANYWHERE in the queue."""
         now = time.perf_counter()
@@ -398,15 +499,17 @@ class Scheduler:
             live = []
             for r in self._queue:
                 if r.cancelled:
+                    stat_add("serving/cancelled")
                     r._finish(RequestCancelled(
                         f"request {r.id} cancelled while queued"))
                 elif r.expired(now):
-                    r._finish(DeadlineExceeded(
-                        f"request {r.id} exceeded its deadline while "
-                        f"queued"))
+                    r._finish(self._deadline(r, "while queued",
+                                             len(self._queue)))
                 else:
                     live.append(r)
-            self._queue[:] = live
+            if len(live) != len(self._queue):
+                self._queue[:] = live
+                stat_observe("serving/queue_depth", len(live))
 
     def _select_next(self) -> int:
         """Index of the next admission candidate: a preempted replay
@@ -426,6 +529,19 @@ class Scheduler:
                     return
                 idx = self._select_next()
                 req = self._queue[idx]
+                # the head may have been cancelled or expired since the
+                # sweep
+                if req.cancelled:
+                    self._queue.pop(idx)
+                    stat_add("serving/cancelled")
+                    req._finish(RequestCancelled(
+                        f"request {req.id} cancelled while queued"))
+                    continue
+                if req.expired():
+                    self._queue.pop(idx)
+                    req._finish(self._deadline(req, "while queued",
+                                               len(self._queue)))
+                    continue
                 # a paged re-admission (after a preemption) re-feeds its
                 # generated history; a dense one starts over
                 feed_len = len(req.prompt) + (
@@ -438,12 +554,21 @@ class Scheduler:
                         and budget < bucket:
                     # this cycle's prefill budget is spent: decode the
                     # active slots first; the head keeps its place
+                    stat_add("serving/preempt")
                     return
                 slot = self._pool.alloc()
                 if slot is None:
                     return       # every slot busy: a cycle will retire
                 self._queue.pop(idx)
                 req._preempted = False
+                now = time.perf_counter()
+                if self._admit_stamp is not None:
+                    dt = now - self._admit_stamp
+                    self._admit_interval_s = dt \
+                        if self._admit_interval_s is None \
+                        else 0.8 * self._admit_interval_s + 0.2 * dt
+                self._admit_stamp = now
+                stat_observe("serving/queue_depth", len(self._queue))
             try:
                 ran = self._prefill(req, slot, bucket)
             except Exception as exc:                    # noqa: BLE001
@@ -465,13 +590,26 @@ class Scheduler:
                 # budget nothing
                 budget -= bucket
 
+    def _event(self, req: GenerationRequest, name: str, **meta) -> None:
+        """One lifecycle event, stamped once into the request's trace and
+        the flight recorder's event ring."""
+        t = time.perf_counter()
+        req.trace.mark(name, t=t, **meta)
+        self.recorder.record_event(req.id, name, t=t, meta=meta or None)
+
     def _prefill(self, req: GenerationRequest, slot: int,
                  bucket: Optional[int]) -> bool:
         """Admit ``req`` into ``slot``. Returns whether a prefill
         program ran (chunked admission and a paged prefix hit run
         none)."""
-        req.trace.mark("admitted", slot=slot, bucket=bucket,
-                       feed=len(req.prompt) + len(req.tokens))
+        wait_ms = (time.perf_counter() - req.submitted_at) * 1e3
+        stat_observe("serving/lane_wait_ms", wait_ms)
+        self._event(req, "admitted", slot=slot, bucket=bucket,
+                    feed=len(req.prompt) + len(req.tokens),
+                    tenant=req.tenant, lane=req.lane,
+                    wait_ms=round(wait_ms, 3))
+        if self._rec is not None:
+            self._rec["admitted"].append(req.id)
         if self._chunked:
             # blocks and pending_feed are the engine's bookkeeping; the
             # feed itself runs in chunks
@@ -479,7 +617,10 @@ class Scheduler:
             self._slots[slot] = req
             return False
         req.trace.mark("prefill_start", bucket=bucket)
+        t0 = time.perf_counter()
         first = self._do_prefill(req, slot, bucket)
+        if self._rec is not None:
+            self._rec["prefill_ms"] += (time.perf_counter() - t0) * 1e3
         req.trace.mark("prefill_end", bucket=bucket, ran=first is not None)
         if not self._pool.is_paged:
             # the first generated token lands at cache index `bucket`;
@@ -490,7 +631,9 @@ class Scheduler:
         if first is None:
             return False         # prefix hit: the replay feeds the tail
         self.prefills += 1
+        stat_add("serving/prefill_tokens", bucket)
         req._emit(int(first))
+        stat_add("serving/tokens")
         if self._finished(req, int(first)):
             self._retire(slot)
         return True
@@ -503,13 +646,25 @@ class Scheduler:
                 error: Optional[BaseException] = None) -> None:
         req = self._slots.pop(slot)
         self._pool.free(slot)
-        self.retired += 1
-        with self._cond:
-            if req.trace.ttft_ms is not None:
-                self._ttft.append(req.trace.ttft_ms)
-            if req.trace.tpot_ms is not None:
-                self._tpot.append(req.trace.tpot_ms)
+        if error is None:
+            stat_add("serving/completed")
+        if self._rec is not None:
+            self._rec["retired"].append(req.id)
         req._finish(error)
+
+    def _end_early(self, slot: int, req: GenerationRequest, now) -> bool:
+        """Retire a cancelled or expired active request; True if it
+        was."""
+        if req.cancelled:
+            stat_add("serving/cancelled")
+            self._retire(slot, RequestCancelled(
+                f"request {req.id} cancelled mid-generation"))
+            return True
+        if req.expired(now):
+            self._retire(slot, self._deadline(
+                req, f"after {req.emitted} token(s)", len(self._queue)))
+            return True
+        return False
 
     # -- memory pressure: preemption ---------------------------------------
     def _preempt_youngest(self) -> bool:
@@ -526,9 +681,13 @@ class Scheduler:
         req.pending_feed = []
         req._preempted = True
         self.preempts += 1
-        req.trace.mark("preempt", emitted=req.emitted)
+        self._event(req, "preempt", emitted=req.emitted)
+        if self._rec is not None:
+            self._rec["preempts"] += 1
+        stat_add("serving/preempt")
         with self._cond:
             self._queue.insert(0, req)
+            stat_observe("serving/queue_depth", len(self._queue))
             self._cond.notify_all()
         return True
 
@@ -552,6 +711,28 @@ class Scheduler:
                 break
         return bool(self._slots)
 
+    def _note_occupancy(self, n: int) -> None:
+        occupancy = n / self._pool.num_slots
+        stat_observe("serving/active_slots", n)
+        stat_observe("serving/batch_occupancy", occupancy)
+        if self._rec is not None:
+            self._rec["active"] = n
+            self._rec["occupancy"] = occupancy
+
+    def _dispatch(self, fn, *args):
+        """Run a step and fetch its tokens, timing the dispatch and the
+        fetch apart into the cycle record. Returns (tokens, seconds)."""
+        t0 = time.perf_counter()
+        toks_dev = fn(*args)
+        t1 = time.perf_counter()
+        toks = _fetch(toks_dev)
+        t2 = time.perf_counter()
+        self.steps += 1
+        if self._rec is not None:
+            self._rec["decode_dispatch_ms"] += (t1 - t0) * 1e3
+            self._rec["fetch_ms"] += (t2 - t1) * 1e3
+        return toks, t2 - t0
+
     def _decode_cycle(self) -> None:
         """One decode step over every slot, then one fetch of the next
         tokens. A slot replaying known tokens feeds the next one and
@@ -559,20 +740,15 @@ class Scheduler:
         if self._pool.is_paged and not self._prepare_paged():
             return
         active = dict(self._slots)
-        toks = _fetch(self._do_decode(active))
-        self.steps += 1
-        self._note_nonfinite(toks)
+        self._note_occupancy(len(active))
+        rec = self._rec
+        toks, dt = self._dispatch(self._do_decode, active)
+        self._note_nonfinite(toks, rec)
+        emitted = 0
         now = time.perf_counter()
         for slot, req in active.items():
             self._pool.advance(slot)
-            if req.cancelled:
-                self._retire(slot, RequestCancelled(
-                    f"request {req.id} cancelled mid-generation"))
-                continue
-            if req.expired(now):
-                self._retire(slot, DeadlineExceeded(
-                    f"request {req.id} exceeded its deadline after "
-                    f"{req.emitted} token(s)"))
+            if self._end_early(slot, req, now):
                 continue
             if req.replay:
                 # this cycle fed one known token: its prediction is
@@ -583,8 +759,14 @@ class Scheduler:
                 continue
             tok = int(toks[slot])
             req._emit(tok)
+            emitted += 1
             if self._finished(req, tok):
                 self._retire(slot)
+        stat_add("serving/tokens", emitted)
+        if rec is not None:
+            rec["emitted"] += emitted
+        if dt > 0:
+            stat_observe("serving/tokens_per_sec", emitted / dt)
 
     # -- chunked prefill ---------------------------------------------------
     def _chunk_plan(self) -> Dict[int, int]:
@@ -605,6 +787,22 @@ class Scheduler:
             else:
                 plan[slot] = 1
         return plan
+
+    def _spec_plan(self, plan: Dict[int, int]) -> Dict[int, int]:
+        """Speculative rows: every DECODING slot (feed drained) verifies
+        ``min(spec_k, tokens it may still emit)`` candidates instead of
+        feeding 1 row, and emits up to that many tokens this cycle;
+        feeding slots keep their chunks. Updates ``plan`` (so the
+        writable blocks cover the candidate rows) and returns ``{slot:
+        n_candidates}``."""
+        spec: Dict[int, int] = {}
+        for slot in list(plan):
+            req = self._slots[slot]
+            if req.pending_feed:
+                continue
+            k = min(self._spec_k, req.max_new_tokens - req.emitted)
+            plan[slot] = spec[slot] = max(1, k)
+        return spec
 
     def _prepare_chunked(self, plan: Dict[int, int]) -> Dict[int, int]:
         """Every planned slot must own writable blocks for its WHOLE row
@@ -630,33 +828,75 @@ class Scheduler:
 
     def _chunked_cycle(self) -> None:
         """One fused ragged launch: budgeted prompt chunks mixed with
-        every decode row, then one fetch of the next tokens."""
-        plan = self._prepare_chunked(self._chunk_plan())
+        every decode row, then one fetch. Real tokens come out for
+        decode slots and for slots whose final chunk landed this cycle;
+        mid-feed rows are ignored. With speculation, decoding slots feed
+        their draft candidates and the launch returns ``[accepted |
+        corrected | draft echo | sentinel]``: the accepted candidates
+        (and a corrected token after a rejection) are emitted, the
+        slot's position rolls back over the rejected rows (a negative
+        ``advance``) and any prefix-cache registration they touched is
+        dropped."""
+        plan = self._chunk_plan()
+        spec = self._spec_plan(plan) if self._spec else {}
+        plan = self._prepare_chunked(plan)
+        spec = {s: n for s, n in spec.items() if s in plan}
         if not plan:
             return
         active = {s: self._slots[s] for s in plan}
-        toks = _fetch(self._do_chunked(active, plan))
-        self.steps += 1
-        self._note_nonfinite(toks)
+        self._note_occupancy(len(self._slots))
+        rec = self._rec
+        if spec:
+            toks, dt = self._dispatch(self._do_spec, active, plan, spec)
+        else:
+            toks, dt = self._dispatch(self._do_chunked, active, plan)
+        S = self._pool.num_slots
+        K = self._spec_k
+        if spec:
+            # [accepted (S) | corrected (S) | draft echo (S*K) | sentinel]
+            acc_row = toks[:S]
+            corr_row = toks[S:2 * S]
+            draft_rows = toks[2 * S:2 * S + S * K].reshape(S, K)
+            self._note_nonfinite(toks, rec, idx=2 * S + S * K)
+        else:
+            self._note_nonfinite(toks, rec)
+        emitted = chunks = chunk_tokens = 0
+        spec_accepted = spec_proposed = spec_emitted = 0
         now = time.perf_counter()
         for slot, req in active.items():
             n = plan[slot]
             feeding = bool(req.pending_feed)
             self._pool.advance(slot, n)
             if feeding:
+                # accounted before the terminal checks, so a cancel
+                # mid-feed leaves the chunk counted
                 del req.pending_feed[:n]
+                chunks += 1
+                chunk_tokens += n
                 self.prefill_chunks += 1
                 self.chunk_tokens += n
+                stat_add("serving/prefill_chunks")
+                stat_add("serving/chunk_tokens", n)
                 req.trace.mark("prefill_chunk", tokens=n,
                                remaining=len(req.pending_feed))
-            if req.cancelled:
-                self._retire(slot, RequestCancelled(
-                    f"request {req.id} cancelled mid-generation"))
-                continue
-            if req.expired(now):
-                self._retire(slot, DeadlineExceeded(
-                    f"request {req.id} exceeded its deadline after "
-                    f"{req.emitted} token(s)"))
+            elif slot in spec:
+                # keep the longest agreeing prefix plus, after a
+                # rejection, one corrected token; roll the position back
+                # over the dead rows and unpublish what they touched
+                a = min(int(acc_row[slot]), n)
+                cov = a + 1 if a < n else n
+                if cov < n:
+                    self._pool.advance(slot, cov - n)
+                    self._pool.unpublish_from(
+                        slot, self._pool.slot_pos(slot))
+                spec_proposed += n
+                spec_accepted += a
+                self.spec_proposed += n
+                self.spec_accepted += a
+                stat_add("serving/spec_proposed", n)
+                stat_add("serving/spec_accept", a)
+                req.trace.mark("spec_verify", proposed=n, accepted=a)
+            if self._end_early(slot, req, now):
                 continue
             if feeding:
                 if req.pending_feed:
@@ -667,7 +907,39 @@ class Scheduler:
                     [req.prompt, np.asarray(req.tokens, np.int32)]))
                 req.trace.mark("chunked_prefill_done",
                                emitted=req.emitted)
-            tok = int(toks[slot])
+            if slot in spec and not feeding:
+                a = min(int(acc_row[slot]), n)
+                emit = [int(t) for t in draft_rows[slot, :a]]
+                if a < n:
+                    emit.append(int(corr_row[slot]))
+                slot_emitted = 0
+                for tok in emit:
+                    req._emit(tok)
+                    emitted += 1
+                    slot_emitted += 1
+                    if self._finished(req, tok):
+                        self._retire(slot)
+                        break
+                spec_emitted += slot_emitted
+                stat_observe("serving/spec_tokens_per_cycle", slot_emitted)
+                continue
+            tok = int(toks[S + slot] if spec else toks[slot])
             req._emit(tok)
+            emitted += 1
             if self._finished(req, tok):
                 self._retire(slot)
+        if spec:
+            self.spec_cycles += 1
+            stat_add("serving/spec_cycles")
+        stat_add("serving/tokens", emitted)
+        if rec is not None:
+            rec["emitted"] += emitted
+            rec["prefill_chunks"] = rec.get("prefill_chunks", 0) + chunks
+            rec["chunk_tokens"] = rec.get("chunk_tokens", 0) + chunk_tokens
+            if spec:
+                rec["spec_proposed"] = spec_proposed
+                rec["spec_accepted"] = spec_accepted
+                rec["spec_emitted"] = spec_emitted
+                rec["spec_slots"] = len(spec)
+        if dt > 0 and emitted:
+            stat_observe("serving/tokens_per_sec", emitted / dt)

@@ -4,14 +4,20 @@
 Every request carries a :class:`RequestTrace`: timestamped lifecycle
 events (submit, admitted, prefill chunks, prefix hit, preemptions,
 first token, finish/cancel/deadline/error) plus one host stamp per
-emitted token. From those it derives TTFT (submit -> first token) and
-TPOT (mean interval between later tokens). Stamps are
+emitted token. From those it derives TTFT (submit -> first token), TPOT
+(mean interval between later tokens) and the admission wait, and it
+renders itself as a JSON timeline (:meth:`RequestTrace.snapshot`, the
+unit the flight recorder keeps of a retired request). Stamps are
 ``time.perf_counter()`` readings taken in host code only.
+
+The JAX trace also exports itself as a chrome-trace lane into an armed
+profiler (``export_spans``); the port has no span profiler yet (ROADMAP
+Queue 1 item 3).
 """
 from __future__ import annotations
 
 import time
-from typing import List, Optional, Tuple
+from typing import Any, Dict, List, Optional, Tuple
 
 __all__ = ["RequestTrace", "TERMINAL_EVENTS"]
 
@@ -81,6 +87,45 @@ class RequestTrace:
             return None
         return (self.token_times[-1] - self.token_times[0]) * 1e3 \
             / (len(self.token_times) - 1)
+
+    @property
+    def admission_wait_ms(self) -> Optional[float]:
+        """Submit -> first admission: the queueing share of TTFT."""
+        t_adm = self.t("admitted")
+        if t_adm is None:
+            return None
+        return (t_adm - self.submitted_at) * 1e3
+
+    @property
+    def decode_intervals_ms(self) -> List[float]:
+        tt = self.token_times
+        return [(b - a) * 1e3 for a, b in zip(tt, tt[1:])]
+
+    def timeline(self) -> List[Dict[str, Any]]:
+        """JSON-friendly event list, times in ms relative to submit."""
+        t0 = self.submitted_at
+        out = [{"event": n, "t_ms": round((ts - t0) * 1e3, 3),
+                **({"meta": m} if m else {})}
+               for n, ts, m in self.events]
+        for i, ts in enumerate(self.token_times):
+            out.append({"event": "token", "i": i,
+                        "t_ms": round((ts - t0) * 1e3, 3)})
+        out.sort(key=lambda e: e["t_ms"])
+        return out
+
+    def snapshot(self) -> Dict[str, Any]:
+        """The whole trace as one JSON dict, derived latencies included,
+        so a kept snapshot outlives the live trace."""
+        return {"request": self.request_id,
+                **({"tenant": self.tenant} if self.tenant else {}),
+                **({"lane": self.lane} if self.lane else {}),
+                "completed": self.completed,
+                "ttft_ms": self.ttft_ms,
+                "tpot_ms": self.tpot_ms,
+                "tokens": len(self.token_times),
+                "preempts": self.count("preempt"),
+                "prefix_hits": self.count("prefix_hit"),
+                "timeline": self.timeline()}
 
     def __repr__(self):
         return (f"<RequestTrace #{self.request_id} events="

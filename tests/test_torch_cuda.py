@@ -892,3 +892,173 @@ def test_global_norm_clip_multiplies_in_float32_on_the_card(cuda, dtype):
     for (_, got), x in zip(out, grads):
         assert got.dtype == dtype
         assert torch.equal(got, (x.float() * scale).to(dtype))
+
+
+# -- speculative decoding ---------------------------------------------------
+
+def _spec_gpt(dev, dtype):
+    """A 2-layer GPT at head width 64 (the tensor-core route's)."""
+    from paddle_tpu_torch import seed
+    from paddle_tpu_torch.models import GPTConfig, GPTForPretraining
+    seed(5)
+    cfg = GPTConfig(vocab_size=256, hidden_size=128, num_hidden_layers=2,
+                    num_attention_heads=2, intermediate_size=256,
+                    max_position_embeddings=256)
+    return GPTForPretraining(cfg).to(dev, dtype).eval()
+
+
+def _verify_operands(dev, S=4, K=4, bs=16, T=4, Q=32, seed=0):
+    """One verify launch's operands: slot 0 verifies 4 candidates from
+    position 10, slot 1 feeds a 9-row chunk from 5, slot 2 is absent,
+    slot 3 verifies 3 from 3; greedy one-hot draft distributions."""
+    rng = np.random.RandomState(seed)
+    n_spec = np.array([4, 0, 0, 3], np.int32)
+    q_lens, pos0s = [4, 9, 0, 3], [10, 5, 0, 3]
+    tables = np.zeros((S, T), np.int32)
+    tables[0, :1], tables[1, :1], tables[3, :1] = 7, 12, 9
+    blk_seq, qstart, pos0, last_row, _ = rpa.ragged_layout(
+        q_lens, pos0s, q_bucket=Q)
+    ids, qpos, wb, wo = (np.zeros(Q, np.int32) for _ in range(4))
+    for s, n in enumerate(q_lens):
+        for i in range(n):
+            r, p = qstart[s] + i, pos0s[s] + i
+            ids[r] = rng.randint(1, 256) if (i == 0 or s == 1) else 0
+            qpos[r], wb[r], wo[r] = p, tables[s, p // bs], p % bs
+    kv_len = np.asarray([p + n for p, n in zip(pos0s, q_lens)], np.int32)
+    drafts = rng.randint(1, 256, (S, K)).astype(np.int32)
+    ops = [ids, qpos, wb, wo, blk_seq, qstart, pos0, tables,
+           np.zeros(S, np.int32), kv_len, last_row, n_spec, drafts]
+    ops = [torch.from_numpy(np.asarray(a, np.int32)).to(dev) for a in ops]
+    probs = torch.eye(256, device=dev)[ops[-1].long()]
+    return ops + [probs, torch.zeros(S, dtype=torch.bool, device=dev),
+                  torch.ones(S, device=dev)]
+
+
+def test_spec_verify_bf16_on_the_card_matches_the_cpu(cuda):
+    """One bf16 verify launch on the card and on a CPU copy (the plain
+    versions): the pool rows written within bf16's tolerance (the
+    scratch block aside), the same argmax on every head row whose CPU
+    top-2 margin exceeds twice the largest logit difference, the same
+    draft echo, and K1 once a layer, on the tensor-core route."""
+    import copy
+
+    from paddle_tpu_torch.models import generation as gen
+    card = _spec_gpt(cuda, torch.bfloat16)
+    cpu = copy.deepcopy(card).to("cpu")
+    pool = torch.randn(2, 2, 17, 2, 16, 64,
+                       generator=torch.Generator().manual_seed(1)).to(
+        torch.bfloat16)
+    seen, outs, pools = {}, {}, {}
+    for where, net in (("cpu", cpu), ("card", card)):
+        def spy(h, _g=net.gpt, _w=where):
+            out = type(_g).logits(_g, h)
+            seen[_w] = out[:, 0].float().cpu()
+            return out
+        net.gpt.logits = spy
+        dev = torch.device("cpu") if where == "cpu" else cuda
+        p = pool.clone().to(dev)
+        fn = gen.build_spec_verify_fn(net, 4, 32, 4, 4, 16)
+        before = _rpa_counts()
+        outs[where] = fn(p, *_verify_operands(dev),
+                         torch.Generator(dev).manual_seed(0)).cpu()
+        pools[where] = p.cpu()
+        del net.gpt.logits
+        if where == "card":
+            torch.cuda.synchronize()
+            assert _RPA.launches - before[0] == 2
+            assert _RPA.tc_launches - before[2] == 2
+    # block 0 excluded: pad rows write it, duplicates with any winner
+    torch.testing.assert_close(pools["card"][:, :, 1:].float(),
+                               pools["cpu"][:, :, 1:].float(),
+                               **TOL[torch.bfloat16])
+    err = (seen["card"] - seen["cpu"]).abs().max()
+    top2 = seen["cpu"].topk(2, dim=-1).values
+    clear = (top2[:, 0] - top2[:, 1]) > 2 * err
+    assert clear.any()
+    assert torch.equal(seen["card"].argmax(-1)[clear],
+                       seen["cpu"].argmax(-1)[clear])
+    assert torch.equal(outs["card"][8:24], outs["cpu"][8:24])  # the echo
+    if clear.all():
+        assert torch.equal(outs["card"], outs["cpu"])
+
+
+_VERIFY_CTX = (4, 37, 100, 257, 512, 1000, 16, 700)
+
+
+@pytest.mark.parametrize("storage, bs", [
+    (torch.bfloat16, 16), (torch.int8, 32), (torch.float8_e4m3fn, 32)])
+def test_ragged_attention_at_a_verify_layout(cuda, storage, bs):
+    """K1/K1q at a speculative verify's layout, GPT-2's heads: 8 slots
+    of 4 rows each at context lengths 4 to 1000, on the tensor-core
+    route, against the plain version; a second call gives the same
+    bits."""
+    rng = np.random.RandomState(4)
+    S, H, dh, rows = len(_VERIFY_CTX), 12, 64, 4
+    T = max(-(-(c + rows) // bs) for c in _VERIFY_CTX)
+    nb = sum(-(-(c + rows) // bs) for c in _VERIFY_CTX)
+    vals = torch.from_numpy(rng.randn(1, 2, nb + 1, H, bs, dh)
+                            .astype(np.float32)).to(cuda)
+    if storage == torch.bfloat16:
+        pool, scales = vals.to(storage), None
+    else:
+        pool, scales = _quantize_blocks(vals, storage)
+    tables = np.zeros((S, T), np.int32)
+    free = rng.permutation(np.arange(1, nb + 1)).tolist()
+    for s, c in enumerate(_VERIFY_CTX):
+        n = -(-(c + rows) // bs)
+        tables[s, :n] = [free.pop() for _ in range(n)]
+    blk_seq, qstart, pos0, _, _ = rpa.ragged_layout(
+        [rows] * S, list(_VERIFY_CTX), q_bucket=S * 8)
+    q = torch.from_numpy(rng.randn(H, S * 8, dh).astype(np.float32)).to(
+        cuda, torch.bfloat16)
+    meta = [torch.from_numpy(np.asarray(a, np.int32)).to(cuda)
+            for a in (blk_seq, qstart, pos0, tables, [0] * S,
+                      [c + rows for c in _VERIFY_CTX])]
+    assert rpa.rpa_route(q.dtype, pool.dtype, dh, bs) == "tc"
+    got = _rpa_call(q, pool, scales, meta, "tc", layer=0)
+    want = rpa.ragged_paged_attention_plain(q, pool, 0, *meta, scales=scales)
+    torch.testing.assert_close(got.float(), want.float(),
+                               **TOL[torch.bfloat16])
+    again = _RPA(q, pool, 0, *meta, scales=scales)
+    torch.cuda.synchronize()
+    assert torch.equal(got, again)
+
+
+def test_spec_chain_makes_no_host_sync(cuda):
+    """The draft's proposal chain and the verify launch read nothing back
+    to the host: both run under ``torch.cuda.set_sync_debug_mode("error")``
+    (after a first call that builds and loads the kernels)."""
+    from paddle_tpu_torch.models import generation as gen
+    net = _spec_gpt(cuda, torch.bfloat16)
+    draft = gen.make_draft_model(net, 1)
+    S, K, L = 4, 4, 64
+    dpool = torch.zeros(1, 2, S, 2, L, 64, dtype=torch.bfloat16, device=cuda)
+    scan = gen.build_draft_propose_scan_fn(draft, S, L, K)
+    verify = gen.build_spec_verify_fn(net, S, 32, K, 4, 16)
+    pool = torch.zeros(2, 2, 17, 2, 16, 64, dtype=torch.bfloat16,
+                       device=cuda)
+    i32 = dict(dtype=torch.int32, device=cuda)
+    feed = torch.tensor([5, 6, 7, 8], **i32)
+    pos = torch.tensor([3, 10, 0, 20], **i32)
+    lo = torch.zeros(S, **i32)
+    sample = torch.tensor([False, True, False, True], device=cuda)
+    temps = torch.full((S,), 0.8, device=cuda)
+    gen_ = torch.Generator(cuda).manual_seed(0)
+
+    def chain():
+        d, q = scan(dpool, feed, pos, lo, sample, temps, gen_)
+        ops = _verify_operands(cuda)
+        return verify(pool, *ops[:12], d, q, *ops[14:], gen_)
+
+    chain()
+    torch.cuda.synchronize()
+    ops = _verify_operands(cuda)           # host-to-device copies first
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        d, q = scan(dpool, feed, pos, lo, sample, temps, gen_)
+        out = verify(pool, *ops[:12], d, q, *ops[14:], gen_)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    out = out.cpu()
+    assert out.shape == (2 * S + S * K + 1,) and out[-1] == 0
+    assert torch.equal(out[2 * S:-1].view(S, K), d.cpu())

@@ -500,8 +500,7 @@ def test_validation_matches_jax(models):
         with pytest.raises(ValueError, match="multiple"):
             mod.PagedKVPool(1, 2, 1, 32, 8, block_size=8, min_bucket=12,
                             **extra)
-    for name in ("spec_draft", "mesh", "host_tier_bytes",
-                 "hbm_budget_bytes"):
+    for name in ("mesh", "host_tier_bytes", "hbm_budget_bytes"):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             GenerationEngine(tmodel, device="cpu", **{name: object()})
     # the paged engine rounds min_bucket up to whole blocks, as JAX's does

@@ -351,7 +351,6 @@ def test_engine_validation(models):
     _, tmodel = models
     for kw, exc, match in (
             (dict(mesh=object()), NotImplementedError, "ROADMAP"),
-            (dict(spec_draft=object()), NotImplementedError, "ROADMAP"),
             (dict(block_size=4), ValueError, "block_size >= 8"),
             (dict(max_len=128), ValueError, "max_position_embeddings")):
         with pytest.raises(exc, match=match):

@@ -246,8 +246,9 @@ def _not_ported_calls():
         "engine lane_weights": lambda: engine(lane_weights={"batch": 1.0}),
         "submit tenant": lambda: submit(tenant="t1"),
         "submit lane": lambda: submit(lane="batch"),
-        "scheduler spec_k": lambda: Scheduler(None, spec_k=4),
-        "scheduler recorder": lambda: Scheduler(None, recorder=object()),
+        "engine host_tier_bytes": lambda: engine(host_tier_bytes=1 << 20),
+        "scheduler lane_weights": lambda: Scheduler(
+            None, lane_weights={"batch": 1.0}),
         "pool mesh": lambda: PagedKVPool(1, 1, 1, 16, 8, block_size=8,
                                          mesh=object(), device="cpu"),
         "paged decode debug_logits": lambda: build_paged_decode_fn(
