@@ -240,6 +240,7 @@ import os
 import statistics
 import subprocess
 import sys
+import threading
 import time
 
 import numpy as np
@@ -301,6 +302,7 @@ F16_GEN = (8, 512, 32)
 # the dtype and [rows, D] of every LayerNorm a path ran, under the
 # kernels line's row that counts its launches (see ln_shapes)
 LN_SHAPES = collections.defaultdict(collections.Counter)
+_LN_SHAPES_LOCK = threading.Lock()
 
 
 def log(*a):
@@ -620,7 +622,8 @@ def ln_shapes(model, row):
 
     def hook(_module, args):
         x = args[0]
-        seen[(x.dtype, x.numel() // x.shape[-1], x.shape[-1])] += 1
+        with _LN_SHAPES_LOCK:      # two engines' threads share a model
+            seen[(x.dtype, x.numel() // x.shape[-1], x.shape[-1])] += 1
 
     handles = [m.register_forward_pre_hook(hook) for m in model.modules()
                if isinstance(m, LayerNorm)]
@@ -2533,6 +2536,501 @@ def spec_rows(timer, spec):
     return rows
 
 
+# ---------------------------------------------------------------- phase 3g
+TIER_BS = 32
+TIER_PREAMBLE = 448          # 14 blocks of 32 tokens
+TIER_SLO_MS = 400.0
+TIER_HOST_BYTES = 256 << 20
+TIER_LN_ROW = "fused_layer_norm_fleet"
+# the tiered load: bench.py --serve-load --tiered's traffic at GPT-2 small
+# width; six rotating 14-block preambles (84 blocks) over a 64-block pool
+TIER_LOAD = dict(requests=24, rate=8.0, systems=6, num_blocks=64)
+TIER_KINDS = {"bf16": {}, "int8": {"kv_dtype": "int8"}}
+TIER_TIE_TOL = {"bf16": SPEC_TIE_TOL, "int8": SPEC_QUANT_TIE_TOL}
+
+
+def tier_engine(model, **kw):
+    """A fused paged engine of phase 3g: blocks of 32, 4 slots, max_len
+    512 (``kw`` adds the pool, the tier and the rest)."""
+    from paddle_tpu_torch.serving import GenerationEngine
+    return GenerationEngine(model, kv_layout="paged", attention="fused",
+                            block_size=TIER_BS, num_slots=4, max_len=512,
+                            seed=SEED, device=next(model.parameters()).device,
+                            **kw)
+
+
+def tier_reset():
+    """Every serving kernel's count set to 0."""
+    from paddle_tpu_torch.ops.layer_norm import fused_layer_norm
+    from paddle_tpu_torch.ops.ragged_paged_attention import (
+        ragged_paged_attention)
+    for attr in RPA_COUNTS:
+        setattr(ragged_paged_attention, attr, 0)
+    fused_layer_norm.launches = fused_layer_norm.warp_launches = 0
+    fused_layer_norm.row_launches = 0
+
+
+def tier_read(what, steps, n_layers, quantized):
+    """The counts since ``tier_reset``: K1 (or K1q) once per layer per
+    fused launch and K2 (2L + 1) times, every launch on the tensor-core
+    and warp-row routes."""
+    from paddle_tpu_torch.ops.layer_norm import fused_layer_norm
+    from paddle_tpu_torch.ops.ragged_paged_attention import (
+        ragged_paged_attention as rpa)
+    launches = {"ragged_paged_attention": rpa.launches,
+                "ragged_paged_attention_quant": rpa.quant_launches,
+                "fused_layer_norm": fused_layer_norm.launches}
+    check_ln_route(what, (fused_layer_norm,))
+    check_rpa_route(what)
+    check_serve_launches(what, launches, steps, n_layers, quantized)
+    launches["combine"] = rpa.combine_launches
+    return launches
+
+
+def tier_capture(slot):
+    """Wrap the engines' attention call: while ``slot["armed"]``, keep
+    the layer-0 operands of the next launch in ``slot`` and disarm.
+    Returns the undo."""
+    import paddle_tpu_torch.models.generation as gen_mod
+    from paddle_tpu_torch.ops.ragged_paged_attention import (
+        ragged_paged_attention)
+
+    def capture(q, pool, layer, *meta, scales=None, **kw):
+        if layer == 0 and slot.get("armed"):
+            slot.update(armed=False, q=q.clone(), pool=pool[:1].clone(),
+                        scales=None if scales is None
+                        else scales[:1].clone(),
+                        meta=[m.clone() for m in meta])
+        return ragged_paged_attention(q, pool, layer, *meta, scales=scales,
+                                      **kw)
+
+    gen_mod.ragged_paged_attention = capture
+
+    def undo():
+        gen_mod.ragged_paged_attention = ragged_paged_attention
+    return undo
+
+
+def tier_churn(model, kind, rng, out):
+    """Phase 3g (i): one request at a time, a preamble of 14 blocks with
+    a tail, three churn requests that push its blocks out of a 32-block
+    pool, ``tier_tick`` + ``drain``, then the preamble with its tail
+    again; through a tiered engine (32 blocks, 256 MiB of host) and a
+    roomy untiered one (80 blocks: nothing is evicted). Tokens exactly
+    equal; a host hit; at least 14 blocks demoted and promoted; one
+    demoted block read back from the tier equal to the device block bit
+    for bit (with its scales on int8); the layer-0 attention operands of
+    the launch that reads the promoted blocks kept in ``out``."""
+    vocab = model.gpt.cfg.vocab_size
+    L = model.gpt.cfg.num_hidden_layers
+    quantized = kind == "int8"
+    pre = rng.randint(0, vocab, TIER_PREAMBLE)
+    first = np.concatenate([pre, rng.randint(0, vocab, 1)])
+    churn = [rng.randint(0, vocab, TIER_PREAMBLE + 1) for _ in range(3)]
+    nblk = TIER_PREAMBLE // TIER_BS
+    outs, cap = {}, {}
+    for name, extra in (("tiered", dict(num_blocks=32,
+                                        host_tier_bytes=TIER_HOST_BYTES)),
+                        ("roomy", dict(num_blocks=80))):
+        eng = tier_engine(model, **TIER_KINDS[kind], **extra)
+        tier = eng._pool.host_tier
+        undo = tier_capture(cap)
+        tier_reset()
+        try:
+            got = [eng.submit(first, max_new_tokens=8).result(timeout=300)]
+            settle(eng)
+            if tier is not None:
+                eng._pool.tier_tick()
+                tier.drain()
+                key = tuple(int(t) for t in pre[:TIER_BS])
+                b = eng._pool._trie[key].block
+                host, scale = tier.get(key)
+                same = torch.equal(host, eng._pool.data[:, :, b].cpu())
+                if quantized:
+                    same = same and torch.equal(
+                        scale, eng._pool.scales[:, :, b].cpu())
+                if not same:
+                    raise AssertionError(f"tier churn {kind}: the demoted "
+                                         f"block differs from the device's")
+            for p in churn:
+                got.append(eng.submit(p, max_new_tokens=8).result(
+                    timeout=300))
+            settle(eng)
+            if tier is not None:
+                eng._pool.tier_tick()
+                tier.drain()
+            cap["armed"] = name == "tiered"
+            got.append(eng.submit(first, max_new_tokens=8).result(
+                timeout=300))
+            settle(eng)
+            s = eng.stats()
+            launches = tier_read(f"tier churn {kind} {name}", s["steps"], L,
+                                 quantized)
+        finally:
+            undo()
+            eng.close()
+        outs[name] = got
+        out["launches"][kind].append(launches)
+        if name == "tiered":
+            ht = s["host_tier"]
+            if s["tier_hits"]["host"] < 1 or ht["demoted_blocks"] < nblk \
+                    or ht["promoted_blocks"] < nblk or "q" not in cap:
+                raise AssertionError(f"tier churn {kind}: {s['tier_hits']} "
+                                     f"{ht}")
+            tiered = s
+        else:
+            if s["tier_hits"]["hbm"] < 1:
+                raise AssertionError(f"roomy engine {kind}: no HBM hit: "
+                                     f"{s['tier_hits']}")
+    for i, (a, b) in enumerate(zip(outs["tiered"], outs["roomy"])):
+        if not np.array_equal(a, b):
+            raise AssertionError(f"tier churn {kind}: request {i} tiered "
+                                 f"{a[-8:]} != roomy {b[-8:]}")
+    out["captured"][kind] = cap
+    ht = tiered["host_tier"]
+    log(f"tier churn, {kind} pool, GPT-2 small, {len(outs['tiered'])} "
+        f"requests one at a time (a {TIER_PREAMBLE}-token preamble + 1, "
+        f"3 churn, the preamble again): tokens equal the roomy engine's "
+        f"exactly; tier hits {tiered['tier_hits']}, demoted "
+        f"{ht['demoted_blocks']} promoted {ht['promoted_blocks']} blocks, "
+        f"promotion {ht['promotion_ms']}, copy "
+        f"{ht['promotion_copy_ms']} at {ht['promotion_copy_gb_per_s']} "
+        f"GB/s; a demoted block equals the device block bit for bit"
+        + (" with its scales" if quantized else ""))
+
+
+def tier_schedule(vocab):
+    """``bench.py``'s ``_tiered_schedule`` at GPT-2 small width: six
+    rotating 448-token preambles (a seeded draw), one fresh tail token,
+    4-8 new tokens, exponential gaps at 8 requests/s, seed 0."""
+    systems = [np.random.RandomState(SEED + 31 + j).randint(
+        0, vocab, TIER_PREAMBLE) for j in range(TIER_LOAD["systems"])]
+    rng = np.random.RandomState(0)
+    offsets = np.cumsum(rng.exponential(1.0 / TIER_LOAD["rate"],
+                                        TIER_LOAD["requests"]))
+    return [(float(offsets[i]),
+             np.concatenate([systems[i % len(systems)],
+                             rng.randint(1, vocab, 1)]).astype(np.int32),
+             int(rng.randint(4, 9))) for i in range(TIER_LOAD["requests"])]
+
+
+def tier_load_run(model, kind, name, schedule, out, **extra):
+    """One engine through the schedule, open loop. Returns the outputs
+    and the figures."""
+    L = model.gpt.cfg.num_hidden_layers
+    vocab = model.gpt.cfg.vocab_size
+    eng = tier_engine(model, num_blocks=TIER_LOAD["num_blocks"],
+                      **TIER_KINDS[kind], **extra)
+    try:
+        eng.submit(np.random.RandomState(SEED + 33).randint(0, vocab, 40),
+                   max_new_tokens=2).result(timeout=300)
+        settle(eng)
+        s0 = eng.stats()
+        tier_reset()
+        t0 = time.perf_counter()
+        handles = []
+        for off, ids, new in schedule:
+            delay = t0 + off - time.perf_counter()
+            if delay > 0:
+                time.sleep(delay)
+            handles.append(eng.submit(ids, max_new_tokens=new))
+        outs = [h.result(timeout=600) for h in handles]
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        settle(eng)
+        s = eng.stats()
+        launches = tier_read(f"tiered load {kind} {name}",
+                             s["steps"] - s0["steps"], L, kind == "int8")
+    finally:
+        eng.close()
+    out["launches"][kind].append(launches)
+    ttft = np.array([h.trace.ttft_ms for h in handles])
+    toks = sum(len(h.tokens) for h in handles)
+    hits = {k: s["tier_hits"][k] - s0["tier_hits"][k]
+            for k in ("hbm", "host", "miss")}
+    split = {f"prefix_{'miss' if k == 'miss' else 'hit_' + k}":
+             round(v / max(1, sum(hits.values())), 4)
+             for k, v in hits.items()}
+    fig = {"ttft_p50_ms": float(np.percentile(ttft, 50)),
+           "ttft_p95_ms": float(np.percentile(ttft, 95)),
+           "goodput_rps": float((ttft <= TIER_SLO_MS).sum() / wall),
+           "tokens_per_s": toks / wall, "wall_s": wall,
+           "tier_hits": hits, "steps": s["steps"] - s0["steps"]}
+    line = (f"tiered load, {kind} pool, {name}: {len(handles)} requests at "
+            f"{TIER_LOAD['rate']:g}/s over {wall:.3f} s: TTFT p50 "
+            f"{fig['ttft_p50_ms']:.1f} ms p95 {fig['ttft_p95_ms']:.1f} ms, "
+            f"goodput {fig['goodput_rps']:.3f} rps at TTFT <= "
+            f"{TIER_SLO_MS:g} ms, {fig['tokens_per_s']:.1f} tokens/s, "
+            f"{fig['steps']} fused launches; hits {hits} {split}")
+    ht = s.get("host_tier")
+    if ht is not None:
+        fig["host_tier"] = ht
+        nbytes = TIER_PREAMBLE // TIER_BS * (
+            eng._pool.host_block_nbytes + eng._pool.host_scale_nbytes)
+        copy = ht["promotion_copy_ms"]
+        line += (f"; demoted {ht['demoted_blocks']} promoted "
+                 f"{ht['promoted_blocks']} blocks; promotion (ticket to "
+                 f"adoption) {ht['promotion_ms']}; its copy {copy} ms, "
+                 f"{nbytes} bytes a 14-block chain: "
+                 f"{nbytes / copy['p50'] / 1e6:.2f} GB/s at the p50 copy, "
+                 f"{ht['promotion_copy_gb_per_s']} GB/s over every "
+                 f"promotion's bytes and ms; demotion copy "
+                 f"{ht['demotion_copy_gb_per_s']} GB/s")
+    log(line)
+    return outs, fig
+
+
+def tier_load(model, kind, out):
+    """Phase 3g (ii): the schedule through an HBM-only engine and a tiered
+    one (256 MiB of host) over the same 64-block pool; tokens equal
+    before each request's first near-tie; the tiered engine takes host
+    hits."""
+    schedule = tier_schedule(model.gpt.cfg.vocab_size)
+    runs = {name: tier_load_run(model, kind, name, schedule, out, **extra)
+            for name, extra in (("HBM-only", {}), ("tiered", dict(
+                host_tier_bytes=TIER_HOST_BYTES)))}
+    prompts = [ids for _, ids, _ in schedule]
+    ref = runs["HBM-only"][0]
+    # each request's top-2 margins at its own steps, +inf past its end
+    width = max(len(o) - len(p) for o, p in zip(ref, prompts))
+    margins = torch.full((len(ref), width), math.inf)
+    for i, (p, o) in enumerate(zip(prompts, ref)):
+        m = bf16_margins(model, [p], [o])[0]
+        margins[i, :len(m)] = m
+    ties = first_near_tie(margins, TIER_TIE_TOL[kind])
+    full = hold_tokens(f"tiered load {kind}", runs["tiered"][0], ref,
+                       prompts, ties)
+    fig = runs["tiered"][1]
+    if fig["tier_hits"]["host"] < 1:
+        raise AssertionError(f"tiered load {kind}: no host hit: {fig}")
+    log(f"tiered load, {kind}: tiered tokens equal the HBM-only engine's "
+        f"before each request's first top-2 margin below "
+        f"{TIER_TIE_TOL[kind]} (steps {ties}), in full in {full} of "
+        f"{len(prompts)}")
+    out["load"][kind] = {k: v[1] for k, v in runs.items()}
+
+
+def http(url, doc=None, headers=None):
+    """(status, body bytes) of a GET (``doc`` None) or a JSON POST."""
+    import urllib.error
+    import urllib.request
+    req = urllib.request.Request(
+        url, data=None if doc is None else json.dumps(doc).encode(),
+        headers={"Content-Type": "application/json", **(headers or {})})
+    try:
+        with urllib.request.urlopen(req, timeout=120) as r:
+            return r.status, r.read()
+    except urllib.error.HTTPError as e:
+        return e.code, e.read()
+
+
+def tier_front_door(model, out):
+    """Phase 3g (iii): an ``EngineFleet`` of two tiered bf16 fused
+    replicas sharing the model on the one card, an ``SLOTracker`` (TTFT
+    <= 400 ms at 0.99, TPOT <= 40 ms at 0.95) on the fleet, and a
+    ``FrontDoor`` with two tenants mounted on an ``OpsServer`` at
+    127.0.0.1, driven by real HTTP clients: an SSE stream equal to the
+    unary answer; the 429s the bucket arithmetic predicts; both lanes;
+    /healthz, /readyz, /metrics, /statusz, /tracez. K1 and K2 counted
+    across both replicas' scheduler threads, exactly."""
+    from paddle_tpu_torch.framework import metrics
+    from paddle_tpu_torch.serving import (EngineFleet, FrontDoor, OpsServer,
+                                          SLOTracker)
+    L = model.gpt.cfg.num_hidden_layers
+    vocab = model.gpt.cfg.vocab_size
+    rng = np.random.RandomState(SEED + 35)
+    engines = [tier_engine(model, num_blocks=TIER_LOAD["num_blocks"],
+                           host_tier_bytes=TIER_HOST_BYTES)
+               for _ in range(2)]
+    fleet = EngineFleet(engines, name="chip-fleet")
+    slo = SLOTracker(name="chip-slo")
+    slo.add_objective("ttft", "ttft_ms", TIER_SLO_MS, 0.99)
+    slo.add_objective("tpot", "tpot_ms", 40.0, 0.95)
+    fleet.attach_slo(slo)
+    cost = 32 + 8                                # prompt + max_tokens
+    limits = {"free": (0.01, 2.5 * cost)}
+    door = FrontDoor(fleet, tenant_limits=limits,
+                     api_keys={"key-pro": "pro", "key-free": "free"})
+    ops = OpsServer(target=fleet, slo=slo)
+    door.mount(ops)
+    pro = {"Authorization": "Bearer key-pro"}
+    try:
+        url = ops.start().url
+        if not url.startswith("http://127.0.0.1:"):
+            raise AssertionError(f"the ops server is at {url}")
+        tier_reset()
+        t0 = time.perf_counter()
+        with ln_shapes(model, TIER_LN_ROW):
+            prompt = [int(t) for t in rng.randint(0, vocab, 64)]
+            st, body = http(url + "/v1/completions",
+                            {"prompt": prompt, "max_tokens": 16}, pro)
+            unary = json.loads(body)["choices"][0]["token_ids"]
+            st2, body = http(url + "/v1/completions",
+                             {"prompt": prompt, "max_tokens": 16,
+                              "stream": True}, pro)
+            frames = body.decode().strip().split("\n\n")
+            if st != 200 or st2 != 200 or frames[-1] != "data: [DONE]":
+                raise AssertionError(f"front door: {st} {st2} {frames[-1]}")
+            sse = [json.loads(f[6:])["choices"][0]["token_id"]
+                   for f in frames[:-2]]
+            if sse != unary or len(sse) != 16:
+                raise AssertionError(f"SSE {sse} != unary {unary}")
+            # the free tenant: burst 2.5 requests at 0.01 tokens/s, so
+            # over this run's seconds exactly floor(2.5) admit
+            shed = [http(url + "/v1/completions",
+                         {"prompt": [int(t) for t in rng.randint(
+                             0, vocab, 32)], "max_tokens": 8},
+                         {"Authorization": "Bearer key-free"})[0]
+                    for _ in range(5)]
+            rate, burst = limits["free"]
+            elapsed = time.perf_counter() - t0
+            admits = int((burst + rate * elapsed) // cost)
+            if shed.count(429) != 5 - admits or shed.count(200) != admits:
+                raise AssertionError(f"free tenant: {shed}, the bucket "
+                                     f"admits {admits} of 5")
+            # both lanes at once, default weights 4:1
+            lanes = ["batch"] * 8 + ["interactive"] * 4
+            ids = [None] * len(lanes)
+
+            def client(i):
+                st, body = http(url + "/v1/completions", {
+                    "prompt": [int(t) for t in np.random.RandomState(
+                        SEED + 40 + i).randint(0, vocab, 32)],
+                    "max_tokens": 8}, dict(pro, **{"X-Lane": lanes[i]}))
+                if st == 200:
+                    ids[i] = json.loads(body)["id"]
+
+            threads = [threading.Thread(target=client, args=(i,))
+                       for i in range(len(lanes))]
+            for t in threads:
+                t.start()
+            for t in threads:
+                t.join(timeout=120)
+            if any(t.is_alive() for t in threads) or None in ids:
+                raise AssertionError(f"lane clients: {ids}")
+            for e in engines:
+                settle(e)
+        wall = time.perf_counter() - t0
+        steps = sum(e.stats()["steps"] for e in engines)
+        launches = tier_read("fleet", steps, L, False)
+        out["launches"]["bf16"].append(launches)
+        out["fleet_ln"] = launches["fused_layer_norm"]
+        codes = {p: http(url + p)[0] for p in ("/healthz", "/readyz")}
+        if set(codes.values()) != {200}:
+            raise AssertionError(f"health: {codes}")
+        parsed = metrics.parse_prometheus(http(url + "/metrics")[1].decode())
+        need = {"serving_tier_hit_host", "serving_tier_hit",
+                "serving_tenant_goodput_rps", "serving_replica_healthy",
+                "slo_events_total", "slo_burn_rate"}
+        if not need <= set(parsed["types"]):
+            raise AssertionError(f"/metrics lacks "
+                                 f"{need - set(parsed['types'])}")
+        statusz = http(url + "/statusz")[1].decode()
+        if "serving fleets" not in statusz:
+            raise AssertionError("/statusz has no serving fleets section")
+        tracez = json.loads(http(url + "/tracez")[1])
+        recent = [t for e in tracez["engines"].values()
+                  for t in e["recent"]]
+        if set(tracez["engines"]) != {"0", "1"} or not recent \
+                or "slo" not in tracez:
+            raise AssertionError(f"/tracez: {sorted(tracez)}")
+        by_id = {f"cmpl-{t['request']}": t for t in recent}
+        waits = collections.defaultdict(list)
+        for i, rid in enumerate(ids):
+            t = by_id.get(rid)
+            if t is not None:
+                adm = next(e for e in t["timeline"]
+                           if e["event"] == "admitted")
+                waits[t["lane"]].append(adm["t_ms"])
+        if set(waits) != {"batch", "interactive"}:
+            raise AssertionError(f"lane traces: {dict(waits)}")
+        s = fleet.stats()
+        slo_rep = s["slo"]["objectives"]
+    finally:
+        ops.close()
+        fleet.close()
+        slo.close()
+    log(f"front door: fleet of 2 tiered bf16 fused replicas on one card, "
+        f"{s['requests_retired']} requests in {wall:.3f} s over HTTP at "
+        f"127.0.0.1; SSE == unary ({len(unary)} tokens); free tenant "
+        f"{shed} (the bucket admits {admits}); lane wait p50 "
+        + ", ".join(f"{lane} {statistics.median(v):.1f} ms (n={len(v)})"
+                    for lane, v in sorted(waits.items()))
+        + f"; TTFT p50 {s['ttft_ms']['p50']:.1f} ms; SLO "
+        + ", ".join(f"{k} {o['good']}/{o['total']}"
+                    for k, o in sorted(slo_rep.items()))
+        + f"; tier hits {s.get('tier_hits')}; launches "
+        f"{json.dumps(launches)} over {steps} fused launches of both "
+        f"replicas; /healthz /readyz 200, /metrics {len(parsed['types'])} "
+        f"families, /statusz serving fleets, /tracez {len(recent)} traces")
+
+
+def phase_tier(model):
+    """Phase 3g: the serving periphery on GPT-2 small bf16 (full width
+    and depth), fused engines over pools of 32-token blocks: (i) the
+    serial churn, tiered against roomy, bf16 and int8; (ii) the tiered
+    load, HBM-only against tiered, bf16 and int8; (iii) the front door
+    over a fleet of two tiered replicas. No plain version runs. Returns
+    the launches by pool kind and the operands of the launches that read
+    promoted blocks."""
+    t0 = time.perf_counter()
+    out = {"launches": {"bf16": [], "int8": []}, "captured": {},
+           "load": {}}
+    rng = np.random.RandomState(SEED + 30)
+    with count_plain() as plain:
+        for kind in TIER_KINDS:
+            tier_churn(model, kind, rng, out)
+        for kind in TIER_KINDS:
+            tier_load(model, kind, out)
+        tier_front_door(model, out)
+    if sum(plain.values()):
+        raise AssertionError(f"phase 3g: plain versions ran on the card: "
+                             f"{dict(plain)}")
+    log(f"phase 3g took {time.perf_counter() - t0:.1f} s")
+    return out
+
+
+def tier_rows(timer, tier):
+    """The kernels line's rows of phase 3g: K1 (bf16 pools) and K1q (int8
+    pools) on the layer-0 operands of the churn's launch that reads the
+    promoted preamble, through the tensor-core route and the CUDA-core
+    kernel, against the plain version, with the launches of every phase
+    3g engine of the pool's kind; K2 at every shape the fleet's two
+    replicas launched it at, timed at the most frequent one."""
+    rows = []
+    for name, kind, attn in (
+            ("ragged_paged_attention_tiered", "bf16",
+             "ragged_paged_attention"),
+            ("ragged_paged_attention_int8_tiered", "int8",
+             "ragged_paged_attention_quant")):
+        cap = tier["captured"][kind]
+        work_shape(f"{name} promoted-read launch", cap["q"], cap["pool"],
+                   cap["meta"])
+        r = rpa_case(f"{name}, the launch reading promoted blocks, layer 0",
+                     timer, cap)
+        runs = tier["launches"][kind]
+        rows.append({"name": name, "route": "cuda", "source": RPA_TC_SRC,
+                     "replaces": RPA_TPU,
+                     "launches": sum(x[attn] for x in runs),
+                     **{k: r[k] for k in ("max_abs_err", "ms", "plain_ms",
+                                          "bound_ms", "bound_by")},
+                     "library_ms": None,
+                     "combine_launches": sum(x["combine"] for x in runs),
+                     "core_source": RPA_SRC, "core_ms": r["core_ms"],
+                     "core_err": r["core_err"]})
+    shapes = LN_SHAPES[TIER_LN_ROW]
+    main = max(shapes, key=shapes.get)
+    ln = ln_shape_row(timer, TIER_LN_ROW, tier["fleet_ln"], main)
+    rows.append({"name": TIER_LN_ROW, "route": "cuda", "source": LN_SRC,
+                 "replaces": LN_TPU, "launches": tier["fleet_ln"],
+                 **{k: ln[k] for k in ("max_abs_err", "ms", "plain_ms",
+                                       "bound_ms", "bound_by",
+                                       "library_ms")},
+                 "core_route": "row", "core_ms": ln["row_ms"],
+                 "core_err": ln["row_err"]})
+    return rows
+
+
 # ---------------------------------------------------------------- phase 5
 def rpa_core(q, pool, meta, scales=None):
     """The CUDA-core kernel (``csrc/ragged_paged_attention.cu``) on layer 0
@@ -3656,6 +4154,7 @@ def main() -> int:
     gen_launches, beam_launches = phase_generate(model, device, profile)
     gather_ln = phase_gather(model, prompts, outs, profile)
     spec = phase_spec(model, prompts, outs, int8_outs, profile)
+    tier = phase_tier(model)
     del model
     f16 = phase_serve_f16(device, prompts, profile)
     gen_f32_launches = phase_generate_f32(device)
@@ -3673,6 +4172,7 @@ def main() -> int:
     # the train path's
     kernels += serve_f16_rows(device, timer, f16)
     kernels += spec_rows(timer, spec)
+    kernels += tier_rows(timer, tier)
     ln_row = next(k for k in kernels if k["name"] == "fused_layer_norm")
     ln_row["launches"] += quant_launches["fused_layer_norm"] \
         + gather_ln["fused"]

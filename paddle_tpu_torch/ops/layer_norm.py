@@ -28,11 +28,13 @@ the call raises: there is no fallback. ``.launches`` on each counts its
 kernel launches, and ``.warp_launches``/``.row_launches`` count them by
 route. :func:`layer_norm` is the differentiable entry: under autograd it
 runs both kernels through ``_LayerNorm``; without it (the serving path)
-it launches the forward alone.
+it launches the forward alone. The counts are bumped under a lock: two
+engines on one card launch from two scheduler threads.
 """
 from __future__ import annotations
 
 import ctypes
+import threading
 
 import torch
 
@@ -82,12 +84,16 @@ def warp_bwd_grid(rows: int):
     return -(-rows // per), per
 
 
+_COUNT_LOCK = threading.Lock()
+
+
 def _count(wrapper, route):
-    wrapper.launches += 1
-    if route == "warp":
-        wrapper.warp_launches += 1
-    else:
-        wrapper.row_launches += 1
+    with _COUNT_LOCK:
+        wrapper.launches += 1
+        if route == "warp":
+            wrapper.warp_launches += 1
+        else:
+            wrapper.row_launches += 1
 
 
 def layer_norm_plain(x, weight, bias, epsilon: float = 1e-5):

@@ -43,12 +43,15 @@ is no fallback and no dequantized copy of the pool.
 ``ragged_paged_attention.launches`` counts calls over float pools,
 ``.quant_launches`` over int8/fp8 pools; ``.tc_launches`` and
 ``.core_launches`` count the calls of each route, and
-``.combine_launches`` the tensor-core route's combine launches.
+``.combine_launches`` the tensor-core route's combine launches. The
+counts are bumped under a lock: two engines on one card launch from two
+scheduler threads, and ``+= 1`` on an attribute is not atomic.
 """
 from __future__ import annotations
 
 import ctypes
 import math
+import threading
 from typing import Sequence, Tuple
 
 import numpy as np
@@ -384,18 +387,20 @@ def ragged_paged_attention(q, pool, layer, blk_seq, seq_qstart, seq_pos0,
             f"ragged paged attention kernel launch failed ({route} route): "
             f"CUDA error {rc}")
     fn = ragged_paged_attention
-    if quantized:
-        fn.quant_launches += 1
-    else:
-        fn.launches += 1
-    if route == "tc":
-        fn.tc_launches += 1
-        fn.combine_launches += z > 1
-    else:
-        fn.core_launches += 1
+    with _COUNT_LOCK:
+        if quantized:
+            fn.quant_launches += 1
+        else:
+            fn.launches += 1
+        if route == "tc":
+            fn.tc_launches += 1
+            fn.combine_launches += z > 1
+        else:
+            fn.core_launches += 1
     return out
 
 
+_COUNT_LOCK = threading.Lock()
 ragged_paged_attention.launches = 0
 ragged_paged_attention.quant_launches = 0
 ragged_paged_attention.tc_launches = 0

@@ -26,6 +26,13 @@ Two KV layouts and two attention paths share this surface:
   rows: greedy output stays token-identical, sampled output keeps the
   target's distribution (rejection sampling on the device).
 
+With ``host_tier_bytes`` (paged layouts) a bounded host-DRAM tier
+(:class:`~.host_tier.HostBlockPool`) holds the prefix-cache blocks the
+device LRU evicts, and a hit on a demoted chain promotes it back through
+an asynchronous host-to-device copy while the decode slots keep running.
+``submit(tenant=, lane=)`` tags a request's weighted-fair admission class
+(``lane_weights``, default ``interactive`` 4 : ``batch`` 1).
+
 Telemetry: the scheduler's always-on flight recorder
 (:attr:`GenerationEngine.flight_recorder`,
 :meth:`GenerationEngine.dump_flight_recorder`) gives ``stats()`` its
@@ -59,6 +66,7 @@ from ..models.generation import (build_draft_prefill_fn,
                                  build_spec_verify_fn, make_draft_model)
 from ..ops.ragged_paged_attention import (BLOCK_Q, MIN_KV_BLOCK,
                                           min_kv_block_for, ragged_layout)
+from .host_tier import HostBlockPool
 from .kv_pool import KVCachePool
 from .paging import PagedKVPool, PoolCapacityError
 from .scheduler import GenerationRequest, Scheduler, _fetch
@@ -68,8 +76,6 @@ __all__ = ["GenerationEngine"]
 # the JAX engine's arguments for parts of the system the port has not
 # taken yet, each with the ROADMAP.md queue that holds it
 _NOT_PORTED = {
-    "host_tier_bytes": "Queue 1 item 2 (serving/host_tier.py)",
-    "lane_weights": "Queue 1 item 2 (weighted admission over lanes)",
     "hbm_budget_bytes": "Queue 1 item 3 (the static HBM plan)",
     "mesh": "Queue 1 item 4 (tensor-parallel serving)",
 }
@@ -111,6 +117,10 @@ def _engine_section() -> str:
                          f"{s['num_blocks']}")
             if "prefix_hit_ratio" in s:
                 head += f" prefix_hit={s['prefix_hit_ratio']:.2f}"
+            if "host_tier" in s:
+                ht = s["host_tier"]
+                head += (f" host_tier={ht['blocks']}/"
+                         f"{ht['capacity_blocks']}")
             if "spec_accept_rate" in s:
                 head += f" spec_accept={s['spec_accept_rate']:.2f}"
             lines.append(head)
@@ -169,6 +179,25 @@ def _register_engine_telemetry(engine: "GenerationEngine") -> None:
                         s["kv_blocks_in_use"]))
             out.append(("gauge", "serving_prefix_hit_ratio", labels,
                         s["prefix_hit_ratio"]))
+            # the tiered hit split: one {engine, tier} series a tier
+            for tier, n in s["tier_hits"].items():
+                out.append(("counter", "serving_tier_hit",
+                            dict(labels, tier=str(tier)), n))
+        ht = s.get("host_tier")
+        if ht is not None:
+            out.append(("gauge", "serving_host_tier_bytes_in_use",
+                        labels, ht["bytes_in_use"]))
+            out.append(("counter", "serving_host_tier_demoted", labels,
+                        ht["demoted_blocks"]))
+            out.append(("counter", "serving_host_tier_promoted", labels,
+                        ht["promoted_blocks"]))
+        # per-tenant goodput: one {engine, tenant} series a tenant
+        for tenant, ts in (s.get("tenants") or {}).items():
+            tl = dict(labels, tenant=str(tenant))
+            out.append(("counter", "serving_tenant_retired", tl,
+                        ts["retired"]))
+            out.append(("gauge", "serving_tenant_goodput_rps", tl,
+                        ts["goodput_rps"]))
         return out
     _metrics.register_collector(f"serving_engine/{engine._eid}", _collect)
 
@@ -209,9 +238,13 @@ class GenerationEngine:
       the target's first 2 blocks over its shared embeddings; or any
       port GPT of the same vocabulary on ``device``), ``spec_k`` draft
       tokens verified per decoding slot a cycle.
+    * ``host_tier_bytes`` — paged only: a host-DRAM tier of that many
+      bytes (pinned on the card) behind the prefix cache;
+    * ``lane_weights`` — admission weights by lane, over the defaults
+      ``{"interactive": 4.0, "batch": 1.0}``.
 
-    ``host_tier_bytes``, ``hbm_budget_bytes``, ``lane_weights`` and
-    ``mesh`` are not ported yet and raise ``NotImplementedError``. Greedy
+    ``hbm_budget_bytes`` and ``mesh`` are not ported yet and raise
+    ``NotImplementedError``. Greedy
     output is token-identical to the JAX engine of the same configuration
     on the same weights.
     """
@@ -230,9 +263,19 @@ class GenerationEngine:
                  host_tier_bytes: Optional[int] = None, device=None):
         # mp_axis only shapes mesh's work, which raises here
         self._device = resolve_device(device)
-        given = {"host_tier_bytes": host_tier_bytes,
-                 "hbm_budget_bytes": hbm_budget_bytes, "mesh": mesh,
-                 "lane_weights": lane_weights}
+        if host_tier_bytes is not None:
+            if kv_layout != "paged":
+                raise ValueError(
+                    "host_tier_bytes (hierarchical KV cache) requires "
+                    "kv_layout='paged': the host tier stores demoted "
+                    "prefix-cache BLOCKS; the dense slot pool has no "
+                    "block granularity to demote")
+            if mesh is not None:
+                raise ValueError(
+                    "host_tier_bytes does not compose with mesh= yet: "
+                    "run tiered engines single-device (or per "
+                    "EngineFleet replica)")
+        given = {"hbm_budget_bytes": hbm_budget_bytes, "mesh": mesh}
         for name, value in given.items():
             if value is not None:
                 raise NotImplementedError(
@@ -316,6 +359,13 @@ class GenerationEngine:
         self._steps = {}                  # (q bucket, table bucket) -> fn
         self._spec_steps = {}             # (q, table) -> verify step
         self._eid = _next_engine_id()
+        self._host_tier = None
+        if host_tier_bytes is not None:
+            self._host_tier = HostBlockPool(
+                int(host_tier_bytes), self._pool.host_block_nbytes,
+                scale_nbytes=self._pool.host_scale_nbytes,
+                name=f"serving/host_tier#{self._eid}", device=self._device)
+            self._pool.attach_host_tier(self._host_tier)
         self._closed = False
         self._close_lock = threading.Lock()
         self._spec = spec_draft is not None
@@ -331,13 +381,14 @@ class GenerationEngine:
                 do_spec_step=self._run_spec_step if self._spec else None,
                 spec_k=self._spec_k if self._spec else 0,
                 do_copy=self._run_copy, max_queue=max_queue,
-                prefill_budget=prefill_budget)
+                prefill_budget=prefill_budget, lane_weights=lane_weights)
         else:
             self._sched = Scheduler(
                 self._pool, do_prefill=self._run_prefill,
                 do_decode=self._run_decode,
                 do_copy=self._run_copy if self._pool.is_paged else None,
-                max_queue=max_queue, prefill_budget=prefill_budget)
+                max_queue=max_queue, prefill_budget=prefill_budget,
+                lane_weights=lane_weights)
         _register_engine_telemetry(self)
 
     # -- client side -------------------------------------------------------
@@ -352,15 +403,11 @@ class GenerationEngine:
         ``timeout`` is a hard deadline in seconds. ``top_k``/``top_p``
         are fixed per engine: a differing value raises ``ValueError``. A
         full queue raises ``QueueFullError``; a request that can never
-        fit raises ``PoolCapacityError``. The port admits in arrival
-        order: another ``tenant`` or ``lane`` than the defaults raises
-        ``NotImplementedError`` (ROADMAP Queue 1 item 2)."""
+        fit raises ``PoolCapacityError``. ``tenant``/``lane`` tag the
+        request's weighted-fair admission class (the front door sets them
+        from the wire); untagged traffic shares one class, served FCFS."""
         if self._closed:
             raise RuntimeError("GenerationEngine is closed")
-        if tenant != "default" or lane != "interactive":
-            raise NotImplementedError(
-                "tenants and lanes (weighted admission) are not ported "
-                "yet: ROADMAP.md Queue 1 item 2")
         if top_k is not None and int(top_k) != self._top_k:
             raise ValueError(
                 f"per-request top_k={top_k} differs from the engine's "
@@ -407,7 +454,8 @@ class GenerationEngine:
         req = GenerationRequest(
             ids, max_new_tokens, do_sample=do_sample,
             temperature=temperature, eos_token_id=eos_token_id,
-            pad_token_id=self._pad, timeout=timeout)
+            pad_token_id=self._pad, timeout=timeout, tenant=tenant,
+            lane=lane)
         handle = self._sched.submit(req)    # QueueFullError propagates
         stat_add("serving/requests")        # counts accepted requests
         return handle
@@ -425,6 +473,10 @@ class GenerationEngine:
                 return
             self._closed = True
         self._sched.close(cancel_pending=cancel_pending)
+        # the tier after the scheduler: nothing dispatches to it any
+        # more, so its close only drains queued copies and joins threads
+        if self._host_tier is not None:
+            self._host_tier.close()
         # a closed engine is no longer a scraped source or statusz row
         _metrics.unregister_collector(f"serving_engine/{self._eid}")
         _LIVE_ENGINES.discard(self)
@@ -454,10 +506,12 @@ class GenerationEngine:
 
     def stats(self) -> dict:
         """Operator snapshot (host bookkeeping only, no device sync):
-        queue, slots, steps, the paged pool's blocks and prefix cache,
-        chunked prefill, the speculative figures, and TTFT/TPOT
-        percentiles over this engine's retired requests (from its flight
-        recorder)."""
+        queue, slots, steps, the paged pool's blocks, prefix cache and
+        hit split by tier (``hbm``/``host``/``miss``), the host tier,
+        chunked prefill, the speculative figures, TTFT/TPOT percentiles
+        over this engine's retired requests (from its flight recorder),
+        goodput and SLO violations once a tail SLO is armed, and the
+        per-tenant split."""
         pool, sched = self._pool, self._sched
         s = {
             "kv_layout": "paged" if self._pool.is_paged else "dense",
@@ -476,8 +530,17 @@ class GenerationEngine:
             "kv_pool_capacity_bytes": pool.capacity_bytes,
             "kv_bytes_in_use": pool.bytes_in_use,
         }
+        rec = sched.recorder
+        if rec.tail_slo_ms is not None:
+            s["goodput_rps"] = rec.goodput()["goodput_rps"]
+            s["slo_violations"] = rec.slo_violations
+        tenants = rec.tenant_summary()
+        if tenants:
+            s["tenants"] = tenants
         if self._pool.is_paged:
             hits, misses = pool.prefix_hits, pool.prefix_misses
+            th = pool.tier_hits
+            denom = max(1, th["hbm"] + th["host"] + th["miss"])
             s.update({
                 # block storage vs the scale array (0 for float pools)
                 "kv_bytes": {"blocks": pool.block_storage_bytes,
@@ -490,9 +553,15 @@ class GenerationEngine:
                 "prefix_hits": hits,
                 "prefix_misses": misses,
                 "prefix_hit_ratio": hits / max(1, hits + misses),
+                "tier_hits": dict(th),
+                "prefix_hit_hbm": th["hbm"] / denom,
+                "prefix_hit_host": th["host"] / denom,
+                "prefix_miss": th["miss"] / denom,
                 "prefill_tokens_saved": pool.tokens_saved,
                 "prefix_evictions": pool.evictions,
             })
+            if self._host_tier is not None:
+                s["host_tier"] = self._host_tier.stats()
         s.update(sched.recorder.latency_summary())
         if self._fused:
             s["prefill_chunks"] = sched.prefill_chunks
@@ -600,6 +669,8 @@ class GenerationEngine:
             cached = []                   # tail too long: prefill wins
         if cached:
             pool.admit_cached(slot, cached)
+            # a hit through a just-landed promotion is a host-tier hit
+            pool.note_tier_hit("host" if req._tier_promoted else "hbm")
             m = len(cached) * pool.block_size
             pool.set_slot(slot, pos=m, lo=0)
             req.last_token = int(feed[m])
@@ -607,6 +678,7 @@ class GenerationEngine:
             req.trace.mark("prefix_hit", tokens_saved=m,
                            replay=len(req.replay))
             return None
+        pool.note_tier_hit("miss")
         blocks = pool.admit_fresh(slot, feed.size)
         table = np.zeros(bucket // pool.block_size, np.int32)
         table[:len(blocks)] = blocks      # padding -> the scratch block
@@ -668,12 +740,14 @@ class GenerationEngine:
         cached = pool.match_prefix(feed)
         if cached:
             pool.admit_cached(slot, cached)
+            pool.note_tier_hit("host" if req._tier_promoted else "hbm")
             m = len(cached) * pool.block_size
             pool.set_slot(slot, pos=m, lo=0)
             req.pending_feed = [int(t) for t in feed[m:]]
             req.trace.mark("prefix_hit", tokens_saved=m,
                            pending=len(req.pending_feed))
         else:
+            pool.note_tier_hit("miss")
             pool.admit_fresh(slot, feed.size)
             pool.set_slot(slot, pos=0, lo=0)
             req.pending_feed = [int(t) for t in feed]

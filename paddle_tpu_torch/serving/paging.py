@@ -30,6 +30,18 @@ holds each (block, head)'s max-abs scale, so a value is ``code * scale``.
 Scale 0 marks an untouched block, which reads as the zeros a fresh float
 pool holds. The byte accounting counts the scales, so pools of different
 storage types compare at the same budget.
+
+**Host tier** (``attach_host_tier``, :mod:`.host_tier`): a cached block
+that goes refcount-0 is queued for demotion, and the scheduler's
+once-a-cycle :meth:`PagedKVPool.tier_tick` gathers every such block that
+is still evictable into one fresh device tensor for the tier's spiller
+thread. :meth:`PagedKVPool.tier_match` continues a prefix match into the
+tier, and :meth:`PagedKVPool.adopt_promotion` lands a promoted chain in
+freshly allocated blocks, republished as if never evicted. Every write
+path copies on write or unregisters the key first, so a published key's
+block content is a function of the key alone: a host copy can be adopted
+at any later time. Each admission is classed ``hbm`` (a device trie hit),
+``host`` (a hit through a promotion) or ``miss`` in ``tier_hits``.
 """
 from __future__ import annotations
 
@@ -41,6 +53,7 @@ import numpy as np
 import torch
 
 from .._device import resolve_device
+from ..framework.monitor import stat_add
 from .kv_pool import SlotPoolBase, _storage_dtype
 
 __all__ = ["PagedKVPool", "PoolCapacityError", "PoolExhaustedError",
@@ -173,6 +186,12 @@ class PagedKVPool(SlotPoolBase):
         self.prefix_misses = 0
         self.tokens_saved = 0
         self.evictions = 0
+        # the host tier, when attached: keys that went refcount-0 wait in
+        # _tier_pending for the next tier_tick's batched demotion
+        self.host_tier = None
+        self._tier_pending: set = set()
+        self.tier_hits = {"hbm": 0, "host": 0, "miss": 0}
+        self.tier_degraded = 0
 
     # -- request slots -----------------------------------------------------
     def _slot_freed(self, st: _PagedSlot) -> None:
@@ -199,6 +218,9 @@ class PagedKVPool(SlotPoolBase):
         self._lru.clear()
         self._ref.clear()
         self._free = list(range(1, self.num_blocks + 1))
+        # pending demotions name blocks of the old contents; copies
+        # already in the tier stay valid (a function of their key)
+        self._tier_pending.clear()
 
     # -- block bookkeeping -------------------------------------------------
     def blocks_for(self, n_tokens: int) -> int:
@@ -291,8 +313,12 @@ class PagedKVPool(SlotPoolBase):
         if rc == 1:
             key = self._block_key.get(b)
             if key is not None and key in self._trie:
-                # released but cached: reusable until evicted
+                # released but cached: reusable until evicted, and with a
+                # host tier demoted at the next tier_tick if still
+                # evictable then
                 self._lru[key] = self._trie[key]
+                if self.host_tier is not None:
+                    self._tier_pending.add(key)
             else:
                 heapq.heappush(self._free, b)
 
@@ -323,6 +349,147 @@ class PagedKVPool(SlotPoolBase):
             parent.children.discard(key)
         for child in list(node.children):
             self._drop_node(child)
+
+    # -- the host tier (host_tier.py) ---------------------------------------
+    @property
+    def host_block_nbytes(self) -> int:
+        """Host bytes of one demoted block (every layer and K/V plane, no
+        scale)."""
+        return (self.num_layers * 2 * self.num_heads * self.block_size
+                * self.head_dim * self.dtype.itemsize)
+
+    @property
+    def host_scale_nbytes(self) -> int:
+        """Host bytes of one demoted block's scale row (0 for float
+        pools)."""
+        return self.num_layers * 2 * self.num_heads * 4 \
+            if self.quantized else 0
+
+    def attach_host_tier(self, tier) -> None:
+        """Bind a :class:`~.host_tier.HostBlockPool` as the spill target
+        of LRU-released cached blocks (the engine's ``host_tier_bytes=``).
+        The JAX pool compiles the tier's gather and scatter for every
+        pow2 width here; eager torch has nothing to compile."""
+        self.host_tier = tier
+
+    def tier_tick(self) -> None:
+        """Once-a-cycle demotion pump (scheduler thread): every key that
+        went refcount-0 since the last tick and is still evictable goes
+        to the tier in ONE gather into a fresh ``[n, L, 2, H, bs, Dh]``
+        tensor (with its ``[n, L, 2, H]`` scales), enqueued on the
+        current stream, where the steps' kernels launch too: the gather
+        is ordered before the next step's in-place writes. The blocks are
+        picked by integer index, so no index tensor crosses to the device
+        (a copy from pageable host memory would synchronise), and nothing
+        is padded to pow2 widths (the JAX pool does so only to reuse
+        compiled shapes). Dispatch only: no host sync."""
+        tier = self.host_tier
+        if tier is None or not self._tier_pending:
+            return
+        pending, self._tier_pending = self._tier_pending, set()
+        keys = [k for k in pending if k in self._lru and not tier.has(k)]
+        if not keys:
+            return
+        ids = [self._trie[k].block for k in keys]
+        blk = torch.stack([self.data[:, :, b] for b in ids])
+        sca = torch.stack([self.scales[:, :, b] for b in ids]) \
+            if self.quantized else None
+        tier.spill(keys, blk, sca)
+
+    def tier_match(self, tokens) -> Tuple[List[Tuple[int, ...]], int]:
+        """Continue :meth:`match_prefix`'s walk into the host tier: the
+        chain of demoted full blocks extending the device-cached prefix
+        of ``tokens`` (the same proper-prefix cap), as ``(host_keys,
+        covered_tokens)`` with the device and host coverage together.
+        Read-only."""
+        tier = self.host_tier
+        if tier is None:
+            return [], 0
+        toks = tuple(int(t) for t in tokens)
+        bs = self.block_size
+        host_keys: List[Tuple[int, ...]] = []
+        covered = 0
+        for i in range(1, (len(toks) - 1) // bs + 1):
+            key = toks[:i * bs]
+            if key in self._trie:
+                covered = i * bs
+            elif tier.has(key):
+                host_keys.append(key)
+                covered = i * bs
+            else:
+                break
+        return host_keys, covered
+
+    def adopt_promotion(self, ticket) -> bool:
+        """Land a promotion whose copy has landed (scheduler thread):
+        allocate device blocks, copy the staged blocks (and scales) in,
+        and republish each key as a refcount-0 cached node, as if never
+        evicted. Keys republished on the device meanwhile are skipped
+        (the same bytes), and exhaustion adopts the prefix of the chain
+        that fits, or degrades to a plain miss, never an error. On the
+        card the current stream waits on the copy's event (the ticket
+        is ready only once it fired) and the staged tensors are marked
+        as used on it, so the allocator keeps them until the copies ran;
+        nothing synchronises the host."""
+        tier = self.host_tier
+        if tier is None or ticket is None:
+            return False
+        if ticket.adopted:
+            return True
+        if ticket.failed or not ticket.staged_keys:
+            tier.ticket_done(ticket)
+            return False
+        keep = [i for i, k in enumerate(ticket.staged_keys)
+                if k not in self._trie]
+        if not keep:
+            # the whole chain came back on the device while it staged
+            ticket.adopted = True
+            tier.ticket_done(ticket)
+            return True
+        ids: List[int] = []
+        try:
+            for _ in keep:
+                ids.append(self._alloc_block())
+        except PoolExhaustedError:
+            pass                          # adopt the prefix that fits
+        keep = keep[:len(ids)]
+        if not keep:
+            self.tier_degraded += 1
+            stat_add("serving/tier_degraded")
+            tier.ticket_done(ticket)
+            return False
+        staged, sca = ticket.staged, ticket.staged_scales
+        if ticket.event is not None:
+            cur = torch.cuda.current_stream(self.device)
+            cur.wait_event(ticket.event)
+            for t in (staged, sca):
+                if t is not None:
+                    t.record_stream(cur)
+        with torch.inference_mode():
+            for i, b in zip(keep, ids):
+                self.data[:, :, b].copy_(staged[i])
+                if self.quantized and sca is not None:
+                    # the original scales over _alloc_block's zeros
+                    self.scales[:, :, b].copy_(sca[i])
+        for i, b in zip(keep, ids):
+            key = ticket.staged_keys[i]
+            self._ref[b] = 0              # cached, unreferenced
+            node = _TrieNode(key, b)
+            self._trie[key] = node
+            self._block_key[b] = key
+            parent = self._trie.get(key[:-self.block_size])
+            if parent is not None:
+                parent.children.add(key)
+            self._lru[key] = node         # evictable until admitted
+        ticket.adopted = True
+        tier.note_promoted(ticket, len(keep))
+        tier.ticket_done(ticket)
+        return True
+
+    def note_tier_hit(self, kind: str) -> None:
+        """Class one paged admission: ``hbm``, ``host`` or ``miss``."""
+        self.tier_hits[kind] = self.tier_hits.get(kind, 0) + 1
+        stat_add(f"serving/tier_hit_{kind}")
 
     # -- admission: prefix matching + table setup --------------------------
     def match_prefix(self, tokens) -> List[int]:

@@ -3,7 +3,8 @@
 cycle. Two modes, as the engine picks:
 
 * **bucketed** (the dense and paged gather engines) — admission pops
-  queued requests FCFS (preempted requests first) into free slots and
+  queued requests (preempted requests first, then weighted-fair, below)
+  into free slots and
   runs the prefill program of each one's pow2 capacity bucket, which
   returns its first token. While slots decode, the prefills of one
   cycle may spend at most ``prefill_budget`` bucket tokens; a paged
@@ -25,6 +26,19 @@ cycle. Two modes, as the engine picks:
   of one: the accepted ones (and, after a rejection, one corrected
   token) are emitted, and the slot's position rolls back over the
   rejected rows.
+
+Admission is WEIGHTED-FAIR over (lane, tenant) classes: deficit
+round-robin credits each queued class ``quantum x lane weight`` feed
+tokens a rotation (``interactive`` 4 : ``batch`` 1 by default), and a
+class admits while its deficit covers its head request's feed. One
+queued class is plain FCFS.
+
+With a host tier on the paged pool (``serving/host_tier.py``), each cycle
+first pumps the blocks released last cycle to the tier
+(``PagedKVPool.tier_tick``) and starts the host-to-device promotions of
+the queue front; a request whose prefix continues in the tier waits,
+like a pending feed, until its promotion has landed, while the decode
+slots keep running.
 
 Finished (EOS / token budget), cancelled and expired requests free their
 slot at once. A full queue raises :class:`QueueFullError` and an expired
@@ -53,7 +67,7 @@ import logging
 import queue
 import threading
 import time
-from typing import Callable, Dict, List, Optional
+from typing import Callable, Dict, List, Optional, Tuple
 
 import numpy as np
 
@@ -130,6 +144,10 @@ class GenerationRequest:
             else int(eos_token_id)
         self.pad_token_id = int(pad_token_id)
         self._preempted = False     # replay victims outrank the queue
+        # host-tier promotion: the ticket this request waits on, and
+        # whether its admission was served through one (a host hit)
+        self._promo_ticket = None
+        self._tier_promoted = False
         self.submitted_at = time.perf_counter()
         self.deadline = None if timeout is None \
             else self.submitted_at + float(timeout)
@@ -271,9 +289,8 @@ class Scheduler:
     ``do_decode`` are None in chunked mode); the pool's ``is_paged`` picks
     the layout. ``recorder`` is the :class:`~.flight_recorder.
     FlightRecorder` the cycles and events go to (a fresh one by
-    default). Admission is first come, first served: weighted lanes
-    (``lane_weights``) raise ``NotImplementedError`` (ROADMAP Queue 1
-    item 2).
+    default). ``lane_weights`` overrides the lanes' admission weights
+    (``interactive`` 4.0, ``batch`` 1.0; any other lane 1.0).
     """
 
     def __init__(self, pool, do_prefill: Optional[Callable] = None,
@@ -286,10 +303,6 @@ class Scheduler:
                  recorder: Optional[FlightRecorder] = None,
                  lane_weights: Optional[Dict] = None,
                  do_admit: Optional[Callable] = None):
-        if lane_weights is not None:
-            raise NotImplementedError(
-                "weighted lanes are not ported yet: ROADMAP.md Queue 1 "
-                "item 2")
         if max_queue < 1:
             raise ValueError(f"max_queue must be >= 1, got {max_queue}")
         self._chunked = do_chunked_step is not None
@@ -340,6 +353,18 @@ class Scheduler:
         self._admit_stamp: Optional[float] = None
         self._admit_interval_s: Optional[float] = None
         self._queue: List[GenerationRequest] = []
+        # weighted deficit round-robin over the queued (lane, tenant)
+        # classes; deficits are capped (in _select_next) so an idle class
+        # cannot bank credit and then monopolize admission
+        self._lane_weights: Dict[str, float] = {
+            "interactive": 4.0, "batch": 1.0}
+        for lane, w in (lane_weights or {}).items():
+            if float(w) <= 0:
+                raise ValueError(f"lane weight must be > 0, got {lane}={w}")
+            self._lane_weights[str(lane)] = float(w)
+        self._wdrr_quantum = 32.0            # deficit tokens per weight
+        self._deficit: Dict[Tuple[str, str], float] = {}
+        self._rr: List[Tuple[str, str]] = []  # class rotation order
         self._slots: Dict[int, GenerationRequest] = {}
         self._cond = threading.Condition()
         self._closing = False
@@ -416,12 +441,20 @@ class Scheduler:
                 "decode_dispatch_ms": 0.0, "fetch_ms": 0.0,
                 "admitted": [], "retired": [], "emitted": 0,
                 "preempts": 0, "active": 0, "occupancy": 0.0,
+                "promo_waits": 0, "promoted_blocks": 0,
             }
             failed = None
+            tier = getattr(self._pool, "host_tier", None)
             try:
                 t = time.perf_counter()
                 self._sweep_queue()
                 rec["sweep_ms"] = (time.perf_counter() - t) * 1e3
+                if tier is not None:
+                    # blocks released last cycle spill before this
+                    # cycle's admissions can evict them, and the queue
+                    # front's promotions start while the slots decode
+                    self._pool.tier_tick()
+                    self._prefetch_promotions()
                 t = time.perf_counter()
                 self._admit()
                 rec["admit_ms"] = (time.perf_counter() - t) * 1e3
@@ -430,6 +463,12 @@ class Scheduler:
                         self._chunked_cycle()
                     else:
                         self._decode_cycle()
+                elif rec["promo_waits"]:
+                    # nothing decodes and the queue only waits on
+                    # promotions: nap on the tier's progress beacon (a
+                    # host event) instead of spinning. With slots active
+                    # this never runs: decode never waits on a copy.
+                    tier.wait_progress(0.002)
             except Exception as e:                      # noqa: BLE001
                 # a step failure poisons the requests in flight, never
                 # the loop: each caller gets the error (traceback
@@ -499,10 +538,12 @@ class Scheduler:
             live = []
             for r in self._queue:
                 if r.cancelled:
+                    self._drop_ticket(r)
                     stat_add("serving/cancelled")
                     r._finish(RequestCancelled(
                         f"request {r.id} cancelled while queued"))
                 elif r.expired(now):
+                    self._drop_ticket(r)
                     r._finish(self._deadline(r, "while queued",
                                              len(self._queue)))
                 else:
@@ -511,36 +552,157 @@ class Scheduler:
                 self._queue[:] = live
                 stat_observe("serving/queue_depth", len(live))
 
-    def _select_next(self) -> int:
-        """Index of the next admission candidate: a preempted replay
-        victim first (it predates every queued arrival), else the FCFS
-        head. Caller holds ``self._cond``."""
-        for i, r in enumerate(self._queue):
-            if r._preempted:
+    def _select_next(self, skip=frozenset()) -> int:
+        """Index into the queue of the next admission candidate (caller
+        holds ``self._cond``); requests whose id is in ``skip`` (this
+        cycle's promotion-waiters) are invisible, and -1 means nothing
+        else is queued. A preempted replay victim comes first (it
+        predates every queued arrival). Else weighted deficit round-robin
+        over the queued (lane, tenant) classes: the class at the rotation
+        head admits its FCFS head while its deficit covers that request's
+        feed, else it is credited ``quantum x lane weight`` and the
+        rotation moves on. One queued class is its FCFS head."""
+        q = self._queue
+        for i, r in enumerate(q):
+            if r._preempted and r.id not in skip:
                 return i
-        return 0
+        heads: Dict[Tuple[str, str], int] = {}
+        for i, r in enumerate(q):
+            if r.id not in skip:
+                heads.setdefault((r.lane, r.tenant), i)
+        if len(heads) <= 1:
+            return next(iter(heads.values()), -1)
+        # keep the rotation stable across calls; retire dead classes
+        self._rr = [k for k in self._rr if k in heads]
+        for k in heads:
+            if k not in self._rr:
+                self._rr.append(k)
+                self._deficit.setdefault(k, 0.0)
+        # the cap must exceed any admissible feed (bounded by max_len at
+        # submit) or a fat head could starve its own class
+        cap = max(2.0 * self._pool.max_len, 8.0 * self._wdrr_quantum)
+        for _ in range(10_000):
+            k = self._rr[0]
+            head = q[heads[k]]
+            cost = float(max(1, len(head.prompt) + len(head.tokens)))
+            if self._deficit.get(k, 0.0) >= cost:
+                self._deficit[k] -= cost
+                return heads[k]
+            w = self._lane_weights.get(k[0], 1.0)
+            self._deficit[k] = min(
+                self._deficit.get(k, 0.0) + self._wdrr_quantum * w, cap)
+            self._rr.append(self._rr.pop(0))
+        return heads[self._rr[0]]     # unreachable: cap >= any cost
+
+    # -- host-tier promotions ----------------------------------------------
+    def _drop_ticket(self, req: GenerationRequest) -> None:
+        """Release a dead waiter's promotion ticket, so the tier's
+        registry (and the staged device copy it holds) does not outlive
+        the request. A ticket another waiter shares survives: adoption
+        by that waiter still works."""
+        tk, req._promo_ticket = req._promo_ticket, None
+        tier = getattr(self._pool, "host_tier", None)
+        if tk is not None and tier is not None:
+            tier.ticket_done(tk)
+
+    def _prefetch_promotions(self) -> None:
+        """Start (or poll) the promotions of the queue's first two live
+        requests while every decode slot is still busy, so a host chain
+        is on its way before a slot frees up. Adoption waits for the
+        admission, which adopts and references the blocks in one step:
+        adopted now, they would sit refcount-0 in a pressured pool for
+        the next fresh admission to evict."""
+        with self._cond:
+            head = [r for r in self._queue if not r.cancelled][:2]
+            for req in head:
+                self._promotion_state(req, adopt=False)
+
+    def _promotion_state(self, req: GenerationRequest,
+                         adopt: bool = True) -> str:
+        """Drive ``req``'s promotion (caller holds ``_cond``; scheduler
+        thread): ``"go"`` — admit now (no host chain, the engine would
+        not take the hit, the tier shed the promotion, or the staged
+        blocks were just adopted) — or ``"wait"`` — its host-to-device
+        copy has not landed yet (``ticket.landed()`` reads the copy's
+        event without blocking)."""
+        pool = self._pool
+        tk = req._promo_ticket
+        if tk is not None:
+            if not tk.landed():
+                return "wait"
+            if not adopt:
+                return "go"     # staged; admission adopts and refs
+            req._promo_ticket = None
+            if pool.adopt_promotion(tk):
+                req._tier_promoted = True
+                if self._rec is not None:
+                    self._rec["promoted_blocks"] += len(tk.staged_keys)
+            return "go"         # a failed ticket is a plain miss
+        feed = np.concatenate(
+            [req.prompt, np.asarray(req.tokens, np.int32)])
+        host_keys, covered = pool.tier_match(feed)
+        if not host_keys:
+            return "go"
+        if not self._chunked and feed.size - covered > pool.min_bucket:
+            # the gather engine prefills fresh past a min_bucket tail
+            # anyway: waiting on a promotion would only add latency
+            return "go"
+        tk = pool.host_tier.request_promotion(host_keys)
+        if tk is None:
+            return "go"         # the tier shed it: a plain miss
+        req._promo_ticket = tk
+        return "wait"
 
     def _admit(self) -> None:
         decode_waiting = bool(self._slots)
         budget = self._prefill_budget
+        tiered = getattr(self._pool, "host_tier", None) is not None
+        skip: set = set()       # promotion-waiters sit out this cycle
         while True:
             with self._cond:
                 if not self._queue:
                     return
-                idx = self._select_next()
+                # a promotion that has landed admits ahead of the fair
+                # rotation: it runs no prefill, and a fresh prefill ahead
+                # of it would give back what the tier saved. So does a
+                # chain adopted on an earlier pass that then met a
+                # capacity gate (its blocks sit refcount-0, evictable).
+                idx = next((i for i, r in enumerate(self._queue)
+                            if r.id not in skip and (
+                                r._promo_ticket.landed()
+                                if r._promo_ticket is not None
+                                else r._tier_promoted)), -1)
+                if idx < 0:
+                    idx = self._select_next(skip)
+                if idx < 0:
+                    return      # only promotion-waiters are queued
                 req = self._queue[idx]
                 # the head may have been cancelled or expired since the
                 # sweep
                 if req.cancelled:
                     self._queue.pop(idx)
+                    self._drop_ticket(req)
                     stat_add("serving/cancelled")
                     req._finish(RequestCancelled(
                         f"request {req.id} cancelled while queued"))
                     continue
                 if req.expired():
                     self._queue.pop(idx)
+                    self._drop_ticket(req)
                     req._finish(self._deadline(req, "while queued",
                                                len(self._queue)))
+                    continue
+                if tiered and self._promotion_state(req) == "wait":
+                    if self._rec is not None:
+                        self._rec["promo_waits"] += 1
+                    tk = req._promo_ticket
+                    if tk is not None and \
+                            time.perf_counter() - tk.created_at < 0.05:
+                        # hold the line while the copy is young (it lands
+                        # within a cycle or two); past 50 ms a wedged
+                        # promoter no longer holds the queue back
+                        return
+                    skip.add(req.id)
                     continue
                 # a paged re-admission (after a preemption) re-feeds its
                 # generated history; a dense one starts over
@@ -551,9 +713,11 @@ class Scheduler:
                 if self._pool.is_paged and not self._pool.can_admit(feed_len):
                     return       # block pressure: wait for retirements
                 if not self._chunked and decode_waiting \
-                        and budget < bucket:
+                        and budget < bucket and not req._tier_promoted:
                     # this cycle's prefill budget is spent: decode the
-                    # active slots first; the head keeps its place
+                    # active slots first; the head keeps its place (an
+                    # adopted promotion is a sure prefix hit that runs no
+                    # prefill, so the budget does not hold it back)
                     stat_add("serving/preempt")
                     return
                 slot = self._pool.alloc()
@@ -680,6 +844,7 @@ class Scheduler:
         req.replay = []                  # rebuilt at re-admission
         req.pending_feed = []
         req._preempted = True
+        req._tier_promoted = False       # re-classified at re-admission
         self.preempts += 1
         self._event(req, "preempt", emitted=req.emitted)
         if self._rec is not None:

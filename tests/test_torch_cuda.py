@@ -1062,3 +1062,100 @@ def test_spec_chain_makes_no_host_sync(cuda):
     out = out.cpu()
     assert out.shape == (2 * S + S * K + 1,) and out[-1] == 0
     assert torch.equal(out[2 * S:-1].view(S, K), d.cpu())
+
+
+def _tiered_card_pool(cuda, kind):
+    from paddle_tpu_torch.serving import HostBlockPool, PagedKVPool
+    pool = PagedKVPool(2, 2, 2, 64, 64, block_size=32, num_blocks=6,
+                       min_bucket=32, dtype=kind, device=cuda)
+    tier = HostBlockPool(8 * (pool.host_block_nbytes
+                              + pool.host_scale_nbytes),
+                         pool.host_block_nbytes,
+                         scale_nbytes=pool.host_scale_nbytes, device=cuda)
+    pool.attach_host_tier(tier)
+    assert tier._arena.is_pinned()
+    g = torch.Generator(device=cuda).manual_seed(5)
+    vals = torch.randn(pool.shape, device=cuda, generator=g)
+    if pool.quantized:
+        pool.data.copy_((vals * 40).clamp(-127, 127).to(torch.int8))
+        pool.scales.copy_(torch.rand(pool.scales_shape, device=cuda,
+                                     generator=g))
+    else:
+        pool.data.copy_(vals.to(pool.dtype))
+    toks = tuple(range(100, 164))              # 2 full blocks
+    slot = pool.alloc()
+    pool.admit_fresh(slot, len(toks) + 1)
+    pool.register_prefix(slot, toks)
+    pool.free(slot)
+    return pool, tier, toks
+
+
+@pytest.mark.parametrize("kind", ["bfloat16", "int8"])
+def test_host_tier_pinned_round_trip_is_bit_exact(cuda, kind):
+    """Demote two published blocks through the pinned arena, evict them,
+    promote them back into other blocks: codes (and scales) bit for
+    bit."""
+    pool, tier, toks = _tiered_card_pool(cuda, kind)
+    try:
+        blocks = pool.match_prefix(list(toks) + [1])
+        want = [pool.data[:, :, b].cpu() for b in blocks]
+        want_s = [pool.scales[:, :, b].cpu() for b in blocks] \
+            if pool.quantized else None
+        pool.tier_tick()
+        tier.drain()
+        for i in range(2):
+            host, scale = tier.get(toks[:(i + 1) * 32])
+            assert torch.equal(host, want[i])
+            if want_s is not None:
+                assert torch.equal(scale, want_s[i])
+        while pool._lru:
+            pool._evict_one()
+        pool.data[:, :, blocks] = 0           # the old blocks' bytes gone
+        slot = pool.alloc()
+        pool.admit_fresh(slot, 32)             # the promotion lands elsewhere
+        tk = tier.request_promotion(pool.tier_match(list(toks) + [1])[0])
+        assert tk.ready.wait(30)
+        while not tk.landed():
+            pass
+        assert pool.adopt_promotion(tk)
+        got = pool.match_prefix(list(toks) + [1])
+        assert len(got) == 2 and got != blocks
+        torch.cuda.synchronize()
+        for i, b in enumerate(got):
+            assert torch.equal(pool.data[:, :, b].cpu(), want[i])
+            if want_s is not None:
+                assert torch.equal(pool.scales[:, :, b].cpu(), want_s[i])
+        s = tier.stats()
+        assert s["promotion_copy_gb_per_s"] > 0
+        assert s["demotion_copy_gb_per_s"] > 0
+    finally:
+        tier.close()
+
+
+def test_tier_tick_and_adopt_promotion_never_synchronise(cuda):
+    """The scheduler thread's tier calls, the demotion gather and the
+    adoption's copies, run under ``torch.cuda.set_sync_debug_mode(
+    "error")``."""
+    pool, tier, toks = _tiered_card_pool(cuda, "int8")
+    try:
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            pool.tier_tick()
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        tier.drain()
+        while pool._lru:
+            pool._evict_one()
+        tk = tier.request_promotion(pool.tier_match(list(toks) + [1])[0])
+        assert tk.ready.wait(30)
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            landed = tk.landed()
+            adopted = pool.adopt_promotion(tk)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        assert adopted and len(pool.match_prefix(list(toks) + [1])) == 2
+        assert isinstance(landed, bool)
+    finally:
+        tier.close()

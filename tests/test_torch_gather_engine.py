@@ -293,13 +293,29 @@ def test_quant_write_blocks_and_dequant_gather_match_jax(kv):
 
 def _serve(eng, first, rest):
     """``first`` alone (its blocks get published), then ``rest`` from
-    concurrent client threads."""
+    client threads, admitted together in one order. Over a quantized
+    pool the tokens depend on the schedule (which rows land in one chunk
+    decides how often a block is requantized), so both engines must
+    serve the same one: each client submits after the one before it, and
+    the scheduler's admission waits until all have."""
     out = [eng.submit(p, max_new_tokens=n).result(timeout=300)
            for p, n in first]
     handles = [None] * len(rest)
+    submitted = [threading.Event() for _ in rest]
+    sched = eng._sched
+    admit = sched._admit
+
+    def gated_admit():
+        submitted[-1].wait(60)
+        admit()
+
+    sched._admit = gated_admit
 
     def client(i):
+        if i:
+            submitted[i - 1].wait(60)
         handles[i] = eng.submit(rest[i][0], max_new_tokens=rest[i][1])
+        submitted[i].set()
 
     threads = [threading.Thread(target=client, args=(i,))
                for i in range(len(rest))]
@@ -500,7 +516,7 @@ def test_validation_matches_jax(models):
         with pytest.raises(ValueError, match="multiple"):
             mod.PagedKVPool(1, 2, 1, 32, 8, block_size=8, min_bucket=12,
                             **extra)
-    for name in ("mesh", "host_tier_bytes", "hbm_budget_bytes"):
+    for name in ("mesh", "hbm_budget_bytes"):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             GenerationEngine(tmodel, device="cpu", **{name: object()})
     # the paged engine rounds min_bucket up to whole blocks, as JAX's does

@@ -477,13 +477,29 @@ def test_copy_on_write_and_reset_carry_the_scales(models, kv):
 
 def _serve(eng, first, rest):
     """``first`` alone (its blocks get published), then ``rest`` from
-    concurrent client threads."""
+    client threads, admitted together in one order. Over a quantized
+    pool the tokens depend on the schedule (which rows land in one chunk
+    decides how often a block is requantized), so both engines must
+    serve the same one: each client submits after the one before it, and
+    the scheduler's admission waits until all have."""
     out = [eng.submit(p, max_new_tokens=n).result(timeout=300)
            for p, n in first]
     handles = [None] * len(rest)
+    submitted = [threading.Event() for _ in rest]
+    sched = eng._sched
+    admit = sched._admit
+
+    def gated_admit():
+        submitted[-1].wait(60)
+        admit()
+
+    sched._admit = gated_admit
 
     def client(i):
+        if i:
+            submitted[i - 1].wait(60)
         handles[i] = eng.submit(rest[i][0], max_new_tokens=rest[i][1])
+        submitted[i].set()
 
     threads = [threading.Thread(target=client, args=(i,))
                for i in range(len(rest))]

@@ -24,7 +24,10 @@ The exemptions, each a reference parameter the port leaves out:
 
 Where the port has no behaviour for a parameter it takes, a value other
 than the default raises ``NotImplementedError`` naming its ROADMAP
-Queue 1 item, never ``TypeError``; the last test calls each of them.
+Queue 1 item, never ``TypeError``; ``test_parameters_without_behaviour_
+raise_not_implemented`` calls each of them. The parameters a slice gave
+behaviour move to ``test_ported_parameters_have_behaviour``, which holds
+what each now does.
 """
 import importlib
 import inspect
@@ -222,7 +225,6 @@ def _not_ported_calls():
     from paddle_tpu_torch.models.generation import build_paged_decode_fn
     from paddle_tpu_torch.optimizer import SGD
     from paddle_tpu_torch.serving import GenerationEngine, PagedKVPool
-    from paddle_tpu_torch.serving.scheduler import Scheduler
 
     def engine(**kw):
         return GenerationEngine(_gpt(), device="cpu", **kw)
@@ -238,17 +240,7 @@ def _not_ported_calls():
         p = torch.nn.Parameter(torch.ones(2))
         SGD(0.1, parameters=[p]).minimize((p * p).sum(), **kw)
 
-    def submit(**kw):
-        with engine() as eng:
-            eng.submit(np.arange(4), max_new_tokens=1, **kw)
-
     return {
-        "engine lane_weights": lambda: engine(lane_weights={"batch": 1.0}),
-        "submit tenant": lambda: submit(tenant="t1"),
-        "submit lane": lambda: submit(lane="batch"),
-        "engine host_tier_bytes": lambda: engine(host_tier_bytes=1 << 20),
-        "scheduler lane_weights": lambda: Scheduler(
-            None, lane_weights={"batch": 1.0}),
         "pool mesh": lambda: PagedKVPool(1, 1, 1, 16, 8, block_size=8,
                                          mesh=object(), device="cpu"),
         "paged decode debug_logits": lambda: build_paged_decode_fn(
@@ -286,3 +278,65 @@ def test_parameters_without_behaviour_raise_not_implemented(what):
         return
     with pytest.raises(NotImplementedError, match="Queue 1 item"):
         call()
+
+
+def _ported_checks():
+    """The parameters that raised ``NotImplementedError`` until their
+    slice was ported (ROADMAP Queue 1 item 2, the serving periphery),
+    each with a check of what it does now."""
+    from paddle_tpu.serving.scheduler import Scheduler as JaxScheduler
+    from paddle_tpu_torch.serving import GenerationEngine, HostBlockPool
+    from paddle_tpu_torch.serving.kv_pool import KVCachePool
+    from paddle_tpu_torch.serving.scheduler import Scheduler
+
+    def engine(**kw):
+        return GenerationEngine(_gpt(), device="cpu", **kw)
+
+    def lane_weights():
+        with engine(lane_weights={"batch": 2.5}) as eng:
+            assert eng._sched._lane_weights == {"interactive": 4.0,
+                                                "batch": 2.5}
+        with pytest.raises(ValueError, match="lane weight"):
+            engine(lane_weights={"batch": 0})
+
+    def submit(key, value):
+        with engine() as eng:
+            h = eng.submit(np.arange(4), max_new_tokens=2, **{key: value})
+            assert len(h.result(timeout=60)) == 6
+            assert getattr(h, key) == getattr(h.trace, key) == value
+
+    def host_tier():
+        with engine(kv_layout="paged", block_size=8,
+                    host_tier_bytes=1 << 20) as eng:
+            tier = eng._pool.host_tier
+            assert isinstance(tier, HostBlockPool)
+            assert tier.capacity_bytes == 1 << 20
+            assert eng.stats()["host_tier"]["capacity_bytes"] == 1 << 20
+        assert not tier._spiller.is_alive()
+        with pytest.raises(ValueError, match="kv_layout='paged'"):
+            engine(host_tier_bytes=1 << 20)
+
+    def scheduler():
+        pool = KVCachePool(1, 1, 1, 16, 8, min_bucket=8, device="cpu")
+        sched = Scheduler(pool, lambda *a: 1, lambda *a: None,
+                          lane_weights={"batch": 1.0, "bulk": 0.5})
+        ref = JaxScheduler(pool, lambda *a: 1, lambda *a: None,
+                           lane_weights={"batch": 1.0, "bulk": 0.5})
+        try:
+            assert sched._lane_weights == ref._lane_weights
+        finally:
+            sched.close()
+            ref.close()
+
+    return {
+        "engine lane_weights": lane_weights,
+        "submit tenant": lambda: submit("tenant", "t1"),
+        "submit lane": lambda: submit("lane", "batch"),
+        "engine host_tier_bytes": host_tier,
+        "scheduler lane_weights": scheduler,
+    }
+
+
+@pytest.mark.parametrize("what", sorted(_ported_checks()))
+def test_ported_parameters_have_behaviour(what):
+    _ported_checks()[what]()
