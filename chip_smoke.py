@@ -158,7 +158,29 @@ prints no result line):
    the tensor-core route, LayerNorm in f32, the loss finite and falling.
    Each of 4b-4d prints tokens/s, ms a step (wall / steps and the median
    step) and the peak memory, with the card's name and power limit;
-5. real operands: the layer-0 operands of one real step of each path
+5. observability (phase 5), on GPT-2 small bf16 at full width and
+   depth: (i) phase 3's 16 requests through a fresh fused engine twice,
+   admitted together (one schedule), once unarmed and once under the
+   port's ``Profiler`` (CPU and GPU targets) and a span session: the
+   same tokens both times, and phase 3's before each request's first
+   top-2 margin below ``SPEC_TIE_TOL``; the device-op table read back
+   from the Kineto trace (``profiler.device_op_table``) lists K1's
+   (``rpa_tc_kernel``, ``rpa_tc_combine_kernel``) and K2's
+   (``ln_fwd_warp_kernel``) launches equal to the wrappers' counters
+   over the window; every ``serving/cycle`` span has its sweep and admit
+   children and every step its dispatch and fetch; the unified trace has
+   host spans, request lanes, memory counters and device events;
+   ``stats()`` gives ``model_flops_per_token`` and ``serving_mfu``; the
+   ledger's crosscheck gap and tokens/s armed and unarmed are printed;
+   (ii) GPT-2 small bf16 O2 at 8 x 1024 through ``Model.fit`` for 6
+   steps with ``numerics="warn"``, an inf injected into the 6th step's
+   loss and ``ProfilerCallback(1, 4)``: exactly one anomaly with its
+   postmortem, K4-K8 in the device-op table over steps 1-3 equal to the
+   counters, steps 2-4 under ``torch.cuda.set_sync_debug_mode("error")``,
+   ``hapi/mfu``; (iii) a fit at a batch of 512 x 1024 raises the
+   allocator's ``torch.cuda.OutOfMemoryError`` after a memory postmortem
+   holding the ledger and the largest live tensors;
+6. real operands: the layer-0 operands of one real step of each path
    through kernel and plain: the engine's attention rows (float, int8
    and fp8 pools) at its widest step and at its last decode-only step
    with the most sequences, each with a "work shape" line (q blocks,
@@ -170,7 +192,7 @@ prints no result line):
    embedding's AdamW operands, each output held to its own scale (max
    |error| over max |plain|), since the gradients of a loss averaged
    over 8192 tokens lie below any fixed atol;
-6. a ``{"kernels": [...]}`` line, the card's name and power limit, and
+7. a ``{"kernels": [...]}`` line, the card's name and power limit, and
    last the ``{"ok": true, "device": ...}`` line. The training kernels'
    errors and times in it come from phase 2 at the train path's shapes
    and dtypes (flash bf16 [8, 1024, 12, 64] causal, the LayerNorm
@@ -220,9 +242,11 @@ prints no result line):
 
 ``--profile`` adds one more batch to the bf16 and the int8 engines, to
 the speculative engine with the 2-layer draft (phase 3f) and to the
-dense and paged gather engines, one more greedy generate, one
-more beam search and two more train steps under torch.profiler and
-prints device time by kernel and the device's idle share.
+dense and paged gather engines, one more tiered bf16 load run (phase
+3g, with device ms a cycle), one more greedy generate, one more beam
+search and two more train steps under the port's ``Profiler`` and
+prints device time by kernel (``profiler.device_op_table``) and the
+device's idle share.
 
 Times come from CUDA events around single launches, median of 20,
 with the 50 MB L2 cache flushed and the device kept busy until the
@@ -987,13 +1011,11 @@ def reference_check(device):
 
 def profile_engine(eng, rng, vocab):
     """Where the engine's device time goes: one more batch of 8
-    requests (256-token prompts, 32 new tokens each) under
-    torch.profiler; prints device time by kernel and the idle share."""
-    from torch.profiler import ProfilerActivity, profile
+    requests (256-token prompts, 32 new tokens each) under the port's
+    profiler; prints device time by kernel and the idle share."""
     prompts = [rng.randint(0, vocab, 256) for _ in range(8)]
     steps0 = eng.stats()["steps"]
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    with device_profile() as prof:
         t0 = time.perf_counter()
         for h in [eng.submit(p, max_new_tokens=32) for p in prompts]:
             h.result(timeout=600)
@@ -1002,14 +1024,27 @@ def profile_engine(eng, rng, vocab):
     device_time_report("engine", prof, wall_ms, eng.stats()["steps"] - steps0)
 
 
+@contextlib.contextmanager
+def device_profile():
+    """The port's ``Profiler`` with the CPU and GPU targets over the
+    block, its Kineto trace written into a fresh directory under
+    ``TRACE_ROOT`` (the port's ``device_trace`` reads it back)."""
+    import tempfile
+    from paddle_tpu_torch import profiler
+    prof = profiler.Profiler(
+        targets=[profiler.ProfilerTarget.CPU, profiler.ProfilerTarget.GPU],
+        trace_dir=tempfile.mkdtemp(dir=TRACE_ROOT), use_native=False)
+    with prof:
+        yield prof
+
+
 def device_time_report(what, prof, wall_ms, steps):
     """Device time by kernel over a profiled window (the 15 largest and
-    every hand-written kernel), and the idle share."""
-    from torch.autograd import DeviceType
-    kernels = [(ev.self_device_time_total / 1e3, ev.count, ev.key)
-               for ev in prof.key_averages()
-               if ev.device_type == DeviceType.CUDA
-               and ev.self_device_time_total > 0]
+    every hand-written kernel), and the idle share, from the port's
+    ``device_op_table`` of the window's trace. Returns (busy ms, idle
+    share)."""
+    kernels = [(r["total_us"] / 1e3, r["calls"], r["name"])
+               for r in prof.device_op_table()]
     busy = sum(k[0] for k in kernels)
     log(f"profile {what}: {steps} steps in {wall_ms:.3f} ms wall, device "
         f"busy {busy:.3f} ms, idle share {1 - busy / wall_ms:.4f}, "
@@ -1022,6 +1057,7 @@ def device_time_report(what, prof, wall_ms, steps):
     for ms, n, name in shown:
         log(f"  {ms:10.3f} ms {ms / busy:7.2%} {n:7d} calls "
             f"{ms / steps:8.4f} ms/step  {name[:90]}")
+    return busy, 1 - busy / wall_ms
 
 
 def serve_mix(model, prompts, max_new, profile=False, rng=None,
@@ -1746,10 +1782,8 @@ def beam_run(what, model, ids, flash_want, flash_route, **kw):
 
 def profile_beam(model, ids):
     """Device time by kernel and the idle share over one more beam
-    search, under torch.profiler."""
-    from torch.profiler import ProfilerActivity, profile
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    search, under the port's profiler."""
+    with device_profile() as prof:
         t0 = time.perf_counter()
         model.generate(ids, max_new_tokens=BEAM_NEW, num_beams=BEAM_K)
         torch.cuda.synchronize()
@@ -1876,10 +1910,8 @@ def call_op_cost(device):
 
 def profile_generate(model, ids, new_tokens):
     """Device time by kernel and the idle share over one more greedy
-    generate, under torch.profiler."""
-    from torch.profiler import ProfilerActivity, profile
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    generate, under the port's profiler."""
+    with device_profile() as prof:
         t0 = time.perf_counter()
         model.generate(ids, max_new_tokens=new_tokens)
         torch.cuda.synchronize()
@@ -2714,9 +2746,11 @@ def tier_schedule(vocab):
              int(rng.randint(4, 9))) for i in range(TIER_LOAD["requests"])]
 
 
-def tier_load_run(model, kind, name, schedule, out, **extra):
+def tier_load_run(model, kind, name, schedule, out, profile=False,
+                  **extra):
     """One engine through the schedule, open loop. Returns the outputs
-    and the figures."""
+    and the figures. ``profile``: under the port's profiler, with device
+    time by kernel, the idle share and device ms a cycle printed."""
     L = model.gpt.cfg.num_hidden_layers
     vocab = model.gpt.cfg.vocab_size
     eng = tier_engine(model, num_blocks=TIER_LOAD["num_blocks"],
@@ -2726,19 +2760,30 @@ def tier_load_run(model, kind, name, schedule, out, **extra):
                    max_new_tokens=2).result(timeout=300)
         settle(eng)
         s0 = eng.stats()
+        cycles0 = eng.flight_recorder.cycles_recorded
         tier_reset()
-        t0 = time.perf_counter()
-        handles = []
-        for off, ids, new in schedule:
-            delay = t0 + off - time.perf_counter()
-            if delay > 0:
-                time.sleep(delay)
-            handles.append(eng.submit(ids, max_new_tokens=new))
-        outs = [h.result(timeout=600) for h in handles]
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-        settle(eng)
+        with device_profile() if profile else \
+                contextlib.nullcontext() as prof:
+            t0 = time.perf_counter()
+            handles = []
+            for off, ids, new in schedule:
+                delay = t0 + off - time.perf_counter()
+                if delay > 0:
+                    time.sleep(delay)
+                handles.append(eng.submit(ids, max_new_tokens=new))
+            outs = [h.result(timeout=600) for h in handles]
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            settle(eng)
         s = eng.stats()
+        if profile:
+            cycles = eng.flight_recorder.cycles_recorded - cycles0
+            busy, idle = device_time_report(
+                f"tiered load {kind} {name}", prof, wall * 1e3,
+                s["steps"] - s0["steps"])
+            log(f"profile tiered load {kind} {name}: {cycles} cycles, "
+                f"device busy {busy / cycles:.4f} ms a cycle, idle share "
+                f"{idle:.4f}")
         launches = tier_read(f"tiered load {kind} {name}",
                              s["steps"] - s0["steps"], L, kind == "int8")
     finally:
@@ -2965,7 +3010,7 @@ def tier_front_door(model, out):
         f"families, /statusz serving fleets, /tracez {len(recent)} traces")
 
 
-def phase_tier(model):
+def phase_tier(model, profile=False):
     """Phase 3g: the serving periphery on GPT-2 small bf16 (full width
     and depth), fused engines over pools of 32-token blocks: (i) the
     serial churn, tiered against roomy, bf16 and int8; (ii) the tiered
@@ -2983,6 +3028,13 @@ def phase_tier(model):
         for kind in TIER_KINDS:
             tier_load(model, kind, out)
         tier_front_door(model, out)
+        if profile:
+            # one more tiered bf16 load run under the profiler (its
+            # launches are not counted in the rows)
+            tier_load_run(model, "bf16", "tiered, profiled",
+                          tier_schedule(model.gpt.cfg.vocab_size),
+                          {"launches": {"bf16": []}}, profile=True,
+                          host_tier_bytes=TIER_HOST_BYTES)
     if sum(plain.values()):
         raise AssertionError(f"phase 3g: plain versions ran on the card: "
                              f"{dict(plain)}")
@@ -3031,7 +3083,7 @@ def tier_rows(timer, tier):
     return rows
 
 
-# ---------------------------------------------------------------- phase 5
+# ---------------------------------------------------------------- phase 6
 def rpa_core(q, pool, meta, scales=None):
     """The CUDA-core kernel (``csrc/ragged_paged_attention.cu``) on layer 0
     of the operands, through its C entry: the wrapper sends bf16 operands
@@ -3289,9 +3341,7 @@ def capture_train_operands(model, opt_module, ids, labels):
 
 
 def profile_train(model, ids, labels, steps=2):
-    from torch.profiler import ProfilerActivity, profile
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    with device_profile() as prof:
         t0 = time.perf_counter()
         for _ in range(steps):
             model.train_batch([ids, labels])
@@ -4118,17 +4168,459 @@ def train_rows(counts, main):
     return rows
 
 
+# ---------------------------------------------------------------------------
+# phase 5: observability on the card
+# ---------------------------------------------------------------------------
+
+#: where the phases' traces go (a fresh temporary directory, removed at
+#: the end of the run)
+TRACE_ROOT = None
+OBS_STEPS = 6                 # phase 5 (ii): steps of the audited fit
+OBS_WINDOW = (1, 4)           # its profiled steps [start, stop)
+OBS_SYNC_FREE = (2, 4)        # its steps run under sync debug "error"
+OBS_INJECT_AT = 6             # the global step whose loss becomes inf
+OBS_OOM_BATCH = 512           # a batch of 512 x 1024 cannot fit
+#: the kernels of each path, by their names in the device trace
+K_SERVE = {"rpa_tc_kernel": "launches", "rpa_tc_combine_kernel":
+           "combine_launches", "ln_fwd_warp_kernel": "warp_launches"}
+
+
+def kernel_calls(table, name):
+    """Launches of the kernel ``name`` in a ``device_op_table``: rows
+    whose name holds it, demangled (``(anonymous namespace)::name<...>``)
+    or mangled (``...18ln_fwd_warp_kernelI...``, as a record whose name
+    was not demangled carries it). No kernel name of the port holds
+    another's."""
+    return sum(r["calls"] for r in table if name in r["name"])
+
+
+def trace_ends(prof, table, names, n=6):
+    """The first and last ``n`` device events of a profiler's trace, at
+    microseconds from its anchor annotation, and the table's rows of the
+    kernels ``names`` (for a failure message)."""
+    from paddle_tpu_torch.profiler import device_trace
+    evs = device_trace.device_events(prof.trace_dir)
+    anchor = device_trace.trace_anchor_us(prof.trace_dir) or 0.0
+    fmt = [f"{e['name'][:40]}@{e['t_us'] - anchor:.1f}"
+           for e in evs[:n] + evs[-n:]]
+    odd = sorted({e["name"][:80] for e in evs
+                  if e["name"].startswith("_Z") or "nknown" in e["name"]})
+    rows = {r["name"][:100]: r["calls"] for r in table
+            if any(k in r["name"] for k in names)}
+    return (f"{len(evs)} device events; first and last: {fmt}; names not "
+            f"demangled: {odd}; rows {rows}")
+
+
+def gated_serve(eng, prompts, max_new):
+    """Submit every prompt, then let the scheduler admit them together:
+    one schedule, whatever the submitting thread's speed, so two runs
+    give the same tokens. Returns (outputs, handles, wall seconds)."""
+    gate = threading.Event()
+    admit = eng._sched._admit
+
+    def gated():
+        gate.wait(60)
+        admit()
+
+    eng._sched._admit = gated
+    t0 = time.perf_counter()
+    handles = [eng.submit(p, max_new_tokens=max_new) for p in prompts]
+    gate.set()
+    outs = [h.result(timeout=600) for h in handles]
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    settle(eng)
+    eng._sched._admit = admit
+    return outs, handles, wall
+
+
+def observe_serve_run(model, prompts, armed):
+    """Phase 3's 16 requests (64 new tokens) through a fresh fused bf16
+    engine, gated to one schedule, with the serving kernels' counts set
+    to 0 just before and read just after; ``armed``: under the port's
+    ``Profiler`` (CPU and GPU targets) and a span session whose spans
+    also enter the device trace."""
+    from paddle_tpu_torch import profiler
+    from paddle_tpu_torch.ops.layer_norm import fused_layer_norm
+    from paddle_tpu_torch.ops.ragged_paged_attention import (
+        ragged_paged_attention)
+    from paddle_tpu_torch.profiler import memory
+    from paddle_tpu_torch.serving import GenerationEngine
+    vocab = model.gpt.cfg.vocab_size
+    eng = GenerationEngine(model, kv_layout="paged", attention="fused",
+                           num_slots=8, prefill_budget=256, seed=SEED,
+                           block_size=16,
+                           device=next(model.parameters()).device)
+    eng.submit(np.random.RandomState(SEED + 9).randint(0, vocab, 24),
+               max_new_tokens=4).result(timeout=300)
+    settle(eng)
+    s0 = eng.stats()
+    cycles0 = eng.flight_recorder.cycles_recorded
+    for attr in RPA_COUNTS:
+        setattr(ragged_paged_attention, attr, 0)
+    fused_layer_norm.launches = fused_layer_norm.warp_launches = 0
+    fused_layer_norm.row_launches = 0
+    prof = None
+    with contextlib.ExitStack() as stack:
+        if armed:
+            prof = stack.enter_context(device_profile())
+            stack.enter_context(profiler.profile(jax_bridge=True))
+        outs, handles, wall = gated_serve(eng, prompts, 64)
+    counts = {"launches": ragged_paged_attention.launches,
+              "tc_launches": ragged_paged_attention.tc_launches,
+              "combine_launches": ragged_paged_attention.combine_launches,
+              "quant_launches": ragged_paged_attention.quant_launches,
+              "warp_launches": fused_layer_norm.warp_launches,
+              "fused_layer_norm": fused_layer_norm.launches}
+    memory.sample("phase 5")
+    cross = memory.crosscheck()
+    stats = eng.stats()
+    run = {"outs": outs, "wall": wall, "counts": counts, "prof": prof,
+           "stats": stats, "cross": cross,
+           "steps": stats["steps"] - s0["steps"],
+           "cycles": eng.flight_recorder.cycles_recorded - cycles0,
+           "events": profiler.events() if armed else None,
+           "tokens": sum(len(h.tokens) for h in handles)}
+    eng.close()
+    return run
+
+
+def phase_observe_serve(model, prompts, phase3_outs):
+    """Phase 5 (i): the fused engine serves phase 3's requests with the
+    profiler armed and unarmed: equal tokens (and phase 3's before each
+    request's first near-tie), the device-op table's K1 and K2 launches
+    equal to the wrappers' counters, every cycle's span with its
+    children, the unified trace's four kinds of events, stats()'s FLOPs
+    and MFU, the ledger's gap, and tokens/s both ways. Returns the armed
+    run's launches."""
+    from paddle_tpu_torch.profiler import memory
+    L = model.gpt.cfg.num_hidden_layers
+    memory.start_sampler(0.05)
+    try:
+        plain = observe_serve_run(model, prompts, armed=False)
+        run = observe_serve_run(model, prompts, armed=True)
+    finally:
+        memory.stop_sampler()
+    for i, (a, b) in enumerate(zip(run["outs"], plain["outs"])):
+        if not np.array_equal(a, b):
+            raise AssertionError(f"phase 5: request {i}'s tokens changed "
+                                 f"with the profiler armed")
+    margins = bf16_margins(model, prompts, phase3_outs)
+    ties = first_near_tie(margins, SPEC_TIE_TOL)
+    full = hold_tokens("phase 5", run["outs"], phase3_outs, prompts, ties)
+    check_serve_launches("phase 5 engine", {
+        "ragged_paged_attention": run["counts"]["launches"],
+        "ragged_paged_attention_quant": run["counts"]["quant_launches"],
+        "fused_layer_norm": run["counts"]["fused_layer_norm"]},
+        run["steps"], L, quantized=False)
+    table = run["prof"].device_op_table()
+    seen = {k: kernel_calls(table, k) for k in K_SERVE}
+    want = {k: run["counts"][v] for k, v in K_SERVE.items()}
+    if seen != want or not all(want.values()):
+        raise AssertionError(f"phase 5: device-op table {seen}, the "
+                             f"wrappers' counters {want}; "
+                             f"{trace_ends(run['prof'], table, K_SERVE)}")
+    names = collections.Counter(e["name"] for e in run["events"]
+                                if e["cat"] == "serving")
+    kids = collections.Counter(e["name"] for e in run["events"]
+                               if e["parent"] == "serving/cycle")
+    lanes = {e["tid"] for e in run["events"]
+             if e["cat"] == "serving/request"}
+    if not (names["serving/cycle"] == run["cycles"]
+            == kids["serving/sweep"] == kids["serving/admit"]
+            and kids["serving/decode_dispatch"] == run["steps"]
+            == kids["serving/host_fetch"] and len(lanes) == len(prompts)):
+        raise AssertionError(f"phase 5: spans {dict(names)}, children "
+                             f"{dict(kids)}, {len(lanes)} lanes, over "
+                             f"{run['cycles']} cycles and {run['steps']} "
+                             f"steps")
+    path = run["prof"].export_unified(
+        os.path.join(run["prof"].trace_dir, "unified.json"))
+    with open(path) as f:
+        doc = json.load(f)["traceEvents"]
+    kinds = {"host spans": sum(e.get("cat") == "serving" for e in doc),
+             "request lanes": sum(e.get("cat") == "serving/request"
+                                  for e in doc),
+             "memory counters": sum(e.get("ph") == "C" for e in doc),
+             "device events": sum(e.get("cat") == "device" for e in doc)}
+    if not all(kinds.values()):
+        raise AssertionError(f"phase 5: the unified trace lacks a kind: "
+                             f"{kinds}")
+    clock = {e["args"]["clock"] for e in doc if e.get("cat") == "device"}
+    from paddle_tpu_torch.profiler import device_trace
+    d = run["prof"].trace_dir
+    ends = (device_trace.trace_anchor_us(d, device=True),
+            device_trace.trace_anchor_us(d))
+    skew = None if None in ends else round(ends[0] - ends[1], 1)
+    st = run["stats"]
+    for k in ("model_flops_per_token", "serving_mfu",
+              "serving_flops_per_sec", "decode_tokens_per_sec"):
+        if not (st.get(k) or 0) > 0:
+            raise AssertionError(f"phase 5: stats() has no {k}: {st}")
+    cross = run["cross"]
+    busy = sum(r["total_us"] for r in table) / 1e3
+    log(f"phase 5 (i) observe serve: {len(prompts)} requests x 64 tokens, "
+        f"{run['steps']} fused launches in {run['cycles']} cycles; tokens "
+        f"armed = unarmed, = phase 3's before each first near-tie "
+        f"(equal in full in {full} of {len(prompts)}); tokens/s unarmed "
+        f"{plain['tokens'] / plain['wall']:.1f}, armed "
+        f"{run['tokens'] / run['wall']:.1f} "
+        f"({run['wall'] / plain['wall']:.3f}x the wall)")
+    log(f"phase 5 (i) device-op table = counters: {json.dumps(seen)}; "
+        f"spans: {dict(names)}; {len(lanes)} request lanes; device busy "
+        f"{busy:.3f} ms of {run['wall'] * 1e3:.3f} ms wall (idle share "
+        f"{1 - busy / (run['wall'] * 1e3):.4f})")
+    log(f"phase 5 (i) unified trace {os.path.getsize(path)} bytes: "
+        f"{json.dumps(kinds)}, device clock {sorted(clock)}; the anchor's "
+        f"device-side start {skew} us after its host-side start")
+    log(f"phase 5 (i) stats: model_flops_per_token "
+        f"{st['model_flops_per_token']:.1f}, decode_bytes_per_token "
+        f"{st.get('decode_bytes_per_token', 0):.1f}, decode_tokens_per_sec "
+        f"{st['decode_tokens_per_sec']:.1f}, serving_flops_per_sec "
+        f"{st['serving_flops_per_sec']:.4e}, serving_mfu "
+        f"{st['serving_mfu']:.6f} (unarmed run: "
+        f"{plain['stats']['serving_mfu']:.6f})")
+    log(f"phase 5 (i) ledger crosscheck: ledger {cross['ledger_bytes']} "
+        f"bytes, device in use {cross['device_bytes_in_use']}, gap "
+        f"(unexplained) {cross['unexplained_bytes']} bytes, explained "
+        f"ratio {cross['explained_ratio']:.4f}")
+    return run["counts"]
+
+
+def phase_observe_train(device, card):
+    """Phase 5 (ii): GPT-2 small, bf16 O2, batch 8 x 1024 through
+    ``Model.fit`` for 6 steps with ``numerics="warn"``, an inf injected
+    into the 6th step's loss and a ``ProfilerCallback`` over steps
+    [1, 4): exactly one anomaly, with its postmortem; the device-op
+    table's K2-K8 launches over the profiled steps equal the wrappers'
+    counters; steps 2-4 run under sync debug "error"; ``hapi/mfu``.
+    Returns the window's launches."""
+    import warnings
+    import paddle_tpu_torch as pt
+    from paddle_tpu_torch.framework import monitor
+    from paddle_tpu_torch.hapi import Callback, Model
+    from paddle_tpu_torch.hapi.callbacks import ProfilerCallback
+    from paddle_tpu_torch.optimizer import AdamW
+    net, cfg = gpt2_small(SEED + 50, device)
+    model = Model(net, inputs=["ids", "labels"])
+    model.prepare(AdamW(LR, parameters=net.parameters(), weight_decay=WD,
+                        multi_precision=True),
+                  loss=lambda loss, logits: loss,
+                  amp_configs={"level": "O2", "dtype": "bfloat16"})
+    ids, labels = next_token_batches(SEED + 51, cfg.vocab_size,
+                                     BATCH * OBS_STEPS)
+    data = pt.io.TensorDataset([torch.from_numpy(ids).to(device),
+                                torch.from_numpy(labels).to(device)])
+    counters = train_counters()
+    window = {}
+
+    class SyncFree(Callback):
+        def on_train_batch_begin(self, step, logs=None):
+            if OBS_SYNC_FREE[0] <= step <= OBS_SYNC_FREE[1]:
+                torch.cuda.set_sync_debug_mode("error")
+
+        def on_train_batch_end(self, step, logs=None):
+            torch.cuda.set_sync_debug_mode(0)
+
+        def on_train_abort(self):
+            torch.cuda.set_sync_debug_mode(0)
+
+    class DeviceWindow(Callback):
+        def on_train_batch_begin(self, step, logs=None):
+            if step == OBS_WINDOW[0]:
+                reset_counts(counters)
+                window["stack"] = contextlib.ExitStack()
+                window["prof"] = window["stack"].enter_context(
+                    device_profile())
+
+        def on_train_batch_end(self, step, logs=None):
+            if step == OBS_WINDOW[1] - 1:
+                window["stack"].close()
+                window["counts"] = {n: fn.launches
+                                    for n, fn in counters.items()}
+                window["routes"] = {
+                    n: {a: getattr(fn, a) for a in (
+                        "tc_launches", "core_launches", "warp_launches",
+                        "row_launches") if hasattr(fn, a)}
+                    for n, fn in counters.items()}
+
+    trace = os.path.join(TRACE_ROOT, "fit_spans.json")
+    prom = os.path.join(TRACE_ROOT, "fit.prom")
+    model._numerics_inject_inf_at = OBS_INJECT_AT
+    mfu0 = (monitor.stat_histogram("hapi/mfu") or {"count": 0})["count"]
+    t0 = time.perf_counter()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        model.fit(data, batch_size=BATCH, shuffle=False, verbose=0,
+                  numerics="warn", callbacks=[
+                      SyncFree(), DeviceWindow(), ProfilerCallback(
+                          *OBS_WINDOW, chrome_trace_path=trace,
+                          prometheus_path=prom, summary=False, verbose=0)])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    rec = model._numerics_recorder.snapshot()
+    anomalies = rec["anomalies"]
+    warned = [w for w in caught if "numerics anomaly" in str(w.message)]
+    if [(a["kind"], a["step"]) for a in anomalies] != \
+            [("nonfinite", OBS_INJECT_AT)] or len(warned) != 1:
+        raise AssertionError(f"phase 5 (ii): anomalies {anomalies}, "
+                             f"{len(warned)} warnings")
+    dump = model._numerics_recorder.last_dump_path
+    with open(dump) as f:
+        post = json.load(f)
+    if post["anomaly"]["step"] != OBS_INJECT_AT or not os.path.exists(
+            post["memory_postmortem"]):
+        raise AssertionError(f"phase 5 (ii): postmortem {dump}: "
+                             f"{post['anomaly']}")
+    steps = OBS_WINDOW[1] - OBS_WINDOW[0]
+    counts = window["counts"]
+    check_launches("phase 5 (ii) window", counts, expected_launches(
+        cfg.num_hidden_layers, len(list(net.parameters()))), steps)
+    table = window["prof"].device_op_table()
+    seen = {"fa_fwd_tc_kernel": kernel_calls(table, "fa_fwd_tc_kernel"),
+            "fa_dq_tc_kernel": kernel_calls(table, "fa_dq_tc_kernel"),
+            "fa_dkv_tc_kernel": kernel_calls(table, "fa_dkv_tc_kernel"),
+            "ln_fwd_warp_kernel": kernel_calls(table, "ln_fwd_warp_kernel"),
+            "ln_bwd_warp_kernel": kernel_calls(table, "ln_bwd_warp_kernel"),
+            "adamw_kernel": kernel_calls(table, "adamw_kernel")}
+    want = {"fa_fwd_tc_kernel": counts["flash_attention_fwd"],
+            "fa_dq_tc_kernel": counts["flash_attention_bwd"],
+            "fa_dkv_tc_kernel": counts["flash_attention_bwd"],
+            "ln_fwd_warp_kernel": counts["fused_layer_norm"],
+            "ln_bwd_warp_kernel": counts["fused_layer_norm_bwd"],
+            "adamw_kernel": counts["fused_adamw"]}
+    routes = window["routes"]
+    if seen != want or routes["flash_attention_fwd"]["tc_launches"] != \
+            counts["flash_attention_fwd"] or \
+            routes["fused_layer_norm"]["warp_launches"] != \
+            counts["fused_layer_norm"]:
+        raise AssertionError(f"phase 5 (ii): device-op table {seen}, the "
+                             f"wrappers' counters {want}, routes {routes}; "
+                             f"{trace_ends(window['prof'], table, seen)}")
+    with open(trace) as f:
+        spans = [e for e in json.load(f)["traceEvents"]
+                 if e.get("name") == "hapi/step"]
+    if sorted(e["args"]["global_step"] for e in spans) != \
+            list(range(*OBS_WINDOW)) or not os.path.getsize(prom):
+        raise AssertionError(f"phase 5 (ii): ProfilerCallback wrote "
+                             f"{len(spans)} step spans")
+    mfu = monitor.stat_histogram("hapi/mfu")
+    if mfu is None or mfu["count"] - mfu0 < 2:
+        raise AssertionError("phase 5 (ii): no hapi/mfu observed")
+    fit_mfu = monitor.histogram_samples("hapi/mfu")[mfu0 - mfu["count"]:]
+    fit_fps = monitor.histogram_samples("hapi/flops_per_sec")[
+        mfu0 - mfu["count"]:]
+    busy = sum(r["total_us"] for r in table) / 1e3
+    last = rec["records"][OBS_INJECT_AT - 2]
+    log(f"phase 5 (ii) observe train: {OBS_STEPS} steps bf16 O2 {BATCH} x "
+        f"{SEQ} in {wall:.3f} s with numerics='warn': 1 anomaly at step "
+        f"{OBS_INJECT_AT} ({post['anomaly']['kind']}, "
+        f"{len(post['anomaly']['blamed_groups'])} groups blamed), "
+        f"postmortem {os.path.getsize(dump)} bytes + memory postmortem; "
+        f"step {OBS_INJECT_AT - 1}: grad norm {last['grad_norm']:.4f}, "
+        f"update ratio {last['update_ratio']:.3e}; steps "
+        f"{OBS_SYNC_FREE[0]}-{OBS_SYNC_FREE[1]} clean under sync debug "
+        f"'error'")
+    log(f"phase 5 (ii) device-op table over steps {OBS_WINDOW[0]}-"
+        f"{OBS_WINDOW[1] - 1} = counters: {json.dumps(seen)}; device busy "
+        f"{busy:.3f} ms, {busy / steps:.3f} ms a step; this fit's log "
+        f"windows (step 1; steps 2-6 with the profiled ones): hapi/mfu "
+        f"{json.dumps(fit_mfu)}, hapi/flops_per_sec {json.dumps(fit_fps)}"
+        f" ({card})")
+    # what the audit costs: the same steps with numerics off and on
+    # (log_freq 10: one window at the first step, one at the end)
+    cost = {}
+    for mode in ("off", "record", "off", "record"):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        model.fit(data, batch_size=BATCH, shuffle=False, verbose=0,
+                  numerics=mode)
+        torch.cuda.synchronize()
+        cost.setdefault(mode, []).append(
+            (time.perf_counter() - t) / OBS_STEPS * 1e3)
+    off, on = (min(cost[m]) for m in ("off", "record"))
+    from paddle_tpu_torch.framework import program_registry
+    flops = model._step_flops[(BATCH, SEQ)]
+    peak = program_registry.peak_flops()
+    log(f"phase 5 (ii) the audit's cost: {OBS_STEPS}-step fits, ms a step "
+        f"(wall / steps, the faster of two): numerics off {off:.3f}, "
+        f"record {on:.3f} ({on / off:.3f}x); runs {json.dumps(cost)}; "
+        f"{flops:.4e} counted FLOPs a step: MFU at those walls "
+        f"{flops / off * 1e3 / peak:.4f} off, {flops / on * 1e3 / peak:.4f} "
+        f"record")
+    del model, net
+    gc.collect()
+    return counts
+
+
+def phase_oom(device):
+    """Phase 5 (iii): a ``Model.fit`` whose batch (512 x 1024 on GPT-2
+    small, bf16 O2) cannot fit on the card raises the allocator's own
+    ``torch.cuda.OutOfMemoryError``; the memory postmortem holds the
+    ledger and the largest live tensors."""
+    import paddle_tpu_torch as pt
+    from paddle_tpu_torch.hapi import Model
+    from paddle_tpu_torch.optimizer import AdamW
+    from paddle_tpu_torch.profiler import memory
+    net, cfg = gpt2_small(SEED + 60, device)
+    model = Model(net, inputs=["ids", "labels"])
+    model.prepare(AdamW(LR, parameters=net.parameters(),
+                        multi_precision=True),
+                  loss=lambda loss, logits: loss,
+                  amp_configs={"level": "O2", "dtype": "bfloat16"})
+    ids = torch.randint(0, cfg.vocab_size, (OBS_OOM_BATCH, SEQ),
+                        device=device)
+    dumps = memory.tracker().dumps
+    raised = None
+    try:
+        model.fit(pt.io.TensorDataset([ids, ids]), batch_size=OBS_OOM_BATCH,
+                  verbose=0)
+    except torch.cuda.OutOfMemoryError as e:
+        raised = repr(e)[:160]
+    if raised is None or memory.tracker().dumps != dumps + 1:
+        raise AssertionError(f"phase 5 (iii): no OutOfMemoryError ({raised})"
+                             f" or no postmortem")
+    path = memory.tracker().last_dump_path
+    with open(path) as f:
+        doc = json.load(f)
+    top = doc["largest_live_arrays"]
+    if doc["phase"] != "Model.fit" or not any(
+            k.endswith("/params") for k in doc["ledger"]) or not top:
+        raise AssertionError(f"phase 5 (iii): postmortem {path} lacks the "
+                             f"ledger or the live tensors")
+    log(f"phase 5 (iii) OOM: {raised}; postmortem {os.path.getsize(path)} "
+        f"bytes: {len(doc['ledger'])} ledger keys, {len(top)} largest live "
+        f"tensors (the largest {top[0]['shape']} {top[0]['dtype']} "
+        f"{top[0]['nbytes']} bytes), device in use "
+        f"{doc['crosscheck']['device_bytes_in_use']}")
+    del model, net, ids
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
 def main() -> int:
-    profile = "--profile" in sys.argv[1:]
+    global TRACE_ROOT
+    import shutil
+    import tempfile
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
     try:
-        from paddle_tpu_torch.ops import _build
+        from paddle_tpu_torch.ops import _build   # noqa: F401
     except ImportError as e:
         print(f"chip_smoke: the port is not importable here: {e}",
               file=sys.stderr)
         return 2
+    TRACE_ROOT = tempfile.mkdtemp(prefix="chip_smoke_traces_")
+    try:
+        return run_phases()
+    finally:
+        shutil.rmtree(TRACE_ROOT, ignore_errors=True)
+
+
+def run_phases() -> int:
+    from paddle_tpu_torch.ops import _build
+    profile = "--profile" in sys.argv[1:]
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     device = torch.device("cuda")
@@ -4154,7 +4646,8 @@ def main() -> int:
     gen_launches, beam_launches = phase_generate(model, device, profile)
     gather_ln = phase_gather(model, prompts, outs, profile)
     spec = phase_spec(model, prompts, outs, int8_outs, profile)
-    tier = phase_tier(model)
+    tier = phase_tier(model, profile)
+    obs_serve = phase_observe_serve(model, prompts, outs)
     del model
     f16 = phase_serve_f16(device, prompts, profile)
     gen_f32_launches = phase_generate_f32(device)
@@ -4165,6 +4658,8 @@ def main() -> int:
     fp16 = phase_fp16(device, card)
     phase_fp16_check(device)
     o1 = phase_o1(device, card)
+    obs_train = phase_observe_train(device, card)
+    phase_oom(device)
     kernels = report_engine(device, timer, launches, captured,
                             quant_launches, quant_captured)
     # the engine row of the LayerNorm forward counts the fused engines'
@@ -4175,7 +4670,12 @@ def main() -> int:
     kernels += tier_rows(timer, tier)
     ln_row = next(k for k in kernels if k["name"] == "fused_layer_norm")
     ln_row["launches"] += quant_launches["fused_layer_norm"] \
-        + gather_ln["fused"]
+        + gather_ln["fused"] + obs_serve["fused_layer_norm"]
+    # phase 5 (i) serves phase 3's requests again (K1 at its shapes)
+    rpa_row = next(k for k in kernels
+                   if k["name"] == "ragged_paged_attention")
+    rpa_row["launches"] += obs_serve["launches"]
+    rpa_row["combine_launches"] += obs_serve["combine_launches"]
     check_train_operands(train_cap)
     # each row counts the paths that ran its kernel at its dtype: the bf16
     # tensor-core flash rows phase 4, the recipe and O1; the f32 LayerNorm
@@ -4183,19 +4683,21 @@ def main() -> int:
     # by (grad, copy) dtype
     counts = {
         "flash_attention_fwd": train_launches["flash_attention_fwd"]
-        + recipe["flash_attention_fwd"] + o1["flash_attention_fwd"],
+        + recipe["flash_attention_fwd"] + o1["flash_attention_fwd"]
+        + obs_train["flash_attention_fwd"],
         "flash_attention_bwd": train_launches["flash_attention_bwd"]
-        + recipe["flash_attention_bwd"] + o1["flash_attention_bwd"],
+        + recipe["flash_attention_bwd"] + o1["flash_attention_bwd"]
+        + obs_train["flash_attention_bwd"],
         "flash_attention_fwd_f32": f32_launches["flash_attention_fwd"],
         "flash_attention_bwd_f32": f32_launches["flash_attention_bwd"],
         "fused_layer_norm_train": sum(
             r["fused_layer_norm"] for r in (train_launches, recipe, fp16,
-                                            o1)),
+                                            o1, obs_train)),
         "fused_layer_norm_bwd": sum(
             r["fused_layer_norm_bwd"] for r in (train_launches, recipe,
-                                                fp16, o1)),
+                                                fp16, o1, obs_train)),
         "fused_adamw": train_launches["fused_adamw"]
-        + recipe["fused_adamw"],
+        + recipe["fused_adamw"] + obs_train["fused_adamw"],
         "flash_attention_fwd_f16": fp16["flash_attention_fwd"],
         "flash_attention_bwd_f16": fp16["flash_attention_bwd"],
         "fused_layer_norm_f16": 0,

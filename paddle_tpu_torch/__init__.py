@@ -42,7 +42,7 @@ The tensor is ``torch.Tensor`` itself.
 
     out = net.generate(pt.to_tensor(ids), max_new_tokens=64)   # greedy
 """
-from . import (amp, callbacks, io, metric, nn, ops, optimizer,
+from . import (amp, callbacks, io, metric, nn, ops, optimizer, profiler,
                regularizer)
 from .framework.dispatch import call_op
 from .framework.io import load, save
@@ -54,7 +54,7 @@ from .framework.tensor import (Parameter, grad_enabled_guard,
 from .ops.registry import op_names as _op_names
 
 __all__ = ["seed", "amp", "callbacks", "io", "metric", "nn", "ops",
-           "optimizer", "regularizer", "save", "load", "call_op",
+           "optimizer", "profiler", "regularizer", "save", "load", "call_op",
            "get_device", "set_device",
            "Parameter", "grad_enabled_guard", "is_grad_enabled", "no_grad",
            "to_tensor"]

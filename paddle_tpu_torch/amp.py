@@ -48,12 +48,13 @@ from __future__ import annotations
 
 import contextlib
 import threading
+import weakref
 
 import torch
 
 __all__ = ["auto_cast", "decorate", "GradScaler", "cast_inputs",
            "is_auto_cast_enabled", "get_amp_dtype", "get_amp_level",
-           "white_list", "black_list"]
+           "white_list", "black_list", "active_scaler"]
 
 white_list = {
     "matmul", "bmm", "mv", "linear", "conv1d", "conv2d", "conv3d",
@@ -153,6 +154,18 @@ def decorate(models, optimizers=None, level="O2", dtype="bfloat16",
     return out if optimizers is None else (out, optimizers)
 
 
+# the live, enabled scaler constructed last: the numerics flight
+# recorder rides its state along with each step's record
+_active_scaler = None
+
+
+def active_scaler():
+    """The live, enabled :class:`GradScaler` most recently constructed
+    in this process, or ``None`` (bf16 runs have no scaler)."""
+    s = _active_scaler() if _active_scaler is not None else None
+    return s if s is not None and s._enable else None
+
+
 class GradScaler:
     """Dynamic loss scaling (the JAX package's ``GradScaler``).
 
@@ -181,6 +194,9 @@ class GradScaler:
         self._bad_steps = 0
         self._found_inf = False
         self._stage = "INIT"        # -> UNSCALED -> STEPPED, reset by update
+        if enable:
+            global _active_scaler
+            _active_scaler = weakref.ref(self)
 
     def is_enable(self):
         return self._enable

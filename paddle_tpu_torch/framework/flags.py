@@ -1,5 +1,6 @@
 """``FLAGS_*`` get and set (counterpart of ``paddle_tpu/framework/
-flags.py``): the flags that ``call_op`` reads. A flag may be seeded from
+flags.py``): the flags that ``call_op``, the span profiler and
+``Model.fit``'s numerics read. A flag may be seeded from
 an environment variable of its name (``FLAGS_flight_dump_dir`` is read
 from the environment at each dump). ``FLAGS_pallas_force`` has no
 counterpart: on the card the kernels are always used."""
@@ -26,6 +27,14 @@ _DEFAULTS = {
     "FLAGS_flight_dump_dir": ("", "Directory of the serving flight "
                               "recorder's automatic dumps when a cycle "
                               "fails (empty: the system temp directory)"),
+    "FLAGS_enable_profiler": (False, "Arm the structured span profiler "
+                              "for the whole process at import "
+                              "(profiler/span.py)"),
+    "FLAGS_profiler_max_events": (1_000_000, "Span buffer cap: past it "
+                                  "events are dropped (and counted in "
+                                  "profiler.dropped())"),
+    "FLAGS_numerics": ("", "Default numerics-health mode for Model.fit "
+                       "(off|record|warn|halt)"),
 }
 
 _values: Dict[str, Any] = {

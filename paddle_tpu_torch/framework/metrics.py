@@ -25,10 +25,12 @@ process-wide namespace. This module carries metric names with labels
   :func:`register_statusz_section` (the serving engines register one),
   each rendered best-effort.
 
-The JAX package's default console also has memory, collectives and
-training sections, which read its profiler and collective modules; the
-port has none of those yet (ROADMAP Queue 1 items 3 and 4), so its
-console starts empty.
+The default console has the JAX package's ``memory`` section (the
+device's memory in use and limit, and the ledger's biggest owners, from
+``profiler/memory.py``) and ``training`` section (step cadence, MFU,
+gradient telemetry and the latest numerics anomalies, from
+``profiler/numerics.py``); its ``collectives`` section waits for
+multi-device (ROADMAP Queue 1 item 4).
 
 The text that :meth:`MetricsRegistry.to_prometheus` writes for a given
 sequence of writes is byte for byte the JAX registry's.
@@ -716,3 +718,70 @@ def statusz() -> str:
 
 def reset() -> None:
     _registry.reset()
+
+
+def _fmt_bytes(n: Optional[float]) -> str:
+    if n is None:
+        return "n/a"
+    n = float(n)
+    for unit in ("B", "KiB", "MiB", "GiB", "TiB"):
+        if abs(n) < 1024 or unit == "TiB":
+            return f"{n:.1f} {unit}" if unit != "B" else f"{int(n)} B"
+        n /= 1024
+    return f"{n:.1f} TiB"
+
+
+def _memory_section() -> str:
+    """Device memory headroom + the ledger's biggest owners
+    (profiler/memory.py). Polls the allocator's statistics once —
+    statusz is operator-driven, never a hot path."""
+    from ..profiler import memory as _mem
+    cross = _mem.crosscheck()
+    led = _mem.ledger()
+    lines = []
+    in_use = cross.get("device_bytes_in_use")
+    limit = None
+    tl = _mem.timeline()
+    for e in reversed(tl):
+        if "bytes_limit" in e:
+            limit = e["bytes_limit"]
+            break
+    headroom = (limit - in_use) if (limit and in_use) else None
+    lines.append(f"hbm in use     : {_fmt_bytes(in_use)}")
+    lines.append(f"hbm limit      : {_fmt_bytes(limit)}")
+    lines.append(f"hbm headroom   : {_fmt_bytes(headroom)}")
+    lines.append(f"ledger total   : {_fmt_bytes(cross['ledger_bytes'])}")
+    for k, v in sorted(led.items(), key=lambda kv: -kv[1])[:8]:
+        lines.append(f"  {k:<40} {_fmt_bytes(v)}")
+    return "\n".join(lines)
+
+
+def _training_section() -> str:
+    """Training health at a glance: step cadence, MFU, gradient
+    telemetry, nonfinite/spike counters and the most recent numerics
+    anomalies (profiler/numerics.py recorders)."""
+    from . import monitor
+    lines = []
+
+    def hist_line(label, name, unit=""):
+        h = monitor.stat_histogram(name)
+        if h:
+            lines.append(f"{label:<16}: p50 {h['p50']:.4g}{unit} "
+                         f"p95 {h['p95']:.4g}{unit} (n={h['count']})")
+    hist_line("step time", "hapi/step_time_ms", " ms")
+    hist_line("mfu", "hapi/mfu")
+    hist_line("grad norm", "hapi/grad_norm")
+    nonfin = monitor.stat_get("hapi/nonfinite_steps")
+    spikes = monitor.stat_get("hapi/loss_spikes")
+    lines.append(f"nonfinite steps : {nonfin:g}   loss spikes: {spikes:g}")
+    from ..profiler import numerics as _num
+    for rec in _num.live_recorders():
+        for a in rec.anomaly_list()[-3:]:
+            lines.append(f"  anomaly: step {a.get('step')} "
+                         f"{a.get('kind')} "
+                         f"(blamed: {a.get('blamed_groups')})")
+    return "\n".join(lines) if lines else "(no training activity)"
+
+
+_registry.register_statusz_section("memory", _memory_section)
+_registry.register_statusz_section("training", _training_section)

@@ -10,8 +10,9 @@ every ``log_freq`` steps and at the end of an epoch, so the ``logs`` an
 ``config_callbacks`` always appends ``LRScheduler()`` and ``History()``
 (the first steps an ``LRScheduler`` learning rate once a batch), and a
 ``ModelCheckpoint`` when ``fit`` is given a ``save_dir``.
-``ProfilerCallback`` raises: the span profiler it drives is not ported
-(ROADMAP Queue 1 item 3).
+``ProfilerCallback`` profiles a window of global steps with the span
+profiler (``profiler.profile()``) and exports its chrome trace,
+Prometheus text and span summary when the window closes.
 """
 from __future__ import annotations
 
@@ -404,10 +405,94 @@ class ReduceLROnPlateau(Callback):
 
 
 class ProfilerCallback(Callback):
-    """Not ported: it drives the span profiler (``profiler/``), which
-    waits for ROADMAP Queue 1 item 3."""
+    """Profile a window of training steps with the structured span
+    profiler (``paddle_tpu_torch.profiler.profile``) from inside
+    ``Model.fit``.
+
+    Steps ``[start_step, stop_step)`` — counted globally across epochs —
+    run under an armed span buffer: every ``hapi/step`` span, and every
+    span the step's code opens, lands in the trace. When the window
+    closes (or training ends, or aborts) the callback exports a chrome
+    trace and/or a Prometheus text file and optionally prints the span
+    summary table. The default ``start_step=1`` keeps the first step
+    (the kernels' builds and the allocator's first growth) out of the
+    steady-state profile.
+    """
 
     def __init__(self, start_step=1, stop_step=4, chrome_trace_path=None,
                  prometheus_path=None, summary=True, verbose=1):
-        raise NotImplementedError("ProfilerCallback is not ported yet "
-                                  "(ROADMAP Queue 1 item 3)")
+        super().__init__()
+        if stop_step is not None and stop_step <= start_step:
+            raise ValueError("ProfilerCallback: need stop_step > "
+                             "start_step (or stop_step=None)")
+        self.start_step = start_step
+        self.stop_step = stop_step
+        self.chrome_trace_path = chrome_trace_path
+        self.prometheus_path = prometheus_path
+        self.summary = summary
+        self.verbose = verbose
+        self._session = None
+        self._step_span = None
+        self._global_step = 0
+
+    def on_train_begin(self, logs=None):
+        self._global_step = 0
+        self._session = None
+        self._step_span = None
+
+    def on_train_batch_begin(self, step, logs=None):
+        from .. import profiler
+        g = self._global_step
+        if self._session is None and g >= self.start_step and \
+                (self.stop_step is None or g < self.stop_step):
+            self._session = profiler.profile().__enter__()
+        if self._session is not None:
+            self._step_span = profiler.record(
+                "hapi/step", "hapi", args={"global_step": g}).begin()
+
+    def on_train_batch_end(self, step, logs=None):
+        if self._step_span is not None:
+            self._step_span.end()
+            self._step_span = None
+        self._global_step += 1
+        if self._session is not None and self.stop_step is not None and \
+                self._global_step >= self.stop_step:
+            self._finish()
+
+    def on_train_end(self, logs=None):
+        if self._session is not None:
+            self._finish()
+        elif self._global_step <= self.start_step and \
+                (self.chrome_trace_path or self.prometheus_path):
+            import warnings
+            warnings.warn(
+                f"ProfilerCallback: training ended after "
+                f"{self._global_step} step(s), before the profiling "
+                f"window at start_step={self.start_step} opened — no "
+                f"trace/metrics files were written")
+
+    def on_train_abort(self):
+        # still export: the trace of a crashed run is precisely the
+        # artifact wanted on the way down
+        if self._session is not None:
+            self._finish()
+
+    def _finish(self):
+        from .. import profiler
+        if self._step_span is not None:   # step aborted mid-span: close it
+            self._step_span.end()
+            self._step_span = None
+        session, self._session = self._session, None
+        session.__exit__(None, None, None)
+        if self.chrome_trace_path:
+            p = profiler.export_chrome_trace(self.chrome_trace_path)
+            if self.verbose:
+                print(f"[profiler] chrome trace written to {p} "
+                      f"(open in chrome://tracing or Perfetto)")
+        if self.prometheus_path:
+            profiler.export_prometheus(self.prometheus_path)
+            if self.verbose:
+                print(f"[profiler] prometheus metrics written to "
+                      f"{self.prometheus_path}")
+        if self.summary and self.verbose:
+            print(profiler.span_summary())

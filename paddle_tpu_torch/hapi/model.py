@@ -32,11 +32,26 @@ saves ``save_dir/<epoch>``), then every ``eval_freq`` epochs an
 ``save(path)`` writes ``path.pdparams`` and ``path.pdopt`` in the JAX
 package's format (``framework/io.py``).
 
+Observability, as in the JAX package: ``fit(numerics="record" | "warn"
+| "halt")`` (or ``FLAGS_numerics``) audits every step on the device
+(``profiler/numerics.py`` ``build_audit``: finite bits, loss, grad,
+clipped, parameter and update norms, per-layer-group nonfinite counts),
+keeps the vectors on the device and copies them to the host in the same
+copy as the loss at the log windows, where the ``NumericsRecorder``
+rings them and applies the policy (``halt`` raises ``NumericsError``
+after its postmortem). At each window ``hapi/flops_per_sec`` and, with
+a known peak, ``hapi/mfu`` are observed from the counted FLOPs of the
+steps run (``program_registry.gpt_step_cost``, for GPT networks) and a
+memory sample is taken; the train state's bytes are in the memory
+ledger (``hapi/state[<net>#<n>]/{params,opt_state,buffers}``), and an
+out-of-memory error leaves the memory postmortem before it is
+re-raised.
+
 Not ported, each raising ``NotImplementedError`` that names its ROADMAP
 item: ``save(training=False)``, ``summary``, static mode,
 ``fit(prefetch=, analyze=)``, ``evaluate(prefetch=)`` and
-``train_batch(update=False)`` (Queue 1 item 5), ``fit(numerics=)``
-(item 3), ``fit(zero=, grad_comm=)`` (item 4).
+``train_batch(update=False)`` (Queue 1 item 5), ``fit(zero=,
+grad_comm=)`` (item 4).
 
 ``eval_batch``/``evaluate`` give the loss only for batches with labels,
 as the JAX package does: under an ``inputs``-only spec (GPT, which takes
@@ -47,16 +62,24 @@ from __future__ import annotations
 
 import contextlib
 import os
+import time
+import weakref
+from collections import deque
 
 import numpy as np
 import torch
 
 from .. import amp
 from .._device import resolve_device
+from ..framework import program_registry as _registry
 from ..framework.io import load as _load
 from ..framework.io import save as _save
+from ..framework.monitor import stat_add, stat_get, stat_observe
 from ..io import DataLoader
 from ..metric import Metric
+from ..profiler import memory as _memory
+from ..profiler import numerics as _numerics
+from ..profiler import span as _prof
 from .callbacks import config_callbacks
 
 __all__ = ["Model"]
@@ -73,7 +96,26 @@ def _not_ported(what, item):
                                f"item {item})")
 
 
+def _drop_ledger_keys(keys):
+    """weakref.finalize target for a Model's memory-ledger entries — a
+    module function so the finalizer holds no reference to the Model."""
+    for k in keys:
+        _memory.ledger_drop(k)
+
+
+def _nbytes(tensors) -> int:
+    return sum(t.numel() * t.element_size() for t in tensors)
+
+
 class Model:
+    # numerics audit vectors wait on the device between log windows,
+    # (6 + groups) f32 each, one a step: with log_freq <= 0 (epoch-end
+    # windows only) the newest cap's worth survive to the window (a NaN
+    # propagates, so the tail still trips the sentinel), drops counted
+    # in hapi/audit_window_dropped
+    _AUDIT_WINDOW = 4096
+    _seq = 0
+
     def __init__(self, network, inputs=None, labels=None, device=None):
         self.device = resolve_device(device)
         self.network = network.to(self.device)
@@ -85,6 +127,27 @@ class Model:
         self._amp_level = "O0"
         self._amp_dtype = "bfloat16"
         self.stop_training = False
+        self._step_counter = 0          # global steps, 1 at the first
+        # achieved FLOP/s over a log window: the counted FLOPs of the
+        # steps run since the last window and the window's start stamp
+        self._flush_flops = 0.0
+        self._flush_steps = 0
+        self._flush_t0 = None
+        self._step_flops = {}           # input shape -> counted FLOPs
+        # numerics health (profiler/numerics.py)
+        self._numerics_mode = "off"
+        self._audit_layout = None
+        self._audit_window = deque(maxlen=self._AUDIT_WINDOW)
+        self._audit_collect = False
+        self._numerics_recorder = None
+        self._retrace_mark = 0.0
+        # test hook: the loss times +inf at this global step, so the
+        # sentinel path is testable without crafted data
+        self._numerics_inject_inf_at = None
+        Model._seq += 1
+        self._site = f"hapi/train_step[{type(network).__name__}" \
+                     f"#{Model._seq}]"
+        self._ledger_base = None
 
     def prepare(self, optimizer=None, loss=None, metrics=None,
                 amp_configs=None):
@@ -140,17 +203,188 @@ class Model:
 
     def _train_step(self, inputs, labels):
         """One eager step on device tensors; returns the loss as a device
-        scalar and the outputs."""
+        scalar and the outputs. With numerics armed, the step's audit
+        vector is queued on the device (read nothing back)."""
         if self._loss is None:
             raise RuntimeError(
                 "no loss configured: call model.prepare(optimizer, loss) "
                 "before fit/train_batch")
-        outs, loss = self._forward(inputs, labels)
-        loss.backward()
-        self._optimizer.step()
-        self._optimizer.clear_grad()
+        self._step_counter += 1
+        t0 = time.perf_counter()
+        if self._flush_t0 is None:
+            self._flush_t0 = t0
+        self._flush_steps += 1
+        self._flush_flops += self._counted_flops(inputs) or 0.0
+        audit = self._audit_collect and self._audit_layout is not None
+        with _prof.record("hapi/train_batch", "hapi"):
+            outs, loss = self._forward(inputs, labels)
+            if audit:
+                train = self._audit_params()
+                olds = {k: p.detach().clone() for k, p in train.items()}
+                if self._numerics_inject_inf_at == self._step_counter:
+                    loss = loss.float() * float("inf")
+            loss.backward()
+            self._optimizer.step()
+            if audit:
+                self._audit(loss, train, olds)
+            self._optimizer.clear_grad()
+        # the host's time to queue the step (no sync: the card runs on)
+        stat_observe("hapi/step_time_ms", (time.perf_counter() - t0) * 1e3)
         return loss.detach(), [o.detach() if torch.is_tensor(o) else o
                                for o in outs]
+
+    # -- numerics audit, counted FLOPs, the memory ledger ---------------------
+    def _audit_params(self):
+        """The trainable parameters by the network's names (the JAX
+        package's tree names)."""
+        return {k: p for k, p in self.network.named_parameters()
+                if p.requires_grad}
+
+    def _audit(self, loss, train, olds):
+        """Queue this step's audit vector (``numerics.build_audit``) on
+        the device: the raw gradients (a missing one counts as zeros),
+        the parameters before and after the update, and the clip's norms
+        where the optimizer kept them."""
+        grads = {k: p.grad if p.grad is not None else torch.zeros_like(p)
+                 for k, p in train.items()}
+        pre, post = getattr(self._optimizer, "_clip_norms", None) \
+            or (None, None)
+        vec = _numerics.build_audit(
+            loss, grads, olds, {k: p.detach() for k, p in train.items()},
+            self._audit_layout, grad_norm=pre, clipped_norm=post)
+        w = self._audit_window
+        if w.maxlen is not None and len(w) == w.maxlen:
+            stat_add("hapi/audit_window_dropped")
+        w.append((self._step_counter, vec, self._audit_layout))
+
+    def _counted_flops(self, inputs):
+        """The counted FLOPs of one train step of a GPT network on
+        ``inputs[0]`` ``[batch, seq]`` (``program_registry.
+        gpt_step_cost``: causal attention over each row's own prefix, the
+        tied head over every row); None for another network — never a
+        made-up number."""
+        if not inputs or getattr(inputs[0], "dim", lambda: 0)() != 2:
+            return None
+        key = tuple(inputs[0].shape)
+        if key not in self._step_flops:
+            gpt = getattr(self.network, "gpt", self.network)
+            cfg = getattr(gpt, "cfg", None)
+            flops = None
+            if cfg is not None and hasattr(cfg, "num_hidden_layers"):
+                B, T = key
+                flops = _registry.gpt_step_cost(
+                    cfg, B * T, B * T * (T + 1) // 2, B * T,
+                    train=True)["flops"]
+            self._step_flops[key] = flops
+        return self._step_flops[key]
+
+    def _observe_compute(self):
+        """Achieved FLOP/s (and MFU against the card's peak) over the
+        steps since the last window: ``hapi/flops_per_sec`` when the
+        steps' FLOPs are counted, ``hapi/mfu`` (and an ``mfu`` log) only
+        with a known peak (``program_registry.peak_flops``, overridable
+        with ``PADDLE_TPU_PEAK_FLOPS``; the CPU has none)."""
+        now = time.perf_counter()
+        flops, self._flush_flops = self._flush_flops, 0.0
+        steps, self._flush_steps = self._flush_steps, 0
+        # re-armed by the next step, not at `now`: time between an
+        # epoch's last window and the next step must not dilute it
+        t0, self._flush_t0 = self._flush_t0, None
+        out = {}
+        if not flops or not steps or t0 is None or now <= t0:
+            return out
+        achieved = flops / (now - t0)
+        stat_observe("hapi/flops_per_sec", achieved)
+        peak = _registry.peak_flops()
+        if peak:
+            out["mfu"] = achieved / peak
+            stat_observe("hapi/mfu", out["mfu"])
+        return out
+
+    def _update_memory_ledger(self):
+        """Register the train state's bytes in the memory ledger
+        (profiler/memory.py): the parameters, the optimizer's slots (the
+        f32 masters included) and the buffers. Host arithmetic over shapes
+        only. A weakref finalizer drops the keys with the Model."""
+        if self._ledger_base is None:
+            self._ledger_base = self._site.replace(
+                "hapi/train_step", "hapi/state", 1)
+            weakref.finalize(self, _drop_ledger_keys, [
+                f"{self._ledger_base}/{k}"
+                for k in ("params", "opt_state", "buffers")])
+        base = self._ledger_base
+        _memory.ledger_set(f"{base}/params",
+                           _nbytes(self.network.parameters()))
+        slots = getattr(self._optimizer, "_slots", {}) or {}
+        _memory.ledger_set(f"{base}/opt_state", _nbytes(
+            t for d in slots.values() for t in d.values()
+            if torch.is_tensor(t)))
+        _memory.ledger_set(f"{base}/buffers",
+                           _nbytes(self.network.buffers()))
+
+    def _flush(self, loss, metrics):
+        """A log window: ONE device-to-host copy of the last loss and the
+        window's audit vectors, then the logs, the window's FLOP/s, a
+        memory sample and the numerics policy (``halt`` raises here)."""
+        entries = list(self._audit_window)
+        self._audit_window.clear()
+        with _prof.record("hapi/host_sync", "hapi",
+                          args={"audits": len(entries)}):
+            if entries:
+                host = torch.cat([loss.detach().float().reshape(1)]
+                                 + [v for _, v, _ in entries]).cpu().numpy()
+                loss, at = float(host[0]), 1
+                fetched = []
+                for step, v, layout in entries:
+                    fetched.append((step, host[at:at + v.numel()], layout))
+                    at += v.numel()
+            logs = self._pack_logs(loss, metrics)
+        logs.update(self._observe_compute())
+        _memory.sample("hapi/flush", steps=self._step_counter)
+        self._update_memory_ledger()
+        if entries:
+            logs.update(self._flush_numerics(fetched))
+        return logs
+
+    def _flush_numerics(self, entries):
+        """The window's fetched audits into the numerics recorder, grouped
+        by the layout each was made under. Raises only ``NumericsError``
+        (halt mode)."""
+        rec = self._numerics_recorder
+        if rec is None:
+            return {}
+        retrace_now = stat_get("dispatch/retrace_cause")
+        delta, self._retrace_mark = retrace_now - self._retrace_mark, \
+            retrace_now
+        scaler = amp.active_scaler()
+        kwargs = dict(
+            mode=self._numerics_mode,
+            lr=float(self._optimizer.get_lr()),
+            scaler=scaler.state() if scaler is not None else None,
+            retrace_delta=int(delta), ledger_bytes=_memory.ledger_total(),
+            context={"site": self._site})
+        logs = {}
+        i, n = 0, len(entries)
+        while i < n:
+            layout = entries[i][2]
+            j = i
+            while j < n and entries[j][2] is layout:
+                j += 1
+            logs = rec.record_window(
+                [(step, v) for step, v, _ in entries[i:j]], layout,
+                **kwargs)
+            i = j
+        return logs
+
+    def dump_numerics(self, path=None):
+        """On-demand snapshot of the training numerics flight recorder
+        (ring tail, anomalies, scaler state, monitor snapshot, memory
+        postmortem path) as JSON; the file path, or ``None`` when
+        numerics was never armed on this Model."""
+        rec = self._numerics_recorder
+        if rec is None:
+            return None
+        return rec.postmortem(None, path=path, context={"site": self._site})
 
     def _update_metrics(self, outs, labels):
         results = []
@@ -161,7 +395,7 @@ class Model:
         return results
 
     def _pack_logs(self, loss, metrics):
-        logs = {"loss": float(loss)}
+        logs = {"loss": float(loss)}   # the window's one host sync
         for m, r in zip(self._metrics, metrics):
             names = m.name() if isinstance(m.name(), list) else [m.name()]
             vals = r if isinstance(r, list) else [r]
@@ -205,7 +439,7 @@ class Model:
         was_training = self.network.training
         self.network.eval()
         try:
-            with torch.no_grad():
+            with torch.no_grad(), _prof.record("hapi/eval_batch", "hapi"):
                 outs, loss = self._forward(
                     self._to_device(_to_list(inputs)), labels,
                     self._loss is not None and bool(labels))
@@ -251,11 +485,15 @@ class Model:
         sizes ``prefetch``'s buffer, which is not ported."""
         for opt, value, item in (("prefetch", prefetch, 5),
                                  ("analyze", analyze, 5),
-                                 ("numerics", numerics, 3),
                                  ("zero", zero, 4),
                                  ("grad_comm", grad_comm, 4)):
             if value not in (None, False, 0, "off", "fp32"):
                 raise _not_ported(f"fit({opt}=...)", item)
+        if numerics is None:
+            numerics = _numerics.flag_mode()
+        elif numerics not in _numerics.MODES:
+            raise ValueError(f"numerics must be one of {_numerics.MODES}, "
+                             f"got {numerics!r}")
         loader = self._as_loader(train_data, batch_size, shuffle,
                                  num_workers, drop_last)
         eval_loader = None if eval_data is None else self._as_loader(
@@ -271,6 +509,21 @@ class Model:
                                 metrics=self._metric_names())
         self.stop_training = False
         self.network.train()
+        self._numerics_mode = numerics
+        self._audit_window.clear()
+        if numerics != "off":
+            if self._numerics_recorder is None:
+                self._numerics_recorder = _numerics.NumericsRecorder()
+            # the ring persists across fits; the loss-spike baseline not
+            self._numerics_recorder.new_run()
+            self._audit_layout = _numerics.AuditLayout.build(
+                list(self._audit_params()))
+            self._audit_collect = True
+            self._retrace_mark = stat_get("dispatch/retrace_cause")
+        if self._optimizer is not None:
+            self._optimizer._audit_clip = numerics != "off"
+        self._flush_flops, self._flush_steps, self._flush_t0 = 0.0, 0, None
+        self._update_memory_ledger()
         cbks.on_train_begin()
         try:
             for epoch in range(epochs):
@@ -288,19 +541,28 @@ class Model:
                     if self._metrics:
                         metrics = self._update_metrics(outs, labels)
                     if log_freq > 0 and step % log_freq == 0:
-                        logs = self._pack_logs(last, metrics)
+                        logs = self._flush(last, metrics)
                     cbks.on_train_batch_end(step, logs)
                 if last is not None:
-                    logs = self._pack_logs(last, metrics)
+                    logs = self._flush(last, metrics)
                 cbks.on_epoch_end(epoch, logs)
                 if eval_loader is not None and (epoch + 1) % eval_freq == 0:
                     self.evaluate(eval_loader, batch_size=batch_size,
                                   verbose=verbose, callbacks=cbks,
                                   _inside_fit=True)
             cbks.on_train_end()
-        except BaseException:
+        except BaseException as e:
+            # an out-of-memory death leaves the memory picture behind
+            # (the timeline, the ledger, the largest live tensors) as
+            # JSON; best effort, it never masks the original error
+            if _memory.is_resource_exhausted(e):
+                _memory.oom_postmortem(e, extra={"phase": "Model.fit"})
             cbks.on_train_abort()
             raise
+        finally:
+            self._audit_collect = False
+            if self._optimizer is not None:
+                self._optimizer._audit_clip = False
 
     def evaluate(self, eval_data, batch_size=1, log_freq=10, verbose=2,
                  num_workers=0, callbacks=None, prefetch=None,

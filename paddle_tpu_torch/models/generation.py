@@ -44,6 +44,7 @@ from typing import Optional
 import numpy as np
 import torch
 
+from ..framework import trace_probe as _probe
 from ..framework.dispatch import call_op
 from ..framework.random import get_generator
 from ..nn import functional as F
@@ -273,7 +274,8 @@ def _fused_tower(gpt, x, pool, scales, write_block, write_off, blk_seq,
 
 
 def build_fused_step_fn(model, num_slots, q_rows, table_len, block_size,
-                        top_k=0, top_p=1.0, quantized=False, qmax=127.0):
+                        top_k=0, top_p=1.0, probe=None, quantized=False,
+                        qmax=127.0):
     """Build THE fused ragged serving step for one ``(q_rows,
     table_len)`` bucket.
 
@@ -306,7 +308,8 @@ def build_fused_step_fn(model, num_slots, q_rows, table_len, block_size,
 
     The step enters ``torch.inference_mode()`` itself: grad mode is
     thread-local, and the engine calls the step from its scheduler
-    thread.
+    thread. ``probe`` (a ``framework.trace_probe`` site) records the
+    step's signature once, when it is built.
     """
     gpt = model.gpt if hasattr(model, "gpt") else model
     S, Q, T = int(num_slots), int(q_rows), int(table_len)
@@ -319,6 +322,9 @@ def build_fused_step_fn(model, num_slots, q_rows, table_len, block_size,
         raise ValueError(f"table_len must be >= 1, got {T}")
     if int(block_size) < 1:
         raise ValueError(f"block_size must be >= 1, got {block_size}")
+    _probe_build(probe, [_pool_sig(gpt, quantized, qmax, int(block_size)),
+                         ((Q,), "int32"), ((S, T), "int32")],
+                 {"q": Q, "table": T})
     top_k = min(int(top_k), gpt.cfg.vocab_size)
 
     def fn(pool, *rest):
@@ -355,7 +361,12 @@ def _next_tokens(gpt, x, generator, sample_mask, temperature, top_k, top_p):
     """A decode step's ``[num_slots + 1]`` tokens from ``x [S, 1, E]``
     (after ``ln_f``): greedy and sampled rows mixed by ``sample_mask``,
     and the logits-finite sentinel last."""
-    logits = gpt.logits(x)[:, 0].float()
+    return _tokens_of(gpt.logits(x)[:, 0].float(), generator, sample_mask,
+                      temperature, top_k, top_p)
+
+
+def _tokens_of(logits, generator, sample_mask, temperature, top_k, top_p):
+    """:func:`_next_tokens` from the f32 logits ``[S, vocab]``."""
     greedy = _pick_token(logits, generator, False, top_k, top_p, None)
     sampled = _pick_token(logits, generator, True, top_k, top_p,
                           temperature[:, None])
@@ -370,7 +381,27 @@ def _check_len(gpt, what, n):
             f"{gpt.cfg.max_position_embeddings}")
 
 
-def build_slot_prefill_fn(model, bucket_len, max_len, top_k=0, top_p=1.0):
+def _pool_sig(gpt, quantized=False, qmax=127.0, *dims):
+    """The KV pool operand of a step's trace-probe signature: the layer,
+    K/V, head and head-width axes with the builder's own ``dims``, in the
+    dtype the pool will have (the model's, or the quantized code's)."""
+    H = gpt.cfg.num_attention_heads
+    dtype = ("int8" if float(qmax) == 127.0 else "float8_e4m3fn") \
+        if quantized else next(gpt.parameters()).dtype
+    return ((gpt.cfg.num_hidden_layers, 2, H, *dims,
+             gpt.cfg.hidden_size // H), dtype)
+
+
+def _probe_build(probe, operands, static) -> None:
+    """Record a step's signature at its trace-probe site when it is built
+    (the JAX package records it when jit traces the step: once per
+    bucket, as here). ``operands`` are ``(shape, dtype)`` pairs."""
+    if probe is not None:
+        probe.record(_probe.sig_of(operands), static)
+
+
+def build_slot_prefill_fn(model, bucket_len, max_len, top_k=0, top_p=1.0,
+                          probe=None):
     """Build the prefill step of the dense slot engine for one capacity
     bucket.
 
@@ -382,7 +413,8 @@ def build_slot_prefill_fn(model, bucket_len, max_len, top_k=0, top_p=1.0):
     :func:`generate`), and the K/V land in row ``slot`` at cache indices
     ``[0, bucket_len)``, in place: the per-layer cache the prefill fills
     is a view of that row. ``sample`` (bool) and ``temperature`` pick the
-    first token.
+    first token. ``probe`` (a ``framework.trace_probe`` site) records the
+    step's signature once, when it is built.
     """
     gpt = model.gpt if hasattr(model, "gpt") else model
     Lb = int(bucket_len)
@@ -392,6 +424,9 @@ def build_slot_prefill_fn(model, bucket_len, max_len, top_k=0, top_p=1.0):
         raise ValueError(f"bucket_len {Lb} exceeds pool max_len {max_len}")
     _check_len(gpt, "bucket_len", Lb)
     top_k = min(int(top_k), gpt.cfg.vocab_size)
+    _probe_build(probe, [_pool_sig(gpt, False, 127.0, int(max_len)),
+                         ((1, Lb), "int64"), ((1, Lb), "bool")],
+                 {"bucket": Lb})
 
     def fn(pool, ids, key_valid, slot, sample, temperature, generator):
         if tuple(ids.shape) != (1, Lb):
@@ -411,7 +446,8 @@ def build_slot_prefill_fn(model, bucket_len, max_len, top_k=0, top_p=1.0):
     return fn
 
 
-def build_slot_decode_fn(model, num_slots, max_len, top_k=0, top_p=1.0):
+def build_slot_decode_fn(model, num_slots, max_len, top_k=0, top_p=1.0,
+                         probe=None):
     """Build THE decode step of the dense slot engine: every slot
     advances one token a call.
 
@@ -428,6 +464,8 @@ def build_slot_decode_fn(model, num_slots, max_len, top_k=0, top_p=1.0):
     * ``sample_mask [S]`` bool, ``temperature [S]`` f32: greedy and
       sampled rows share the step. Free slots compute garbage that the
       scheduler ignores and the next prefill overwrites.
+
+    ``probe`` records the step's signature once, when it is built.
     """
     gpt = model.gpt if hasattr(model, "gpt") else model
     S, L = int(num_slots), int(max_len)
@@ -435,6 +473,9 @@ def build_slot_decode_fn(model, num_slots, max_len, top_k=0, top_p=1.0):
         raise ValueError(f"num_slots must be >= 1, got {S}")
     _check_len(gpt, "max_len", L)
     top_k = min(int(top_k), gpt.cfg.vocab_size)
+    _probe_build(probe, [_pool_sig(gpt, False, 127.0, S, L),
+                         ((S,), "int32"), ((S,), "int32"), ((S,), "int32"),
+                         ((S,), "float32")], {"slots": S})
 
     def fn(pool, tokens, pos, lo, sample_mask, temperature, generator):
         with torch.inference_mode():
@@ -462,7 +503,8 @@ def build_slot_decode_fn(model, num_slots, max_len, top_k=0, top_p=1.0):
 
 
 def build_paged_prefill_fn(model, bucket_len, block_size, top_k=0,
-                           top_p=1.0, quantized=False, qmax=127.0):
+                           top_p=1.0, probe=None, quantized=False,
+                           qmax=127.0):
     """Build the prefill step of the paged gather engine for one
     capacity bucket.
 
@@ -478,7 +520,8 @@ def build_paged_prefill_fn(model, bucket_len, block_size, top_k=0,
 
     ``quantized=True`` takes the pool's scales right after it
     (``fn(pool, scales, ids, ...)``): the K/V are computed in the model's
-    dtype and written through :func:`_quant_write_blocks`.
+    dtype and written through :func:`_quant_write_blocks`. ``probe``
+    records the step's signature once, when it is built.
     """
     gpt = model.gpt if hasattr(model, "gpt") else model
     Lb, bs = int(bucket_len), int(block_size)
@@ -490,6 +533,9 @@ def build_paged_prefill_fn(model, bucket_len, block_size, top_k=0,
             f"block_size {bs}")
     _check_len(gpt, "bucket_len", Lb)
     Tp = Lb // bs
+    _probe_build(probe, [_pool_sig(gpt, quantized, qmax, bs),
+                         ((1, Lb), "int64"), ((1, Lb), "bool"),
+                         ((Tp,), "int32")], {"bucket": Lb, "table": Tp})
     H = gpt.cfg.num_attention_heads
     Dh = gpt.cfg.hidden_size // H
     top_k = min(int(top_k), gpt.cfg.vocab_size)
@@ -532,7 +578,7 @@ def build_paged_prefill_fn(model, bucket_len, block_size, top_k=0,
 
 
 def build_paged_decode_fn(model, num_slots, table_len, block_size, top_k=0,
-                          top_p=1.0, quantized=False, qmax=127.0,
+                          top_p=1.0, probe=None, quantized=False, qmax=127.0,
                           debug_logits=False):
     """Build the decode step of the paged gather engine for one pow2
     table bucket: attention over the virtual cache GATHERED through the
@@ -554,13 +600,10 @@ def build_paged_decode_fn(model, num_slots, table_len, block_size, top_k=0,
     * ``quantized=True`` takes the pool's scales right after it: appends
       go through :func:`_quant_append` and the gathered cache is
       dequantized by :func:`_dequant_gather`;
-    * ``debug_logits=True`` (the step's logits beside its tokens) is not
-      ported yet (ROADMAP Queue 1 item 3).
+    * ``debug_logits=True`` returns ``(next_tokens, logits)``, the
+      step's f32 logits ``[S, vocab]`` beside its tokens;
+    * ``probe`` records the step's signature once, when it is built.
     """
-    if debug_logits:
-        raise NotImplementedError("build_paged_decode_fn(debug_logits=True) "
-                                  "is not ported yet (ROADMAP Queue 1 item "
-                                  "3)")
     gpt = model.gpt if hasattr(model, "gpt") else model
     S, T, bs = int(num_slots), int(table_len), int(block_size)
     if S < 1:
@@ -570,6 +613,10 @@ def build_paged_decode_fn(model, num_slots, table_len, block_size, top_k=0,
     H = gpt.cfg.num_attention_heads
     Dh = gpt.cfg.hidden_size // H
     top_k = min(int(top_k), gpt.cfg.vocab_size)
+    _probe_build(probe, [_pool_sig(gpt, quantized, qmax, bs),
+                         ((S,), "int32"), ((S,), "int32"), ((S,), "int32"),
+                         ((S, T), "int32"), ((S,), "float32")],
+                 {"slots": S, "table": T})
 
     def fn(pool, *rest):
         (scales, tokens, pos, lo, tables, sample_mask, temperature,
@@ -604,18 +651,15 @@ def build_paged_decode_fn(model, num_slots, table_len, block_size, top_k=0,
                 a = F.scaled_dot_product_attention(q, kf, vf, attn_mask=mask,
                                                    training=False)
                 x = block._tail(x, a)
-            return _next_tokens(gpt, gpt.ln_f(x), generator, sample_mask,
-                                temperature, top_k, top_p)
+            logits = gpt.logits(gpt.ln_f(x))[:, 0].float()
+            nxt = _tokens_of(logits, generator, sample_mask, temperature,
+                             top_k, top_p)
+            return (nxt, logits) if debug_logits else nxt
 
     return fn
 
 
 # -- speculative decoding ---------------------------------------------------
-
-def _no_probe(probe):
-    if probe is not None:
-        raise NotImplementedError(
-            "trace probes are not ported yet: ROADMAP.md Queue 1 item 3")
 
 
 def build_spec_verify_fn(model, num_slots, q_rows, spec_k, table_len,
@@ -644,10 +688,9 @@ def build_spec_verify_fn(model, num_slots, q_rows, spec_k, table_len,
       sentinel]``, all the scheduler's one fetch needs.
 
     Only the ``S*spec_k`` candidate rows and each slot's last row go
-    through the LM head. ``probe`` (trace probes) raises
-    ``NotImplementedError``: ROADMAP Queue 1 item 3.
+    through the LM head. ``probe`` records the step's signature once,
+    when it is built.
     """
-    _no_probe(probe)
     gpt = model.gpt if hasattr(model, "gpt") else model
     S, Q, K, T = int(num_slots), int(q_rows), int(spec_k), int(table_len)
     if S < 1:
@@ -659,6 +702,9 @@ def build_spec_verify_fn(model, num_slots, q_rows, spec_k, table_len,
             f"q_rows must be a positive multiple of {BLOCK_Q}, got {Q}")
     if T < 1:
         raise ValueError(f"table_len must be >= 1, got {T}")
+    _probe_build(probe, [_pool_sig(gpt, quantized, qmax, int(block_size)),
+                         ((Q,), "int32"), ((S, T), "int32"),
+                         ((S, K), "int32")], {"q": Q, "table": T, "k": K})
     top_k = min(int(top_k), gpt.cfg.vocab_size)
 
     def fn(pool, *rest):
@@ -718,10 +764,9 @@ def build_draft_prefill_fn(model, bucket_len, max_len, probe=None):
     Returns ``fn(pool, ids, key_valid, slot) -> pool`` over the draft
     pool ``[draft_layers, 2, slots, draft_heads, max_len, head_dim]``,
     written in place at row ``slot``, indices ``[0, bucket_len)``; no
-    token is drawn. ``probe`` raises ``NotImplementedError`` (ROADMAP
-    Queue 1 item 3).
+    token is drawn. ``probe`` records the step's signature once, when it
+    is built.
     """
-    _no_probe(probe)
     gpt = model.gpt if hasattr(model, "gpt") else model
     Lb = int(bucket_len)
     if Lb < 1:
@@ -729,6 +774,9 @@ def build_draft_prefill_fn(model, bucket_len, max_len, probe=None):
     if Lb > int(max_len):
         raise ValueError(f"bucket_len {Lb} exceeds pool max_len {max_len}")
     _check_len(gpt, "bucket_len", Lb)
+    _probe_build(probe, [_pool_sig(gpt, False, 127.0, int(max_len)),
+                         ((1, Lb), "int64"), ((1, Lb), "bool")],
+                 {"bucket": Lb})
 
     def fn(pool, ids, key_valid, slot):
         if tuple(ids.shape) != (1, Lb):
@@ -791,13 +839,15 @@ def build_draft_propose_fn(model, num_slots, max_len, top_k=0, top_p=1.0,
     feeds ``feed_tok`` at ``pos`` of the dense draft pool (in place) and
     draws its proposal from the draft's sampling distribution ``probs``
     (one-hot for greedy slots), which the verify's rejection sampling
-    takes as ``q``. ``probe`` raises ``NotImplementedError`` (ROADMAP
-    Queue 1 item 3).
+    takes as ``q``. ``probe`` records the step's signature once, when it
+    is built.
     """
-    _no_probe(probe)
     gpt = model.gpt if hasattr(model, "gpt") else model
-    _draft_checks(gpt, num_slots, max_len)
+    S, L = _draft_checks(gpt, num_slots, max_len)
     top_k = min(int(top_k), gpt.cfg.vocab_size)
+    _probe_build(probe, [_pool_sig(gpt, False, 127.0, S, L),
+                         ((S,), "int32"), ((S,), "int32"), ((S,), "int32"),
+                         ((S,), "float32")], {"slots": S})
 
     def fn(pool, feed_tok, pos, lo, sample_mask, temperature, generator):
         with torch.inference_mode():
@@ -818,14 +868,16 @@ def build_draft_propose_scan_fn(model, num_slots, max_len, spec_k, top_k=0,
     generator) -> (proposals [S, spec_k] int32, probs [S, spec_k, V]
     f32)``: ``feed_tok [S]`` is each slot's last accepted token, and
     step ``j`` writes at position ``min(pos + j, max_len - 1)``.
-    ``probe`` raises ``NotImplementedError`` (ROADMAP Queue 1 item 3).
+    ``probe`` records the step's signature once, when it is built.
     """
-    _no_probe(probe)
     gpt = model.gpt if hasattr(model, "gpt") else model
-    _, L = _draft_checks(gpt, num_slots, max_len)
+    S, L = _draft_checks(gpt, num_slots, max_len)
     K = int(spec_k)
     if K < 1:
         raise ValueError(f"spec_k must be >= 1, got {K}")
+    _probe_build(probe, [_pool_sig(gpt, False, 127.0, S, L),
+                         ((S,), "int32"), ((S,), "int32"), ((S,), "int32"),
+                         ((S,), "float32")], {"slots": S, "k": K})
     top_k = min(int(top_k), gpt.cfg.vocab_size)
 
     def fn(pool, feed_tok, pos, lo, sample_mask, temperature, generator):

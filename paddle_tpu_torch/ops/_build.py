@@ -12,6 +12,12 @@ package has no checkout root to build into).
 :func:`build_all` starts one ``nvcc`` per source at once and waits for
 all of them, so a cold start costs the slowest build, not their sum.
 :func:`load` returns the loaded library, building it first when needed.
+Each build is the port's counterpart of an XLA compile: it is noted in
+the program registry (``framework/program_registry.py``
+``note_compile``, site ``csrc/<name>.cu``), so ``compile/count`` and
+``compile/ms/<site>`` count builds. :func:`load_host` builds a host C++
+source (the profiler's ``native/tpu_prof.cc``) the same way with the
+host ``g++``.
 :func:`function` binds one exported
 symbol, and :data:`DTYPE_CODE` is the dtype numbering every C interface
 takes. Nothing here runs at import time: this module imports on hosts without
@@ -32,7 +38,7 @@ from typing import Dict, List
 import torch
 
 __all__ = ["NVCC_FLAGS", "SOURCES", "DTYPE_CODE", "build_all", "load",
-           "function", "build_dir"]
+           "function", "build_dir", "load_host", "HOST_FLAGS"]
 
 _CSRC = Path(__file__).resolve().parent.parent / "csrc"
 
@@ -42,6 +48,9 @@ SOURCES = ("ragged_paged_attention", "ragged_paged_attention_sm90",
 
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC")
+
+#: host C++ sources (:func:`load_host`)
+HOST_FLAGS = ("-O2", "-shared", "-fPIC", "-std=c++17")
 
 #: the ``dtype`` argument of every kernel's C interface
 DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
@@ -98,6 +107,11 @@ def _finish(name: str, proc: subprocess.Popen, tmp: Path,
     os.replace(tmp, out)
 
 
+def _note(site: str, t0: float) -> None:
+    from ..framework.program_registry import note_compile
+    note_compile(site, (time.perf_counter() - t0) * 1e3)
+
+
 def build_all(names: List[str] = None) -> float:
     """Build every listed source whose library is missing, one ``nvcc``
     each, all started together. Returns the wall seconds spent."""
@@ -109,6 +123,7 @@ def build_all(names: List[str] = None) -> float:
         for name, proc, tmp, out in started:
             try:
                 _finish(name, proc, tmp, out)
+                _note(f"csrc/{name}.cu", t0)
             except RuntimeError as e:
                 errors.append(str(e))
         if errors:
@@ -137,3 +152,34 @@ def function(name: str, symbol: str, argtypes: list):
         fn.argtypes = argtypes
         fn.restype = ctypes.c_int
     return fn
+
+
+def load_host(name: str, source) -> ctypes.CDLL:
+    """The loaded library of the host C++ file ``source``, compiled with
+    ``g++`` (:data:`HOST_FLAGS`) into ``<build dir>/<name>-<hash>.so``
+    at first use, the hash over the source text and the flags."""
+    src = Path(source)
+    lib = _libs.get(f"host:{name}")
+    if lib is not None:
+        return lib
+    digest = hashlib.sha256(src.read_bytes())
+    digest.update(" ".join(HOST_FLAGS).encode())
+    out = build_dir() / f"{name}-{digest.hexdigest()[:16]}.so"
+    with _lock:
+        if not out.exists():
+            cxx = shutil.which("g++") or shutil.which("c++")
+            if cxx is None:
+                raise RuntimeError("no host C++ compiler (g++) on PATH")
+            out.parent.mkdir(parents=True, exist_ok=True)
+            tmp = out.with_suffix(f".{os.getpid()}.tmp")
+            t0 = time.perf_counter()
+            proc = subprocess.run([cxx, *HOST_FLAGS, "-o", str(tmp),
+                                   str(src)], capture_output=True, text=True)
+            if proc.returncode != 0:
+                tmp.unlink(missing_ok=True)
+                raise RuntimeError(f"{cxx} failed on {src.name} (exit "
+                                   f"{proc.returncode}):\n{proc.stderr}")
+            os.replace(tmp, out)
+            _note(src.name, t0)
+        lib = _libs[f"host:{name}"] = ctypes.CDLL(str(out))
+    return lib

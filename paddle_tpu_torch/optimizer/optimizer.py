@@ -192,8 +192,9 @@ class Optimizer:
         live = [(name, p) for name, p in self._params
                 if p.grad is not None and p.requires_grad]
         pairs = [(p, p.grad) for _, p in live]
+        self._clip_norms = None
         if self._grad_clip is not None:
-            pairs = self._grad_clip(pairs)
+            pairs = self._clip(pairs)
         self._step_count += 1
         base_lr = self.get_lr()
         try:
@@ -209,6 +210,26 @@ class Optimizer:
                 self._update(name, p, g, slots, lr, step)
         finally:
             self._current_param_name = self._current_param = None
+
+    def _clip(self, pairs):
+        """The gradient clip, keeping ``_clip_norms`` = (the pre-clip
+        global norm, the clipped one) as f32 device scalars for the
+        numerics audit (``Model.fit(numerics=...)``): the global-norm
+        clip's own norm, reused, never computed twice; after any other
+        clip, only when ``_audit_clip`` asks, the clipped gradients'
+        global norm (the pre-clip one is then the audit's to take)."""
+        from ..nn.clip import ClipGradByGlobalNorm
+        clip = self._grad_clip
+        if isinstance(clip, ClipGradByGlobalNorm):
+            pairs, norm = clip.clip_with_norm(pairs)
+            self._clip_norms = (norm, torch.clamp(norm, max=clip.clip_norm))
+            return pairs
+        pairs = clip(pairs)
+        if getattr(self, "_audit_clip", False):
+            from ..profiler.numerics import global_grad_norm
+            self._clip_norms = (None, global_grad_norm(
+                [g for _, g in pairs]))
+        return pairs
 
     def clear_grad(self, set_to_zero=False):
         for _, p in self._params or ():

@@ -39,12 +39,20 @@ Telemetry: the scheduler's always-on flight recorder
 latency percentiles and ring-window throughput; each engine publishes
 its ``stats()`` through the metrics registry (``{engine=<id>}`` series,
 pulled at scrape time) and a line of the ``serving engines`` statusz
-section.
+section. ``stats()`` also gives ``model_flops_per_token``,
+``decode_bytes_per_token``, ``decode_tokens_per_sec``,
+``serving_flops_per_sec`` and, with a known peak, ``serving_mfu``: the
+counted cost of each decode step (``framework/program_registry.py``
+``gpt_step_cost``, from the model's configuration and the step's bucket)
+over the flight recorder's cycle ring.
 
 The JAX package caches one jitted program per bucket; here each bucket
 (capacity bucket, table bucket, or q-row and table bucket) keeps one
 built step function in the same dicts, and nothing is compiled: the
-steps run eagerly and write the pool in place.
+steps run eagerly and write the pool in place. Each build records its
+signature at the bucket's trace-probe site (``serving/fused[q<Q>,t<T>]#
+<engine>`` and the like, the JAX engine's names) and its counted cost at
+the program-registry site of the same name.
 """
 from __future__ import annotations
 
@@ -57,6 +65,8 @@ import torch
 
 from .._device import resolve_device
 from ..framework import metrics as _metrics
+from ..framework import program_registry as _registry
+from ..framework import trace_probe as _probe
 from ..framework.monitor import stat_add
 from ..models.generation import (build_draft_prefill_fn,
                                  build_draft_propose_scan_fn,
@@ -76,7 +86,8 @@ __all__ = ["GenerationEngine"]
 # the JAX engine's arguments for parts of the system the port has not
 # taken yet, each with the ROADMAP.md queue that holds it
 _NOT_PORTED = {
-    "hbm_budget_bytes": "Queue 1 item 3 (the static HBM plan)",
+    "hbm_budget_bytes": "Queue 1 item 5 (the static memory plan, a "
+                        "liveness pass that needs analysis/)",
     "mesh": "Queue 1 item 4 (tensor-parallel serving)",
 }
 
@@ -123,6 +134,10 @@ def _engine_section() -> str:
                          f"{ht['capacity_blocks']}")
             if "spec_accept_rate" in s:
                 head += f" spec_accept={s['spec_accept_rate']:.2f}"
+            if s.get("serving_mfu") is not None:
+                head += f" mfu={s['serving_mfu']:.3f}"
+            if s.get("decode_tokens_per_sec") is not None:
+                head += f" tok/s={s['decode_tokens_per_sec']:.1f}"
             lines.append(head)
             ttft = s.get("ttft_ms")
             if ttft:
@@ -191,6 +206,9 @@ def _register_engine_telemetry(engine: "GenerationEngine") -> None:
                         ht["demoted_blocks"]))
             out.append(("counter", "serving_host_tier_promoted", labels,
                         ht["promoted_blocks"]))
+        if s.get("decode_tokens_per_sec") is not None:
+            out.append(("gauge", "serving_decode_tokens_per_sec",
+                        labels, s["decode_tokens_per_sec"]))
         # per-tenant goodput: one {engine, tenant} series a tenant
         for tenant, ts in (s.get("tenants") or {}).items():
             tl = dict(labels, tenant=str(tenant))
@@ -243,8 +261,8 @@ class GenerationEngine:
     * ``lane_weights`` — admission weights by lane, over the defaults
       ``{"interactive": 4.0, "batch": 1.0}``.
 
-    ``hbm_budget_bytes`` and ``mesh`` are not ported yet and raise
-    ``NotImplementedError``. Greedy
+    ``hbm_budget_bytes`` (ROADMAP Queue 1 item 5) and ``mesh`` (item 4)
+    are not ported yet and raise ``NotImplementedError``. Greedy
     output is token-identical to the JAX engine of the same configuration
     on the same weights.
     """
@@ -359,6 +377,9 @@ class GenerationEngine:
         self._steps = {}                  # (q bucket, table bucket) -> fn
         self._spec_steps = {}             # (q, table) -> verify step
         self._eid = _next_engine_id()
+        # the counted FLOPs of the decode steps run (stats()'s MFU)
+        self._decode_flops_dispatched = 0.0
+        self._decode_dispatches = 0
         self._host_tier = None
         if host_tier_bytes is not None:
             self._host_tier = HostBlockPool(
@@ -477,6 +498,7 @@ class GenerationEngine:
         # more, so its close only drains queued copies and joins threads
         if self._host_tier is not None:
             self._host_tier.close()
+        self._pool.drop_ledger()
         # a closed engine is no longer a scraped source or statusz row
         _metrics.unregister_collector(f"serving_engine/{self._eid}")
         _LIVE_ENGINES.discard(self)
@@ -563,6 +585,7 @@ class GenerationEngine:
             if self._host_tier is not None:
                 s["host_tier"] = self._host_tier.stats()
         s.update(sched.recorder.latency_summary())
+        s.update(self._compute_stats())
         if self._fused:
             s["prefill_chunks"] = sched.prefill_chunks
             s["chunked_prefill_tokens"] = sched.chunk_tokens
@@ -589,6 +612,80 @@ class GenerationEngine:
                 * self._draft_pool.element_size()
         return s
 
+    def _compute_stats(self) -> dict:
+        """Model-FLOPs-per-token and serving MFU from the counted cost
+        of the decode steps run (fused steps and verifies, or gather
+        decode steps). One step advances EVERY slot, so flops-per-token
+        = step FLOPs / num_slots (the full batch's cost: a partly
+        occupied batch still pays it). Throughput comes from THIS
+        engine's flight-recorder cycle ring; MFU needs a known peak
+        (``program_registry.peak_flops``, env-overridable) — absent one
+        (the CPU), raw FLOP/s are reported."""
+        if not self._decode_dispatches:
+            return {}
+        mean_step_flops = \
+            self._decode_flops_dispatched / self._decode_dispatches
+        if not mean_step_flops:
+            return {}
+        out = {}
+        S = self._pool.num_slots
+        out["model_flops_per_token"] = mean_step_flops / S
+        steps = self._steps or self._spec_steps or self._decode_steps
+        if steps:
+            # the largest bucket's bytes scaled by the mean-cost ratio,
+            # so bytes-per-token tracks what ran, like the FLOPs
+            step = steps[max(steps, key=lambda k: (k is not None, k))]
+            nbytes, flops = getattr(step, "bytes_accessed", None), \
+                getattr(step, "flops", None)
+            if nbytes and flops:
+                out["decode_bytes_per_token"] = \
+                    nbytes * (mean_step_flops / flops) / S
+        thr = self._sched.recorder.cycle_throughput()
+        if thr["cycle_secs"] > 0 and thr["decode_cycles"] > 0:
+            out["decode_tokens_per_sec"] = \
+                thr["emitted"] / thr["cycle_secs"]
+            flops_in_ring = thr["decode_flops"] or \
+                mean_step_flops * thr["decode_cycles"]
+            achieved = flops_in_ring / thr["cycle_secs"]
+            out["serving_flops_per_sec"] = achieved
+            peak = _registry.peak_flops()
+            if peak:
+                out["serving_mfu"] = achieved / peak
+        return out
+
+    def _note_decode_dispatch(self, step) -> None:
+        """Account the counted FLOPs of the decode step run this cycle
+        (host arithmetic only): lifetime counters for the mean, and the
+        live cycle record, so the cycle ring's FLOP/s keeps its own
+        window."""
+        self._decode_dispatches += 1
+        flops = getattr(step, "flops", None)
+        if flops:
+            self._decode_flops_dispatched += flops
+            self._sched.note_decode_flops(flops)
+
+    def _site(self, kind: str) -> str:
+        return f"serving/{kind}#{self._eid}"
+
+    def _costed(self, fn, site: str, rows: int, key_reads: int,
+                head_rows: int, kv_rows_read: int, kv_rows_written: int):
+        """Attach a built step's counted cost (``gpt_step_cost`` of the
+        model's configuration at the bucket's shapes) to the step and to
+        its program-registry site."""
+        gpt = self._gpt
+        param = next(gpt.parameters())
+        kv_bytes = 1 if getattr(self._pool, "quantized", False) \
+            else param.element_size()
+        cost = _registry.gpt_step_cost(
+            gpt.cfg, rows, key_reads, head_rows,
+            param_bytes=param.element_size(), kv_bytes=kv_bytes,
+            kv_rows_read=kv_rows_read, kv_rows_written=kv_rows_written)
+        fn.site = site
+        fn.flops = cost["flops"]
+        fn.bytes_accessed = cost["bytes_accessed"]
+        fn.record = _registry.note_cost(site, **cost)
+        return fn
+
     # -- scheduler callbacks (scheduler thread) ----------------------------
     def _put(self, *arrays):
         """Host numpy operands to the device in ONE copy."""
@@ -602,16 +699,19 @@ class GenerationEngine:
         fn = self._prefill_steps.get(bucket)
         if fn is None:
             pool = self._pool
+            site = self._site(f"prefill[{bucket}]")
+            probe = _probe.site(site)
             if self._pool.is_paged:
                 fn = build_paged_prefill_fn(
                     self._model, bucket, pool.block_size, top_k=self._top_k,
-                    top_p=self._top_p, quantized=pool.quantized,
-                    qmax=pool.qmax or 127.0)
+                    top_p=self._top_p, probe=probe,
+                    quantized=pool.quantized, qmax=pool.qmax or 127.0)
             else:
                 fn = build_slot_prefill_fn(
                     self._model, bucket, pool.max_len, top_k=self._top_k,
-                    top_p=self._top_p)
-            self._prefill_steps[bucket] = fn
+                    top_p=self._top_p, probe=probe)
+            self._prefill_steps[bucket] = self._costed(
+                fn, site, bucket, bucket * bucket, 1, bucket, bucket)
         return fn
 
     def _decode_fn(self, table_len: Optional[int]):
@@ -620,16 +720,23 @@ class GenerationEngine:
         fn = self._decode_steps.get(table_len)
         if fn is None:
             pool = self._pool
+            S = pool.num_slots
             if self._pool.is_paged:
+                site = self._site(f"decode[t{table_len}]")
                 fn = build_paged_decode_fn(
-                    self._model, pool.num_slots, table_len, pool.block_size,
+                    self._model, S, table_len, pool.block_size,
                     top_k=self._top_k, top_p=self._top_p,
-                    quantized=pool.quantized, qmax=pool.qmax or 127.0)
+                    probe=_probe.site(site), quantized=pool.quantized,
+                    qmax=pool.qmax or 127.0)
+                keys = table_len * pool.block_size
             else:
+                site = self._site("decode")
                 fn = build_slot_decode_fn(
-                    self._model, pool.num_slots, pool.max_len,
-                    top_k=self._top_k, top_p=self._top_p)
-            self._decode_steps[table_len] = fn
+                    self._model, S, pool.max_len, top_k=self._top_k,
+                    top_p=self._top_p, probe=_probe.site(site))
+                keys = pool.max_len
+            self._decode_steps[table_len] = self._costed(
+                fn, site, S, S * keys, S, S * keys, S)
         return fn
 
     def _run_prefill(self, req: GenerationRequest, slot: int,
@@ -718,12 +825,15 @@ class GenerationEngine:
             tok_d, pos_d, lo_d, tab_d, samp_d = self._put(
                 tokens, pos, lo, tables, sample_mask)
             scales = (pool.scales,) if pool.quantized else ()
-            return self._decode_fn(T)(
-                pool.data, *scales, tok_d, pos_d, lo_d, tab_d,
-                samp_d.bool(), temps, self._gen)
+            step = self._decode_fn(T)
+            self._note_decode_dispatch(step)
+            return step(pool.data, *scales, tok_d, pos_d, lo_d, tab_d,
+                        samp_d.bool(), temps, self._gen)
         tok_d, pos_d, lo_d, samp_d = self._put(tokens, pos, lo, sample_mask)
-        return self._decode_fn(None)(pool.data, tok_d, pos_d, lo_d,
-                                  samp_d.bool(), temps, self._gen)
+        step = self._decode_fn(None)
+        self._note_decode_dispatch(step)
+        return step(pool.data, tok_d, pos_d, lo_d, samp_d.bool(), temps,
+                    self._gen)
 
     def _run_fused_admit(self, req: GenerationRequest, slot: int) -> None:
         """Admit one request: host bookkeeping only. Blocks covering the
@@ -820,10 +930,14 @@ class GenerationEngine:
         pool = self._pool
         step = self._steps.get((Q, T))
         if step is None:
-            step = self._steps[(Q, T)] = build_fused_step_fn(
-                self._model, pool.num_slots, Q, T, pool.block_size,
-                top_k=self._top_k, top_p=self._top_p,
-                quantized=pool.quantized, qmax=pool.qmax)
+            S, keys = pool.num_slots, T * pool.block_size
+            site = self._site(f"fused[q{Q},t{T}]")
+            step = self._steps[(Q, T)] = self._costed(build_fused_step_fn(
+                self._model, S, Q, T, pool.block_size, top_k=self._top_k,
+                top_p=self._top_p, probe=_probe.site(site),
+                quantized=pool.quantized, qmax=pool.qmax),
+                site, Q, Q * keys, S, S * keys, Q)
+        self._note_decode_dispatch(step)
         scales = (pool.scales,) if pool.quantized else ()
         return step(pool.data, *scales, *dev_ops,
                     torch.from_numpy(sample_mask).to(self._device),
@@ -910,8 +1024,10 @@ class GenerationEngine:
     def _draft_prefill_fn(self, bucket: int):
         fn = self._draft_prefill_steps.get(bucket)
         if fn is None:
+            site = self._site(f"spec_prefill[{bucket}]")
             fn = self._draft_prefill_steps[bucket] = build_draft_prefill_fn(
-                self._draft_model, bucket, self._draft_max_len)
+                self._draft_model, bucket, self._draft_max_len,
+                probe=_probe.site(site))
         return fn
 
     def _draft_scan_fn(self, kmax: int):
@@ -920,10 +1036,11 @@ class GenerationEngine:
         ``kmax``."""
         fn = self._draft_scan_steps.get(kmax)
         if fn is None:
+            site = self._site(f"spec_draft[k{kmax}]")
             fn = self._draft_scan_steps[kmax] = build_draft_propose_scan_fn(
                 self._draft_model, self._pool.num_slots,
                 self._draft_max_len, kmax, top_k=self._top_k,
-                top_p=self._top_p)
+                top_p=self._top_p, probe=_probe.site(site))
         return fn
 
     def _spec_step_fn(self, q_rows: int, table_len: int):
@@ -931,11 +1048,14 @@ class GenerationEngine:
         fn = self._spec_steps.get(key)
         if fn is None:
             pool = self._pool
-            fn = self._spec_steps[key] = build_spec_verify_fn(
-                self._model, pool.num_slots, q_rows, self._spec_k,
-                table_len, pool.block_size, top_k=self._top_k,
-                top_p=self._top_p, quantized=pool.quantized,
-                qmax=pool.qmax or 127.0)
+            S, keys = pool.num_slots, table_len * pool.block_size
+            site = self._site(f"spec[q{q_rows},t{table_len}]")
+            fn = self._spec_steps[key] = self._costed(build_spec_verify_fn(
+                self._model, S, q_rows, self._spec_k, table_len,
+                pool.block_size, top_k=self._top_k, top_p=self._top_p,
+                probe=_probe.site(site), quantized=pool.quantized,
+                qmax=pool.qmax or 127.0), site, q_rows, q_rows * keys,
+                S * self._spec_k + S, S * keys, q_rows)
         return fn
 
     def _sync_draft(self, slot: int, req: GenerationRequest) -> None:
@@ -1006,6 +1126,7 @@ class GenerationEngine:
             d_dev = torch.nn.functional.pad(d_dev, (0, K - kmax))
             q_dev = torch.nn.functional.pad(q_dev, (0, 0, 0, K - kmax))
         scales = (pool.scales,) if pool.quantized else ()
-        return self._spec_step_fn(Q, T)(
-            pool.data, *scales, *dev_ops, n_spec_d, d_dev, q_dev, samp_d,
-            temps_d, self._gen)
+        step = self._spec_step_fn(Q, T)
+        self._note_decode_dispatch(step)
+        return step(pool.data, *scales, *dev_ops, n_spec_d, d_dev, q_dev,
+                    samp_d, temps_d, self._gen)

@@ -44,9 +44,11 @@ int8/fp8 pools with their per-(layer, K/V, block, head) scales).
 Nothing on the serving path raises: a full spill queue drops the
 demotion, a busy promoter sheds to a plain miss, a failed copy is
 dropped (``serving/tier_degraded`` counts each). The named errors fire
-only on misuse (an entry larger than the tier, a closed tier). The JAX
-tier's HBM-ledger entries are ROADMAP Queue 1 item 3; this tier's bytes
-are in :meth:`HostBlockPool.stats` and the engine's registry collector.
+only on misuse (an entry larger than the tier, a closed tier). The
+tier's bytes are in the memory ledger (``profiler/memory.py``) under
+``host/<name>/capacity`` and ``.../in_use``, which ``crosscheck()``
+reports apart from the device's, in :meth:`HostBlockPool.stats` and in
+the engine's registry collector.
 
 Threading: ``spill``/``request_promotion``/``has``/``get`` run on the
 scheduler thread; the spiller and promoter threads touch the store under
@@ -59,6 +61,7 @@ import itertools
 import queue
 import threading
 import time
+import weakref
 from collections import OrderedDict, deque
 from typing import Dict, List, Optional, Tuple
 
@@ -68,11 +71,19 @@ import torch
 from .._device import resolve_device
 from ..framework import metrics as _metrics
 from ..framework.monitor import _percentile, stat_add, stat_observe
+from ..profiler import memory as _memory
 
 __all__ = ["HostBlockPool", "PromotionTicket", "HostTierError",
            "HostTierFullError"]
 
 _tier_ids = itertools.count(1)
+
+
+def _drop_tier_ledger(ledger_key: str) -> None:
+    """weakref.finalize target — a module function so the finalizer
+    holds no reference to the tier."""
+    _memory.ledger_drop(f"{ledger_key}/capacity")
+    _memory.ledger_drop(f"{ledger_key}/in_use")
 
 _END = object()                      # queue sentinel
 
@@ -215,6 +226,13 @@ class HostBlockPool:
         self.promo_shed = 0              # promotions shed (promoter busy)
         self._promo_ms: "deque[float]" = deque(maxlen=512)
         self._demo_ms: "deque[float]" = deque(maxlen=512)
+        # host ledger (host/ prefix: crosscheck() keeps these out of the
+        # device's explained bytes)
+        self.ledger_key = f"host/{self.name}"
+        weakref.finalize(self, _drop_tier_ledger, self.ledger_key)
+        _memory.ledger_set(f"{self.ledger_key}/capacity",
+                           self.capacity_bytes)
+        _memory.ledger_set(f"{self.ledger_key}/in_use", 0)
         # the copies alone (CUDA events on the card), with their bytes:
         # the rate the host link gave
         self._h2d: "deque[Tuple[float, int]]" = deque(maxlen=512)
@@ -370,6 +388,7 @@ class HostBlockPool:
             if sdst is not None:
                 sdst.copy_(scale)
             self._file(key, row)
+        self._update_ledger()
 
     def _side_stream(self, stream):
         """``stream``, or a new side stream on the card (None on the
@@ -441,6 +460,7 @@ class HostBlockPool:
                 with self._lock:
                     for i, row in dests:
                         self._file(keys[i], row)
+                self._update_ledger()
                 nbytes = len(dests) * self.entry_nbytes
                 self._d2h.append((copy_ms, nbytes))
                 dt_ms = (time.perf_counter() - t0) * 1e3
@@ -580,6 +600,9 @@ class HostBlockPool:
         return hit
 
     # -- lifecycle ---------------------------------------------------------
+    def _update_ledger(self) -> None:
+        _memory.ledger_set(f"{self.ledger_key}/in_use", self.bytes_in_use)
+
     def drain(self) -> None:
         """Block until every queued demotion and promotion has been
         processed (tests and drives; the serving path never calls it)."""

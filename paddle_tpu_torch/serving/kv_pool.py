@@ -8,17 +8,37 @@ of the prefill steps. :class:`KVCachePool` is the dense layout: one
 ``[heads, max_len, head_dim]`` stripe per slot and per layer/kv plane.
 The pool is owned by the scheduler thread; ``alloc``/``free``/
 ``set_slot`` are only called from it.
+
+Every pool publishes its bytes in the memory ledger
+(``profiler/memory.py``) under ``serving/kv_pool#<n>/capacity`` and
+``.../in_use`` — host dict stores at each slot or block change, never a
+device poll — and stamps ``kv/alloc`` and ``kv/free`` marks on the
+memory timeline.
 """
 from __future__ import annotations
 
+import itertools
+import weakref
 from typing import Dict, List, Optional
 
 import numpy as np
 import torch
 
 from .._device import resolve_device
+from ..profiler import memory as _memory
 
 __all__ = ["SlotPoolBase", "KVCachePool"]
+
+# process-wide pool numbering for the ledger keys (two engines in one
+# process must not alias each other's entries)
+_pool_ids = itertools.count(1)
+
+
+def _drop_pool_ledger(ledger_key: str) -> None:
+    """weakref.finalize target for a pool's ledger entries — a module
+    function so the finalizer holds no reference to the pool."""
+    _memory.ledger_drop(f"{ledger_key}/capacity")
+    _memory.ledger_drop(f"{ledger_key}/in_use")
 
 
 def _storage_dtype(dtype) -> torch.dtype:
@@ -58,6 +78,27 @@ class SlotPoolBase:
         # lowest-index-first keeps slot assignment deterministic
         self._free_slots: List[int] = list(range(self.num_slots))
         self._slots: Dict[int, _Slot] = {}
+        self.ledger_key = f"serving/kv_pool#{next(_pool_ids)}"
+        # a pool dropped without engine.close() must not haunt
+        # crosscheck() or an OOM postmortem with phantom KV bytes
+        weakref.finalize(self, _drop_pool_ledger, self.ledger_key)
+        self._update_ledger()
+
+    # -- memory ledger (profiler/memory.py) ----------------------------------
+    def _update_ledger(self) -> None:
+        """Publish capacity + in-use bytes into the process ledger (the
+        'what we think is live' side of ``crosscheck()``). Host dict
+        stores only — called from alloc/free and the paged block hooks,
+        all on the scheduler thread, none synchronizing."""
+        _memory.ledger_set(f"{self.ledger_key}/capacity",
+                           self.capacity_bytes)
+        _memory.ledger_set(f"{self.ledger_key}/in_use", self.bytes_in_use)
+
+    def drop_ledger(self) -> None:
+        """Remove this pool's ledger entries (engine close): a closed
+        engine's pool is no longer an accounted owner."""
+        _memory.ledger_drop(f"{self.ledger_key}/capacity")
+        _memory.ledger_drop(f"{self.ledger_key}/in_use")
 
     @property
     def capacity_bytes(self) -> int:
@@ -76,6 +117,9 @@ class SlotPoolBase:
         slot = min(self._free_slots)
         self._free_slots.remove(slot)
         self._slots[slot] = self._slot_cls()
+        self._update_ledger()
+        _memory.mark("kv/alloc", pool=self.ledger_key, slot=slot,
+                     in_use=self.bytes_in_use)
         return slot
 
     def free(self, slot: int) -> None:
@@ -88,6 +132,9 @@ class SlotPoolBase:
         st = self._slots.pop(slot)
         self._slot_freed(st)
         self._free_slots.append(slot)
+        self._update_ledger()
+        _memory.mark("kv/free", pool=self.ledger_key, slot=slot,
+                     in_use=self.bytes_in_use)
 
     def _slot_freed(self, st) -> None:
         """Layout hook: called by :meth:`free` with the popped slot

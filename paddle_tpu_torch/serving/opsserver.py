@@ -16,8 +16,9 @@ ephemeral port by default; no other address is accepted):
 ``GET /tracez``         recent and tail-sampled request traces per
                         replica (``FlightRecorder.tail_traces``) and the
                         SLO report
-``GET /timeline``       501: the merged chrome-trace document reads the
-                        profiler's timeline, ROADMAP Queue 1 item 3
+``GET /timeline``       the merged chrome-trace document
+                        (``profiler.timeline.unified_trace_doc``: host
+                        spans, request lanes, the memory timeline)
 ======================  ==================================================
 
 Attach it to a :class:`~.engine.GenerationEngine`, an
@@ -178,10 +179,8 @@ class OpsServer:
             h._send_json(200, self.tracez())
 
         def _timeline(h):
-            h._send_json(501, {
-                "error": "the merged timeline reads profiler.timeline, "
-                         "which is not ported yet: ROADMAP.md Queue 1 "
-                         "item 3", "see": "/"})
+            from ..profiler.timeline import unified_trace_doc
+            h._send_json(200, unified_trace_doc())
 
         def _index(h):
             h._send_json(200, {"endpoints": self.endpoints()})

@@ -221,6 +221,7 @@ class PagedKVPool(SlotPoolBase):
         # pending demotions name blocks of the old contents; copies
         # already in the tier stay valid (a function of their key)
         self._tier_pending.clear()
+        self._update_ledger()
 
     # -- block bookkeeping -------------------------------------------------
     def blocks_for(self, n_tokens: int) -> int:
@@ -295,6 +296,7 @@ class PagedKVPool(SlotPoolBase):
             self._evict_one()            # raises PoolExhaustedError
         b = heapq.heappop(self._free)
         self._ref[b] = 1
+        self._update_ledger()
         if self.quantized:
             # a recycled block keeps its last tenant's scale, and appends
             # only grow scales: a stale coarse scale would crush the new
@@ -310,6 +312,7 @@ class PagedKVPool(SlotPoolBase):
                 f"block {b} is not referenced (double free would corrupt "
                 f"the free list)")
         self._ref[b] = rc - 1
+        self._update_ledger()
         if rc == 1:
             key = self._block_key.get(b)
             if key is not None and key in self._trie:
@@ -481,6 +484,7 @@ class PagedKVPool(SlotPoolBase):
             if parent is not None:
                 parent.children.add(key)
             self._lru[key] = node         # evictable until admitted
+        self._update_ledger()
         ticket.adopted = True
         tier.note_promoted(ticket, len(keep))
         tier.ticket_done(ticket)
@@ -522,6 +526,7 @@ class PagedKVPool(SlotPoolBase):
         st.table = list(blocks)
         self.prefix_hits += 1
         self.tokens_saved += len(blocks) * self.block_size
+        self._update_ledger()
 
     def admit_fresh(self, slot: int, n_tokens: int) -> List[int]:
         """Allocate the page table covering ``[0, n_tokens)``.

@@ -52,8 +52,16 @@ every cycle writes a record into the always-on
 dispatch / fetch breakdown, occupancy, queue depth, emitted tokens, the
 speculative figures), which dumps itself when a cycle fails, and the
 ``serving/*`` counters and distributions of the monitor are fed as in
-the JAX scheduler. The JAX scheduler's profiler spans are not ported
-(ROADMAP Queue 1 item 3).
+the JAX scheduler. Under an armed span session (``profiler.profile()``)
+each cycle lands as a ``serving/cycle`` span with its ``serving/sweep``,
+``serving/admit``, ``serving/prefill``, ``serving/decode_dispatch`` and
+``serving/host_fetch`` children, the JAX scheduler's names and
+categories at the same points; unarmed, each costs one check of a
+module-level bool. Each cycle stamps a host-only ``serving/cycle`` mark
+on the memory timeline (no device poll), a finished request exports its
+lane into an armed session (``RequestTrace.export_spans``), and a cycle
+that dies of ``torch.cuda.OutOfMemoryError`` leaves the memory
+postmortem beside the flight recorder's dump.
 
 Threading contract: ``submit``/``cancel`` may be called from any
 thread; the loop, the pool and the slot state belong to the scheduler
@@ -72,6 +80,8 @@ from typing import Callable, Dict, List, Optional, Tuple
 import numpy as np
 
 from ..framework.monitor import stat_add, stat_observe
+from ..profiler import memory as _memory
+from ..profiler import span as _prof
 from .flight_recorder import FlightRecorder
 from .paging import PoolExhaustedError
 from .tracing import RequestTrace
@@ -186,6 +196,8 @@ class GenerationRequest:
     def stream(self):
         """Iterator of generated token ids, yielded as each is produced.
         Raises the terminal error after any tokens produced before it."""
+        _prof.set_thread_name(
+            f"stream consumer ({threading.current_thread().name})")
         while True:
             item = self._q.get()
             if item is _DONE:
@@ -253,6 +265,7 @@ class GenerationRequest:
                 self.id, name,
                 meta=None if error is None else {"error": repr(error)})
             self._recorder.retire(self.trace)
+        self.trace.export_spans()   # chrome-trace lane; no-op unarmed
         self._done.set()
         self._q.put(error if error is not None else _DONE)
 
@@ -381,6 +394,8 @@ class Scheduler:
         return depth * self._admit_interval_s
 
     def submit(self, req: GenerationRequest) -> GenerationRequest:
+        _prof.set_thread_name(
+            f"submitter ({threading.current_thread().name})")
         with self._cond:
             if self._closing:
                 raise RuntimeError("GenerationEngine is closed")
@@ -425,6 +440,7 @@ class Scheduler:
 
     # -- scheduler thread --------------------------------------------------
     def _loop(self) -> None:
+        _prof.set_thread_name("serving scheduler")
         while True:
             with self._cond:
                 while not self._closing and not self._queue \
@@ -446,29 +462,35 @@ class Scheduler:
             failed = None
             tier = getattr(self._pool, "host_tier", None)
             try:
-                t = time.perf_counter()
-                self._sweep_queue()
-                rec["sweep_ms"] = (time.perf_counter() - t) * 1e3
-                if tier is not None:
-                    # blocks released last cycle spill before this
-                    # cycle's admissions can evict them, and the queue
-                    # front's promotions start while the slots decode
-                    self._pool.tier_tick()
-                    self._prefetch_promotions()
-                t = time.perf_counter()
-                self._admit()
-                rec["admit_ms"] = (time.perf_counter() - t) * 1e3
-                if self._slots:
-                    if self._chunked:
-                        self._chunked_cycle()
-                    else:
-                        self._decode_cycle()
-                elif rec["promo_waits"]:
-                    # nothing decodes and the queue only waits on
-                    # promotions: nap on the tier's progress beacon (a
-                    # host event) instead of spinning. With slots active
-                    # this never runs: decode never waits on a copy.
-                    tier.wait_progress(0.002)
+                with _prof.record("serving/cycle", "serving",
+                                  args={"cycle": self._cycle}):
+                    t = time.perf_counter()
+                    with _prof.record("serving/sweep", "serving"):
+                        self._sweep_queue()
+                    rec["sweep_ms"] = (time.perf_counter() - t) * 1e3
+                    if tier is not None:
+                        # blocks released last cycle spill before this
+                        # cycle's admissions can evict them, and the
+                        # queue front's promotions start while the slots
+                        # decode
+                        self._pool.tier_tick()
+                        self._prefetch_promotions()
+                    t = time.perf_counter()
+                    with _prof.record("serving/admit", "serving"):
+                        self._admit()
+                    rec["admit_ms"] = (time.perf_counter() - t) * 1e3
+                    if self._slots:
+                        if self._chunked:
+                            self._chunked_cycle()
+                        else:
+                            self._decode_cycle()
+                    elif rec["promo_waits"]:
+                        # nothing decodes and the queue only waits on
+                        # promotions: nap on the tier's progress beacon
+                        # (a host event) instead of spinning. With slots
+                        # active this never runs: decode never waits on
+                        # a copy.
+                        tier.wait_progress(0.002)
             except Exception as e:                      # noqa: BLE001
                 # a step failure poisons the requests in flight, never
                 # the loop: each caller gets the error (traceback
@@ -486,10 +508,24 @@ class Scheduler:
                 rec["cycle_ms"] = (time.perf_counter() - t0) * 1e3
                 stat_observe("serving/cycle_ms", rec["cycle_ms"])
                 self.recorder.record_cycle(rec)
+                # a memory watermark per cycle: host-only (the ledger
+                # total, no device poll — polling is the sampler's)
+                _memory.mark("serving/cycle", cycle=self._cycle,
+                             active=rec["active"])
                 self._rec = None
                 if failed is not None:
                     # the postmortem: the rings, this cycle included
                     self.recorder.auto_dump(reason=repr(failed))
+                    if _memory.is_resource_exhausted(failed):
+                        # out of device memory: the memory picture
+                        # (ledger, timeline, largest live tensors) lands
+                        # beside the recorder's dump; the original error
+                        # is already on its way to every failed request
+                        _memory.oom_postmortem(failed, extra={
+                            "phase": "serving.scheduler",
+                            "cycle": self._cycle,
+                            "flight_recorder":
+                                self.recorder.last_dump_path})
 
     def _note_nonfinite(self, toks, rec, idx: Optional[int] = None) -> None:
         """Read the logits-finite sentinel: element ``[num_slots]`` of the
@@ -501,6 +537,15 @@ class Scheduler:
             stat_add("serving/nonfinite_cycles")
             if rec is not None:
                 rec["nonfinite"] = True
+
+    def note_decode_flops(self, flops: float) -> None:
+        """Record the counted FLOPs of the step run THIS cycle into the
+        live cycle record (the engine calls it, on the scheduler
+        thread): ``cycle_throughput`` sums them beside the cycle wall
+        times, so ``stats()``'s achieved FLOP/s keeps one window."""
+        if self._rec is not None:
+            self._rec["decode_flops"] = \
+                self._rec.get("decode_flops", 0.0) + float(flops)
 
     def note_spec_dispatches(self, n: int) -> None:
         """Count the draft-proposal calls made THIS cycle into its record
@@ -774,15 +819,20 @@ class Scheduler:
                     wait_ms=round(wait_ms, 3))
         if self._rec is not None:
             self._rec["admitted"].append(req.id)
+        req.trace.mark("prefill_start", bucket=bucket)
         if self._chunked:
             # blocks and pending_feed are the engine's bookkeeping; the
             # feed itself runs in chunks
-            self._do_admit(req, slot)
+            with _prof.record("serving/prefill", "serving",
+                              args={"bucket": bucket, "slot": slot}):
+                self._do_admit(req, slot)
+            req.trace.mark("prefill_end", bucket=bucket, ran=False)
             self._slots[slot] = req
             return False
-        req.trace.mark("prefill_start", bucket=bucket)
         t0 = time.perf_counter()
-        first = self._do_prefill(req, slot, bucket)
+        with _prof.record("serving/prefill", "serving",
+                          args={"bucket": bucket, "slot": slot}):
+            first = self._do_prefill(req, slot, bucket)
         if self._rec is not None:
             self._rec["prefill_ms"] += (time.perf_counter() - t0) * 1e3
         req.trace.mark("prefill_end", bucket=bucket, ran=first is not None)
@@ -884,13 +934,18 @@ class Scheduler:
             self._rec["active"] = n
             self._rec["occupancy"] = occupancy
 
-    def _dispatch(self, fn, *args):
+    def _dispatch(self, fn, *args, span_args=None):
         """Run a step and fetch its tokens, timing the dispatch and the
-        fetch apart into the cycle record. Returns (tokens, seconds)."""
+        fetch apart into the cycle record (and into the
+        ``serving/decode_dispatch`` and ``serving/host_fetch`` spans).
+        Returns (tokens, seconds)."""
         t0 = time.perf_counter()
-        toks_dev = fn(*args)
+        with _prof.record("serving/decode_dispatch", "serving",
+                          args=span_args):
+            toks_dev = fn(*args)
         t1 = time.perf_counter()
-        toks = _fetch(toks_dev)
+        with _prof.record("serving/host_fetch", "serving"):
+            toks = _fetch(toks_dev)
         t2 = time.perf_counter()
         self.steps += 1
         if self._rec is not None:
@@ -907,7 +962,8 @@ class Scheduler:
         active = dict(self._slots)
         self._note_occupancy(len(active))
         rec = self._rec
-        toks, dt = self._dispatch(self._do_decode, active)
+        toks, dt = self._dispatch(self._do_decode, active,
+                                  span_args={"active": len(active)})
         self._note_nonfinite(toks, rec)
         emitted = 0
         now = time.perf_counter()
@@ -1011,10 +1067,15 @@ class Scheduler:
         active = {s: self._slots[s] for s in plan}
         self._note_occupancy(len(self._slots))
         rec = self._rec
+        span_args = {"active": len(active), "spec_slots": len(spec),
+                     "chunk_rows": sum(n for s, n in plan.items()
+                                       if active[s].pending_feed)}
         if spec:
-            toks, dt = self._dispatch(self._do_spec, active, plan, spec)
+            toks, dt = self._dispatch(self._do_spec, active, plan, spec,
+                                      span_args=span_args)
         else:
-            toks, dt = self._dispatch(self._do_chunked, active, plan)
+            toks, dt = self._dispatch(self._do_chunked, active, plan,
+                                      span_args=span_args)
         S = self._pool.num_slots
         K = self._spec_k
         if spec:

@@ -10,19 +10,27 @@ renders itself as a JSON timeline (:meth:`RequestTrace.snapshot`, the
 unit the flight recorder keeps of a retired request). Stamps are
 ``time.perf_counter()`` readings taken in host code only.
 
-The JAX trace also exports itself as a chrome-trace lane into an armed
-profiler (``export_spans``); the port has no span profiler yet (ROADMAP
-Queue 1 item 3).
+Chrome-trace export: when a ``profiler.span.profile`` session is
+armed, a finished trace exports itself as a REQUEST LANE — a synthetic
+tid per request carrying queued/prefill/decode phase spans — next to
+the scheduler thread's per-cycle spans, so one trace file shows both
+views of the same stall (``export_spans``).
 """
 from __future__ import annotations
 
 import time
 from typing import Any, Dict, List, Optional, Tuple
 
-__all__ = ["RequestTrace", "TERMINAL_EVENTS"]
+from ..profiler import span as _prof
+
+__all__ = ["RequestTrace", "TERMINAL_EVENTS", "REQUEST_LANE_BASE"]
 
 # lifecycle events that end a request (exactly one per trace)
 TERMINAL_EVENTS = ("finish", "cancelled", "deadline", "error")
+
+# synthetic chrome-trace tids for request lanes: far above any real
+# thread ident the viewer would otherwise collide with
+REQUEST_LANE_BASE = 1_000_000_000
 
 
 class RequestTrace:
@@ -126,6 +134,51 @@ class RequestTrace:
                 "preempts": self.count("preempt"),
                 "prefix_hits": self.count("prefix_hit"),
                 "timeline": self.timeline()}
+
+    # -- chrome-trace export -----------------------------------------------
+    def export_spans(self) -> None:
+        """Emit this (finished) request as a chrome-trace lane into the
+        armed profiler span buffer: one whole-lifetime span plus
+        queued/prefill/decode phase children and zero-duration marks for
+        preemptions and prefix hits. No-op (one bool check) when no
+        profile() session is active — the scheduler calls this from the
+        terminal path unconditionally."""
+        if not _prof.is_active():
+            return
+        t0, t1 = self.submitted_at, self.finished_at
+        if t1 is None:
+            t1 = time.perf_counter()
+        tid = REQUEST_LANE_BASE + self.request_id
+        _prof.set_thread_name(f"request {self.request_id}", tid=tid)
+        _prof.add_event(
+            f"request {self.request_id}", "serving/request", t0, t1,
+            tid=tid, depth=0,
+            args={"ttft_ms": self.ttft_ms, "tpot_ms": self.tpot_ms,
+                  "tokens": len(self.token_times),
+                  "preempts": self.count("preempt")})
+        name = f"request {self.request_id}"
+        t_adm = self.t("admitted")
+        if t_adm is not None:
+            _prof.add_event("queued", "serving/request", t0, t_adm,
+                            tid=tid, depth=1, parent=name)
+        pending_ps = None   # pair prefill_start/_end sequentially: a
+        for n, ts, meta in self.events:   # preempted request has several
+            if n == "prefill_start":
+                pending_ps = ts
+            elif n == "prefill_end":
+                if pending_ps is not None:
+                    _prof.add_event("prefill", "serving/request",
+                                    pending_ps, ts, tid=tid, depth=1,
+                                    parent=name, args=meta)
+                    pending_ps = None
+            elif n in ("preempt", "prefix_hit", "replay_done"):
+                _prof.add_event(n, "serving/request", ts, ts, tid=tid,
+                                depth=1, parent=name, args=meta)
+        if self.token_times:
+            _prof.add_event("decode", "serving/request",
+                            self.token_times[0], t1, tid=tid, depth=1,
+                            parent=name,
+                            args={"tokens": len(self.token_times)})
 
     def __repr__(self):
         return (f"<RequestTrace #{self.request_id} events="

@@ -1159,3 +1159,137 @@ def test_tier_tick_and_adopt_promotion_never_synchronise(cuda):
         assert isinstance(landed, bool)
     finally:
         tier.close()
+
+
+def _numerics_model(cuda):
+    """``Model`` over the 2-layer head-width-64 GPT in bf16 O2 with the
+    numerics audit armed, as ``fit(numerics=...)`` arms it, and a batch
+    on the card."""
+    from paddle_tpu_torch.hapi import Model
+    from paddle_tpu_torch.optimizer import AdamW
+    from paddle_tpu_torch.profiler import numerics
+    net = _spec_gpt(cuda, torch.float32).train()
+    m = Model(net, inputs=["ids", "labels"])
+    m.prepare(AdamW(1e-3, parameters=net.parameters(),
+                    multi_precision=True),
+              loss=lambda loss, logits: loss,
+              amp_configs={"level": "O2", "dtype": "bfloat16"})
+    m._numerics_mode = "warn"
+    m._numerics_recorder = numerics.NumericsRecorder()
+    m._audit_layout = numerics.AuditLayout.build(list(m._audit_params()))
+    m._audit_collect = True
+    g = torch.Generator(device=cuda).manual_seed(3)
+    ids = torch.randint(0, 256, (2, 128), device=cuda, generator=g)
+    return m, [ids, ids.clone()]
+
+
+def test_memory_marks_unarmed_spans_and_the_audit_never_synchronise(cuda):
+    """Between the log windows nothing of the observability layer reads
+    the card back: ``memory.mark``, the scheduler's spans with no session
+    armed and two audited train steps run under
+    ``torch.cuda.set_sync_debug_mode("error")``; the window after them
+    fetches the loss and both audits in one copy."""
+    from paddle_tpu_torch.profiler import memory
+    from paddle_tpu_torch.profiler import span
+    m, batch = _numerics_model(cuda)
+    m._train_step(batch[:2], [])             # builds the kernels
+    loss = m._flush(m._train_step(batch[:2], [])[0], [])["loss"]
+    torch.cuda.synchronize()
+    assert not span.is_active()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        memory.mark("serving/cycle", cycle=1, active=2)
+        with span.record("serving/cycle", "serving", args={"cycle": 1}):
+            with span.record("serving/decode_dispatch", "serving"):
+                last, _ = m._train_step(batch[:2], [])
+        last, _ = m._train_step(batch[:2], [])
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    assert len(m._audit_window) == 2
+    logs = m._flush(last, [])
+    snap = m._numerics_recorder.snapshot()
+    assert [r["step"] for r in snap["records"]] == [1, 2, 3, 4]
+    assert all(r["finite"] for r in snap["records"])
+    assert logs["loss"] == snap["records"][-1]["loss"] and np.isfinite(loss)
+
+
+def test_fleet_launch_and_span_counts_stay_exact_across_threads(cuda):
+    """Two fused engines over one bf16 model on two scheduler threads,
+    under an armed session: each kernel's count is exactly the steps of
+    both, and each engine's ``serving/cycle`` spans its recorder's
+    cycles."""
+    from paddle_tpu_torch import profiler
+    from paddle_tpu_torch.serving import EngineFleet, GenerationEngine
+    net = _spec_gpt(cuda, torch.bfloat16)
+    engines = [GenerationEngine(net, kv_layout="paged", attention="fused",
+                                num_slots=4, block_size=16, device=cuda)
+               for _ in range(2)]
+    fleet = EngineFleet(engines)
+    fleet.submit(np.arange(1, 9), max_new_tokens=2).result(timeout=120)
+    for e in engines:
+        while e._sched._rec is not None or e._sched.active:
+            pass
+    rng = np.random.RandomState(0)
+    steps0 = sum(e.stats()["steps"] for e in engines)
+    cycles0 = [e.flight_recorder.cycles_recorded for e in engines]
+    for attr in ("launches", "quant_launches", "tc_launches",
+                 "core_launches", "combine_launches"):
+        setattr(rpa.ragged_paged_attention, attr, 0)
+    ln.fused_layer_norm.launches = 0
+    with profiler.profile():
+        hs = [fleet.submit(rng.randint(1, 256, int(rng.randint(8, 80))),
+                           max_new_tokens=6) for _ in range(12)]
+        for h in hs:
+            h.result(timeout=300)
+        for e in engines:
+            while e._sched._rec is not None or e._sched.active:
+                pass
+    steps = sum(e.stats()["steps"] for e in engines) - steps0
+    fleet.close()
+    assert rpa.ragged_paged_attention.launches == 2 * steps
+    assert ln.fused_layer_norm.launches == 5 * steps
+    by_tid = {}
+    for ev in profiler.events():
+        if ev["name"] == "serving/cycle":
+            by_tid[ev["tid"]] = by_tid.get(ev["tid"], 0) + 1
+    want = sorted(e.flight_recorder.cycles_recorded - c0
+                  for e, c0 in zip(engines, cycles0))
+    assert sorted(by_tid.values()) == want
+
+
+def test_fit_oom_postmortem_reraises_the_original_error(cuda, tmp_path):
+    """A batch whose logits cannot fit on the card: ``fit`` raises the
+    allocator's own ``torch.cuda.OutOfMemoryError`` after the memory
+    postmortem, which holds the ledger and the largest live tensors."""
+    import gc
+    import json
+    from paddle_tpu_torch import io, seed
+    from paddle_tpu_torch.hapi import Model
+    from paddle_tpu_torch.models import GPTConfig, GPTForPretraining
+    from paddle_tpu_torch.optimizer import AdamW
+    from paddle_tpu_torch.profiler import memory
+    seed(0)
+    net = GPTForPretraining(GPTConfig(
+        vocab_size=50304, hidden_size=64, num_hidden_layers=1,
+        num_attention_heads=1, intermediate_size=128,
+        max_position_embeddings=1024))
+    m = Model(net, inputs=["ids", "labels"])
+    m.prepare(AdamW(1e-3, parameters=net.parameters()),
+              loss=lambda loss, logits: loss)
+    ids = torch.zeros(2048, 1024, dtype=torch.int64, device=cuda)
+    dumps = memory.tracker().dumps
+    try:
+        with pytest.raises(torch.cuda.OutOfMemoryError):
+            m.fit(io.TensorDataset([ids, ids]), batch_size=2048, verbose=0)
+        assert memory.tracker().dumps == dumps + 1
+        with open(memory.tracker().last_dump_path) as f:
+            doc = json.load(f)
+        assert doc["phase"] == "Model.fit"
+        assert "OutOfMemoryError" in doc["reason"]
+        assert any(k.endswith("/params") for k in doc["ledger"])
+        assert doc["largest_live_arrays"][0]["nbytes"] > 0
+        assert doc["crosscheck"]["device_bytes_in_use"] > 0
+    finally:
+        del m, net, ids
+        gc.collect()
+        torch.cuda.empty_cache()

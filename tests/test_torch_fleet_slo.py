@@ -11,12 +11,12 @@ package's, on the CPU.
   (summed counters, pooled percentiles, the tier split, tenants);
 * the SLO plane: ``attainment_from_buckets`` and ``burn_rates``/
   ``report`` give the same numbers on the same traces and buckets;
-* the ops server: each route's status code (``/timeline`` answers 501
-  naming Queue 1 item 3), a poisoned replica flips ``/healthz`` but not
-  ``/readyz``, binding anywhere but 127.0.0.1 raises; a real two-replica
-  fleet of tiny port engines with an SLO tracker behind a front door
-  puts its ``serving fleets`` statusz section, its series and the SLO
-  report on the wire.
+* the ops server: each route's status code (``/timeline`` answers 200
+  with the unified chrome-trace document), a poisoned replica flips
+  ``/healthz`` but not ``/readyz``, binding anywhere but 127.0.0.1
+  raises; a real two-replica fleet of tiny port engines with an SLO
+  tracker behind a front door puts its ``serving fleets`` statusz
+  section, its series and the SLO report on the wire.
 
 Exact; burn rates and attainment to 1e-12 (the same float arithmetic).
 """
@@ -259,9 +259,10 @@ def test_ops_server_routes_and_codes():
             "/healthz", "/timeline", "/nope")}
         assert codes == {"/metrics": 200, "/varz": 200, "/statusz": 200,
                          "/readyz": 200, "/tracez": 200, "/": 200,
-                         "/healthz": 503, "/timeline": 501, "/nope": 404}
+                         "/healthz": 503, "/timeline": 200, "/nope": 404}
         doc = json.loads(_get(srv.url + "/timeline")[1])
-        assert "Queue 1 item 3" in doc["error"]
+        assert doc["displayTimeUnit"] == "ms"
+        assert doc["traceEvents"][0]["name"] == "process_name"
         health = json.loads(_get(srv.url + "/healthz")[1])
         assert health["unhealthy"] == [1]
         index = json.loads(_get(srv.url + "/")[1])

@@ -486,10 +486,7 @@ def test_what_is_not_ported_raises_naming_its_item(tmp_path):
         m.save(str(tmp_path / "x"), training=False)
     with pytest.raises(NotImplementedError, match="Queue 1 item 5"):
         m.summary()
-    from paddle_tpu_torch.hapi.callbacks import ProfilerCallback
-    with pytest.raises(NotImplementedError, match="Queue 1 item 3"):
-        ProfilerCallback(start_step=1)
-    for kw, item in (({"numerics": "record"}, 3), ({"zero": 1}, 4),
+    for kw, item in (({"zero": 1}, 4),
                      ({"grad_comm": "int8"}, 4), ({"prefetch": True}, 5),
                      ({"analyze": "warn"}, 5)):
         with pytest.raises(NotImplementedError, match=f"item {item}"):

@@ -17,7 +17,6 @@ The exemptions, each a reference parameter the port leaves out:
 
 * the kernel wrappers' ``block_q``: the ragged attention kernel's row
   block is fixed at 8 on the card (``ops/ragged_paged_attention.py``);
-* the step builders' ``probe=``: trace probes are ROADMAP Queue 1 item 3;
 * ``register_op``'s (and its ``OpDef``'s) ``nondiff``/``jit``: the port's
   ops run eagerly under torch autograd, with no jit and no
   non-differentiable marking to choose.
@@ -41,16 +40,10 @@ import paddle_tpu_torch as pt
 
 P = inspect.Parameter
 _POSITIONAL = (P.POSITIONAL_ONLY, P.POSITIONAL_OR_KEYWORD)
-_BUILDERS = ("build_fused_step_fn", "build_slot_prefill_fn",
-             "build_slot_decode_fn", "build_paged_prefill_fn",
-             "build_paged_decode_fn")
-
 #: (the port object's module.qualname, reference parameters it leaves out)
 EXEMPT = {
     "paddle_tpu_torch.ops.ragged_paged_attention.ragged_paged_attention":
         {"block_q"},
-    **{f"paddle_tpu_torch.models.generation.{b}": {"probe"}
-       for b in _BUILDERS},
     "paddle_tpu_torch.ops.registry.register_op": {"nondiff", "jit"},
     "paddle_tpu_torch.ops.registry.OpDef": {"nondiff", "jit"},
 }
@@ -221,8 +214,6 @@ def _gpt():
 def _not_ported_calls():
     from paddle_tpu_torch import amp, nn
     from paddle_tpu_torch.hapi import Model
-    from paddle_tpu_torch.hapi.callbacks import ProfilerCallback
-    from paddle_tpu_torch.models.generation import build_paged_decode_fn
     from paddle_tpu_torch.optimizer import SGD
     from paddle_tpu_torch.serving import GenerationEngine, PagedKVPool
 
@@ -243,8 +234,6 @@ def _not_ported_calls():
     return {
         "pool mesh": lambda: PagedKVPool(1, 1, 1, 16, 8, block_size=8,
                                          mesh=object(), device="cpu"),
-        "paged decode debug_logits": lambda: build_paged_decode_fn(
-            _gpt(), 2, 2, 8, debug_logits=True),
         "train_batch update": lambda: model().train_batch(
             [torch.ones(3, 4)], [torch.ones(3, 2)], update=False),
         "evaluate prefetch": lambda: model().evaluate(
@@ -256,7 +245,6 @@ def _not_ported_calls():
         "minimize parameters": lambda: minimize(parameters=[]),
         "DataLoader return_list": lambda: pt.io.DataLoader(
             [1, 2], return_list=False),
-        "ProfilerCallback": lambda: ProfilerCallback(start_step=0),
         "MultiHeadAttention need_weights": lambda: nn.MultiHeadAttention(
             8, 2, need_weights=True),
         "Linear initializer": lambda: nn.Linear(
@@ -282,9 +270,13 @@ def test_parameters_without_behaviour_raise_not_implemented(what):
 
 def _ported_checks():
     """The parameters that raised ``NotImplementedError`` until their
-    slice was ported (ROADMAP Queue 1 item 2, the serving periphery),
-    each with a check of what it does now."""
+    slice was ported (ROADMAP Queue 1 item 2, the serving periphery, and
+    item 3, observability), each with a check of what it does now."""
+    from paddle_tpu.hapi.callbacks import ProfilerCallback as JaxCallback
     from paddle_tpu.serving.scheduler import Scheduler as JaxScheduler
+    from paddle_tpu_torch.framework import trace_probe
+    from paddle_tpu_torch.hapi.callbacks import ProfilerCallback
+    from paddle_tpu_torch.models import generation as gen
     from paddle_tpu_torch.serving import GenerationEngine, HostBlockPool
     from paddle_tpu_torch.serving.kv_pool import KVCachePool
     from paddle_tpu_torch.serving.scheduler import Scheduler
@@ -328,7 +320,72 @@ def _ported_checks():
             sched.close()
             ref.close()
 
+    def profiler_callback():
+        kw = dict(start_step=0, stop_step=3, chrome_trace_path="t.json",
+                  prometheus_path="p.txt", summary=False, verbose=0)
+        got, want = ProfilerCallback(**kw), JaxCallback(**kw)
+        for k in kw:
+            assert getattr(got, k) == getattr(want, k), k
+        for cls in (ProfilerCallback, JaxCallback):
+            with pytest.raises(ValueError, match="stop_step > start_step"):
+                cls(start_step=2, stop_step=2)
+
+    def debug_logits():
+        model = _gpt().eval()
+        S, T, bs = 2, 2, 8
+        cfg = model.gpt.cfg
+        H = cfg.num_attention_heads
+        pool = torch.zeros(cfg.num_hidden_layers, 2, 5, H, bs,
+                           cfg.hidden_size // H)
+        args = (torch.tensor([3, 4], dtype=torch.int32),
+                torch.tensor([0, 2], dtype=torch.int32),
+                torch.zeros(2, dtype=torch.int32),
+                torch.tensor([[1, 0], [2, 0]], dtype=torch.int32),
+                torch.zeros(2, dtype=torch.bool), torch.ones(2),
+                torch.Generator().manual_seed(0))
+        nxt, logits = gen.build_paged_decode_fn(
+            model, S, T, bs, debug_logits=True)(pool.clone(), *args)
+        plain = gen.build_paged_decode_fn(model, S, T, bs)(pool.clone(),
+                                                           *args)
+        assert logits.shape == (S, cfg.vocab_size)
+        assert logits.dtype == torch.float32
+        assert torch.equal(nxt, plain)
+        assert torch.equal(nxt[:S].long(), logits.argmax(-1))
+
+    def probes():
+        model = _gpt()
+        builds = {
+            "slot_prefill": lambda p: gen.build_slot_prefill_fn(
+                model, 8, 16, probe=p),
+            "slot_decode": lambda p: gen.build_slot_decode_fn(
+                model, 2, 16, probe=p),
+            "paged_prefill": lambda p: gen.build_paged_prefill_fn(
+                model, 16, 8, probe=p),
+            "paged_decode": lambda p: gen.build_paged_decode_fn(
+                model, 2, 2, 8, probe=p),
+            "fused": lambda p: gen.build_fused_step_fn(
+                model, 2, 8, 2, 16, probe=p),
+            "spec": lambda p: gen.build_spec_verify_fn(
+                model, 2, 8, 2, 2, 16, probe=p),
+            "draft_prefill": lambda p: gen.build_draft_prefill_fn(
+                model, 8, 16, probe=p),
+            "draft_propose": lambda p: gen.build_draft_propose_fn(
+                model, 2, 16, probe=p),
+            "draft_scan": lambda p: gen.build_draft_propose_scan_fn(
+                model, 2, 16, 2, probe=p)}
+        for name, build in builds.items():
+            site = trace_probe.site(f"test/probe/{name}")
+            build(site)
+            assert site.traces == 1 and site.causes == {}, name
+            build(site)                  # the same bucket built again
+            assert site.causes == {"rebuild": 1}, name
+            build(None)                  # no probe: nothing recorded
+            assert site.traces == 2, name
+
     return {
+        "ProfilerCallback": profiler_callback,
+        "paged decode debug_logits": debug_logits,
+        "builder probe": probes,
         "engine lane_weights": lane_weights,
         "submit tenant": lambda: submit("tenant", "t1"),
         "submit lane": lambda: submit("lane", "batch"),

@@ -178,8 +178,11 @@ def test_spec_verify_matches_jax(models):
         tgen.build_spec_verify_fn(tmodel, S, 12, K, T, BS)
     with pytest.raises(ValueError, match="spec_k"):
         tgen.build_spec_verify_fn(tmodel, S, Q, 0, T, BS)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 3"):
-        tgen.build_spec_verify_fn(tmodel, S, Q, K, T, BS, probe=object())
+    from paddle_tpu_torch.framework import trace_probe
+    site = trace_probe.site("test/spec_verify_probe")
+    tgen.build_spec_verify_fn(tmodel, S, Q, K, T, BS, probe=site)
+    assert site.traces == 1 and site.last_static == {"q": Q, "table": T,
+                                                     "k": K}
 
 
 def test_spec_verify_int8_pool_matches_jax(models):
