@@ -180,7 +180,24 @@ prints no result line):
    ``hapi/mfu``; (iii) a fit at a batch of 512 x 1024 raises the
    allocator's ``torch.cuda.OutOfMemoryError`` after a memory postmortem
    holding the ledger and the largest live tensors;
-6. real operands: the layer-0 operands of one real step of each path
+6. the op library and Transformer (base) (``phase_transformer``): every
+   op of the library (``ops/op_cases.py``) on CUDA tensors against the
+   same op on the CPU within ``SWEEP_TOL`` (integers exactly,
+   decompositions by their identities, samplers in distribution), each
+   result on the card, the ops that read the card back listed (a second
+   call under ``set_sync_debug_mode("error")``); a 2 + 2-layer
+   ``nn.Transformer`` at base width in float32 on the card against a CPU
+   copy (``TF_PARITY_TOL``); then Transformer (base), Vaswani et al. 2017
+   Table 3 (6 + 6 layers, d_model 512, 8 heads, ffn 2048, WMT14 en-de's
+   37000-token vocabulary, ``attn_dropout=0.0`` so the flash kernels are
+   allowed), built from ``nn`` alone, trained through ``Model.fit`` at
+   bf16 O1 with AdamW for 8 steps on one batch of 16 x (256 + 256)
+   tokens: the loss finite and falling, each step's K2/K3/K4/K6/K8
+   launches equal to the network's structure (the decoder's masked
+   self-attentions counted apart: the op's plain body), every flash
+   launch tensor-core and every LayerNorm launch warp-row, no plain
+   version; the five ``_transformer`` rows of the kernels line;
+7. real operands: the layer-0 operands of one real step of each path
    through kernel and plain: the engine's attention rows (float, int8
    and fp8 pools) at its widest step and at its last decode-only step
    with the most sequences, each with a "work shape" line (q blocks,
@@ -192,7 +209,7 @@ prints no result line):
    embedding's AdamW operands, each output held to its own scale (max
    |error| over max |plain|), since the gradients of a loss averaged
    over 8192 tokens lie below any fixed atol;
-7. a ``{"kernels": [...]}`` line, the card's name and power limit, and
+8. a ``{"kernels": [...]}`` line, the card's name and power limit, and
    last the ``{"ok": true, "device": ...}`` line. The training kernels'
    errors and times in it come from phase 2 at the train path's shapes
    and dtypes (flash bf16 [8, 1024, 12, 64] causal, the LayerNorm
@@ -4598,6 +4615,384 @@ def phase_oom(device):
     torch.cuda.empty_cache()
 
 
+# ---------------------------------------------------------------------------
+# phase 6: the op library and nn.Transformer (base) through Model.fit
+# ---------------------------------------------------------------------------
+
+#: Transformer (base), Vaswani et al. 2017 Table 3, and WMT14 en-de's
+#: shared BPE vocabulary: depth and width not cut
+TF_VOCAB, TF_D, TF_HEADS, TF_FF, TF_LAYERS = 37000, 512, 8, 2048, 6
+TF_BATCH, TF_SRC, TF_TGT, TF_STEPS, TF_LR = 16, 256, 256, 8, 1e-4
+#: the card-vs-CPU parity run: the same width at 2 + 2 layers, float32
+TF_PARITY_LAYERS, TF_PARITY_BATCH, TF_PARITY_SEQ = 2, 2, 64
+#: logits and gradients, card against CPU, relative to each tensor's
+#: largest value: float32 on both, the card's attention on the CUDA-core
+#: flash kernels (unmasked) or the op's plain body (masked), the CPU's on
+#: the plain versions, sums over up to 128 rows in another order
+TF_PARITY_TOL = 1e-4
+#: the op sweep, card against CPU: float32 results (decompositions by
+#: their identities), integers and booleans exactly
+SWEEP_TOL = 1e-4
+
+
+def transformer_net(layers, device, seed):
+    """Transformer (base) as its users build it from the public ``nn``
+    API: a shared ``Embedding(37000, 512)`` scaled by sqrt(512) plus
+    sinusoidal positions made from the op library, ``nn.Transformer(512,
+    8, layers, layers, 2048, dropout=0.1, attn_dropout=0.0)`` with
+    ``XavierUniform`` weights, an output ``Linear(512, 37000)``; the
+    decoder's self-attention takes the causal mask of
+    ``generate_square_subsequent_mask``. Random weights from ``seed``."""
+    import paddle_tpu_torch as pt
+    from paddle_tpu_torch import nn
+
+    def positions(length, dev):
+        pos = pt.unsqueeze(pt.arange(0, length, dtype="float32",
+                                     device=dev), 1)
+        i = pt.arange(0, TF_D, 2, dtype="float32", device=dev)
+        angle = pos * pt.exp(i * (-math.log(10000.0) / TF_D))
+        return pt.reshape(pt.stack([pt.sin(angle), pt.cos(angle)], axis=-1),
+                          [length, TF_D])
+
+    class Seq2Seq(nn.Layer):
+        def __init__(self):
+            super().__init__()
+            self.embed = nn.Embedding(TF_VOCAB, TF_D, weight_attr=nn.ParamAttr(
+                initializer=nn.initializer.Normal(0.0, TF_D ** -0.5)))
+            self.transformer = nn.Transformer(
+                TF_D, TF_HEADS, layers, layers, TF_FF, dropout=0.1,
+                attn_dropout=0.0,
+                weight_attr=nn.initializer.XavierUniform())
+            self.proj = nn.Linear(TF_D, TF_VOCAB)
+
+        def forward(self, src, tgt):
+            scale = math.sqrt(TF_D)
+            x = self.embed(src) * scale + positions(src.shape[1], src.device)
+            y = self.embed(tgt) * scale + positions(tgt.shape[1], tgt.device)
+            mask = nn.Transformer.generate_square_subsequent_mask(
+                tgt.shape[1], device=tgt.device)
+            return self.proj(self.transformer(x, y, tgt_mask=mask))
+
+    pt.seed(seed)
+    return Seq2Seq().to(device)
+
+
+def tf_want(net):
+    """One train step's launches, from the network's structure: K4 and K6
+    once a unmasked attention (each encoder self-attention and each
+    cross-attention), K2 and K3 once a LayerNorm (post-norm: two an
+    encoder layer, three a decoder layer), K8 once a parameter tensor;
+    the masked decoder self-attentions run the op's plain body."""
+    n_enc = len(net.transformer.encoder.layers)
+    n_dec = len(net.transformer.decoder.layers)
+    n_ln = sum(1 for m in net.modules()
+               if type(m).__name__ == "LayerNorm")
+    return {"flash_attention_fwd": n_enc + n_dec,
+            "flash_attention_bwd": n_enc + n_dec,
+            "fused_layer_norm": n_ln, "fused_layer_norm_bwd": n_ln,
+            "fused_adamw": len(list(net.parameters()))}, n_dec
+
+
+def tf_batch(seed, rows, seq):
+    rs = np.random.RandomState(seed)
+    return tuple(rs.randint(0, TF_VOCAB, (rows, seq)).astype(np.int64)
+                 for _ in range(3))
+
+
+def phase_op_sweep(device):
+    """Every op of the library on CUDA tensors at its case's small shape
+    (``ops/op_cases.py``) against the same op on the CPU: float32 within
+    ``SWEEP_TOL``, integers and booleans exactly, decompositions by their
+    identities, samplers in distribution; every tensor it returns lies on
+    the card. An op that raises fails the phase. Each op runs once more
+    under ``set_sync_debug_mode("error")`` to list the ops that read the
+    card back (those whose output size depends on the data, or that take
+    a Python number from it)."""
+    from paddle_tpu_torch.framework.dispatch import call_op
+    from paddle_tpu_torch.ops import op_cases
+
+    def conv(a, dev):
+        if isinstance(a, str) and a == op_cases.KEY:
+            return torch.Generator(device=dev).manual_seed(SEED)
+        if isinstance(a, (np.ndarray, np.generic)):
+            return torch.as_tensor(np.array(a), device=dev)
+        if isinstance(a, list) and a and all(isinstance(v, np.ndarray)
+                                             for v in a):
+            return [torch.as_tensor(v, device=dev) for v in a]
+        return a
+
+    def operands(case, dev):
+        attrs = {k: conv(v, dev) for k, v in case.attrs.items()}
+        if case.creation:
+            attrs["device"] = dev
+        return [conv(a, dev) for a in case.args], attrs
+
+    def run(case, dev):
+        args, attrs = operands(case, dev)
+        return call_op(case.name, *args, **attrs)
+
+    def on_card(out):
+        outs = out if isinstance(out, (list, tuple)) else [out]
+        return all(o.is_cuda for o in outs if isinstance(o, torch.Tensor))
+
+    cases = op_cases.cases(SEED)
+    syncing, t0 = [], time.perf_counter()
+    for key, case in sorted(cases.items()):
+        got = run(case, device)
+        if not on_card(got):
+            raise AssertionError(f"op sweep {key}: a result left the card")
+        want = None if case.check == "random" else run(case, "cpu")
+        try:
+            op_cases.check(case, op_cases.to_numpy_tree(got),
+                           None if want is None
+                           else op_cases.to_numpy_tree(want),
+                           SWEEP_TOL, SWEEP_TOL)
+        except AssertionError as e:
+            raise AssertionError(f"op sweep {key}: card vs CPU: {e}") \
+                from None
+        args, attrs = operands(case, device)
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            call_op(case.name, *args, **attrs)
+        except RuntimeError as e:
+            if "synchroniz" not in str(e):
+                raise
+            syncing.append(key)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    names = {c.name for c in cases.values()}
+    log(f"phase 6 op sweep: {len(cases)} cases over {len(names)} ops on the "
+        f"card against the CPU, all within {SWEEP_TOL} (integers exact), "
+        f"{time.perf_counter() - t0:.1f} s; {len(syncing)} read the card "
+        f"back: {' '.join(syncing)}")
+    return len(names)
+
+
+def tf_parity(device):
+    """The same ``nn.Transformer`` at base width and 2 + 2 layers, in
+    float32 with its dropout at 0, on the card (kernels) and on a CPU copy
+    with the same weights (plain versions). As built (ReLU in the
+    feed-forward layers): the logits within ``TF_PARITY_TOL`` of their
+    largest value and the loss within rtol 1e-5. Then the same network
+    with GELU there: the logits and every parameter's gradient within
+    ``TF_PARITY_TOL`` of each tensor's largest value, but the attention
+    key biases', whose true gradient is zero (a constant per softmax row):
+    both sides there lie below 1e-7. ReLU's kink turns float32 rounding
+    differences of the pre-activations (BLAS reductions in another order)
+    into gradient differences of up to 2e-2 in the encoder's first layer
+    with every kernel switched off (PR 15 diagnosis run, PERF.md), so the
+    ReLU network's gradients say nothing of the kernels; the smooth one's
+    agree to ~3e-6."""
+    from paddle_tpu_torch import nn
+    from paddle_tpu_torch.convert import layer_from_jax, layer_to_numpy
+    cpu = torch.device("cpu")
+    src, tgt, lab = tf_batch(SEED + 63, TF_PARITY_BATCH, TF_PARITY_SEQ)
+    report = []
+    for act in ("relu", "gelu"):
+        card = transformer_net(TF_PARITY_LAYERS, device, SEED + 61)
+        host = transformer_net(TF_PARITY_LAYERS, cpu, SEED + 62)
+        layer_from_jax(host, layer_to_numpy(card))
+        for net in (card, host):
+            for m in net.modules():
+                if isinstance(m, nn.Dropout):
+                    m.p = 0.0
+                if hasattr(m, "activation"):
+                    m.activation = act
+        outs = {}
+        for key, net, dev in (("card", card, device), ("host", host, cpu)):
+            logits = net(torch.from_numpy(src).to(dev),
+                         torch.from_numpy(tgt).to(dev))
+            loss = nn.CrossEntropyLoss()(logits,
+                                         torch.from_numpy(lab).to(dev))
+            loss.backward()
+            outs[key] = (logits.detach().cpu(), loss.item(),
+                         {n: p.grad.detach().cpu()
+                          for n, p in net.named_parameters()})
+        checked = [("logits", outs["card"][0], outs["host"][0])]
+        if act == "gelu":
+            checked += [(n, g, outs["host"][2][n])
+                        for n, g in outs["card"][2].items()]
+        worst, bad = {}, []
+        for name, got, want in checked:
+            if name.endswith("k_proj.bias"):
+                top = max(got.abs().max().item(), want.abs().max().item())
+                if top > 1e-7:
+                    bad.append(f"{name} |grad| {top:.3e}")
+                continue
+            top = want.abs().max().item()
+            err = (got - want).abs().max().item() / max(top, 1e-30)
+            worst[name] = err
+            if not (torch.isfinite(got).all() and err <= TF_PARITY_TOL):
+                bad.append(f"{name} {err:.3e} of {top:.3e}")
+        if abs(outs["card"][1] - outs["host"][1]) > 1e-5 * abs(
+                outs["host"][1]):
+            bad.append(f"loss {outs['card'][1]} vs {outs['host'][1]}")
+        if bad:
+            raise AssertionError(f"phase 6 parity ({act}): card vs CPU "
+                                 f"beyond {TF_PARITY_TOL}: {bad}")
+        name = max(worst, key=worst.get)
+        report.append(f"{act}: loss card {outs['card'][1]:.6f} CPU "
+                      f"{outs['host'][1]:.6f}, {len(worst)} tensors, worst "
+                      f"{name} {worst[name]:.3e}")
+        del card, host
+    log(f"phase 6 parity: Transformer (base width) at {TF_PARITY_LAYERS} + "
+        f"{TF_PARITY_LAYERS} layers, float32, batch {TF_PARITY_BATCH} x "
+        f"{TF_PARITY_SEQ}, card vs CPU within {TF_PARITY_TOL}: "
+        + "; ".join(report))
+
+
+def phase_transformer(device, card, timer):
+    """6: the op library on the card, then Transformer (base) trained
+    through ``Model.fit`` (AdamW lr 1e-4 on float32 parameters, bf16 AMP
+    O1, 8 steps on one batch of 16 x 256 source and 256 target tokens)
+    with each step's launches held to the network's structure; then the
+    path's kernels against their plain versions at its shapes. Returns
+    the fit's launches and the kernels line's rows."""
+    import paddle_tpu_torch as pt
+    import paddle_tpu_torch.optimizer.optimizer as opt_module
+    from paddle_tpu_torch import nn
+    from paddle_tpu_torch.callbacks import Callback
+    from paddle_tpu_torch.framework import monitor
+    from paddle_tpu_torch.hapi import Model
+    from paddle_tpu_torch.optimizer import AdamW
+    n_ops = phase_op_sweep(device)
+    tf_parity(device)
+    gc.collect()
+    net = transformer_net(TF_LAYERS, device, SEED + 60)
+    want, n_masked = tf_want(net)
+    counters = train_counters()
+
+    class Steps(Callback):
+        def __init__(self):
+            super().__init__()
+            self.loss, self.spans, self.launches = [], [], []
+
+        def _read(self):
+            return {**{n: fn.launches for n, fn in counters.items()},
+                    "sdpa": monitor.stat_get(
+                        "op_count/scaled_dot_product_attention")}
+
+        def on_train_batch_begin(self, step, logs=None):
+            self._t0, self._at = time.perf_counter(), self._read()
+
+        def on_train_batch_end(self, step, logs=None):
+            self.spans.append(time.perf_counter() - self._t0)
+            self.loss.append(logs["loss"])
+            now = self._read()
+            self.launches.append({k: now[k] - self._at[k] for k in now})
+
+    model = Model(net, inputs=["src", "tgt"], labels=["label"],
+                  device=device)
+    model.prepare(AdamW(TF_LR, parameters=net.parameters()),
+                  loss=nn.CrossEntropyLoss(),
+                  amp_configs={"level": "O1", "dtype": "bfloat16"})
+    src, tgt, lab = tf_batch(SEED + 64, TF_BATCH, TF_SRC)
+    data = pt.io.TensorDataset([np.tile(a, (TF_STEPS, 1))
+                                for a in (src, tgt, lab)])
+    rec = Steps()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts(counters)
+    with count_plain() as plain, adamw_dtypes(opt_module) as kinds:
+        t0 = time.perf_counter()
+        model.fit(data, batch_size=TF_BATCH, shuffle=False, log_freq=1,
+                  verbose=0, callbacks=[rec])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    launches = {name: fn.launches for name, fn in counters.items()}
+    peak = torch.cuda.max_memory_allocated()
+    step_want = dict(want, sdpa=want["flash_attention_fwd"] + n_masked)
+    if rec.launches != [step_want] * TF_STEPS:
+        raise AssertionError(f"phase 6: launches a step {rec.launches}, "
+                             f"expected {step_want} each of {TF_STEPS}")
+    check_launches("phase 6", launches, want, TF_STEPS)
+    if sum(plain.values()) or set(kinds) != {("float32", "float32", None)}:
+        raise AssertionError(f"phase 6: plain versions {dict(plain)}, "
+                             f"AdamW (p, g, copy) dtypes {dict(kinds)}")
+    check_flash_route("phase 6", counters, "tc")
+    check_ln_route("phase 6", (counters["fused_layer_norm"],
+                               counters["fused_layer_norm_bwd"]))
+    if len(rec.loss) != TF_STEPS or not all(
+            math.isfinite(x) for x in rec.loss) \
+            or not rec.loss[-1] < rec.loss[0]:
+        raise AssertionError(f"phase 6 losses on a repeated batch: "
+                             f"{rec.loss}")
+    tokens = TF_BATCH * (TF_SRC + TF_TGT) * TF_STEPS
+    n_params = sum(p.numel() for p in net.parameters())
+    log(f"phase 6: Transformer (base) {TF_LAYERS} + {TF_LAYERS} layers, "
+        f"d_model {TF_D}, {TF_HEADS} heads, ffn {TF_FF}, vocab {TF_VOCAB}, "
+        f"{n_params} parameters in {want['fused_adamw']} tensors; "
+        f"attn_dropout 0.0 puts the encoder's self-attention and the "
+        f"cross-attention on the flash kernels (attention dropout would "
+        f"refuse them, as the JAX override does); the decoder's "
+        f"{n_masked} masked self-attentions a step run the op's plain "
+        f"body, as in the JAX package")
+    log(f"phase 6 fit: bf16 O1, AdamW lr {TF_LR}, batch {TF_BATCH} x "
+        f"({TF_SRC} + {TF_TGT}) tokens, {TF_STEPS} steps in {wall:.3f} s: "
+        f"{tokens / wall:.1f} tokens/s, {wall / TF_STEPS * 1e3:.3f} ms per "
+        f"step (wall / steps), median step "
+        f"{float(np.median(rec.spans)) * 1e3:.3f} ms, max memory allocated "
+        f"{peak} bytes ({peak / 2 ** 30:.3f} GiB) on {card}; losses "
+        f"{json.dumps(rec.loss)}; launches a step {json.dumps(step_want)} "
+        f"(sdpa: op calls), every flash launch on the tensor-core route, "
+        f"every LayerNorm launch on the warp-row route; {n_ops} ops swept")
+    del model, net, data
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches, tf_rows(device, timer, launches)
+
+
+def tf_rows(device, timer, launches):
+    """The kernels line's rows of phase 6: each kernel against its plain
+    version at the fit's shapes and dtypes (LayerNorm float32 [4096, 512],
+    flash bf16 [16, 256, 8, 64] not causal, AdamW on the [37000, 512]
+    table with a float32 gradient), with the fit's launches."""
+    gen = torch.Generator(device=device).manual_seed(SEED + 65)
+
+    def randn(*shape, dtype=torch.float32, scale=1.0):
+        return (scale * torch.randn(*shape, device=device,
+                                    generator=gen)).to(dtype)
+
+    rows_ln = TF_BATCH * TF_SRC
+    x, g = randn(rows_ln, TF_D), randn(rows_ln, TF_D)
+    w, b = 1 + randn(TF_D, scale=0.1), randn(TF_D, scale=0.1)
+    ln_fwd = ln_fwd_case(timer, x, w, b)
+    ln_bwd = ln_bwd_case(timer, x, w, g)
+    q, k, v, do = (randn(TF_BATCH, TF_SRC, TF_HEADS, TF_D // TF_HEADS,
+                         dtype=torch.bfloat16) for _ in range(4))
+    fa_fwd, fa_bwd = flash_case(timer, q, k, v, do, causal=False,
+                                route="tc", core=True)
+    n = (TF_VOCAB, TF_D)
+    adamw = adamw_case(timer, randn(*n, scale=0.05), randn(*n, scale=1e-3),
+                       randn(*n, scale=1e-4), randn(*n, scale=1e-4).square(),
+                       None, TF_LR, 0.9, 0.999, 1e-8, 0.01, 3)
+    out = []
+    for name, src, tpu, row, count in (
+            ("fused_layer_norm_transformer", LN_SRC, LN_TPU, ln_fwd,
+             "fused_layer_norm"),
+            ("fused_layer_norm_bwd_transformer", LN_SRC, LN_BWD_TPU, ln_bwd,
+             "fused_layer_norm_bwd"),
+            ("flash_attention_fwd_transformer", FA_TC_SRC, FA_FWD_TPU,
+             fa_fwd, "flash_attention_fwd"),
+            ("flash_attention_bwd_transformer", FA_TC_SRC, FA_BWD_TPU,
+             fa_bwd, "flash_attention_bwd"),
+            ("fused_adamw_transformer", ADAMW_SRC, ADAMW_TPU, adamw,
+             "fused_adamw")):
+        log(f"phase 6 {name} {fmt(row)}")
+        out.append({"name": name, "route": "cuda", "source": src,
+                    "replaces": tpu, "launches": launches[count],
+                    "max_abs_err": row["max_abs_err"], "ms": row["ms"],
+                    "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
+                    "bound_by": row["bound_by"],
+                    "library_ms": row["library_ms"]})
+        if "core_ms" in row:
+            out[-1].update(core_source=FA_SRC, core_ms=row["core_ms"],
+                           core_err=row["core_err"])
+    return out
+
+
 def main() -> int:
     global TRACE_ROOT
     import shutil
@@ -4660,6 +5055,7 @@ def run_phases() -> int:
     o1 = phase_o1(device, card)
     obs_train = phase_observe_train(device, card)
     phase_oom(device)
+    _, tf_kernel_rows = phase_transformer(device, card, timer)
     kernels = report_engine(device, timer, launches, captured,
                             quant_launches, quant_captured)
     # the engine row of the LayerNorm forward counts the fused engines'
@@ -4719,6 +5115,7 @@ def run_phases() -> int:
                    if k["name"] == "flash_attention_fwd_f32")
     f32_fwd["launches"] += gen_f32_launches["flash_attention_fwd"] \
         + beam_f32_launches["flash_attention_fwd"]
+    kernels += tf_kernel_rows
     for k in kernels:
         for key, v in k.items():
             if isinstance(v, float) and not math.isfinite(v):

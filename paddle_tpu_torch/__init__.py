@@ -2,7 +2,10 @@
 
 A package beside ``paddle_tpu`` (the JAX reference, which it never
 imports). It serves GPT-2 through the fused paged engine and trains it
-through ``hapi.Model.fit`` or an eager loop. Its kernels are
+through ``hapi.Model.fit`` or an eager loop; the op library, the
+``paddle.*`` functions (:mod:`.tensor`, re-exported here), ``nn``
+(``Layer``, ``functional``, ``initializer`` and the layers through
+``nn.Transformer``) build other networks the same way. Its kernels are
 hand-written CUDA for Hopper (``csrc/``), built with ``nvcc`` at first
 use:
 
@@ -44,6 +47,7 @@ The tensor is ``torch.Tensor`` itself.
 """
 from . import (amp, callbacks, io, metric, nn, ops, optimizer, profiler,
                regularizer)
+from .nn.layer.layers import ParamAttr
 from .framework.dispatch import call_op
 from .framework.io import load, save
 from .framework.dtypes import NAMES as _DTYPES
@@ -55,6 +59,7 @@ from .ops.registry import op_names as _op_names
 
 __all__ = ["seed", "amp", "callbacks", "io", "metric", "nn", "ops",
            "optimizer", "profiler", "regularizer", "save", "load", "call_op",
+           "ParamAttr", "tensor",
            "get_device", "set_device",
            "Parameter", "grad_enabled_guard", "is_grad_enabled", "no_grad",
            "to_tensor"]
@@ -80,54 +85,9 @@ for _name in _op_names():
     __all__.append(_name)
 
 
-# the ops the JAX package exports under its own public signatures
-# (``name`` is taken and unused there too; ``device`` places a new tensor)
-def add(x, y, name=None):
-    return call_op("add", x, y)
-
-
-def multiply(x, y, name=None):
-    return call_op("multiply", x, y)
-
-
-def maximum(x, y, name=None):
-    return call_op("maximum", x, y)
-
-
-def matmul(x, y, transpose_x=False, transpose_y=False, name=None):
-    return call_op("matmul", x, y, transpose_x=transpose_x,
-                   transpose_y=transpose_y)
-
-
-def cumsum(x, axis=None, name=None):
-    return call_op("cumsum", x, axis=axis)
-
-
-def concat(x, axis=0, name=None):
-    return call_op("concat", x, axis=axis)
-
-
-def reshape(x, shape, name=None):
-    return call_op("reshape", x, shape)
-
-
-def transpose(x, perm, name=None):
-    return call_op("transpose", x, perm)
-
-
-def slice(input, axes, starts, ends):
-    return call_op("slice", input, axes, starts, ends)
-
-
-def full(shape, fill_value, dtype=None, name=None, *, device=None):
-    return call_op("full", shape, fill_value, dtype=dtype, device=device)
-
-
-def zeros(shape, dtype=None, name=None, *, device=None):
-    return call_op("zeros", shape, dtype=dtype, device=device)
-
-
-def arange(start=0, end=None, step=1, dtype=None, name=None, *,
-           device=None):
-    return call_op("arange", start, end, step, dtype=dtype, device=device)
+# the JAX package's ``paddle.*`` functions under their own signatures (the
+# ops that have one there), over the generic functions above
+from . import tensor  # noqa: E402
+from .tensor import *  # noqa: E402,F401,F403
+__all__ += [n for n in tensor.__all__ if n not in __all__]
 del _name

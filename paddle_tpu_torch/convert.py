@@ -1,4 +1,11 @@
-"""Carry GPT weights between the JAX package and the port.
+"""Carry weights between the JAX package and the port.
+
+:func:`layer_from_jax` loads a JAX ``Layer.state_dict()`` (as numpy) into
+any ported layer by structured name, and :func:`layer_to_numpy` is its
+inverse. The key sets must be equal: a missing or extra key raises. Only
+the weights of ``Linear`` layers are transposed (``[in, out]`` in the JAX
+package, ``[out, in]`` in the port); every other parameter and buffer
+keeps its layout.
 
 The input is the JAX model's parameter tree as numpy
 (``{name: np.asarray(a) for name, a in
@@ -28,9 +35,11 @@ from torch import nn
 
 from ._device import resolve_device
 from .models.gpt import GPTConfig, GPTForPretraining
+from .nn.layer.common import Linear
 
 __all__ = ["gpt_from_jax_params", "gpt_to_numpy_params",
-           "opt_state_from_jax", "opt_state_to_jax"]
+           "opt_state_from_jax", "opt_state_to_jax", "layer_from_jax",
+           "layer_to_numpy"]
 
 #: the optimizer state keys that are not a parameter's slot
 _GLOBAL_KEYS = ("@step", "LR_Scheduler")
@@ -44,8 +53,52 @@ def _np32(value) -> np.ndarray:
 
 
 def _linear_keys(model) -> set:
-    return {f"{name}.weight" for name, mod in model.named_modules()
-            if isinstance(mod, nn.Linear)}
+    return {f"{name}.weight" if name else "weight"
+            for name, mod in model.named_modules()
+            if isinstance(mod, (Linear, nn.Linear))}
+
+
+def layer_from_jax(layer, jax_state: Mapping) -> None:
+    """Load ``jax_state`` (a JAX ``Layer.state_dict()``: numpy arrays or
+    CPU tensors by structured name) into the port ``layer``, each value
+    cast to its parameter's or buffer's dtype and device; ``Linear``
+    weights are transposed. Raises ``KeyError`` when the key sets differ
+    and ``ValueError`` on a misshapen array."""
+    own = layer.state_dict(keep_vars=True)
+    missing = sorted(set(own) - set(jax_state))
+    unexpected = sorted(set(jax_state) - set(own))
+    if missing or unexpected:
+        raise KeyError(f"the JAX state does not match the port's layer: "
+                       f"missing {missing}, unexpected {unexpected}")
+    linear = _linear_keys(layer)
+    with torch.no_grad():
+        for key, target in own.items():
+            value = jax_state[key]
+            arr = value.detach().cpu().numpy() if isinstance(
+                value, torch.Tensor) else np.asarray(value)
+            if key in linear:
+                arr = arr.T
+            if tuple(arr.shape) != tuple(target.shape):
+                raise ValueError(
+                    f"{key}: JAX array {tuple(np.shape(value))} does not fit "
+                    f"the port's {tuple(target.shape)}"
+                    + (" (after the [in, out] -> [out, in] transpose)"
+                       if key in linear else ""))
+            target.copy_(torch.from_numpy(np.ascontiguousarray(arr)).to(
+                target.dtype))
+
+
+def layer_to_numpy(layer) -> Dict[str, np.ndarray]:
+    """The port ``layer``'s state as numpy under the JAX keys and
+    layouts (``Linear`` weights back to ``[in, out]``); floating values
+    as float32."""
+    linear = _linear_keys(layer)
+    out = {}
+    for key, t in layer.state_dict().items():
+        t = t.detach().cpu()
+        arr = (t.float() if t.is_floating_point() else t).numpy()
+        out[key] = arr.T.copy() if key in linear else arr
+    return out
 
 
 def gpt_from_jax_params(params: Mapping[str, np.ndarray], cfg: GPTConfig,

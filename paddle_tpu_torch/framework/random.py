@@ -18,7 +18,8 @@ import threading
 import numpy as np
 import torch
 
-__all__ = ["seed", "get_generator", "initial_seed"]
+__all__ = ["seed", "get_generator", "initial_seed", "get_rng_state",
+           "set_rng_state"]
 
 _lock = threading.Lock()
 _seed = int(np.random.randint(0, 2 ** 31 - 1))
@@ -56,3 +57,20 @@ def get_generator(device="cpu") -> torch.Generator:
             gen.manual_seed(_seed)
             _generators[key] = gen
     return gen
+
+
+def get_rng_state() -> dict:
+    """The seed and each created generator's state, by device."""
+    with _lock:
+        return {"seed": _seed,
+                "states": {k: g.get_state() for k, g in _generators.items()}}
+
+
+def set_rng_state(state: dict) -> None:
+    """Restore what :func:`get_rng_state` returned."""
+    global _seed
+    with _lock:
+        _seed = int(state["seed"])
+        _generators.clear()
+    for (kind, index), st in state["states"].items():
+        get_generator(torch.device(kind, index)).set_state(st)

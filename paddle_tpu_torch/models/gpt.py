@@ -35,6 +35,7 @@ from torch.utils.checkpoint import checkpoint
 from ..framework.dispatch import call_op
 from ..framework.random import get_generator
 from ..nn import functional as F
+from ..nn.initializer import Constant
 from ..nn.layer.common import Dropout, Linear
 from ..nn.layer.norm import LayerNorm
 from ..nn.layer.transformer import MultiHeadAttention
@@ -72,11 +73,15 @@ class GPTBlock(nn.Module):
         super().__init__()
         h = cfg.hidden_size
         self.ln_1 = LayerNorm(h)
+        # the weights are drawn in GPTModel._init_weights, from the
+        # port's generator; a constant start draws nothing before it
+        start = Constant(0.0)
         self.attn = MultiHeadAttention(h, cfg.num_attention_heads,
-                                       dropout=cfg.attention_dropout_prob)
+                                       dropout=cfg.attention_dropout_prob,
+                                       weight_attr=start)
         self.ln_2 = LayerNorm(h)
-        self.mlp_fc = Linear(h, cfg.intermediate_size)
-        self.mlp_proj = Linear(cfg.intermediate_size, h)
+        self.mlp_fc = Linear(h, cfg.intermediate_size, start)
+        self.mlp_proj = Linear(cfg.intermediate_size, h, start)
         self.dropout = Dropout(cfg.hidden_dropout_prob)
 
     def _qkv(self, x):
@@ -164,7 +169,7 @@ class GPTModel(nn.Module):
             emb.weight.normal_(0.0, self.cfg.initializer_range,
                                generator=gen)
         for mod in self.blocks.modules():
-            if isinstance(mod, nn.Linear):
+            if isinstance(mod, Linear):
                 nn.init.xavier_uniform_(mod.weight, generator=gen)
                 mod.bias.zero_()
 

@@ -1,12 +1,66 @@
-"""Layers, functional ops and gradient clips of the port that GPT-2
-training uses."""
-from . import clip, functional
-from .clip import ClipGradByGlobalNorm, ClipGradByNorm, ClipGradByValue
-from .layer.common import Dropout, Linear
-from .layer.layers import ParamAttr, set_param_attr
-from .layer.norm import LayerNorm
-from .layer.transformer import MultiHeadAttention
+"""``nn`` (counterpart of ``paddle_tpu/nn``): the ``Layer`` base and its
+containers, the activation, common, normalization, loss and transformer
+layers, ``functional``, ``initializer`` and the gradient clips.
 
-__all__ = ["clip", "functional", "ClipGradByGlobalNorm", "ClipGradByNorm",
-           "ClipGradByValue", "Dropout", "Linear", "LayerNorm",
-           "MultiHeadAttention", "ParamAttr", "set_param_attr"]
+Not ported yet, each raising ``NotImplementedError`` that names its
+ROADMAP Queue 1 item when reached: the conv and pooling layers,
+``CTCLoss``, ``HSigmoidLoss``, ``Fold``, ``PixelUnshuffle`` and
+``ChannelShuffle`` (item 6), ``SyncBatchNorm`` (item 4), and the
+recurrent layers and decoding (item 5)."""
+from . import clip, functional, initializer
+from .clip import ClipGradByGlobalNorm, ClipGradByNorm, ClipGradByValue
+from .layer.activation import (
+    CELU, ELU, GELU, GLU, Hardshrink, Hardsigmoid, Hardswish, Hardtanh,
+    LeakyReLU, LogSigmoid, LogSoftmax, Maxout, Mish, PReLU, ReLU, ReLU6,
+    RReLU, SELU, Sigmoid, Silu, Softmax, Softmax2D, Softplus, Softshrink,
+    Softsign, Swish, Tanh, Tanhshrink, ThresholdedReLU,
+)
+from .layer.common import (
+    AlphaDropout, Bilinear, CosineSimilarity, Dropout, Dropout2D, Dropout3D,
+    Embedding, Flatten, Identity, Linear, Pad1D, Pad2D, Pad3D,
+    PairwiseDistance, PixelShuffle, Unfold, Upsample, UpsamplingBilinear2D,
+    UpsamplingNearest2D, ZeroPad2D,
+)
+from .layer.container import LayerDict, LayerList, ParameterList, Sequential
+from .layer.layers import Layer, ParamAttr, set_param_attr
+from .layer.loss import (
+    BCELoss, BCEWithLogitsLoss, CosineEmbeddingLoss, CrossEntropyLoss,
+    HingeEmbeddingLoss, HuberLoss, KLDivLoss, L1Loss, MarginRankingLoss,
+    MSELoss, MultiLabelSoftMarginLoss, NLLLoss, SigmoidFocalLoss,
+    SmoothL1Loss, TripletMarginLoss, TripletMarginWithDistanceLoss,
+)
+from .layer.norm import (
+    BatchNorm, BatchNorm1D, BatchNorm2D, BatchNorm3D, GroupNorm,
+    InstanceNorm1D, InstanceNorm2D, InstanceNorm3D, LayerNorm,
+    LocalResponseNorm, RMSNorm, SpectralNorm,
+)
+from .layer.transformer import (
+    MultiHeadAttention, Transformer, TransformerDecoder,
+    TransformerDecoderLayer, TransformerEncoder, TransformerEncoderLayer,
+)
+from ..ops.registry import not_ported as _not_ported
+
+#: the JAX package's ``nn`` names not ported yet, by ROADMAP Queue 1 item
+_DEFERRED = dict.fromkeys((
+    "Conv1D", "Conv1DTranspose", "Conv2D", "Conv2DTranspose", "Conv3D",
+    "Conv3DTranspose", "AdaptiveAvgPool1D", "AdaptiveAvgPool2D",
+    "AdaptiveAvgPool3D", "AdaptiveMaxPool1D", "AdaptiveMaxPool2D",
+    "AdaptiveMaxPool3D", "AvgPool1D", "AvgPool2D", "AvgPool3D", "MaxPool1D",
+    "MaxPool2D", "MaxPool3D", "MaxUnPool1D", "MaxUnPool2D", "MaxUnPool3D",
+    "CTCLoss", "HSigmoidLoss", "Fold", "PixelUnshuffle", "ChannelShuffle"),
+    6)
+_DEFERRED["SyncBatchNorm"] = 4
+_DEFERRED.update(dict.fromkeys((
+    "BiRNN", "GRU", "GRUCell", "LSTM", "LSTMCell", "RNN", "RNNCellBase",
+    "SimpleRNN", "SimpleRNNCell", "BeamSearchDecoder", "dynamic_decode",
+    "utils", "quant"), 5))
+
+
+def __getattr__(name):
+    if name in _DEFERRED:
+        raise _not_ported(f"nn.{name}", _DEFERRED[name])
+    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")
+
+
+__all__ = [n for n in dir() if not n.startswith("_")
+           and n not in ("clip_grad",)]

@@ -12,7 +12,34 @@ from __future__ import annotations
 from typing import Callable, Dict, List, Tuple
 
 __all__ = ["OpDef", "register_op", "register_override", "get_op", "has_op",
-           "op_names"]
+           "op_names", "DEFERRED"]
+
+#: the JAX package's ops the port does not register yet, by the ROADMAP
+#: Queue 1 item that ports them: ``extra_nn_ops`` and ``sequence_ops``
+#: (item 6, the next slice of the op library) and ``vision.ops`` (item 5,
+#: ``vision/``). ``get_op`` names the item.
+DEFERRED = dict.fromkeys((
+    "adaptive_avg_pool3d", "adaptive_max_pool3d", "affine_grid",
+    "channel_shuffle", "class_center_sample", "conv1d_transpose",
+    "conv3d_transpose", "ctc_loss", "fold", "gather_tree", "grid_sample",
+    "hsigmoid_loss", "margin_cross_entropy", "max_pool1d_with_mask",
+    "max_pool2d_with_mask", "max_pool3d_with_mask", "max_unpool1d",
+    "max_unpool2d", "max_unpool3d", "pixel_unshuffle", "sparse_attention",
+    "temporal_shift",
+    "nce_loss", "row_conv", "sequence_concat", "sequence_conv",
+    "sequence_enumerate", "sequence_expand", "sequence_pad",
+    "sequence_pool", "sequence_reverse", "sequence_scatter",
+    "sequence_slice", "sequence_softmax", "sequence_unpad"), 6)
+DEFERRED.update(dict.fromkeys((
+    "deform_conv2d", "nms", "psroi_pool", "roi_align", "roi_pool",
+    "yolo_box", "yolo_loss"), 5))
+
+
+def not_ported(what, item=6):
+    """The error a caller gets on reaching ``what``, a part of the JAX
+    package the port has not ported yet."""
+    return NotImplementedError(f"{what} is not ported yet (ROADMAP Queue 1 "
+                               f"item {item})")
 
 
 class OpDef:
@@ -61,6 +88,8 @@ def get_op(name: str) -> OpDef:
     try:
         return _OPS[name]
     except KeyError:
+        if name in DEFERRED:
+            raise not_ported(f"op {name!r}", DEFERRED[name]) from None
         raise NotImplementedError(f"op {name!r} is not registered") from None
 
 

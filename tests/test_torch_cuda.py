@@ -1293,3 +1293,73 @@ def test_fit_oom_postmortem_reraises_the_original_error(cuda, tmp_path):
         del m, net, ids
         gc.collect()
         torch.cuda.empty_cache()
+
+
+def _launch_counts():
+    return (fa.flash_attention_fwd.launches, fa.flash_attention_bwd.launches,
+            ln.fused_layer_norm.launches, ln.fused_layer_norm_bwd.launches)
+
+
+def test_transformer_block_launches_flash_and_layer_norm(cuda):
+    """An ``nn.TransformerEncoderLayer`` and a ``TransformerDecoderLayer``
+    on the card under bf16 O1, forward and backward: the encoder's
+    self-attention and the decoder's cross-attention launch K4 once each
+    and K6 once each (the tensor-core route), their five post-norm
+    LayerNorms K2 and K3 five times each (the warp-row route), and the
+    decoder's masked self-attention runs the op's plain body."""
+    from paddle_tpu_torch import amp, nn, seed
+    from paddle_tpu_torch.framework import monitor
+    seed(0)
+    enc = nn.TransformerEncoderLayer(512, 8, 2048, dropout=0.0).to(cuda)
+    dec = nn.TransformerDecoderLayer(512, 8, 2048, dropout=0.0).to(cuda)
+    x = torch.randn(2, 128, 512, device=cuda)
+    y = torch.randn(2, 128, 512, device=cuda)
+    mask = nn.Transformer.generate_square_subsequent_mask(128, device=cuda)
+    before, tc = _launch_counts(), fa.flash_attention_fwd.tc_launches
+    warp = ln.fused_layer_norm.warp_launches
+    sdpa = monitor.stat_get("op_count/scaled_dot_product_attention")
+    with amp.auto_cast(level="O1"):
+        out = dec(y, enc(x), tgt_mask=mask)
+    out.float().square().mean().backward()
+    torch.cuda.synchronize()
+    moved = tuple(a - b for a, b in zip(_launch_counts(), before))
+    assert moved == (2, 2, 5, 5)
+    assert fa.flash_attention_fwd.tc_launches - tc == 2
+    assert ln.fused_layer_norm.warp_launches - warp == 5
+    assert monitor.stat_get("op_count/scaled_dot_product_attention") \
+        - sdpa == 3
+    assert torch.isfinite(out).all()
+    assert all(p.grad is not None and torch.isfinite(p.grad).all()
+               for p in list(enc.parameters()) + list(dec.parameters()))
+
+
+def test_masked_attention_reaches_the_plain_body_and_no_kernel(cuda):
+    """A mask (or attention dropout) runs the op's plain body on the card,
+    where the JAX override refuses too: no flash launch."""
+    from paddle_tpu_torch import nn
+    attn = nn.MultiHeadAttention(64, 4).to(cuda)
+    x = torch.randn(2, 16, 64, device=cuda)
+    mask = torch.rand(2, 1, 16, 16, device=cuda) > 0.2
+    before = _launch_counts()
+    out = attn(x, attn_mask=mask)
+    out.sum().backward()
+    torch.cuda.synchronize()
+    assert _launch_counts() == before
+    want = F.sdpa_reference(
+        attn._split_heads(attn.q_proj(x)), attn._split_heads(attn.k_proj(x)),
+        attn._split_heads(attn.v_proj(x)),
+        mask=nn.layer.transformer._convert_attn_mask(mask, torch.float32))
+    torch.testing.assert_close(
+        out, attn.out_proj(attn._merge_heads(want)), **TOL[torch.float32])
+
+
+def test_setitem_on_the_card_leaves_its_input_alone(cuda):
+    from paddle_tpu_torch.framework.dispatch import call_op
+    x = torch.zeros(4, 6, device=cuda)
+    idx = torch.tensor([3, 0], device=cuda)
+    out = call_op("setitem", x, torch.tensor(2.0, device=cuda), idx,
+                  index_spec=(("array",), ("slice", None, None, -2)))
+    torch.cuda.synchronize()
+    assert out.is_cuda and not x.any()
+    assert out.sum().item() == 2.0 * 2 * 3
+    assert out[[0, 3]][:, 1::2].eq(2).all()

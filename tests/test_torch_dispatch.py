@@ -402,3 +402,70 @@ def test_monitor_counts_and_snapshots():
     monitor.stat_add("_test/counter")
     assert snap["_test/counter"] == before + 3       # a copy
     assert monitor.stat_get("_no/such/counter") == 0
+
+
+# -- the AMP policy over the ported ops -----------------------------------
+
+AMP_WHITE = ("matmul", "bmm", "mv", "einsum", "addmm", "linear", "conv1d",
+             "conv2d", "conv3d", "conv2d_transpose")
+AMP_BLACK = ("softmax", "log_softmax", "batch_norm", "group_norm",
+             "instance_norm", "rms_norm", "softmax_with_cross_entropy",
+             "nll_loss", "bce_loss", "bce_with_logits", "mean", "sum",
+             "p_norm", "frobenius_norm", "logsumexp", "exp", "log", "cumsum",
+             "prod", "cross_entropy")
+
+
+def test_the_amp_lists_equal_the_jax_lists():
+    jax_amp = importlib.import_module("paddle_tpu.amp")
+    assert amp.white_list == jax_amp.white_list
+    assert amp.black_list == jax_amp.black_list
+    assert set(AMP_WHITE) <= amp.white_list
+    assert set(AMP_BLACK) <= amp.black_list
+
+
+@pytest.mark.parametrize("name", AMP_WHITE + AMP_BLACK)
+def test_o1_casts_the_ported_ops_as_the_jax_amp(name):
+    """Under O1 a white-list op runs its float32 operands in bfloat16 and a
+    black-list op its bfloat16 operands in float32, in both packages: the
+    same output dtype, and values within bfloat16's rounding (atol 3e-2 +
+    rtol 2e-2: products of bf16 operands accumulated in another order)."""
+    from paddle_tpu.amp import auto_cast as jax_auto_cast
+    from paddle_tpu_torch.ops import op_cases
+    case = op_cases.cases()[name]
+    args = case.args
+    if name in ("sum", "cumsum", "prod"):        # their cases sum integers
+        args = (_rand(15, 3, 4),)
+    low = name in AMP_BLACK
+    jdt, tdt = (jnp.bfloat16, torch.bfloat16) if low else \
+        (jnp.float32, torch.float32)
+
+    def conv(a, f):
+        if isinstance(a, np.ndarray) and a.dtype.kind == "f":
+            return f(a)
+        if isinstance(a, np.ndarray):
+            return f(a, integer=True)
+        if isinstance(a, list) and a and isinstance(a[0], np.ndarray):
+            return [conv(v, f) for v in a]
+        return a
+
+    def port(a, integer=False):
+        t = torch.from_numpy(a.copy())
+        return t if integer else t.to(tdt)
+
+    def jax(a, integer=False):
+        x = jnp.asarray(a)
+        return JaxTensor(x if integer else x.astype(jdt))
+
+    with amp.auto_cast(level="O1"):
+        got = call_op(name, *[conv(a, port) for a in args],
+                      **{k: conv(v, port) for k, v in case.attrs.items()})
+    with jax_auto_cast(level="O1"):
+        want = jax_call_op(name, *[conv(a, jax) for a in args],
+                           **{k: conv(v, jax) for k, v in case.attrs.items()})
+    got = got[0] if isinstance(got, (list, tuple)) else got
+    want = want[0] if isinstance(want, (list, tuple)) else want
+    assert got.dtype == (torch.float32 if low else torch.bfloat16)
+    assert dtypes.dtype_name(got.dtype) == str(want.numpy().dtype)
+    np.testing.assert_allclose(got.float().numpy(),
+                               np.asarray(want.numpy(), np.float32),
+                               atol=3e-2, rtol=2e-2)

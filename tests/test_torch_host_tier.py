@@ -108,6 +108,9 @@ def _promote(pool, tier, probe):
     assert tk.ready.wait(20), "the promoter never staged the chain"
     assert tk.landed()
     assert pool.adopt_promotion(tk)
+    # the promoter records the copy's time after ``ready``: wait for it to
+    # finish the ticket before the caller reads the tier's stats
+    tier._promo_q.join()
     return tk
 
 

@@ -1,0 +1,146 @@
+"""The port's op library against the JAX package's, op by op.
+
+Every op of ``paddle_tpu/ops``' ``math_ops``, ``extra_math_ops``,
+``creation_ops``, ``manipulation_ops``, ``linalg_ops`` and ``nn_ops`` is
+registered in the port (``DEFERRED`` lists, by name, the JAX ops that
+wait for later slices, and ``ROADMAP.md`` names each). Each op's plain
+body runs on the inputs of its case in ``paddle_tpu_torch.ops.op_cases``
+(the ops from ``a`` to ``l`` here, the rest in
+``test_torch_ops_library_m_z.py``)
+(numpy, from a seed) in both packages: float results within atol 1e-5 +
+rtol 1e-5 (the same f32 arithmetic in another order; a case may state a
+wider one, 1e-4 for the decompositions and solves), integer and bool
+results exactly and with the JAX op's dtype; the samplers in
+distribution only (mean and variance within 5 standard errors, support),
+since the JAX key and the torch generator give different streams; the
+decompositions unique only up to signs by their defining identities.
+"""
+import pathlib
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from paddle_tpu.ops import registry as jax_registry
+import paddle_tpu.vision.ops  # noqa: F401  (registers the vision ops)
+from paddle_tpu_torch.framework.dispatch import call_op
+from paddle_tpu_torch.ops import op_cases, registry
+
+ATOL = RTOL = 1e-5
+
+#: the JAX ops the port leaves for later slices: ``extra_nn_ops`` and
+#: ``sequence_ops`` (ROADMAP Queue 1 item 6) and ``vision.ops`` (item 5)
+DEFERRED = {
+    "adaptive_avg_pool3d": 6, "adaptive_max_pool3d": 6, "affine_grid": 6,
+    "channel_shuffle": 6, "class_center_sample": 6, "conv1d_transpose": 6,
+    "conv3d_transpose": 6, "ctc_loss": 6, "fold": 6, "gather_tree": 6,
+    "grid_sample": 6, "hsigmoid_loss": 6, "margin_cross_entropy": 6,
+    "max_pool1d_with_mask": 6, "max_pool2d_with_mask": 6,
+    "max_pool3d_with_mask": 6, "max_unpool1d": 6, "max_unpool2d": 6,
+    "max_unpool3d": 6, "pixel_unshuffle": 6, "sparse_attention": 6,
+    "temporal_shift": 6, "nce_loss": 6, "row_conv": 6,
+    "sequence_concat": 6, "sequence_conv": 6, "sequence_enumerate": 6,
+    "sequence_expand": 6, "sequence_pad": 6, "sequence_pool": 6,
+    "sequence_reverse": 6, "sequence_scatter": 6, "sequence_slice": 6,
+    "sequence_softmax": 6, "sequence_unpad": 6,
+    "deform_conv2d": 5, "nms": 5, "psroi_pool": 5, "roi_align": 5,
+    "roi_pool": 5, "yolo_box": 5, "yolo_loss": 5,
+}
+
+CASES = op_cases.cases()
+
+
+def _convert(value, array, key):
+    if isinstance(value, str) and value == op_cases.KEY:
+        return key()
+    if isinstance(value, (np.ndarray, np.generic)):
+        return array(value)
+    if isinstance(value, list) and value and all(
+            isinstance(v, np.ndarray) for v in value):
+        return [array(v) for v in value]
+    return value
+
+
+def run_port(case):
+    def conv(a):
+        return _convert(a, lambda v: torch.from_numpy(np.array(v)),
+                        lambda: torch.Generator().manual_seed(0))
+
+    args = [conv(a) for a in case.args]
+    attrs = {k: conv(v) for k, v in case.attrs.items()}
+    if case.creation:
+        attrs["device"] = "cpu"
+    return op_cases.to_numpy_tree(call_op(case.name, *args, **attrs))
+
+
+def run_jax(case):
+    def conv(a):
+        return _convert(a, jnp.asarray, lambda: jax.random.PRNGKey(0))
+
+    out = jax_registry.get_op(case.name).fn(
+        *[conv(a) for a in case.args],
+        **{k: conv(v) for k, v in case.attrs.items()})
+    return op_cases.to_numpy_tree(out)
+
+
+def test_the_library_covers_the_jax_ops_but_the_deferred():
+    jax_names, port_names = set(jax_registry.op_names()), \
+        set(registry.op_names())
+    assert set(DEFERRED) <= jax_names
+    assert jax_names - set(DEFERRED) <= port_names
+    assert port_names - jax_names == {"zeros"}
+    assert registry.DEFERRED == DEFERRED
+    assert len(jax_names - set(DEFERRED)) == 317
+    roadmap = (pathlib.Path(__file__).parents[1] / "ROADMAP.md").read_text()
+    missing = [n for n in DEFERRED if f"`{n}`" not in roadmap]
+    assert missing == [], missing
+
+
+@pytest.mark.parametrize("name", sorted(DEFERRED))
+def test_a_deferred_op_names_its_item(name):
+    with pytest.raises(NotImplementedError,
+                       match=f"Queue 1 item {DEFERRED[name]}"):
+        call_op(name, torch.zeros(2))
+
+
+def test_every_op_has_a_case():
+    assert {c.name for c in CASES.values()} == set(registry.op_names())
+
+
+def keys(first, last):
+    """The case keys of the ops whose name starts with a letter in
+    ``[first, last]`` (the sweep is split over two files so that each runs
+    in about a minute on one worker)."""
+    return sorted(k for k, c in CASES.items()
+                  if c.name != "zeros" and first <= k[0] <= last)
+
+
+def check_against_jax(key):
+    case = CASES[key]
+    op_cases.check(case, run_port(case), run_jax(case), ATOL, RTOL)
+
+
+@pytest.mark.parametrize("key", keys("a", "l"))
+def test_op_matches_the_jax_op(key):
+    check_against_jax(key)
+
+
+def test_put_along_axis_add_adds():
+    """``reduce="add"`` adds into the input. (The JAX op sets there, as its
+    ``jnp.put_along_axis`` sets; its ``"assign"`` and ``"multiply"`` are
+    held above.)"""
+    x = torch.ones(2, 3)
+    idx = torch.tensor([[1, 1], [0, 2]])
+    got = call_op("put_along_axis", x, idx, torch.full((2, 2), 2.0), axis=1,
+                  reduce="add")
+    np.testing.assert_array_equal(got.numpy(), [[1, 5, 1], [3, 1, 3]])
+
+
+def test_setitem_leaves_its_input_alone():
+    x = torch.zeros(3, 4)
+    out = call_op("setitem", x, torch.tensor(5.0), index_spec=(
+        ("slice", None, None, -1), ("int", 2)))
+    assert not x.any()
+    assert out[:, 2].eq(5).all() and out.sum() == 15

@@ -189,6 +189,7 @@ def test_load_profiler_result_reads_back_the_exported_trace(tmp_path):
         p = mod.Profiler(targets=[mod.ProfilerTarget.CPU],
                          on_trace_ready=mod.export_chrome_tracing(
                              str(d), worker_name="w"), use_native=False)
+        p.reset()       # events an earlier session of the process left
         with p:
             with mod.RecordEvent("region"):
                 with mod.RecordEvent("nested"):

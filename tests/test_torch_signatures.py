@@ -245,10 +245,13 @@ def _not_ported_calls():
         "minimize parameters": lambda: minimize(parameters=[]),
         "DataLoader return_list": lambda: pt.io.DataLoader(
             [1, 2], return_list=False),
-        "MultiHeadAttention need_weights": lambda: nn.MultiHeadAttention(
-            8, 2, need_weights=True),
-        "Linear initializer": lambda: nn.Linear(
-            4, 8, nn.ParamAttr(initializer=object())),
+        "max_pool2d return_mask": lambda: nn.functional.max_pool2d(
+            torch.ones(1, 1, 4, 4), 2, return_mask=True),
+        "adaptive_max_pool1d return_mask": lambda:
+            nn.functional.adaptive_max_pool1d(torch.ones(1, 1, 4), 2,
+                                              return_mask=True),
+        "functional ctc_loss": lambda: nn.functional.ctc_loss,
+        "layer Conv2D": lambda: nn.Conv2D,
         "decorate is accepted": None,
     }
 
@@ -270,8 +273,9 @@ def test_parameters_without_behaviour_raise_not_implemented(what):
 
 def _ported_checks():
     """The parameters that raised ``NotImplementedError`` until their
-    slice was ported (ROADMAP Queue 1 item 2, the serving periphery, and
-    item 3, observability), each with a check of what it does now."""
+    slice was ported (ROADMAP Queue 1 item 2, the serving periphery, item
+    3, observability, and item 6, the op library and ``nn``), each with a
+    check of what it does now."""
     from paddle_tpu.hapi.callbacks import ProfilerCallback as JaxCallback
     from paddle_tpu.serving.scheduler import Scheduler as JaxScheduler
     from paddle_tpu_torch.framework import trace_probe
@@ -382,7 +386,29 @@ def _ported_checks():
             build(None)                  # no probe: nothing recorded
             assert site.traces == 2, name
 
+    def need_weights():
+        from paddle_tpu_torch import nn
+        pt.seed(0)
+        attn = nn.MultiHeadAttention(8, 2, need_weights=True)
+        x = torch.randn(2, 5, 8)
+        out, weights = attn(x)
+        assert weights.shape == (2, 2, 5, 5)
+        torch.testing.assert_close(weights.sum(-1), torch.ones(2, 2, 5))
+        attn.need_weights = False
+        torch.testing.assert_close(attn(x), out)
+
+    def initializer():
+        from paddle_tpu_torch import nn
+        init = nn.initializer.Constant(0.5)
+        for attr in (nn.ParamAttr(initializer=init), init):
+            lin = nn.Linear(4, 8, attr, device="cpu")
+            assert lin.weight.shape == (8, 4)
+            assert torch.equal(lin.weight, torch.full((8, 4), 0.5))
+            assert not lin.bias.any()
+
     return {
+        "MultiHeadAttention need_weights": need_weights,
+        "Linear initializer": initializer,
         "ProfilerCallback": profiler_callback,
         "paged decode debug_logits": debug_logits,
         "builder probe": probes,
