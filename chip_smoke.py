@@ -75,10 +75,11 @@ prints no result line):
    logits within ``GEN_TOL``), and the dense, paged gather and fused
    engines on the card agreeing token for token up to each request's
    first top-2 logit margin below ``GEN_TOL``; the int8 paged gather
-   engine on the card against a CPU copy, one request at a time (every
-   step's logits within ``QUANT_GEN_TOL``, tokens equal up to the first
-   top-2 margin below it), and to that step the concurrent int8 gather
-   and int8 fused engines on the card giving the same tokens;
+   engine and the int8 fused engine each on the card against a CPU copy
+   of itself (the fused one over K1q's plain version there), one request
+   at a time (every step's logits within ``QUANT_GEN_TOL``, tokens equal
+   up to the first top-2 margin below it), and to that step each
+   engine's concurrent run on the card giving the same tokens;
 3e. float16 serving: GPT-2 small in float16 (full width and depth,
    random weights from a seed) through the fused engine over a float16
    pool (blocks of 16) and over int8 and fp8 pools (blocks of 32), phase
@@ -197,7 +198,25 @@ prints no result line):
    self-attentions counted apart: the op's plain body), every flash
    launch tensor-core and every LayerNorm launch warp-row, no plain
    version; the five ``_transformer`` rows of the kernels line;
-7. real operands: the layer-0 operands of one real step of each path
+7. ResNet-50 (``phase_resnet``): ``bench.py``'s ``bench_resnet50``
+   configuration, not cut (``resnet50(num_classes=1000,
+   data_format="NHWC")``, random weights from the seed, bf16 AMP O2 with
+   BatchNorm on the black list, ``Momentum(0.1, 0.9,
+   multi_precision=True)``, ``nn.CrossEntropyLoss``, ``metric.Accuracy``,
+   ``RandomState`` images ``[128, 224, 224, 3]`` and labels in
+   ``[0, 1000)``) through ``Model.fit``: 1 warm-up and 8 timed steps on
+   the fixed batch (up to 16 when 8 do not lower the loss), the loss
+   finite and lower at the last timed step than at the first, every
+   kernel counter (K1-K8) set to 0 before the fit and still 0 after it
+   (the JAX package runs this network without a Pallas kernel), no plain
+   version; one more step under ``set_sync_debug_mode("error")``; one
+   more counted for the copies aten runs (dtype casts, layout copies) and
+   the kernels of its device trace; ms a step, images/s and peak memory;
+   first ``resnet18(num_classes=10)`` float32 on the card against a CPU
+   copy, NCHW and NHWC, batch 4 at 32 x 32 (``rn_parity``: logits,
+   loss, gradients, one Momentum step, the running statistics), and the
+   22 ``extra_nn_ops`` among phase 6's swept ops;
+8. real operands: the layer-0 operands of one real step of each path
    through kernel and plain: the engine's attention rows (float, int8
    and fp8 pools) at its widest step and at its last decode-only step
    with the most sequences, each with a "work shape" line (q blocks,
@@ -209,7 +228,7 @@ prints no result line):
    embedding's AdamW operands, each output held to its own scale (max
    |error| over max |plain|), since the gradients of a loss averaged
    over 8192 tokens lie below any fixed atol;
-8. a ``{"kernels": [...]}`` line, the card's name and power limit, and
+9. a ``{"kernels": [...]}`` line, the card's name and power limit, and
    last the ``{"ok": true, "device": ...}`` line. The training kernels'
    errors and times in it come from phase 2 at the train path's shapes
    and dtypes (flash bf16 [8, 1024, 12, 64] causal, the LayerNorm
@@ -1555,6 +1574,27 @@ def hold_tokens(what, outs, ref, prompts, ties):
     return sum(np.array_equal(a, b) for a, b in zip(outs, ref))
 
 
+#: phase 3d's float32 int8 engines: pools of int8 codes in blocks of 32;
+#: the fused engine takes each of its prompts in one chunk
+INT8_GATHER_F32 = dict(kv_layout="paged", kv_dtype="int8", block_size=32)
+INT8_FUSED_F32 = dict(INT8_GATHER_F32, attention="fused", prefill_budget=512)
+
+
+def gather_f32_setup():
+    """Phase 3d's float32 model (GPT-2 width at 2 layers, random weights
+    from a seed, on the CPU, in eval mode), its 4 prompts and the tokens
+    each generates."""
+    import paddle_tpu_torch as pt
+    from paddle_tpu_torch.models import GPTConfig, GPTForPretraining
+    pt.seed(SEED + 5)
+    cfg = GPTConfig.gpt2_small()
+    cfg.num_hidden_layers = 2
+    net = GPTForPretraining(cfg).eval()
+    rng = np.random.RandomState(SEED + 5)
+    prompts = [rng.randint(0, cfg.vocab_size, n) for n in (40, 7, 100, 300)]
+    return net, prompts, 16
+
+
 def phase_gather_f32(device):
     """Float32 at GPT-2 width cut to 2 layers, 4 requests of 16 tokens,
     the first alone and then three at once. Float pools: the dense and
@@ -1564,34 +1604,28 @@ def phase_gather_f32(device):
     tokens on the card equal up to each request's first step whose top-2
     logit margin (a full forward over the fused engine's tokens) falls
     below ``GEN_TOL``. The int8 pool: the paged gather engine's first
-    prefill logits card vs CPU within ``GEN_TOL``; then the requests one
-    at a time (one slot) on the card and on the CPU, every step's logits
-    within ``QUANT_GEN_TOL`` and the tokens equal up to each request's
-    first CPU top-2 margin below ``QUANT_GEN_TOL``, and to that step the
-    concurrent int8 gather and int8 fused engines on the card give the
-    same tokens (the fused engine takes each prompt in one chunk, so
-    both quantize the same blocks from the same rows). Returns the card
+    prefill logits card vs CPU within ``GEN_TOL``; then each int8 engine
+    is held against itself on the CPU (:func:`int8_one_slot_check`): the
+    gather engine, and the fused engine with K1q's plain version over the
+    same pool there, each serving the requests one at a time (one slot)
+    on the card and on the CPU, every step's logits within
+    ``QUANT_GEN_TOL`` and the tokens equal up to each request's first
+    CPU top-2 margin below ``QUANT_GEN_TOL``; to that step the concurrent
+    run of the same engine on the card gives the same tokens. The two
+    int8 engines are not held against each other: the gather prefill
+    attends over the float K/V and quantizes them only at the block
+    write, the fused prefill attends over the codes. Returns the card
     runs' K2 launches: the gather engines' and the fused engines'."""
     import copy
-
-    import paddle_tpu_torch as pt
-    from paddle_tpu_torch.models import GPTConfig, GPTForPretraining
-    pt.seed(SEED + 5)
-    cfg = GPTConfig.gpt2_small()
-    cfg.num_hidden_layers = 2
-    cpu_net = GPTForPretraining(cfg).eval()
+    cpu_net, prompts, new = gather_f32_setup()
     card_net = copy.deepcopy(cpu_net).to(device)
-    rng = np.random.RandomState(SEED + 5)
-    prompts = [rng.randint(0, cfg.vocab_size, n) for n in (40, 7, 100, 300)]
-    new = 16
-    int8 = dict(kv_layout="paged", kv_dtype="int8", block_size=32)
+    int8 = INT8_GATHER_F32
     engines = {"dense": dict(kv_layout="dense", min_bucket=32),
                "paged gather": dict(kv_layout="paged", block_size=16),
                "int8 paged gather": int8,
                "fused": dict(kv_layout="paged", attention="fused",
                              block_size=16, prefill_budget=128),
-               "int8 fused": dict(int8, attention="fused",
-                                  prefill_budget=512)}
+               "int8 fused": INT8_FUSED_F32}
     card, errs = {}, {}
     launches = {"gather": 0, "fused": 0}
     for kind, kw in engines.items():
@@ -1637,9 +1671,37 @@ def phase_gather_f32(device):
         f"below {GEN_TOL} (step {ties}, {new} = none), all {new} equal in "
         f"{full} of {len(prompts)} requests")
 
-    # the int8 pool, one request at a time: every logits call is one
-    # step of one request, in order
+    gather_check, n = int8_one_slot_check(
+        "int8 gather engine", cpu_net, card_net, prompts, new, int8,
+        card["int8 paged gather"], "fused_layer_norm_gather")
+    launches["gather"] += n
+    fused_check, n = int8_one_slot_check(
+        "int8 fused engine", cpu_net, card_net, prompts, new,
+        engines["int8 fused"], card["int8 fused"])
+    launches["fused"] += n
+    log(f"int8 engines float32 check (block 32, same requests): the gather "
+        f"engine's first-step logits card vs CPU max |diff| "
+        f"{errs['int8 paged gather']:.3e} (limit {GEN_TOL}); "
+        f"{gather_check}; {fused_check}; K2 launches "
+        f"{json.dumps(launches)}")
+    return launches
+
+
+def int8_one_slot_check(what, cpu_net, card_net, prompts, new, kw,
+                        concurrent, row=None):
+    """Phase 3d's int8 check of one engine against itself: ``prompts``
+    one at a time through one slot of the engine built with ``kw``, on
+    ``cpu_net`` (the kernels' plain versions) and on ``card_net`` (the
+    kernels), with every step's logits recorded (each logits call is one
+    step of one request, in order). Up to each request's first step
+    whose top-2 margin on the CPU is below ``QUANT_GEN_TOL`` (that step
+    included) the card's logits lie within ``QUANT_GEN_TOL`` of the CPU's;
+    before it the card's tokens equal the CPU's and ``concurrent``'s (the
+    same engine's outputs when the requests ran together on the card).
+    Returns the log line's clause and the card run's K2 launches. Both
+    nets may live on the CPU, which is how the CPU tests run it."""
     steps = {}
+    n = 0
     for where, net in (("cpu", cpu_net), ("card", card_net)):
         rec = []
 
@@ -1648,40 +1710,33 @@ def phase_gather_f32(device):
             _rec.append(out[:, -1].float().cpu())
             return out
 
-        outs, n = engine_run(
-            net, prompts, new, spy,
-            None if where == "cpu" else "fused_layer_norm_gather",
-            num_slots=1, alone=len(prompts), **int8)
+        outs, launches = engine_run(
+            net, prompts, new, spy, None if where == "cpu" else row,
+            num_slots=1, alone=len(prompts), **kw)
         if len(rec) != len(prompts) * new:
-            raise AssertionError(f"int8 gather engine, one slot: "
-                                 f"{len(rec)} logits calls")
+            raise AssertionError(f"{what}, one slot: {len(rec)} logits "
+                                 f"calls for {len(prompts)} x {new} steps")
         steps[where] = (outs, torch.cat(rec).view(len(prompts), new, -1))
         if where == "card":
-            launches["gather"] += n
+            n = launches
     (cpu_outs, cpu_l), (card_outs, card_l) = steps["cpu"], steps["card"]
     top2 = cpu_l.topk(2, dim=-1).values
-    qties = first_near_tie(top2[..., 0] - top2[..., 1], QUANT_GEN_TOL)
-    # steps up to the near-tie feed the same tokens on both sides
+    ties = first_near_tie(top2[..., 0] - top2[..., 1], QUANT_GEN_TOL)
+    # the steps up to the near-tie feed the same tokens on both sides
     diff = (card_l - cpu_l).abs().amax(dim=-1)                  # [R, new]
-    qerr = max(diff[i, :t + 1].max().item() for i, t in enumerate(qties))
-    if not qerr <= QUANT_GEN_TOL:
-        raise AssertionError(f"float32 int8 gather engine: step logits card "
-                             f"vs CPU off by {qerr}, over {QUANT_GEN_TOL}")
-    same = [hold_tokens(what, outs, card_outs, prompts, qties)
-            for what, outs in (
-                ("int8 gather engine one slot, CPU", cpu_outs),
-                ("int8 gather engine", card["int8 paged gather"]),
-                ("int8 fused engine", card["int8 fused"]))]
-    log(f"int8 gather engine float32 check (block 32, same requests): "
-        f"first-step logits card vs CPU max |diff| "
-        f"{errs['int8 paged gather']:.3e} (limit {GEN_TOL}); one slot, "
-        f"every step's logits card vs CPU up to each request's first CPU "
-        f"top-2 margin below {QUANT_GEN_TOL} (step {qties}, {new} = none) "
-        f"within {qerr:.3e} (limit {QUANT_GEN_TOL}); before it the card's "
-        f"tokens equal the CPU's, the concurrent int8 gather engine's and "
-        f"the int8 fused engine's, all {new} equal in {same} of "
-        f"{len(prompts)} requests; K2 launches {json.dumps(launches)}")
-    return launches
+    err = max(diff[i, :t + 1].max().item() for i, t in enumerate(ties))
+    if not err <= QUANT_GEN_TOL:
+        raise AssertionError(f"float32 {what}: step logits card vs CPU off "
+                             f"by {err}, over {QUANT_GEN_TOL}")
+    same = [hold_tokens(f"{what}{tail}", outs, card_outs, prompts, ties)
+            for tail, outs in ((" one slot, CPU", cpu_outs),
+                               (" concurrent", concurrent))]
+    return (f"the {what} one slot, every step's logits card vs CPU up to "
+            f"each request's first CPU top-2 margin below {QUANT_GEN_TOL} "
+            f"(step {ties}, {new} = none) within {err:.3e} (limit "
+            f"{QUANT_GEN_TOL}), before it the card's tokens equal the CPU's "
+            f"and the concurrent run's, all {new} equal in {same} of "
+            f"{len(prompts)} requests"), n
 
 
 # ---------------------------------------------------------------- phase 3c
@@ -4767,7 +4822,7 @@ def phase_op_sweep(device):
         f"card against the CPU, all within {SWEEP_TOL} (integers exact), "
         f"{time.perf_counter() - t0:.1f} s; {len(syncing)} read the card "
         f"back: {' '.join(syncing)}")
-    return len(names)
+    return names
 
 
 def tf_parity(device):
@@ -4849,7 +4904,8 @@ def phase_transformer(device, card, timer):
     O1, 8 steps on one batch of 16 x 256 source and 256 target tokens)
     with each step's launches held to the network's structure; then the
     path's kernels against their plain versions at its shapes. Returns
-    the fit's launches and the kernels line's rows."""
+    the fit's launches, the kernels line's rows and the swept ops'
+    names."""
     import paddle_tpu_torch as pt
     import paddle_tpu_torch.optimizer.optimizer as opt_module
     from paddle_tpu_torch import nn
@@ -4857,7 +4913,7 @@ def phase_transformer(device, card, timer):
     from paddle_tpu_torch.framework import monitor
     from paddle_tpu_torch.hapi import Model
     from paddle_tpu_torch.optimizer import AdamW
-    n_ops = phase_op_sweep(device)
+    swept = phase_op_sweep(device)
     tf_parity(device)
     gc.collect()
     net = transformer_net(TF_LAYERS, device, SEED + 60)
@@ -4937,11 +4993,12 @@ def phase_transformer(device, card, timer):
         f"{peak} bytes ({peak / 2 ** 30:.3f} GiB) on {card}; losses "
         f"{json.dumps(rec.loss)}; launches a step {json.dumps(step_want)} "
         f"(sdpa: op calls), every flash launch on the tensor-core route, "
-        f"every LayerNorm launch on the warp-row route; {n_ops} ops swept")
+        f"every LayerNorm launch on the warp-row route; {len(swept)} ops "
+        f"swept")
     del model, net, data
     gc.collect()
     torch.cuda.empty_cache()
-    return launches, tf_rows(device, timer, launches)
+    return launches, tf_rows(device, timer, launches), swept
 
 
 def tf_rows(device, timer, launches):
@@ -4991,6 +5048,356 @@ def tf_rows(device, timer, launches):
             out[-1].update(core_source=FA_SRC, core_ms=row["core_ms"],
                            core_err=row["core_err"])
     return out
+
+
+# ---------------------------------------------------------------- phase 7
+
+#: ``bench.py``'s ``bench_resnet50``: ResNet-50 at 1000 classes, NHWC,
+#: batch 128 at 224 x 224, bf16 AMP O2, Momentum(0.1, 0.9) with float32
+#: masters; not cut
+RN_BATCH, RN_HW, RN_CLASSES, RN_LR, RN_MOMENTUM = 128, 224, 1000, 0.1, 0.9
+#: 1 warm-up and 8 timed steps on the fixed batch; up to 16 timed steps
+#: when 8 do not lower the loss
+RN_WARM, RN_STEPS, RN_MAX_STEPS = 1, 8, 16
+#: the card-vs-CPU parity run: resnet18 at 10 classes, float32, batch 4
+#: at 32 x 32, both layouts
+RN_PARITY_BATCH, RN_PARITY_HW, RN_PARITY_CLASSES = 4, 32, 10
+#: card against CPU, each tensor's largest |difference| over its largest
+#: |value|: the logits, the loss and the running statistics
+RN_PARITY_TOL = 1e-4
+#: the same for every gradient and every parameter after the Momentum
+#: step: ReLU's kink turns float32 rounding of a pre-activation near 0
+#: into a gradient difference (PR 15, PERF.md section 6), so the
+#: gradients get ten times the room of the values
+RN_GRAD_TOL = 1e-3
+
+
+def rn_batch(seed, rows, hw, classes, data_format):
+    """``bench_resnet50``'s data: ``RandomState(seed)`` images ``randn(rows,
+    3, hw, hw)`` float32 (moved to NHWC for a channel-last network), then
+    int64 labels ``[rows, 1]`` in ``[0, classes)``."""
+    rs = np.random.RandomState(seed)
+    x = rs.randn(rows, 3, hw, hw).astype(np.float32)
+    if data_format == "NHWC":
+        x = np.ascontiguousarray(x.transpose(0, 2, 3, 1))
+    return x, rs.randint(0, classes, (rows, 1)).astype(np.int64)
+
+
+def kernel_counters():
+    """Every kernel's launch-counting wrapper, K1/K1q's with the training
+    path's, by name."""
+    from paddle_tpu_torch.ops import ragged_paged_attention as rpa
+    return {**train_counters(),
+            "ragged_paged_attention": rpa.ragged_paged_attention}
+
+
+def kernel_counts(counters):
+    return {f"{name}.{attr}": getattr(fn, attr)
+            for name, fn in counters.items()
+            for attr in ("launches", "quant_launches") if hasattr(fn, attr)}
+
+
+def reset_kernel_counts(counters):
+    reset_counts(counters)
+    rpa = counters["ragged_paged_attention"]
+    for attr in RPA_COUNTS:
+        setattr(rpa, attr, 0)
+
+
+def rn_rel(got, want):
+    """``got``'s largest |difference| from ``want`` over ``want``'s largest
+    |value| (both moved to the CPU in float32)."""
+    got, want = got.detach().float().cpu(), want.detach().float().cpu()
+    return (got - want).abs().max().item() / max(
+        want.abs().max().item(), 1e-30)
+
+
+def rn_parity(device):
+    """``resnet18(num_classes=10)`` in float32 on the card and on a CPU copy
+    of the same weights, NCHW and NHWC, one batch of 4 at 32 x 32. With
+    BatchNorm on its running statistics: the logits and the loss within
+    ``RN_PARITY_TOL``, every gradient (the input's too) and every
+    parameter after one ``Momentum(0.1, 0.9)`` step within
+    ``RN_GRAD_TOL``, each relative to its tensor's largest value. In
+    training mode: after one forward, the running statistics of every
+    BatchNorm before the last stage within ``RN_PARITY_TOL``. The last
+    stage's maps are 1 x 1 at 32 x 32, so each of its BatchNorms
+    normalizes 4 values a channel by their own spread and turns float32
+    rounding into differences of up to 1e-1 of the logits (the JAX
+    package's NCHW and NHWC forms of one network differ that much on the
+    CPU, ``tests/test_torch_resnet.py``): its statistics are not held."""
+    import copy
+
+    import paddle_tpu_torch as pt
+    from paddle_tpu_torch import nn
+    from paddle_tpu_torch.convert import layer_to_numpy
+    from paddle_tpu_torch.optimizer import Momentum
+    from paddle_tpu_torch.vision.models import resnet18
+    cpu = torch.device("cpu")
+    report = []
+    for df in ("NCHW", "NHWC"):
+        pt.seed(SEED + 70)
+        host = resnet18(num_classes=RN_PARITY_CLASSES, data_format=df)
+        card = copy.deepcopy(host).to(device)
+        x, y = rn_batch(SEED + 71, RN_PARITY_BATCH, RN_PARITY_HW,
+                        RN_PARITY_CLASSES, df)
+        outs = {}
+        for key, net, dev in (("card", card, device), ("host", host, cpu)):
+            net.eval()
+            xt = torch.from_numpy(x).to(dev).requires_grad_()
+            logits = net(xt)
+            loss = nn.CrossEntropyLoss()(logits, torch.from_numpy(y).to(dev))
+            loss.backward()
+            grads = {n: p.grad.detach().cpu()
+                     for n, p in net.named_parameters()}
+            grads["input"] = xt.grad.detach().cpu()
+            Momentum(RN_LR, RN_MOMENTUM, parameters=net.parameters()).step()
+            params = {n: p.detach().cpu() for n, p in net.named_parameters()}
+            net.train()
+            with torch.no_grad():
+                net(torch.from_numpy(x).to(dev))
+            stats = {k: torch.from_numpy(v) for k, v in
+                     layer_to_numpy(net).items()
+                     if k.endswith(("_mean", "_variance"))
+                     and not k.startswith("layer4")}
+            outs[key] = (logits.detach().cpu(), loss.item(), grads, params,
+                         stats)
+        (c_logits, c_loss, c_grads, c_params, c_stats), \
+            (h_logits, h_loss, h_grads, h_params, h_stats) = \
+            outs["card"], outs["host"]
+        worst, bad = {}, []
+        checked = [("logits", c_logits, h_logits, RN_PARITY_TOL)] + \
+            [(f"grad {k}", c_grads[k], h_grads[k], RN_GRAD_TOL)
+             for k in h_grads] + \
+            [(f"param {k}", c_params[k], h_params[k], RN_GRAD_TOL)
+             for k in h_params] + \
+            [(f"stat {k}", c_stats[k], h_stats[k], RN_PARITY_TOL)
+             for k in h_stats]
+        for name, got, want, tol in checked:
+            err = rn_rel(got, want)
+            kind = name.split()[0]
+            if err > worst.get(kind, (0.0, ""))[0]:
+                worst[kind] = (err, name)
+            if not (torch.isfinite(got).all() and err <= tol):
+                bad.append(f"{name} {err:.3e} (limit {tol})")
+        if abs(c_loss - h_loss) > RN_PARITY_TOL * abs(h_loss):
+            bad.append(f"loss {c_loss} vs {h_loss}")
+        if bad:
+            raise AssertionError(f"phase 7 parity ({df}): card vs CPU: "
+                                 f"{bad}")
+        report.append(
+            f"{df}: loss card {c_loss:.6f} CPU {h_loss:.6f}, "
+            f"{len(checked)} tensors (" + ", ".join(
+                f"worst {k} {e:.3e} {n.split(' ', 1)[-1]}"
+                for k, (e, n) in sorted(worst.items())) + ")")
+        del card, host
+    log(f"phase 7 parity: resnet18 ({RN_PARITY_CLASSES} classes), float32, "
+        f"batch {RN_PARITY_BATCH} at {RN_PARITY_HW} x {RN_PARITY_HW}, card "
+        f"vs CPU, logits/loss/statistics within {RN_PARITY_TOL}, gradients "
+        f"and the Momentum step within {RN_GRAD_TOL} of each tensor's "
+        f"largest value: " + "; ".join(report))
+
+
+class LayoutCopies:
+    """Counts, while active, the tensor copies that aten runs on the
+    dispatcher (forward and backward): the dtype casts, the layout copies
+    (a copy whose stride order differs from its source's) and the other
+    copies, each with its bytes. cuDNN's own layout transforms run inside
+    its convolution; they are read from the step's device trace."""
+
+    _COPIES = ("clone", "_to_copy", "copy_")
+
+    def __init__(self):
+        self.counts = collections.Counter()
+        self.nbytes = collections.Counter()
+        self.layout_shapes = collections.Counter()
+
+    @staticmethod
+    def _order(t):
+        return tuple(d for d in sorted(range(t.dim()),
+                                       key=lambda d: -t.stride(d))
+                     if t.shape[d] > 1)
+
+    def __enter__(self):
+        from torch.utils._python_dispatch import TorchDispatchMode
+        outer = self
+
+        class Mode(TorchDispatchMode):
+            def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+                out = func(*args, **(kwargs or {}))
+                name = func.overloadpacket.__name__
+                if name in LayoutCopies._COPIES:
+                    src = args[1] if name == "copy_" else args[0]
+                    dst = out
+                    if isinstance(src, torch.Tensor) and isinstance(
+                            dst, torch.Tensor):
+                        if src.dtype != dst.dtype:
+                            kind = "dtype"
+                        elif outer._order(src) != outer._order(dst):
+                            kind = "layout"
+                        else:
+                            kind = "plain"
+                        outer.counts[kind] += 1
+                        outer.nbytes[kind] += dst.numel() * \
+                            dst.element_size()
+                        if kind == "layout":
+                            outer.layout_shapes[str(tuple(dst.shape))] += 1
+                return out
+
+        self._mode = Mode()
+        self._mode.__enter__()
+        return self
+
+    def __exit__(self, *exc):
+        return self._mode.__exit__(*exc)
+
+
+def rn_layout_copies(model, inputs, labels):
+    """One more train step of the fit's model, counted: the copies aten
+    runs (:class:`LayoutCopies`) and, from a ``torch.profiler`` trace of
+    the same step, the device's copy kernels (names with ``copy``: dtype
+    casts and layout copies), cuDNN's layout-transform kernels (names with
+    ``nchwToNhwc`` or ``nhwcToNchw``) and every kernel."""
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof, \
+            LayoutCopies() as copies:
+        model._train_step(inputs, labels)
+        torch.cuda.synchronize()
+    kernels = collections.Counter(
+        ev.name for ev in prof.events()
+        if ev.device_type == torch.autograd.DeviceType.CUDA)
+    trace = {"kernels": sum(kernels.values()),
+             "copy": sum(c for n, c in kernels.items()
+                         if "copy" in n.lower()),
+             "transform": {n[:80]: c for n, c in kernels.items()
+                           if "nchwToNhwc" in n or "nhwcToNchw" in n}}
+    return copies, trace
+
+
+def phase_resnet(device, card, sweep):
+    """7: ResNet-50 at ``bench_resnet50``'s configuration trained through
+    ``hapi.Model.fit`` (``RN_WARM`` + ``RN_STEPS`` steps on the fixed
+    batch, the loss finite every step and lower at the last timed step
+    than at the first), with no kernel's counter moving (the JAX package
+    runs this network without a Pallas kernel: convolutions, pools and
+    BatchNorm are XLA there, cuDNN and PyTorch's own kernels here); one
+    more step under ``set_sync_debug_mode("error")`` and one counted for
+    its layout copies; the resnet18 card/CPU parity (:func:`rn_parity`);
+    the 22 ``extra_nn_ops`` among phase 6's swept ops (``sweep``)."""
+    import paddle_tpu_torch as pt
+    from paddle_tpu_torch import amp, nn
+    from paddle_tpu_torch.callbacks import Callback
+    from paddle_tpu_torch.hapi import Model
+    from paddle_tpu_torch.metric import Accuracy
+    from paddle_tpu_torch.ops import extra_nn_ops
+    from paddle_tpu_torch.ops.registry import get_op, op_names
+    from paddle_tpu_torch.optimizer import Momentum
+    from paddle_tpu_torch.vision.models import resnet50
+    extra = {n for n in op_names()
+             if get_op(n).fn.__module__ == extra_nn_ops.__name__}
+    missing = sorted(extra - set(sweep))
+    if len(extra) != 22 or missing:
+        raise AssertionError(f"phase 7: extra_nn_ops {sorted(extra)} not all "
+                             f"swept on the card by phase 6: {missing}")
+    rn_parity(device)
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    pt.seed(SEED)
+    net = resnet50(num_classes=RN_CLASSES, data_format="NHWC")
+    amp.decorate(net, level="O2", dtype="bfloat16")
+    model = Model(net, inputs=["image"], labels=["label"], device=device)
+    model.prepare(Momentum(learning_rate=RN_LR, momentum=RN_MOMENTUM,
+                           parameters=net.parameters(),
+                           multi_precision=True),
+                  loss=nn.CrossEntropyLoss(), metrics=[Accuracy()],
+                  amp_configs={"level": "O2", "dtype": "bfloat16"})
+    x, y = rn_batch(SEED, RN_BATCH, RN_HW, RN_CLASSES, "NHWC")
+    batch = (torch.from_numpy(x).to(device), torch.from_numpy(y).to(device))
+    n_params = sum(p.numel() for p in net.parameters())
+
+    class Steps(Callback):
+        def __init__(self):
+            super().__init__()
+            self.loss, self.acc, self.spans = [], [], []
+
+        def on_train_batch_begin(self, step, logs=None):
+            self._t0 = time.perf_counter()
+
+        def on_train_batch_end(self, step, logs=None):
+            self.spans.append(time.perf_counter() - self._t0)
+            self.loss.append(logs["loss"])
+            self.acc.append(float(logs["acc"]) if "acc" in logs else None)
+
+    counters = kernel_counters()
+    rec = Steps()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_kernel_counts(counters)
+    with count_plain() as plain:
+        model.fit([batch] * RN_WARM, batch_size=RN_BATCH, log_freq=1,
+                  verbose=0, callbacks=[rec])
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        model.fit([batch] * RN_STEPS, batch_size=RN_BATCH, log_freq=1,
+                  verbose=0, callbacks=[rec])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        timed = RN_STEPS
+        while not rec.loss[-1] < rec.loss[RN_WARM] and timed < RN_MAX_STEPS:
+            model.fit([batch], batch_size=RN_BATCH, log_freq=1, verbose=0,
+                      callbacks=[rec])
+            timed += 1
+        torch.cuda.synchronize()
+        wall_all = time.perf_counter() - t0
+    counts = kernel_counts(counters)
+    peak = torch.cuda.max_memory_allocated()
+    if any(counts.values()) or sum(plain.values()):
+        raise AssertionError(f"phase 7: the fit launched kernels {counts} "
+                             f"or plain versions {dict(plain)}")
+    if not all(math.isfinite(v) for v in rec.loss) \
+            or not rec.loss[-1] < rec.loss[RN_WARM]:
+        raise AssertionError(f"phase 7 losses on the fixed batch over "
+                             f"{timed} timed steps: {rec.loss}")
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        loss, _ = model._train_step([batch[0]], [batch[1]])
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    if not math.isfinite(loss.item()):
+        raise AssertionError(f"phase 7: the sync-free step's loss {loss}")
+    copies, trace = rn_layout_copies(model, [batch[0]], [batch[1]])
+    spans = rec.spans[RN_WARM:RN_WARM + RN_STEPS]
+    log(f"phase 7: ResNet-50 (bench.py bench_resnet50), {RN_CLASSES} "
+        f"classes, NHWC, {n_params} parameters, bf16 AMP O2 (BatchNorm on "
+        f"the black list: float32), Momentum lr {RN_LR} momentum "
+        f"{RN_MOMENTUM} with float32 masters, batch {RN_BATCH} x {RN_HW} x "
+        f"{RN_HW} x 3, through Model.fit with Accuracy: {RN_WARM} warm-up "
+        f"and {timed} timed steps on the fixed batch; K1-K8 launches "
+        f"{json.dumps(counts)} (none: the JAX package runs this network "
+        f"without a Pallas kernel), no plain version")
+    log(f"phase 7 fit on {card}: {RN_STEPS} timed steps in {wall:.3f} s: "
+        f"{wall / RN_STEPS * 1e3:.3f} ms per step (wall / steps), median "
+        f"step {float(np.median(spans)) * 1e3:.3f} ms, "
+        f"{RN_BATCH * RN_STEPS / wall:.1f} images/s, max memory allocated "
+        f"{peak} bytes ({peak / 2 ** 30:.3f} GiB); losses "
+        f"{json.dumps(rec.loss)} (first timed {rec.loss[RN_WARM]:.4f}, "
+        f"last {rec.loss[-1]:.4f}; {timed} timed steps, "
+        f"{wall_all:.3f} s with any beyond {RN_STEPS}); accuracy "
+        f"{json.dumps(rec.acc)}")
+    log(f"phase 7 one step on {card}: under set_sync_debug_mode('error') "
+        f"no read back to the host (loss {loss.item():.4f}); the copies "
+        f"aten ran in one step, by kind {json.dumps(dict(copies.counts))}, "
+        f"bytes {json.dumps(dict(copies.nbytes))}, layout copies by "
+        f"shape {json.dumps(dict(copies.layout_shapes))}; the step's device "
+        f"trace: {trace['kernels']} kernels, {trace['copy']} copy kernels, "
+        f"layout-transform kernels {json.dumps(trace['transform'])}")
+    del model, net, batch
+    gc.collect()
+    torch.cuda.empty_cache()
 
 
 def main() -> int:
@@ -5055,7 +5462,8 @@ def run_phases() -> int:
     o1 = phase_o1(device, card)
     obs_train = phase_observe_train(device, card)
     phase_oom(device)
-    _, tf_kernel_rows = phase_transformer(device, card, timer)
+    _, tf_kernel_rows, swept = phase_transformer(device, card, timer)
+    phase_resnet(device, card, swept)
     kernels = report_engine(device, timer, launches, captured,
                             quant_launches, quant_captured)
     # the engine row of the LayerNorm forward counts the fused engines'

@@ -5,7 +5,10 @@ imports). It serves GPT-2 through the fused paged engine and trains it
 through ``hapi.Model.fit`` or an eager loop; the op library, the
 ``paddle.*`` functions (:mod:`.tensor`, re-exported here), ``nn``
 (``Layer``, ``functional``, ``initializer`` and the layers through
-``nn.Transformer``) build other networks the same way. Its kernels are
+``nn.Transformer``, the conv and pooling layers) and ``vision.models``'
+ResNet family build other networks the same way. Every other public
+name of the JAX package's top level is here too, or raises
+``NotImplementedError`` naming the ROADMAP Queue 1 item that ports it. Its kernels are
 hand-written CUDA for Hopper (``csrc/``), built with ``nvcc`` at first
 use:
 
@@ -45,24 +48,64 @@ The tensor is ``torch.Tensor`` itself.
 
     out = net.generate(pt.to_tensor(ids), max_new_tokens=64)   # greedy
 """
-from . import (amp, callbacks, io, metric, nn, ops, optimizer, profiler,
-               regularizer)
+import torch as _torch
+
+from . import (amp, callbacks, hapi, io, metric, models, nn, ops, optimizer,
+               profiler, regularizer, serving, vision)
 from .nn.layer.layers import ParamAttr
+from .framework import metrics
 from .framework.dispatch import call_op
+from .framework.flags import get_flags, set_flags
 from .framework.io import load, save
 from .framework.dtypes import NAMES as _DTYPES
-from .framework.place import get_device, set_device
+from .framework.dtypes import get_default_dtype, set_default_dtype
+from .framework.metrics import statusz
+from .framework.place import (CPUPlace, CUDAPinnedPlace, CUDAPlace, Place,
+                              current_place, get_device,
+                              is_compiled_with_tpu, set_device)
+from .framework.random import get_rng_state as get_cuda_rng_state
 from .framework.random import seed
-from .framework.tensor import (Parameter, grad_enabled_guard,
+from .framework.random import set_rng_state as set_cuda_rng_state
+from .framework.tensor import (Parameter, Tensor, grad_enabled_guard,
                                is_grad_enabled, no_grad, to_tensor)
+from .hapi.model import Model
+from .ops.registry import not_ported as _not_ported
 from .ops.registry import op_names as _op_names
 
-__all__ = ["seed", "amp", "callbacks", "io", "metric", "nn", "ops",
-           "optimizer", "profiler", "regularizer", "save", "load", "call_op",
-           "ParamAttr", "tensor",
-           "get_device", "set_device",
-           "Parameter", "grad_enabled_guard", "is_grad_enabled", "no_grad",
-           "to_tensor"]
+#: a tensor's dtype is a ``torch.dtype``
+dtype = _torch.dtype
+bool_ = _torch.bool
+#: a context manager (and decorator) setting grad recording to ``mode``
+set_grad_enabled = grad_enabled_guard
+
+__all__ = ["seed", "amp", "callbacks", "hapi", "io", "metric", "metrics",
+           "models", "nn", "ops", "optimizer", "profiler", "regularizer",
+           "serving", "vision", "save", "load", "call_op", "ParamAttr",
+           "tensor", "get_device", "set_device", "Model", "Place",
+           "CPUPlace", "CUDAPlace", "CUDAPinnedPlace", "current_place",
+           "is_compiled_with_tpu", "get_flags", "set_flags", "statusz",
+           "Tensor", "dtype", "bool_", "get_default_dtype",
+           "set_default_dtype", "get_cuda_rng_state", "set_cuda_rng_state",
+           "set_grad_enabled", "Parameter", "grad_enabled_guard",
+           "is_grad_enabled", "no_grad", "to_tensor"]
+
+#: the JAX package's top-level names not ported yet, by ROADMAP Queue 1
+#: item: multi-device (4) and API breadth (5)
+_DEFERRED = dict.fromkeys(("DataParallel", "distributed", "parallel"), 4)
+_DEFERRED.update(dict.fromkeys((
+    "NPUPlace", "TPUPlace", "grad", "summary", "flops", "enable_static",
+    "disable_static", "in_dynamic_mode", "batch", "analysis", "autograd",
+    "compat", "cost_model", "dataset", "device", "distribution", "fft",
+    "fluid", "hub", "incubate", "inference", "jit", "linalg", "onnx",
+    "quantization", "reader", "signal", "sparse", "static", "sysconfig",
+    "text", "utils", "version"), 5))
+
+
+def __getattr__(name):
+    if name in _DEFERRED:
+        raise _not_ported(name, _DEFERRED[name])
+    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")
+
 
 # the dtype names (pt.float32, pt.bfloat16, ...) as torch dtypes
 globals().update(_DTYPES)

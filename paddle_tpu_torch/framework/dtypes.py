@@ -8,7 +8,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-__all__ = ["convert_dtype", "dtype_name", "DEFAULT_DTYPE", "NAMES"]
+__all__ = ["convert_dtype", "dtype_name", "DEFAULT_DTYPE", "NAMES",
+           "get_default_dtype", "set_default_dtype"]
 
 #: canonical name -> dtype
 NAMES = {
@@ -28,8 +29,26 @@ _ALIASES = dict(NAMES, fp16=torch.float16, half=torch.float16,
 
 _TO_NAME = {d: n for n, d in NAMES.items()}
 
-#: the dtype of float data given without one
+#: the dtype of float data given without one (``set_default_dtype``
+#: changes it)
 DEFAULT_DTYPE = torch.float32
+
+
+def set_default_dtype(d) -> None:
+    """``paddle.set_default_dtype``: float16, bfloat16, float32 or
+    float64 for float data given without a dtype."""
+    global DEFAULT_DTYPE
+    d = convert_dtype(d)
+    if d not in (torch.float16, torch.bfloat16, torch.float32,
+                 torch.float64):
+        raise TypeError(f"set_default_dtype only supports float16/bfloat16/"
+                        f"float32/float64, got {d}")
+    DEFAULT_DTYPE = d
+
+
+def get_default_dtype() -> str:
+    """The default dtype's name (``"float32"`` unless set)."""
+    return dtype_name(DEFAULT_DTYPE)
 
 
 def convert_dtype(dtype) -> torch.dtype:

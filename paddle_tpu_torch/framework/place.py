@@ -1,6 +1,6 @@
 """Places and the default device (counterpart of
 ``paddle_tpu/framework/place.py``): ``CPUPlace`` and ``CUDAPlace(i)`` map
-to ``torch.device``.
+to ``torch.device``; ``CUDAPinnedPlace`` is host memory (the CPU).
 
 The default place is ``"gpu:0"``, which resolves through
 ``_device.resolve_device``: without a card it raises instead of falling
@@ -13,7 +13,8 @@ import torch
 
 from .._device import resolve_device
 
-__all__ = ["Place", "CPUPlace", "CUDAPlace", "set_device", "get_device",
+__all__ = ["Place", "CPUPlace", "CUDAPlace", "CUDAPinnedPlace",
+           "set_device", "get_device", "is_compiled_with_tpu",
            "current_place", "to_torch_device", "from_torch_device"]
 
 
@@ -43,6 +44,21 @@ class CPUPlace(Place):
 
 class CUDAPlace(Place):
     device_type = "gpu"
+
+
+class CUDAPinnedPlace(Place):
+    """Pinned host memory: it lives on the host, so it resolves to the
+    CPU."""
+
+    device_type = "cpu"
+
+    def __init__(self):
+        super().__init__(0)
+
+
+def is_compiled_with_tpu() -> bool:
+    """The port runs on CUDA cards, never on a TPU."""
+    return False
 
 
 _NAMES = {"cpu": CPUPlace, "gpu": CUDAPlace, "cuda": CUDAPlace}
@@ -84,7 +100,7 @@ def to_torch_device(place=None) -> torch.device:
     ``"gpu:1"`` or ``"cpu"``, or a ``torch.device``); ``None`` is the
     current place. A GPU place raises when no card is present."""
     p = _current_place if place is None else _parse(place)
-    if isinstance(p, CPUPlace):
+    if p.device_type == "cpu":
         return torch.device("cpu")
     resolve_device(None)
     return torch.device("cuda", p.get_device_id())

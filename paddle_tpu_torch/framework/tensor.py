@@ -14,11 +14,12 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from .dtypes import DEFAULT_DTYPE, convert_dtype
+from . import dtypes
+from .dtypes import convert_dtype
 from .place import to_torch_device
 
 __all__ = ["to_tensor", "no_grad", "is_grad_enabled", "grad_enabled_guard",
-           "Parameter"]
+           "Parameter", "Tensor"]
 
 #: ``paddle.no_grad``: a context manager and a decorator
 no_grad = torch.no_grad
@@ -60,9 +61,34 @@ def to_tensor(data, dtype=None, place=None, stop_gradient=True):
     else:
         arr = np.asarray(data)
         if dtype is None and arr.dtype == np.float64:
-            dtype = DEFAULT_DTYPE
+            dtype = dtypes.DEFAULT_DTYPE
         out = torch.tensor(arr, device=device, dtype=convert_dtype(dtype)
                            if dtype is not None else None)
     if not stop_gradient:
         out.requires_grad_()
     return out
+
+
+class _TensorType(type):
+    """:class:`Tensor`'s metaclass: every ``torch.Tensor`` is an instance,
+    every torch tensor class a subclass."""
+
+    def __instancecheck__(cls, obj):
+        return isinstance(obj, torch.Tensor)
+
+    def __subclasscheck__(cls, sub):
+        return isinstance(sub, type) and issubclass(sub, torch.Tensor)
+
+
+class Tensor(metaclass=_TensorType):
+    """``paddle.Tensor``: the port's tensor is ``torch.Tensor``, so
+    ``isinstance(x, Tensor)`` holds for every torch tensor, and
+    ``Tensor(data, stop_gradient=True, name=None)`` makes one on the
+    current place (as ``to_tensor``; ``name`` is taken and not kept). A
+    tensor's methods are torch's: the Paddle-only methods and signatures
+    of the JAX ``Tensor`` (``stop_gradient``, ``place``, ``clear_grad``,
+    ``backward(grad_tensor=)``, ``split(num_or_sections, axis)``, ...) are
+    not ported yet (ROADMAP Queue 1 item 6)."""
+
+    def __new__(cls, data, stop_gradient=True, name=None):
+        return to_tensor(data, stop_gradient=stop_gradient)

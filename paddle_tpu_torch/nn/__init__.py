@@ -1,12 +1,11 @@
 """``nn`` (counterpart of ``paddle_tpu/nn``): the ``Layer`` base and its
-containers, the activation, common, normalization, loss and transformer
-layers, ``functional``, ``initializer`` and the gradient clips.
+containers, the activation, common, convolution, pooling, normalization,
+loss and transformer layers, ``functional``, ``initializer`` and the
+gradient clips.
 
 Not ported yet, each raising ``NotImplementedError`` that names its
-ROADMAP Queue 1 item when reached: the conv and pooling layers,
-``CTCLoss``, ``HSigmoidLoss``, ``Fold``, ``PixelUnshuffle`` and
-``ChannelShuffle`` (item 6), ``SyncBatchNorm`` (item 4), and the
-recurrent layers and decoding (item 5)."""
+ROADMAP Queue 1 item when reached: ``SyncBatchNorm`` (item 4), and the
+recurrent layers and decoding, ``nn.utils`` and ``nn.quant`` (item 5)."""
 from . import clip, functional, initializer
 from .clip import ClipGradByGlobalNorm, ClipGradByNorm, ClipGradByValue
 from .layer.activation import (
@@ -17,15 +16,19 @@ from .layer.activation import (
 )
 from .layer.common import (
     AlphaDropout, Bilinear, CosineSimilarity, Dropout, Dropout2D, Dropout3D,
-    Embedding, Flatten, Identity, Linear, Pad1D, Pad2D, Pad3D,
-    PairwiseDistance, PixelShuffle, Unfold, Upsample, UpsamplingBilinear2D,
-    UpsamplingNearest2D, ZeroPad2D,
+    ChannelShuffle, Embedding, Flatten, Fold, Identity, Linear, Pad1D,
+    Pad2D, Pad3D, PairwiseDistance, PixelShuffle, PixelUnshuffle, Unfold,
+    Upsample, UpsamplingBilinear2D, UpsamplingNearest2D, ZeroPad2D,
+)
+from .layer.conv import (
+    Conv1D, Conv1DTranspose, Conv2D, Conv2DTranspose, Conv3D,
+    Conv3DTranspose,
 )
 from .layer.container import LayerDict, LayerList, ParameterList, Sequential
 from .layer.layers import Layer, ParamAttr, set_param_attr
 from .layer.loss import (
     BCELoss, BCEWithLogitsLoss, CosineEmbeddingLoss, CrossEntropyLoss,
-    HingeEmbeddingLoss, HuberLoss, KLDivLoss, L1Loss, MarginRankingLoss,
+    CTCLoss, HingeEmbeddingLoss, HSigmoidLoss, HuberLoss, KLDivLoss, L1Loss, MarginRankingLoss,
     MSELoss, MultiLabelSoftMarginLoss, NLLLoss, SigmoidFocalLoss,
     SmoothL1Loss, TripletMarginLoss, TripletMarginWithDistanceLoss,
 )
@@ -34,6 +37,12 @@ from .layer.norm import (
     InstanceNorm1D, InstanceNorm2D, InstanceNorm3D, LayerNorm,
     LocalResponseNorm, RMSNorm, SpectralNorm,
 )
+from .layer.pooling import (
+    AdaptiveAvgPool1D, AdaptiveAvgPool2D, AdaptiveAvgPool3D,
+    AdaptiveMaxPool1D, AdaptiveMaxPool2D, AdaptiveMaxPool3D, AvgPool1D,
+    AvgPool2D, AvgPool3D, MaxPool1D, MaxPool2D, MaxPool3D, MaxUnPool1D,
+    MaxUnPool2D, MaxUnPool3D,
+)
 from .layer.transformer import (
     MultiHeadAttention, Transformer, TransformerDecoder,
     TransformerDecoderLayer, TransformerEncoder, TransformerEncoderLayer,
@@ -41,15 +50,7 @@ from .layer.transformer import (
 from ..ops.registry import not_ported as _not_ported
 
 #: the JAX package's ``nn`` names not ported yet, by ROADMAP Queue 1 item
-_DEFERRED = dict.fromkeys((
-    "Conv1D", "Conv1DTranspose", "Conv2D", "Conv2DTranspose", "Conv3D",
-    "Conv3DTranspose", "AdaptiveAvgPool1D", "AdaptiveAvgPool2D",
-    "AdaptiveAvgPool3D", "AdaptiveMaxPool1D", "AdaptiveMaxPool2D",
-    "AdaptiveMaxPool3D", "AvgPool1D", "AvgPool2D", "AvgPool3D", "MaxPool1D",
-    "MaxPool2D", "MaxPool3D", "MaxUnPool1D", "MaxUnPool2D", "MaxUnPool3D",
-    "CTCLoss", "HSigmoidLoss", "Fold", "PixelUnshuffle", "ChannelShuffle"),
-    6)
-_DEFERRED["SyncBatchNorm"] = 4
+_DEFERRED = {"SyncBatchNorm": 4}
 _DEFERRED.update(dict.fromkeys((
     "BiRNN", "GRU", "GRUCell", "LSTM", "LSTMCell", "RNN", "RNNCellBase",
     "SimpleRNN", "SimpleRNNCell", "BeamSearchDecoder", "dynamic_decode",

@@ -19,13 +19,7 @@ carried over: on the card every supported shape goes to the kernel.
 The random functions (``dropout``, ``alpha_dropout``, ``rrelu``,
 ``gumbel_softmax``) draw from the port's generator of the input's device.
 Not ported yet (ROADMAP Queue 1 item 6; reaching one raises
-``NotImplementedError`` naming it): the ``sequence_*`` functions,
-``conv1d_transpose``/``conv3d_transpose``, the 3-D adaptive pools,
-``max_unpool*``, ``fold``, ``pixel_unshuffle``, ``channel_shuffle``,
-``temporal_shift``, ``grid_sample``, ``affine_grid``, ``gather_tree``,
-``ctc_loss``, ``hsigmoid_loss``, ``margin_cross_entropy``,
-``class_center_sample``, ``sparse_attention``, and the pools'
-``return_mask=True``.
+``NotImplementedError`` naming it): the ten ``sequence_*`` functions.
 """
 from __future__ import annotations
 
@@ -42,13 +36,7 @@ __all__ = ["sdpa_reference", "flash_supported"]
 _DEFERRED = frozenset((
     "sequence_pad", "sequence_unpad", "sequence_pool", "sequence_softmax",
     "sequence_reverse", "sequence_expand", "sequence_slice",
-    "sequence_enumerate", "sequence_concat", "sequence_conv",
-    "sparse_attention", "conv1d_transpose", "conv3d_transpose",
-    "adaptive_avg_pool3d", "adaptive_max_pool3d", "max_unpool1d",
-    "max_unpool2d", "max_unpool3d", "fold", "pixel_unshuffle",
-    "channel_shuffle", "temporal_shift", "grid_sample", "affine_grid",
-    "gather_tree", "ctc_loss", "hsigmoid_loss", "margin_cross_entropy",
-    "class_center_sample"))
+    "sequence_enumerate", "sequence_concat", "sequence_conv"))
 
 
 def __getattr__(name):
@@ -360,6 +348,53 @@ def diag_embed(x, offset=0, dim1=-2, dim2=-1, name=None):
     return _op("diag_embed", x, offset=offset, dim1=dim1, dim2=dim2)
 
 
+@_export
+def pixel_unshuffle(x, downscale_factor, data_format="NCHW", name=None):
+    return _op("pixel_unshuffle", x, downscale_factor=downscale_factor,
+               data_format=data_format)
+
+
+@_export
+def channel_shuffle(x, groups, data_format="NCHW", name=None):
+    return _op("channel_shuffle", x, groups=groups, data_format=data_format)
+
+
+@_export
+def fold(x, output_sizes, kernel_sizes, strides=1, paddings=0, dilations=1,
+         name=None):
+    return _op("fold", x, output_sizes=output_sizes,
+               kernel_sizes=kernel_sizes, strides=strides, paddings=paddings,
+               dilations=dilations)
+
+
+@_export
+def temporal_shift(x, seg_num, shift_ratio=0.25, data_format="NCHW",
+                   name=None):
+    return _op("temporal_shift", x, seg_num=seg_num, shift_ratio=shift_ratio,
+               data_format=data_format)
+
+
+@_export
+def grid_sample(x, grid, mode="bilinear", padding_mode="zeros",
+                align_corners=True, name=None):
+    return _op("grid_sample", x, grid, mode=mode, padding_mode=padding_mode,
+               align_corners=align_corners)
+
+
+@_export
+def affine_grid(theta, out_shape, align_corners=True, name=None):
+    """``out_shape``: four ints, or a tensor of them (read to the host)."""
+    if isinstance(out_shape, torch.Tensor):
+        out_shape = out_shape.tolist()
+    return _op("affine_grid", theta, out_shape=tuple(
+        int(v) for v in out_shape), align_corners=align_corners)
+
+
+@_export
+def gather_tree(ids, parents):
+    return _op("gather_tree", ids, parents)
+
+
 # -- conv / pooling --------------------------------------------------------------
 
 @_export
@@ -424,15 +459,38 @@ def conv2d_transpose(x, weight, bias=None, stride=1, padding=0,
                data_format=data_format)
 
 
-def _no_mask(return_mask, what):
-    if return_mask:
-        raise not_ported(f"nn.functional.{what}(return_mask=True)")
+@_export
+def conv1d_transpose(x, weight, bias=None, stride=1, padding=0,
+                     output_padding=0, groups=1, dilation=1,
+                     output_size=None, data_format="NCL", name=None):
+    if output_size is not None:
+        output_padding = _opad_from_output_size(
+            x, weight, stride, padding, dilation, output_size, 1,
+            data_format)
+    return _op("conv1d_transpose", x, weight, bias, stride=stride,
+               padding=padding, output_padding=output_padding, groups=groups,
+               dilation=dilation, data_format=data_format)
+
+
+@_export
+def conv3d_transpose(x, weight, bias=None, stride=1, padding=0,
+                     output_padding=0, groups=1, dilation=1,
+                     output_size=None, data_format="NCDHW", name=None):
+    if output_size is not None:
+        output_padding = _opad_from_output_size(
+            x, weight, stride, padding, dilation, output_size, 3,
+            data_format)
+    return _op("conv3d_transpose", x, weight, bias, stride=stride,
+               padding=padding, output_padding=output_padding, groups=groups,
+               dilation=dilation, data_format=data_format)
 
 
 @_export
 def max_pool1d(x, kernel_size, stride=None, padding=0, return_mask=False,
                ceil_mode=False, name=None):
-    _no_mask(return_mask, "max_pool1d")
+    if return_mask:
+        return _op("max_pool1d_with_mask", x, kernel_size=kernel_size,
+                   stride=stride, padding=padding, ceil_mode=ceil_mode)
     return _op("max_pool1d", x, kernel_size=kernel_size, stride=stride,
                padding=padding, ceil_mode=ceil_mode)
 
@@ -447,10 +505,12 @@ def avg_pool1d(x, kernel_size, stride=None, padding=0, exclusive=True,
 @_export
 def max_pool2d(x, kernel_size, stride=None, padding=0, return_mask=False,
                ceil_mode=False, data_format="NCHW", name=None):
-    if return_mask and not data_format.startswith("NC"):
-        raise ValueError(
-            "return_mask=True requires NCHW (reference restriction)")
-    _no_mask(return_mask, "max_pool2d")
+    if return_mask:
+        if not data_format.startswith("NC"):
+            raise ValueError(
+                "return_mask=True requires NCHW (reference restriction)")
+        return _op("max_pool2d_with_mask", x, kernel_size=kernel_size,
+                   stride=stride, padding=padding, ceil_mode=ceil_mode)
     return _op("max_pool2d", x, kernel_size=kernel_size, stride=stride,
                padding=padding, ceil_mode=ceil_mode, data_format=data_format)
 
@@ -467,10 +527,12 @@ def avg_pool2d(x, kernel_size, stride=None, padding=0, ceil_mode=False,
 @_export
 def max_pool3d(x, kernel_size, stride=None, padding=0, return_mask=False,
                ceil_mode=False, data_format="NCDHW", name=None):
-    if return_mask and not data_format.startswith("NC"):
-        raise ValueError(
-            "return_mask=True requires NCDHW (reference restriction)")
-    _no_mask(return_mask, "max_pool3d")
+    if return_mask:
+        if not data_format.startswith("NC"):
+            raise ValueError(
+                "return_mask=True requires NCDHW (reference restriction)")
+        return _op("max_pool3d_with_mask", x, kernel_size=kernel_size,
+                   stride=stride, padding=padding, ceil_mode=ceil_mode)
     return _op("max_pool3d", x, kernel_size=kernel_size, stride=stride,
                padding=padding, ceil_mode=ceil_mode, data_format=data_format)
 
@@ -491,7 +553,8 @@ def adaptive_avg_pool1d(x, output_size, name=None):
 
 @_export
 def adaptive_max_pool1d(x, output_size, return_mask=False, name=None):
-    _no_mask(return_mask, "adaptive_max_pool1d")
+    if return_mask:
+        return _adaptive_max_with_mask(x, output_size, 1)
     return _op("adaptive_max_pool1d", x, output_size=output_size)
 
 
@@ -503,8 +566,66 @@ def adaptive_avg_pool2d(x, output_size, data_format="NCHW", name=None):
 
 @_export
 def adaptive_max_pool2d(x, output_size, return_mask=False, name=None):
-    _no_mask(return_mask, "adaptive_max_pool2d")
+    if return_mask:
+        return _adaptive_max_with_mask(x, output_size, 2)
     return _op("adaptive_max_pool2d", x, output_size=output_size)
+
+
+@_export
+def adaptive_avg_pool3d(x, output_size, data_format="NCDHW", name=None):
+    return _op("adaptive_avg_pool3d", x, output_size=output_size,
+               data_format=data_format)
+
+
+@_export
+def adaptive_max_pool3d(x, output_size, return_mask=False, name=None):
+    if return_mask:
+        return _adaptive_max_with_mask(x, output_size, 3)
+    return _op("adaptive_max_pool3d", x, output_size=output_size)
+
+
+def _adaptive_max_with_mask(x, output_size, nd):
+    """An adaptive max pool's mask, where the windows tile the input:
+    the max pool with the window as kernel and stride (the JAX rule)."""
+    out = (output_size,) * nd if isinstance(output_size, int) \
+        else tuple(output_size)
+    spatial = x.shape[2:2 + nd]
+    if any(s % o != 0 for s, o in zip(spatial, out)):
+        raise NotImplementedError(
+            "return_mask=True needs output_size dividing the input size")
+    ks = tuple(s // o for s, o in zip(spatial, out))
+    return _op(f"max_pool{nd}d_with_mask", x, kernel_size=ks, stride=ks,
+               padding=0)
+
+
+@_export
+def max_unpool1d(x, indices, kernel_size, stride=None, padding=0,
+                 data_format="NCL", output_size=None, name=None):
+    _channel_first(data_format, "max_unpool1d")
+    return _op("max_unpool1d", x, indices, kernel_size=kernel_size,
+               stride=stride, padding=padding, output_size=output_size)
+
+
+@_export
+def max_unpool2d(x, indices, kernel_size, stride=None, padding=0,
+                 data_format="NCHW", output_size=None, name=None):
+    _channel_first(data_format, "max_unpool2d")
+    return _op("max_unpool2d", x, indices, kernel_size=kernel_size,
+               stride=stride, padding=padding, output_size=output_size)
+
+
+@_export
+def max_unpool3d(x, indices, kernel_size, stride=None, padding=0,
+                 data_format="NCDHW", output_size=None, name=None):
+    _channel_first(data_format, "max_unpool3d")
+    return _op("max_unpool3d", x, indices, kernel_size=kernel_size,
+               stride=stride, padding=padding, output_size=output_size)
+
+
+def _channel_first(data_format, what):
+    if not data_format.startswith("NC"):
+        raise ValueError(f"{what} supports channel-first only (reference "
+                         f"restriction)")
 
 
 # -- norms ------------------------------------------------------------------------
@@ -782,6 +903,68 @@ def npair_loss(anchor, positive, labels, l2_reg=0.002):
                           _op("sum", _op("multiply", positive, positive))),
              scale=float(l2_reg) * 0.25 / int(n))
     return _op("add", _op("mean", ce), l2)
+
+
+@_export
+def ctc_loss(log_probs, labels, input_lengths, label_lengths, blank=0,
+             reduction="mean", norm_by_times=False):
+    """Each sample's negative log-likelihood (``ctc_loss`` op);
+    ``norm_by_times`` divides it by the sample's input length first;
+    ``"mean"`` divides each by its label length (at least 1) and averages,
+    ``"sum"`` adds them, ``"none"`` returns them (the JAX function's
+    rules)."""
+    loss = _op("ctc_loss", log_probs, labels, input_lengths, label_lengths,
+               blank=blank)
+    if norm_by_times:
+        il = _op("cast", input_lengths, dtype="float32")
+        loss = _op("divide", loss, _op("maximum", il, _op(
+            "full_like", il, fill_value=1.0)))
+    if reduction == "mean":
+        ll = _op("cast", label_lengths, dtype="float32")
+        return _op("mean", _op("divide", loss, _op("maximum", ll, _op(
+            "full_like", ll, fill_value=1.0))))
+    return _reduce(loss, reduction)
+
+
+@_export
+def hsigmoid_loss(input, label, num_classes, weight, bias=None,
+                  path_table=None, path_code=None, is_sparse=False,
+                  name=None):
+    return _op("hsigmoid_loss", input, label, weight, bias, path_table,
+               path_code, num_classes=num_classes)
+
+
+@_export
+def margin_cross_entropy(logits, label, margin1=1.0, margin2=0.5,
+                         margin3=0.0, scale=64.0, group=None,
+                         return_softmax=False, reduction="mean"):
+    if group is not None:
+        raise not_ported("nn.functional.margin_cross_entropy(group=...)", 4)
+    out = _op("margin_cross_entropy", logits, label, margin1=margin1,
+              margin2=margin2, margin3=margin3, scale=scale,
+              return_softmax=return_softmax)
+    if return_softmax:
+        loss, softmax_out = out
+        return _reduce(loss, reduction), softmax_out
+    return _reduce(out, reduction)
+
+
+@_export
+def class_center_sample(label, num_classes, num_samples, group=None):
+    if group is not None:
+        raise not_ported("nn.functional.class_center_sample(group=...)", 4)
+    return _op("class_center_sample", label, num_classes=num_classes,
+               num_samples=num_samples)
+
+
+@_export
+def sparse_attention(query, key, value, sparse_csr_offset, sparse_csr_columns,
+                     key_padding_mask=None, attn_mask=None, name=None):
+    """Attention over ``[B, H, L, D]`` restricted to a CSR pattern: the
+    pattern as a dense mask, then a masked softmax (the JAX function's
+    form, and its plain body on the card too)."""
+    return _op("sparse_attention", query, key, value, sparse_csr_offset,
+               sparse_csr_columns, key_padding_mask, attn_mask)
 
 
 # -- in-place variants --------------------------------------------------------

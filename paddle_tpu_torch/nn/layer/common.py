@@ -9,8 +9,7 @@ the fans are the JAX layer's) and stored transposed. ``weight_attr`` and
 ``bias_attr`` (``nn.ParamAttr``, an initializer, a name, or
 ``bias_attr=False`` for no bias) go onto its parameters as in the JAX
 layer. ``device``/``dtype`` (keyword-only) place a ``Linear``'s
-parameters. ``Fold``, ``PixelUnshuffle`` and ``ChannelShuffle`` are not
-ported yet (ROADMAP Queue 1 item 6).
+parameters.
 """
 from __future__ import annotations
 
@@ -26,7 +25,8 @@ __all__ = [
     "Identity", "Linear", "Embedding", "Dropout", "Dropout2D", "Dropout3D",
     "AlphaDropout", "Flatten", "Pad1D", "Pad2D", "Pad3D", "Upsample",
     "UpsamplingBilinear2D", "UpsamplingNearest2D", "CosineSimilarity",
-    "PixelShuffle", "Unfold", "Bilinear",
+    "PixelShuffle", "Unfold", "Bilinear", "Fold", "PixelUnshuffle",
+    "ChannelShuffle",
 ]
 
 
@@ -263,6 +263,39 @@ class Bilinear(Layer):
 
     def forward(self, x1, x2):
         return call_op("bilinear", x1, x2, self.weight, self.bias)
+
+
+class Fold(Layer):
+    """col2im, the adjoint of ``Unfold``."""
+
+    def __init__(self, output_sizes, kernel_sizes, strides=1, paddings=0,
+                 dilations=1, name=None):
+        super().__init__()
+        self._a = (output_sizes, kernel_sizes, strides, paddings, dilations)
+
+    def forward(self, x):
+        o, k, s, p, d = self._a
+        return F.fold(x, o, k, s, p, d)
+
+
+class PixelUnshuffle(Layer):
+    def __init__(self, downscale_factor, data_format="NCHW", name=None):
+        super().__init__()
+        self._r = downscale_factor
+        self._df = data_format
+
+    def forward(self, x):
+        return F.pixel_unshuffle(x, self._r, self._df)
+
+
+class ChannelShuffle(Layer):
+    def __init__(self, groups, data_format="NCHW", name=None):
+        super().__init__()
+        self._g = groups
+        self._df = data_format
+
+    def forward(self, x):
+        return F.channel_shuffle(x, self._g, self._df)
 
 
 class ZeroPad2D(Layer):

@@ -1,6 +1,7 @@
 """Loss layers (counterpart of ``paddle_tpu/nn/layer/loss.py``): thin
-``Layer`` wrappers over ``nn.functional``'s losses. ``CTCLoss`` and
-``HSigmoidLoss`` are not ported yet (ROADMAP Queue 1 item 6)."""
+``Layer`` wrappers over ``nn.functional``'s losses; ``HSigmoidLoss``
+holds the ``[num_classes - 1, feature_size]`` weights of the tree's
+internal nodes."""
 from __future__ import annotations
 
 from .. import functional as F
@@ -9,7 +10,7 @@ from .layers import Layer
 __all__ = ["CrossEntropyLoss", "MSELoss", "L1Loss", "NLLLoss", "BCELoss",
            "BCEWithLogitsLoss", "KLDivLoss", "SmoothL1Loss", "HuberLoss",
            "MarginRankingLoss", "HingeEmbeddingLoss", "SigmoidFocalLoss",
-           "CosineEmbeddingLoss",
+           "CosineEmbeddingLoss", "CTCLoss", "HSigmoidLoss",
            "TripletMarginLoss", "TripletMarginWithDistanceLoss",
            "MultiLabelSoftMarginLoss"]
 
@@ -198,3 +199,35 @@ class MultiLabelSoftMarginLoss(Layer):
     def forward(self, input, label):
         return F.multi_label_soft_margin_loss(input, label, self._weight,
                                               self._reduction)
+
+
+class CTCLoss(Layer):
+    def __init__(self, blank=0, reduction="mean"):
+        super().__init__()
+        self._blank = blank
+        self._reduction = reduction
+
+    def forward(self, log_probs, labels, input_lengths, label_lengths,
+                norm_by_times=False):
+        return F.ctc_loss(log_probs, labels, input_lengths, label_lengths,
+                          self._blank, self._reduction, norm_by_times)
+
+
+class HSigmoidLoss(Layer):
+    """The hierarchical sigmoid over the default (SimpleCode) tree, or a
+    custom one given to ``forward`` as ``path_table``/``path_code``."""
+
+    def __init__(self, feature_size, num_classes, weight_attr=None,
+                 bias_attr=None, is_custom=False, is_sparse=False,
+                 name=None):
+        super().__init__()
+        self._num_classes = num_classes
+        n_nodes = num_classes - 1
+        self.weight = self.create_parameter(
+            [n_nodes, feature_size], attr=weight_attr)
+        self.bias = self.create_parameter(
+            [n_nodes], attr=bias_attr, is_bias=True)
+
+    def forward(self, input, label, path_table=None, path_code=None):
+        return F.hsigmoid_loss(input, label, self._num_classes, self.weight,
+                               self.bias, path_table, path_code)

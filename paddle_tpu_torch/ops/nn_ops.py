@@ -393,16 +393,16 @@ def _transpose_str_pads(s, in_sizes, ksizes, strides):
     return pads
 
 
-@register_op("conv2d_transpose")
-def _conv2d_transpose(x, w, bias=None, stride=1, padding=0,
-                      output_padding=0, dilation=1, groups=1,
-                      data_format="NCHW", output_size=None):
-    """The gradient of a convolution, ``w`` ``[in, out / groups, kh,
-    kw]``: the full transposed convolution, then each dim cut by its low
-    pad and by its high pad less ``output_padding`` (a negative cut is a
-    zero extension, as the JAX op's padded form gives)."""
-    nd = 2
-    channel_last = data_format != "NCHW"
+_CONV_T = {1: TF.conv_transpose1d, 2: TF.conv_transpose2d,
+           3: TF.conv_transpose3d}
+
+
+def _conv_transpose_nd(x, w, bias, stride, padding, output_padding,
+                       dilation, groups, channel_last, nd):
+    """The gradient of a convolution, ``w`` ``[in, out / groups, *k]``:
+    the full transposed convolution, then each dim cut by its low pad and
+    by its high pad less ``output_padding`` (a negative cut is a zero
+    extension, as the JAX op's padded form gives)."""
     if channel_last:
         x = x.movedim(-1, 1)
     strides = _ntuple(stride, nd)
@@ -413,12 +413,20 @@ def _conv2d_transpose(x, w, bias=None, stride=1, padding=0,
         if pads == "SAME":
             dil = (1,) * nd            # the reference forces dilation 1
         pads = _transpose_str_pads(pads, x.shape[2:], w.shape[2:], strides)
-    out = TF.conv_transpose2d(x, w, None, strides, 0, 0, int(groups), dil)
+    out = _CONV_T[nd](x, w, None, strides, 0, 0, int(groups), dil)
     cut = [(-lo, op - hi) for (lo, hi), op in zip(pads, opad)]
     out = TF.pad(out, _flat_pads(cut))
     if bias is not None:
-        out = out + bias.reshape(1, -1, 1, 1)
+        out = out + bias.reshape((1, -1) + (1,) * nd)
     return out.movedim(1, -1) if channel_last else out
+
+
+@register_op("conv2d_transpose")
+def _conv2d_transpose(x, w, bias=None, stride=1, padding=0,
+                      output_padding=0, dilation=1, groups=1,
+                      data_format="NCHW", output_size=None):
+    return _conv_transpose_nd(x, w, bias, stride, padding, output_padding,
+                              dilation, groups, data_format != "NCHW", 2)
 
 
 _AVG = {1: TF.avg_pool1d, 2: TF.avg_pool2d, 3: TF.avg_pool3d}
@@ -504,8 +512,10 @@ def _avg_pool3d(x, kernel_size, stride=None, padding=0, ceil_mode=False,
 
 _ADAPTIVE = {("avg", 1): TF.adaptive_avg_pool1d,
              ("avg", 2): TF.adaptive_avg_pool2d,
+             ("avg", 3): TF.adaptive_avg_pool3d,
              ("max", 1): TF.adaptive_max_pool1d,
-             ("max", 2): TF.adaptive_max_pool2d}
+             ("max", 2): TF.adaptive_max_pool2d,
+             ("max", 3): TF.adaptive_max_pool3d}
 
 
 def _adaptive_pool(x, output_size, nd, data_format, mode):

@@ -596,4 +596,129 @@ def cases(seed=0):
     c["nonzero_rows"] = Case("nonzero", (ba,), check="exact")
     c["split_even"] = Case("split", (a, 2), dict(axis=1))
     c["roll_axis"] = Case("roll", (a, (1, -1)), dict(axis=(0, 1)))
+    _extra_nn_cases(c, np.random.RandomState(seed + 1))
     return c
+
+
+def _class_centers(label, num_classes, num_samples):
+    """The rule of ``class_center_sample``: every class of ``label`` kept,
+    at least ``num_samples`` sorted distinct ids, the labels remapped to
+    their ids' positions."""
+    def stat(out):
+        remapped, sampled = (np.asarray(o) for o in out)
+        pos = np.unique(label)
+        assert sampled.dtype == remapped.dtype == np.int64
+        assert len(sampled) == max(len(pos), num_samples), sampled
+        np.testing.assert_array_equal(sampled, np.unique(sampled))
+        assert sampled.min() >= 0 and sampled.max() < num_classes
+        assert np.isin(pos, sampled).all()
+        np.testing.assert_array_equal(sampled[remapped], label)
+    return stat
+
+
+def _extra_nn_cases(c, rs):
+    """The cases of ``extra_nn_ops`` (their own stream, so that the cases
+    above keep their inputs), several for the ops whose attributes choose
+    another path."""
+    def rnd(*shape):
+        return rs.randn(*shape).astype(np.float32)
+
+    def ints(lo, hi, *shape, dtype=np.int64):
+        return rs.randint(lo, hi, shape).astype(dtype)
+
+    def add(key, name, *args, check="close", stat=None, tol=None, **attrs):
+        c[key] = Case(name, args, attrs, check, stat=stat, tol=tol)
+
+    img = rnd(2, 4, 6, 6)
+    add("conv1d_transpose", "conv1d_transpose", rnd(2, 4, 7),
+        rnd(4, 3, 3), rnd(3), stride=2, padding=1, output_padding=1)
+    add("conv1d_transpose_nlc", "conv1d_transpose", rnd(2, 7, 4),
+        rnd(4, 3, 3), None, stride=1, padding="SAME", groups=2,
+        dilation=2, data_format="NLC")
+    add("conv3d_transpose", "conv3d_transpose", rnd(1, 2, 3, 3, 3),
+        rnd(2, 3, 2, 2, 2), rnd(3), stride=2, padding=1, dilation=1)
+    add("conv3d_transpose_ndhwc", "conv3d_transpose", rnd(1, 3, 3, 3, 4),
+        rnd(4, 1, 3, 2, 2), None, stride=(1, 2, 1), padding="VALID",
+        groups=2, data_format="NDHWC")
+    add("adaptive_avg_pool3d", "adaptive_avg_pool3d", rnd(1, 2, 5, 6, 4),
+        (2, 3, None))
+    add("adaptive_avg_pool3d_ndhwc", "adaptive_avg_pool3d",
+        rnd(1, 5, 6, 4, 2), 3, data_format="NDHWC")
+    add("adaptive_max_pool3d", "adaptive_max_pool3d", rnd(1, 2, 5, 6, 4),
+        (2, 3, 4))
+    add("fold", "fold", rnd(2, 8, 16), (5, 5), 2)
+    add("fold_padded", "fold", rnd(2, 8, 9), (5, 5), 2, strides=2,
+        paddings=[1, 0, 0, 1])
+    add("max_pool1d_with_mask", "max_pool1d_with_mask", rnd(2, 3, 9), 2,
+        stride=3, padding=1)
+    add("max_pool2d_with_mask", "max_pool2d_with_mask", img, 3, stride=2,
+        padding=1, ceil_mode=True)
+    add("max_pool3d_with_mask", "max_pool3d_with_mask", rnd(1, 2, 5, 5, 5),
+        2, padding=1, ceil_mode=True)
+
+    def unpool_index(n, ch, length, size):
+        return np.stack([rs.permutation(size)[:length]
+                         for _ in range(n * ch)]).reshape(
+            (n, ch, length)).astype(np.int32)
+
+    add("max_unpool1d", "max_unpool1d", rnd(2, 3, 4),
+        unpool_index(2, 3, 4, 8), 2)
+    add("max_unpool2d", "max_unpool2d", rnd(2, 3, 3, 3),
+        unpool_index(2, 3, 9, 36).reshape(2, 3, 3, 3), 2, stride=2)
+    add("max_unpool2d_size", "max_unpool2d", rnd(2, 3, 3, 3),
+        unpool_index(2, 3, 9, 49).reshape(2, 3, 3, 3), 2,
+        output_size=(2, 3, 7, 7))
+    add("max_unpool3d", "max_unpool3d", rnd(1, 2, 2, 2, 2),
+        unpool_index(1, 2, 8, 64).reshape(1, 2, 2, 2, 2), 2)
+    add("pixel_unshuffle", "pixel_unshuffle", rnd(2, 3, 4, 6), 2)
+    add("pixel_unshuffle_nhwc", "pixel_unshuffle", rnd(2, 4, 6, 3), 2,
+        data_format="NHWC")
+    add("channel_shuffle", "channel_shuffle", rnd(2, 6, 3, 3), 3)
+    add("channel_shuffle_nhwc", "channel_shuffle", rnd(2, 3, 3, 6), 2,
+        data_format="NHWC")
+    add("temporal_shift", "temporal_shift", rnd(4, 8, 3, 3), 2)
+    add("temporal_shift_nhwc", "temporal_shift", rnd(6, 3, 3, 8), 3,
+        shift_ratio=0.125, data_format="NHWC")
+    x_gs = rnd(2, 3, 5, 6)
+    grid = rs.uniform(-1.2, 1.2, (2, 4, 7, 2)).astype(np.float32)
+    add("grid_sample", "grid_sample", x_gs, grid)
+    add("grid_sample_nearest_border", "grid_sample", x_gs, grid,
+        mode="nearest", padding_mode="border")
+    add("grid_sample_reflection", "grid_sample", x_gs, grid,
+        padding_mode="reflection", align_corners=False)
+    theta = rnd(2, 2, 3)
+    add("affine_grid", "affine_grid", theta, (2, 3, 5, 6))
+    add("affine_grid_corners", "affine_grid", theta, (2, 3, 4, 7),
+        align_corners=False)
+    add("gather_tree", "gather_tree", ints(0, 10, 5, 2, 3),
+        ints(0, 3, 5, 2, 3), check="exact")
+    labels = np.array([[1, 2, 2], [3, 1, 0], [4, 4, 1]], np.int32)
+    add("ctc_loss", "ctc_loss", rnd(6, 3, 5), labels,
+        np.array([6, 5, 4], np.int64), np.array([3, 2, 0], np.int64))
+    add("ctc_loss_blank", "ctc_loss", rnd(7, 2, 4), labels[:2, :2] - 1,
+        np.array([7, 3], np.int64), np.array([2, 1], np.int64), blank=3)
+    add("hsigmoid_loss", "hsigmoid_loss", rnd(4, 6),
+        np.array([0, 4, 2, 3], np.int64), rnd(4, 6), rnd(4), num_classes=5)
+    add("hsigmoid_loss_custom", "hsigmoid_loss", rnd(3, 6),
+        np.array([0, 1, 2], np.int64), rnd(5, 6), None,
+        np.array([[0, 2, -1], [0, 1, 4], [3, -1, -1]], np.int64),
+        np.array([[1, 0, 0], [0, 1, 1], [1, 0, 0]], np.int64),
+        num_classes=6)
+    cosines = rs.uniform(-0.9, 0.9, (4, 6)).astype(np.float32)
+    add("margin_cross_entropy", "margin_cross_entropy", cosines,
+        np.array([0, 5, 2, 2], np.int64), scale=8.0, return_softmax=True)
+    add("margin_cross_entropy_m3", "margin_cross_entropy", cosines,
+        np.array([[1], [1], [3], [4]], np.int64), margin1=0.9, margin2=0.2,
+        margin3=0.1, scale=4.0)
+    label = np.array([3, 7, 7, 12, 3, 0], np.int64)
+    add("class_center_sample", "class_center_sample", label,
+        num_classes=20, num_samples=8, check="random",
+        stat=_class_centers(label, 20, 8))
+    offset = np.array([[[0, 2, 3, 5, 7], [0, 1, 1, 4, 6]]], np.int32)
+    columns = np.array([[[0, 3, 1, 0, 2, 1, 3, 0],
+                         [2, 0, 1, 3, 0, 2, 0, 0]]], np.int32)
+    add("sparse_attention", "sparse_attention", rnd(1, 2, 4, 8),
+        rnd(1, 2, 4, 8), rnd(1, 2, 4, 8), offset, columns)
+    add("sparse_attention_masks", "sparse_attention", rnd(1, 2, 4, 8),
+        rnd(1, 2, 4, 8), rnd(1, 2, 4, 8), offset, columns,
+        np.array([[0, 0, -1e9, 0]], np.float32), rnd(4, 4))

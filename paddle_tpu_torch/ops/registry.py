@@ -15,17 +15,10 @@ __all__ = ["OpDef", "register_op", "register_override", "get_op", "has_op",
            "op_names", "DEFERRED"]
 
 #: the JAX package's ops the port does not register yet, by the ROADMAP
-#: Queue 1 item that ports them: ``extra_nn_ops`` and ``sequence_ops``
-#: (item 6, the next slice of the op library) and ``vision.ops`` (item 5,
-#: ``vision/``). ``get_op`` names the item.
+#: Queue 1 item that ports them: ``sequence_ops`` (item 6, the next slice
+#: of the op library) and ``vision.ops`` (item 5, ``vision/``).
+#: ``get_op`` names the item.
 DEFERRED = dict.fromkeys((
-    "adaptive_avg_pool3d", "adaptive_max_pool3d", "affine_grid",
-    "channel_shuffle", "class_center_sample", "conv1d_transpose",
-    "conv3d_transpose", "ctc_loss", "fold", "gather_tree", "grid_sample",
-    "hsigmoid_loss", "margin_cross_entropy", "max_pool1d_with_mask",
-    "max_pool2d_with_mask", "max_pool3d_with_mask", "max_unpool1d",
-    "max_unpool2d", "max_unpool3d", "pixel_unshuffle", "sparse_attention",
-    "temporal_shift",
     "nce_loss", "row_conv", "sequence_concat", "sequence_conv",
     "sequence_enumerate", "sequence_expand", "sequence_pad",
     "sequence_pool", "sequence_reverse", "sequence_scatter",

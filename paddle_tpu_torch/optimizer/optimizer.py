@@ -57,11 +57,13 @@ class L1Decay:
         self.coeff = float(coeff)
 
 
-def _weak(x: float, t: torch.Tensor) -> torch.Tensor:
-    """The Python scalar ``x`` as ``jnp`` takes it beside ``t``: in
-    ``t``'s dtype (a bf16 tensor times 0.1 multiplies by bf16(0.1), where
-    torch would keep 0.1 in float32 and round only the product)."""
-    return torch.tensor(x, dtype=t.dtype, device=t.device)
+def _weak(x: float, t: torch.Tensor) -> float:
+    """The Python scalar ``x`` as ``jnp`` takes it beside ``t``: rounded
+    to ``t``'s dtype (a bf16 tensor times 0.1 multiplies by bf16(0.1),
+    where torch would keep 0.1 in float32 and round only the product).
+    The rounding runs on the host and gives a Python number, so a step
+    copies nothing to the card."""
+    return torch.tensor(x, dtype=t.dtype).item()
 
 
 def _named(parameters):

@@ -22,7 +22,8 @@ import torch
 
 from ..framework import random as _random
 from ..framework.dispatch import call_op as _op
-from ..framework.dtypes import DEFAULT_DTYPE, convert_dtype
+from ..framework import dtypes
+from ..framework.dtypes import convert_dtype
 from ..framework.place import to_torch_device
 from ..framework.tensor import to_tensor
 
@@ -109,7 +110,7 @@ def arange(start=0, end=None, step=1, dtype=None, name=None, *,
     if dtype is None:
         dtype = "int64" if builtins.all(
             isinstance(v, (int, type(None))) for v in (start, end, step)) \
-            else DEFAULT_DTYPE
+            else dtypes.DEFAULT_DTYPE
     return _op("arange", start=start, end=end, step=step,
                dtype=convert_dtype(dtype), device=device)
 

@@ -1363,3 +1363,95 @@ def test_setitem_on_the_card_leaves_its_input_alone(cuda):
     assert out.is_cuda and not x.any()
     assert out.sum().item() == 2.0 * 2 * 3
     assert out[[0, 3]][:, 1::2].eq(2).all()
+
+
+def _all_kernel_counts():
+    """K1-K8's launch counters (K1 and K1q apart)."""
+    return (rpa.ragged_paged_attention.launches,
+            rpa.ragged_paged_attention.quant_launches) + _launch_counts() \
+        + (adamw.fused_adamw_.launches,)
+
+
+def test_conv_bn_pool_block_in_nhwc_stays_on_the_card(cuda):
+    """``Conv2D`` + ``BatchNorm2D`` + ``MaxPool2D`` in NHWC on the card,
+    forward and backward: the output, the running statistics and every
+    gradient lie on the card, the step reads nothing back to the host,
+    and the result equals the same block on the CPU (float32, atol
+    1e-4)."""
+    import copy
+    from paddle_tpu_torch import nn, seed
+    seed(0)
+    host = nn.Sequential(nn.Conv2D(3, 8, 3, padding=1, data_format="NHWC"),
+                         nn.BatchNorm2D(8, data_format="NHWC"),
+                         nn.MaxPool2D(3, stride=2, padding=1,
+                                      data_format="NHWC"))
+    card = copy.deepcopy(host).to(cuda)
+    x = torch.randn(4, 16, 16, 3)
+    xc = x.to(cuda).requires_grad_()
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        out = card(xc)
+        out.square().mean().backward()
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    assert out.is_cuda and out.shape == (4, 8, 8, 8)
+    assert all(t.is_cuda for t in [xc.grad] + list(card.buffers())
+               + [p.grad for p in card.parameters()])
+    xh = x.clone().requires_grad_()
+    want = host(xh)
+    want.square().mean().backward()
+    torch.testing.assert_close(out.cpu(), want, **TOL[torch.float32])
+    torch.testing.assert_close(xc.grad.cpu(), xh.grad, **TOL[torch.float32])
+    for (name, p), q in zip(card.named_parameters(), host.parameters()):
+        torch.testing.assert_close(p.grad.cpu(), q.grad, atol=1e-4,
+                                   rtol=1e-4, msg=name)
+    torch.testing.assert_close(card[1]._variance.cpu(), host[1]._variance,
+                               **TOL[torch.float32])
+
+
+@pytest.mark.parametrize("nd", [2, 3])
+def test_max_pool_mask_round_trips_through_max_unpool(cuda, nd):
+    """``max_pool{nd}d(return_mask=True)`` then ``max_unpool{nd}d`` on the
+    card: the mask equals the CPU's (int32, flat over the spatial dims)
+    and unpooling puts every window's maximum back in place."""
+    from paddle_tpu_torch.nn import functional as TF
+    x = torch.randn(*((2, 3) + (8,) * nd))
+    pool, unpool = getattr(TF, f"max_pool{nd}d"), getattr(
+        TF, f"max_unpool{nd}d")
+    out, mask = pool(x.to(cuda), 2, stride=2, return_mask=True)
+    back = unpool(out, mask, 2, stride=2)
+    assert out.is_cuda and mask.is_cuda and back.is_cuda
+    assert mask.dtype == torch.int32
+    want_out, want_mask = pool(x, 2, stride=2, return_mask=True)
+    torch.testing.assert_close(out.cpu(), want_out)
+    assert torch.equal(mask.cpu(), want_mask)
+    kept = back.cpu() != 0
+    assert int(kept.sum()) == out.numel()
+    torch.testing.assert_close(back.cpu()[kept], x[kept])
+
+
+def test_resnet18_momentum_step_launches_no_kernel(cuda):
+    """A ``resnet18`` Momentum step on the card (bf16 O2, NHWC) runs no
+    hand-written kernel: K1-K8's counters stay where they were, as the
+    JAX package runs ResNet without a Pallas kernel. The loss is
+    finite and the parameters move."""
+    from paddle_tpu_torch import amp, nn, seed
+    from paddle_tpu_torch.optimizer import Momentum
+    from paddle_tpu_torch.vision.models import resnet18
+    seed(0)
+    net = resnet18(num_classes=10, data_format="NHWC").to(cuda)
+    amp.decorate(net, level="O2", dtype="bfloat16")
+    opt = Momentum(0.1, 0.9, parameters=net.parameters(),
+                   multi_precision=True)
+    x = torch.randn(4, 32, 32, 3, device=cuda)
+    y = torch.randint(0, 10, (4, 1), device=cuda)
+    before = _all_kernel_counts()
+    w0 = net.fc.weight.detach().clone()
+    with amp.auto_cast(level="O2", dtype="bfloat16"):
+        loss = nn.CrossEntropyLoss()(net(x), y)
+    loss.backward()
+    opt.step()
+    torch.cuda.synchronize()
+    assert _all_kernel_counts() == before
+    assert torch.isfinite(loss) and not torch.equal(net.fc.weight, w0)

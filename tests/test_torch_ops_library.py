@@ -1,12 +1,13 @@
 """The port's op library against the JAX package's, op by op.
 
 Every op of ``paddle_tpu/ops``' ``math_ops``, ``extra_math_ops``,
-``creation_ops``, ``manipulation_ops``, ``linalg_ops`` and ``nn_ops`` is
-registered in the port (``DEFERRED`` lists, by name, the JAX ops that
-wait for later slices, and ``ROADMAP.md`` names each). Each op's plain
-body runs on the inputs of its case in ``paddle_tpu_torch.ops.op_cases``
-(the ops from ``a`` to ``l`` here, the rest in
-``test_torch_ops_library_m_z.py``)
+``creation_ops``, ``manipulation_ops``, ``linalg_ops``, ``nn_ops`` and
+``extra_nn_ops`` is registered in the port (``DEFERRED`` lists, by name,
+the JAX ops that wait for later slices, and ``ROADMAP.md`` names each in
+full). Each op's plain body runs on the inputs of its case in
+``paddle_tpu_torch.ops.op_cases`` (the ops from ``a`` to ``l`` here, the
+rest in ``test_torch_ops_library_m_z.py``, ``extra_nn_ops``' in
+``test_torch_extra_nn_ops.py``)
 (numpy, from a seed) in both packages: float results within atol 1e-5 +
 rtol 1e-5 (the same f32 arithmetic in another order; a case may state a
 wider one, 1e-4 for the decompositions and solves), integer and bool
@@ -30,24 +31,26 @@ from paddle_tpu_torch.ops import op_cases, registry
 
 ATOL = RTOL = 1e-5
 
-#: the JAX ops the port leaves for later slices: ``extra_nn_ops`` and
-#: ``sequence_ops`` (ROADMAP Queue 1 item 6) and ``vision.ops`` (item 5)
+#: the JAX ops the port leaves for later slices: ``sequence_ops``
+#: (ROADMAP Queue 1 item 6) and ``vision.ops`` (item 5)
 DEFERRED = {
-    "adaptive_avg_pool3d": 6, "adaptive_max_pool3d": 6, "affine_grid": 6,
-    "channel_shuffle": 6, "class_center_sample": 6, "conv1d_transpose": 6,
-    "conv3d_transpose": 6, "ctc_loss": 6, "fold": 6, "gather_tree": 6,
-    "grid_sample": 6, "hsigmoid_loss": 6, "margin_cross_entropy": 6,
-    "max_pool1d_with_mask": 6, "max_pool2d_with_mask": 6,
-    "max_pool3d_with_mask": 6, "max_unpool1d": 6, "max_unpool2d": 6,
-    "max_unpool3d": 6, "pixel_unshuffle": 6, "sparse_attention": 6,
-    "temporal_shift": 6, "nce_loss": 6, "row_conv": 6,
-    "sequence_concat": 6, "sequence_conv": 6, "sequence_enumerate": 6,
-    "sequence_expand": 6, "sequence_pad": 6, "sequence_pool": 6,
-    "sequence_reverse": 6, "sequence_scatter": 6, "sequence_slice": 6,
-    "sequence_softmax": 6, "sequence_unpad": 6,
+    "nce_loss": 6, "row_conv": 6, "sequence_concat": 6, "sequence_conv": 6,
+    "sequence_enumerate": 6, "sequence_expand": 6, "sequence_pad": 6,
+    "sequence_pool": 6, "sequence_reverse": 6, "sequence_scatter": 6,
+    "sequence_slice": 6, "sequence_softmax": 6, "sequence_unpad": 6,
     "deform_conv2d": 5, "nms": 5, "psroi_pool": 5, "roi_align": 5,
     "roi_pool": 5, "yolo_box": 5, "yolo_loss": 5,
 }
+
+#: the ops of ``extra_nn_ops``, swept in ``test_torch_extra_nn_ops.py``
+EXTRA_NN = frozenset((
+    "adaptive_avg_pool3d", "adaptive_max_pool3d", "affine_grid",
+    "channel_shuffle", "class_center_sample", "conv1d_transpose",
+    "conv3d_transpose", "ctc_loss", "fold", "gather_tree", "grid_sample",
+    "hsigmoid_loss", "margin_cross_entropy", "max_pool1d_with_mask",
+    "max_pool2d_with_mask", "max_pool3d_with_mask", "max_unpool1d",
+    "max_unpool2d", "max_unpool3d", "pixel_unshuffle", "sparse_attention",
+    "temporal_shift"))
 
 CASES = op_cases.cases()
 
@@ -92,7 +95,8 @@ def test_the_library_covers_the_jax_ops_but_the_deferred():
     assert jax_names - set(DEFERRED) <= port_names
     assert port_names - jax_names == {"zeros"}
     assert registry.DEFERRED == DEFERRED
-    assert len(jax_names - set(DEFERRED)) == 317
+    assert len(jax_names - set(DEFERRED)) == 339
+    assert EXTRA_NN <= port_names
     roadmap = (pathlib.Path(__file__).parents[1] / "ROADMAP.md").read_text()
     missing = [n for n in DEFERRED if f"`{n}`" not in roadmap]
     assert missing == [], missing
@@ -111,10 +115,11 @@ def test_every_op_has_a_case():
 
 def keys(first, last):
     """The case keys of the ops whose name starts with a letter in
-    ``[first, last]`` (the sweep is split over two files so that each runs
-    in about a minute on one worker)."""
+    ``[first, last]``, less ``extra_nn_ops``' (the sweep is split over
+    three files so that each runs in about a minute on one worker)."""
     return sorted(k for k, c in CASES.items()
-                  if c.name != "zeros" and first <= k[0] <= last)
+                  if c.name != "zeros" and c.name not in EXTRA_NN
+                  and first <= k[0] <= last)
 
 
 def check_against_jax(key):

@@ -1,4 +1,4 @@
-"""The repairs of ROADMAP Queue 3 items 1-3, each held against the JAX
+"""The repairs of ROADMAP Queue 3's items, each held against the JAX
 package on the same inputs (CPU):
 
 * ``nn.Linear`` and ``nn.LayerNorm`` take the reference's parameters, so
@@ -14,8 +14,28 @@ package on the same inputs (CPU):
   values unscaled under ``downscale_in_infer``);
 * ``Model.eval_batch``/``evaluate`` return what the JAX package returns:
   0.0 under an ``inputs``-only spec (GPT), and for a labelled classifier
-  the same loss (atol 1e-6).
+  the same loss (atol 1e-6);
+* the top-level namespace: every public name of ``paddle_tpu`` (but the
+  ``from __future__ import annotations`` feature its ``__init__`` leaves
+  behind) exists in ``paddle_tpu_torch`` or raises ``NotImplementedError``
+  naming its ROADMAP Queue 1 item; the small ones behave as the JAX
+  package's;
+* ``chip_smoke.py`` phase 3d's int8 check holds each int8 engine against
+  itself on another device (``int8_one_slot_check``): run here with both
+  copies on the CPU, on phase 3d's float32 model as built and on the
+  weights a ``Linear`` drawn before ``_init_weights`` shifts (the weights
+  of the run that found the fault), the int8 fused engine passes on both
+  (the gather engine's check is the same function), while the check it
+  replaced, the int8 fused engine's tokens against the int8 gather
+  engine's, fails on the shifted ones: the gather prefill attends over
+  the float K/V, the fused prefill over the int8 codes (0.019-0.031 apart
+  in the first step's logits on either weight set, beyond
+  ``QUANT_GEN_TOL`` = 5e-3).
 """
+import pathlib
+import re
+import sys
+
 import numpy as np
 import pytest
 import torch
@@ -259,3 +279,132 @@ def test_train_batch_returns_a_device_scalar_without_numpy():
     loss = tm.train_batch([ids, labels], return_numpy=False)
     assert torch.is_tensor(loss) and loss.dim() == 0
     assert isinstance(tm.train_batch([ids, labels]), float)
+
+
+def _public_reference_names():
+    return sorted(n for n in dir(paddle) if not n.startswith("_")
+                  and n != "annotations")
+
+
+@pytest.mark.parametrize("name", _public_reference_names())
+def test_a_reference_name_is_ported_or_raises_its_item(name):
+    import paddle_tpu_torch as pt
+    try:
+        getattr(pt, name)
+    except NotImplementedError as e:
+        assert re.search(r"Queue 1 item [0-9]", str(e)), str(e)
+
+
+def test_the_small_top_level_names_behave_as_the_jax_ones():
+    import paddle_tpu_torch as pt
+    assert isinstance(torch.ones(2), pt.Tensor) and issubclass(
+        torch.nn.Parameter, pt.Tensor) and not isinstance([1.0], pt.Tensor)
+    old = pt.get_device()
+    pt.set_device("cpu")
+    try:
+        made = pt.Tensor([1.0, 2.0], stop_gradient=False, name="x")
+    finally:
+        pt.set_device(old)
+    assert made.requires_grad and made.device.type == "cpu"
+    assert isinstance(torch.float32, pt.dtype)
+    assert pt.bool_ is torch.bool
+    assert pt.get_default_dtype() == paddle.get_default_dtype() == "float32"
+    try:
+        pt.set_default_dtype("float64")
+        assert pt.to_tensor([1.5], place="cpu").dtype == torch.float64
+        with pytest.raises(TypeError):
+            pt.set_default_dtype("int32")
+    finally:
+        pt.set_default_dtype("float32")
+    assert pt.to_tensor([1.5], place="cpu").dtype == torch.float32
+    x = torch.ones(2, requires_grad=True)
+    with pt.no_grad():
+        with pt.set_grad_enabled(True):
+            assert (x * 2).requires_grad
+    assert pt.is_compiled_with_tpu() is False
+    assert pt.CUDAPinnedPlace().device_type == "cpu"
+    assert pt.CPUPlace() == pt.CPUPlace(0) != pt.CUDAPlace(0)
+    pt.seed(5)
+    state = pt.get_cuda_rng_state()
+    a = pt.framework.random.get_generator("cpu")
+    first = torch.rand(3, generator=a)
+    pt.set_cuda_rng_state(state)
+    assert torch.equal(torch.rand(3, generator=pt.framework.random
+                                  .get_generator("cpu")), first)
+    flags = pt.get_flags(["FLAGS_check_nan_inf"])
+    assert flags == paddle.get_flags(["FLAGS_check_nan_inf"])
+    assert pt.Model.__module__ == "paddle_tpu_torch.hapi.model"
+    assert callable(pt.statusz) and hasattr(pt.metrics, "to_prometheus")
+    assert pt.models.GPTForPretraining and pt.serving.GenerationEngine
+
+
+def _phase_3d_model(shifted):
+    """Phase 3d's float32 model, prompts and tokens; ``shifted``: each
+    ``Linear`` of the GPT blocks draws its default initializer first, so
+    ``_init_weights`` draws from a later generator state."""
+    sys.path.insert(0, str(pathlib.Path(__file__).parents[1]))
+    import chip_smoke
+    from paddle_tpu_torch.models import gpt as gpt_module
+    constant = gpt_module.Constant
+    if shifted:
+        gpt_module.Constant = lambda value: None
+    try:
+        return chip_smoke, chip_smoke.gather_f32_setup()
+    finally:
+        gpt_module.Constant = constant
+
+
+def _run_int8(cs, net, prompts, new, kw, one_slot=True):
+    spy = type(net.gpt).logits.__get__(net.gpt)
+    extra = dict(num_slots=1, alone=len(prompts)) if one_slot else {}
+    return cs.engine_run(net, prompts, new, spy, **extra, **kw)[0]
+
+
+@pytest.mark.parametrize("shifted", [False, True],
+                         ids=["as built", "shifted"])
+def test_phase_3d_int8_checks_pass_on_both_weight_sets(shifted):
+    import copy
+    import paddle_tpu_torch as pt
+    old = pt.get_device()
+    pt.set_device("cpu")
+    try:
+        cs, (net, prompts, new) = _phase_3d_model(shifted)
+        other = copy.deepcopy(net)
+        kw = cs.INT8_FUSED_F32
+        concurrent = _run_int8(cs, other, prompts, new, kw, one_slot=False)
+        line, _ = cs.int8_one_slot_check("int8 fused engine", net, other,
+                                         prompts, new, kw, concurrent)
+        assert f"limit {cs.QUANT_GEN_TOL}" in line
+    finally:
+        pt.set_device(old)
+
+
+def test_the_replaced_int8_check_fails_on_the_shifted_weights():
+    import paddle_tpu_torch as pt
+    old = pt.get_device()
+    pt.set_device("cpu")
+    try:
+        cs, (net, prompts, new) = _phase_3d_model(shifted=True)
+        rec = {}
+        for what, kw in (("gather", cs.INT8_GATHER_F32),
+                         ("fused", cs.INT8_FUSED_F32)):
+            logits = []
+
+            def spy(h, _gpt=net.gpt, _rec=logits):
+                out = type(_gpt).logits(_gpt, h)
+                _rec.append(out[:, -1].float())
+                return out
+
+            outs, _ = cs.engine_run(net, prompts, new, spy, num_slots=1,
+                                    alone=len(prompts), **kw)
+            rec[what] = outs, torch.cat(logits).view(len(prompts), new, -1)
+        first = (rec["gather"][1][:, 0] - rec["fused"][1][:, 0]).abs()
+        assert first.max() > cs.QUANT_GEN_TOL
+        top2 = rec["gather"][1].topk(2, dim=-1).values
+        ties = cs.first_near_tie(top2[..., 0] - top2[..., 1],
+                                 cs.QUANT_GEN_TOL)
+        with pytest.raises(AssertionError, match="before its first"):
+            cs.hold_tokens("int8 fused engine", rec["fused"][0],
+                           rec["gather"][0], prompts, ties)
+    finally:
+        pt.set_device(old)

@@ -212,7 +212,7 @@ def _gpt():
 
 
 def _not_ported_calls():
-    from paddle_tpu_torch import amp, nn
+    from paddle_tpu_torch import amp, nn, vision
     from paddle_tpu_torch.hapi import Model
     from paddle_tpu_torch.optimizer import SGD
     from paddle_tpu_torch.serving import GenerationEngine, PagedKVPool
@@ -245,13 +245,14 @@ def _not_ported_calls():
         "minimize parameters": lambda: minimize(parameters=[]),
         "DataLoader return_list": lambda: pt.io.DataLoader(
             [1, 2], return_list=False),
-        "max_pool2d return_mask": lambda: nn.functional.max_pool2d(
-            torch.ones(1, 1, 4, 4), 2, return_mask=True),
-        "adaptive_max_pool1d return_mask": lambda:
-            nn.functional.adaptive_max_pool1d(torch.ones(1, 1, 4), 2,
-                                              return_mask=True),
-        "functional ctc_loss": lambda: nn.functional.ctc_loss,
-        "layer Conv2D": lambda: nn.Conv2D,
+        "resnet50 pretrained": lambda: vision.models.resnet50(
+            pretrained=True),
+        "functional sequence_pad": lambda: nn.functional.sequence_pad,
+        "margin_cross_entropy group": lambda:
+            nn.functional.margin_cross_entropy(
+                torch.zeros(2, 3), torch.zeros(2, dtype=torch.long),
+                group=object()),
+        "vision datasets": lambda: vision.datasets,
         "decorate is accepted": None,
     }
 
@@ -274,8 +275,9 @@ def test_parameters_without_behaviour_raise_not_implemented(what):
 def _ported_checks():
     """The parameters that raised ``NotImplementedError`` until their
     slice was ported (ROADMAP Queue 1 item 2, the serving periphery, item
-    3, observability, and item 6, the op library and ``nn``), each with a
-    check of what it does now."""
+    3, observability, and item 6, the op library and ``nn``: the pools'
+    ``return_mask``, ``ctc_loss`` and the conv layers since its second
+    part), each with a check of what it does now."""
     from paddle_tpu.hapi.callbacks import ProfilerCallback as JaxCallback
     from paddle_tpu.serving.scheduler import Scheduler as JaxScheduler
     from paddle_tpu_torch.framework import trace_probe
@@ -406,7 +408,41 @@ def _ported_checks():
             assert torch.equal(lin.weight, torch.full((8, 4), 0.5))
             assert not lin.bias.any()
 
+    def return_mask():
+        from paddle_tpu_torch import nn
+        x = torch.arange(16.0).reshape(1, 1, 4, 4)
+        out, mask = nn.functional.max_pool2d(x, 2, return_mask=True)
+        assert out.flatten().tolist() == [5.0, 7.0, 13.0, 15.0]
+        assert mask.dtype == torch.int32
+        assert mask.flatten().tolist() == [5, 7, 13, 15]
+
+    def adaptive_mask():
+        from paddle_tpu_torch import nn
+        out, mask = nn.functional.adaptive_max_pool1d(
+            torch.tensor([[[1.0, 3.0, 2.0, 0.0]]]), 2, return_mask=True)
+        assert out.tolist() == [[[3.0, 2.0]]]
+        assert mask.tolist() == [[[1, 2]]]
+
+    def ctc_loss():
+        from paddle_tpu_torch import nn
+        # one frame, one label: the loss is -log p(label)
+        lp = torch.log(torch.tensor([[[0.25, 0.75]]]))
+        loss = nn.functional.ctc_loss(lp, torch.tensor([[1]]),
+                                      torch.tensor([1]), torch.tensor([1]),
+                                      reduction="none")
+        torch.testing.assert_close(loss, -lp[0, :, 1])
+
+    def conv2d_layer():
+        from paddle_tpu_torch import nn
+        conv = nn.Conv2D(2, 3, 3, padding=1, data_format="NHWC")
+        assert tuple(conv.weight.shape) == (3, 2, 3, 3)
+        assert conv(torch.zeros(1, 5, 5, 2)).shape == (1, 5, 5, 3)
+
     return {
+        "max_pool2d return_mask": return_mask,
+        "adaptive_max_pool1d return_mask": adaptive_mask,
+        "functional ctc_loss": ctc_loss,
+        "layer Conv2D": conv2d_layer,
         "MultiHeadAttention need_weights": need_weights,
         "Linear initializer": initializer,
         "ProfilerCallback": profiler_callback,
