@@ -12,7 +12,8 @@ prints no result line):
    tensor-core flash library, each of which must be above 0, and of
    ``HMMA`` (mma.sync, above 0) and ``LDGSTS``/``UBLKCP`` (cp.async or
    bulk copies, above 0 together) in the tensor-core ragged attention
-   library;
+   library, and of ``LDG.E.128``/``STG.E.128`` (16-byte loads and
+   stores, each above 0) in the AdamW library;
 2. kernel vs plain: each kernel against its plain PyTorch version on the
    card, in float32, bfloat16 and float16, with the errors, the median
    times, the bounds and the library call's time: the serving kernels at
@@ -24,7 +25,14 @@ prints no result line):
    kernels (a second call must give the same bits), bfloat16 also at
    head_dim 128, float32 and the same 16-bit operands at an unaligned
    base on the CUDA-core kernels; the LayerNorm forward and backward at
-   [8192, 768]; AdamW on a [50304, 768] parameter). Each LayerNorm case
+   [8192, 768]; AdamW on a [50304, 768] parameter, and K8's group kernel
+   on its edge list (each dtype combination at sizes 0, 1, 3, 5, 4097 and
+   3 chunks + 7, a view at an offset of one element, 40 more tensors
+   than a launch holds; launches counted equal to ``adamw_plan``'s) and
+   over GPT-2 small's whole parameter list as ``AdamW.step()`` hands it
+   over (``fused_adamw_step``: device ms, launches, the host wall of
+   ``opt.step()``, ``AdamW(fused=True)`` over float32 copies, the
+   list's bytes as the bound)). Each LayerNorm case
    runs on the warp-row kernels and, on the same operands at an unaligned
    base, on the CTA-per-row kernels, checked and timed on both; and both
    LayerNorm routes are held against the plain versions at D 1, 768,
@@ -146,8 +154,9 @@ prints no result line):
    ``scaler.scale(loss).backward(); scaler.step(opt); scaler.update()``
    (``GradScaler(2**15, decr_every_n_nan_or_inf=1)``, AdamW with f32
    masters), 8 steps: flash on the tensor-core route in float16, AdamW on
-   f32 masters with float16 gradients and copies, one AdamW launch per
-   parameter of each step the scaler applied, no plain version; then one
+   f32 masters with float16 gradients and copies, K8's plan launches
+   over every parameter tensor for each step the scaler applied, no
+   plain version; then one
    step whose gradient a hook makes non-finite: parameters, masters and
    moments keep their bits, AdamW launches 0 times, the scale halves, the
    optimizer's step stays; the next step applies. Then the same loop at
@@ -194,10 +203,13 @@ prints no result line):
    allowed), built from ``nn`` alone, trained through ``Model.fit`` at
    bf16 O1 with AdamW for 8 steps on one batch of 16 x (256 + 256)
    tokens: the loss finite and falling, each step's K2/K3/K4/K6/K8
-   launches equal to the network's structure (the decoder's masked
+   launches equal to the network's structure (K8: ``adamw_plan``'s
+   launches over its 255 tensors, each tensor once; the decoder's masked
    self-attentions counted apart: the op's plain body), every flash
    launch tensor-core and every LayerNorm launch warp-row, no plain
-   version; the five ``_transformer`` rows of the kernels line;
+   version; the six ``_transformer`` rows of the kernels line (the sixth,
+   ``fused_adamw_step_transformer``, K8 over the fit's whole float32
+   parameter list);
 7. ResNet-50 (``phase_resnet``): ``bench.py``'s ``bench_resnet50``
    configuration, not cut (``resnet50(num_classes=1000,
    data_format="NHWC")``, random weights from the seed, bf16 AMP O2 with
@@ -259,7 +271,9 @@ prints no result line):
    float16 LayerNorm rows count 0, with the reason: LayerNorm is on the
    AMP black list, so every AMP path runs it in float32, and the f32
    rows count phases 4, 4b, 4c and 4d; the bf16 tensor-core flash rows
-   count phases 4, 4b and 4d. Phase 3e's rows: K1 float16 and K1q
+   count phases 4, 4b and 4d. ``fused_adamw_step`` (phase 2's K8 over
+   GPT-2 small's whole list) counts phase 4's K8 launches, which its
+   dtype row counts too. Phase 3e's rows: K1 float16 and K1q
    int8/fp8 with float16 q (``ragged_paged_attention_f16``,
    ``_int8_f16``, ``_fp8_f16``) on the layer-0 operands of each float16
    engine's widest and decode-only steps, with the CUDA-core kernel on
@@ -380,19 +394,21 @@ class Timer:
     """Median device ms of single launches, L2 flushed before each. A
     GPU-side spin ahead of the start event lets the host enqueue the
     launch before the device reaches it, so the host's launch overhead
-    stays out of the reading."""
+    stays out of the reading; ``spin`` (clock cycles, ~1 ms the 2e6 of
+    the default) must outlast the host's work in ``fn``."""
 
     def __init__(self, device):
         self._flush = torch.empty(128 << 20, dtype=torch.uint8,
                                   device=device)
 
-    def ms(self, fn, reps: int = 20, warmup: int = 3) -> float:
+    def ms(self, fn, reps: int = 20, warmup: int = 3,
+           spin: int = 2_000_000) -> float:
         for _ in range(warmup):
             fn()
         times = []
         for _ in range(reps):
             self._flush.zero_()
-            torch.cuda._sleep(2_000_000)          # ~1 ms of device spin
+            torch.cuda._sleep(spin)
             a = torch.cuda.Event(enable_timing=True)
             b = torch.cuda.Event(enable_timing=True)
             a.record()
@@ -414,7 +430,7 @@ def check_close(name, got, want, dtype, tol=None):
         raise AssertionError(
             f"{name}: {int(bad.sum())} values outside atol={atol} "
             f"rtol={rtol}; max abs err {err.max().item()}")
-    return err.max().item()
+    return err.max().item() if err.numel() else 0.0
 
 
 def check_scaled(name, got, want, dtype):
@@ -464,6 +480,10 @@ def sass_check():
                          ("HMMA", "LDGSTS", "UBLKCP"))
     if not counts["HMMA"] or not counts["LDGSTS"] + counts["UBLKCP"]:
         raise AssertionError(f"tensor-core ragged attention library: "
+                             f"{counts}")
+    counts = sass_counts("adamw", ("LDG.E.128", "STG.E.128"))
+    if not all(counts.values()):
+        raise AssertionError(f"AdamW library without 16-byte accesses: "
                              f"{counts}")
 
 
@@ -936,6 +956,188 @@ def adamw_case(timer, p, g, m, v, low, lr, beta1, beta2, eps, wd, step):
     return row
 
 
+# the five dtype combinations K8 takes: (p, g, copy)
+ADAMW_KINDS = ((torch.float32, torch.float32, None),
+               (torch.float32, torch.bfloat16, torch.bfloat16),
+               (torch.float32, torch.float16, torch.float16),
+               (torch.bfloat16, torch.bfloat16, None),
+               (torch.float16, torch.float16, None))
+
+
+def adamw_edge_case(device):
+    """K8's group kernel against its plain version in one call over the
+    edge list: each dtype combination at sizes 0, 1, 3, 5, 4097 and 3
+    chunks + 7, and a 4097-element view at an offset of one element (no
+    operand aligned: the scalar path); then 40 more 5-element float32
+    tensors, past one launch's tensor limit; each tensor with its own
+    lr, decay and step. Every element within tolerance, the launches and
+    tensors counted equal to the plan's. Returns the largest error."""
+    from paddle_tpu_torch.ops import fused_adamw as fad
+    gen = torch.Generator(device=device).manual_seed(SEED + 3)
+    lists = [[] for _ in range(8)]
+
+    def add(n, p_dt, g_dt, low_dt, offset=0):
+        def make(dt, scale, positive=False):
+            x = scale * torch.randn(n + offset, device=device, generator=gen)
+            return (x.abs() if positive else x).to(dt)[offset:]
+        i = len(lists[0])
+        for out, x in zip(lists, (
+                make(p_dt, 1.0), make(g_dt, 1.0), make(torch.float32, 0.1),
+                make(torch.float32, 0.1, positive=True),
+                None if low_dt is None else make(low_dt, 1.0),
+                1e-3 * (1 + i % 3), 0.01 * (i % 2), 1 + i % 4)):
+            out.append(x)
+
+    for kind in ADAMW_KINDS:
+        for n in (0, 1, 3, 5, 4097, 3 * fad.ADAMW_CHUNK + 7):
+            add(n, *kind)
+        add(4097, *kind, offset=1)
+    for _ in range(40):
+        add(5, torch.float32, torch.float32, None)
+    ps, gs, ms, vs, lows, lrs, wds, steps = lists
+    ref = [[None if t is None else t.clone() for t in ts]
+           for ts in (ps, ms, vs, lows)]
+    plan = fad.adamw_plan([p.numel() for p in ps], [
+        fad._check(*o) for o in zip(ps, gs, ms, vs, lows)])
+    before = (fad.fused_adamw_.launches, fad.fused_adamw_.tensors)
+    fad.fused_adamw_group_(ps, gs, ms, vs, lows, lrs, wds, steps, 0.9, 0.999,
+                           1e-8)
+    torch.cuda.synchronize()
+    counted = (fad.fused_adamw_.launches - before[0],
+               fad.fused_adamw_.tensors - before[1])
+    if counted != (len(plan), len(ps)):
+        raise AssertionError(f"AdamW edge list: {counted} launches and "
+                             f"tensors counted, the plan has "
+                             f"{(len(plan), len(ps))}")
+    fad.adamw_group_plain_(ref[0], gs, ref[1], ref[2], ref[3], lrs, wds,
+                           steps, 0.9, 0.999, 1e-8)
+    exact = (1e-6, 1e-6)
+    err = 0.0
+    for i, p in enumerate(ps):
+        what = f"AdamW edge tensor {i} ({p.numel()} {p.dtype})"
+        for n, a, b in zip(("p", "m", "v"), (p, ms[i], vs[i]),
+                           (ref[0][i], ref[1][i], ref[2][i])):
+            err = max(err, check_close(
+                f"{what} {n}", a, b, a.dtype,
+                exact if a.dtype == torch.float32 else None))
+        if lows[i] is not None:
+            check_close(f"{what} copy", lows[i], p.to(lows[i].dtype),
+                        lows[i].dtype, (0.0, 0.0))
+    log(f"K8 group edge list: {len(ps)} tensors (sizes 0, 1, 3, 5, 4097, "
+        f"{3 * fad.ADAMW_CHUNK + 7} and an offset-1 view of 4097 in each of "
+        f"{len(ADAMW_KINDS)} dtype combinations, 40 x 5 float32) in "
+        f"{len(plan)} launches, max_abs_err {err:.3e} against the plain "
+        f"version; every copy the rounded parameter exactly")
+    return err
+
+
+def adamw_step_case(timer, device, shapes, half, lr, wd):
+    """K8 over a whole parameter list as ``AdamW.step()`` hands it to the
+    group wrapper: ``half`` parameters on float32 masters with ``half``
+    gradients and copies (O2), or, ``half`` None, float32 parameters and
+    gradients. The row: one grouped update's device ms, its launches
+    (equal to the plan's), the host wall of ``opt.step()`` without a
+    sync (median of 20), the plain version's ms and error,
+    ``torch.optim.AdamW(fused=True)`` over float32 copies of the list,
+    and the bound: the list's bytes over 3.35 TB/s."""
+    import paddle_tpu_torch.optimizer.optimizer as opt_module
+    from paddle_tpu_torch.ops import fused_adamw as fad
+    from paddle_tpu_torch.optimizer import AdamW
+    gen = torch.Generator(device=device).manual_seed(SEED + 5)
+    dtype = half or torch.float32
+
+    def randn(shape, scale):
+        return (scale * torch.randn(shape, device=device,
+                                    generator=gen)).to(dtype)
+
+    params = [torch.nn.Parameter(randn(s, 0.02)) for s in shapes]
+    for p in params:
+        p.grad = randn(p.shape, 1e-3)
+    opt = AdamW(lr, parameters=params, weight_decay=wd,
+                multi_precision=half is not None)
+    got = []
+    orig = opt_module.fused_adamw_group_
+
+    def spy(*a):
+        got.append(a)
+        return orig(*a)
+
+    opt_module.fused_adamw_group_ = spy
+    try:
+        opt.step()                 # slots, masters and the plan
+    finally:
+        opt_module.fused_adamw_group_ = orig
+    (ps, gs, ms, vs, lows, *hyper), = got
+    plan = fad.adamw_plan([p.numel() for p in ps], [
+        fad._check(*o) for o in zip(ps, gs, ms, vs, lows)])
+    torch.cuda.synchronize()
+    before = fad.fused_adamw_.launches
+    walls = []
+    for _ in range(20):
+        t0 = time.perf_counter()
+        opt.step()
+        walls.append(time.perf_counter() - t0)
+    torch.cuda.synchronize()
+    per_step = (fad.fused_adamw_.launches - before) / 20
+    if per_step != len(plan):
+        raise AssertionError(f"AdamW step: {per_step} launches a step, the "
+                             f"plan has {len(plan)}")
+    kern = [[None if t is None else t.clone() for t in ts]
+            for ts in (ps, ms, vs, lows)]
+    ref = [[None if t is None else t.clone() for t in ts]
+           for ts in (ps, ms, vs, lows)]
+
+    def kernel():
+        fad.fused_adamw_group_(kern[0], gs, kern[1], kern[2], kern[3],
+                               *hyper)
+
+    def plain():
+        fad.adamw_group_plain_(ref[0], gs, ref[1], ref[2], ref[3], *hyper)
+
+    kernel()
+    torch.cuda.synchronize()
+    plain()
+    exact = (1e-6, 1e-6)
+    err = max(check_close(f"AdamW step {n}", a, b, a.dtype,
+                          exact if a.dtype == torch.float32 else None)
+              for k, r, n in zip(kern, ref, ("p", "m", "v", "copy"))
+              for a, b in zip(k, r) if a is not None)
+    lib_params = [torch.nn.Parameter(p.detach().float().clone())
+                  for p in ps]
+    for lp, g in zip(lib_params, gs):
+        lp.grad = g.float()
+    lrs, wds, _, b1, b2, eps = hyper
+    lib = torch.optim.AdamW(lib_params, lr=lrs[0], betas=(b1, b2), eps=eps,
+                            weight_decay=wds[0], fused=True)
+    # the wrapper's host work over a few hundred tensors (the signature
+    # of every operand) takes about a millisecond: a 20 ms spin keeps it
+    # and the library's out of the device time
+    spin = 40_000_000
+    row = {"max_abs_err": err, "ms": timer.ms(kernel, spin=spin),
+           "plain_ms": timer.ms(plain, spin=spin),
+           "library_ms": timer.ms(lib.step, spin=spin),
+           "launches_per_step": len(plan), "tensors_per_step": len(ps),
+           "host_us": statistics.median(walls) * 1e6}
+    # p, m, v read and written, g read, the 16-bit copy written
+    nbytes = sum(p.numel() * (2 * p.element_size() + g.element_size() + 16
+                              + (0 if low is None else low.element_size()))
+                 for p, g, low in zip(ps, gs, lows))
+    numel = sum(p.numel() for p in ps)
+    row["bound_ms"], row["bound_by"] = bound(nbytes, 16 * numel,
+                                             torch.float32)
+    return row
+
+
+def gpt2_small_shapes():
+    """GPT-2 small's parameter shapes in ``parameters()`` order, from a
+    model built on the meta device (no memory, no initialisation)."""
+    from paddle_tpu_torch.models import GPTConfig, GPTForPretraining
+    with torch.device("meta"):
+        net = GPTForPretraining(GPTConfig.gpt2_small(),
+                                lm_loss_chunks=LM_CHUNKS)
+    return [tuple(p.shape) for p in net.parameters()]
+
+
 def fmt(row):
     line = (f"max_abs_err {row['max_abs_err']:.3e} kernel_ms "
             f"{row['ms']:.5f} plain_ms {row['plain_ms']:.4f} library_ms "
@@ -948,6 +1150,10 @@ def fmt(row):
         line += (f"; row route (the CTA-per-row kernels) on the same "
                  f"operands: max_abs_err {row['row_err']:.3e} kernel_ms "
                  f"{row['row_ms']:.5f}")
+    if "host_us" in row:
+        line += (f"; {row['launches_per_step']} launches over "
+                 f"{row['tensors_per_step']} tensors, opt.step() host "
+                 f"{row['host_us']:.1f} us")
     return line
 
 
@@ -1010,6 +1216,12 @@ def phase_train_kernels(device, timer):
             f"f32 master, {str(half)[6:]} grad and copy"
         log(f"K8 fused_adamw {what} [50304, 768] {fmt(row)}")
         main["fused_adamw" + DTYPE_TAIL[half or torch.float32]] = row
+    adamw_edge_case(device)
+    row = adamw_step_case(timer, device, gpt2_small_shapes(), torch.bfloat16,
+                          LR, WD)
+    log(f"K8 fused_adamw_step: GPT-2 small's parameter list, bf16 O2 (f32 "
+        f"masters, bf16 grads and copies) {fmt(row)}")
+    main["fused_adamw_step"] = row
     return main
 
 
@@ -3315,23 +3527,41 @@ def train_counters():
             "fused_adamw": fad.fused_adamw_}
 
 
-def expected_launches(n_layers, n_tensors):
+def adamw_launches(numels):
+    """K8's launches for one step over parameter tensors of ``numels``
+    elements and one dtype combination: the count of ``adamw_plan``."""
+    from paddle_tpu_torch.ops.fused_adamw import adamw_plan
+    return len(adamw_plan(numels, [0] * len(numels)))
+
+
+def expected_launches(n_layers, numels):
     """Launches of one train step: one flash forward and backward per
     block, a LayerNorm forward and backward at ln_1, ln_2 of every block
     and ln_f (the checkpointed loss recomputes only the LM head), and
-    one AdamW per parameter tensor."""
+    K8's plan over the parameter tensors of ``numels`` elements, which
+    updates each tensor once (``fused_adamw_tensors``)."""
     return {"flash_attention_fwd": n_layers, "flash_attention_bwd": n_layers,
             "fused_layer_norm": 2 * n_layers + 1,
             "fused_layer_norm_bwd": 2 * n_layers + 1,
-            "fused_adamw": n_tensors}
+            "fused_adamw": adamw_launches(numels),
+            "fused_adamw_tensors": len(numels)}
+
+
+def read_counts(counters):
+    """The wrappers' launch counts, with K8's count of updated tensors
+    beside its launches (``fused_adamw_tensors``) when K8 is counted."""
+    out = {name: fn.launches for name, fn in counters.items()}
+    if "fused_adamw" in counters:
+        out["fused_adamw_tensors"] = counters["fused_adamw"].tensors
+    return out
 
 
 def reset_counts(counters):
     """Every launch count of the wrappers to 0 (the flash and LayerNorm
-    wrappers' per-route counts too)."""
+    wrappers' per-route counts and K8's tensors too)."""
     for fn in counters.values():
         for attr in ("launches", "tc_launches", "core_launches",
-                     "warp_launches", "row_launches"):
+                     "warp_launches", "row_launches", "tensors"):
             if hasattr(fn, attr):
                 setattr(fn, attr, 0)
 
@@ -3372,13 +3602,14 @@ def check_launches(what, launches, per_step, steps):
 def capture_train_operands(model, opt_module, ids, labels):
     """Run one train step with spies on the callers of the kernels and
     keep layer 0's operands: q, k, v and dO of its attention, x, weight
-    and the output gradient of its first LayerNorm, and the first AdamW
-    update's (the token embedding's) p, g, m, v, copy and scalars."""
+    and the output gradient of its first LayerNorm, and the first tensor
+    of the step's AdamW group (the token embedding's) p, g, m, v, copy
+    and scalars."""
     import paddle_tpu_torch.nn.functional as nnf
     import paddle_tpu_torch.nn.layer.norm as norm_mod
     cap = {}
     fa_orig, ln_orig = nnf.flash_attention, norm_mod.layer_norm
-    ad_orig = opt_module.fused_adamw_
+    ad_orig = opt_module.fused_adamw_group_
 
     def fa_spy(q, k, v, is_causal=False, scale=None):
         out = fa_orig(q, k, v, is_causal=is_causal, scale=scale)
@@ -3394,19 +3625,22 @@ def capture_train_operands(model, opt_module, ids, labels):
             out.register_hook(lambda g: cap.update(ln_g=g.detach().clone()))
         return out
 
-    def adamw_spy(p, g, m, v, *hyper, low=None):
+    def adamw_spy(ps, gs, ms, vs, lows, lrs, wds, steps, b1, b2, eps):
         if "adamw" not in cap:
-            cap["adamw"] = ([t.clone() for t in (p, g, m, v)],
-                            None if low is None else low.clone(), hyper)
-        return ad_orig(p, g, m, v, *hyper, low=low)
+            low = lows[0]
+            cap["adamw"] = ([t.clone() for t in (ps[0], gs[0], ms[0],
+                                                 vs[0])],
+                            None if low is None else low.clone(),
+                            (lrs[0], b1, b2, eps, wds[0], steps[0]))
+        return ad_orig(ps, gs, ms, vs, lows, lrs, wds, steps, b1, b2, eps)
 
     nnf.flash_attention, norm_mod.layer_norm = fa_spy, ln_spy
-    opt_module.fused_adamw_ = adamw_spy
+    opt_module.fused_adamw_group_ = adamw_spy
     try:
         loss = model.train_batch([ids, labels])
     finally:
         nnf.flash_attention, norm_mod.layer_norm = fa_orig, ln_orig
-        opt_module.fused_adamw_ = ad_orig
+        opt_module.fused_adamw_group_ = ad_orig
     if not math.isfinite(loss) or len(cap) != 5:
         raise AssertionError(f"capture step: loss {loss}, kept {sorted(cap)}")
     return cap
@@ -3449,7 +3683,8 @@ def phase_train(device, profile=False):
     cfg.hidden_dropout_prob = cfg.attention_dropout_prob = 0.0
     net = GPTForPretraining(cfg, lm_loss_chunks=LM_CHUNKS).to(device)
     n_params = sum(p.numel() for p in net.parameters())
-    n_tensors = len(list(net.parameters()))
+    numels = [p.numel() for p in net.parameters()]
+    n_tensors = len(numels)
     model = Model(net, inputs=["ids", "labels"])
     model.prepare(AdamW(LR, parameters=net.parameters(), weight_decay=WD,
                         multi_precision=True),
@@ -3478,13 +3713,13 @@ def phase_train(device, profile=False):
     fit(ids[split:], labels[split:], [rec])
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = {name: fn.launches for name, fn in counters.items()}
+    launches = read_counts(counters)
     peak = torch.cuda.max_memory_allocated()
     if len(rec.losses) != TIMED_STEPS or not all(
             math.isfinite(x) for x in rec.losses):
         raise AssertionError(f"train losses {rec.losses}")
     check_launches("train", launches,
-                   expected_launches(cfg.num_hidden_layers, n_tensors),
+                   expected_launches(cfg.num_hidden_layers, numels),
                    TIMED_STEPS)
     check_flash_route("train", counters, "tc")
     check_ln_route("train", (counters["fused_layer_norm"],
@@ -3558,9 +3793,9 @@ def phase_f32_check(device):
         out[where] = (loss.item(), grads,
                     {n: p.detach().cpu().clone()
                      for n, p in net.named_parameters()})
-        launches = {name: fn.launches for name, fn in counters.items()}
-    check_launches("float32 step on the card", launches,
-                   expected_launches(2, len(out["cpu"][1])), 1)
+        launches = read_counts(counters)
+    check_launches("float32 step on the card", launches, expected_launches(
+        2, [g.numel() for g in out["cpu"][1].values()]), 1)
     check_flash_route("float32 step on the card", counters, "cuda_core")
     check_ln_route("float32 step on the card",
                    (counters["fused_layer_norm"],
@@ -3618,6 +3853,7 @@ FP16_LOSS_TOL = 2e-2
 O1_STEPS = 8
 PLAIN = (("ops.ragged_paged_attention", "ragged_paged_attention_plain"),
          ("ops.fused_adamw", "adamw_plain_"),
+         ("ops.fused_adamw", "adamw_group_plain_"),
          ("ops.layer_norm", "layer_norm_plain"),
          ("ops.layer_norm", "layer_norm_bwd_plain"),
          ("ops.flash_attention", "flash_attention_fwd_plain"),
@@ -3651,21 +3887,22 @@ def count_plain():
 
 @contextlib.contextmanager
 def adamw_dtypes(opt_module):
-    """The (p, g, copy) dtypes of every AdamW launch the optimizers make
-    while the block runs."""
+    """The (p, g, copy) dtypes of every tensor the optimizers hand K8's
+    group wrapper while the block runs, counted by tensor."""
     seen = collections.Counter()
-    orig = opt_module.fused_adamw_
+    orig = opt_module.fused_adamw_group_
 
-    def spy(p, g, m, v, *hyper, low=None):
-        seen[(str(p.dtype)[6:], str(g.dtype)[6:],
-              None if low is None else str(low.dtype)[6:])] += 1
-        return orig(p, g, m, v, *hyper, low=low)
+    def spy(ps, gs, ms, vs, lows, *hyper):
+        for p, g, low in zip(ps, gs, lows):
+            seen[(str(p.dtype)[6:], str(g.dtype)[6:],
+                  None if low is None else str(low.dtype)[6:])] += 1
+        return orig(ps, gs, ms, vs, lows, *hyper)
 
-    opt_module.fused_adamw_ = spy
+    opt_module.fused_adamw_group_ = spy
     try:
         yield seen
     finally:
-        opt_module.fused_adamw_ = orig
+        opt_module.fused_adamw_group_ = orig
 
 
 def gpt2_small(seed, device, layers=None, dtype=None):
@@ -3776,7 +4013,7 @@ def phase_recipe(device, card):
 
     gc.collect()
     net, cfg = gpt2_small(SEED + 4, device)
-    n_tensors = len(list(net.parameters()))
+    numels = [p.numel() for p in net.parameters()]
     model = recipe_model(net, device)
     norms = []
     clip = model._optimizer._grad_clip
@@ -3810,9 +4047,9 @@ def phase_recipe(device, card):
                       verbose=0, callbacks=[rec, hist])
             torch.cuda.synchronize()
             wall = time.perf_counter() - t0
-        launches = {name: fn.launches for name, fn in counters.items()}
+        launches = read_counts(counters)
         peak = torch.cuda.max_memory_allocated()
-        per_step = expected_launches(cfg.num_hidden_layers, n_tensors)
+        per_step = expected_launches(cfg.num_hidden_layers, numels)
         want = {k: v * steps for k, v in per_step.items()}
         # each evaluated batch runs the forward kernels once more
         want["flash_attention_fwd"] += cfg.num_hidden_layers * evals
@@ -3972,7 +4209,8 @@ def phase_fp16(device, card):
     import paddle_tpu_torch.optimizer.optimizer as opt_module
     gc.collect()
     net, cfg = gpt2_small(SEED + 6, device)
-    n_tensors = len(list(net.parameters()))
+    numels = [p.numel() for p in net.parameters()]
+    n_tensors = len(numels)
     ids, labels = next_token_batches(SEED + 6, cfg.vocab_size,
                                      BATCH * (FP16_STEPS + 2))
     loop = BATCH * FP16_STEPS
@@ -3986,11 +4224,11 @@ def phase_fp16(device, card):
                                               labels[:loop], BATCH)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-    launches = {name: fn.launches for name, fn in counters.items()}
+    launches = read_counts(counters)
     peak = torch.cuda.max_memory_allocated()
     applied = sum(not found for _, _, found in trace)
-    per_step = expected_launches(cfg.num_hidden_layers, n_tensors)
-    want = {k: v * (applied if k == "fused_adamw" else FP16_STEPS)
+    per_step = expected_launches(cfg.num_hidden_layers, numels)
+    want = {k: v * (applied if k.startswith("fused_adamw") else FP16_STEPS)
             for k, v in per_step.items()}
     if launches != want or sum(plain.values()) or not applied:
         raise AssertionError(f"float16 loop: launches {launches}, plain "
@@ -4019,6 +4257,7 @@ def phase_fp16(device, card):
     same = all(torch.equal(a, b) for a, b in zip(state, after))
     if not (found and same and len(after) == len(state)
             and counters["fused_adamw"].launches == 0
+            and counters["fused_adamw"].tensors == 0
             and opt._step_count == steps_before
             and scaler.get_loss_scaling() == max(scale_before * 0.5, 1.0)):
         raise AssertionError(
@@ -4033,11 +4272,14 @@ def phase_fp16(device, card):
                             labels[loop + BATCH:], device)
     moved = opt._step_count == steps_before + 1 and \
         not torch.equal(victim, held)
-    if found or not moved or counters["fused_adamw"].launches != n_tensors \
-            or not math.isfinite(float(loss)):
+    if found or not moved or not math.isfinite(float(loss)) or (
+            counters["fused_adamw"].launches,
+            counters["fused_adamw"].tensors) != (per_step["fused_adamw"],
+                                                 n_tensors):
         raise AssertionError(f"after the non-finite step: found {found}, "
                              f"step {opt._step_count}, AdamW launches "
-                             f"{counters['fused_adamw'].launches}")
+                             f"{counters['fused_adamw'].launches} over "
+                             f"{counters['fused_adamw'].tensors} tensors")
     step_times(f"float16 O2 eager loop: GPT-2 small, AdamW multi_precision,"
                f" GradScaler(2**15), batch {BATCH} x {SEQ}", card,
                FP16_STEPS, wall, spans, peak)
@@ -4100,7 +4342,7 @@ def phase_o1(device, card):
 
     gc.collect()
     net, cfg = gpt2_small(SEED + 8, device)
-    n_tensors = len(list(net.parameters()))
+    numels = [p.numel() for p in net.parameters()]
     model = Model(net, inputs=["ids", "labels"], device=device)
     model.prepare(AdamW(LR, parameters=net.named_parameters(),
                         weight_decay=WD, multi_precision=True),
@@ -4120,14 +4362,14 @@ def phase_o1(device, card):
                   verbose=0, callbacks=[rec])
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-    launches = {name: fn.launches for name, fn in counters.items()}
+    launches = read_counts(counters)
     peak = torch.cuda.max_memory_allocated()
     if any(p.dtype != torch.float32 for p in net.parameters()) or any(
             "master_weight" in s for s in model._optimizer._slots.values()):
         raise AssertionError("O1: parameters must stay float32 without "
                              "masters")
     check_launches("O1", launches,
-                   expected_launches(cfg.num_hidden_layers, n_tensors),
+                   expected_launches(cfg.num_hidden_layers, numels),
                    O1_STEPS)
     if sum(plain.values()) or set(kinds) != {("float32", "float32", None)}:
         raise AssertionError(f"O1: plain versions {dict(plain)}, AdamW "
@@ -4210,7 +4452,14 @@ TRAIN_ROWS = (
     ("fused_layer_norm_f16", LN_SRC, LN_TPU),
     ("fused_layer_norm_bwd_f16", LN_SRC, LN_BWD_TPU),
     ("fused_adamw_f16", ADAMW_SRC, ADAMW_TPU),
-    ("fused_adamw_f32", ADAMW_SRC, ADAMW_TPU))
+    ("fused_adamw_f32", ADAMW_SRC, ADAMW_TPU),
+    ("fused_adamw_step", ADAMW_SRC, ADAMW_TPU))
+# a whole-list K8 row's extra keys (adamw_step_case)
+STEP_KEYS = ("launches_per_step", "tensors_per_step", "host_us")
+# why a step row's launches are also in a dtype row
+STEP_NOTE = ("the launches of the path whose parameter list the row "
+             "times (phase 4's timed steps; phase 6's fit); the dtype "
+             "rows of K8 count them too")
 
 # why a float16 row counts no launch on the main path
 F16_LN_NOTE = ("LayerNorm is on the AMP black list: the float16 paths run "
@@ -4237,6 +4486,9 @@ def train_rows(counts, main):
                             core_err=row["core_err"])
         if name in ("fused_layer_norm_f16", "fused_layer_norm_bwd_f16"):
             rows[-1]["launches_note"] = F16_LN_NOTE
+        if "host_us" in row:
+            rows[-1].update({k: row[k] for k in STEP_KEYS},
+                            launches_note=STEP_NOTE)
     return rows
 
 
@@ -4508,8 +4760,7 @@ def phase_observe_train(device, card):
         def on_train_batch_end(self, step, logs=None):
             if step == OBS_WINDOW[1] - 1:
                 window["stack"].close()
-                window["counts"] = {n: fn.launches
-                                    for n, fn in counters.items()}
+                window["counts"] = read_counts(counters)
                 window["routes"] = {
                     n: {a: getattr(fn, a) for a in (
                         "tc_launches", "core_launches", "warp_launches",
@@ -4547,7 +4798,7 @@ def phase_observe_train(device, card):
     steps = OBS_WINDOW[1] - OBS_WINDOW[0]
     counts = window["counts"]
     check_launches("phase 5 (ii) window", counts, expected_launches(
-        cfg.num_hidden_layers, len(list(net.parameters()))), steps)
+        cfg.num_hidden_layers, [p.numel() for p in net.parameters()]), steps)
     table = window["prof"].device_op_table()
     seen = {"fa_fwd_tc_kernel": kernel_calls(table, "fa_fwd_tc_kernel"),
             "fa_dq_tc_kernel": kernel_calls(table, "fa_dq_tc_kernel"),
@@ -4736,16 +4987,19 @@ def tf_want(net):
     """One train step's launches, from the network's structure: K4 and K6
     once a unmasked attention (each encoder self-attention and each
     cross-attention), K2 and K3 once a LayerNorm (post-norm: two an
-    encoder layer, three a decoder layer), K8 once a parameter tensor;
-    the masked decoder self-attentions run the op's plain body."""
+    encoder layer, three a decoder layer), K8 the plan's launches over
+    the parameter tensors, each tensor once; the masked decoder
+    self-attentions run the op's plain body."""
     n_enc = len(net.transformer.encoder.layers)
     n_dec = len(net.transformer.decoder.layers)
     n_ln = sum(1 for m in net.modules()
                if type(m).__name__ == "LayerNorm")
+    numels = [p.numel() for p in net.parameters()]
     return {"flash_attention_fwd": n_enc + n_dec,
             "flash_attention_bwd": n_enc + n_dec,
             "fused_layer_norm": n_ln, "fused_layer_norm_bwd": n_ln,
-            "fused_adamw": len(list(net.parameters()))}, n_dec
+            "fused_adamw": adamw_launches(numels),
+            "fused_adamw_tensors": len(numels)}, n_dec
 
 
 def tf_batch(seed, rows, seq):
@@ -4926,7 +5180,7 @@ def phase_transformer(device, card, timer):
             self.loss, self.spans, self.launches = [], [], []
 
         def _read(self):
-            return {**{n: fn.launches for n, fn in counters.items()},
+            return {**read_counts(counters),
                     "sdpa": monitor.stat_get(
                         "op_count/scaled_dot_product_attention")}
 
@@ -4957,7 +5211,7 @@ def phase_transformer(device, card, timer):
                   verbose=0, callbacks=[rec])
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-    launches = {name: fn.launches for name, fn in counters.items()}
+    launches = read_counts(counters)
     peak = torch.cuda.max_memory_allocated()
     step_want = dict(want, sdpa=want["flash_attention_fwd"] + n_masked)
     if rec.launches != [step_want] * TF_STEPS:
@@ -4979,7 +5233,8 @@ def phase_transformer(device, card, timer):
     n_params = sum(p.numel() for p in net.parameters())
     log(f"phase 6: Transformer (base) {TF_LAYERS} + {TF_LAYERS} layers, "
         f"d_model {TF_D}, {TF_HEADS} heads, ffn {TF_FF}, vocab {TF_VOCAB}, "
-        f"{n_params} parameters in {want['fused_adamw']} tensors; "
+        f"{n_params} parameters in {want['fused_adamw_tensors']} tensors "
+        f"({want['fused_adamw']} K8 launches a step); "
         f"attn_dropout 0.0 puts the encoder's self-attention and the "
         f"cross-attention on the flash kernels (attention dropout would "
         f"refuse them, as the JAX override does); the decoder's "
@@ -4995,17 +5250,20 @@ def phase_transformer(device, card, timer):
         f"(sdpa: op calls), every flash launch on the tensor-core route, "
         f"every LayerNorm launch on the warp-row route; {len(swept)} ops "
         f"swept")
+    shapes = [tuple(p.shape) for p in net.parameters()]
     del model, net, data
     gc.collect()
     torch.cuda.empty_cache()
-    return launches, tf_rows(device, timer, launches), swept
+    return launches, tf_rows(device, timer, launches, shapes), swept
 
 
-def tf_rows(device, timer, launches):
+def tf_rows(device, timer, launches, shapes):
     """The kernels line's rows of phase 6: each kernel against its plain
     version at the fit's shapes and dtypes (LayerNorm float32 [4096, 512],
     flash bf16 [16, 256, 8, 64] not causal, AdamW on the [37000, 512]
-    table with a float32 gradient), with the fit's launches."""
+    table with a float32 gradient, and AdamW over the whole parameter
+    list of ``shapes`` as its step hands it over), with the fit's
+    launches."""
     gen = torch.Generator(device=device).manual_seed(SEED + 65)
 
     def randn(*shape, dtype=torch.float32, scale=1.0):
@@ -5025,6 +5283,7 @@ def tf_rows(device, timer, launches):
     adamw = adamw_case(timer, randn(*n, scale=0.05), randn(*n, scale=1e-3),
                        randn(*n, scale=1e-4), randn(*n, scale=1e-4).square(),
                        None, TF_LR, 0.9, 0.999, 1e-8, 0.01, 3)
+    adamw_step = adamw_step_case(timer, device, shapes, None, TF_LR, 0.01)
     out = []
     for name, src, tpu, row, count in (
             ("fused_layer_norm_transformer", LN_SRC, LN_TPU, ln_fwd,
@@ -5036,7 +5295,9 @@ def tf_rows(device, timer, launches):
             ("flash_attention_bwd_transformer", FA_TC_SRC, FA_BWD_TPU,
              fa_bwd, "flash_attention_bwd"),
             ("fused_adamw_transformer", ADAMW_SRC, ADAMW_TPU, adamw,
-             "fused_adamw")):
+             "fused_adamw"),
+            ("fused_adamw_step_transformer", ADAMW_SRC, ADAMW_TPU,
+             adamw_step, "fused_adamw")):
         log(f"phase 6 {name} {fmt(row)}")
         out.append({"name": name, "route": "cuda", "source": src,
                     "replaces": tpu, "launches": launches[count],
@@ -5047,6 +5308,9 @@ def tf_rows(device, timer, launches):
         if "core_ms" in row:
             out[-1].update(core_source=FA_SRC, core_ms=row["core_ms"],
                            core_err=row["core_err"])
+        if "host_us" in row:
+            out[-1].update({k: row[k] for k in STEP_KEYS},
+                           launches_note=STEP_NOTE)
     return out
 
 
@@ -5507,7 +5771,8 @@ def run_phases() -> int:
         "fused_layer_norm_f16": 0,
         "fused_layer_norm_bwd_f16": 0,
         "fused_adamw_f16": fp16["fused_adamw"],
-        "fused_adamw_f32": o1["fused_adamw"] + f32_launches["fused_adamw"]}
+        "fused_adamw_f32": o1["fused_adamw"] + f32_launches["fused_adamw"],
+        "fused_adamw_step": train_launches["fused_adamw"]}
     kernels += train_rows(counts, train_main)
     # the float32 runs' K2 launches join their path's row, their K4
     # launches (the CUDA-core route) the _f32 flash row

@@ -21,12 +21,13 @@ The eager ``step()`` follows the JAX package's (:172-208), in its order:
 
 With ``multi_precision=True`` a bf16 or f16 parameter keeps a float32
 master copy in its slots: the rule runs on the master and the parameter
-is the master rounded down. Adam and AdamW update each parameter with
-the fused AdamW kernel (``ops/fused_adamw.py``, K8), one launch per
-parameter as the JAX package's eager step launches its Pallas kernel; on
-a master it writes the rounded copy in the same pass. The other rules
-are plain torch: the JAX package runs them as ``jnp`` expressions and has
-no kernel for them. Updates are in place: the parameter, its master and
+is the master rounded down. Adam and AdamW gather steps 2-4 for every
+parameter in one pass and update them all with one call of the fused
+AdamW kernel (``ops/fused_adamw.py``, K8), a few launches a step where
+the JAX package's eager step launches its Pallas kernel once per
+parameter; on a master it writes the rounded copy in the same pass. The
+other rules are plain torch, one parameter at a time: the JAX package
+runs them as ``jnp`` expressions and has no kernel for them. Updates are in place: the parameter, its master and
 its slots are rewritten where they lie (the JAX step built new arrays).
 
 ``parameters`` may be the tensors (``model.parameters()``, named
@@ -40,7 +41,7 @@ from typing import Dict, List
 
 import torch
 
-from ..ops.fused_adamw import fused_adamw_
+from ..ops.fused_adamw import fused_adamw_group_
 from .lr import LRScheduler
 
 __all__ = ["Optimizer", "SGD", "Momentum", "Adam", "AdamW", "Adamax",
@@ -198,20 +199,31 @@ class Optimizer:
         if self._grad_clip is not None:
             pairs = self._clip(pairs)
         self._step_count += 1
-        base_lr = self.get_lr()
         try:
-            for (name, p), (_, g) in zip(live, pairs):
-                self._current_param_name, self._current_param = name, p
-                lr = base_lr * getattr(p, "optimize_attr", {}).get(
-                    "learning_rate", 1.0)
-                g = self._decay_grad(p, g.to(p.dtype))
-                slots = self._ensure_slots(name, p)
-                t0 = slots.get("_t0")
-                step = self._step_count if t0 is None else \
-                    self._step_count - int(t0)
-                self._update(name, p, g, slots, lr, step)
+            self._apply_updates(live, [g for _, g in pairs], self.get_lr())
         finally:
             self._current_param_name = self._current_param = None
+
+    def _prepare(self, name, p, g, base_lr):
+        """Steps 2-4 of ``step()`` for one parameter, with the hooks
+        pointed at it: returns its lr, its gradient (cast and decayed),
+        its slots and its own step."""
+        self._current_param_name, self._current_param = name, p
+        lr = base_lr * getattr(p, "optimize_attr", {}).get(
+            "learning_rate", 1.0)
+        g = self._decay_grad(p, g.to(p.dtype))
+        slots = self._ensure_slots(name, p)
+        t0 = slots.get("_t0")
+        step = self._step_count if t0 is None else \
+            self._step_count - int(t0)
+        return lr, g, slots, step
+
+    def _apply_updates(self, live, grads, base_lr):
+        """Update every ``(name, param)`` of ``live`` with its gradient,
+        one parameter at a time."""
+        for (name, p), g in zip(live, grads):
+            lr, g, slots, step = self._prepare(name, p, g, base_lr)
+            self._update(name, p, g, slots, lr, step)
 
     def _clip(self, pairs):
         """The gradient clip, keeping ``_clip_norms`` = (the pre-clip
@@ -303,12 +315,25 @@ class Adam(Optimizer):
     def _decay_coeff(self, name) -> float:
         return 0.0
 
-    def _update(self, name, p, g, slots, lr, step):
-        master = slots.get("master_weight")
-        target, low = (p.data, None) if master is None else (master, p.data)
-        fused_adamw_(target, g.contiguous(), slots["moment1"],
-                     slots["moment2"], lr, self._beta1, self._beta2,
-                     self._eps, self._decay_coeff(name), step, low=low)
+    def _apply_updates(self, live, grads, base_lr):
+        """One pass gathers every parameter's operands (the master and
+        the parameter as its rounded copy under multi-precision), lr,
+        decay and step, in the loop's order and with the hooks pointed
+        at each in turn; then one fused call updates them all."""
+        ps, gs, ms, vs, lows, lrs, wds, steps = ([] for _ in range(8))
+        for (name, p), g in zip(live, grads):
+            lr, g, slots, step = self._prepare(name, p, g, base_lr)
+            master = slots.get("master_weight")
+            ps.append(p.data if master is None else master)
+            lows.append(None if master is None else p.data)
+            gs.append(g.contiguous())
+            ms.append(slots["moment1"])
+            vs.append(slots["moment2"])
+            lrs.append(lr)
+            wds.append(self._decay_coeff(name))
+            steps.append(step)
+        fused_adamw_group_(ps, gs, ms, vs, lows, lrs, wds, steps,
+                           self._beta1, self._beta2, self._eps)
 
 
 class AdamW(Adam):

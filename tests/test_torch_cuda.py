@@ -335,6 +335,88 @@ def test_adamw_rejects_a_bf16_parameter_with_an_f32_gradient(cuda):
                            eps=1e-8, weight_decay=0.0, step=1)
 
 
+# the five dtype combinations the AdamW kernel takes: (p, g, copy)
+_ADAMW_KINDS = ((torch.float32, torch.float32, None),
+                (torch.float32, torch.bfloat16, torch.bfloat16),
+                (torch.float32, torch.float16, torch.float16),
+                (torch.bfloat16, torch.bfloat16, None),
+                (torch.float16, torch.float16, None))
+
+
+def _adamw_edge_list(dev, seed=11):
+    """The group kernel's edge cases: each kind at sizes 0, 1, 3, 5, 4097
+    and 3 chunks + 7, plus a 4097-element view at an offset of one
+    element (no operand 16-byte aligned: the scalar path), and 40 more
+    5-element f32 tensors (over one launch's tensor limit); per tensor
+    its own lr, decay and step."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    lists = [[] for _ in range(8)]
+
+    def add(n, p_dt, g_dt, low_dt, offset=0):
+        def make(dt, scale, pos=False):
+            buf = _randn(g, n + offset, scale=scale)
+            buf = buf.abs() if pos else buf
+            return buf.to(dt)[offset:]
+        i = len(lists[0])
+        for out, x in zip(lists, (
+                make(p_dt, 1.0), make(g_dt, 1.0), make(torch.float32, 0.1),
+                make(torch.float32, 0.1, pos=True),
+                None if low_dt is None else make(low_dt, 1.0),
+                1e-3 * (1 + i % 3), 0.01 * (i % 2), 1 + i % 4)):
+            out.append(x)
+
+    for p_dt, g_dt, low_dt in _ADAMW_KINDS:
+        for n in (0, 1, 3, 5, 4097, 3 * adamw.ADAMW_CHUNK + 7):
+            add(n, p_dt, g_dt, low_dt)
+        add(4097, p_dt, g_dt, low_dt, offset=1)
+    for _ in range(40):
+        add(5, torch.float32, torch.float32, None)
+    return lists
+
+
+def test_adamw_group_kernel_matches_plain_on_the_edge_list(cuda):
+    ps, gs, ms, vs, lows, lrs, wds, steps = _adamw_edge_list(cuda)
+    assert ps[6].data_ptr() % 16 and ps[6].is_contiguous()
+    ref = [[None if t is None else t.clone() for t in ts]
+           for ts in (ps, ms, vs, lows)]
+    hyper = (0.9, 0.999, 1e-8)
+    plan = adamw.adamw_plan([p.numel() for p in ps], [
+        adamw._check(*o) for o in zip(ps, gs, ms, vs, lows)])
+    before = (adamw.fused_adamw_.launches, adamw.fused_adamw_.tensors)
+    adamw.fused_adamw_group_(ps, gs, ms, vs, lows, lrs, wds, steps, *hyper)
+    torch.cuda.synchronize()
+    assert len(plan) > len(_ADAMW_KINDS)      # the f32 kind spans launches
+    assert (adamw.fused_adamw_.launches, adamw.fused_adamw_.tensors) == (
+        before[0] + len(plan), before[1] + len(ps))
+    adamw.adamw_group_plain_(ref[0], gs, ref[1], ref[2], ref[3], lrs, wds,
+                             steps, *hyper)
+    exact = dict(atol=1e-6, rtol=1e-6)
+    for got, want in zip((ps, ms, vs), ref[:3]):
+        for a, b in zip(got, want):
+            torch.testing.assert_close(a.float(), b.float(), **(
+                exact if a.dtype == torch.float32 else TOL[a.dtype]))
+    for low, p in zip(lows, ps):
+        if low is not None:
+            torch.testing.assert_close(low, p.to(low.dtype), atol=0, rtol=0)
+
+
+def test_adamw_group_on_the_card_never_reaches_the_plain_version(
+        cuda, monkeypatch):
+    def plain(*a, **kw):
+        raise AssertionError("plain AdamW on a CUDA tensor")
+
+    monkeypatch.setattr(adamw, "adamw_plain_", plain)
+    p = torch.zeros(8, dtype=torch.float64, device=cuda)
+    m, v, g = (torch.zeros(8, device=cuda) for _ in range(3))
+    with pytest.raises(TypeError, match="float32, bfloat16 or float16"):
+        adamw.fused_adamw_group_([p], [g], [m], [v], [None], [1e-3], [0.0],
+                                 [1], 0.9, 0.999, 1e-8)
+    q = torch.zeros(8, device=cuda)
+    adamw.fused_adamw_group_([q], [g], [m], [v], [None], [1e-3], [0.0],
+                             [1], 0.9, 0.999, 1e-8)
+    torch.cuda.synchronize()
+
+
 _FLASH = (fa.flash_attention_fwd, fa.flash_attention_bwd)
 
 

@@ -570,9 +570,10 @@ def test_sampled_pick_draws_the_distribution_and_takes_nan():
     logits = torch.tensor([[0.0, 1.0, 2.0, -1.0], [0.0, 0.0, 5.0, 5.0]])
     gen = torch.Generator().manual_seed(0)
     n = 20000
-    draws = torch.stack([tgen._pick_token(logits, gen, True, 0, 1.0,
-                                          torch.ones(2, 1))
-                         for _ in range(n)])
+    # n independent draws per row in one call: row 2i + r is a copy of
+    # row r, and each row's race takes its own exponentials
+    draws = tgen._pick_token(logits.repeat(n, 1), gen, True, 0, 1.0,
+                             torch.ones(2 * n, 1)).view(n, 2)
     for row in range(2):
         freq = torch.bincount(draws[:, row].long(), minlength=4) / n
         np.testing.assert_allclose(freq.numpy(),
