@@ -228,6 +228,40 @@ prints no result line):
    copy, NCHW and NHWC, batch 4 at 32 x 32 (``rn_parity``: logits,
    loss, gradients, one Momentum step, the running statistics), and the
    22 ``extra_nn_ops`` among phase 6's swept ops;
+10. BERT-base (``phase_bert``, run after phase 7): ``bench.py``'s
+   ``bench_bert`` configuration, not cut (``BertConfig()`` with both
+   dropouts 0, the QA head behind ``_QATrain``, bf16 AMP O2 with
+   LayerNorm on the black list, ``AdamW(3e-5, weight_decay=0.01,
+   multi_precision=True)``, ``RandomState(0)`` ids, start and end
+   positions ``[32, 128]``) through the eager loop ``loss.backward();
+   opt.step(); opt.clear_grad()``, 5 warm-up and 30 timed steps on the
+   fixed batch: each step's launches K2 = K3 = 25 (all warp-row), K4 =
+   K6 = 12 (all tensor-core), K8 = ``adamw_plan``'s over the 199
+   parameter tensors with a gradient (the pooler's two get none), no
+   plain version, the loss finite and lower at the last timed step than
+   at the first, one more step under ``set_sync_debug_mode("error")``;
+   steps/s, tokens/s, ms a step (wall / steps, and the median of CUDA
+   events between steps), peak memory and MFU (``bench.py``'s formula
+   over the card's peak). First a 2-layer BERT at base width in float32
+   on the card against a CPU copy: the QA head masked and unmasked and
+   the masked-LM head (tied decoder), logits, loss and every gradient
+   within ``TF_PARITY_TOL``. The kernels line's ``_bert`` rows hold
+   K2/K3 float32 ``[4096, 768]``, K4/K6 bf16 ``[32, 128, 12, 64]`` not
+   causal and K8 over the fit's parameter list against their plain
+   versions, with SDPA, ``F.layer_norm`` and ``AdamW(fused=True)``
+   beside them;
+11. the text models (``phase_text``): the 13 ``sequence_ops`` among
+   phase 6's swept ops, none reading the card back; ``TransformerModel``
+   at phase 6's width (6 + 6 layers, d_model 512, 8 heads, ffn 2048,
+   vocabulary 37000) in float32 at 2 + 2 layers greedy on the card
+   against a CPU copy (tokens equal before each row's first CPU top-2
+   margin below ``GEN_TOL``); ``nn.LSTM``/``nn.GRU`` (2 layers,
+   bidirectional, with ``sequence_length``) and ``dynamic_decode`` over
+   an ``LSTMCell`` beam decoder on the card against the CPU
+   (``RNN_TOL``); then the full model in bf16 decoding 16 padded sources
+   to 64 tokens greedily and with 4 beams: K2 launches = 2 x 6 + 3 x 6 a
+   decode step, all warp-row, K4-K7 0 (every attention is masked), no
+   plain version, ms a step and generated tokens/s;
 8. real operands: the layer-0 operands of one real step of each path
    through kernel and plain: the engine's attention rows (float, int8
    and fp8 pools) at its widest step and at its last decode-only step
@@ -294,8 +328,9 @@ prints no result line):
 the speculative engine with the 2-layer draft (phase 3f) and to the
 dense and paged gather engines, one more tiered bf16 load run (phase
 3g, with device ms a cycle), one more greedy generate, one more beam
-search and two more train steps under the port's ``Profiler`` and
-prints device time by kernel (``profiler.device_op_table``) and the
+search, two more train steps, two more BERT steps (phase 10) and one
+more greedy ``TransformerModel`` decode (phase 11) under the port's
+``Profiler`` and prints device time by kernel (``profiler.device_op_table``) and the
 device's idle share.
 
 Times come from CUDA events around single launches, median of 20,
@@ -4939,6 +4974,8 @@ TF_PARITY_TOL = 1e-4
 #: the op sweep, card against CPU: float32 results (decompositions by
 #: their identities), integers and booleans exactly
 SWEEP_TOL = 1e-4
+#: the sweep's case keys whose second call read the card back
+SWEEP_SYNCING = []
 
 
 def transformer_net(layers, device, seed):
@@ -5045,7 +5082,8 @@ def phase_op_sweep(device):
         return all(o.is_cuda for o in outs if isinstance(o, torch.Tensor))
 
     cases = op_cases.cases(SEED)
-    syncing, t0 = [], time.perf_counter()
+    syncing, t0 = SWEEP_SYNCING, time.perf_counter()
+    syncing.clear()
     for key, case in sorted(cases.items()):
         got = run(case, device)
         if not on_card(got):
@@ -5664,6 +5702,606 @@ def phase_resnet(device, card, sweep):
     torch.cuda.empty_cache()
 
 
+# ---------------------------------------------------------------------------
+# phase 10: BERT-base fine-tuned at bench_bert's configuration
+# ---------------------------------------------------------------------------
+
+#: ``bench.py``'s ``bench_bert``: BERT-base (12 layers, hidden 768, 12
+#: heads, ffn 3072, vocab 30522, 512 positions) with both dropouts 0, the
+#: QA head, bf16 AMP O2, AdamW(3e-5, weight_decay 0.01) with float32
+#: masters, ``RandomState(0)`` ids, start and end positions ``[32, 128]``,
+#: 5 warm-up and 30 timed steps; not cut
+BERT_BATCH, BERT_SEQ, BERT_WARM, BERT_STEPS = 32, 128, 5, 30
+BERT_LR, BERT_WD = 3e-5, 0.01
+#: the card-vs-CPU parity run: base width at 2 layers, float32
+BERT_PARITY_LAYERS, BERT_PARITY_BATCH, BERT_PARITY_SEQ = 2, 2, 64
+#: a gradient whose true value is zero (the attention key biases; under
+#: the span loss the last LayerNorm's bias and the classifier's bias,
+#: since a shift shared by every position's logit changes no softmax):
+#: the CPU's largest |value| below this fraction of the network's largest
+#: gradient element, and then the card's must be too
+BERT_ZERO_GRAD = 1e-5
+
+
+def bert_net(cls, layers, device, seed, dtype=None):
+    """``cls`` (a ``models.bert`` head) over ``BertConfig()`` cut to
+    ``layers`` with both dropouts 0, random weights from ``seed``."""
+    import paddle_tpu_torch as pt
+    from paddle_tpu_torch.models.bert import BertConfig
+    cfg = BertConfig(num_hidden_layers=layers, hidden_dropout_prob=0.0,
+                     attention_dropout_prob=0.0)
+    pt.seed(seed)
+    return cls(cfg).to(device=device, dtype=dtype)
+
+
+def bert_batch(rows, seq, vocab):
+    """``bench_bert``'s data: ``RandomState(0)`` ids, then start and end
+    positions."""
+    rng = np.random.RandomState(SEED)
+    ids = rng.randint(0, vocab, (rows, seq)).astype(np.int64)
+    start = rng.randint(0, seq, (rows,)).astype(np.int64)
+    end = rng.randint(0, seq, (rows,)).astype(np.int64)
+    return ids, start, end
+
+
+def bert_parity(device):
+    """BERT at base width cut to ``BERT_PARITY_LAYERS`` in float32, on the
+    card (kernels) and on a CPU copy (plain versions): the QA head with a
+    padding mask and without (start/end logits, loss, every gradient) and
+    the masked-LM head with its decoder tied to the word embeddings
+    (logits, loss, every gradient), each within ``TF_PARITY_TOL`` of the
+    tensor's largest value; a gradient whose true value is zero is held
+    below ``BERT_ZERO_GRAD`` of the network's largest on both sides."""
+    from paddle_tpu_torch.convert import layer_from_jax, layer_to_numpy
+    from paddle_tpu_torch.models.bert import (BertForMaskedLM,
+                                              BertForQuestionAnswering)
+    cpu = torch.device("cpu")
+    ids, start, end = bert_batch(BERT_PARITY_BATCH, BERT_PARITY_SEQ, 30522)
+    mask = np.ones(ids.shape, np.float32)
+    mask[0, BERT_PARITY_SEQ // 2:] = 0.0
+    labels = np.where(np.arange(BERT_PARITY_SEQ) % 3 == 0, -100,
+                      ids).astype(np.int64)
+    report = []
+    for name, cls, masked in (("qa", BertForQuestionAnswering, False),
+                              ("qa masked", BertForQuestionAnswering, True),
+                              ("mlm", BertForMaskedLM, False)):
+        card = bert_net(cls, BERT_PARITY_LAYERS, device, SEED + 71)
+        host = bert_net(cls, BERT_PARITY_LAYERS, cpu, SEED + 72)
+        layer_from_jax(host, layer_to_numpy(card))
+        outs = {}
+        for key, net, dev in (("card", card, device), ("host", host, cpu)):
+            def t(a):
+                return torch.from_numpy(a).to(dev)
+            m = t(mask) if masked else None
+            if cls is BertForMaskedLM:
+                loss, logits = net(t(ids), attention_mask=m,
+                                   labels=t(labels))
+                logits = (logits,)
+            else:
+                loss, *logits = net(t(ids), attention_mask=m,
+                                    start_positions=t(start),
+                                    end_positions=t(end))
+            loss.backward()
+            outs[key] = ([x.detach().cpu() for x in logits], loss.item(),
+                         {n: p.grad.detach().cpu()
+                          for n, p in net.named_parameters()
+                          if p.grad is not None})
+        (c_logits, c_loss, c_grads), (h_logits, h_loss, h_grads) = \
+            outs["card"], outs["host"]
+        bad, worst, zeros = [], {}, 0
+        if set(c_grads) != set(h_grads):
+            bad.append(f"gradients of {sorted(set(c_grads) ^ set(h_grads))}")
+        checked = [(f"logits {i}", g, w)
+                   for i, (g, w) in enumerate(zip(c_logits, h_logits))]
+        top = max(g.abs().max().item() for g in h_grads.values())
+        for n, w in h_grads.items():
+            g = c_grads.get(n)
+            if g is None:
+                continue
+            if w.abs().max().item() <= BERT_ZERO_GRAD * top:
+                zeros += 1
+                if g.abs().max().item() > BERT_ZERO_GRAD * top:
+                    bad.append(f"{n}: zero gradient on the CPU, "
+                               f"{g.abs().max().item():.3e} on the card")
+                continue
+            checked.append((n, g, w))
+        for n, g, w in checked:
+            err = rn_rel(g, w)
+            worst[n] = err
+            if not (torch.isfinite(g).all() and err <= TF_PARITY_TOL):
+                bad.append(f"{n} {err:.3e}")
+        if abs(c_loss - h_loss) > TF_PARITY_TOL * abs(h_loss):
+            bad.append(f"loss {c_loss} vs {h_loss}")
+        if bad:
+            raise AssertionError(f"phase 10 parity ({name}): card vs CPU "
+                                 f"beyond {TF_PARITY_TOL}: {bad}")
+        top_name = max(worst, key=worst.get)
+        report.append(f"{name}: loss card {c_loss:.6f} CPU {h_loss:.6f}, "
+                      f"{len(worst)} tensors within, worst {top_name} "
+                      f"{worst[top_name]:.3e}, {zeros} zero gradients")
+        del card, host
+    log(f"phase 10 parity: BERT (base width) at {BERT_PARITY_LAYERS} layers,"
+        f" float32, batch {BERT_PARITY_BATCH} x {BERT_PARITY_SEQ}, card vs "
+        f"CPU within {TF_PARITY_TOL}: " + "; ".join(report))
+
+
+def bert_want(net):
+    """One train step's launches from the network's structure: K2 and K3
+    once a LayerNorm (the embeddings' and two a post-norm layer), K4 and
+    K6 once a layer (unmasked, dropout-free attention), K8 the plan's
+    launches over the parameter tensors that get a gradient (the pooler's
+    two do not: the QA head reads no pooled output, and the optimizer
+    skips a parameter without a gradient, as the JAX one does)."""
+    layers = len(net.inner.bert.encoder.layers)
+    n_ln = sum(1 for m in net.modules() if type(m).__name__ == "LayerNorm")
+    pooler = {id(p) for p in net.inner.bert.pooler.parameters()}
+    numels = [p.numel() for p in net.parameters() if id(p) not in pooler]
+    return {"flash_attention_fwd": layers, "flash_attention_bwd": layers,
+            "fused_layer_norm": n_ln, "fused_layer_norm_bwd": n_ln,
+            "fused_adamw": adamw_launches(numels),
+            "fused_adamw_tensors": len(numels)}
+
+
+def phase_bert(device, card, timer, profile=False):
+    """10: BERT-base fine-tuned at ``bench_bert``'s configuration through
+    the eager loop ``loss.backward(); opt.step(); opt.clear_grad()`` under
+    ``amp.auto_cast`` (O2, bf16): ``BERT_WARM`` + ``BERT_STEPS`` steps on
+    the fixed batch, every step's launches held to the structure (every
+    flash launch tensor-core, every LayerNorm launch warp-row), no plain
+    version, the loss finite and lower at the last timed step than at the
+    first; one more step under ``set_sync_debug_mode("error")``; steps/s,
+    tokens/s, ms a step, peak memory and MFU (``bench.py``'s formula).
+    First :func:`bert_parity`. ``profile``: two more steps under the
+    port's ``Profiler``, device time by kernel. Returns the fit's
+    launches and the kernels line's rows."""
+    import paddle_tpu_torch.optimizer.optimizer as opt_module
+    from paddle_tpu_torch import amp, nn
+    from paddle_tpu_torch.framework.program_registry import peak_flops
+    from paddle_tpu_torch.models.bert import BertForQuestionAnswering
+    from paddle_tpu_torch.optimizer import AdamW
+    bert_parity(device)
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    class QATrain(nn.Layer):
+        """``bench_bert``'s ``_QATrain``: positional (ids, start, end)."""
+
+        def __init__(self, inner):
+            super().__init__()
+            self.inner = inner
+
+        def forward(self, ids, start, end):
+            return self.inner(ids, start_positions=start,
+                              end_positions=end)
+
+    model = QATrain(bert_net(BertForQuestionAnswering, 12, device, SEED))
+    amp.decorate(model, level="O2", dtype="bfloat16")
+    opt = AdamW(learning_rate=BERT_LR, weight_decay=BERT_WD,
+                parameters=model.parameters(), multi_precision=True)
+    want = bert_want(model)
+    vocab = model.inner.bert.cfg.vocab_size
+    batch = [torch.from_numpy(a).to(device)
+             for a in bert_batch(BERT_BATCH, BERT_SEQ, vocab)]
+    n_params = sum(p.numel() for p in model.parameters())
+    counters = train_counters()
+
+    def step():
+        with amp.auto_cast(level="O2", dtype="bfloat16"):
+            loss = model(*batch)[0]
+        loss.backward()
+        opt.step()
+        opt.clear_grad()
+        return loss.detach()
+
+    torch.cuda.synchronize()
+    gc.collect()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts(counters)
+    losses, per_step = [], []
+    events = [torch.cuda.Event(enable_timing=True)
+              for _ in range(BERT_STEPS + 1)]
+    with count_plain() as plain, adamw_dtypes(opt_module) as kinds:
+        for _ in range(BERT_WARM):
+            at = read_counts(counters)
+            losses.append(step())
+            now = read_counts(counters)
+            per_step.append({k: now[k] - at[k] for k in now})
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        events[0].record()
+        for i in range(BERT_STEPS):
+            at = read_counts(counters)
+            losses.append(step())
+            events[i + 1].record()
+            now = read_counts(counters)
+            per_step.append({k: now[k] - at[k] for k in now})
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    launches = read_counts(counters)
+    peak = torch.cuda.max_memory_allocated()
+    losses = [x.item() for x in losses]
+    spans = [a.elapsed_time(b) for a, b in zip(events, events[1:])]
+    if per_step != [want] * (BERT_WARM + BERT_STEPS):
+        bad = [(i, s) for i, s in enumerate(per_step) if s != want]
+        raise AssertionError(f"phase 10: launches a step, expected {want}: "
+                             f"{bad[:3]}")
+    check_flash_route("phase 10", counters, "tc")
+    check_ln_route("phase 10", (counters["fused_layer_norm"],
+                                counters["fused_layer_norm_bwd"]))
+    if sum(plain.values()) or set(kinds) != {
+            ("float32", "bfloat16", "bfloat16")}:
+        raise AssertionError(f"phase 10: plain versions {dict(plain)}, "
+                             f"AdamW (p, g, copy) dtypes {dict(kinds)}")
+    timed = losses[BERT_WARM:]
+    if not all(math.isfinite(x) for x in losses) or not timed[-1] < timed[0]:
+        raise AssertionError(f"phase 10 losses on the fixed batch: {losses}")
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        extra = step()
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    if not math.isfinite(extra.item()):
+        raise AssertionError(f"phase 10: the sync-free step's loss {extra}")
+    if profile:
+        with device_profile() as prof:
+            t0 = time.perf_counter()
+            for _ in range(2):
+                step()
+            torch.cuda.synchronize()
+            prof_ms = (time.perf_counter() - t0) * 1e3
+        device_time_report("bert", prof, prof_ms, 2)
+    steps_per_sec = BERT_STEPS / wall
+    peak_rate = peak_flops(torch.cuda.get_device_name(0))
+    mfu = 6.0 * n_params * BERT_BATCH * BERT_SEQ * steps_per_sec / peak_rate
+    log(f"phase 10: BERT-base (bench.py bench_bert), {n_params} parameters "
+        f"in {want['fused_adamw_tensors'] + 2} tensors ({want['fused_adamw_tensors']} "
+        f"with a gradient: the pooler's two get none on the QA path and "
+        f"the optimizer skips them), bf16 AMP O2 (LayerNorm float32), AdamW "
+        f"lr {BERT_LR} weight_decay {BERT_WD} with float32 masters, batch "
+        f"{BERT_BATCH} x {BERT_SEQ}, the eager loop loss.backward(); "
+        f"opt.step(); opt.clear_grad(): {BERT_WARM} warm-up and "
+        f"{BERT_STEPS} timed steps; launches a step {json.dumps(want)}, "
+        f"every flash launch on the tensor-core route, every LayerNorm "
+        f"launch on the warp-row route, no plain version; one more step "
+        f"under set_sync_debug_mode('error') (loss {extra.item():.4f})")
+    log(f"phase 10 on {card}: bert_base_amp_o2_steps_per_sec "
+        f"{steps_per_sec:.3f}; {BERT_BATCH * BERT_SEQ * steps_per_sec:.1f} "
+        f"tokens/s; {wall / BERT_STEPS * 1e3:.3f} ms per step (wall / "
+        f"steps), median step {statistics.median(spans):.3f} ms (CUDA "
+        f"events between steps); max memory allocated {peak} bytes "
+        f"({peak / 2 ** 30:.3f} GiB); MFU {mfu:.4f} (6 x parameters x "
+        f"tokens x steps/s over {peak_rate:.4g}); losses "
+        f"{json.dumps(losses)} (first timed {timed[0]:.4f}, last "
+        f"{timed[-1]:.4f})")
+    pooler = {id(p) for p in model.inner.bert.pooler.parameters()}
+    shapes = [tuple(p.shape) for p in model.parameters()
+              if id(p) not in pooler]
+    del model, opt, batch
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches, bert_rows(device, timer, launches, shapes)
+
+
+def bert_rows(device, timer, launches, shapes):
+    """The kernels line's rows of phase 10: each kernel against its plain
+    version at the fit's shapes and dtypes (LayerNorm float32 [4096, 768],
+    flash bf16 [32, 128, 12, 64] not causal, AdamW over the parameter
+    list with a gradient as its step hands it over: bf16 parameters on
+    float32 masters, bf16 gradients and copies), with the fit's
+    launches."""
+    gen = torch.Generator(device=device).manual_seed(SEED + 73)
+
+    def randn(*shape, dtype=torch.float32, scale=1.0):
+        return (scale * torch.randn(*shape, device=device,
+                                    generator=gen)).to(dtype)
+
+    d, heads = 768, 12
+    rows = BERT_BATCH * BERT_SEQ
+    x, g = randn(rows, d), randn(rows, d)
+    w, b = 1 + randn(d, scale=0.1), randn(d, scale=0.1)
+    ln_fwd = ln_fwd_case(timer, x, w, b)
+    ln_bwd = ln_bwd_case(timer, x, w, g)
+    q, k, v, do = (randn(BERT_BATCH, BERT_SEQ, heads, d // heads,
+                         dtype=torch.bfloat16) for _ in range(4))
+    fa_fwd, fa_bwd = flash_case(timer, q, k, v, do, causal=False,
+                                route="tc", core=True)
+    adamw_step = adamw_step_case(timer, device, shapes, torch.bfloat16,
+                                 BERT_LR, BERT_WD)
+    out = []
+    for name, src, tpu, row, count in (
+            ("fused_layer_norm_bert", LN_SRC, LN_TPU, ln_fwd,
+             "fused_layer_norm"),
+            ("fused_layer_norm_bwd_bert", LN_SRC, LN_BWD_TPU, ln_bwd,
+             "fused_layer_norm_bwd"),
+            ("flash_attention_fwd_bert", FA_TC_SRC, FA_FWD_TPU, fa_fwd,
+             "flash_attention_fwd"),
+            ("flash_attention_bwd_bert", FA_TC_SRC, FA_BWD_TPU, fa_bwd,
+             "flash_attention_bwd"),
+            ("fused_adamw_step_bert", ADAMW_SRC, ADAMW_TPU, adamw_step,
+             "fused_adamw")):
+        log(f"phase 10 {name} {fmt(row)}")
+        out.append({"name": name, "route": "cuda", "source": src,
+                    "replaces": tpu, "launches": launches[count],
+                    "max_abs_err": row["max_abs_err"], "ms": row["ms"],
+                    "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
+                    "bound_by": row["bound_by"],
+                    "library_ms": row["library_ms"]})
+        if "core_ms" in row:
+            out[-1].update(core_source=FA_SRC, core_ms=row["core_ms"],
+                           core_err=row["core_err"])
+        if "host_us" in row:
+            out[-1].update({k: row[k] for k in STEP_KEYS},
+                           launches_note=STEP_NOTE)
+    return out
+
+
+# ---------------------------------------------------------------------------
+# phase 11: the text models on the card
+# ---------------------------------------------------------------------------
+
+#: Transformer (base) as ``models.seq2seq.TransformerModel`` at phase 6's
+#: width (6 + 6 layers, d_model 512, 8 heads, ffn 2048, vocabulary 37000
+#: both sides), bf16, 16 sources of 16-64 real tokens padded to 64,
+#: decoded to ``max_length`` 64 greedily and with 4 beams (length
+#: penalty 0.6); the float32 parity copy at 2 + 2 layers
+TEXT_SRC_ROWS, TEXT_SRC_LEN, TEXT_MAX_LEN, TEXT_BEAMS = 16, 64, 64, 4
+TEXT_PARITY_LAYERS = 2
+#: the recurrent layers on the card against the CPU: input 256, hidden
+#: 512, 2 layers, bidirectional, batch 16 x 48 steps with lengths;
+#: outputs, states and gradients relative to each tensor's largest value
+RNN_DIMS = (256, 512, 16, 48)
+RNN_TOL = 1e-4
+
+
+def text_model(layers, device, seed, dtype=None):
+    from paddle_tpu_torch.models.seq2seq import TransformerModel
+    import paddle_tpu_torch as pt
+    pt.seed(seed)
+    return TransformerModel(TF_VOCAB, TF_VOCAB, d_model=TF_D, nhead=TF_HEADS,
+                            num_encoder_layers=layers,
+                            num_decoder_layers=layers,
+                            dim_feedforward=TF_FF, max_length=256).to(
+        device=device, dtype=dtype)
+
+
+def text_sources(seed):
+    rng = np.random.RandomState(seed)
+    src = rng.randint(2, TF_VOCAB, (TEXT_SRC_ROWS, TEXT_SRC_LEN))
+    lengths = rng.randint(16, TEXT_SRC_LEN + 1, TEXT_SRC_ROWS)
+    src[np.arange(TEXT_SRC_LEN)[None, :] >= lengths[:, None]] = 0
+    return src.astype(np.int64), lengths
+
+
+def count_steps(model):
+    """Wrap ``model._decoder_step`` to count its calls; returns the
+    counter list (one entry: the count)."""
+    n = [0]
+    inner = model._decoder_step
+
+    def counted(*a, **kw):
+        n[0] += 1
+        return inner(*a, **kw)
+
+    model._decoder_step = counted
+    return n
+
+
+def text_generate(device, card, profile=False):
+    """``TransformerModel.generate`` at base width in bf16, greedy and
+    beam: K2 launches = 2 x 6 (the encoder once) + 3 x 6 a decode step,
+    every one warp-row, K4-K7 0 (every attention is masked), no plain
+    version; tokens/s and ms a step. ``profile``: one more greedy decode
+    under the port's ``Profiler``."""
+    counters = train_counters()
+    ln_fwd = counters["fused_layer_norm"]
+    model = text_model(TF_LAYERS, device, SEED + 80, torch.bfloat16)
+    src, lengths = text_sources(SEED + 81)
+    src = torch.from_numpy(src).to(device)
+    out = {}
+    for name, kw in (("greedy", {}),
+                     ("beam", dict(num_beams=TEXT_BEAMS,
+                                   length_penalty=0.6))):
+        model.generate(src[:2], max_length=8, **kw)          # warm-up
+        steps = count_steps(model)
+        torch.cuda.synchronize()
+        reset_counts(counters)
+        with count_plain() as plain:
+            t0 = time.perf_counter()
+            tokens = model.generate(src, max_length=TEXT_MAX_LEN, **kw)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        del model._decoder_step
+        counts = read_counts(counters)
+        want_ln = 2 * TF_LAYERS + 3 * TF_LAYERS * steps[0]
+        others = {k: v for k, v in counts.items()
+                  if k not in ("fused_layer_norm",)}
+        if counts["fused_layer_norm"] != want_ln or any(others.values()) \
+                or ln_fwd.warp_launches != want_ln or sum(plain.values()):
+            raise AssertionError(
+                f"phase 11 {name}: launches {counts} over {steps[0]} steps "
+                f"(K2 {ln_fwd.warp_launches} warp-row), expected K2 "
+                f"{want_ln} and nothing else; plain {dict(plain)}")
+        if tokens.shape != (TEXT_SRC_ROWS, TEXT_MAX_LEN) or not (
+                tokens[:, 0] == model.bos_id).all():
+            raise AssertionError(f"phase 11 {name}: tokens {tokens.shape}")
+        new = int((tokens[:, 1:] != model.pad_id).sum())
+        out[name] = counts["fused_layer_norm"]
+        log(f"phase 11 {name}: TransformerModel (base) {TF_LAYERS} + "
+            f"{TF_LAYERS} layers, bf16, {TEXT_SRC_ROWS} sources of "
+            f"{int(lengths.min())}-{int(lengths.max())} tokens padded to "
+            f"{TEXT_SRC_LEN}, max_length {TEXT_MAX_LEN}{' ' + json.dumps(kw) if kw else ''}: "
+            f"{steps[0]} decode steps in {wall:.3f} s on {card}: "
+            f"{wall / steps[0] * 1e3:.3f} ms a step, {new / wall:.1f} "
+            f"generated tokens/s; K2 {counts['fused_layer_norm']} launches "
+            f"= 2 x {TF_LAYERS} + 3 x {TF_LAYERS} x {steps[0]}, all "
+            f"warp-row; K4-K7 0 (every attention carries a mask); no "
+            f"plain version")
+    if profile:
+        steps = count_steps(model)
+        with device_profile() as prof:
+            t0 = time.perf_counter()
+            model.generate(src, max_length=TEXT_MAX_LEN)
+            torch.cuda.synchronize()
+            prof_ms = (time.perf_counter() - t0) * 1e3
+        del model._decoder_step
+        device_time_report("seq2seq greedy", prof, prof_ms, steps[0])
+    del model
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def text_parity(device):
+    """The same model at 2 + 2 layers in float32 on the card and on a CPU
+    copy, greedy: each row's tokens equal up to the first step whose top-2
+    logit margin on the CPU falls below ``GEN_TOL`` (the margins from a
+    teacher-forced forward over the CPU's tokens)."""
+    from paddle_tpu_torch.convert import layer_from_jax, layer_to_numpy
+    cpu = torch.device("cpu")
+    card = text_model(TEXT_PARITY_LAYERS, device, SEED + 82)
+    host = text_model(TEXT_PARITY_LAYERS, cpu, SEED + 83)
+    layer_from_jax(host, layer_to_numpy(card))
+    src, _ = text_sources(SEED + 84)
+    got = card.generate(torch.from_numpy(src).to(device),
+                        max_length=TEXT_MAX_LEN).cpu()
+    want = host.generate(torch.from_numpy(src), max_length=TEXT_MAX_LEN)
+    with torch.no_grad():
+        logits = host(torch.from_numpy(src), want[:, :-1].long()).float()
+    top2 = logits.topk(2, dim=-1).values
+    margins = (top2[..., 0] - top2[..., 1]).numpy()
+    compared, ties = 0, 0
+    for r in range(src.shape[0]):
+        end = TEXT_MAX_LEN - 1
+        eos = (want[r, 1:] == host.eos_id).nonzero()
+        if len(eos):
+            end = int(eos[0]) + 1           # through the first EOS
+        near = np.nonzero(margins[r, :end] < GEN_TOL)[0]
+        stop = int(near[0]) + 1 if len(near) else end + 1
+        ties += bool(len(near))
+        if not torch.equal(got[r, :stop], want[r, :stop]):
+            raise AssertionError(
+                f"phase 11 parity row {r}: card {got[r, :stop].tolist()} "
+                f"CPU {want[r, :stop].tolist()}")
+        compared += stop
+    log(f"phase 11 parity: TransformerModel at base width, "
+        f"{TEXT_PARITY_LAYERS} + {TEXT_PARITY_LAYERS} layers, float32, "
+        f"greedy: card = CPU on {compared} tokens of {src.shape[0]} rows "
+        f"({ties} rows cut at a CPU top-2 margin below {GEN_TOL})")
+
+
+def rnn_parity(device):
+    """``nn.LSTM`` and ``nn.GRU`` (2 layers, bidirectional, with
+    ``sequence_length``) on the card against a CPU copy: outputs, final
+    states, the input's and every parameter's gradient within
+    ``RNN_TOL`` of each tensor's largest value; then ``dynamic_decode``
+    over a ``BeamSearchDecoder`` on an ``LSTMCell`` (beam 4, vocabulary
+    1000, 16 steps): every row whose K + 1 best candidates on the CPU
+    never come within ``GEN_TOL`` of each other gives the same ids, and
+    its final log-probs agree within ``RNN_TOL``."""
+    import paddle_tpu_torch as pt
+    import paddle_tpu_torch.models.generation as gen_mod
+    from paddle_tpu_torch import nn
+    from paddle_tpu_torch.convert import layer_from_jax, layer_to_numpy
+    cpu = torch.device("cpu")
+    i_sz, h_sz, rows, steps = RNN_DIMS
+    rng = np.random.RandomState(SEED + 85)
+    x = rng.randn(rows, steps, i_sz).astype(np.float32)
+    lengths = rng.randint(steps // 2, steps + 1, rows).astype(np.int64)
+    report = []
+    for cls in (nn.LSTM, nn.GRU):
+        pt.seed(SEED + 86)
+        card = cls(i_sz, h_sz, num_layers=2, direction="bidirect").to(device)
+        host = cls(i_sz, h_sz, num_layers=2, direction="bidirect")
+        layer_from_jax(host, layer_to_numpy(card))
+        outs = {}
+        for key, net, dev in (("card", card, device), ("host", host, cpu)):
+            xt = torch.tensor(x, device=dev, requires_grad=True)
+            y, state = net(xt, sequence_length=torch.from_numpy(
+                lengths).to(dev))
+            leaves = [y] + (list(state) if isinstance(state, tuple)
+                            else [state])
+            sum((t * t).sum() for t in leaves).backward()
+            outs[key] = [t.detach().cpu() for t in leaves] + [
+                xt.grad.cpu()] + [p.grad.cpu() for p in net.parameters()]
+        worst = max(rn_rel(g, w) for g, w in zip(outs["card"],
+                                                 outs["host"]))
+        if worst > RNN_TOL:
+            raise AssertionError(f"phase 11 {cls.__name__}: card vs CPU "
+                                 f"{worst:.3e} beyond {RNN_TOL}")
+        report.append(f"{cls.__name__} worst {worst:.3e}")
+    vocab, emb, beam, max_steps = 1000, 256, 4, 16
+    h0 = torch.from_numpy(0.5 * rng.randn(rows, h_sz).astype(np.float32))
+    gaps, topk = [], gen_mod._beam_topk
+
+    def spy(cand, k):
+        if not cand.is_cuda:
+            best = cand.topk(k + 1, dim=-1).values
+            gaps.append((best[:, :-1] - best[:, 1:]).min(dim=1).values)
+        return topk(cand, k)
+
+    res = {}
+    gen_mod._beam_topk = spy
+    try:
+        for key, dev in (("card", device), ("host", cpu)):
+            pt.seed(SEED + 87)
+            cell, embed = nn.LSTMCell(emb, h_sz), nn.Embedding(vocab, emb)
+            proj = nn.Linear(h_sz, vocab)
+            for m in (cell, embed, proj):
+                m.to(dev)
+            dec = nn.BeamSearchDecoder(cell, 0, 1, beam, embedding_fn=embed,
+                                       output_fn=proj)
+            h = h0.to(dev)
+            with torch.no_grad():
+                ids, lp = nn.dynamic_decode(dec, inits=(h, h * 0.5),
+                                            max_step_num=max_steps)
+            res[key] = (ids.cpu(), lp.cpu())
+    finally:
+        gen_mod._beam_topk = topk
+    near = (torch.stack(gaps) < GEN_TOL).any(dim=0)           # [B]
+    same = (res["card"][0] == res["host"][0]).flatten(1).all(dim=1)
+    err = rn_rel(res["card"][1][~near], res["host"][1][~near]) \
+        if bool((~near).any()) else 0.0
+    if bool((~near & ~same).any()) or err > RNN_TOL:
+        raise AssertionError(f"phase 11 dynamic_decode: rows "
+                             f"{torch.nonzero(~near & ~same).flatten()} "
+                             f"differ with no near-tie, log-probs {err:.3e}")
+    report.append(f"dynamic_decode (beam {beam}, vocabulary {vocab}, "
+                  f"{max_steps} steps): ids equal in {int(same.sum())} of "
+                  f"{rows} rows, every row without a CPU gap below "
+                  f"{GEN_TOL} among its K + 1 best candidates equal "
+                  f"({int(near.sum())} with one), their log-probs within "
+                  f"{err:.3e}")
+    log(f"phase 11 recurrent: {i_sz} -> {h_sz}, 2 layers bidirectional, "
+        f"batch {rows} x {steps} with lengths, card vs CPU within "
+        f"{RNN_TOL}: " + "; ".join(report))
+
+
+def phase_text(device, card, swept, profile=False):
+    """11: the text models on the card: ``TransformerModel`` decoding
+    (:func:`text_generate`, :func:`text_parity`), the recurrent layers and
+    the beam decoder (:func:`rnn_parity`), and the 13 ``sequence_ops``
+    among phase 6's swept ops (``swept``), none of which read the card
+    back there (``SWEEP_SYNCING``)."""
+    from paddle_tpu_torch.ops import op_cases, sequence_ops
+    from paddle_tpu_torch.ops.registry import get_op, op_names
+    seq = {n for n in op_names()
+           if get_op(n).fn.__module__ == sequence_ops.__name__}
+    cases = op_cases.cases(SEED)
+    reads = sorted(k for k in SWEEP_SYNCING if cases[k].name in seq)
+    if len(seq) != 13 or seq - set(swept) or reads:
+        raise AssertionError(f"phase 11: sequence ops {sorted(seq)} not all "
+                             f"swept on the card ({sorted(seq - set(swept))})"
+                             f" or read the card back ({reads})")
+    log(f"phase 11: the 13 sequence ops swept on the card against the CPU "
+        f"within {SWEEP_TOL} in phase 6, none reading the card back")
+    text_parity(device)
+    rnn_parity(device)
+    gc.collect()
+    torch.cuda.empty_cache()
+    return text_generate(device, card, profile)
+
+
 def main() -> int:
     global TRACE_ROOT
     import shutil
@@ -5728,6 +6366,8 @@ def run_phases() -> int:
     phase_oom(device)
     _, tf_kernel_rows, swept = phase_transformer(device, card, timer)
     phase_resnet(device, card, swept)
+    _, bert_kernel_rows = phase_bert(device, card, timer, profile)
+    phase_text(device, card, swept, profile)
     kernels = report_engine(device, timer, launches, captured,
                             quant_launches, quant_captured)
     # the engine row of the LayerNorm forward counts the fused engines'
@@ -5789,6 +6429,7 @@ def run_phases() -> int:
     f32_fwd["launches"] += gen_f32_launches["flash_attention_fwd"] \
         + beam_f32_launches["flash_attention_fwd"]
     kernels += tf_kernel_rows
+    kernels += bert_kernel_rows
     for k in kernels:
         for key, v in k.items():
             if isinstance(v, float) and not math.isfinite(v):

@@ -5,7 +5,8 @@ imports). It serves GPT-2 through the fused paged engine and trains it
 through ``hapi.Model.fit`` or an eager loop; the op library, the
 ``paddle.*`` functions (:mod:`.tensor`, re-exported here), ``nn``
 (``Layer``, ``functional``, ``initializer`` and the layers through
-``nn.Transformer``, the conv and pooling layers) and ``vision.models``'
+``nn.Transformer``, the conv, pooling and recurrent layers), the BERT
+and seq2seq ``TransformerModel`` models, ``text`` and ``vision.models``'
 ResNet family build other networks the same way. Every other public
 name of the JAX package's top level is here too, or raises
 ``NotImplementedError`` naming the ROADMAP Queue 1 item that ports it. Its kernels are
@@ -51,7 +52,7 @@ The tensor is ``torch.Tensor`` itself.
 import torch as _torch
 
 from . import (amp, callbacks, hapi, io, metric, models, nn, ops, optimizer,
-               profiler, regularizer, serving, vision)
+               profiler, regularizer, serving, text, vision)
 from .nn.layer.layers import ParamAttr
 from .framework import metrics
 from .framework.dispatch import call_op
@@ -80,7 +81,7 @@ set_grad_enabled = grad_enabled_guard
 
 __all__ = ["seed", "amp", "callbacks", "hapi", "io", "metric", "metrics",
            "models", "nn", "ops", "optimizer", "profiler", "regularizer",
-           "serving", "vision", "save", "load", "call_op", "ParamAttr",
+           "serving", "text", "vision", "save", "load", "call_op", "ParamAttr",
            "tensor", "get_device", "set_device", "Model", "Place",
            "CPUPlace", "CUDAPlace", "CUDAPinnedPlace", "current_place",
            "is_compiled_with_tpu", "get_flags", "set_flags", "statusz",
@@ -98,7 +99,7 @@ _DEFERRED.update(dict.fromkeys((
     "compat", "cost_model", "dataset", "device", "distribution", "fft",
     "fluid", "hub", "incubate", "inference", "jit", "linalg", "onnx",
     "quantization", "reader", "signal", "sparse", "static", "sysconfig",
-    "text", "utils", "version"), 5))
+    "utils", "version"), 5))
 
 
 def __getattr__(name):

@@ -5,7 +5,10 @@ any ported layer by structured name, and :func:`layer_to_numpy` is its
 inverse. The key sets must be equal: a missing or extra key raises. Only
 the weights of ``Linear`` layers are transposed (``[in, out]`` in the JAX
 package, ``[out, in]`` in the port); every other parameter and buffer
-keeps its layout.
+keeps its layout. So it carries BERT (the masked-LM decoder tied to the
+word table: one key), every recurrent layer (the cells' ``weight_ih``/
+``weight_hh`` keep the JAX ``[gates * hidden, in]`` layout) and
+``TransformerModel`` (its ``pos_table`` buffer too).
 
 The input is the JAX model's parameter tree as numpy
 (``{name: np.asarray(a) for name, a in

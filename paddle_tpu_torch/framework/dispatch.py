@@ -1,12 +1,13 @@
 """``call_op``: run a registered op (counterpart of
 ``paddle_tpu/framework/dispatch.py`` :328 and ``_call_op_impl`` :363).
 
-The steps, in order: look the op up; bump ``op_count/<name>``; cast the
-inputs through ``amp.cast_inputs``; pick the override whose predicate
-holds (a kernel), else the plain body; run; sweep the outputs for NaN/Inf
-under ``FLAGS_check_nan_inf``. There is no tape and no per-op jit cache:
-torch autograd records the ops, and an eager torch op needs no compile.
-``FLAGS_check_shapes`` (``framework/infermeta.py``) is not ported yet.
+The steps, in order: look the op up; bump ``op_count/<name>``; under
+``FLAGS_check_shapes`` run the op's shape check (``framework/
+infermeta.py``, shapes and attributes only); cast the inputs through
+``amp.cast_inputs``; pick the override whose predicate holds (a kernel),
+else the plain body; run; sweep the outputs for NaN/Inf under
+``FLAGS_check_nan_inf``. There is no tape and no per-op jit cache: torch
+autograd records the ops, and an eager torch op needs no compile.
 """
 from __future__ import annotations
 
@@ -17,6 +18,7 @@ import torch
 from .. import amp
 from ..ops.registry import get_op
 from .flags import flag_value
+from .infermeta import maybe_check as _infermeta_check
 from .monitor import stat_add
 
 __all__ = ["call_op"]
@@ -27,6 +29,8 @@ def call_op(name: str, *args, **attrs):
     values) and keyword ``attrs``."""
     opdef = get_op(name)
     stat_add(f"op_count/{name}")
+    if flag_value("FLAGS_check_shapes"):
+        _infermeta_check(name, args, attrs)
     if amp.is_auto_cast_enabled():
         args = tuple(_cast(name, a) for a in args)
         attrs = {k: _cast(name, v) for k, v in attrs.items()}

@@ -22,6 +22,9 @@ _DEFAULTS = {
     "FLAGS_check_nan_inf": (False, "Sweep every op's outputs for NaN/Inf "
                             "and raise FloatingPointError (a device sync "
                             "per op: for debugging)"),
+    "FLAGS_check_shapes": (True, "InferMeta-style shape checks before "
+                           "every op, raising ShapeError at the call site "
+                           "(framework/infermeta.py)"),
     "FLAGS_benchmark": (False, "Time every op to its end (a device sync "
                         "per op) into the op_time_ms/<name> counters"),
     "FLAGS_flight_dump_dir": ("", "Directory of the serving flight "

@@ -1,13 +1,14 @@
 """``nn`` (counterpart of ``paddle_tpu/nn``): the ``Layer`` base and its
 containers, the activation, common, convolution, pooling, normalization,
-loss and transformer layers, ``functional``, ``initializer`` and the
-gradient clips.
+loss, transformer and recurrent layers, beam-search decoding,
+``functional``, ``initializer`` and the gradient clips.
 
 Not ported yet, each raising ``NotImplementedError`` that names its
-ROADMAP Queue 1 item when reached: ``SyncBatchNorm`` (item 4), and the
-recurrent layers and decoding, ``nn.utils`` and ``nn.quant`` (item 5)."""
+ROADMAP Queue 1 item when reached: ``SyncBatchNorm`` (item 4), and
+``nn.utils`` and ``nn.quant`` (item 5)."""
 from . import clip, functional, initializer
 from .clip import ClipGradByGlobalNorm, ClipGradByNorm, ClipGradByValue
+from .decode import BeamSearchDecoder, dynamic_decode
 from .layer.activation import (
     CELU, ELU, GELU, GLU, Hardshrink, Hardsigmoid, Hardswish, Hardtanh,
     LeakyReLU, LogSigmoid, LogSoftmax, Maxout, Mish, PReLU, ReLU, ReLU6,
@@ -43,6 +44,10 @@ from .layer.pooling import (
     AvgPool2D, AvgPool3D, MaxPool1D, MaxPool2D, MaxPool3D, MaxUnPool1D,
     MaxUnPool2D, MaxUnPool3D,
 )
+from .layer.rnn import (
+    BiRNN, GRU, GRUCell, LSTM, LSTMCell, RNN, RNNCellBase, SimpleRNN,
+    SimpleRNNCell,
+)
 from .layer.transformer import (
     MultiHeadAttention, Transformer, TransformerDecoder,
     TransformerDecoderLayer, TransformerEncoder, TransformerEncoderLayer,
@@ -50,11 +55,7 @@ from .layer.transformer import (
 from ..ops.registry import not_ported as _not_ported
 
 #: the JAX package's ``nn`` names not ported yet, by ROADMAP Queue 1 item
-_DEFERRED = {"SyncBatchNorm": 4}
-_DEFERRED.update(dict.fromkeys((
-    "BiRNN", "GRU", "GRUCell", "LSTM", "LSTMCell", "RNN", "RNNCellBase",
-    "SimpleRNN", "SimpleRNNCell", "BeamSearchDecoder", "dynamic_decode",
-    "utils", "quant"), 5))
+_DEFERRED = {"SyncBatchNorm": 4, "utils": 5, "quant": 5}
 
 
 def __getattr__(name):

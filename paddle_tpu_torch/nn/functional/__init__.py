@@ -18,8 +18,8 @@ carried over: on the card every supported shape goes to the kernel.
 
 The random functions (``dropout``, ``alpha_dropout``, ``rrelu``,
 ``gumbel_softmax``) draw from the port's generator of the input's device.
-Not ported yet (ROADMAP Queue 1 item 6; reaching one raises
-``NotImplementedError`` naming it): the ten ``sequence_*`` functions.
+The ten ``sequence_*`` functions run the ``sequence_ops`` over the dense
+(padded, lengths) encoding.
 """
 from __future__ import annotations
 
@@ -32,18 +32,6 @@ from ...ops.nn_ops import sdpa_reference
 from ...ops.registry import not_ported, register_override
 
 __all__ = ["sdpa_reference", "flash_supported"]
-
-_DEFERRED = frozenset((
-    "sequence_pad", "sequence_unpad", "sequence_pool", "sequence_softmax",
-    "sequence_reverse", "sequence_expand", "sequence_slice",
-    "sequence_enumerate", "sequence_concat", "sequence_conv"))
-
-
-def __getattr__(name):
-    if name in _DEFERRED:
-        raise not_ported(f"nn.functional.{name}")
-    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")
-
 
 def _export(fn):
     __all__.append(fn.__name__)
@@ -393,6 +381,63 @@ def affine_grid(theta, out_shape, align_corners=True, name=None):
 @_export
 def gather_tree(ids, parents):
     return _op("gather_tree", ids, parents)
+
+
+# -- variable-length sequences over the dense (padded, lengths) encoding ---------------
+
+@_export
+def sequence_pad(x, lengths, pad_value=0.0, maxlen=None, name=None):
+    return _op("sequence_pad", x, lengths, pad_value=pad_value,
+               maxlen=maxlen)
+
+
+@_export
+def sequence_unpad(x, lengths, total_length=None, name=None):
+    return _op("sequence_unpad", x, lengths, total_length=total_length)
+
+
+@_export
+def sequence_pool(x, lengths, pool_type="sum", name=None):
+    return _op("sequence_pool", x, lengths, pool_type=pool_type)
+
+
+@_export
+def sequence_softmax(x, lengths, name=None):
+    return _op("sequence_softmax", x, lengths)
+
+
+@_export
+def sequence_reverse(x, lengths, name=None):
+    return _op("sequence_reverse", x, lengths)
+
+
+@_export
+def sequence_expand(x, ref_lengths, maxlen=None, name=None):
+    return _op("sequence_expand", x, ref_lengths, maxlen=maxlen)
+
+
+@_export
+def sequence_slice(x, lengths, offset, length, maxlen=None, name=None):
+    return _op("sequence_slice", x, lengths, offset, length, maxlen=maxlen)
+
+
+@_export
+def sequence_enumerate(ids, lengths, win_size, pad_value=0, name=None):
+    return _op("sequence_enumerate", ids, lengths, win_size=win_size,
+               pad_value=pad_value)
+
+
+@_export
+def sequence_concat(xs, lengths_list, maxlen=None, name=None):
+    return _op("sequence_concat", xs, lengths_list, maxlen=maxlen)
+
+
+@_export
+def sequence_conv(x, lengths, weight, bias=None, context_length=3,
+                  context_start=None, pad_value=0.0, name=None):
+    return _op("sequence_conv", x, lengths, weight, bias,
+               context_length=context_length, context_start=context_start,
+               pad_value=pad_value)
 
 
 # -- conv / pooling --------------------------------------------------------------

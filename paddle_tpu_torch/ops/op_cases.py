@@ -597,6 +597,7 @@ def cases(seed=0):
     c["split_even"] = Case("split", (a, 2), dict(axis=1))
     c["roll_axis"] = Case("roll", (a, (1, -1)), dict(axis=(0, 1)))
     _extra_nn_cases(c, np.random.RandomState(seed + 1))
+    _sequence_cases(c, np.random.RandomState(seed + 2))
     return c
 
 
@@ -722,3 +723,49 @@ def _extra_nn_cases(c, rs):
     add("sparse_attention_masks", "sparse_attention", rnd(1, 2, 4, 8),
         rnd(1, 2, 4, 8), rnd(1, 2, 4, 8), offset, columns,
         np.array([[0, 0, -1e9, 0]], np.float32), rnd(4, 4))
+
+
+def _sequence_cases(c, rs):
+    """The cases of ``sequence_ops`` (their own stream): a dense
+    ``[3, 5, ...]`` batch with lengths 3, 5 and 1, every pool type, the
+    pack/pad pair on one packed layout."""
+    def rnd(*shape):
+        return rs.randn(*shape).astype(np.float32)
+
+    def add(key, name, *args, check="close", **attrs):
+        c[key] = Case(name, args, attrs, check)
+
+    lengths = np.array([3, 5, 1], np.int64)
+    x = rnd(3, 5, 4)
+    add("sequence_pad", "sequence_pad", rnd(9, 4), lengths, pad_value=-1.5,
+        maxlen=6)
+    add("sequence_unpad", "sequence_unpad", x, lengths, total_length=11)
+    for pool in ("sum", "average", "sqrt", "max", "min", "first", "last"):
+        add(f"sequence_pool_{pool}", "sequence_pool", x, lengths,
+            pool_type=pool)
+    ix = rs.randint(-9, 10, (3, 5, 2)).astype(np.int32)
+    add("sequence_pool_max_int", "sequence_pool", ix, lengths,
+        pool_type="MAX", check="exact")
+    add("sequence_pool_sum_int", "sequence_pool", ix, lengths,
+        check="exact")
+    add("sequence_softmax", "sequence_softmax", rnd(3, 5), lengths)
+    add("sequence_reverse", "sequence_reverse", x, lengths)
+    add("sequence_expand", "sequence_expand", rnd(3, 4), lengths, maxlen=6)
+    add("sequence_slice", "sequence_slice", x, lengths,
+        np.array([1, 2, 0], np.int64), np.array([2, 4, 3], np.int64),
+        maxlen=4)
+    ids = rs.randint(1, 30, (3, 5)).astype(np.int64)
+    add("sequence_enumerate", "sequence_enumerate", ids, lengths, 3,
+        pad_value=0, check="exact")
+    add("sequence_conv", "sequence_conv", x, lengths, rnd(12, 6), rnd(6),
+        context_length=3, pad_value=0.5)
+    add("sequence_conv_start", "sequence_conv", x, lengths, rnd(8, 3),
+        None, context_length=2, context_start=0)
+    add("sequence_concat", "sequence_concat", [x, rnd(3, 2, 4)],
+        [lengths, np.array([2, 0, 1], np.int64)])
+    add("row_conv", "row_conv", x, rnd(3, 4))
+    add("sequence_scatter", "sequence_scatter", x,
+        np.array([[0, 2], [4, 4], [1, 0]], np.int64), rnd(3, 2, 4))
+    add("nce_loss", "nce_loss", rnd(4, 6), np.array([[1], [0], [7], [3]],
+                                                    np.int64),
+        rnd(8, 6), rnd(8), rs.randint(0, 8, (4, 3)).astype(np.int64))

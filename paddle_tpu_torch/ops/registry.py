@@ -15,20 +15,14 @@ __all__ = ["OpDef", "register_op", "register_override", "get_op", "has_op",
            "op_names", "DEFERRED"]
 
 #: the JAX package's ops the port does not register yet, by the ROADMAP
-#: Queue 1 item that ports them: ``sequence_ops`` (item 6, the next slice
-#: of the op library) and ``vision.ops`` (item 5, ``vision/``).
+#: Queue 1 item that ports them: ``vision.ops`` (item 5, ``vision/``).
 #: ``get_op`` names the item.
 DEFERRED = dict.fromkeys((
-    "nce_loss", "row_conv", "sequence_concat", "sequence_conv",
-    "sequence_enumerate", "sequence_expand", "sequence_pad",
-    "sequence_pool", "sequence_reverse", "sequence_scatter",
-    "sequence_slice", "sequence_softmax", "sequence_unpad"), 6)
-DEFERRED.update(dict.fromkeys((
     "deform_conv2d", "nms", "psroi_pool", "roi_align", "roi_pool",
-    "yolo_box", "yolo_loss"), 5))
+    "yolo_box", "yolo_loss"), 5)
 
 
-def not_ported(what, item=6):
+def not_ported(what, item):
     """The error a caller gets on reaching ``what``, a part of the JAX
     package the port has not ported yet."""
     return NotImplementedError(f"{what} is not ported yet (ROADMAP Queue 1 "

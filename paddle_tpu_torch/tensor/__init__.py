@@ -10,8 +10,9 @@ place (the card unless ``set_device("cpu")``; ``device=`` chooses); the
 random functions draw from the port's generator of that device
 (``framework.random``). In-place functions (``reshape_``, ``increment``,
 ``assign(x, output)``) write into their tensor under ``no_grad``, as the
-JAX package rebinds its tensor's data. The Paddle-only ``Tensor`` methods
-are not ported yet (ROADMAP Queue 1 item 6).
+JAX package rebinds its tensor's data. The Paddle-only ``Tensor`` members
+(``stop_gradient``, ``place``, ``clear_grad``, ``_rebind``) are installed
+on ``torch.Tensor`` by ``framework/tensor.py``.
 """
 from __future__ import annotations
 

@@ -1537,3 +1537,127 @@ def test_resnet18_momentum_step_launches_no_kernel(cuda):
     torch.cuda.synchronize()
     assert _all_kernel_counts() == before
     assert torch.isfinite(loss) and not torch.equal(net.fc.weight, w0)
+
+
+def test_bert_qa_step_launches_the_kernels_without_a_host_sync(cuda):
+    """A 2-layer BERT at base width (QA head) under bf16 O2, forward and
+    backward with ``set_sync_debug_mode("error")`` on: K4 and K6 once a
+    layer on the tensor-core route at ``[2, 128, 12, 64]`` not causal, K2
+    and K3 once a LayerNorm (5) on the warp-row route; the loss and every
+    gradient finite, the pooler's none."""
+    from paddle_tpu_torch import amp, seed
+    from paddle_tpu_torch.models.bert import (BertConfig,
+                                              BertForQuestionAnswering)
+    seed(0)
+    net = BertForQuestionAnswering(BertConfig(
+        num_hidden_layers=2, hidden_dropout_prob=0.0,
+        attention_dropout_prob=0.0)).to(cuda)
+    amp.decorate(net, level="O2", dtype="bfloat16")
+    ids = torch.randint(0, 30522, (2, 128), device=cuda)
+    pos = torch.tensor([3, 77], device=cuda)
+    before, tc = _launch_counts(), fa.flash_attention_fwd.tc_launches
+    warp = ln.fused_layer_norm_bwd.warp_launches
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        with amp.auto_cast(level="O2", dtype="bfloat16"):
+            loss = net(ids, start_positions=pos, end_positions=pos)[0]
+        loss.backward()
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    assert tuple(a - b for a, b in zip(_launch_counts(), before)) == \
+        (2, 2, 5, 5)
+    assert fa.flash_attention_fwd.tc_launches - tc == 2
+    assert ln.fused_layer_norm_bwd.warp_launches - warp == 5
+    assert torch.isfinite(loss)
+    pooler = {id(p) for p in net.bert.pooler.parameters()}
+    for p in net.parameters():
+        assert (p.grad is None) == (id(p) in pooler)
+        assert p.grad is None or torch.isfinite(p.grad).all()
+
+
+def test_sequence_ops_on_the_card_read_nothing_back(cuda):
+    """Every ``sequence_ops`` case on CUDA tensors under
+    ``set_sync_debug_mode("error")``, each result on the card and equal
+    to the CPU's (float32 atol 1e-5 + rtol 1e-5, integers exactly)."""
+    from paddle_tpu_torch.framework.dispatch import call_op
+    from paddle_tpu_torch.ops import op_cases, sequence_ops
+    from paddle_tpu_torch.ops.registry import get_op
+    cases = {k: c for k, c in op_cases.cases().items()
+             if get_op(c.name).fn.__module__ == sequence_ops.__name__}
+    assert len({c.name for c in cases.values()}) == 13
+
+    def conv(a, dev):
+        if isinstance(a, np.ndarray):
+            return torch.as_tensor(np.array(a), device=dev)
+        if isinstance(a, list):
+            return [conv(v, dev) for v in a]
+        return a
+
+    for key, case in sorted(cases.items()):
+        args = [conv(a, cuda) for a in case.args]
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            got = call_op(case.name, *args, **case.attrs)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        want = call_op(case.name, *[conv(a, "cpu") for a in case.args],
+                       **case.attrs)
+        outs = got if isinstance(got, tuple) else (got,)
+        assert all(o.is_cuda for o in outs), key
+        op_cases.check(case, op_cases.to_numpy_tree(got),
+                       op_cases.to_numpy_tree(want), 1e-5, 1e-5)
+
+
+def test_seq2seq_generate_on_the_card_equals_the_cpu(cuda):
+    """A small float32 ``TransformerModel`` decodes on the card as on a
+    CPU copy, greedy and with beams: the same tokens (a model whose
+    logits have clear margins: its output projection scaled by 10); K2
+    launches 2 x L + 3 x L a decode step, no flash kernel."""
+    import copy
+
+    from paddle_tpu_torch import seed
+    from paddle_tpu_torch.models.seq2seq import TransformerModel
+    seed(0)
+    host = TransformerModel(50, 50, d_model=64, nhead=4,
+                            num_encoder_layers=2, num_decoder_layers=2,
+                            dim_feedforward=128, max_length=32).eval()
+    with torch.no_grad():
+        host.out_proj.weight.mul_(10.0)
+    card = copy.deepcopy(host).to(cuda)
+    src = torch.randint(2, 50, (3, 10))
+    src[1, 6:] = 0
+    for kw in ({}, {"num_beams": 3, "length_penalty": 0.6}):
+        before = _launch_counts()
+        got = card.generate(src.to(cuda), max_length=12, **kw)
+        torch.cuda.synchronize()
+        moved = tuple(a - b for a, b in zip(_launch_counts(), before))
+        assert moved[:2] == (0, 0) and moved[3] == 0
+        assert moved[2] % 6 == 4 and moved[2] >= 4 + 6
+        assert torch.equal(got.cpu(), host.generate(src, max_length=12,
+                                                    **kw))
+
+
+def test_lstm_on_the_card_equals_the_cpu(cuda):
+    """A bidirectional 2-layer ``nn.LSTM`` with ``sequence_length`` on the
+    card against a CPU copy: outputs, final states and gradients within
+    atol 1e-4."""
+    import copy
+
+    from paddle_tpu_torch import nn, seed
+    seed(0)
+    host = nn.LSTM(16, 32, num_layers=2, direction="bidirect")
+    card = copy.deepcopy(host).to(cuda)
+    x = torch.randn(4, 12, 16)
+    lengths = torch.tensor([12, 7, 3, 10])
+    res = []
+    for net, dev in ((card, cuda), (host, "cpu")):
+        xt = x.to(dev).requires_grad_()
+        y, (h, c) = net(xt, sequence_length=lengths.to(dev))
+        (y.square().sum() + h.sum() + c.sum()).backward()
+        res.append([t.detach().cpu() for t in (y, h, c, xt.grad)] +
+                   [p.grad.cpu() for p in net.parameters()])
+    for got, want in zip(*res):
+        torch.testing.assert_close(got, want, atol=1e-4, rtol=0)

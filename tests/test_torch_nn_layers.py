@@ -377,14 +377,12 @@ def test_layer_methods_match_the_jax_layer():
 
 def _deferred():
     from paddle_tpu_torch.nn import _DEFERRED as layers
-    from paddle_tpu_torch.nn.functional import _DEFERRED as functions
-    return [(f"nn.{n}", item) for n, item in sorted(layers.items())] + \
-        [(f"nn.functional.{n}", 6) for n in sorted(functions)]
+    return [(f"nn.{n}", item) for n, item in sorted(layers.items())]
 
 
 @pytest.mark.parametrize("name, item", _deferred())
 def test_a_deferred_name_raises_naming_its_item(name, item):
-    """Every JAX ``nn``/``nn.functional`` name the port leaves for a later
+    """Every JAX ``nn`` name the port leaves for a later
     slice exists in the JAX package and raises ``NotImplementedError``
     naming its ROADMAP Queue 1 item when reached."""
     import importlib

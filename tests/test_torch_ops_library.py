@@ -1,13 +1,15 @@
 """The port's op library against the JAX package's, op by op.
 
 Every op of ``paddle_tpu/ops``' ``math_ops``, ``extra_math_ops``,
-``creation_ops``, ``manipulation_ops``, ``linalg_ops``, ``nn_ops`` and
-``extra_nn_ops`` is registered in the port (``DEFERRED`` lists, by name,
+``creation_ops``, ``manipulation_ops``, ``linalg_ops``, ``nn_ops``,
+``extra_nn_ops`` and ``sequence_ops`` is registered in the port
+(``DEFERRED`` lists, by name,
 the JAX ops that wait for later slices, and ``ROADMAP.md`` names each in
 full). Each op's plain body runs on the inputs of its case in
 ``paddle_tpu_torch.ops.op_cases`` (the ops from ``a`` to ``l`` here, the
 rest in ``test_torch_ops_library_m_z.py``, ``extra_nn_ops``' in
-``test_torch_extra_nn_ops.py``)
+``test_torch_extra_nn_ops.py``, ``sequence_ops``' in
+``test_torch_sequence_ops.py``)
 (numpy, from a seed) in both packages: float results within atol 1e-5 +
 rtol 1e-5 (the same f32 arithmetic in another order; a case may state a
 wider one, 1e-4 for the decompositions and solves), integer and bool
@@ -31,13 +33,9 @@ from paddle_tpu_torch.ops import op_cases, registry
 
 ATOL = RTOL = 1e-5
 
-#: the JAX ops the port leaves for later slices: ``sequence_ops``
-#: (ROADMAP Queue 1 item 6) and ``vision.ops`` (item 5)
+#: the JAX ops the port leaves for a later slice: ``vision.ops`` (ROADMAP
+#: Queue 1 item 5)
 DEFERRED = {
-    "nce_loss": 6, "row_conv": 6, "sequence_concat": 6, "sequence_conv": 6,
-    "sequence_enumerate": 6, "sequence_expand": 6, "sequence_pad": 6,
-    "sequence_pool": 6, "sequence_reverse": 6, "sequence_scatter": 6,
-    "sequence_slice": 6, "sequence_softmax": 6, "sequence_unpad": 6,
     "deform_conv2d": 5, "nms": 5, "psroi_pool": 5, "roi_align": 5,
     "roi_pool": 5, "yolo_box": 5, "yolo_loss": 5,
 }
@@ -51,6 +49,13 @@ EXTRA_NN = frozenset((
     "max_pool2d_with_mask", "max_pool3d_with_mask", "max_unpool1d",
     "max_unpool2d", "max_unpool3d", "pixel_unshuffle", "sparse_attention",
     "temporal_shift"))
+
+#: the ops of ``sequence_ops``, swept in ``test_torch_sequence_ops.py``
+SEQUENCE = frozenset((
+    "nce_loss", "row_conv", "sequence_concat", "sequence_conv",
+    "sequence_enumerate", "sequence_expand", "sequence_pad",
+    "sequence_pool", "sequence_reverse", "sequence_scatter",
+    "sequence_slice", "sequence_softmax", "sequence_unpad"))
 
 CASES = op_cases.cases()
 
@@ -95,8 +100,8 @@ def test_the_library_covers_the_jax_ops_but_the_deferred():
     assert jax_names - set(DEFERRED) <= port_names
     assert port_names - jax_names == {"zeros"}
     assert registry.DEFERRED == DEFERRED
-    assert len(jax_names - set(DEFERRED)) == 339
-    assert EXTRA_NN <= port_names
+    assert len(jax_names - set(DEFERRED)) == 352
+    assert EXTRA_NN <= port_names and SEQUENCE <= port_names
     roadmap = (pathlib.Path(__file__).parents[1] / "ROADMAP.md").read_text()
     missing = [n for n in DEFERRED if f"`{n}`" not in roadmap]
     assert missing == [], missing
@@ -115,11 +120,12 @@ def test_every_op_has_a_case():
 
 def keys(first, last):
     """The case keys of the ops whose name starts with a letter in
-    ``[first, last]``, less ``extra_nn_ops``' (the sweep is split over
-    three files so that each runs in about a minute on one worker)."""
+    ``[first, last]``, less ``extra_nn_ops``' and ``sequence_ops``' (the
+    sweep is split over four files so that each runs in about a minute on
+    one worker)."""
     return sorted(k for k, c in CASES.items()
                   if c.name != "zeros" and c.name not in EXTRA_NN
-                  and first <= k[0] <= last)
+                  and c.name not in SEQUENCE and first <= k[0] <= last)
 
 
 def check_against_jax(key):

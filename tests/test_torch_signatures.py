@@ -247,7 +247,6 @@ def _not_ported_calls():
             [1, 2], return_list=False),
         "resnet50 pretrained": lambda: vision.models.resnet50(
             pretrained=True),
-        "functional sequence_pad": lambda: nn.functional.sequence_pad,
         "margin_cross_entropy group": lambda:
             nn.functional.margin_cross_entropy(
                 torch.zeros(2, 3), torch.zeros(2, dtype=torch.long),
@@ -277,7 +276,8 @@ def _ported_checks():
     slice was ported (ROADMAP Queue 1 item 2, the serving periphery, item
     3, observability, and item 6, the op library and ``nn``: the pools'
     ``return_mask``, ``ctc_loss`` and the conv layers since its second
-    part), each with a check of what it does now."""
+    part, the ``sequence_*`` functions since its last), each with a check
+    of what it does now."""
     from paddle_tpu.hapi.callbacks import ProfilerCallback as JaxCallback
     from paddle_tpu.serving.scheduler import Scheduler as JaxScheduler
     from paddle_tpu_torch.framework import trace_probe
@@ -432,6 +432,13 @@ def _ported_checks():
                                       reduction="none")
         torch.testing.assert_close(loss, -lp[0, :, 1])
 
+    def sequence_pad():
+        from paddle_tpu_torch import nn
+        out = nn.functional.sequence_pad(
+            torch.arange(5.0)[:, None], torch.tensor([2, 3]), pad_value=-1.0,
+            maxlen=3)
+        assert out[..., 0].tolist() == [[0.0, 1.0, -1.0], [2.0, 3.0, 4.0]]
+
     def conv2d_layer():
         from paddle_tpu_torch import nn
         conv = nn.Conv2D(2, 3, 3, padding=1, data_format="NHWC")
@@ -442,6 +449,7 @@ def _ported_checks():
         "max_pool2d return_mask": return_mask,
         "adaptive_max_pool1d return_mask": adaptive_mask,
         "functional ctc_loss": ctc_loss,
+        "functional sequence_pad": sequence_pad,
         "layer Conv2D": conv2d_layer,
         "MultiHeadAttention need_weights": need_weights,
         "Linear initializer": initializer,
