@@ -262,6 +262,34 @@ prints no result line):
    to 64 tokens greedily and with 4 beams: K2 launches = 2 x 6 + 3 x 6 a
    decode step, all warp-row, K4-K7 0 (every attention is masked), no
    plain version, ms a step and generated tokens/s;
+12. the deployment path (``phase_deploy``, after phase 11): (i) BERT-base
+   as phase 10 builds it (bf16 AMP O2) saved through ``Model(net,
+   inputs=[InputSpec([None, 128], "int64", "input_ids"),
+   InputSpec([None, 128], "int64", "token_type_ids")]).save(path,
+   training=False)`` (``jit.save``: a ``torch.export`` artifact whose
+   graph calls the K2/K4 custom ops) and served by
+   ``inference.create_predictor`` on ``RandomState(0)`` ``[32, 128]``
+   ids (token types 0): each ``Predictor.run`` launches exactly K2 = 25
+   (warp-row) and K4 = 12 (tensor-core) from inside the loaded program,
+   no plain version; start and end logits against the eager network on
+   the card within bf16's ``TOL``; the same artifact at batch 1 and 7;
+   export and load seconds, artifact bytes, ``Predictor.run`` ms (median
+   of CUDA events) and sequences/s beside the same forward eager and
+   through ``jit.to_static``; a 2-layer float32 copy saved on the CPU and
+   run on the card against the CPU within ``TF_PARITY_TOL``. (ii)
+   ``bench.py``'s ``bench_serve``: LeNet saved with ``InputSpec([None,
+   1, 28, 28])``, ``BatchingEngine(max_batch_size=32, max_delay_ms=0)``
+   p50/p95 over 3 warm and 50 timed singles, then ``max_batch_size=64,
+   max_delay_ms=3.0`` with 8 clients x 40 requests (requests/s), each
+   client's rows equal to a single-request run. (iii) static mode:
+   ``enable_static()``, ``Model.fit`` of LeNet at ``bench_lenet``'s
+   batch of 256 with ``Adam(1e-3)``: K8 ``adamw_plan``'s launches a
+   step, the loss finite and falling; ``save_inference_model`` /
+   ``load_inference_model`` against the static test program. (iv) the C
+   API built with ``g++`` runs one LeNet batch from C through ctypes,
+   equal to the ``Predictor``'s. Phase 12's K2/K4 launches at ``[32,
+   128]`` join the ``_bert`` rows; ``fused_adamw_step_lenet`` holds K8
+   over LeNet's float32 list;
 8. real operands: the layer-0 operands of one real step of each path
    through kernel and plain: the engine's attention rows (float, int8
    and fp8 pools) at its widest step and at its last decode-only step
@@ -6302,6 +6330,401 @@ def phase_text(device, card, swept, profile=False):
     return text_generate(device, card, profile)
 
 
+# ---------------------------------------------------------------------------
+# phase 12: the deployment path on the card
+# ---------------------------------------------------------------------------
+
+#: bench_serve (bench.py:471-535) and bench_lenet (bench.py:411-436)
+SERVE_WARM, SERVE_SINGLES, SERVE_CLIENTS, SERVE_PER_CLIENT = 3, 50, 8, 40
+LENET_BATCH, LENET_STEPS = 256, 6
+#: Predictor.run / eager / to_static forwards timed at [32, 128]
+DEPLOY_RUNS = 20
+
+
+def deploy_counts(counters):
+    """The LayerNorm and flash forward launches and their routes."""
+    ln, fa = counters["fused_layer_norm"], counters["flash_attention_fwd"]
+    return {"fused_layer_norm": ln.launches, "warp": ln.warp_launches,
+            "flash_attention_fwd": fa.launches, "tc": fa.tc_launches,
+            "others": sum(counters[k].launches for k in (
+                "fused_layer_norm_bwd", "flash_attention_bwd",
+                "fused_adamw"))}
+
+
+def event_ms(fn, runs):
+    """Median ms of ``fn()`` between CUDA events, each run synchronised."""
+    times = []
+    for _ in range(runs):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        torch.cuda.synchronize()
+        a.record()
+        fn()
+        b.record()
+        torch.cuda.synchronize()
+        times.append(a.elapsed_time(b))
+    return statistics.median(times)
+
+
+def artifact_bytes(path):
+    return sum(os.path.getsize(path + s)
+               for s in (".pdmodel", ".pdiparams", ".meta.json"))
+
+
+def deploy_bert(device, tmp, counters):
+    """12 (i): BERT-base saved by ``Model.save(training=False)`` and
+    served by the Predictor; returns the main path's launches."""
+    from paddle_tpu_torch import inference, jit
+    from paddle_tpu_torch.hapi import Model
+    from paddle_tpu_torch.models.bert import BertForQuestionAnswering
+    from paddle_tpu_torch.static import InputSpec
+    from paddle_tpu_torch import amp
+    net = bert_net(BertForQuestionAnswering, 12, device, SEED).eval()
+    specs = [InputSpec([None, BERT_SEQ], "int64", "input_ids"),
+             InputSpec([None, BERT_SEQ], "int64", "token_type_ids")]
+    model = Model(net, inputs=specs, device=device)
+    model.prepare(amp_configs={"level": "O2", "dtype": "bfloat16"})
+    path = os.path.join(tmp, "bert")
+    t0 = time.perf_counter()
+    model.save(path, training=False)
+    export_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    pred = inference.create_predictor(inference.Config(path + ".pdmodel"))
+    load_s = time.perf_counter() - t0
+    vocab = net.bert.cfg.vocab_size
+
+    def batch(rows):
+        ids = bert_batch(rows, BERT_SEQ, vocab)[0]
+        return ids, np.zeros_like(ids)
+
+    def eager(ids, types):
+        with torch.no_grad(), amp.auto_cast(level="O2", dtype="bfloat16"):
+            return net(torch.from_numpy(ids).to(device),
+                       torch.from_numpy(types).to(device))
+
+    ids, types = batch(BERT_BATCH)
+    want = [w.cpu() for w in eager(ids, types)]
+    n_ln = sum(1 for m in net.modules() if type(m).__name__ == "LayerNorm")
+    layers = len(net.bert.encoder.layers)
+    per_run = {"fused_layer_norm": n_ln, "warp": n_ln,
+               "flash_attention_fwd": layers, "tc": layers, "others": 0}
+    runs = []
+
+    def served():
+        at = deploy_counts(counters)
+        out = pred.run([ids, types])
+        now = deploy_counts(counters)
+        runs.append({k: now[k] - at[k] for k in now})
+        return out
+
+    reset_counts(counters)
+    with count_plain() as plain:
+        got = served()
+        run_ms = event_ms(served, DEPLOY_RUNS)
+    launches = read_counts(counters)
+    if sum(plain.values()):
+        raise AssertionError(f"phase 12: plain versions called {plain}")
+    if runs != [per_run] * (DEPLOY_RUNS + 1):
+        raise AssertionError(f"phase 12: launches a Predictor.run, expected "
+                             f"{per_run}: {runs[:3]}")
+    errs = [check_close(f"phase 12 served {n} logits",
+                        torch.from_numpy(g), w, torch.bfloat16)
+            for n, g, w in zip(("start", "end"), got, want)]
+    for rows in (1, 7):
+        i, t = batch(rows)
+        outs = pred.run([i, t])
+        for n, g, w in zip(("start", "end"), outs, eager(i, t)):
+            w = w.cpu()
+            if g.shape != (rows, BERT_SEQ):
+                raise AssertionError(f"phase 12 batch {rows}: {n} "
+                                     f"{g.shape}")
+            check_close(f"phase 12 batch {rows} {n} logits",
+                        torch.from_numpy(g), w, torch.bfloat16)
+    eager_ms = event_ms(lambda: eager(ids, types), DEPLOY_RUNS)
+    jit.to_static(net)
+    reset_counts(counters)
+    with count_plain() as plain:
+        static_out = eager(ids, types)
+        static_ms = event_ms(lambda: eager(ids, types), DEPLOY_RUNS)
+    static_launches = read_counts(counters)
+    if sum(plain.values()) or static_launches["fused_layer_norm"] != n_ln * (
+            DEPLOY_RUNS + 1) or static_launches["flash_attention_fwd"] != \
+            layers * (DEPLOY_RUNS + 1) or len(net.forward._programs) != 1:
+        raise AssertionError(f"phase 12: to_static launches "
+                             f"{static_launches}, plain {dict(plain)}, "
+                             f"{len(net.forward._programs)} programs")
+    for g, w in zip(static_out, want):
+        check_close("phase 12 to_static logits", g.cpu(), w, torch.bfloat16)
+    log(f"phase 12 (i): BERT-base (bench_bert's configuration, bf16 AMP O2) "
+        f"saved by Model.save(training=False) in {export_s:.2f} s "
+        f"({artifact_bytes(path)} bytes: .pdmodel, .pdiparams, .meta.json),"
+        f" loaded by inference.create_predictor in {load_s:.2f} s; each "
+        f"Predictor.run at [{BERT_BATCH}, {BERT_SEQ}] launched K2 = {n_ln} "
+        f"(warp-row) and K4 = {layers} (tensor-core) from the loaded "
+        f"program, no "
+        f"plain version; start/end logits within bf16 TOL of the eager "
+        f"network (max abs err {max(errs):.3e}); batch 1 and 7 from the "
+        f"same artifact")
+    log(f"phase 12 (i) timing: Predictor.run {run_ms:.3f} ms a batch "
+        f"(median of {DEPLOY_RUNS}, CUDA events, numpy in and out), "
+        f"{BERT_BATCH / run_ms * 1e3:.1f} sequences/s; the same forward "
+        f"eager {eager_ms:.3f} ms, through jit.to_static {static_ms:.3f} "
+        f"ms (one captured program)")
+    del net, model, pred
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"fused_layer_norm": launches["fused_layer_norm"]
+            + static_launches["fused_layer_norm"],
+            "flash_attention_fwd": launches["flash_attention_fwd"]
+            + static_launches["flash_attention_fwd"]}
+
+
+def deploy_bert_f32(device, tmp):
+    """12 (i): a 2-layer float32 BERT saved on the CPU, run on the card."""
+    from paddle_tpu_torch import inference, jit
+    from paddle_tpu_torch.models.bert import BertForQuestionAnswering
+    from paddle_tpu_torch.static import InputSpec
+    cpu = torch.device("cpu")
+    host = bert_net(BertForQuestionAnswering, BERT_PARITY_LAYERS, cpu,
+                    SEED + 81).eval()
+    path = os.path.join(tmp, "bert_f32")
+    jit.save(host, path, input_spec=[
+        InputSpec([None, BERT_SEQ], "int64", "input_ids"),
+        InputSpec([None, BERT_SEQ], "int64", "token_type_ids")])
+    ids = bert_batch(BERT_PARITY_BATCH, BERT_SEQ, 30522)[0]
+    types = np.zeros_like(ids)
+    with torch.no_grad():
+        want = host(torch.from_numpy(ids), torch.from_numpy(types))
+    pred = inference.create_predictor(inference.Config(path + ".pdmodel"))
+    if pred.device.type != device.type:
+        raise AssertionError(f"phase 12: the CPU-saved artifact loaded on "
+                             f"{pred.device}, not {device}")
+    got = pred.run([ids, types])
+    errs = [rn_rel(torch.from_numpy(g), w) for g, w in zip(got, want)]
+    if not max(errs) <= TF_PARITY_TOL:
+        raise AssertionError(f"phase 12: CPU-saved float32 artifact on the "
+                             f"card vs the CPU: {errs} > {TF_PARITY_TOL}")
+    log(f"phase 12 (i): a {BERT_PARITY_LAYERS}-layer float32 BERT saved on "
+        f"the CPU, run on the card: start/end logits within "
+        f"{TF_PARITY_TOL} of the CPU (worst {max(errs):.3e})")
+
+
+def deploy_lenet_serve(device, tmp):
+    """12 (ii): bench_serve's LeNet through create_predictor and
+    BatchingEngine; returns the artifact's path and its predictor."""
+    import paddle_tpu_torch as pt
+    from paddle_tpu_torch import inference, jit
+    from paddle_tpu_torch.static import InputSpec
+    from paddle_tpu_torch.vision.models import LeNet
+    pt.seed(SEED)
+    net = LeNet().to(device).eval()
+    path = os.path.join(tmp, "lenet")
+    jit.save(net, path, input_spec=[InputSpec([None, 1, 28, 28],
+                                              "float32")])
+    pred = inference.create_predictor(inference.Config(path + ".pdmodel"))
+    rng = np.random.RandomState(SEED)
+    one = rng.randn(1, 1, 28, 28).astype(np.float32)
+    eng = inference.BatchingEngine(pred, max_batch_size=32, max_delay_ms=0)
+    for _ in range(SERVE_WARM):
+        eng.infer(one)
+    lat = []
+    for _ in range(SERVE_SINGLES):
+        t0 = time.perf_counter()
+        eng.infer(one)
+        lat.append((time.perf_counter() - t0) * 1e3)
+    eng.close()
+    lat.sort()
+    p50 = lat[len(lat) // 2]
+    p95 = lat[max(0, math.ceil(0.95 * len(lat)) - 1)]
+    requests = [[rng.randn(1, 1, 28, 28).astype(np.float32)
+                 for _ in range(SERVE_PER_CLIENT)]
+                for _ in range(SERVE_CLIENTS)]
+    single = [[pred.run([x])[0] for x in reqs] for reqs in requests]
+    eng2 = inference.BatchingEngine(pred, max_batch_size=64,
+                                    max_delay_ms=3.0)
+    for _ in range(SERVE_WARM):
+        eng2.infer(one)
+    results = [[None] * SERVE_PER_CLIENT for _ in range(SERVE_CLIENTS)]
+
+    def client(c):
+        for j, x in enumerate(requests[c]):
+            results[c][j] = eng2.infer(x)[0]
+
+    threads = [threading.Thread(target=client, args=(c,))
+               for c in range(SERVE_CLIENTS)]
+    t0 = time.perf_counter()
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(300)
+    wall = time.perf_counter() - t0
+    eng2.close()
+    if any(t.is_alive() for t in threads):
+        raise AssertionError("phase 12 (ii): a client did not finish")
+    worst = max(check_close(f"phase 12 client {c} request {j}",
+                            torch.from_numpy(results[c][j]),
+                            torch.from_numpy(single[c][j]), torch.float32)
+                for c in range(SERVE_CLIENTS)
+                for j in range(SERVE_PER_CLIENT))
+    total = SERVE_CLIENTS * SERVE_PER_CLIENT
+    log(f"phase 12 (ii): bench_serve's LeNet (jit.save with InputSpec([None,"
+        f" 1, 28, 28]), create_predictor on the card): latency mode "
+        f"(max_batch_size 32, max_delay_ms 0) p50 {p50:.3f} ms p95 "
+        f"{p95:.3f} ms over {SERVE_SINGLES} singles; throughput "
+        f"(max_batch_size 64, max_delay_ms 3.0, {SERVE_CLIENTS} clients x "
+        f"{SERVE_PER_CLIENT}) {total / wall:.1f} requests/s; every "
+        f"client's rows equal to a single-request run (max abs err "
+        f"{worst:.3e})")
+    return path, pred
+
+
+def deploy_static_lenet(device, tmp, counters):
+    """12 (iii): static-mode Model.fit of LeNet at bench_lenet's batch;
+    returns K8's launches and the parameter shapes."""
+    import paddle_tpu_torch as pt
+    from paddle_tpu_torch import static
+    from paddle_tpu_torch.hapi import Model
+    from paddle_tpu_torch.hapi.callbacks import Callback
+    from paddle_tpu_torch.static import InputSpec
+    from paddle_tpu_torch.vision.models import LeNet
+    rng = np.random.RandomState(SEED)
+    x = rng.randn(LENET_BATCH, 1, 28, 28).astype(np.float32)
+    y = rng.randint(0, 10, (LENET_BATCH, 1)).astype(np.int64)
+    numels = []
+    steps, losses = [], []
+
+    class Steps(Callback):
+        def on_train_batch_begin(self, step, logs=None):
+            self.at = read_counts(counters)
+
+        def on_train_batch_end(self, step, logs=None):
+            now = read_counts(counters)
+            steps.append({k: now[k] - self.at[k] for k in now})
+            losses.append(logs["loss"])
+
+    pt.enable_static()
+    try:
+        pt.seed(SEED)
+        net = LeNet().to(device)
+        numels = [p.numel() for p in net.parameters()]
+        model = Model(net, inputs=[InputSpec([None, 1, 28, 28], "float32",
+                                             "image")],
+                      labels=[InputSpec([None, 1], "int64", "label")],
+                      device=device)
+        model.prepare(pt.optimizer.Adam(learning_rate=1e-3,
+                                        parameters=net.parameters()),
+                      pt.nn.CrossEntropyLoss())
+        data = pt.io.TensorDataset([np.concatenate([x] * LENET_STEPS),
+                                    np.concatenate([y] * LENET_STEPS)])
+        reset_counts(counters)
+        with count_plain() as plain:
+            t0 = time.perf_counter()
+            model.fit(data, batch_size=LENET_BATCH, epochs=1,
+                      shuffle=False, log_freq=1, verbose=0,
+                      callbacks=[Steps()])
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        launches = read_counts(counters)
+        want = {"flash_attention_fwd": 0, "flash_attention_bwd": 0,
+                "fused_layer_norm": 0, "fused_layer_norm_bwd": 0,
+                "fused_adamw": adamw_launches(numels),
+                "fused_adamw_tensors": len(numels)}
+        if sum(plain.values()) or steps != [want] * LENET_STEPS:
+            raise AssertionError(f"phase 12 (iii): launches a step {steps[:3]}"
+                                 f", expected {want}; plain {dict(plain)}")
+        if not all(math.isfinite(v) for v in losses) or \
+                not losses[-1] < losses[0]:
+            raise AssertionError(f"phase 12 (iii): losses {losses}")
+        prefix = os.path.join(tmp, "lenet_static")
+        static.save_inference_model(prefix, [InputSpec(
+            [None, 1, 28, 28], "float32", "image")], net)
+        from paddle_tpu_torch.framework.place import from_torch_device
+        layer, names, _ = static.load_inference_model(
+            prefix, static.Executor(from_torch_device(device)))
+        (ref,) = model.predict_batch([torch.from_numpy(x[:8]).to(device)])
+        err = check_close("phase 12 (iii) load_inference_model",
+                          layer(x[:8]).cpu(), torch.from_numpy(ref),
+                          torch.float32)
+    finally:
+        pt.disable_static()
+    log(f"phase 12 (iii): enable_static(); Model.fit of LeNet (bench_lenet: "
+        f"batch {LENET_BATCH}, Adam(1e-3)) for {LENET_STEPS} steps through "
+        f"the captured Program / Executor in {wall:.3f} s: K8 "
+        f"{want['fused_adamw']} launch(es) over {len(numels)} tensors a "
+        f"step, no plain version, losses {json.dumps(losses)}; "
+        f"save_inference_model / load_inference_model ({names}) within "
+        f"float32 TOL of the static test program (max abs err {err:.3e})")
+    return launches["fused_adamw"], [tuple(p.shape)
+                                     for p in net.parameters()]
+
+
+def deploy_capi(pred, path):
+    """12 (iv): the C API built with g++ runs one LeNet batch from C."""
+    import ctypes
+    from paddle_tpu_torch.inference.capi import load_capi
+    t0 = time.perf_counter()
+    lib, so = load_capi()
+    build_s = time.perf_counter() - t0
+    repo = os.path.dirname(os.path.abspath(__file__))
+    if lib.PDT_Init(repo.encode()) != 0:
+        raise AssertionError(f"PDT_Init: {lib.PDT_LastError()}")
+    handle = lib.PDT_PredictorCreate(path.encode())
+    if not handle:
+        raise AssertionError(f"PDT_PredictorCreate: {lib.PDT_LastError()}")
+    x = np.random.RandomState(SEED + 12).randn(8, 1, 28, 28).astype(
+        np.float32)
+    shape = (ctypes.c_int64 * x.ndim)(*x.shape)
+    out = ctypes.POINTER(ctypes.c_float)()
+    out_shape = ctypes.POINTER(ctypes.c_int64)()
+    out_ndim = ctypes.c_int()
+    rc = lib.PDT_PredictorRun(
+        handle, x.ctypes.data_as(ctypes.POINTER(ctypes.c_float)), shape,
+        x.ndim, ctypes.byref(out), ctypes.byref(out_shape),
+        ctypes.byref(out_ndim))
+    if rc != 0:
+        raise AssertionError(f"PDT_PredictorRun: {lib.PDT_LastError()}")
+    dims = [out_shape[i] for i in range(out_ndim.value)]
+    got = np.ctypeslib.as_array(out, shape=(int(np.prod(dims)),)).reshape(
+        dims).copy()
+    lib.PDT_BufferFree(out)
+    lib.PDT_BufferFree(out_shape)
+    lib.PDT_PredictorDestroy(handle)
+    err = check_close("phase 12 (iv) C API", torch.from_numpy(got),
+                      torch.from_numpy(pred.run([x])[0]), torch.float32)
+    log(f"phase 12 (iv): the C API ({os.path.basename(so)}, g++ build "
+        f"{build_s:.2f} s) ran LeNet on the card from C: output {dims} "
+        f"equal to the Predictor's (max abs err {err:.3e})")
+
+
+def phase_deploy(device, timer):
+    """12: the deployment path (``deploy_bert``, ``deploy_bert_f32``,
+    ``deploy_lenet_serve``, ``deploy_static_lenet``, ``deploy_capi``).
+    Returns the main path's K2/K4 launches at ``[32, 128]`` (for the
+    ``_bert`` rows) and the ``fused_adamw_step_lenet`` row."""
+    import shutil
+    import tempfile
+    t0 = time.perf_counter()
+    counters = train_counters()
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_deploy_")
+    try:
+        bert = deploy_bert(device, tmp, counters)
+        deploy_bert_f32(device, tmp)
+        path, pred = deploy_lenet_serve(device, tmp)
+        k8, shapes = deploy_static_lenet(device, tmp, counters)
+        deploy_capi(pred, path)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    row = adamw_step_case(timer, device, shapes, None, 1e-3, 0.0)
+    log(f"phase 12 fused_adamw_step_lenet {fmt(row)}")
+    lenet = {"name": "fused_adamw_step_lenet", "route": "cuda",
+             "source": ADAMW_SRC, "replaces": ADAMW_TPU, "launches": k8,
+             **{k: row[k] for k in ("max_abs_err", "ms", "plain_ms",
+                                    "bound_ms", "bound_by", "library_ms")},
+             **{k: row[k] for k in STEP_KEYS}, "launches_note": STEP_NOTE}
+    log(f"phase 12: {time.perf_counter() - t0:.1f} s")
+    return bert, lenet
+
+
 def main() -> int:
     global TRACE_ROOT
     import shutil
@@ -6368,6 +6791,7 @@ def run_phases() -> int:
     phase_resnet(device, card, swept)
     _, bert_kernel_rows = phase_bert(device, card, timer, profile)
     phase_text(device, card, swept, profile)
+    deploy_launches, lenet_row = phase_deploy(device, timer)
     kernels = report_engine(device, timer, launches, captured,
                             quant_launches, quant_captured)
     # the engine row of the LayerNorm forward counts the fused engines'
@@ -6429,7 +6853,16 @@ def run_phases() -> int:
     f32_fwd["launches"] += gen_f32_launches["flash_attention_fwd"] \
         + beam_f32_launches["flash_attention_fwd"]
     kernels += tf_kernel_rows
+    # phase 12 serves BERT-base at phase 10's shapes: its launches join
+    # the _bert rows of the LayerNorm and flash forward
+    for row in bert_kernel_rows:
+        for name, count in (("fused_layer_norm_bert", "fused_layer_norm"),
+                            ("flash_attention_fwd_bert",
+                             "flash_attention_fwd")):
+            if row["name"] == name:
+                row["launches"] += deploy_launches[count]
     kernels += bert_kernel_rows
+    kernels.append(lenet_row)
     for k in kernels:
         for key, v in k.items():
             if isinstance(v, float) and not math.isfinite(v):

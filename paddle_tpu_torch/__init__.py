@@ -51,8 +51,8 @@ The tensor is ``torch.Tensor`` itself.
 """
 import torch as _torch
 
-from . import (amp, callbacks, hapi, io, metric, models, nn, ops, optimizer,
-               profiler, regularizer, serving, text, vision)
+from . import (amp, callbacks, hapi, inference, io, jit, metric, nn, ops,
+               optimizer, profiler, regularizer, static, text, utils)
 from .nn.layer.layers import ParamAttr
 from .framework import metrics
 from .framework.dispatch import call_op
@@ -70,6 +70,7 @@ from .framework.random import set_rng_state as set_cuda_rng_state
 from .framework.tensor import (Parameter, Tensor, grad_enabled_guard,
                                is_grad_enabled, no_grad, to_tensor)
 from .hapi.model import Model
+from .static import disable_static, enable_static, in_dynamic_mode
 from .ops.registry import not_ported as _not_ported
 from .ops.registry import op_names as _op_names
 
@@ -79,9 +80,11 @@ bool_ = _torch.bool
 #: a context manager (and decorator) setting grad recording to ``mode``
 set_grad_enabled = grad_enabled_guard
 
-__all__ = ["seed", "amp", "callbacks", "hapi", "io", "metric", "metrics",
-           "models", "nn", "ops", "optimizer", "profiler", "regularizer",
-           "serving", "text", "vision", "save", "load", "call_op", "ParamAttr",
+__all__ = ["seed", "amp", "callbacks", "hapi", "inference", "io", "jit",
+           "metric", "metrics", "models", "nn", "ops", "optimizer",
+           "profiler", "regularizer", "serving", "static", "text", "utils",
+           "vision", "enable_static", "disable_static", "in_dynamic_mode",
+           "save", "load", "call_op", "ParamAttr",
            "tensor", "get_device", "set_device", "Model", "Place",
            "CPUPlace", "CUDAPlace", "CUDAPinnedPlace", "current_place",
            "is_compiled_with_tpu", "get_flags", "set_flags", "statusz",
@@ -94,15 +97,21 @@ __all__ = ["seed", "amp", "callbacks", "hapi", "io", "metric", "metrics",
 #: item: multi-device (4) and API breadth (5)
 _DEFERRED = dict.fromkeys(("DataParallel", "distributed", "parallel"), 4)
 _DEFERRED.update(dict.fromkeys((
-    "NPUPlace", "TPUPlace", "grad", "summary", "flops", "enable_static",
-    "disable_static", "in_dynamic_mode", "batch", "analysis", "autograd",
-    "compat", "cost_model", "dataset", "device", "distribution", "fft",
-    "fluid", "hub", "incubate", "inference", "jit", "linalg", "onnx",
-    "quantization", "reader", "signal", "sparse", "static", "sysconfig",
-    "utils", "version"), 5))
+    "NPUPlace", "TPUPlace", "grad", "summary", "flops", "batch",
+    "analysis", "autograd", "compat", "cost_model", "dataset", "device",
+    "distribution", "fft", "fluid", "hub", "incubate", "linalg", "onnx",
+    "quantization", "reader", "signal", "sparse", "sysconfig", "version"),
+    5))
+
+#: the model code, imported at first use: loading a ``jit.save`` artifact
+#: (``jit.load``, ``inference``) needs the op library and no model code
+_LAZY = ("models", "serving", "vision")
 
 
 def __getattr__(name):
+    if name in _LAZY:
+        import importlib
+        return importlib.import_module(f".{name}", __name__)
     if name in _DEFERRED:
         raise _not_ported(name, _DEFERRED[name])
     raise AttributeError(f"module {__name__!r} has no attribute {name!r}")

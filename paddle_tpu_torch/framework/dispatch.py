@@ -6,7 +6,9 @@ The steps, in order: look the op up; bump ``op_count/<name>``; under
 infermeta.py``, shapes and attributes only); cast the inputs through
 ``amp.cast_inputs``; pick the override whose predicate holds (a kernel),
 else the plain body; run; sweep the outputs for NaN/Inf under
-``FLAGS_check_nan_inf``. There is no tape and no per-op jit cache: torch
+``FLAGS_check_nan_inf``; while a ``static.Program`` is current, record
+the op into it (``framework/static_capture.py``), with the dtypes the
+casts gave its operands. There is no tape and no per-op jit cache: torch
 autograd records the ops, and an eager torch op needs no compile.
 """
 from __future__ import annotations
@@ -17,6 +19,7 @@ import torch
 
 from .. import amp
 from ..ops.registry import get_op
+from . import static_capture as _capture
 from .flags import flag_value
 from .infermeta import maybe_check as _infermeta_check
 from .monitor import stat_add
@@ -27,10 +30,18 @@ __all__ = ["call_op"]
 def call_op(name: str, *args, **attrs):
     """Run op ``name`` on ``args`` (tensors, lists of tensors, Python
     values) and keyword ``attrs``."""
+    if _capture.current is not None and not _capture.in_op():
+        with _capture.op_scope():
+            return _call_op(name, args, attrs, record=True)
+    return _call_op(name, args, attrs)
+
+
+def _call_op(name, args, attrs, record=False):
     opdef = get_op(name)
     stat_add(f"op_count/{name}")
     if flag_value("FLAGS_check_shapes"):
         _infermeta_check(name, args, attrs)
+    given, given_attrs = args, attrs
     if amp.is_auto_cast_enabled():
         args = tuple(_cast(name, a) for a in args)
         attrs = {k: _cast(name, v) for k, v in attrs.items()}
@@ -41,6 +52,11 @@ def call_op(name: str, *args, **attrs):
         out = fn(*args, **attrs)
     if flag_value("FLAGS_check_nan_inf"):
         _check_nan_inf(name, out)
+    if record:
+        # static-graph mode: append this dispatch to the active Program
+        # (framework/static_capture.py)
+        _capture.record(name, fn, (given, given_attrs), out,
+                        ran=(args, attrs))
     return out
 
 

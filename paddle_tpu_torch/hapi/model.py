@@ -47,10 +47,18 @@ ledger (``hapi/state[<net>#<n>]/{params,opt_state,buffers}``), and an
 out-of-memory error leaves the memory postmortem before it is
 re-raised.
 
+Static mode, as in the JAX package: under ``enable_static()``
+``fit``/``evaluate``/``predict`` and the ``*_batch`` calls go through a
+``_StaticGraphAdapter``, which captures the network (and the loss, and
+the optimizer's ``minimize``) once into ``static.Program``s fed from the
+Model's ``InputSpec``s and runs each batch as one ``Executor.run``.
+``save(path, training=False)`` exports the network for inference
+through ``jit.save(network, path, input_spec=inputs)``, under the AMP
+policy of ``prepare``.
+
 Not ported, each raising ``NotImplementedError`` that names its ROADMAP
-item: ``save(training=False)``, ``summary``, static mode,
-``fit(prefetch=, analyze=)``, ``evaluate(prefetch=)`` and
-``train_batch(update=False)`` (Queue 1 item 5), ``fit(zero=,
+item: ``summary``, ``fit(prefetch=, analyze=)``, ``evaluate(prefetch=)``
+and ``train_batch(update=False)`` (Queue 1 item 5), ``fit(zero=,
 grad_comm=)`` (item 4).
 
 ``eval_batch``/``evaluate`` give the loss only for batches with labels,
@@ -107,6 +115,114 @@ def _nbytes(tensors) -> int:
     return sum(t.numel() * t.element_size() for t in tensors)
 
 
+class _StaticGraphAdapter:
+    """Routes Model.fit/evaluate/predict through the static
+    Program/Executor when ``enable_static()`` is on (the JAX package's
+    adapter; the reference's StaticGraphAdapter, hapi/model.py:290).
+
+    The network's forward is captured ONCE into a main Program under
+    ``program_guard`` (feeds from the Model's InputSpecs), the loss and
+    the optimizer's ``minimize`` are appended, and every train batch is
+    one ``Executor.run`` (the replay, ``backward()``, the optimizer's
+    step). Eval and predict run a second capture made in eval mode, the
+    reference's main/test pair. As in the JAX package, BatchNorm's
+    running statistics do not update across static training steps (the
+    layer writes them outside the recorded ops)."""
+
+    def __init__(self, model: "Model"):
+        self.model = model
+        self._built = False
+
+    def _spec_name(self, spec, prefix, i):
+        return getattr(spec, "name", None) or f"{prefix}_{i}"
+
+    def _capture(self, program, startup=None, with_optimizer=False):
+        from .. import static
+        m = self.model
+        with static.program_guard(program, startup), m._maybe_amp():
+            in_vars = [
+                static.data(self._spec_name(s, "input", i),
+                            list(s.shape), s.dtype)
+                for i, s in enumerate(m._inputs)]
+            label_vars = [
+                static.data(self._spec_name(s, "label", i),
+                            list(s.shape), s.dtype)
+                for i, s in enumerate(m._labels)]
+            outputs = m.network(*in_vars)
+            outs = list(outputs) if isinstance(outputs, (list, tuple)) \
+                else [outputs]
+            loss = None
+            if m._loss is not None and label_vars:
+                loss = m._loss(*outs, *label_vars)
+                if with_optimizer and m._optimizer is not None:
+                    m._optimizer.minimize(loss)
+        return loss, outs
+
+    def _build(self):
+        from .. import static
+        m = self.model
+        if not m._inputs or not all(hasattr(s, "shape")
+                                    for s in m._inputs + m._labels):
+            raise ValueError(
+                "static-graph Model requires inputs=[InputSpec(...)] (and "
+                "labels=[InputSpec(...)] to train) at construction: feeds "
+                "must be declared before the program is built")
+        was_training = m.network.training
+        main, startup = static.Program(), static.Program()
+        try:
+            m.network.train()
+            self._loss_var, self._out_vars = self._capture(
+                main, startup, with_optimizer=True)
+            m.network.eval()
+            test = static.Program()
+            self._test_loss_var, self._test_out_vars = self._capture(test)
+        finally:
+            m.network.train(was_training)
+        self._exe = static.Executor()
+        self._main, self._test = main, test
+        self._in_names = [self._spec_name(s, "input", i)
+                          for i, s in enumerate(m._inputs)]
+        self._label_names = [self._spec_name(s, "label", i)
+                             for i, s in enumerate(m._labels)]
+        self._built = True
+
+    def _feed(self, inputs, labels, need_labels):
+        if not self._built:
+            self._build()
+        if need_labels and self._label_names and not labels:
+            raise ValueError(
+                f"this batch must include labels for declared feed(s) "
+                f"{self._label_names} (the fetched loss depends on them)")
+        arrays = list(inputs) + (list(labels) if labels else [])
+        names = self._in_names + (self._label_names if labels else [])
+        if len(arrays) != len(names):
+            raise ValueError(
+                f"batch has {len(arrays)} arrays but the static program "
+                f"declares {len(names)} feeds ({names})")
+        return dict(zip(names, arrays))
+
+    def train_step(self, inputs, labels):
+        """One train step: the loss (a device scalar) and the outputs."""
+        feed = self._feed(inputs, labels, True)
+        if self._loss_var is None:
+            raise RuntimeError("no loss/labels declared: static-mode "
+                               "training needs labels=[InputSpec] + loss")
+        res = self._exe.run(self._main, feed=feed,
+                            fetch_list=[self._loss_var] + self._out_vars,
+                            return_numpy=False)
+        return res[0], res[1:]
+
+    def eval_step(self, inputs, labels):
+        """The loss (``None`` without labels) and the outputs."""
+        feed = self._feed(inputs, labels, False)
+        with_loss = self._test_loss_var is not None and bool(labels)
+        fetches = ([self._test_loss_var] if with_loss else []) \
+            + self._test_out_vars
+        res = self._exe.run(self._test, feed=feed, fetch_list=fetches,
+                            return_numpy=False)
+        return (res[0], res[1:]) if with_loss else (None, res)
+
+
 class Model:
     # numerics audit vectors wait on the device between log windows,
     # (6 + groups) f32 each, one a step: with log_freq <= 0 (epoch-end
@@ -148,6 +264,17 @@ class Model:
         self._site = f"hapi/train_step[{type(network).__name__}" \
                      f"#{Model._seq}]"
         self._ledger_base = None
+        self._static_adapter = None
+
+    def _static(self):
+        """The StaticGraphAdapter when ``enable_static()`` is on (the mode
+        is sampled per call, like the reference's _run_backend)."""
+        from ..static import in_dynamic_mode
+        if in_dynamic_mode():
+            return None
+        if self._static_adapter is None:
+            self._static_adapter = _StaticGraphAdapter(self)
+        return self._static_adapter
 
     def prepare(self, optimizer=None, loss=None, metrics=None,
                 amp_configs=None):
@@ -193,7 +320,13 @@ class Model:
 
     def _forward(self, inputs, labels, with_loss=True):
         """Outputs (a list) and, ``with_loss``, the loss, under the AMP
-        policy (``None`` without)."""
+        policy (``None`` without); in static mode one run of the test
+        program."""
+        adapter = self._static()
+        if adapter is not None:
+            loss, outs = adapter.eval_step(inputs, labels if with_loss
+                                           else [])
+            return outs, loss
         with self._maybe_amp():
             outputs = self.network(*inputs)
             outs = list(outputs) if isinstance(outputs, (list, tuple)) \
@@ -216,6 +349,13 @@ class Model:
         self._flush_steps += 1
         self._flush_flops += self._counted_flops(inputs) or 0.0
         audit = self._audit_collect and self._audit_layout is not None
+        adapter = self._static()
+        if adapter is not None:
+            with _prof.record("hapi/train_batch", "hapi"):
+                loss, outs = adapter.train_step(inputs, labels)
+            stat_observe("hapi/step_time_ms",
+                         (time.perf_counter() - t0) * 1e3)
+            return loss, outs
         with _prof.record("hapi/train_batch", "hapi"):
             outs, loss = self._forward(inputs, labels)
             if audit:
@@ -617,10 +757,16 @@ class Model:
     # -- persistence --------------------------------------------------------
     def save(self, path, training=True):
         """``path.pdparams`` (the network's ``state_dict``) and, with an
-        optimizer, ``path.pdopt`` (its ``state_dict``)."""
+        optimizer, ``path.pdopt`` (its ``state_dict``). With
+        ``training=False`` the inference export instead:
+        ``jit.save(network, path, input_spec=inputs)`` (``path.pdmodel``,
+        ``.pdiparams``, ``.meta.json``), traced under ``prepare``'s AMP
+        policy, so that the artifact computes what ``predict`` does."""
         if not training:
-            raise _not_ported("save(training=False) (the inference export)",
-                              5)
+            from .. import jit
+            with self._maybe_amp():
+                jit.save(self.network, path, input_spec=self._inputs or None)
+            return
         _save(self.network.state_dict(), path + ".pdparams")
         if self._optimizer is not None:
             _save(self._optimizer.state_dict(), path + ".pdopt")

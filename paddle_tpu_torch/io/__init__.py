@@ -58,12 +58,10 @@ def DataLoader(dataset, feed_list=None, places=None, return_list=True,
     ``collate_fn``, ``num_workers`` and, with workers, ``prefetch_factor``,
     ``timeout``, ``worker_init_fn`` and ``persistent_workers`` pass to
     torch's loader; ``use_buffer_reader`` and ``use_shared_memory`` are
-    hints that change no batch. Static-mode ``feed_list``/``places`` and
-    ``return_list=False`` are not ported yet (ROADMAP Queue 1 item 5)."""
-    if feed_list is not None or places is not None or not return_list:
-        raise NotImplementedError(
-            "DataLoader(feed_list=, places=, return_list=False) is not "
-            "ported yet (ROADMAP Queue 1 item 5)")
+    hints that change no batch. The static-mode ``feed_list``, ``places``
+    and ``return_list`` are taken and change no batch either, as in the
+    JAX package: a static ``Model`` feeds each batch by the names of its
+    ``InputSpec``s."""
     workers = dict(prefetch_factor=prefetch_factor, timeout=timeout,
                    worker_init_fn=worker_init_fn,
                    persistent_workers=persistent_workers) \

@@ -18,6 +18,7 @@ from __future__ import annotations
 import torch
 
 from ...framework.dispatch import call_op
+from ...framework.static_capture import exporting
 from ...ops.layer_norm import MAX_D, layer_norm
 from ...ops.registry import register_override
 from .. import functional as F
@@ -31,10 +32,11 @@ __all__ = ["BatchNorm", "BatchNorm1D", "BatchNorm2D", "BatchNorm3D",
 
 
 def ln_supported(x, weight, bias, begin_norm_axis=None) -> bool:
-    """The kernels take ``x``: on the card, affine, the last axis of at
-    most ``MAX_D`` values."""
-    return (x.is_cuda and weight is not None and bias is not None
-            and begin_norm_axis in (None, x.dim() - 1)
+    """The kernels take ``x``: on the card (or on any device while
+    ``torch.export`` captures the port: the graph then holds the kernel's
+    custom op), affine, the last axis of at most ``MAX_D`` values."""
+    return ((x.is_cuda or exporting()) and weight is not None
+            and bias is not None and begin_norm_axis in (None, x.dim() - 1)
             and 1 <= x.shape[-1] <= MAX_D)
 
 

@@ -27,7 +27,11 @@ sequence length: ragged tails are masked, where the TPU kernels demanded
 
 :func:`flash_attention_fwd` and :func:`flash_attention_bwd` take the
 plain versions only for tensors on the CPU. A CUDA tensor goes to a
-kernel, or the call raises: there is no fallback. Each counts its
+kernel, or the call raises: there is no fallback. The forward is the
+``torch.library`` custom op ``paddle_tpu_torch::flash_attention_fwd``
+(its CPU kernel the plain version, its CUDA kernel the launch, a fake
+giving ``o`` and the ``[B, H, Sq]`` float32 ``lse``), so that
+``torch.export`` records it and a loaded graph launches it. Each counts its
 kernel launches in ``.launches`` and, by route, in ``.tc_launches`` and
 ``.core_launches`` (the backward wrapper launches the dQ and dK/dV
 kernels together and counts one).
@@ -36,6 +40,7 @@ from __future__ import annotations
 
 import ctypes
 import math
+from typing import Tuple
 
 import torch
 
@@ -89,7 +94,7 @@ def flash_attention_fwd_plain(q, k, v, causal=False, scale=None):
     o = torch.einsum("bhqk,bkhd->bqhd", p.to(v.dtype).float(), v.float())
     o = o / l_safe.transpose(1, 2)
     lse = (m + torch.log(l_safe))[..., 0]
-    return o.to(q.dtype), lse
+    return o.to(q.dtype).contiguous(), lse
 
 
 def flash_attention_bwd_plain(q, k, v, o, lse, do, causal=False, scale=None):
@@ -173,9 +178,21 @@ _BWD_ARGS = [_I] + [_P] * 9 + [_I] * 5 + [_F, _I, _P]
 
 def flash_attention_fwd(q, k, v, causal=False, scale=None):
     """Forward kernel: ``(o [B, Sq, H, D] in q's dtype, lse [B, H, Sq]
-    f32)``."""
-    if q.device.type == "cpu":
-        return flash_attention_fwd_plain(q, k, v, causal, scale)
+    f32)``. The custom op ``paddle_tpu_torch::flash_attention_fwd``: a
+    trace records the op and runs its fake, which launches nothing."""
+    return torch.ops.paddle_tpu_torch.flash_attention_fwd(
+        q, k, v, bool(causal), _scale(q, scale))
+
+
+@torch.library.custom_op("paddle_tpu_torch::flash_attention_fwd",
+                         mutates_args=(), device_types="cpu")
+def _fwd_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal: bool,
+            scale: float) -> Tuple[torch.Tensor, torch.Tensor]:
+    return flash_attention_fwd_plain(q, k, v, causal, scale)
+
+
+@_fwd_op.register_kernel("cuda")
+def _fwd_launch(q, k, v, causal, scale):
     _check(q, k, v)
     b, sq, h, d = q.shape
     o = torch.empty_like(q)
@@ -184,8 +201,8 @@ def flash_attention_fwd(q, k, v, causal=False, scale=None):
         return o.zero_(), lse.fill_(_NEG_INF)
     route = flash_route_of(q, k, v)
     args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
-            lse.data_ptr(), b, h, sq, k.shape[1], d, _scale(q, scale),
-            int(bool(causal)), torch.cuda.current_stream(q.device).cuda_stream)
+            lse.data_ptr(), b, h, sq, k.shape[1], d, scale,
+            int(causal), torch.cuda.current_stream(q.device).cuda_stream)
     lib, entry = (("flash_attention_sm90", "fa_tc_fwd_launch")
                   if route == "tc" else ("flash_attention", "fa_fwd_launch"))
     rc = _build.function(lib, entry, _FWD_ARGS)(_build.DTYPE_CODE[q.dtype],
@@ -195,6 +212,13 @@ def flash_attention_fwd(q, k, v, causal=False, scale=None):
                            f"launch failed: CUDA error {rc}")
     _count(flash_attention_fwd, route)
     return o, lse
+
+
+@_fwd_op.register_fake
+def _fwd_fake(q, k, v, causal, scale):
+    b, sq, h, _ = q.shape
+    return (torch.empty_like(q),
+            q.new_empty((b, h, sq), dtype=torch.float32))
 
 
 def flash_attention_bwd(q, k, v, o, lse, do, causal=False, scale=None):

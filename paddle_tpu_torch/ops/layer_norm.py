@@ -24,7 +24,11 @@ says what bounds each kernel and what its design does about it.
 
 :func:`fused_layer_norm` and :func:`fused_layer_norm_bwd` take the plain
 versions only for tensors on the CPU. A CUDA tensor goes to a kernel, or
-the call raises: there is no fallback. ``.launches`` on each counts its
+the call raises: there is no fallback. The forward is the
+``torch.library`` custom op ``paddle_tpu_torch::fused_layer_norm`` (its
+CPU kernel the plain version, its CUDA kernel the launch, a fake for
+traces), so that ``torch.export`` records it in a graph and the loaded
+graph launches it (``jit.save``). ``.launches`` on each counts its
 kernel launches, and ``.warp_launches``/``.row_launches`` count them by
 route. :func:`layer_norm` is the differentiable entry: under autograd it
 runs both kernels through ``_LayerNorm``; without it (the serving path)
@@ -170,10 +174,23 @@ def _check_affine(x, weight, bias):
 def fused_layer_norm(x, weight, bias, epsilon: float = 1e-5):
     """LayerNorm over the last axis of ``x`` with affine ``weight`` and
     ``bias`` (both ``[D]``). Any number of rows; output in ``x``'s
-    dtype."""
+    dtype. The custom op ``paddle_tpu_torch::fused_layer_norm``: a trace
+    (``torch.export``) records the op and runs its fake, which launches
+    nothing and counts nothing."""
     _check_affine(x, weight, bias)
-    if x.device.type == "cpu":
-        return layer_norm_plain(x, weight, bias, epsilon)
+    return torch.ops.paddle_tpu_torch.fused_layer_norm(x, weight, bias,
+                                                       float(epsilon))
+
+
+@torch.library.custom_op("paddle_tpu_torch::fused_layer_norm",
+                         mutates_args=(), device_types="cpu")
+def _ln_op(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
+           epsilon: float) -> torch.Tensor:
+    return layer_norm_plain(x, weight, bias, epsilon)
+
+
+@_ln_op.register_kernel("cuda")
+def _ln_launch(x, weight, bias, epsilon):
     _check(x, weight, bias)
     d = x.shape[-1]
     out = torch.empty_like(x)
@@ -191,6 +208,11 @@ def fused_layer_norm(x, weight, bias, epsilon: float = 1e-5):
                            f"CUDA error {rc}")
     _count(fused_layer_norm, route)
     return out
+
+
+@_ln_op.register_fake
+def _ln_fake(x, weight, bias, epsilon):
+    return torch.empty_like(x)
 
 
 fused_layer_norm.launches = 0

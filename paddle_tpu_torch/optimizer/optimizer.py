@@ -258,9 +258,21 @@ class Optimizer:
                  no_grad_set=None):
         """``loss.backward()``, one step and ``clear_grad()``; returns
         ``(None, None)`` as the JAX package's eager ``minimize`` does.
-        ``startup_program`` (static mode) and a ``parameters`` or
-        ``no_grad_set`` subset are not ported yet (ROADMAP Queue 1 item
-        5)."""
+        In static mode (a ``static.Program`` recording) it attaches
+        ``loss`` and this optimizer to the program instead, whose
+        ``Executor.run`` then takes the step, and returns ``([], [])``;
+        an optimizer built without ``parameters`` then updates the
+        program's. A ``parameters`` or ``no_grad_set`` subset, and
+        ``startup_program`` outside static mode, are not ported yet
+        (ROADMAP Queue 1 item 5)."""
+        from ..framework import static_capture
+        prog = static_capture.current
+        if prog is not None and parameters is None and no_grad_set is None:
+            prog._loss = loss
+            prog._optimizer = self
+            if self._params is None:
+                self._params = _named(prog._params.values())
+            return [], []
         if startup_program is not None or parameters is not None \
                 or no_grad_set is not None:
             raise NotImplementedError(

@@ -1,6 +1,6 @@
 """The vision model zoo (counterpart of ``paddle_tpu/vision/models``):
-the ResNet family. The other models raise ``NotImplementedError``
-naming ROADMAP Queue 1 item 5."""
+the ResNet family and LeNet. The other models raise
+``NotImplementedError`` naming ROADMAP Queue 1 item 5."""
 from ...ops.registry import not_ported as _not_ported
 from .resnet import (  # noqa: F401
     BasicBlock, BottleneckBlock, ResNet, resnet18, resnet34, resnet50,
@@ -8,7 +8,8 @@ from .resnet import (  # noqa: F401
     resnext101_32x4d, resnext101_64x4d, resnext152_32x4d, resnext152_64x4d,
     wide_resnet50_2, wide_resnet101_2,
 )
-from . import resnet  # noqa: F401
+from . import lenet, resnet  # noqa: F401
+from .lenet import LeNet  # noqa: F401
 
 __all__ = ["ResNet", "resnet18", "resnet34", "resnet50", "resnet101",
            "resnet152", "resnext50_32x4d", "resnext50_64x4d",
@@ -16,7 +17,7 @@ __all__ = ["ResNet", "resnet18", "resnet34", "resnet50", "resnet101",
            "resnext152_64x4d", "wide_resnet50_2", "wide_resnet101_2"]
 
 _DEFERRED = frozenset((
-    "LeNet", "lenet", "VGG", "vgg", "vgg11", "vgg13", "vgg16", "vgg19",
+    "VGG", "vgg", "vgg11", "vgg13", "vgg16", "vgg19",
     "MobileNetV1", "MobileNetV2", "mobilenet", "mobilenet_v1",
     "mobilenet_v2", "MobileNetV3Large", "MobileNetV3Small", "mobilenetv3",
     "mobilenet_v3_large", "mobilenet_v3_small", "AlexNet", "alexnet",

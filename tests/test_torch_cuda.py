@@ -1661,3 +1661,96 @@ def test_lstm_on_the_card_equals_the_cpu(cuda):
                    [p.grad.cpu() for p in net.parameters()])
     for got, want in zip(*res):
         torch.testing.assert_close(got, want, atol=1e-4, rtol=0)
+
+
+def _deploy_bert(device, layers=2):
+    import paddle_tpu_torch as pt
+    from paddle_tpu_torch.models.bert import (BertConfig,
+                                              BertForQuestionAnswering)
+    pt.seed(0)
+    cfg = BertConfig(vocab_size=1000, hidden_size=128,
+                     num_hidden_layers=layers, num_attention_heads=2,
+                     intermediate_size=256,
+                     hidden_dropout_prob=0.0, attention_dropout_prob=0.0)
+    return BertForQuestionAnswering(cfg).to(device).eval()
+
+
+def _deploy_specs():
+    from paddle_tpu_torch.static import InputSpec
+    return [InputSpec([None, 32], "int64", "input_ids"),
+            InputSpec([None, 32], "int64", "token_type_ids")]
+
+
+def test_custom_ops_launch_on_cuda_tensors_and_trace_without(cuda):
+    from paddle_tpu_torch.framework.static_capture import export_scope
+    g = torch.Generator(device=cuda).manual_seed(7)
+    x = torch.randn(64, 768, device=cuda, generator=g)
+    w, b = torch.ones(768, device=cuda), torch.zeros(768, device=cuda)
+    q = torch.randn(2, 128, 4, 64, device=cuda, generator=g).bfloat16()
+    n_ln, n_fa = ln.fused_layer_norm.launches, fa.flash_attention_fwd.launches
+    y = torch.ops.paddle_tpu_torch.fused_layer_norm(x, w, b, 1e-5)
+    o, lse = torch.ops.paddle_tpu_torch.flash_attention_fwd(
+        q, q, q, False, 0.125)
+    torch.cuda.synchronize()
+    assert (ln.fused_layer_norm.launches, fa.flash_attention_fwd.launches) \
+        == (n_ln + 1, n_fa + 1)
+    torch.testing.assert_close(y, ln.layer_norm_plain(x, w, b), **TOL[
+        torch.float32])
+    want_o, want_lse = fa.flash_attention_fwd_plain(q, q, q, False, 0.125)
+    torch.testing.assert_close(o.float(), want_o.float(),
+                               **TOL[torch.bfloat16])
+    assert lse.dtype == torch.float32 and lse.shape == (2, 4, 128)
+
+    class M(torch.nn.Module):
+        def forward(self, x, q):
+            return (torch.ops.paddle_tpu_torch.fused_layer_norm(x, w, b, 1e-5),
+                    fa.flash_attention(q, q, q))
+
+    with torch.no_grad(), export_scope():
+        torch.export.export(M(), (x, q))
+    assert (ln.fused_layer_norm.launches, fa.flash_attention_fwd.launches) \
+        == (n_ln + 1, n_fa + 1)
+
+
+def test_exported_bert_launches_the_kernels_from_the_loaded_program(
+        cuda, tmp_path):
+    from paddle_tpu_torch import inference, jit
+    net = _deploy_bert(cuda)
+    jit.save(net, str(tmp_path / "b"), input_spec=_deploy_specs())
+    pred = inference.create_predictor(
+        inference.Config(str(tmp_path / "b.pdmodel")))
+    assert pred.device.type == "cuda"
+    for rows in (1, 5):
+        ids = np.random.RandomState(rows).randint(0, 1000, (rows, 32))
+        types = np.zeros_like(ids)
+        before = (ln.fused_layer_norm.warp_launches,
+                  fa.flash_attention_fwd.launches)
+        got = pred.run([ids, types])
+        torch.cuda.synchronize()
+        # 2L + 1 LayerNorms (warp-row), L flash forwards (float32: the
+        # CUDA-core route)
+        assert (ln.fused_layer_norm.warp_launches - before[0],
+                fa.flash_attention_fwd.launches - before[1]) == (5, 2)
+        with torch.no_grad():
+            want = net(torch.from_numpy(ids).to(cuda),
+                       torch.from_numpy(types).to(cuda))
+        for g, w in zip(got, want):
+            torch.testing.assert_close(torch.from_numpy(g), w.cpu(),
+                                       **TOL[torch.float32])
+
+
+def test_an_artifact_saved_on_the_card_runs_on_the_cpu_and_back(
+        cuda, tmp_path):
+    from paddle_tpu_torch import jit
+    net = _deploy_bert(cuda, layers=1)
+    jit.save(net, str(tmp_path / "c"), input_spec=_deploy_specs())
+    ids = np.random.RandomState(0).randint(0, 1000, (3, 32))
+    types = np.zeros_like(ids)
+    host = jit.load(str(tmp_path / "c"), device="cpu")
+    card = jit.load(str(tmp_path / "c"))
+    assert card.device.type == "cuda"
+    on_cpu = host(ids, types)
+    on_card = card(ids, types)
+    for a, b in zip(on_cpu, on_card):
+        assert a.device.type == "cpu" and b.device.type == "cuda"
+        torch.testing.assert_close(b.cpu(), a, **TOL[torch.float32])

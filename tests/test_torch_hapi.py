@@ -483,8 +483,6 @@ def test_what_is_not_ported_raises_naming_its_item(tmp_path):
     x, y, w, b = _classifier_data(17)
     m = _port_classifier(w, b)
     with pytest.raises(NotImplementedError, match="Queue 1 item 5"):
-        m.save(str(tmp_path / "x"), training=False)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 5"):
         m.summary()
     for kw, item in (({"zero": 1}, 4),
                      ({"grad_comm": "int8"}, 4), ({"prefetch": True}, 5),

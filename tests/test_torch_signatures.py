@@ -243,8 +243,6 @@ def _not_ported_calls():
         "minimize startup_program": lambda: minimize(
             startup_program=object()),
         "minimize parameters": lambda: minimize(parameters=[]),
-        "DataLoader return_list": lambda: pt.io.DataLoader(
-            [1, 2], return_list=False),
         "resnet50 pretrained": lambda: vision.models.resnet50(
             pretrained=True),
         "margin_cross_entropy group": lambda:
@@ -276,8 +274,9 @@ def _ported_checks():
     slice was ported (ROADMAP Queue 1 item 2, the serving periphery, item
     3, observability, and item 6, the op library and ``nn``: the pools'
     ``return_mask``, ``ctc_loss`` and the conv layers since its second
-    part, the ``sequence_*`` functions since its last), each with a check
-    of what it does now."""
+    part, the ``sequence_*`` functions since its last; item 5's deployment
+    slice: ``DataLoader``'s static-mode arguments and ``minimize`` in
+    static mode), each with a check of what it does now."""
     from paddle_tpu.hapi.callbacks import ProfilerCallback as JaxCallback
     from paddle_tpu.serving.scheduler import Scheduler as JaxScheduler
     from paddle_tpu_torch.framework import trace_probe
@@ -445,12 +444,42 @@ def _ported_checks():
         assert tuple(conv.weight.shape) == (3, 2, 3, 3)
         assert conv(torch.zeros(1, 5, 5, 2)).shape == (1, 5, 5, 3)
 
+    def data_loader_static():
+        batches = [pt.io.DataLoader([1, 2, 3], batch_size=2, **kw)
+                   for kw in ({}, dict(feed_list=[object()], places=[
+                       pt.CPUPlace()], return_list=False))]
+        assert [list(map(torch.Tensor.tolist, (b for b in loader)))
+                for loader in batches] == [[[1, 2], [3]]] * 2
+
+    def minimize_static():
+        from paddle_tpu_torch import static
+        from paddle_tpu_torch.optimizer import SGD
+        old = pt.get_device()
+        pt.set_device("cpu")
+        main = static.Program()
+        try:
+            with static.program_guard(main):
+                x = static.data("x", [None, 2])
+                p = torch.nn.Parameter(torch.ones(2))
+                loss = (x * p).sum()
+                opt = SGD(0.5, parameters=[p])
+                assert opt.minimize(loss, startup_program=static.Program()) \
+                    == ([], [])
+        finally:
+            pt.set_device(old)
+        assert main._loss is loss and main._optimizer is opt
+        static.Executor().run(main, feed={"x": np.ones((1, 2), "float32")},
+                              fetch_list=[loss])
+        assert p.tolist() == [0.5, 0.5]
+
     return {
         "max_pool2d return_mask": return_mask,
         "adaptive_max_pool1d return_mask": adaptive_mask,
         "functional ctc_loss": ctc_loss,
         "functional sequence_pad": sequence_pad,
         "layer Conv2D": conv2d_layer,
+        "DataLoader feed_list places return_list": data_loader_static,
+        "minimize startup_program in static mode": minimize_static,
         "MultiHeadAttention need_weights": need_weights,
         "Linear initializer": initializer,
         "ProfilerCallback": profiler_callback,
