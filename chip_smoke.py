@@ -290,6 +290,33 @@ prints no result line):
    equal to the ``Predictor``'s. Phase 12's K2/K4 launches at ``[32,
    128]`` join the ``_bert`` rows; ``fused_adamw_step_lenet`` holds K8
    over LeNet's float32 list;
+13. the core API (``phase_core_api``, after phase 12): GPT-2 small as
+   phase 4 trains it (bf16 O2, AdamW with f32 masters, 8 x 1024) through
+   ``Model.fit``, fed as a GPT-2 trainer feeds it: a ``uint16`` token file
+   of ``RandomState(SEED)`` tokens read through ``np.memmap`` windows, a
+   shuffled ``io.DistributedBatchSampler`` (one replica, epoch 0) and
+   ``io.DataLoader`` with ``default_collate_fn``. Run A: no worker,
+   ``prefetch=False``; run B: 2 worker processes and ``device_prefetch``
+   (pinned copies on its own stream); in the order A, B, B, A from the
+   same seeded weights: every run sees the same batches (a checksum of
+   each batch's ids) and the same losses within bf16's ``TOL``, launches
+   K2 = K3 = 25, K4 = K6 = 12 (tensor-core, warp-row) and K8 =
+   ``adamw_plan``'s count a step, exactly, with no plain version; B's
+   steps from the second on run under ``set_sync_debug_mode("error")``
+   (the prefetch producer's and consumer's work in them too); ms a step
+   (CUDA events), tokens/s, ``prefetch_wait_ms`` p50/p95 and the workers'
+   start-up. Then gradient accumulation at full width: two
+   ``train_batch(update=False)`` calls on the halves of a batch leave
+   ``.grad`` equal to the sum of ``autograd.grad`` of each half (within
+   bf16 ``TOL`` of each tensor's largest), with K8 0 and K6 12 a call and
+   ``.grad`` untouched by ``autograd.grad``; an ``update=True`` call
+   launches K8's plan and clears ``.grad``. ``Model.summary``'s
+   ``total_params`` equals the parameters' count; ``flops`` of one
+   ``[8, 1024]`` forward beside 6 x parameters x tokens;
+   ``device.cuda.max_memory_allocated()`` equals torch's, and
+   ``device.memory_summary()`` is printed; a ``utils.dlpack`` round trip
+   keeps the tensor's ``data_ptr()``. Its launches join the GPT-2 train
+   rows (K2/K3 f32, K4/K6 and K8 bf16);
 8. real operands: the layer-0 operands of one real step of each path
    through kernel and plain: the engine's attention rows (float, int8
    and fp8 pools) at its widest step and at its last decode-only step
@@ -370,6 +397,7 @@ from __future__ import annotations
 
 import collections
 import contextlib
+import faulthandler
 import gc
 import json
 import math
@@ -6725,10 +6753,360 @@ def phase_deploy(device, timer):
     return bert, lenet
 
 
+# ---------------------------------------------------------------- phase 13
+CORE_WARM, CORE_TIMED = 2, 6    # steps of each loader run
+CORE_WORKERS = 2
+CORE_ORDER = "ABBA"
+
+
+def token_windows(path):
+    """A GPT-2 trainer's data: ``(ids, labels)`` windows of ``SEQ + 1``
+    tokens read from a ``uint16`` token file through ``np.memmap``."""
+    import paddle_tpu_torch as pt
+
+    class TokenWindows(pt.io.Dataset):
+        def __init__(self):
+            self.tokens = np.memmap(path, dtype=np.uint16, mode="r")
+
+        def __len__(self):
+            return len(self.tokens) // (SEQ + 1)
+
+        def __getitem__(self, i):
+            w = self.tokens[i * (SEQ + 1):(i + 1) * (SEQ + 1)].astype(
+                np.int64)
+            return w[:-1], w[1:]
+
+    return TokenWindows()
+
+
+def core_loader(ds, workers):
+    """``ds`` through a shuffled ``DistributedBatchSampler`` (one replica,
+    epoch 0) and the port's ``DataLoader`` with ``workers`` workers."""
+    import paddle_tpu_torch as pt
+    sampler = pt.io.DistributedBatchSampler(ds, batch_size=BATCH,
+                                            num_replicas=1, rank=0,
+                                            shuffle=True)
+    sampler.set_epoch(0)
+    loader = pt.io.DataLoader(ds, batch_sampler=sampler,
+                              num_workers=workers,
+                              collate_fn=pt.io.default_collate_fn)
+    if not isinstance(loader, pt.io.DataLoader) or \
+            len(loader) != CORE_WARM + CORE_TIMED:
+        raise AssertionError(f"phase 13: the loader {type(loader)} of "
+                             f"{len(loader)} batches")
+    return loader
+
+
+def core_model(device):
+    """GPT-2 small as phase 4 builds it (bf16 O2, AdamW with f32 masters)
+    from the weights of one seed."""
+    from paddle_tpu_torch.hapi import Model
+    from paddle_tpu_torch.optimizer import AdamW
+    net, cfg = gpt2_small(SEED + 130, device)
+    model = Model(net, inputs=["ids", "labels"], device=device)
+    model.prepare(AdamW(LR, parameters=net.parameters(), weight_decay=WD,
+                        multi_precision=True),
+                  loss=lambda loss, logits: loss,
+                  amp_configs={"level": "O2", "dtype": "bfloat16"})
+    return model, net, cfg
+
+
+def core_run(what, device, ds, workers, prefetch, counters):
+    """One ``Model.fit`` epoch of a fresh seeded GPT-2 small over ``ds``
+    with ``workers`` loader workers and ``prefetch``: each step's batch
+    checksum and loss (kept on the card, read after the fit), CUDA events
+    at each step's end, the launches counted over the fit; with
+    ``prefetch``, every step from the second on (the prefetch producer's
+    and consumer's work in them too) under sync debug "error". Returns
+    the run's record and the Model."""
+    from paddle_tpu_torch.framework import monitor
+    from paddle_tpu_torch.hapi import Callback
+    model, net, cfg = core_model(device)
+    n = CORE_WARM + CORE_TIMED
+    weights = torch.arange(1, BATCH * SEQ + 1, device=device).view(
+        BATCH, SEQ)
+    sums, losses, stamps, first = [], [], [], []
+
+    def spy(inputs, labels, update=True, _orig=model._train_step):
+        if not first:
+            first.append(time.perf_counter())
+        sums.append((inputs[0].long() * weights).sum())
+        loss, outs = _orig(inputs, labels, update)
+        losses.append(loss)
+        return loss, outs
+
+    class Steps(Callback):
+        def on_train_batch_begin(self, step, logs=None):
+            if step == 1 and prefetch:
+                torch.cuda.set_sync_debug_mode("error")
+
+        def on_train_batch_end(self, step, logs=None):
+            ev = torch.cuda.Event(enable_timing=True)
+            ev.record()
+            stamps.append(ev)
+            if step == n - 1:
+                torch.cuda.set_sync_debug_mode(0)
+
+        def on_train_abort(self):
+            torch.cuda.set_sync_debug_mode(0)
+
+    model._train_step = spy
+    loader = core_loader(ds, workers)
+    waits0 = len(monitor.histogram_samples("prefetch_wait_ms"))
+    batches0 = monitor.stat_get("prefetch_batches")
+    torch.cuda.synchronize()
+    gc.collect()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts(counters)
+    with count_plain() as plain:
+        t0 = time.perf_counter()
+        model.fit(loader, epochs=1, log_freq=10 * n, verbose=0,
+                  prefetch=prefetch, callbacks=[Steps()])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    launches = read_counts(counters)
+    del model._train_step
+    peak = torch.cuda.max_memory_allocated()
+    if sum(plain.values()) or len(losses) != n:
+        raise AssertionError(f"phase 13 {what}: plain versions "
+                             f"{dict(plain)}, {len(losses)} steps")
+    check_launches(f"phase 13 {what}", launches, expected_launches(
+        cfg.num_hidden_layers, [p.numel() for p in net.parameters()]), n)
+    check_flash_route(f"phase 13 {what}", counters, "tc")
+    check_ln_route(f"phase 13 {what}", (counters["fused_layer_norm"],
+                                        counters["fused_layer_norm_bwd"]))
+    step_ms = [stamps[i - 1].elapsed_time(stamps[i])
+               for i in range(CORE_WARM, n)]
+    timed_ms = stamps[CORE_WARM - 1].elapsed_time(stamps[-1])
+    waits = monitor.histogram_samples("prefetch_wait_ms")[waits0:]
+    rec = {"sums": [int(s) for s in sums],
+           "losses": [float(x) for x in losses],
+           "launches": launches, "step_ms": step_ms,
+           "ms": timed_ms / CORE_TIMED,
+           "tokens_s": BATCH * SEQ * CORE_TIMED / timed_ms * 1e3,
+           "first_batch_s": first[0] - t0, "wall": wall, "peak": peak,
+           "waits": waits,
+           "batches": monitor.stat_get("prefetch_batches") - batches0}
+    if not all(math.isfinite(x) for x in rec["losses"]):
+        raise AssertionError(f"phase 13 {what}: losses {rec['losses']}")
+    return rec, model
+
+
+def no_update(n_layers):
+    """The launches of one forward and backward without a step."""
+    return dict(expected_launches(n_layers, []), fused_adamw=0)
+
+
+def core_accumulate(model, ids, labels, counters):
+    """``train_batch(update=False)`` on the two halves of one batch against
+    ``autograd.grad`` of each half, then one ``update=True`` call. Returns
+    the launches of the grad calls and the train_batch calls and the
+    largest difference over each tensor's largest value."""
+    import paddle_tpu_torch as pt
+    import paddle_tpu_torch.optimizer.optimizer as opt_module
+    net = model.network
+    params = [p for p in net.parameters() if p.requires_grad]
+    numels = [p.numel() for p in params]
+    backward = no_update(net.gpt.cfg.num_hidden_layers)
+    halves = [[torch.from_numpy(a[rows]).to(model.device)
+               for a in (ids, labels)]
+              for rows in (slice(0, BATCH // 2), slice(BATCH // 2, BATCH))]
+    model._optimizer.clear_grad()
+    want = None
+    total = {}
+    for h in halves:
+        reset_counts(counters)
+        with model._maybe_amp():
+            _, loss = model._forward(h, [])
+        got = pt.autograd.grad(loss, params, retain_graph=False)
+        counts = read_counts(counters)
+        if any(p.grad is not None for p in params) or counts != backward:
+            raise AssertionError(f"phase 13 autograd.grad: launches {counts}"
+                                 f", .grad set on "
+                                 f"{sum(p.grad is not None for p in params)}")
+        want = got if want is None else [a + b for a, b in zip(want, got)]
+        for k, v in counts.items():
+            total[k] = total.get(k, 0) + v
+    grad_counts = dict(total)
+    with count_plain() as plain:
+        for h in halves:
+            reset_counts(counters)
+            model.train_batch(h, update=False)
+            counts = read_counts(counters)
+            if counts != backward:
+                raise AssertionError(f"phase 13 update=False: launches "
+                                     f"{counts}")
+            for k, v in counts.items():
+                total[k] += v
+            if any(p.grad is None for p in params):
+                raise AssertionError("phase 13 update=False: .grad unset")
+        worst = 0.0
+        for p, w in zip(params, want):
+            err = (p.grad.float() - w.float()).abs().max().item()
+            scale = max(w.float().abs().max().item(), 1e-30)
+            atol, _ = TOL[torch.bfloat16]
+            if err > atol * scale:
+                raise AssertionError(f"phase 13: accumulated .grad off the "
+                                     f"summed autograd.grad by {err} "
+                                     f"(largest {scale})")
+            worst = max(worst, err / scale)
+        reset_counts(counters)
+        model.train_batch(halves[0], update=True)
+        counts = read_counts(counters)
+    if counts != expected_launches(net.gpt.cfg.num_hidden_layers, numels) \
+            or any(p.grad is not None for p in params) or sum(plain.values()):
+        raise AssertionError(f"phase 13 update=True: launches {counts}, "
+                             f"plain {dict(plain)}")
+    for k, v in counts.items():
+        total[k] += v
+    return grad_counts, total, worst
+
+
+def phase_core_api(device, card):
+    """13: the core API on GPT-2 small (phase 4's model and optimizer)
+    trained through ``Model.fit`` fed the way a GPT-2 trainer feeds it: a
+    ``uint16`` token file read through ``np.memmap`` windows, a shuffled
+    ``DistributedBatchSampler`` and the port's ``DataLoader``. Run A: no
+    worker, no prefetch; run B: 2 workers and ``device_prefetch``; in the
+    order A, B, B, A, each from the same seeded weights: the same batches
+    and losses, the launches of phase 4 a step, no host sync in B's steps
+    from the second on. Then gradient accumulation
+    (``train_batch(update=False)``) against ``autograd.grad`` at full
+    width, ``Model.summary``, ``flops``, ``device.cuda`` and ``utils.
+    dlpack`` on the card. Returns the launches of its counted runs."""
+    import tempfile
+    import paddle_tpu_torch as pt
+    from paddle_tpu_torch.models import GPTConfig
+    t_phase = time.perf_counter()
+    counters = train_counters()
+    n = CORE_WARM + CORE_TIMED
+    vocab = GPTConfig.gpt2_small().vocab_size
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_tokens_") as tmp:
+        path = os.path.join(tmp, "tokens.u16")
+        np.random.RandomState(SEED).randint(
+            0, vocab, BATCH * n * (SEQ + 1)).astype(np.uint16).tofile(path)
+        ds = token_windows(path)
+        runs, model = {"A": [], "B": []}, None
+        for which in CORE_ORDER:        # A B B A: drift falls on both
+            del model
+            gc.collect()
+            workers, prefetch = (0, False) if which == "A" else \
+                (CORE_WORKERS, True)
+            rec, model = core_run(f"{which} ({workers} workers, prefetch "
+                                  f"{prefetch})", device, ds, workers,
+                                  prefetch, counters)
+            runs[which].append(rec)
+            if which == "B" and len(runs["B"]) == 1:
+                peak_b = (pt.device.cuda.max_memory_allocated(),
+                          torch.cuda.max_memory_allocated())
+                summary = pt.device.memory_summary()
+    a = runs["A"][0]
+    for what, r in ((w, r) for w in "AB" for r in runs[w]):
+        if r["sums"] != a["sums"]:
+            raise AssertionError(f"phase 13: run {what} saw other batches: "
+                                 f"{r['sums']}, A {a['sums']}")
+        for i, (x, y) in enumerate(zip(a["losses"], r["losses"])):
+            check_close(f"phase 13 loss {i} A vs {what}", torch.tensor([y]),
+                        torch.tensor([x]), torch.bfloat16)
+        if what == "B" and (r["batches"] != n or len(r["waits"]) != n):
+            raise AssertionError(f"phase 13 B: {r['batches']} prefetched "
+                                 f"batches, {len(r['waits'])} waits")
+        log(f"phase 13 run {what}: GPT-2 small bf16 O2 through Model.fit "
+            f"over np.memmap token windows, DistributedBatchSampler "
+            f"(shuffle, epoch 0) and io.DataLoader: {CORE_TIMED} timed "
+            f"steps {r['ms']:.3f} ms a step (CUDA events), median "
+            f"{float(np.median(r['step_ms'])):.3f} ms, {r['tokens_s']:.1f} "
+            f"tokens/s; first batch in hand {r['first_batch_s']:.3f} s "
+            f"after fit() began; the fit {r['wall']:.3f} s; max memory "
+            f"allocated {r['peak']} bytes; on {card}")
+    if peak_b[0] != peak_b[1]:
+        raise AssertionError(f"phase 13: max_memory_allocated {peak_b}")
+    diff = max(abs(x - y) for w in "AB" for r in runs[w]
+               for x, y in zip(a["losses"], r["losses"]))
+    log(f"phase 13 batch checksums (every run equal): {json.dumps(a['sums'])}")
+    log(f"phase 13 losses A {json.dumps(a['losses'])}: the largest "
+        f"difference of any run's from them {diff}")
+    for w, (ra, rb) in ((w, (runs["A"][i], runs["B"][i]))
+                        for i, w in enumerate(("first", "second"))):
+        log(f"phase 13 {w} pair: A {ra['ms']:.3f} / B {rb['ms']:.3f} ms a "
+            f"step, B/A {rb['ms'] / ra['ms']:.4f}")
+    for i, b in enumerate(runs["B"]):
+        w = np.asarray(b["waits"])
+        log(f"phase 13 B run {i + 1} prefetch: {b['batches']} batches, "
+            f"prefetch_wait_ms p50 {np.percentile(w, 50):.4f} p95 "
+            f"{np.percentile(w, 95):.4f} max {w.max():.4f} first "
+            f"{w[0]:.4f} (all {json.dumps(w.tolist())}); no host sync in "
+            f"steps 2-{n} under sync debug 'error'; B's first batch in "
+            f"hand {b['first_batch_s'] - a['first_batch_s']:.3f} s after "
+            f"A's (the workers' start-up)")
+    log(f"phase 13 launches a run ({n} steps): A "
+        f"{json.dumps(a['launches'])}, B {json.dumps(runs['B'][0]['launches'])}")
+    log("phase 13 device.memory_summary() after the first run B:\n"
+        + summary)
+    log(f"phase 13 device.cuda.max_memory_allocated() {peak_b[0]} = "
+        f"torch.cuda.max_memory_allocated() {peak_b[1]}")
+
+    tokens = np.random.RandomState(SEED + 131).randint(0, vocab,
+                                                       (BATCH, SEQ + 1))
+    grad_counts, acc_counts, worst = core_accumulate(
+        model, tokens[:, :-1], tokens[:, 1:], counters)
+    log(f"phase 13 accumulation: train_batch(update=False) on 2 x [4, "
+        f"{SEQ}]: .grad = the summed autograd.grad within "
+        f"{worst:.3e} of each tensor's largest (bf16 TOL "
+        f"{TOL[torch.bfloat16][0]}), K8 0 until update=True launched "
+        f"{acc_counts['fused_adamw']}; autograd.grad launches "
+        f"{json.dumps(grad_counts)}")
+    net = model.network
+    total = sum(p.numel() for p in net.parameters())
+    got = model.summary()
+    if got["total_params"] != total:
+        raise AssertionError(f"phase 13: Model.summary {got}, {total}")
+    x = torch.from_numpy(tokens[:, :-1]).to(device)
+    y = torch.from_numpy(tokens[:, 1:]).to(device)
+    with model._maybe_amp():
+        fl = pt.flops(net, inputs=[x, y])
+    log(f"phase 13 Model.summary total_params {got['total_params']} = "
+        f"sum(p.numel()); flops of one [{BATCH}, {SEQ}] forward {fl:.4e}, "
+        f"2 x params x tokens {2 * total * BATCH * SEQ:.4e}, 6 x params x "
+        f"tokens {6 * total * BATCH * SEQ:.4e} (ratio "
+        f"{fl / (6 * total * BATCH * SEQ):.4f})")
+    t = torch.arange(1024, device=device, dtype=torch.float32)
+    u = pt.utils.dlpack.from_dlpack(pt.utils.dlpack.to_dlpack(t))
+    if u.data_ptr() != t.data_ptr() or not torch.equal(u, t):
+        raise AssertionError("phase 13: dlpack did not keep the memory")
+    log(f"phase 13 utils.dlpack round trip keeps data_ptr "
+        f"{u.data_ptr():#x}; device {pt.device.get_all_device_type()} "
+        f"cudnn {pt.device.get_cudnn_version()} version.cuda "
+        f"{pt.version.cuda()}")
+    del model, net
+    gc.collect()
+    counts = {k: sum(r["launches"][k] for w in "AB" for r in runs[w])
+              + acc_counts[k] for k in acc_counts}
+    log(f"phase 13: {time.perf_counter() - t_phase:.1f} s")
+    return counts
+
+
+def check_nothing_left_running():
+    """Every phase has stopped what it started: no ``device_prefetch``
+    producer thread and no loader worker process is still alive (either
+    would run on into the interpreter's teardown). Logs every thread
+    still alive."""
+    import multiprocessing
+    gc.collect()
+    threads = [t.name for t in threading.enumerate()
+               if t is not threading.main_thread()]
+    log(f"threads alive at the end: {threads or 'none'}")
+    producers = [n for n in threads if "device_prefetch" in n]
+    children = multiprocessing.active_children()
+    assert not producers, f"device_prefetch producers alive: {producers}"
+    assert not children, f"child processes alive: {children}"
+
+
 def main() -> int:
     global TRACE_ROOT
     import shutil
     import tempfile
+    faulthandler.enable()          # a fatal signal prints every stack
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
@@ -6792,6 +7170,7 @@ def run_phases() -> int:
     _, bert_kernel_rows = phase_bert(device, card, timer, profile)
     phase_text(device, card, swept, profile)
     deploy_launches, lenet_row = phase_deploy(device, timer)
+    core = phase_core_api(device, card)
     kernels = report_engine(device, timer, launches, captured,
                             quant_launches, quant_captured)
     # the engine row of the LayerNorm forward counts the fused engines'
@@ -6816,20 +7195,21 @@ def run_phases() -> int:
     counts = {
         "flash_attention_fwd": train_launches["flash_attention_fwd"]
         + recipe["flash_attention_fwd"] + o1["flash_attention_fwd"]
-        + obs_train["flash_attention_fwd"],
+        + obs_train["flash_attention_fwd"] + core["flash_attention_fwd"],
         "flash_attention_bwd": train_launches["flash_attention_bwd"]
         + recipe["flash_attention_bwd"] + o1["flash_attention_bwd"]
-        + obs_train["flash_attention_bwd"],
+        + obs_train["flash_attention_bwd"] + core["flash_attention_bwd"],
         "flash_attention_fwd_f32": f32_launches["flash_attention_fwd"],
         "flash_attention_bwd_f32": f32_launches["flash_attention_bwd"],
         "fused_layer_norm_train": sum(
             r["fused_layer_norm"] for r in (train_launches, recipe, fp16,
-                                            o1, obs_train)),
+                                            o1, obs_train, core)),
         "fused_layer_norm_bwd": sum(
             r["fused_layer_norm_bwd"] for r in (train_launches, recipe,
-                                                fp16, o1, obs_train)),
+                                                fp16, o1, obs_train, core)),
         "fused_adamw": train_launches["fused_adamw"]
-        + recipe["fused_adamw"] + obs_train["fused_adamw"],
+        + recipe["fused_adamw"] + obs_train["fused_adamw"]
+        + core["fused_adamw"],
         "flash_attention_fwd_f16": fp16["flash_attention_fwd"],
         "flash_attention_bwd_f16": fp16["flash_attention_bwd"],
         "fused_layer_norm_f16": 0,
@@ -6863,6 +7243,7 @@ def run_phases() -> int:
                 row["launches"] += deploy_launches[count]
     kernels += bert_kernel_rows
     kernels.append(lenet_row)
+    check_nothing_left_running()
     for k in kernels:
         for key, v in k.items():
             if isinstance(v, float) and not math.isfinite(v):

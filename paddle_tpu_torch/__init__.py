@@ -51,8 +51,12 @@ The tensor is ``torch.Tensor`` itself.
 """
 import torch as _torch
 
-from . import (amp, callbacks, hapi, inference, io, jit, metric, nn, ops,
-               optimizer, profiler, regularizer, static, text, utils)
+from . import (amp, autograd, callbacks, compat, device, hapi, inference, io,
+               jit, metric, nn, ops, optimizer, profiler, regularizer, static,
+               sysconfig, text, utils, version)
+from .autograd import grad
+from .batch import batch
+from .hapi.model_summary import flops, summary
 from .nn.layer.layers import ParamAttr
 from .framework import metrics
 from .framework.dispatch import call_op
@@ -61,8 +65,8 @@ from .framework.io import load, save
 from .framework.dtypes import NAMES as _DTYPES
 from .framework.dtypes import get_default_dtype, set_default_dtype
 from .framework.metrics import statusz
-from .framework.place import (CPUPlace, CUDAPinnedPlace, CUDAPlace, Place,
-                              current_place, get_device,
+from .framework.place import (CPUPlace, CUDAPinnedPlace, CUDAPlace, NPUPlace,
+                              Place, TPUPlace, current_place, get_device,
                               is_compiled_with_tpu, set_device)
 from .framework.random import get_rng_state as get_cuda_rng_state
 from .framework.random import seed
@@ -80,13 +84,15 @@ bool_ = _torch.bool
 #: a context manager (and decorator) setting grad recording to ``mode``
 set_grad_enabled = grad_enabled_guard
 
-__all__ = ["seed", "amp", "callbacks", "hapi", "inference", "io", "jit",
-           "metric", "metrics", "models", "nn", "ops", "optimizer",
-           "profiler", "regularizer", "serving", "static", "text", "utils",
-           "vision", "enable_static", "disable_static", "in_dynamic_mode",
-           "save", "load", "call_op", "ParamAttr",
-           "tensor", "get_device", "set_device", "Model", "Place",
-           "CPUPlace", "CUDAPlace", "CUDAPinnedPlace", "current_place",
+__all__ = ["seed", "amp", "autograd", "callbacks", "compat", "device", "hapi",
+           "inference", "io", "jit", "metric", "metrics", "models", "nn",
+           "ops", "optimizer", "profiler", "regularizer", "serving",
+           "static", "sysconfig", "text", "utils", "version", "vision",
+           "grad", "batch", "summary", "flops", "enable_static",
+           "disable_static", "in_dynamic_mode", "save", "load", "call_op",
+           "ParamAttr", "tensor", "get_device", "set_device", "Model",
+           "Place", "CPUPlace", "CUDAPlace", "CUDAPinnedPlace", "NPUPlace",
+           "TPUPlace", "current_place",
            "is_compiled_with_tpu", "get_flags", "set_flags", "statusz",
            "Tensor", "dtype", "bool_", "get_default_dtype",
            "set_default_dtype", "get_cuda_rng_state", "set_cuda_rng_state",
@@ -97,11 +103,9 @@ __all__ = ["seed", "amp", "callbacks", "hapi", "inference", "io", "jit",
 #: item: multi-device (4) and API breadth (5)
 _DEFERRED = dict.fromkeys(("DataParallel", "distributed", "parallel"), 4)
 _DEFERRED.update(dict.fromkeys((
-    "NPUPlace", "TPUPlace", "grad", "summary", "flops", "batch",
-    "analysis", "autograd", "compat", "cost_model", "dataset", "device",
-    "distribution", "fft", "fluid", "hub", "incubate", "linalg", "onnx",
-    "quantization", "reader", "signal", "sparse", "sysconfig", "version"),
-    5))
+    "analysis", "cost_model", "dataset", "distribution", "fft", "fluid",
+    "hub", "incubate", "linalg", "onnx", "quantization", "reader", "signal",
+    "sparse"), 5))
 
 #: the model code, imported at first use: loading a ``jit.save`` artifact
 #: (``jit.load``, ``inference``) needs the op library and no model code

@@ -52,7 +52,7 @@ import weakref
 
 import torch
 
-__all__ = ["auto_cast", "decorate", "GradScaler", "cast_inputs",
+__all__ = ["auto_cast", "amp_guard", "decorate", "GradScaler", "cast_inputs",
            "is_auto_cast_enabled", "get_amp_dtype", "get_amp_level",
            "white_list", "black_list", "active_scaler"]
 
@@ -100,6 +100,10 @@ def auto_cast(enable=True, custom_white_list=None, custom_black_list=None,
         yield
     finally:
         _state.policy = old
+
+
+#: the reference's older name of ``auto_cast``
+amp_guard = auto_cast
 
 
 def is_auto_cast_enabled() -> bool:

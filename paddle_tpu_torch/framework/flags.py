@@ -1,6 +1,6 @@
 """``FLAGS_*`` get and set (counterpart of ``paddle_tpu/framework/
 flags.py``): the flags that ``call_op``, the span profiler and
-``Model.fit``'s numerics read. A flag may be seeded from
+``Model.fit``'s numerics and prefetch read. A flag may be seeded from
 an environment variable of its name (``FLAGS_flight_dump_dir`` is read
 from the environment at each dump). ``FLAGS_pallas_force`` has no
 counterpart: on the card the kernels are always used."""
@@ -38,6 +38,10 @@ _DEFAULTS = {
                                   "profiler.dropped())"),
     "FLAGS_numerics": ("", "Default numerics-health mode for Model.fit "
                        "(off|record|warn|halt)"),
+    "FLAGS_hapi_prefetch": (True, "Route Model.fit/evaluate batches "
+                            "through io.device_prefetch (the copy to the "
+                            "card overlaps the step before); off for "
+                            "iterables that must not be read ahead"),
 }
 
 _values: Dict[str, Any] = {

@@ -1,6 +1,8 @@
 """Places and the default device (counterpart of
 ``paddle_tpu/framework/place.py``): ``CPUPlace`` and ``CUDAPlace(i)`` map
-to ``torch.device``; ``CUDAPinnedPlace`` is host memory (the CPU).
+to ``torch.device``; ``CUDAPinnedPlace`` is host memory (the CPU);
+``NPUPlace`` and ``TPUPlace`` raise on construction, as the reference's
+places of a device its build lacks do.
 
 The default place is ``"gpu:0"``, which resolves through
 ``_device.resolve_device``: without a card it raises instead of falling
@@ -13,8 +15,8 @@ import torch
 
 from .._device import resolve_device
 
-__all__ = ["Place", "CPUPlace", "CUDAPlace", "CUDAPinnedPlace",
-           "set_device", "get_device", "is_compiled_with_tpu",
+__all__ = ["Place", "CPUPlace", "CUDAPlace", "CUDAPinnedPlace", "NPUPlace",
+           "TPUPlace", "set_device", "get_device", "is_compiled_with_tpu",
            "current_place", "to_torch_device", "from_torch_device"]
 
 
@@ -44,6 +46,26 @@ class CPUPlace(Place):
 
 class CUDAPlace(Place):
     device_type = "gpu"
+
+
+class _UnavailablePlace(Place):
+    """A place of a device family this build has no support for: making
+    one raises, as the reference does on a build without that device."""
+    _kind = "device"
+
+    def __init__(self, device_id=0):
+        raise RuntimeError(
+            f"{type(self).__name__}: paddle_tpu_torch runs on CUDA cards "
+            f"and the CPU; {self._kind} devices do not exist in this build "
+            f"(the reference raises likewise unless compiled with them)")
+
+
+class NPUPlace(_UnavailablePlace):
+    _kind = "NPU"
+
+
+class TPUPlace(_UnavailablePlace):
+    _kind = "TPU"
 
 
 class CUDAPinnedPlace(Place):

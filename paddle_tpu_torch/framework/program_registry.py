@@ -228,3 +228,16 @@ def peak_flops(device_kind: Optional[str] = None) -> Optional[float]:
         if sub in dk:
             return peak
     return None
+
+
+#: the JAX registry's names for its compiled programs' analysis (AOT
+#: sites, XLA cost and memory analysis); they come with ``analysis/``
+#: re-targeted to ``torch.fx`` (ROADMAP Queue 1 item 5, step 7)
+_DEFERRED = ("AotSite", "aot_site", "analyze_compiled", "analyze_callable")
+
+
+def __getattr__(name):
+    if name in _DEFERRED:
+        from ..ops.registry import not_ported
+        raise not_ported(f"framework.program_registry.{name}", 5)
+    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")

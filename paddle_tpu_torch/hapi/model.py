@@ -56,10 +56,17 @@ Model's ``InputSpec``s and runs each batch as one ``Executor.run``.
 through ``jit.save(network, path, input_spec=inputs)``, under the AMP
 policy of ``prepare``.
 
+Batches reach the device through ``io.device_prefetch`` in ``fit`` and
+``evaluate`` (``prefetch=None`` defers to ``FLAGS_hapi_prefetch``, on by
+default, as in the JAX package; static mode never prefetches): the copy
+of the next batch runs on its own CUDA stream under the current step.
+``train_batch(update=False)`` accumulates the gradients into ``.grad``
+without a step, as the reference's dygraph adapter does; the next
+``update=True`` call steps on their sum and clears them.
+
 Not ported, each raising ``NotImplementedError`` that names its ROADMAP
-item: ``summary``, ``fit(prefetch=, analyze=)``, ``evaluate(prefetch=)``
-and ``train_batch(update=False)`` (Queue 1 item 5), ``fit(zero=,
-grad_comm=)`` (item 4).
+item: ``fit(analyze=)`` and static-mode ``train_batch(update=False)``
+(Queue 1 item 5), ``fit(zero=, grad_comm=)`` (item 4).
 
 ``eval_batch``/``evaluate`` give the loss only for batches with labels,
 as the JAX package does: under an ``inputs``-only spec (GPT, which takes
@@ -82,8 +89,9 @@ from .._device import resolve_device
 from ..framework import program_registry as _registry
 from ..framework.io import load as _load
 from ..framework.io import save as _save
+from ..framework.flags import flag_value
 from ..framework.monitor import stat_add, stat_get, stat_observe
-from ..io import DataLoader
+from ..io import DataLoader, device_prefetch
 from ..metric import Metric
 from ..profiler import memory as _memory
 from ..profiler import numerics as _numerics
@@ -109,6 +117,19 @@ def _drop_ledger_keys(keys):
     module function so the finalizer holds no reference to the Model."""
     for k in keys:
         _memory.ledger_drop(k)
+
+
+@contextlib.contextmanager
+def _closing(data_iter, loader):
+    """``data_iter``; when it is the prefetching generator made over
+    ``loader``, closed on the way out, which stops its producer thread at
+    once, also when a step raised (the caller's own iterable is left
+    open)."""
+    try:
+        yield data_iter
+    finally:
+        if data_iter is not loader:
+            data_iter.close()
 
 
 def _nbytes(tensors) -> int:
@@ -315,6 +336,8 @@ class Model:
         return batch[:n_in], batch[n_in:]
 
     def _to_device(self, tensors):
+        """The batch's tensors on the Model's device: one already there
+        (a prefetched batch) is passed on as it is, not copied."""
         return [torch.as_tensor(t).to(self.device, non_blocking=True)
                 for t in tensors]
 
@@ -334,22 +357,27 @@ class Model:
             loss = self._loss(*outs, *labels) if with_loss else None
         return outs, loss
 
-    def _train_step(self, inputs, labels):
+    def _train_step(self, inputs, labels, update=True):
         """One eager step on device tensors; returns the loss as a device
         scalar and the outputs. With numerics armed, the step's audit
-        vector is queued on the device (read nothing back)."""
+        vector is queued on the device (read nothing back). Without
+        ``update`` the gradients accumulate into ``.grad``: no optimizer
+        step, no ``clear_grad``."""
         if self._loss is None:
             raise RuntimeError(
                 "no loss configured: call model.prepare(optimizer, loss) "
                 "before fit/train_batch")
+        adapter = self._static()
+        if adapter is not None and not update:
+            raise _not_ported("train_batch(update=False) in static mode", 5)
         self._step_counter += 1
         t0 = time.perf_counter()
         if self._flush_t0 is None:
             self._flush_t0 = t0
         self._flush_steps += 1
         self._flush_flops += self._counted_flops(inputs) or 0.0
-        audit = self._audit_collect and self._audit_layout is not None
-        adapter = self._static()
+        audit = update and self._audit_collect and \
+            self._audit_layout is not None
         if adapter is not None:
             with _prof.record("hapi/train_batch", "hapi"):
                 loss, outs = adapter.train_step(inputs, labels)
@@ -364,10 +392,11 @@ class Model:
                 if self._numerics_inject_inf_at == self._step_counter:
                     loss = loss.float() * float("inf")
             loss.backward()
-            self._optimizer.step()
-            if audit:
-                self._audit(loss, train, olds)
-            self._optimizer.clear_grad()
+            if update:
+                self._optimizer.step()
+                if audit:
+                    self._audit(loss, train, olds)
+                self._optimizer.clear_grad()
         # the host's time to queue the step (no sync: the card runs on)
         stat_observe("hapi/step_time_ms", (time.perf_counter() - t0) * 1e3)
         return loss.detach(), [o.detach() if torch.is_tensor(o) else o
@@ -555,15 +584,15 @@ class Model:
                     return_numpy=True):
         """One optimizer step on one batch: the loss as a float (with
         ``return_numpy=False`` a device scalar, read back by nobody), with
-        the metrics' results beside it when there are metrics. Every call
-        steps: ``update=False`` (gradients without a step) is not ported
-        yet (ROADMAP Queue 1 item 5)."""
-        if not update:
-            raise _not_ported("train_batch(update=False)", 5)
+        the metrics' results beside it when there are metrics. With
+        ``update=False`` the batch's gradients are added to ``.grad`` and
+        nothing steps (gradient accumulation); the next ``update=True``
+        call steps on the summed gradients and clears them. Static mode
+        takes only ``update=True`` (ROADMAP Queue 1 item 5)."""
         self.network.train()
         labels = self._to_device(_to_list(labels))
         loss, outs = self._train_step(self._to_device(_to_list(inputs)),
-                                      labels)
+                                      labels, update)
         metrics = self._update_metrics(outs, labels)
         if return_numpy:
             loss = float(loss)
@@ -607,6 +636,19 @@ class Model:
                 else o.cpu().numpy() for o in outs]
 
     # -- fit / evaluate / predict -------------------------------------------
+    def _maybe_prefetch(self, loader, prefetch, buffer_size=2):
+        """``loader`` through ``io.device_prefetch`` onto the Model's device
+        unless ``prefetch`` is off (``None`` defers to
+        ``FLAGS_hapi_prefetch``) or static mode is on."""
+        if loader is None or self._static() is not None:
+            return loader
+        if prefetch is None:
+            prefetch = bool(flag_value("FLAGS_hapi_prefetch"))
+        if not prefetch:
+            return loader
+        return device_prefetch(loader, buffer_size=buffer_size,
+                               device=self.device)
+
     def _as_loader(self, data, batch_size, shuffle, num_workers, drop_last):
         if isinstance(data, torch.utils.data.Dataset):
             return DataLoader(data, batch_size=batch_size, shuffle=shuffle,
@@ -621,10 +663,10 @@ class Model:
         """Train over ``train_data`` (a ``Dataset`` or an iterable of
         batches) for ``epochs`` epochs, evaluating on ``eval_data`` every
         ``eval_freq`` epochs and, with ``save_dir``, checkpointing every
-        ``save_freq`` epochs and at the end. ``prefetch_buffer_size``
-        sizes ``prefetch``'s buffer, which is not ported."""
-        for opt, value, item in (("prefetch", prefetch, 5),
-                                 ("analyze", analyze, 5),
+        ``save_freq`` epochs and at the end. Batches reach the device
+        through ``io.device_prefetch``, ``prefetch_buffer_size`` ahead,
+        unless ``prefetch`` is off (``None``: ``FLAGS_hapi_prefetch``)."""
+        for opt, value, item in (("analyze", analyze, 5),
                                  ("zero", zero, 4),
                                  ("grad_comm", grad_comm, 4)):
             if value not in (None, False, 0, "off", "fp32"):
@@ -673,23 +715,26 @@ class Model:
                 for m in self._metrics:
                     m.reset()
                 logs, last, metrics = {}, None, []
-                for step, batch in enumerate(loader):
-                    cbks.on_train_batch_begin(step)
-                    inputs, labels = (self._to_device(t) for t in
-                                      self._split_batch(batch))
-                    last, outs = self._train_step(inputs, labels)
-                    if self._metrics:
-                        metrics = self._update_metrics(outs, labels)
-                    if log_freq > 0 and step % log_freq == 0:
-                        logs = self._flush(last, metrics)
-                    cbks.on_train_batch_end(step, logs)
+                with _closing(self._maybe_prefetch(
+                        loader, prefetch, prefetch_buffer_size),
+                        loader) as data_iter:
+                    for step, batch in enumerate(data_iter):
+                        cbks.on_train_batch_begin(step)
+                        inputs, labels = (self._to_device(t) for t in
+                                          self._split_batch(batch))
+                        last, outs = self._train_step(inputs, labels)
+                        if self._metrics:
+                            metrics = self._update_metrics(outs, labels)
+                        if log_freq > 0 and step % log_freq == 0:
+                            logs = self._flush(last, metrics)
+                        cbks.on_train_batch_end(step, logs)
                 if last is not None:
                     logs = self._flush(last, metrics)
                 cbks.on_epoch_end(epoch, logs)
                 if eval_loader is not None and (epoch + 1) % eval_freq == 0:
                     self.evaluate(eval_loader, batch_size=batch_size,
                                   verbose=verbose, callbacks=cbks,
-                                  _inside_fit=True)
+                                  prefetch=prefetch, _inside_fit=True)
             cbks.on_train_end()
         except BaseException as e:
             # an out-of-memory death leaves the memory picture behind
@@ -709,9 +754,7 @@ class Model:
                  _inside_fit=False):
         """The mean of the batches' losses (``"loss"``, 0.0 for batches
         without labels) and each metric's accumulated value over
-        ``eval_data``."""
-        if prefetch not in (None, False, 0):
-            raise _not_ported("evaluate(prefetch=...)", 5)
+        ``eval_data``, its batches prefetched as ``fit``'s are."""
         loader = self._as_loader(eval_data, batch_size, False, num_workers,
                                  False)
         for m in self._metrics:
@@ -721,14 +764,16 @@ class Model:
             metrics=self._metric_names())
         cbks.on_eval_begin()
         total_loss, n = 0.0, 0
-        for step, batch in enumerate(loader):
-            cbks.on_eval_batch_begin(step)
-            result = self.eval_batch(*self._split_batch(batch))
-            loss, metrics = result if isinstance(result, tuple) \
-                else (result, [])
-            total_loss += loss
-            n += 1
-            cbks.on_eval_batch_end(step, self._pack_logs(loss, metrics))
+        with _closing(self._maybe_prefetch(loader, prefetch),
+                      loader) as data_iter:
+            for step, batch in enumerate(data_iter):
+                cbks.on_eval_batch_begin(step)
+                result = self.eval_batch(*self._split_batch(batch))
+                loss, metrics = result if isinstance(result, tuple) \
+                    else (result, [])
+                total_loss += loss
+                n += 1
+                cbks.on_eval_batch_end(step, self._pack_logs(loss, metrics))
         logs = {"loss": total_loss / max(1, n)}
         for m in self._metrics:
             names = m.name() if isinstance(m.name(), list) else [m.name()]
@@ -792,4 +837,17 @@ class Model:
         return self.network.parameters(*args, **kwargs)
 
     def summary(self, input_size=None, dtype=None):
-        raise _not_ported("Model.summary", 5)
+        """The network's parameter counts, ``{"total_params",
+        "trainable_params"}``. With ``input_size`` the table of
+        ``hapi.summary`` (each leaf layer's output shape and parameters,
+        from one forward on zeros or uniform draws of that size, in
+        ``dtype``); without, as in the JAX package, the network's repr
+        and its total."""
+        from .model_summary import summary
+        if input_size is not None:
+            return summary(self.network, input_size, dtypes=dtype)
+        total = sum(p.numel() for p in self.network.parameters())
+        trainable = sum(p.numel() for p in self.network.parameters()
+                        if p.requires_grad)
+        print(f"{self.network!r}\nTotal params: {total:,}")
+        return {"total_params": total, "trainable_params": trainable}

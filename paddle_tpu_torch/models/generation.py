@@ -1257,3 +1257,18 @@ def generate(model, input_ids, max_new_tokens=_UNSET, do_sample=_UNSET,
     finally:
         if was_training:
             model.train()
+
+
+#: the JAX module's names the port has not taken yet, by ROADMAP Queue 1
+#: item: the exported serving artifact (5) and tensor-parallel serving (4)
+_DEFERRED = {"save_for_serving": 5, "shard_params_megatron": 4,
+             "megatron_param_specs": 4, "build_sharded_paged_prefill_fn": 4,
+             "build_sharded_paged_decode_fn": 4,
+             "build_sharded_fused_step_fn": 4}
+
+
+def __getattr__(name):
+    if name in _DEFERRED:
+        from ..ops.registry import not_ported
+        raise not_ported(f"models.generation.{name}", _DEFERRED[name])
+    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")

@@ -274,3 +274,12 @@ class SpectralNorm(Layer):
         return call_op("spectral_norm", weight, self.weight_u, self.weight_v,
                        dim=self._dim, power_iters=self._power_iters,
                        eps=self._eps)
+
+
+def __getattr__(name):
+    # the JAX module's cross-replica BatchNorm comes with multi-device
+    # (ROADMAP Queue 1 item 4), as nn.SyncBatchNorm does
+    if name == "SyncBatchNorm":
+        from ...ops.registry import not_ported
+        raise not_ported("nn.layer.norm.SyncBatchNorm", 4)
+    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")

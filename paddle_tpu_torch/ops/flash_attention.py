@@ -268,6 +268,13 @@ class _FlashAttention(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, do):
+        if torch.is_grad_enabled():
+            # create_graph=True: the kernels' gradient records no graph of
+            # its own, so a second derivative would silently be zero
+            raise RuntimeError(
+                "flash attention has no double backward (hessian, jvp, "
+                "create_graph=True): its backward kernel is not "
+                "differentiable (nor is the JAX package's Pallas backward)")
         q, k, v, o, lse = ctx.saved_tensors
         dq, dk, dv = flash_attention_bwd(q, k, v, o, lse, do.contiguous(),
                                          ctx.causal, ctx.scale)

@@ -277,6 +277,13 @@ class _LayerNorm(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, grad):
+        if torch.is_grad_enabled():
+            # create_graph=True: the kernels' gradient records no graph of
+            # its own, so a second derivative would silently be zero
+            raise RuntimeError(
+                "LayerNorm has no double backward (hessian, jvp, "
+                "create_graph=True): its backward kernel is not "
+                "differentiable (nor is the JAX package's Pallas backward)")
         x, weight = ctx.saved_tensors
         dx, dw, db = fused_layer_norm_bwd(x, weight, grad.contiguous(),
                                           ctx.epsilon)

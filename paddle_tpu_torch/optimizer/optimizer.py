@@ -187,12 +187,15 @@ class Optimizer:
             p.data.copy_(new)
 
     @torch.no_grad()
-    def step(self):
-        if self._params is None:
+    def step(self, _params=None):
+        """One update of every parameter with a gradient (of ``_params``,
+        ``(name, param)`` pairs, when ``minimize`` limits the step)."""
+        params = self._params if _params is None else _params
+        if params is None:
             raise ValueError(
                 "optimizer was created without a parameter list; pass "
                 "parameters=model.parameters()")
-        live = [(name, p) for name, p in self._params
+        live = [(name, p) for name, p in params
                 if p.grad is not None and p.requires_grad]
         pairs = [(p, p.grad) for _, p in live]
         self._clip_norms = None
@@ -258,30 +261,57 @@ class Optimizer:
                  no_grad_set=None):
         """``loss.backward()``, one step and ``clear_grad()``; returns
         ``(None, None)`` as the JAX package's eager ``minimize`` does.
-        In static mode (a ``static.Program`` recording) it attaches
-        ``loss`` and this optimizer to the program instead, whose
-        ``Executor.run`` then takes the step, and returns ``([], [])``;
-        an optimizer built without ``parameters`` then updates the
-        program's. A ``parameters`` or ``no_grad_set`` subset, and
-        ``startup_program`` outside static mode, are not ported yet
-        (ROADMAP Queue 1 item 5)."""
+        ``parameters`` (tensors, or the optimizer's names for them) limits
+        the step, and its gradient clip, to those parameters, and
+        ``no_grad_set`` (tensors or names) takes parameters out of it, as
+        the reference means (the JAX package ignores both);
+        ``startup_program`` is taken and changes nothing, as there. In
+        static mode (a ``static.Program`` recording) it attaches ``loss``
+        and this optimizer to the program instead, whose ``Executor.run``
+        then takes the step, and returns ``([], [])``; an optimizer built
+        without ``parameters`` then updates the program's. A static
+        ``parameters`` or ``no_grad_set`` is not ported yet (ROADMAP Queue
+        1 item 5)."""
         from ..framework import static_capture
         prog = static_capture.current
-        if prog is not None and parameters is None and no_grad_set is None:
+        if prog is not None:
+            if parameters is not None or no_grad_set is not None:
+                raise NotImplementedError(
+                    "minimize(parameters=, no_grad_set=) in static mode is "
+                    "not ported yet (ROADMAP Queue 1 item 5)")
             prog._loss = loss
             prog._optimizer = self
             if self._params is None:
                 self._params = _named(prog._params.values())
             return [], []
-        if startup_program is not None or parameters is not None \
-                or no_grad_set is not None:
-            raise NotImplementedError(
-                "minimize(startup_program=, parameters=, no_grad_set=) is "
-                "not ported yet (ROADMAP Queue 1 item 5)")
         loss.backward()
-        self.step()
-        self.clear_grad()
+        chosen = None
+        if parameters is not None or no_grad_set:
+            own = self._params
+            chosen = _select(own if own is not None else _named(parameters),
+                             parameters, no_grad_set)
+        self.step(chosen)
+        for _, p in self._params or chosen:
+            p.grad = None
         return None, None
+
+
+def _select(named, parameters, no_grad_set):
+    """The ``(name, param)`` pairs of ``named`` that ``parameters`` names
+    (all without it) and ``no_grad_set`` does not; each entry is a tensor
+    or the optimizer's name for one."""
+    def keys(entries):
+        entries = list(entries or ())
+        return ({id(e) for e in entries if not isinstance(e, str)},
+                {e for e in entries if isinstance(e, str)})
+
+    def hit(name, p, ids, names):
+        return id(p) in ids or name in names
+
+    want = keys(parameters) if parameters is not None else None
+    drop = keys(no_grad_set)
+    return [(n, p) for n, p in named
+            if (want is None or hit(n, p, *want)) and not hit(n, p, *drop)]
 
 
 class SGD(Optimizer):

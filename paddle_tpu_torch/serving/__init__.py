@@ -68,3 +68,13 @@ __all__ = ["GenerationEngine", "EngineFleet", "KVCachePool", "PagedKVPool",
            "HostBlockPool", "HostTierError", "HostTierFullError",
            "PromotionTicket", "SLOTracker", "SLOObjective",
            "attainment_from_buckets"]
+
+
+def __getattr__(name):
+    # the JAX engine raises PlanError from its static HBM plan
+    # (hbm_budget_bytes=), which comes with analysis/ (ROADMAP Queue 1
+    # item 5, step 7)
+    if name == "PlanError":
+        from ..ops.registry import not_ported
+        raise not_ported("serving.PlanError", 5)
+    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")

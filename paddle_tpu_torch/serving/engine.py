@@ -1130,3 +1130,13 @@ class GenerationEngine:
         self._note_decode_dispatch(step)
         return step(pool.data, *scales, *dev_ops, n_spec_d, d_dev, q_dev,
                     samp_d, temps_d, self._gen)
+
+
+def __getattr__(name):
+    # the JAX engine raises PlanError from its static HBM plan
+    # (hbm_budget_bytes=), which comes with analysis/ (ROADMAP Queue 1
+    # item 5, step 7)
+    if name == "PlanError":
+        from ..ops.registry import not_ported
+        raise not_ported("serving.engine.PlanError", 5)
+    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")

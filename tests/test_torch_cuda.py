@@ -1754,3 +1754,63 @@ def test_an_artifact_saved_on_the_card_runs_on_the_cpu_and_back(
     for a, b in zip(on_cpu, on_card):
         assert a.device.type == "cpu" and b.device.type == "cuda"
         torch.testing.assert_close(b.cpu(), a, **TOL[torch.float32])
+
+
+def test_device_prefetch_copies_on_its_side_stream(cuda, monkeypatch):
+    """While the consumer's stream is held by a long kernel, the batch it
+    was handed is already on the card: the copy ran on the prefetch's own
+    stream (read back through that stream, the other still busy)."""
+    from paddle_tpu_torch import io
+    made = []
+
+    class Recording(torch.cuda.Stream):
+        def __new__(cls, *a, **kw):
+            s = super().__new__(cls, *a, **kw)
+            if "stream_id" not in kw:   # a new stream, not current_stream()
+                made.append(s)
+            return s
+
+    monkeypatch.setattr(torch.cuda, "Stream", Recording)
+    src = torch.arange(1 << 20, dtype=torch.float32)
+    back = torch.empty_like(src).pin_memory()
+    # a first run fills the pinned-memory cache: allocating pinned memory
+    # may wait for the card, reusing it does not
+    assert len(list(io.device_prefetch([(src,)], device=cuda))) == 1
+    torch.cuda.synchronize()
+    torch.cuda._sleep(2_000_000_000)              # ~1 s on the consumer's
+    it = io.device_prefetch([(src,)], device=cuda)
+    (x,) = next(it)
+    side = made[-1]
+    with torch.cuda.stream(side):
+        back.copy_(x, non_blocking=True)
+    side.synchronize()
+    busy = not torch.cuda.current_stream().query()
+    torch.cuda.synchronize()
+    assert busy, "the consumer's stream finished before the check"
+    assert torch.equal(back, src)
+    assert list(it) == []
+
+
+def test_device_prefetch_batches_stay_right_after_the_producer_moves_on(
+        cuda):
+    """Each batch is read by a kernel queued behind a long one on the
+    consumer's stream after its last reference is dropped, while the
+    producer copies the next ones: the allocator must not hand its memory
+    out early (``record_stream``). Pinning, copies, event waits: no host
+    sync under sync debug "error"."""
+    from paddle_tpu_torch import io
+    batches = [(torch.full((1 << 20,), float(i)),
+                torch.full((4,), i, dtype=torch.int64)) for i in range(8)]
+    sums = []
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        for x, y in io.device_prefetch(batches, buffer_size=2, device=cuda):
+            torch.cuda._sleep(20_000_000)
+            sums.append((x.sum(), y.sum()))
+            del x, y
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    assert [(float(a), int(b)) for a, b in sums] == [
+        (float(i * (1 << 20)), 4 * i) for i in range(8)]

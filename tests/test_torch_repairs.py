@@ -295,6 +295,67 @@ def test_a_reference_name_is_ported_or_raises_its_item(name):
         assert re.search(r"Queue 1 item [0-9]", str(e)), str(e)
 
 
+def _shared_modules():
+    """Every module path of ``paddle_tpu_torch`` (below the top level)
+    that names a module of ``paddle_tpu`` too, read from the file trees
+    (nothing is imported to collect them)."""
+    root = pathlib.Path(__file__).resolve().parent.parent
+    out = []
+    for path in sorted((root / "paddle_tpu_torch").rglob("*.py")):
+        rel = path.relative_to(root / "paddle_tpu_torch").with_suffix("")
+        parts = rel.parts[:-1] if rel.name == "__init__" else rel.parts
+        if not parts:
+            continue
+        ref = root / "paddle_tpu" / pathlib.Path(*parts)
+        if ref.with_suffix(".py").exists() or \
+                (ref / "__init__.py").exists():
+            out.append(".".join(parts))
+    return out
+
+
+@pytest.mark.parametrize("module", _shared_modules())
+def test_every_module_name_is_ported_or_raises_its_item(module):
+    """Each identifier of the JAX module's ``__all__`` exists in the
+    port's module or raises ``NotImplementedError`` naming its Queue 1
+    item (a name that is not an identifier, as the ``'<lambda>'`` the
+    JAX ``nn.functional`` appends, is skipped); every failing name of
+    the module is reported at once."""
+    import importlib
+    ref = importlib.import_module(f"paddle_tpu.{module}")
+    port = importlib.import_module(f"paddle_tpu_torch.{module}")
+    bad = {}
+    for name in getattr(ref, "__all__", ()):
+        if not name.isidentifier():
+            continue
+        try:
+            getattr(port, name)
+        except NotImplementedError as e:
+            if not re.search(r"Queue 1 item [0-9]", str(e)):
+                bad[name] = str(e)
+        except Exception as e:  # noqa: BLE001  (what the sweep reports)
+            bad[name] = f"{type(e).__name__}: {e}"
+    assert not bad, bad
+
+
+def test_the_repaired_module_names():
+    from paddle_tpu_torch import amp
+    from paddle_tpu_torch.framework import program_registry
+    from paddle_tpu_torch.models import generation
+    from paddle_tpu_torch import serving
+    assert amp.amp_guard is amp.auto_cast
+    for mod, name, item in (
+            (generation, "save_for_serving", 5),
+            (generation, "shard_params_megatron", 4),
+            (generation, "build_sharded_fused_step_fn", 4),
+            (serving, "PlanError", 5), (serving.engine, "PlanError", 5),
+            (program_registry, "aot_site", 5),
+            (program_registry, "analyze_callable", 5)):
+        with pytest.raises(NotImplementedError, match=f"Queue 1 item {item}"):
+            getattr(mod, name)
+        with pytest.raises(AttributeError):
+            getattr(mod, name + "_not_a_reference_name")
+
+
 def test_the_small_top_level_names_behave_as_the_jax_ones():
     import paddle_tpu_torch as pt
     assert isinstance(torch.ones(2), pt.Tensor) and issubclass(

@@ -220,29 +220,17 @@ def _not_ported_calls():
     def engine(**kw):
         return GenerationEngine(_gpt(), device="cpu", **kw)
 
-    def model():
-        net = nn.Linear(4, 2, device="cpu")
-        m = Model(net, device="cpu")
-        m.prepare(SGD(0.1, parameters=net.parameters()),
-                  loss=lambda out, y: out.sum())
-        return m
-
-    def minimize(**kw):
-        p = torch.nn.Parameter(torch.ones(2))
-        SGD(0.1, parameters=[p]).minimize((p * p).sum(), **kw)
-
     return {
         "pool mesh": lambda: PagedKVPool(1, 1, 1, 16, 8, block_size=8,
                                          mesh=object(), device="cpu"),
-        "train_batch update": lambda: model().train_batch(
-            [torch.ones(3, 4)], [torch.ones(3, 2)], update=False),
-        "evaluate prefetch": lambda: model().evaluate(
-            pt.io.TensorDataset([np.ones((2, 4), np.float32),
-                                 np.ones((2, 2), np.float32)]),
-            prefetch=True),
-        "minimize startup_program": lambda: minimize(
-            startup_program=object()),
-        "minimize parameters": lambda: minimize(parameters=[]),
+        "device_prefetch sharding": lambda: pt.io.device_prefetch(
+            [], sharding=object(), device="cpu"),
+        "grad no_grad_vars": lambda: pt.grad(
+            (torch.ones(2, requires_grad=True) * 2).sum(),
+            [torch.ones(2, requires_grad=True)], allow_unused=True,
+            no_grad_vars=[torch.ones(1)]),
+        "flops custom_ops": lambda: pt.flops(
+            nn.Linear(4, 2), [1, 4], custom_ops={nn.Linear: None}),
         "resnet50 pretrained": lambda: vision.models.resnet50(
             pretrained=True),
         "margin_cross_entropy group": lambda:
@@ -276,7 +264,9 @@ def _ported_checks():
     ``return_mask``, ``ctc_loss`` and the conv layers since its second
     part, the ``sequence_*`` functions since its last; item 5's deployment
     slice: ``DataLoader``'s static-mode arguments and ``minimize`` in
-    static mode), each with a check of what it does now."""
+    static mode; item 5's core API: ``train_batch(update=False)``,
+    ``evaluate(prefetch=)``, ``minimize``'s ``startup_program`` and
+    ``parameters``), each with a check of what it does now."""
     from paddle_tpu.hapi.callbacks import ProfilerCallback as JaxCallback
     from paddle_tpu.serving.scheduler import Scheduler as JaxScheduler
     from paddle_tpu_torch.framework import trace_probe
@@ -472,7 +462,50 @@ def _ported_checks():
                               fetch_list=[loss])
         assert p.tolist() == [0.5, 0.5]
 
+    def train_batch_update():
+        from paddle_tpu_torch.hapi import Model
+        from paddle_tpu_torch.optimizer import SGD
+        net = torch.nn.Linear(4, 2)
+        m = Model(net, device="cpu")
+        m.prepare(SGD(0.1, parameters=net.parameters()),
+                  loss=lambda out, y: out.sum())
+        before = net.weight.detach().clone()
+        m.train_batch([torch.ones(3, 4)], [torch.ones(3, 2)], update=False)
+        assert torch.equal(net.weight, before) and net.weight.grad is not None
+        m.train_batch([torch.ones(3, 4)], [torch.ones(3, 2)])
+        assert not torch.equal(net.weight, before) and net.weight.grad is None
+
+    def evaluate_prefetch():
+        from paddle_tpu_torch.framework.monitor import stat_get
+        from paddle_tpu_torch.hapi import Model
+        net = torch.nn.Linear(4, 2)
+        m = Model(net, device="cpu")
+        m.prepare(loss=lambda out, y: out.sum())
+        n0 = stat_get("prefetch_batches")
+        m.evaluate(pt.io.TensorDataset([np.ones((2, 4), np.float32),
+                                        np.ones((2, 2), np.float32)]),
+                   prefetch=True, verbose=0)
+        assert stat_get("prefetch_batches") - n0 == 2
+
+    def minimize_subset(**kw):
+        from paddle_tpu_torch.optimizer import SGD
+        p, q = torch.nn.Parameter(torch.ones(2)), \
+            torch.nn.Parameter(torch.ones(2))
+        SGD(0.5, parameters=[p, q]).minimize((p * q).sum(), **kw)
+        return p.tolist(), q.tolist()
+
+    def minimize_startup_program():     # taken, changes nothing
+        assert minimize_subset(startup_program=object()) == (
+            [0.5, 0.5], [0.5, 0.5])
+
+    def minimize_parameters():          # only these step
+        assert minimize_subset(parameters=[]) == ([1.0, 1.0], [1.0, 1.0])
+
     return {
+        "train_batch update": train_batch_update,
+        "evaluate prefetch": evaluate_prefetch,
+        "minimize startup_program": minimize_startup_program,
+        "minimize parameters": minimize_parameters,
         "max_pool2d return_mask": return_mask,
         "adaptive_max_pool1d return_mask": adaptive_mask,
         "functional ctc_loss": ctc_loss,
