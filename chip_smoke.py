@@ -317,6 +317,31 @@ prints no result line):
    ``device.memory_summary()`` is printed; a ``utils.dlpack`` round trip
    keeps the tensor's ``data_ptr()``. Its launches join the GPT-2 train
    rows (K2/K3 f32, K4/K6 and K8 bf16);
+14. the legacy static surface (``phase_legacy``, after phase 13):
+   BERT-base at phase 10's configuration (bf16 O2, AdamW with f32
+   masters, 32 x 128) under a 1.x head (``static.nn.fc(768, gelu)``,
+   ``static.nn.layer_norm``, ``static.nn.fc(2)``) built in a
+   ``fluid.program_guard`` from ``fluid.layers.data`` feeds, the loss
+   ``mean(fluid.layers.softmax_with_cross_entropy)``, ``minimize`` with
+   the three embedding tables in ``no_grad_set``, trained by
+   ``fluid.Executor(CUDAPlace(0)).run``: the first run's loss and
+   ``static.gradients``' head-weight gradient held to an eager step of
+   the same weights (bf16 ``TOL``; relative ``REL_TOL``), every step's
+   launches K2 = K3 = 26, K4 = K6 = 12 (tensor-core, warp-row), K8 =
+   ``adamw_plan``'s count over the stepped list, no plain version, the
+   tables bit-equal after; ms a step (CUDA events) and
+   ``Executor.run``'s host share. An ``ExponentialMovingAverage``
+   updated after each step: ``apply()`` changes the test program's
+   logits, ``restore()`` gives every parameter back bit for bit.
+   ``static.save``/``static.load`` and ``serialize_persistables`` into a
+   freshly built program: logits bit-equal. ``fluid.io.
+   save_inference_model``/``load_inference_model`` serve the batch on
+   the card (K2 26, K4 12 a forward, within bf16 ``TOL``). ResNet-50
+   (phase 7's configuration) exported by ``onnx.export`` on the card:
+   every parameter's initializer bit-equal to the card's, the graph
+   equal to the CPU export of the same weights. Its launches join the
+   ``_bert`` rows; ``fused_adamw_step_bert_static`` holds K8 over the
+   stepped list;
 8. real operands: the layer-0 operands of one real step of each path
    through kernel and plain: the engine's attention rows (float, int8
    and fp8 pools) at its widest step and at its last decode-only step
@@ -383,8 +408,9 @@ prints no result line):
 the speculative engine with the 2-layer draft (phase 3f) and to the
 dense and paged gather engines, one more tiered bf16 load run (phase
 3g, with device ms a cycle), one more greedy generate, one more beam
-search, two more train steps, two more BERT steps (phase 10) and one
-more greedy ``TransformerModel`` decode (phase 11) under the port's
+search, two more train steps, two more BERT steps (phase 10), one
+more greedy ``TransformerModel`` decode (phase 11) and two more fluid
+program steps (phase 14) under the port's
 ``Profiler`` and prints device time by kernel (``profiler.device_op_table``) and the
 device's idle share.
 
@@ -832,6 +858,76 @@ def ln_shape_row(timer, name, launches, main):
         log(f"K2 {name}: {str(dtype)[6:]} [{n}, {d}], "
             f"{shapes[(dtype, n, d)]} launches {fmt(row)}")
     return dict(rows[main], max_abs_err=err)
+
+
+@contextlib.contextmanager
+def ln_launch_shapes():
+    """The dtype and [rows, D] of every LayerNorm kernel call while the
+    block runs, without module hooks (a replayed or exported program runs
+    none): the forward's at the custom op ``paddle_tpu_torch::
+    fused_layer_norm``, which every eager, replayed and exported forward
+    reaches, through a dispatch mode; the backward's at the autograd
+    function's ``backward``. Yields the two counters (forward,
+    backward)."""
+    from torch.utils._python_dispatch import TorchDispatchMode
+    from paddle_tpu_torch.ops import layer_norm as ln
+    fwd, bwd = collections.Counter(), collections.Counter()
+    op = torch.ops.paddle_tpu_torch.fused_layer_norm.default
+
+    def key(x):
+        return (x.dtype, x.numel() // x.shape[-1], x.shape[-1])
+
+    class Mode(TorchDispatchMode):
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            if func == op:
+                fwd[key(args[0])] += 1
+            return func(*args, **(kwargs or {}))
+
+    orig = ln._LayerNorm.backward
+
+    def backward(ctx, grad):
+        bwd[key(grad)] += 1
+        return orig(ctx, grad)
+
+    ln._LayerNorm.backward = staticmethod(backward)
+    try:
+        with Mode():
+            yield fwd, bwd
+    finally:
+        ln._LayerNorm.backward = staticmethod(orig)
+
+
+def ln_shape_checks(timer, what, fwd, bwd):
+    """K2 and K3 against their plain versions (both routes, as
+    :func:`ln_fwd_case` and :func:`ln_bwd_case` check them) at every
+    dtype and [rows, D] of ``fwd`` and ``bwd`` (from
+    :func:`ln_launch_shapes`): ``{"fused_layer_norm": {shape: max abs
+    err}, "fused_layer_norm_bwd": {...}}``, shapes as "float32 [32,
+    768]"."""
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 79)
+
+    def randn(*shape, dtype, scale=1.0):
+        return (scale * torch.randn(*shape, device="cuda", generator=gen)
+                ).to(dtype)
+
+    out = {}
+    for name, shapes in (("fused_layer_norm", fwd),
+                         ("fused_layer_norm_bwd", bwd)):
+        out[name] = {}
+        for dtype, n, d in sorted(shapes, key=lambda k: (str(k[0]), k[1])):
+            x, w = randn(n, d, dtype=dtype), 1 + randn(d, dtype=dtype,
+                                                       scale=0.1)
+            if name == "fused_layer_norm":
+                row = ln_fwd_case(timer, x, w, randn(d, dtype=dtype,
+                                                     scale=0.1))
+            else:
+                row = ln_bwd_case(timer, x, w, randn(n, d, dtype=dtype))
+            shape = f"{str(dtype)[6:]} [{n}, {d}]"
+            out[name][shape] = row["max_abs_err"]
+            log(f"{what}: {name} {shape} ({shapes[(dtype, n, d)]} "
+                f"recorded) "
+                f"{fmt(row)}")
+    return out
 
 
 def ln_bwd_check(x, w, g, route, want):
@@ -7086,6 +7182,504 @@ def phase_core_api(device, card):
     return counts
 
 
+# ---------------------------------------------------------------- phase 14
+#: phase 14: BERT-base at phase 10's configuration fine-tuned through a
+#: 1.x fluid program (steps after the first: warm-up, then timed), the
+#: served forward's runs, and ResNet-50 (phase 7's ``bench_resnet50``
+#: configuration) exported to ONNX on the card
+LEGACY_WARM, LEGACY_STEPS, LEGACY_SERVE_RUNS = 2, 5, 10
+LEGACY_EMA = 0.999
+
+
+def legacy_program(device, seed, train=True):
+    """BERT-base (``bench_bert``'s ``BertConfig``, dropouts 0) decorated
+    bf16 O2, under ``fluid.program_guard`` and ``amp.auto_cast`` O2: the
+    1.x feeds ``fluid.layers.data`` (the batch dimension prepended), the
+    pooled output into a 1.x head ``static.nn.fc(768, gelu)`` ->
+    ``static.nn.layer_norm`` -> ``static.nn.fc(2)``, whose parameters are
+    made bf16 as O2 makes the body's, and the loss ``mean(fluid.layers.
+    softmax_with_cross_entropy)``. With ``train``: ``AdamW(BERT_LR,
+    BERT_WD, multi_precision=True).minimize(loss, no_grad_set=<the three
+    embedding tables>)``, ``static.gradients(loss, [the head's first
+    weight])`` and an ``ExponentialMovingAverage`` bound to the
+    program."""
+    import paddle_tpu_torch as pt
+    from paddle_tpu_torch import amp, fluid, static
+    from paddle_tpu_torch.models.bert import BertModel
+    from paddle_tpu_torch.optimizer import AdamW
+    bert = bert_net(BertModel, 12, device, seed)
+    amp.decorate(bert, level="O2", dtype="bfloat16")
+    emb = bert.embeddings
+    tables = [emb.word_embeddings.weight, emb.position_embeddings.weight,
+              emb.token_type_embeddings.weight]
+    main, startup = fluid.Program(), fluid.Program()
+    out = {"main": main, "startup": startup, "bert": bert, "tables": tables}
+    dtype = pt.get_default_dtype()
+    with fluid.program_guard(main, startup), \
+            amp.auto_cast(level="O2", dtype="bfloat16"):
+        ids = fluid.layers.data("input_ids", [BERT_SEQ], "int64")
+        types = fluid.layers.data("token_type_ids", [BERT_SEQ], "int64")
+        label = fluid.layers.data("label", [1], "int64")
+        _, pooled = bert(ids, token_type_ids=types)
+        pt.set_default_dtype("bfloat16")
+        try:
+            h = static.nn.fc(pooled, size=bert.cfg.hidden_size,
+                             activation="gelu")
+            h = static.nn.layer_norm(h)
+            logits = static.nn.fc(h, size=2)
+        finally:
+            pt.set_default_dtype(dtype)
+        loss = pt.mean(fluid.layers.softmax_with_cross_entropy(logits,
+                                                               label))
+        body = {id(p) for p in bert.parameters()}
+        out.update(ids=ids, types=types, logits=logits, loss=loss,
+                   head=[p for p in main._params.values()
+                         if id(p) not in body])
+        if train:
+            opt = AdamW(BERT_LR, weight_decay=BERT_WD, multi_precision=True)
+            opt.minimize(loss, no_grad_set=tables)
+            (grad,) = static.gradients(loss, [out["head"][0]])
+            out.update(opt=opt, grad=grad,
+                       ema=static.ExponentialMovingAverage(LEGACY_EMA))
+    return out
+
+
+def legacy_feed(vocab):
+    """``bench_bert``'s ids (``bert_batch``), token types 0, and a label
+    a row from its start position's parity."""
+    ids, start, _ = bert_batch(BERT_BATCH, BERT_SEQ, vocab)
+    return {"input_ids": ids, "token_type_ids": np.zeros_like(ids),
+            "label": (start % 2).reshape(-1, 1).astype(np.int64)}
+
+
+def legacy_eager(net, feed, device):
+    """One eager forward and backward of the program's network (its own
+    body, the head's parameters shared into ``nn`` layers), the same ops
+    ``call_op`` runs when the program is built: the loss and the head's
+    first weight's gradient; every gradient cleared after."""
+    import paddle_tpu_torch as pt
+    from paddle_tpu_torch import amp
+    from paddle_tpu_torch.nn import functional as F
+    d = net["bert"].cfg.hidden_size
+    fc1, ln, fc2 = pt.nn.Linear(d, d), pt.nn.LayerNorm(d), pt.nn.Linear(d, 2)
+    mine = [fc1.weight, fc1.bias, ln.weight, ln.bias, fc2.weight, fc2.bias]
+    for own, shared in zip(mine, net["head"]):
+        own.data = shared.data
+    t = {k: torch.from_numpy(v).to(device) for k, v in feed.items()}
+    with amp.auto_cast(level="O2", dtype="bfloat16"):
+        _, pooled = net["bert"](t["input_ids"],
+                                token_type_ids=t["token_type_ids"])
+        logits = fc2(ln(F.gelu(fc1(pooled))))
+        loss = pt.mean(F.softmax_with_cross_entropy(logits, t["label"]))
+    loss.backward()
+    grad = fc1.weight.grad.detach().clone()
+    for q in mine + list(net["bert"].parameters()) + net["head"]:
+        q.grad = None
+    return loss.detach().float().cpu(), grad
+
+
+def onnx_graph(path):
+    """``(nodes, initializers)`` of an ONNX file: each node as (op type,
+    attribute fields, inputs, outputs), each initializer by name as
+    (dims, dtype code, raw bytes). A reader of the wire format of its
+    own (varints and length-delimited fields)."""
+    def varint(buf, i):
+        out = shift = 0
+        while True:
+            b = buf[i]
+            i += 1
+            out |= (b & 0x7F) << shift
+            if not b & 0x80:
+                return out, i
+            shift += 7
+
+    def fields(buf):
+        i = 0
+        while i < len(buf):
+            tag, i = varint(buf, i)
+            if tag & 7 == 0:
+                val, i = varint(buf, i)
+            elif tag & 7 == 2:
+                n, i = varint(buf, i)
+                val, i = bytes(buf[i:i + n]), i + n
+            elif tag & 7 == 5:
+                val, i = bytes(buf[i:i + 4]), i + 4
+            else:
+                raise AssertionError(f"wire type {tag & 7}")
+            yield tag >> 3, val
+
+    data = open(path, "rb").read()
+    graph = next(v for f, v in fields(data) if f == 7)
+    nodes, inits = [], {}
+    for f, v in fields(graph):
+        if f == 1:
+            node = {1: [], 2: [], 4: None, 5: []}
+            for ff, vv in fields(v):
+                if ff in (1, 2, 5):
+                    node[ff].append(vv)
+                elif ff == 4:
+                    node[4] = vv.decode()
+            nodes.append((node[4], tuple(node[5]), tuple(node[1]),
+                          tuple(node[2])))
+        elif f == 5:
+            t = {1: [], 2: None, 8: None, 9: b""}
+            for ff, vv in fields(v):
+                if ff == 1:
+                    t[1].append(vv)
+                elif ff in (2, 9):
+                    t[ff] = vv
+                elif ff == 8:
+                    t[8] = vv.decode()
+            inits[t[8]] = (tuple(t[1]), t[2], t[9])
+    return nodes, inits
+
+
+def legacy_onnx(device, tmp):
+    """14 (v): ResNet-50 (``bench_resnet50``'s configuration) built on
+    the card and exported by ``onnx.export``: every initializer of a
+    parameter bit-equal to the card's parameter in the JAX layout, and
+    the node list and the initializers equal to the export of the same
+    weights on the CPU. Returns (bytes, seconds)."""
+    import copy
+    import paddle_tpu_torch as pt
+    from paddle_tpu_torch import onnx
+    from paddle_tpu_torch.static import InputSpec
+    from paddle_tpu_torch.vision.models import resnet50
+    pt.seed(SEED)
+    net = resnet50(num_classes=RN_CLASSES).to(device).eval()
+    spec = [InputSpec([None, 3, RN_HW, RN_HW], "float32", "image")]
+    host = copy.deepcopy(net).cpu()
+    t0 = time.perf_counter()
+    path = onnx.export(net, os.path.join(tmp, "resnet50"), input_spec=spec)
+    secs = time.perf_counter() - t0
+    nodes, inits = onnx_graph(path)
+    fc = {f"{n}.weight" for n, m in net.named_modules()
+          if isinstance(m, pt.nn.Linear)}
+    for name, p in net.named_parameters():
+        want = p.detach().cpu()
+        want = (want.t() if name in fc else want).contiguous().numpy()
+        dims, _, raw = inits[name]
+        if dims != want.shape or raw != want.tobytes():
+            raise AssertionError(f"phase 14 (v): initializer {name} is not "
+                                 f"the card's parameter bit for bit")
+    cpu_nodes, cpu_inits = onnx_graph(onnx.export(
+        host, os.path.join(tmp, "resnet50_cpu"), input_spec=spec))
+    if cpu_nodes != nodes or cpu_inits != inits:
+        raise AssertionError("phase 14 (v): the export on the card differs "
+                             "from the CPU's of the same weights")
+    size = os.path.getsize(path)
+    convs = sum(1 for n in nodes if n[0] == "Conv")
+    log(f"phase 14 (v): onnx.export of ResNet-50 ({RN_CLASSES} classes, "
+        f"[None, 3, {RN_HW}, {RN_HW}]) on the card: {len(nodes)} nodes "
+        f"({convs} Conv), {len(inits)} initializers, {size} bytes in "
+        f"{secs:.2f} s; every parameter's initializer bit-equal to the "
+        f"card's (the fc weight [in, out]); nodes and initializers equal "
+        f"to the CPU export of the same weights")
+    del net, host
+    return size, secs
+
+
+def phase_legacy(device, card, timer, profile=False):
+    """14: the legacy static surface on the card. BERT-base at phase 10's
+    configuration fine-tuned through a 1.x fluid program
+    (:func:`legacy_program`): the first ``Executor.run`` fetches the loss
+    and ``static.gradients``' variable (both held to an eager step of the
+    same weights within bf16 TOL), then ``LEGACY_WARM`` + ``LEGACY_STEPS``
+    more, each followed by the EMA's ``update()`` (the head weight's
+    shadow held bit-equal to the recursion in plain torch); every step's
+    launches
+    held to the structure (K2 = K3 = 25 + 1 for the head's LayerNorm, K4
+    = K6 = 12, K8 the plan over the stepped list), every flash launch
+    tensor-core, every LayerNorm launch warp-row, no plain version, the
+    embedding tables bit-equal after. The EMA's ``apply()`` and
+    ``restore()``; ``static.save``/``static.load`` and the ``serialize_
+    persistables`` pair into a freshly built program (its logits bit-
+    equal); ``fluid.io.save_inference_model``/``load_inference_model``
+    served on the card (K2 26, K4 12 a forward); ResNet-50 to ONNX
+    (:func:`legacy_onnx`). K2 and K3 are held against their plain
+    versions at every shape a train step or a served forward ran them at
+    (:func:`ln_shape_checks`). Returns the launches of the train steps
+    and of the served forwards, the kernels line's
+    ``fused_adamw_step_bert_static`` row (K8 at the stepped list's
+    shapes, the phase's K8 launches) and the LayerNorm checks' errors by
+    shape."""
+    import shutil
+    import tempfile
+    import paddle_tpu_torch.optimizer.optimizer as opt_module
+    from paddle_tpu_torch import fluid, static
+    t_phase = time.perf_counter()
+    counters = train_counters()
+    net = legacy_program(device, SEED)
+    main, opt = net["main"], net["opt"]
+    feed = legacy_feed(net["bert"].cfg.vocab_size)
+    n_ln = 1 + sum(1 for m in net["bert"].modules()
+                   if type(m).__name__ == "LayerNorm")
+    layers = len(net["bert"].encoder.layers)
+    stepped = [p for _, p in main._opt_chosen]
+    frozen = {id(p) for p in net["tables"]}
+    if len(stepped) + 3 != len(main._params) or any(
+            id(p) in frozen for p in stepped):
+        raise AssertionError(f"phase 14: {len(stepped)} stepped of "
+                             f"{len(main._params)} parameters")
+    numels = [p.numel() for p in stepped]
+    want = {"flash_attention_fwd": layers, "flash_attention_bwd": layers,
+            "fused_layer_norm": n_ln, "fused_layer_norm_bwd": n_ln,
+            "fused_adamw": adamw_launches(numels),
+            "fused_adamw_tensors": len(numels)}
+    eager_loss, eager_grad = legacy_eager(net, feed, device)
+    exe = fluid.Executor(fluid.CUDAPlace(0))
+    exe.run(net["startup"])
+    tables = [t.detach().clone() for t in net["tables"]]
+    torch.cuda.synchronize()
+    reset_counts(counters)
+    per_step, losses, host_ms, step_ms = [], [], [], []
+    # the EMA's recursion is recomputed in plain torch from the head's
+    # first weight as each update() saw it
+    ema_p, ema_in = net["head"][0], []
+
+    def ema_update():
+        ema_in.append(ema_p.detach().clone())
+        net["ema"].update()
+
+    with count_plain() as plain, adamw_dtypes(opt_module) as kinds:
+        at = read_counts(counters)
+        with ln_launch_shapes() as (ln_fwd, ln_bwd):
+            first, grad = exe.run(main, feed=feed,
+                                  fetch_list=[net["loss"], net["grad"]])
+        now = read_counts(counters)
+        per_step.append({k: now[k] - at[k] for k in now})
+        ema_update()
+        for i in range(LEGACY_WARM + LEGACY_STEPS):
+            a = torch.cuda.Event(enable_timing=True)
+            b = torch.cuda.Event(enable_timing=True)
+            torch.cuda.synchronize()
+            at = read_counts(counters)
+            a.record()
+            t0 = time.perf_counter()
+            (loss,) = exe.run(main, feed=feed, fetch_list=[net["loss"]],
+                              return_numpy=False)
+            t1 = time.perf_counter()
+            b.record()
+            torch.cuda.synchronize()
+            now = read_counts(counters)
+            per_step.append({k: now[k] - at[k] for k in now})
+            losses.append(loss.item())
+            if i >= LEGACY_WARM:
+                host_ms.append((t1 - t0) * 1e3)
+                step_ms.append(a.elapsed_time(b))
+            ema_update()
+    launches = read_counts(counters)
+    if per_step != [want] * (1 + LEGACY_WARM + LEGACY_STEPS):
+        bad = [(i, st) for i, st in enumerate(per_step) if st != want]
+        raise AssertionError(f"phase 14: launches a step, expected {want}: "
+                             f"{bad[:3]}")
+    # every step runs the same program on the same feed, with the same
+    # launches: the first step's LayerNorm shapes are every step's
+    if (sum(ln_fwd.values()), sum(ln_bwd.values())) != (
+            want["fused_layer_norm"], want["fused_layer_norm_bwd"]):
+        raise AssertionError(f"phase 14: LayerNorm calls by shape "
+                             f"{dict(ln_fwd)} / {dict(ln_bwd)}, launches "
+                             f"{per_step[0]}")
+    check_flash_route("phase 14", counters, "tc")
+    check_ln_route("phase 14", (counters["fused_layer_norm"],
+                                counters["fused_layer_norm_bwd"]))
+    if sum(plain.values()) or set(kinds) != {
+            ("float32", "bfloat16", "bfloat16")}:
+        raise AssertionError(f"phase 14: plain versions {dict(plain)}, "
+                             f"AdamW (p, g, copy) dtypes {dict(kinds)}")
+    if not all(torch.equal(a, b) for a, b in zip(tables, net["tables"])):
+        raise AssertionError("phase 14: a frozen embedding table changed")
+    loss_err = check_close("phase 14 first loss vs the eager step",
+                           torch.tensor(float(first)), eager_loss,
+                           torch.bfloat16)
+    grad_err = check_scaled("phase 14 static.gradients vs the eager .grad",
+                            torch.from_numpy(grad), eager_grad.float().cpu(),
+                            torch.bfloat16)
+    if not all(math.isfinite(x) for x in losses) or \
+            not losses[-1] < float(first):
+        raise AssertionError(f"phase 14 losses: {float(first)}, {losses}")
+    if profile:
+        with device_profile() as prof:
+            t0 = time.perf_counter()
+            for _ in range(2):
+                exe.run(main, feed=feed, fetch_list=[net["loss"]],
+                        return_numpy=False)
+            torch.cuda.synchronize()
+            prof_ms = (time.perf_counter() - t0) * 1e3
+        device_time_report("legacy", prof, prof_ms, 2)
+    log(f"phase 14: BERT-base (bench_bert's BertConfig, bf16 AMP O2, "
+        f"AdamW lr {BERT_LR} weight_decay {BERT_WD} with float32 masters) "
+        f"under a 1.x head (fc 768 gelu, layer_norm, fc 2) built with "
+        f"fluid.program_guard, fluid.layers.data [-1, {BERT_SEQ}], "
+        f"minimize(no_grad_set=<3 embedding tables>): {len(numels)} of "
+        f"{len(main._params)} tensors stepped, batch {BERT_BATCH} x "
+        f"{BERT_SEQ}; 1 + {LEGACY_WARM} + {LEGACY_STEPS} "
+        f"fluid.Executor(CUDAPlace(0)).run steps, launches a step "
+        f"{json.dumps(want)}, every flash launch tensor-core, every "
+        f"LayerNorm launch warp-row, no plain version, the embedding "
+        f"tables bit-equal after; first loss {float(first):.6f} vs the "
+        f"eager step's {eager_loss.item():.6f} (err {loss_err:.3e}), "
+        f"static.gradients of the head's fc weight vs the eager .grad "
+        f"(rel err {grad_err:.3e}); losses {json.dumps(losses)}")
+    log(f"phase 14 on {card}: step {statistics.median(step_ms):.3f} ms "
+        f"median (CUDA events around each Executor.run, {LEGACY_STEPS} "
+        f"timed; min {min(step_ms):.3f}, max {max(step_ms):.3f}); "
+        f"Executor.run host {statistics.median(host_ms):.3f} ms median, "
+        f"host share {statistics.median(host_ms) / statistics.median(step_ms):.4f}")
+    test = main.clone(for_test=True)
+    eval_feed = {k: feed[k] for k in ("input_ids", "token_type_ids")}
+
+    def logits_of(prog, out):
+        (got,) = exe.run(prog, feed=eval_feed, fetch_list=[out],
+                         return_numpy=False)
+        return got
+
+    ema_name = next(n for n, p in main._params.items() if p is ema_p)
+    shadow = ema_in[0].clone()
+    keep, take = (torch.tensor(v, dtype=shadow.dtype).item()
+                  for v in (LEGACY_EMA, 1 - LEGACY_EMA))
+    for q in ema_in[1:]:
+        shadow = shadow * keep + q * take
+    got = net["ema"]._shadow[ema_name]
+    if not torch.equal(got, shadow) or torch.equal(got, ema_in[0]):
+        raise AssertionError(
+            f"phase 14 (ii): the EMA shadow of {ema_name} after "
+            f"{len(ema_in)} updates is not the recursion recomputed in "
+            f"plain {shadow.dtype} (max |diff| "
+            f"{(got.float() - shadow.float()).abs().max().item():.4e}), or "
+            f"it never left the first snapshot")
+    raw = logits_of(test, net["logits"])
+    before = {n: p.detach().clone() for n, p in main._params.items()}
+    with net["ema"].apply():
+        ema_logits = logits_of(test, net["logits"])
+    if torch.equal(ema_logits, raw) or not all(
+            torch.equal(before[n], p) for n, p in main._params.items()):
+        raise AssertionError("phase 14 (ii): EMA apply() gave the raw "
+                             "logits, or restore() did not give back the "
+                             "parameters bit for bit")
+    del before
+    log(f"phase 14 (ii): ExponentialMovingAverage({LEGACY_EMA}) updated "
+        f"after each step: the shadow of {ema_name} after {len(ema_in)} "
+        f"updates bit-equal to the recursion recomputed in plain "
+        f"{shadow.dtype} (it moved {(shadow.float() - ema_in[0].float()).abs().max().item():.4e} "
+        f"from the first snapshot); under apply() the test program's "
+        f"logits differ "
+        f"from the raw weights' (max |diff| "
+        f"{(ema_logits.float() - raw.float()).abs().max().item():.4e}); "
+        f"after restore() every parameter bit-equal to before")
+    del ema_in
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_legacy_")
+    try:
+        prefix = os.path.join(tmp, "bert_legacy")
+        t0 = time.perf_counter()
+        static.save(main, prefix)
+        save_s = time.perf_counter() - t0
+        fresh = legacy_program(device, SEED + 1, train=False)
+        ftest = fresh["main"].clone(for_test=True)
+        t0 = time.perf_counter()
+        static.load(fresh["main"], prefix)
+        load_s = time.perf_counter() - t0
+        if not torch.equal(logits_of(ftest, fresh["logits"]), raw):
+            raise AssertionError("phase 14 (iii): static.load into a fresh "
+                                 "program: logits not bit-equal")
+        blob = static.serialize_persistables(
+            [net["ids"], net["types"]], [net["logits"]], main)
+        with torch.no_grad():
+            for p in fresh["main"]._params.values():
+                p.zero_()
+        static.deserialize_persistables(fresh["main"], blob)
+        if not torch.equal(logits_of(ftest, fresh["logits"]), raw):
+            raise AssertionError("phase 14 (iii): deserialize_persistables: "
+                                 "logits not bit-equal")
+        log(f"phase 14 (iii): static.save {os.path.getsize(prefix + '.pdparams')}"
+            f" bytes .pdparams + {os.path.getsize(prefix + '.pdopt')} bytes "
+            f".pdopt in {save_s:.2f} s; static.load into a freshly built "
+            f"program ({len(fresh['main']._params)} parameters, other "
+            f"seed) in {load_s:.2f} s: eval logits bit-equal; "
+            f"serialize_persistables ({len(blob)} bytes) into its zeroed "
+            f"parameters: bit-equal again")
+        del fresh, ftest, blob
+        served, serve_fwd = legacy_serve(exe, test, net, eval_feed, raw,
+                                         counters, tmp)
+        legacy_onnx(device, tmp)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    shapes = [tuple(p.shape) for p in stepped]
+    del net, main, opt, test, stepped, raw, ema_logits
+    gc.collect()
+    torch.cuda.empty_cache()
+    ln_errs = ln_shape_checks(timer, "phase 14", ln_fwd + serve_fwd,
+                              ln_bwd)
+    row = adamw_step_case(timer, device, shapes, torch.bfloat16, BERT_LR,
+                          BERT_WD)
+    log(f"phase 14 fused_adamw_step_bert_static {fmt(row)}")
+    k8 = {"name": "fused_adamw_step_bert_static", "route": "cuda",
+          "source": ADAMW_SRC, "replaces": ADAMW_TPU,
+          "launches": launches["fused_adamw"],
+          **{k: row[k] for k in ("max_abs_err", "ms", "plain_ms",
+                                 "bound_ms", "bound_by", "library_ms")},
+          **{k: row[k] for k in STEP_KEYS}, "launches_note": STEP_NOTE}
+    log(f"phase 14: {time.perf_counter() - t_phase:.1f} s")
+    return launches, served, k8, ln_errs
+
+
+def legacy_serve(exe, test, net, eval_feed, raw, counters, tmp):
+    """14 (iv): ``fluid.io.save_inference_model`` of the test program
+    (feeds by name), ``fluid.io.load_inference_model`` on the executor's
+    place; each served forward launches K2 = 26 (warp-row) and K4 = 12
+    (tensor-core) and nothing else of the kernels, its logits within bf16
+    TOL of the test program's. Returns the served forwards' K2 and K4
+    launches, and the LayerNorm shapes of one forward (every forward
+    serves the same batch)."""
+    from paddle_tpu_torch import fluid
+    d = os.path.join(tmp, "served")
+    t0 = time.perf_counter()
+    fluid.io.save_inference_model(d, ["input_ids", "token_type_ids"],
+                                  [net["logits"]], exe, main_program=test)
+    save_s = time.perf_counter() - t0
+    pred, names, _ = fluid.io.load_inference_model(d, exe)
+    ids, types = eval_feed["input_ids"], eval_feed["token_type_ids"]
+    n_ln = 1 + sum(1 for m in net["bert"].modules()
+                   if type(m).__name__ == "LayerNorm")
+    layers = len(net["bert"].encoder.layers)
+    per_run = {"fused_layer_norm": n_ln, "warp": n_ln,
+               "flash_attention_fwd": layers, "tc": layers, "others": 0}
+    runs = []
+
+    def served():
+        at = deploy_counts(counters)
+        out = pred(ids, types)
+        now = deploy_counts(counters)
+        runs.append({k: now[k] - at[k] for k in now})
+        return out
+
+    reset_counts(counters)
+    with count_plain() as plain:
+        with ln_launch_shapes() as (shapes, _):
+            got = served()
+        ms = event_ms(served, LEGACY_SERVE_RUNS)
+    launches = read_counts(counters)
+    if sum(plain.values()) or runs != [per_run] * (LEGACY_SERVE_RUNS + 1) \
+            or sum(shapes.values()) != n_ln:
+        raise AssertionError(f"phase 14 (iv): launches a served forward "
+                             f"{runs[:3]}, expected {per_run}; plain "
+                             f"{dict(plain)}; LayerNorm calls by shape "
+                             f"{dict(shapes)}")
+    err = check_close("phase 14 (iv) served logits", got.float().cpu(),
+                      raw.float().cpu(), torch.bfloat16)
+    log(f"phase 14 (iv): fluid.io.save_inference_model(feeds {names}) of "
+        f"the test program in {save_s:.2f} s "
+        f"({artifact_bytes(os.path.join(d, 'model'))} bytes); "
+        f"load_inference_model on CUDAPlace(0); each forward at "
+        f"[{BERT_BATCH}, {BERT_SEQ}] launched K2 = {n_ln} (warp-row) and "
+        f"K4 = {layers} (tensor-core), no plain version; logits within "
+        f"bf16 TOL of the test program's (max abs err {err:.3e}); "
+        f"served forward {ms:.3f} ms (median of {LEGACY_SERVE_RUNS}, "
+        f"CUDA events, numpy in)")
+    return {"fused_layer_norm": launches["fused_layer_norm"],
+            "flash_attention_fwd": launches["flash_attention_fwd"]}, shapes
+
+
 def check_nothing_left_running():
     """Every phase has stopped what it started: no ``device_prefetch``
     producer thread and no loader worker process is still alive (either
@@ -7171,6 +7765,8 @@ def run_phases() -> int:
     phase_text(device, card, swept, profile)
     deploy_launches, lenet_row = phase_deploy(device, timer)
     core = phase_core_api(device, card)
+    legacy, legacy_served, legacy_row, legacy_ln = phase_legacy(
+        device, card, timer, profile)
     kernels = report_engine(device, timer, launches, captured,
                             quant_launches, quant_captured)
     # the engine row of the LayerNorm forward counts the fused engines'
@@ -7234,15 +7830,37 @@ def run_phases() -> int:
         + beam_f32_launches["flash_attention_fwd"]
     kernels += tf_kernel_rows
     # phase 12 serves BERT-base at phase 10's shapes: its launches join
-    # the _bert rows of the LayerNorm and flash forward
+    # the _bert rows of the LayerNorm and flash forward; phase 14 trains
+    # and serves it through a fluid program (its head's LayerNorm at
+    # [32, 768] with them): its launches join all four
     for row in bert_kernel_rows:
         for name, count in (("fused_layer_norm_bert", "fused_layer_norm"),
                             ("flash_attention_fwd_bert",
                              "flash_attention_fwd")):
             if row["name"] == name:
-                row["launches"] += deploy_launches[count]
+                row["launches"] += deploy_launches[count] \
+                    + legacy_served[count]
+        for name, count in (("fused_layer_norm_bert", "fused_layer_norm"),
+                            ("fused_layer_norm_bwd_bert",
+                             "fused_layer_norm_bwd"),
+                            ("flash_attention_fwd_bert",
+                             "flash_attention_fwd"),
+                            ("flash_attention_bwd_bert",
+                             "flash_attention_bwd")):
+            if row["name"] == name:
+                row["launches"] += legacy[count]
+        # phase 14's LayerNorm shapes (the head's [32, 768] with the
+        # body's), each held against the plain version there
+        for name, count in (("fused_layer_norm_bert", "fused_layer_norm"),
+                            ("fused_layer_norm_bwd_bert",
+                             "fused_layer_norm_bwd")):
+            if row["name"] == name:
+                row["legacy_shape_errs"] = legacy_ln[count]
+                row["max_abs_err"] = max(row["max_abs_err"],
+                                         *legacy_ln[count].values())
     kernels += bert_kernel_rows
     kernels.append(lenet_row)
+    kernels.append(legacy_row)
     check_nothing_left_running()
     for k in kernels:
         for key, v in k.items():

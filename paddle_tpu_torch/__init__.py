@@ -103,13 +103,13 @@ __all__ = ["seed", "amp", "autograd", "callbacks", "compat", "device", "hapi",
 #: item: multi-device (4) and API breadth (5)
 _DEFERRED = dict.fromkeys(("DataParallel", "distributed", "parallel"), 4)
 _DEFERRED.update(dict.fromkeys((
-    "analysis", "cost_model", "dataset", "distribution", "fft", "fluid",
-    "hub", "incubate", "linalg", "onnx", "quantization", "reader", "signal",
-    "sparse"), 5))
+    "analysis", "cost_model", "dataset", "distribution", "fft", "hub",
+    "incubate", "linalg", "quantization", "reader", "signal", "sparse"), 5))
 
-#: the model code, imported at first use: loading a ``jit.save`` artifact
-#: (``jit.load``, ``inference``) needs the op library and no model code
-_LAZY = ("models", "serving", "vision")
+#: imported at first use: loading a ``jit.save`` artifact (``jit.load``,
+#: ``inference``) needs the op library and no model code, and the 1.x
+#: namespace and the ONNX exporter are for the callers that ask
+_LAZY = ("models", "serving", "vision", "fluid", "onnx")
 
 
 def __getattr__(name):

@@ -27,6 +27,13 @@ optimizer's ``state_dict()`` (or a ``.pdopt`` file read with
 with ``set_state_dict``. So a JAX checkpoint (``.pdparams`` +
 ``.pdopt``) resumes in the port; :func:`opt_state_to_jax` is the
 inverse.
+
+:func:`program_from_jax` carries a static program's parameters: the JAX
+``Program._params`` as numpy into the port's ``static.Program``, by name
+where the names agree (``ParamAttr`` names), else by position, the
+order in which each program first used its parameters (the builders'
+unnamed parameters are ``generated_tensor_<n>`` in the JAX package and
+``param_<i>`` in the port). :func:`program_to_numpy` is its inverse.
 """
 from __future__ import annotations
 
@@ -42,7 +49,7 @@ from .nn.layer.common import Linear
 
 __all__ = ["gpt_from_jax_params", "gpt_to_numpy_params",
            "opt_state_from_jax", "opt_state_to_jax", "layer_from_jax",
-           "layer_to_numpy"]
+           "layer_to_numpy", "program_from_jax", "program_to_numpy"]
 
 #: the optimizer state keys that are not a parameter's slot
 _GLOBAL_KEYS = ("@step", "LR_Scheduler")
@@ -192,3 +199,33 @@ def opt_state_to_jax(state: Mapping, model: GPTForPretraining,
     ``state_dict()`` in the JAX tree's keys and layouts, as numpy."""
     rows, slots = _slot_keys(model, optimizer)
     return _convert_slots(state, rows, slots, 1, 0)
+
+
+def program_from_jax(program, jax_params: Mapping) -> None:
+    """Set the port ``program``'s parameters from ``jax_params`` (the JAX
+    program's ``_params`` as numpy, in its order): by name when the key
+    sets are equal, else by position when the counts are. Each value is
+    in the JAX layout (``Linear`` weights ``[in, out]``) and is cast to
+    its parameter's dtype; a misshapen one raises ``ValueError``, a
+    count that differs ``KeyError``."""
+    from .static.extras import _assign
+    own = list(program._params.items())
+    if set(jax_params) == set(program._params):
+        pairs = [(name, p, jax_params[name]) for name, p in own]
+    elif len(jax_params) == len(own):
+        pairs = [(name, p, v) for (name, p), v in
+                 zip(own, jax_params.values())]
+    else:
+        raise KeyError(f"the JAX program has {len(jax_params)} parameters, "
+                       f"the port's {len(own)}")
+    tr = program._transposed()
+    for name, p, value in pairs:
+        _assign(p, value, name, id(p) in tr)
+
+
+def program_to_numpy(program) -> Dict[str, np.ndarray]:
+    """The port ``program``'s parameters as float32 numpy in the JAX
+    layout, under the program's names, in its order."""
+    from .static.extras import _files_state
+    return {name: np.array(_np32(t))    # a copy, never a view
+            for name, t in _files_state(program).items()}

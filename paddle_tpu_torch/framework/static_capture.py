@@ -43,13 +43,27 @@ _export = threading.local()
 _ops = threading.local()        # depth of call_op frames being recorded
 
 
+#: the operators that write their left operand (``x += y``, ``x[i] = v``);
+#: any other dunder (``__get__`` of ``.shape``, ``__add__``) writes nothing
+_INPLACE_DUNDERS = frozenset((
+    "__setitem__", "__iadd__", "__isub__", "__imul__", "__itruediv__",
+    "__ifloordiv__", "__imod__", "__ipow__", "__imatmul__", "__iand__",
+    "__ior__", "__ixor__", "__ilshift__", "__irshift__"))
+
+
+#: tensor attributes whose read is no op: an alias outside the graph
+#: (``p.data``, as the store ``p.data = ...`` is not one either)
+_NOT_OPS = frozenset(("data", "grad"))
+
+
 class _Recorder(TorchFunctionMode):
     """Records the torch functions called outside ``call_op`` while a
     program is current that read a feed, a parameter or a recorded
     result (the rest, a layer's initialisation among them, are build-time
     constants): those with a tensor result, and the in-place ones
-    (``add_``, ``__setitem__``) except on a parameter. Attribute stores
-    (``t.data = ...``) are not ops and are not recorded."""
+    (``add_``, ``__setitem__``, ``+=``) except on a parameter. Attribute
+    stores (``t.data = ...``) and the reads of ``.data``/``.grad`` are
+    not ops and are not recorded."""
 
     def __torch_function__(self, func, types, args=(), kwargs=None):
         kwargs = kwargs or {}
@@ -58,14 +72,17 @@ class _Recorder(TorchFunctionMode):
         if prog is None or getattr(_ops, "depth", 0) > 0:
             return out
         name = getattr(func, "__name__", str(func))
-        if name == "__set__":
+        if name == "__get__" and getattr(getattr(func, "__self__", None),
+                                         "__name__", None) in _NOT_OPS:
             return out
-        inplace = name.endswith("_") or name == "__setitem__"
-        if inplace and isinstance(args[0], torch.nn.Parameter):
+        dunder = name.startswith("__") and name.endswith("__")
+        inplace = name in _INPLACE_DUNDERS if dunder else name.endswith("_")
+        target = args[0] if args else next(iter(kwargs.values()), None)
+        if inplace and isinstance(target, torch.nn.Parameter):
             return out
         if inplace or any(isinstance(t, torch.Tensor)
                           for t in pytree.tree_leaves(out)):
-            record(name, func, (args, kwargs), out)
+            record(name, func, (args, kwargs), out, torch_function=True)
         return out
 
 
@@ -81,19 +98,23 @@ class OpNode:
     it, else ``value`` itself: a parameter, read live, or a build-time
     constant; then casts to ``cast_dtype`` when the AMP policy did), or
     ``(None, value, None)`` for anything else. ``spec`` rebuilds
-    ``(args, attrs)`` from the leaves."""
+    ``(args, attrs)`` from the leaves. ``torch_function``: the recorder
+    took it (``op`` is the torch function's name, which may be an op's
+    too: ``add``), else ``call_op`` or a host node did."""
 
-    __slots__ = ("op", "fn", "inputs", "out_ids", "attrs", "spec")
+    __slots__ = ("op", "fn", "inputs", "out_ids", "attrs", "spec",
+                 "torch_function")
 
     def __init__(self, op: str, fn, inputs: List[Tuple[Any, Any, Any]],
                  out_ids: List[int], attrs: Optional[dict] = None,
-                 spec=None):
+                 spec=None, torch_function=False):
         self.op = op
         self.fn = fn
         self.inputs = inputs
         self.out_ids = out_ids
         self.attrs = attrs or {}
         self.spec = spec
+        self.torch_function = torch_function
 
 
 def set_current(program) -> None:
@@ -138,7 +159,8 @@ def paused():
 
 
 def record(op_name: str, fn, in_tensors, out_tensors,
-           attrs: Optional[dict] = None, ran=None) -> None:
+           attrs: Optional[dict] = None, ran=None,
+           torch_function=False) -> None:
     """Called from ``call_op`` for every op while capture is active (and
     from the recorder for the torch functions outside ops).
     ``in_tensors`` is the operands as the caller passed them, an
@@ -166,7 +188,8 @@ def record(op_name: str, fn, in_tensors, out_tensors,
             inputs.append((None, orig, None))
     outs = [t for t in pytree.tree_leaves(out_tensors)
             if isinstance(t, torch.Tensor)]
-    prog._record_op(op_name, fn, inputs, spec, outs, attrs or {})
+    prog._record_op(op_name, fn, inputs, spec, outs, attrs or {},
+                    torch_function)
 
 
 def exporting() -> bool:

@@ -62,11 +62,12 @@ default, as in the JAX package; static mode never prefetches): the copy
 of the next batch runs on its own CUDA stream under the current step.
 ``train_batch(update=False)`` accumulates the gradients into ``.grad``
 without a step, as the reference's dygraph adapter does; the next
-``update=True`` call steps on their sum and clears them.
+``update=True`` call steps on their sum and clears them. In static mode
+the program's replay does the same (``Program._execute``).
 
 Not ported, each raising ``NotImplementedError`` that names its ROADMAP
-item: ``fit(analyze=)`` and static-mode ``train_batch(update=False)``
-(Queue 1 item 5), ``fit(zero=, grad_comm=)`` (item 4).
+item: ``fit(analyze=)`` (Queue 1 item 5), ``fit(zero=, grad_comm=)``
+(item 4).
 
 ``eval_batch``/``evaluate`` give the loss only for batches with labels,
 as the JAX package does: under an ``inputs``-only spec (GPT, which takes
@@ -222,15 +223,17 @@ class _StaticGraphAdapter:
                 f"declares {len(names)} feeds ({names})")
         return dict(zip(names, arrays))
 
-    def train_step(self, inputs, labels):
-        """One train step: the loss (a device scalar) and the outputs."""
+    def train_step(self, inputs, labels, update=True):
+        """One train step: the loss (a device scalar) and the outputs.
+        ``update=False`` adds the step's gradients to ``.grad`` and
+        leaves the optimizer's step to a later ``update=True`` run."""
         feed = self._feed(inputs, labels, True)
         if self._loss_var is None:
             raise RuntimeError("no loss/labels declared: static-mode "
                                "training needs labels=[InputSpec] + loss")
-        res = self._exe.run(self._main, feed=feed,
-                            fetch_list=[self._loss_var] + self._out_vars,
-                            return_numpy=False)
+        res = self._exe._run(self._main, feed,
+                             [self._loss_var] + self._out_vars, False,
+                             update)
         return res[0], res[1:]
 
     def eval_step(self, inputs, labels):
@@ -368,8 +371,6 @@ class Model:
                 "no loss configured: call model.prepare(optimizer, loss) "
                 "before fit/train_batch")
         adapter = self._static()
-        if adapter is not None and not update:
-            raise _not_ported("train_batch(update=False) in static mode", 5)
         self._step_counter += 1
         t0 = time.perf_counter()
         if self._flush_t0 is None:
@@ -380,7 +381,7 @@ class Model:
             self._audit_layout is not None
         if adapter is not None:
             with _prof.record("hapi/train_batch", "hapi"):
-                loss, outs = adapter.train_step(inputs, labels)
+                loss, outs = adapter.train_step(inputs, labels, update)
             stat_observe("hapi/step_time_ms",
                          (time.perf_counter() - t0) * 1e3)
             return loss, outs
@@ -587,8 +588,8 @@ class Model:
         the metrics' results beside it when there are metrics. With
         ``update=False`` the batch's gradients are added to ``.grad`` and
         nothing steps (gradient accumulation); the next ``update=True``
-        call steps on the summed gradients and clears them. Static mode
-        takes only ``update=True`` (ROADMAP Queue 1 item 5)."""
+        call steps on the summed gradients and clears them, in static
+        mode too."""
         self.network.train()
         labels = self._to_device(_to_list(labels))
         loss, outs = self._train_step(self._to_device(_to_list(inputs)),

@@ -84,12 +84,25 @@ class _Capture(torch.nn.Module):
 
 def _export(capture, examples, dynamic_shapes=None):
     """``torch.export`` of ``capture`` on ``examples``, without autograd,
-    with the kernel overrides on and no static program recording."""
-    with torch.no_grad(), _capture.paused(), _capture.export_scope():
-        return torch.export.export(
-            capture, tuple(examples),
-            dynamic_shapes=None if dynamic_shapes is None
-            else {"tensors": dynamic_shapes})
+    with the kernel overrides on and no static program recording.
+    TorchDynamo traces the branches of ``torch.cond``/``while_loop`` and
+    caches what it compiled under the branch function's code, so a later
+    export of the same function would reuse a compile made at this
+    trace's shapes (a dynamic dimension fixed): an export whose graph
+    holds such an op, or that fails, empties that cache after it."""
+    clean = False
+    try:
+        with torch.no_grad(), _capture.paused(), _capture.export_scope():
+            ep = torch.export.export(
+                capture, tuple(examples),
+                dynamic_shapes=None if dynamic_shapes is None
+                else {"tensors": dynamic_shapes})
+        clean = not any(isinstance(n.target, torch._ops.HigherOrderOperator)
+                        for n in ep.graph.nodes)
+        return ep
+    finally:
+        if not clean:
+            torch._dynamo.reset()
 
 
 def _moved(ep, device):

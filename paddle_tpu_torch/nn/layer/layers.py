@@ -22,7 +22,10 @@ attributes the optimizer and the clips read (:func:`set_param_attr`):
 * ``need_clip``: ``False`` leaves its gradient out of every clip;
 * ``regularizer`` (kept, as in the JAX package, which reads only the
   optimizer's global decay);
-* ``requires_grad = attr.trainable``.
+* ``requires_grad = attr.trainable``;
+* ``_paddle_name = attr.name`` when the attribute names it (a torch
+  tensor's own ``name`` cannot be set): a static ``Program`` keys the
+  parameter by it, as the JAX package keys its ``Parameter.name``.
 """
 from __future__ import annotations
 
@@ -71,6 +74,8 @@ def set_param_attr(param, attr: ParamAttr):
     param.regularizer = attr.regularizer
     param.need_clip = attr.need_clip
     param.requires_grad_(attr.trainable)
+    if attr.name:
+        param._paddle_name = attr.name
     return param
 
 

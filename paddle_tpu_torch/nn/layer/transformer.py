@@ -87,15 +87,18 @@ class MultiHeadAttention(Layer):
         self.out_proj = Linear(embed_dim, embed_dim, weight_attr, bias_attr,
                                **kw)
 
+    # the batch is -1 (inferred) wherever it can be: a static program
+    # records the shape at its build batch and replays it at any other
     def _split_heads(self, x):
         # [B, L, E] -> [B, L, H, D]
         b, l = x.shape[0], x.shape[1]
-        return call_op("reshape", x,
-                       shape=(b, l, self.num_heads, self.head_dim))
+        return call_op("reshape", x, shape=(-1 if x.numel() else b, l,
+                                            self.num_heads, self.head_dim))
 
     def _merge_heads(self, x):
         b, l, h, d = x.shape
-        return call_op("reshape", x, shape=(b, l, h * d))
+        return call_op("reshape", x,
+                       shape=(-1 if x.numel() else b, l, h * d))
 
     def gen_cache(self, key, value=None, type=None):
         if type == MultiHeadAttention.StaticCache:

@@ -269,20 +269,22 @@ class Optimizer:
         static mode (a ``static.Program`` recording) it attaches ``loss``
         and this optimizer to the program instead, whose ``Executor.run``
         then takes the step, and returns ``([], [])``; an optimizer built
-        without ``parameters`` then updates the program's. A static
-        ``parameters`` or ``no_grad_set`` is not ported yet (ROADMAP Queue
-        1 item 5)."""
+        without ``parameters`` then updates the program's, under the
+        program's names for them. ``parameters`` and ``no_grad_set`` are
+        recorded on the program there: each run steps only that subset,
+        as in eager mode (the JAX package ignores both in static mode
+        too)."""
         from ..framework import static_capture
         prog = static_capture.current
         if prog is not None:
-            if parameters is not None or no_grad_set is not None:
-                raise NotImplementedError(
-                    "minimize(parameters=, no_grad_set=) in static mode is "
-                    "not ported yet (ROADMAP Queue 1 item 5)")
             prog._loss = loss
             prog._optimizer = self
             if self._params is None:
-                self._params = _named(prog._params.values())
+                self._params = list(prog._params.items())
+            prog._opt_chosen = None
+            if parameters is not None or no_grad_set:
+                prog._opt_chosen = _select(self._params, parameters,
+                                           no_grad_set)
             return [], []
         loss.backward()
         chosen = None

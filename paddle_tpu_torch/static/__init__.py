@@ -25,11 +25,18 @@ How it works:
   the fused AdamW kernel on the card) and ``clear_grad()``; the
   parameters are the live ones, so the state persists across runs.
 
+A recorded parameter is keyed by its ``ParamAttr`` name when it has one
+(the JAX package keys by ``Parameter.name``), else ``param_<i>`` in
+order of first use, so two builds of one network key alike and a
+``static.save`` file of one loads into the other. ``minimize(loss,
+parameters=, no_grad_set=)`` limits the step to that subset, and the
+replay then differentiates only what it steps or fetches.
+
 ``save_inference_model``/``load_inference_model`` go through
 ``jit.save``/``jit.load``. The JAX package's static-analysis pre-flight
 of ``Executor.run`` waits on the ``analysis`` port (ROADMAP Queue 1 item
-5). ``static.nn`` and the legacy names of ``static/extras.py`` are the
-next slice: reaching one raises ``NotImplementedError`` naming the item.
+5). ``static.nn`` (control flow and the layer builders) and the legacy
+names of ``static/extras.py`` are imported at the end of this module.
 """
 from __future__ import annotations
 
@@ -44,7 +51,6 @@ from torch.utils import _pytree as pytree
 from ..framework import static_capture as _capture
 from ..framework.dtypes import convert_dtype
 from ..framework.place import to_torch_device
-from ..ops.registry import not_ported as _not_ported
 
 __all__ = ["enable_static", "disable_static", "in_dynamic_mode",
            "InputSpec", "Program", "program_guard", "default_main_program",
@@ -114,23 +120,63 @@ class Program:
         self._grad_vars: Dict[int, str] = {}      # grad var id -> param name
         self._declared: Dict[int, tuple] = {}     # feed id -> data() shape
         self._produced: set = set()               # feed and node output ids
+        # minimize(parameters=, no_grad_set=): the optimizer's (name,
+        # param) pairs a step updates (None: all it holds)
+        self._opt_chosen = None
 
     # -- capture hooks (called via framework/static_capture.py) ----------
-    def _record_op(self, op_name, fn, inputs, spec, out_tensors, attrs):
+    def _record_op(self, op_name, fn, inputs, spec, out_tensors, attrs,
+                   torch_function=False):
         for tid, value, _ in inputs:
             if tid is None:
                 continue
             self._vars.setdefault(tid, value)
-            if isinstance(value, torch.nn.Parameter) and not any(
-                    p is value for p in self._params.values()):
-                self._params[f"param_{len(self._params)}"] = value
+            if isinstance(value, torch.nn.Parameter):
+                self._add_param(value)
         out_ids = []
         for t in out_tensors:
             self._vars[id(t)] = t
             self._produced.add(id(t))
             out_ids.append(id(t))
-        self._nodes.append(
-            _capture.OpNode(op_name, fn, inputs, out_ids, attrs, spec))
+        self._nodes.append(_capture.OpNode(op_name, fn, inputs, out_ids,
+                                           attrs, spec, torch_function))
+
+    def _add_param(self, param, name=None) -> str:
+        """Key ``param`` in ``_params`` (once): by ``name``, its
+        ``ParamAttr`` name, or ``param_<i>``; returns the key."""
+        for key, p in self._params.items():
+            if p is param:
+                return key
+        name = name or getattr(param, "_paddle_name", None)
+        if name is None:
+            i = len(self._params)
+            while f"param_{i}" in self._params:
+                i += 1
+            name = f"param_{i}"
+        elif name in self._params:
+            raise ValueError(f"two parameters of one program are named "
+                             f"{name!r}")
+        self._params[name] = param
+        return name
+
+    def _transposed(self) -> set:
+        """Ids of the parameters the program reads as ``w.t()`` into the
+        weight of a ``linear`` op: a ``Linear``'s weight, which the port
+        stores ``[out, in]`` and the JAX package ``[in, out]`` (files and
+        exports write the JAX layout)."""
+        t_of = {}
+        for node in self._nodes:
+            ts = [(tid, v) for tid, v, _ in node.inputs if tid is not None]
+            if node.torch_function and node.op == "t" and len(ts) == 1 \
+                    and isinstance(ts[0][1], torch.nn.Parameter):
+                t_of[node.out_ids[0]] = ts[0][0]
+        out = set()
+        for node in self._nodes:
+            ts = [tid for tid, _, _ in node.inputs if tid is not None]
+            if not node.torch_function and node.op == "linear" and \
+                    len(ts) >= 2 and ts[1] in t_of:
+                out.add(t_of[ts[1]])
+        return out
 
     def _tracks(self, t) -> bool:
         """Whether ``t`` is a feed, a parameter or a recorded result."""
@@ -163,6 +209,7 @@ class Program:
         p._produced = set(self._produced)
         if not for_test:
             p._optimizer = self._optimizer
+            p._opt_chosen = self._opt_chosen
         return p
 
     def list_vars(self):
@@ -185,17 +232,19 @@ class Program:
             raise KeyError(f"no variable named {item!r} in this program")
         raise TypeError(f"cannot fetch {type(item).__name__}")
 
-    def _forward_env(self, feeds: Dict[str, Any], params=None):
-        """Replay the node list; returns {tensor_id: tensor}. ``params``
-        maps a recorded parameter's id to the tensor to use in its place
-        (an export passes its own); the live parameter otherwise."""
+    def _forward_env(self, feeds: Dict[str, Any], params=None, nodes=None):
+        """Replay ``nodes`` (a :meth:`_plan`: the reference's pruning to
+        the fetch targets), else the whole node list; returns
+        {tensor_id: tensor}. ``params`` maps a recorded parameter's id to
+        the tensor to use in its place (an export passes its own); the
+        live parameter otherwise."""
         env: Dict[int, Any] = {}
         for name, tid in self._feeds.items():
             if name in feeds:
                 env[tid] = feeds[name]
         if params:
             env.update(params)
-        for node in self._nodes:
+        for node in self._nodes if nodes is None else nodes:
             leaves = []
             for tid, value, cast in node.inputs:
                 if tid is not None:
@@ -211,15 +260,29 @@ class Program:
                 env[tid] = a
         return env
 
+    @staticmethod
+    def _writes(node):
+        """The ids a node produces: its outputs, or, for an in-place one
+        that returns nothing (``x[i] = v``), the tensor it writes."""
+        if node.out_ids:
+            return node.out_ids
+        return [tid for tid, _, _ in node.inputs if tid is not None][:1]
+
     def _needed_ids(self, roots) -> set:
         """Tensor ids reachable backward from ``roots`` through the node
         list (the reference's graph pruning for fetch targets)."""
         needed = set(roots)
         for node in reversed(self._nodes):
-            if any(tid in needed for tid in node.out_ids):
+            if any(tid in needed for tid in self._writes(node)):
                 needed.update(tid for tid, _, _ in node.inputs
                               if tid is not None)
         return needed
+
+    def _plan(self, roots):
+        """``(the nodes roots depend on, in order; the ids they read)``."""
+        needed = self._needed_ids(roots)
+        return [n for n in self._nodes
+                if any(tid in needed for tid in self._writes(n))], needed
 
     def _feed_tensor(self, name, value):
         """A fed value as a tensor on its placeholder's device, in the
@@ -230,9 +293,12 @@ class Program:
         return value.to(device=ph.device, dtype=ph.dtype)
 
     def _execute(self, feed: Dict[str, Any], fetch_ids: Sequence[int],
-                 return_numpy: bool = True):
+                 return_numpy: bool = True, update: bool = True):
         """One Executor.run: the replay, plus a train step when an
-        optimizer is attached."""
+        optimizer is attached. The step's gradients add to each stepped
+        parameter's ``.grad``; ``update=False`` stops there (the
+        gradients accumulate over runs, as ``train_batch(update=False)``
+        asks), else the optimizer steps and clears them."""
         train = self._optimizer is not None and self._loss is not None
         want_grads = [tid for tid in fetch_ids if tid in self._grad_vars]
         need_grad = train or bool(want_grads)
@@ -243,7 +309,7 @@ class Program:
         roots = [t for t in fetch_ids if t not in self._grad_vars]
         if need_grad and self._loss is not None:
             roots.append(id(self._loss))
-        needed = self._needed_ids(roots)
+        nodes, needed = self._plan(roots)
         missing = [name for name, tid in self._feeds.items()
                    if tid in needed and name not in feed]
         if missing:
@@ -253,28 +319,46 @@ class Program:
         feeds = {k: self._feed_tensor(k, v) for k, v in feed.items()
                  if k in self._feeds}
         with torch.enable_grad() if need_grad else torch.no_grad():
-            env = self._forward_env(feeds)
+            env = self._forward_env(feeds, nodes=nodes)
             if need_grad:
                 if self._loss is None:
                     raise RuntimeError("gradients need append_backward(loss)"
                                        " or minimize(loss) first")
-                loss = env[id(self._loss)].float()
-                names = list(self._params)
-                params = [self._params[n] for n in names]
-                grads = torch.autograd.grad(loss, params, allow_unused=True)
-                for tid, pname in self._grad_vars.items():
-                    g = grads[names.index(pname)]
+                keys = {id(p): k for k, p in self._params.items()}
+                stepped = [(n, p) for n, p in self._stepped()
+                           if id(p) in keys] if train else []
+                names = {self._grad_vars[t] for t in want_grads}
+                names.update(keys[id(p)] for _, p in stepped)
+                names = [n for n in self._params if n in names]
+                grads = dict(zip(names, torch.autograd.grad(
+                    env[id(self._loss)].float(),
+                    [self._params[n] for n in names], allow_unused=True)))
+                for tid in want_grads:
+                    pname = self._grad_vars[tid]
+                    g = grads[pname]
                     env[tid] = torch.zeros_like(self._params[pname]) \
                         if g is None else g
-                if train:
-                    for p, g in zip(params, grads):
-                        p.grad = g
-                    self._optimizer.step()
-                    self._optimizer.clear_grad()
-        fetched = [env[tid].detach() for tid in fetch_ids]
+                for _, p in stepped:
+                    g = grads[keys[id(p)]]
+                    if g is not None:
+                        p.grad = g if p.grad is None else p.grad + g
+                if train and update:
+                    self._optimizer.step(self._opt_chosen)
+                    for _, p in stepped:
+                        p.grad = None
+        # a fetched variable no node produced (a global var) is read live
+        fetched = [env.get(tid, self._vars.get(tid)).detach()
+                   for tid in fetch_ids]
         if return_numpy:
             return [_to_numpy(v) for v in fetched]
         return fetched
+
+    def _stepped(self):
+        """The ``(name, param)`` pairs a train step updates: the subset
+        ``minimize`` chose, else every parameter the optimizer holds."""
+        if self._opt_chosen is not None:
+            return self._opt_chosen
+        return self._optimizer._params or []
 
 
 _default_main = Program()
@@ -363,15 +447,22 @@ def _to_numpy(o):
 class Executor:
     """Feed/fetch-by-name executor over recorded Programs (reference
     Executor.run fluid/executor.py:1109): the replay runs the recorded
-    ops eagerly on the fed tensors."""
+    ops eagerly on the fed tensors. A ``CompiledProgram`` runs its
+    program."""
 
     def __init__(self, place=None):
         self.place = place
 
     def run(self, program=None, feed=None, fetch_list=None,
             return_numpy=True):
+        return self._run(program, feed, fetch_list, return_numpy)
+
+    def _run(self, program, feed, fetch_list, return_numpy, update=True):
+        """``run``; ``update=False`` accumulates a train step's gradients
+        without the optimizer's step (``Program._execute``)."""
         if program is None:
             program = _default_main
+        program = getattr(program, "_program", program)  # CompiledProgram
         if callable(program) and not isinstance(program, Program):
             out = program(**(feed or {}))
             if fetch_list:
@@ -383,15 +474,11 @@ class Executor:
         if program._nodes:
             # pause capture during replay: executing the program must not
             # append to it
-            prev = _capture.current
-            _capture.set_current(None)
-            try:
+            with _capture.paused():
                 fetch_ids = [program._resolve_fetch(f)
                              for f in (fetch_list or [])]
                 return program._execute(feed or {}, fetch_ids,
-                                        return_numpy)
-            finally:
-                _capture.set_current(prev)
+                                        return_numpy, update)
         if program._fn is not None:
             out = program(**(feed or {})) if feed else program()
             if fetch_list:
@@ -419,7 +506,8 @@ class _Replay(torch.nn.Module):
     def forward(self, *arrays):
         env = self._program._forward_env(
             dict(zip(self._feed_names, arrays)),
-            dict(zip(self._ids, self.params)))
+            dict(zip(self._ids, self.params)),
+            self._program._plan(self._fetch_ids)[0])
         outs = [env[i] for i in self._fetch_ids]
         return outs[0] if len(outs) == 1 else tuple(outs)
 
@@ -474,22 +562,7 @@ def load_inference_model(path_prefix, executor=None, **kwargs):
     return layer, layer.input_names, None
 
 
-#: ``static/extras.py`` and ``static.nn``: the next slice
-_DEFERRED = frozenset((
-    "nn", "Variable", "BuildStrategy", "ExecutionStrategy",
-    "CompiledProgram", "ParallelExecutor", "Scope", "global_scope",
-    "scope_guard", "create_parameter", "create_global_var", "gradients",
-    "py_func", "save", "load", "save_to_file", "load_from_file",
-    "load_program_state", "set_program_state", "serialize_program",
-    "deserialize_program", "serialize_persistables",
-    "deserialize_persistables", "normalize_program", "accuracy", "auc",
-    "exponential_decay", "Print", "ExponentialMovingAverage",
-    "WeightNormParamAttr", "cuda_places", "xpu_places", "npu_places",
-    "mlu_places", "IpuStrategy", "IpuCompiledProgram", "ipu_shard_guard",
-    "set_ipu_shard", "ctr_metric_bundle"))
-
-
-def __getattr__(name):
-    if name in _DEFERRED:
-        raise _not_ported(f"static.{name}", 5)
-    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")
+from .extras import *  # noqa: E402,F401,F403  (legacy/compat surface)
+from . import extras as _extras  # noqa: E402
+from . import nn  # noqa: E402,F401  (control flow and layer builders)
+__all__ += _extras.__all__

@@ -373,8 +373,15 @@ def test_static_train_batch_without_update_raises_its_item():
         model.prepare(SGD(0.1, parameters=net.parameters()),
                       loss=lambda out, y: ((out - y) ** 2).mean())
         x, y = _data(4)
-        with pytest.raises(NotImplementedError, match="Queue 1 item 5"):
-            model.train_batch([x], [y], update=False)
+        w0 = net.weight.detach().clone()
+        # static mode accumulates as eager mode does (the static
+        # adapter's replay): no step, no error, a gradient kept
+        model.train_batch([x], [y], update=False)
+        assert torch.equal(net.weight.detach(), w0)
+        assert net.weight.grad is not None
+        model.train_batch([x], [y], update=True)
+        assert not torch.equal(net.weight.detach(), w0)
+        assert net.weight.grad is None
     finally:
         pt.disable_static()
         pt.set_device(old)
