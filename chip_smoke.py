@@ -342,6 +342,46 @@ prints no result line):
    equal to the CPU export of the same weights. Its launches join the
    ``_bert`` rows; ``fused_adamw_step_bert_static`` holds K8 over the
    stepped list;
+15. the exported generate artifact (``phase_serving``, after phase 14):
+   GPT-2 small (bf16, full width and depth) at ``bench.py``'s
+   ``bench_gpt2_decode`` configuration (8 prompts of 128 tokens, 128
+   new, greedy, no EOS) exported by ``models.save_for_serving`` on the
+   card (export seconds, artifact bytes, the node counts of the top
+   graph and of the ``while_loop``'s body), loaded by ``jit.load`` and
+   ``inference.create_predictor``: both give eager ``generate()``'s
+   tokens on the card, each call launching K2 (2L + 1) x 128 = 3200
+   times on the warp-row route and K4 L = 12 times (the prefill) on the
+   tensor-core route, counted by the wrappers with the counts set to 0
+   around it, no plain version; served and eager ms per token step in
+   the same run. A beam artifact (4 beams, 32 new) gives eager beam
+   search's tokens; a ``runtime_key`` artifact (sampled at temperature
+   0.8, 32 new) equal tokens for equal keys and other tokens for another
+   key. Rows ``fused_layer_norm_serving`` (every K2 launch of the phase,
+   held at each shape) and ``flash_attention_fwd_serving`` (K4 at the
+   served prefill's bf16 [8, 128, 12, 64]);
+16. the rest of ``vision`` (``phase_vision``): (i) MobileNetV2 (scale
+   1.0, 1000 classes, 224 x 224) under ``bench_resnet50``'s recipe
+   (NHWC, bf16 O2, Momentum 0.9 with float32 masters, batch 128) through
+   ``Model.fit`` from a ``vision.datasets.DatasetFolder`` of 256 x 256
+   uint8 ``.npy`` images the phase writes into 8 class folders, through
+   ``Compose([RandomResizedCrop(224), RandomHorizontalFlip(),
+   Transpose, Normalize(ImageNet, HWC)])`` in 2 loader workers with
+   prefetch: 10 steps, every loss finite, no kernel of the port and no
+   plain version (none is on this path), ms a step, images/s and the
+   loader's wait; (ii) each other family (VGG-16, AlexNet,
+   SqueezeNet 1.1, MobileNetV1, MobileNetV3-Large, ShuffleNetV2 1.0x,
+   DenseNet-121, GoogLeNet with its auxiliary heads, InceptionV3 at 299
+   x 299) forward at 224 x 224: a bf16 batch of 32 timed, a float32
+   batch of 4 on the card held against the same weights on the CPU
+   within ``ZOO_TOL``; (iii) the seven detection ops at detection shapes
+   held against the same calls on the CPU: ``yolo_box`` over
+   YOLOv3-COCO's three heads (608 x 608, 80 classes, grids 19/38/76, the
+   nine anchors, batch 8) and categorical ``nms`` (IoU 0.45) over each
+   image's 1000 best pairs, ``yolo_loss`` forward and backward with 50
+   boxes an image, ``roi_align`` (14 x 14) and ``roi_pool`` (7 x 7) at
+   Faster R-CNN C4's [2, 1024, 50, 76] with 512 regions an image,
+   ``psroi_pool`` at R-FCN's 7 x 7 x 21 classes, a ``deform_conv2d`` v2
+   3 x 3 256 -> 256 on [2, 256, 50, 76];
 8. real operands: the layer-0 operands of one real step of each path
    through kernel and plain: the engine's attention rows (float, int8
    and fp8 pools) at its widest step and at its last decode-only step
@@ -7680,6 +7720,583 @@ def legacy_serve(exe, test, net, eval_feed, raw, counters, tmp):
             "flash_attention_fwd": launches["flash_attention_fwd"]}, shapes
 
 
+# ---------------------------------------------------------------- phase 15
+#: ``bench.py``'s ``bench_gpt2_decode``: GPT-2 small, bf16 weights, 8
+#: prompts of 128 tokens, 128 new, greedy, no EOS; not cut
+SERVE_BATCH, SERVE_PROMPT, SERVE_NEW = 8, 128, 128
+#: the beam and keyed artifacts: 4 beams, and sampling at temperature 0.8,
+#: 32 new tokens each
+SERVE_BEAMS, SERVE_SHORT, SERVE_TEMP = 4, 32, 0.8
+SERVE_RUNS = 3
+SERVE_LN_ROW = "fused_layer_norm_serving"
+
+
+def served_graph_nodes(layer):
+    """The node counts of a loaded artifact's graphs: the top graph and
+    each ``while_loop`` body and condition."""
+    return {name or "top": len(m.graph.nodes)
+            for name, m in layer._exported.graph_module.named_modules()
+            if isinstance(m, torch.fx.GraphModule)}
+
+
+@contextlib.contextmanager
+def ln_route_shapes():
+    """The dtype and [rows, D] of every LayerNorm launch while the block
+    runs, read where a launch picks its route (``ops.layer_norm.
+    ln_route``, called once a forward or backward launch): an exported
+    program's ``while_loop`` body reaches its custom op there too, where
+    neither a module hook nor a dispatch mode sees it."""
+    from paddle_tpu_torch.ops import layer_norm as ln
+    seen = collections.Counter()
+    orig = ln.ln_route
+
+    def spy(x, *operands):
+        seen[(x.dtype, x.numel() // x.shape[-1], x.shape[-1])] += 1
+        return orig(x, *operands)
+
+    ln.ln_route = spy
+    try:
+        yield seen
+    finally:
+        ln.ln_route = orig
+
+
+def serve_call(what, fn, want, counters, shapes):
+    """``fn()`` with the counts set to 0 just before and read just after:
+    K2 and K4 must equal ``want``, every K2 launch warp-row, every K4
+    launch tensor-core, no plain version; the K2 shapes are added to
+    ``shapes``. Returns (tokens, wall s)."""
+    reset_counts(counters)
+    torch.cuda.synchronize()
+    with count_plain() as plain, ln_route_shapes() as fwd:
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    got = {k: counters[k].launches for k in want}
+    if got != want or sum(plain.values()):
+        raise AssertionError(f"phase 15 {what}: launches {got}, expected "
+                             f"{want}; plain versions {dict(plain)}")
+    check_ln_route(f"phase 15 {what}", (counters["fused_layer_norm"],))
+    fa = counters["flash_attention_fwd"]
+    if fa.tc_launches != fa.launches:
+        raise AssertionError(f"phase 15 {what}: {fa.launches} flash "
+                             f"launches, {fa.tc_launches} tensor-core")
+    shapes.update(fwd)
+    return out, wall
+
+
+def phase_serving(device, card):
+    """15: the exported generate artifact. GPT-2 small (bf16, full width
+    and depth, random weights from a seed) at ``bench_gpt2_decode``'s
+    configuration: ``save_for_serving`` on the card (export seconds,
+    artifact bytes, the graphs' node counts), then ``jit.load`` and
+    ``inference.create_predictor`` serve it with no model code: their
+    tokens equal eager ``generate()``'s on the card, each call launching
+    K2 (2L + 1) x 128 = 3200 times (warp-row) and K4 L = 12 times (the
+    prefill, tensor-core), no plain version; served and eager ms per
+    token in the same run. A beam artifact (4 beams, 32 new) equals eager
+    beam search (K2 (2L + 1) x 32, K4 12); a ``runtime_key`` artifact
+    (sampled at temperature 0.8, 32 new) gives equal tokens for equal
+    keys and different tokens for two keys. Returns the launches of the
+    served calls and the K2 shapes recorded."""
+    import tempfile
+    from paddle_tpu_torch import inference, jit
+    from paddle_tpu_torch.models import save_for_serving
+    model, cfg = gpt2_small(SEED + 150, device)
+    model = model.to(torch.bfloat16).eval()
+    n_layers = cfg.num_hidden_layers
+    counters = gen_counters()
+    ids = torch.from_numpy(np.random.RandomState(SEED + 151).randint(
+        0, cfg.vocab_size, (SERVE_BATCH, SERVE_PROMPT))).to(device)
+    greedy = {"fused_layer_norm": (2 * n_layers + 1) * SERVE_NEW,
+              "flash_attention_fwd": n_layers}
+    shapes = collections.Counter()
+    totals = collections.Counter()
+
+    def counted(what, fn, want):
+        out, wall = serve_call(what, fn, want, counters, shapes)
+        totals.update(want)
+        return out, wall
+
+    eager, _ = counted("eager generate", lambda: model.generate(
+        ids, max_new_tokens=SERVE_NEW), greedy)
+    eager_walls = [counted("eager generate", lambda: model.generate(
+        ids, max_new_tokens=SERVE_NEW), greedy)[1]
+        for _ in range(SERVE_RUNS)]
+    tmp = tempfile.mkdtemp(dir=TRACE_ROOT)
+    path = os.path.join(tmp, "gpt2_greedy")
+    t0 = time.perf_counter()
+    save_for_serving(model, path, batch=SERVE_BATCH,
+                     prompt_len=SERVE_PROMPT, max_new_tokens=SERVE_NEW)
+    export_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    loaded = jit.load(path)
+    load_s = time.perf_counter() - t0
+    pred = inference.create_predictor(inference.Config(path + ".pdmodel"))
+    nodes = served_graph_nodes(loaded)
+    host_ids = ids.to(torch.int32).cpu().numpy()
+    served, _ = counted("jit.load", lambda: loaded(host_ids), greedy)
+    served_walls = [counted("jit.load", lambda: loaded(host_ids),
+                            greedy)[1] for _ in range(SERVE_RUNS)]
+    predicted, _ = counted("Predictor.run",
+                           lambda: pred.run([host_ids])[0], greedy)
+    want = eager.cpu()
+    if not (served.device.type == device.type
+            and torch.equal(served.cpu(), want)
+            and np.array_equal(predicted, want.numpy())):
+        diff = (served.cpu() != want).nonzero()[:5].tolist()
+        raise AssertionError(f"phase 15: served tokens on {served.device} "
+                             f"differ from eager generate's at {diff} (the "
+                             f"Predictor's equal: "
+                             f"{np.array_equal(predicted, want.numpy())})")
+
+    beam_want = {"fused_layer_norm": (2 * n_layers + 1) * SERVE_SHORT,
+                 "flash_attention_fwd": n_layers}
+    eager_beam, _ = counted("eager beams", lambda: model.generate(
+        ids, max_new_tokens=SERVE_SHORT, num_beams=SERVE_BEAMS), beam_want)
+    bpath = os.path.join(tmp, "gpt2_beams")
+    t0 = time.perf_counter()
+    save_for_serving(model, bpath, batch=SERVE_BATCH,
+                     prompt_len=SERVE_PROMPT, max_new_tokens=SERVE_SHORT,
+                     num_beams=SERVE_BEAMS)
+    beam_export_s = time.perf_counter() - t0
+    beam_layer = jit.load(bpath)
+    beams, _ = counted("beam artifact", lambda: beam_layer(host_ids),
+                       beam_want)
+    if not torch.equal(beams.cpu(), eager_beam.cpu()):
+        raise AssertionError("phase 15: the beam artifact's tokens differ "
+                             "from eager beam search's")
+
+    kpath = os.path.join(tmp, "gpt2_keyed")
+    t0 = time.perf_counter()
+    save_for_serving(model, kpath, batch=SERVE_BATCH,
+                     prompt_len=SERVE_PROMPT, max_new_tokens=SERVE_SHORT,
+                     do_sample=True, temperature=SERVE_TEMP,
+                     runtime_key=True)
+    key_export_s = time.perf_counter() - t0
+    keyed = inference.create_predictor(inference.Config(kpath + ".pdmodel"))
+    key_want = {"fused_layer_norm": (2 * n_layers + 1) * SERVE_SHORT,
+                "flash_attention_fwd": n_layers}
+    k1, k2 = (np.array(k, np.uint32) for k in ([SEED, 1], [SEED, 2]))
+    a, _ = counted("keyed artifact", lambda: keyed.run([host_ids, k1])[0],
+                   key_want)
+    b, _ = counted("keyed artifact", lambda: keyed.run([host_ids, k1])[0],
+                   key_want)
+    c, _ = counted("keyed artifact", lambda: keyed.run([host_ids, k2])[0],
+                   key_want)
+    if not (np.array_equal(a, b) and not np.array_equal(a, c)
+            and np.array_equal(a[:, :SERVE_PROMPT], host_ids)
+            and a.max() < cfg.vocab_size and a.min() >= 0):
+        raise AssertionError("phase 15: the keyed artifact: equal keys "
+                             f"{np.array_equal(a, b)}, two keys differ "
+                             f"{not np.array_equal(a, c)}")
+    served_ms = statistics.median(served_walls) * 1e3 / SERVE_NEW
+    eager_ms = statistics.median(eager_walls) * 1e3 / SERVE_NEW
+    log(f"phase 15: GPT-2 small (bench_gpt2_decode: bf16, {SERVE_BATCH} x "
+        f"{SERVE_PROMPT} prompts, {SERVE_NEW} new, greedy) exported by "
+        f"save_for_serving in {export_s:.3f} s (beams {beam_export_s:.3f} "
+        f"s, keyed {key_export_s:.3f} s), {artifact_bytes(path)} bytes, "
+        f"graph nodes {json.dumps(nodes)}; loaded by jit.load in "
+        f"{load_s:.3f} s; tokens of jit.load and Predictor.run equal eager "
+        f"generate's; every served call K2 {greedy['fused_layer_norm']} "
+        f"(warp-row) and K4 {n_layers} (tensor-core), no plain version")
+    log(f"phase 15 timing on {card}: served {served_ms:.4f} ms per token "
+        f"step (median of {SERVE_RUNS} calls, {SERVE_BATCH} rows; walls "
+        f"{json.dumps([round(w * 1e3, 3) for w in served_walls])} ms), "
+        f"eager generate {eager_ms:.4f} ms per token step (walls "
+        f"{json.dumps([round(w * 1e3, 3) for w in eager_walls])} ms); "
+        f"beam artifact = eager beams ({SERVE_BEAMS} beams, {SERVE_SHORT} "
+        f"new), keyed artifact: equal keys equal tokens, two keys differ")
+    del model, loaded, pred, beam_layer, keyed
+    gc.collect()
+    torch.cuda.empty_cache()
+    return dict(totals), shapes
+
+
+def serving_rows(timer, launches, shapes):
+    """The kernels line's rows of phase 15: K2 at every dtype and [rows,
+    D] the calls ran it at (the main shape, a decode step's bf16 [8,
+    768]), and K4 at the served prefill's shape, bf16 [8, 128, 12, 64]
+    causal, on the tensor-core route."""
+    bf16 = torch.bfloat16
+    LN_SHAPES[SERVE_LN_ROW].update(shapes)
+    ln = ln_shape_row(timer, SERVE_LN_ROW, launches["fused_layer_norm"],
+                      (bf16, SERVE_BATCH, 768))
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 152)
+    q, k, v, do = (torch.randn(SERVE_BATCH, SERVE_PROMPT, 12, 64,
+                               device="cuda", generator=gen).to(bf16)
+                   for _ in range(4))
+    fwd, _ = flash_case(timer, q, k, v, do, route="tc")
+    log(f"K4/K5 flash_attention_fwd at the served prefill's shape, bf16 "
+        f"[{SERVE_BATCH}, {SERVE_PROMPT}, 12, 64] causal, tc route "
+        f"{fmt(fwd)}")
+    keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+            "library_ms")
+    return [{"name": SERVE_LN_ROW, "route": "cuda", "source": LN_SRC,
+             "replaces": LN_TPU, "launches": launches["fused_layer_norm"],
+             **{k: ln[k] for k in keys}},
+            {"name": "flash_attention_fwd_serving", "route": "cuda",
+             "source": FA_TC_SRC, "replaces": FA_FWD_TPU,
+             "launches": launches["flash_attention_fwd"],
+             **{k: fwd[k] for k in keys}}]
+
+
+# ---------------------------------------------------------------- phase 16
+#: (i) MobileNetV2 (Sandler et al. 2018: scale 1.0, 1000 classes, 224 x
+#: 224) under ``bench_resnet50``'s recipe (NHWC, bf16 O2, Momentum 0.9
+#: with float32 masters, batch 128); images: 256 x 256 uint8 ``.npy``
+#: files in 8 class folders, ``VISION_STEPS`` batches of them
+VISION_CLASSES_DIRS, VISION_SIDE, VISION_STEPS = 8, 256, 10
+VISION_WORKERS = 2
+IMAGENET_MEAN = (123.675, 116.28, 103.53)
+IMAGENET_STD = (58.395, 57.12, 57.375)
+#: (ii) each other family at its reference input: a timed bf16 batch and
+#: a float32 batch held against the CPU within ``ZOO_TOL`` of the
+#: logits' largest magnitude (cuDNN's and the CPU's float32 sums in
+#: another order)
+ZOO = (("vgg16", 224), ("alexnet", 224), ("squeezenet1_1", 224),
+       ("mobilenet_v1", 224), ("mobilenet_v3_large", 224),
+       ("shufflenet_v2_x1_0", 224), ("densenet121", 224),
+       ("googlenet", 224), ("inception_v3", 299))
+ZOO_BATCH, ZOO_CHECK_BATCH, ZOO_RUNS, ZOO_TOL = 32, 4, 5, 1e-3
+#: (iii) the detection ops: YOLOv3 on COCO (608 x 608, 80 classes, grids
+#: 19/38/76 with the paper's nine anchors, batch 8, 50 boxes an image),
+#: Faster R-CNN's C4 features ([2, 1024, 50, 76] at 1/16, 512 regions an
+#: image), R-FCN's 7 x 7 x 21 position-sensitive maps, a 3 x 3 256 -> 256
+#: deformable convolution v2; the CPU holds the region ops on the first
+#: ``DET_CHECK_ROIS`` regions of each image
+YOLO_ANCHORS = (10, 13, 16, 30, 33, 23, 30, 61, 62, 45, 59, 119, 116, 90,
+                156, 198, 373, 326)
+YOLO_HEADS = ((19, 32, (6, 7, 8)), (38, 16, (3, 4, 5)), (76, 8, (0, 1, 2)))
+YOLO_BATCH, YOLO_CLASSES, YOLO_GT, YOLO_NMS_TOP, YOLO_IOU = 8, 80, 50, \
+    1000, 0.45
+DET_ROIS, DET_CHECK_ROIS, DET_TOL = 512, 16, 1e-4
+
+
+def rel_err(got, want):
+    """max |got - want| over the largest |want|."""
+    got, want = got.detach().float().cpu(), want.detach().float().cpu()
+    return float((got - want).abs().max() / want.abs().max().clamp(
+        min=1e-30))
+
+
+def write_image_folders(root, n_images, seed):
+    """``n_images`` random 256 x 256 x 3 uint8 ``.npy`` images spread over
+    the class folders under ``root``."""
+    rs = np.random.RandomState(seed)
+    for i in range(n_images):
+        d = os.path.join(root, f"class_{i % VISION_CLASSES_DIRS}")
+        os.makedirs(d, exist_ok=True)
+        np.save(os.path.join(d, f"{i:05d}.npy"), rs.randint(
+            0, 256, (VISION_SIDE, VISION_SIDE, 3)).astype(np.uint8))
+
+
+def vision_train(device, card, tmp):
+    """16 (i): MobileNetV2 trained through ``Model.fit`` from a
+    ``DatasetFolder`` of ``.npy`` images through the ImageNet training
+    transforms in ``VISION_WORKERS`` loader workers with prefetch. Every
+    loss finite; no kernel of the port launched (none is on this path,
+    as in the JAX package) and no plain version. Returns the record."""
+    import paddle_tpu_torch as pt
+    from paddle_tpu_torch import amp, nn
+    from paddle_tpu_torch.framework import monitor
+    from paddle_tpu_torch.hapi import Callback, Model
+    from paddle_tpu_torch.metric import Accuracy
+    from paddle_tpu_torch.optimizer import Momentum
+    from paddle_tpu_torch.vision import datasets, transforms as T
+    from paddle_tpu_torch.vision.models import mobilenet_v2
+    root = os.path.join(tmp, "images")
+    t0 = time.perf_counter()
+    write_image_folders(root, RN_BATCH * VISION_STEPS, SEED + 160)
+    write_s = time.perf_counter() - t0
+    tf = T.Compose([T.RandomResizedCrop(224), T.RandomHorizontalFlip(),
+                    T.Transpose((1, 2, 0)),
+                    T.Normalize(IMAGENET_MEAN, IMAGENET_STD,
+                                data_format="HWC")])
+    ds = datasets.DatasetFolder(root, loader=np.load, extensions=(".npy",),
+                                transform=tf)
+    if len(ds.classes) != VISION_CLASSES_DIRS or \
+            len(ds) != RN_BATCH * VISION_STEPS:
+        raise AssertionError(f"phase 16: {len(ds)} images in "
+                             f"{ds.classes}")
+    loader = pt.io.DataLoader(ds, batch_size=RN_BATCH, shuffle=True,
+                              drop_last=True, num_workers=VISION_WORKERS)
+    pt.seed(SEED + 161)
+    net = mobilenet_v2(num_classes=RN_CLASSES, scale=1.0,
+                       data_format="NHWC")
+    n_params = sum(p.numel() for p in net.parameters())
+    amp.decorate(net, level="O2", dtype="bfloat16")
+    model = Model(net, inputs=["image"], labels=["label"], device=device)
+    model.prepare(Momentum(learning_rate=RN_LR, momentum=RN_MOMENTUM,
+                           parameters=net.parameters(),
+                           multi_precision=True),
+                  loss=nn.CrossEntropyLoss(), metrics=[Accuracy()],
+                  amp_configs={"level": "O2", "dtype": "bfloat16"})
+    losses, stamps, shapes = [], [], []
+
+    class Steps(Callback):
+        def on_train_batch_end(self, step, logs=None):
+            ev = torch.cuda.Event(enable_timing=True)
+            ev.record()
+            stamps.append(ev)
+            losses.append(logs["loss"])
+
+    def spy(inputs, labels, update=True, _orig=model._train_step):
+        shapes.append((tuple(inputs[0].shape), inputs[0].device.type))
+        return _orig(inputs, labels, update)
+
+    model._train_step = spy
+    counters = kernel_counters()
+    waits0 = len(monitor.histogram_samples("prefetch_wait_ms"))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_kernel_counts(counters)
+    with count_plain() as plain:
+        t0 = time.perf_counter()
+        model.fit(loader, epochs=1, log_freq=1, verbose=0, prefetch=True,
+                  callbacks=[Steps()])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    del model._train_step
+    counts = kernel_counts(counters)
+    peak = torch.cuda.max_memory_allocated()
+    waits = monitor.histogram_samples("prefetch_wait_ms")[waits0:]
+    if any(counts.values()) or sum(plain.values()):
+        raise AssertionError(f"phase 16: the fit launched kernels {counts} "
+                             f"or plain versions {dict(plain)}")
+    if len(losses) != VISION_STEPS or not all(
+            math.isfinite(x) for x in losses) or any(
+            s != ((RN_BATCH, 224, 224, 3), device.type) for s in shapes):
+        raise AssertionError(f"phase 16: {len(losses)} steps, losses "
+                             f"{losses}, batches {shapes[:2]}")
+    step_ms = [stamps[i - 1].elapsed_time(stamps[i])
+               for i in range(1, len(stamps))]
+    timed_ms = stamps[0].elapsed_time(stamps[-1])
+    rec = {"ms_step": timed_ms / (len(stamps) - 1),
+           "median_ms": float(np.median(step_ms)),
+           "images_s": RN_BATCH * (len(stamps) - 1) / timed_ms * 1e3,
+           "wait_p50": float(np.median(waits)) if waits else None,
+           "wait_max": float(max(waits)) if waits else None}
+    log(f"phase 16 (i): MobileNetV2 (scale 1.0, {RN_CLASSES} classes, "
+        f"{n_params} parameters, NHWC), bf16 AMP O2, Momentum lr {RN_LR} "
+        f"momentum {RN_MOMENTUM} with float32 masters, batch {RN_BATCH} x "
+        f"224 x 224 x 3 through Model.fit from vision.datasets."
+        f"DatasetFolder({RN_BATCH * VISION_STEPS} .npy images of "
+        f"{VISION_SIDE}^2 in {VISION_CLASSES_DIRS} folders, written in "
+        f"{write_s:.2f} s) with RandomResizedCrop(224), "
+        f"RandomHorizontalFlip, Transpose, Normalize(ImageNet, HWC) in "
+        f"{VISION_WORKERS} loader workers with prefetch; K1-K8 launches "
+        f"{json.dumps(counts)} (none on this path), no plain version")
+    log(f"phase 16 (i) on {card}: {len(losses)} steps in {wall:.3f} s "
+        f"(the first with the workers' start); steps 2-{len(losses)}: "
+        f"{rec['ms_step']:.3f} ms a step (CUDA events between step ends),"
+        f" median {rec['median_ms']:.3f}, {rec['images_s']:.1f} images/s;"
+        f" the loader's wait (prefetch_wait_ms) p50 {rec['wait_p50']} ms, "
+        f"max {rec['wait_max']} ms over {len(waits)} batches; max memory "
+        f"allocated {peak} bytes; losses {json.dumps(losses)}")
+    del model, net, loader
+    gc.collect()
+    torch.cuda.empty_cache()
+    return rec
+
+
+def vision_zoo(device, card):
+    """16 (ii): each other family at its reference input, eval mode: a
+    bf16 (AMP O2) batch of ``ZOO_BATCH`` timed on the card, and a float32
+    batch of ``ZOO_CHECK_BATCH`` on the card held against the same
+    weights' float32 forward on the CPU within ``ZOO_TOL``; GoogLeNet's
+    two auxiliary heads too, in training mode with its dropout off."""
+    import copy
+    import paddle_tpu_torch as pt
+    from paddle_tpu_torch import amp
+    from paddle_tpu_torch.nn.layer.common import Dropout
+    from paddle_tpu_torch.vision import models
+    out = {}
+    for i, (name, side) in enumerate(ZOO):
+        pt.seed(SEED + 170 + i)
+        cpu_net = getattr(models, name)(num_classes=RN_CLASSES)
+        aux = name == "googlenet"
+        if aux:
+            for m in cpu_net.modules():
+                if isinstance(m, Dropout):
+                    m.p = 0.0
+        cpu_net.train() if aux else cpu_net.eval()
+        card_net = copy.deepcopy(cpu_net).to(device)
+        x = torch.from_numpy(np.random.RandomState(SEED + 171 + i).randn(
+            ZOO_CHECK_BATCH, 3, side, side).astype(np.float32))
+        with torch.no_grad():
+            want = cpu_net(x)
+            got = card_net(x.to(device))
+        want = list(want) if aux else [want]
+        got = list(got) if aux else [got]
+        errs = [rel_err(g, w) for g, w in zip(got, want)]
+        if len(got) != (3 if aux else 1) or max(errs) > ZOO_TOL:
+            raise AssertionError(f"phase 16 {name}: card vs CPU "
+                                 f"{errs} > {ZOO_TOL}")
+        card_net.eval()
+        amp.decorate(card_net, level="O2", dtype="bfloat16")
+        xb = torch.randn(ZOO_BATCH, 3, side, side, device=device)
+
+        def fwd():
+            with torch.no_grad(), amp.auto_cast(level="O2",
+                                                dtype="bfloat16"):
+                return card_net(xb)
+
+        logits = fwd()
+        if tuple(logits.shape) != (ZOO_BATCH, RN_CLASSES) or not bool(
+                torch.isfinite(logits).all()):
+            raise AssertionError(f"phase 16 {name}: bf16 logits "
+                                 f"{tuple(logits.shape)}")
+        ms = event_ms(fwd, ZOO_RUNS)
+        out[name] = {"ms": ms, "err": max(errs)}
+        log(f"phase 16 (ii) {name} at {side}^2 on {card}: bf16 batch "
+            f"{ZOO_BATCH} forward {ms:.3f} ms (median of {ZOO_RUNS}), "
+            f"{ZOO_BATCH / ms * 1e3:.1f} images/s; float32 batch "
+            f"{ZOO_CHECK_BATCH} card vs CPU {json.dumps(errs)} of the "
+            f"largest |logit|" + (" (main, aux1, aux2)" if aux else ""))
+        del cpu_net, card_net
+        gc.collect()
+        torch.cuda.empty_cache()
+    return out
+
+
+def det_rois(rs, n, h, w):
+    """``n`` xyxy regions inside an ``h`` x ``w`` image."""
+    x1 = rs.uniform(0, w - 32, n)
+    y1 = rs.uniform(0, h - 32, n)
+    return np.stack([x1, y1, x1 + rs.uniform(16, w / 3, n),
+                     y1 + rs.uniform(16, h / 3, n)], 1).astype(np.float32)
+
+
+def vision_ops_phase(device, card):
+    """16 (iii): the seven detection ops at detection shapes on the card,
+    each timed and held against the same call on the CPU (float32
+    within ``DET_TOL`` of each output's largest magnitude, NMS indices
+    exactly): ``yolo_box`` over the three YOLOv3-COCO heads, then
+    categorical ``nms`` (IoU 0.45) over each image's 1000 best (box,
+    class) pairs; ``yolo_loss`` forward and backward on the three heads
+    with 50 boxes an image; ``roi_align`` (14 x 14) and ``roi_pool`` (7 x
+    7) at Faster R-CNN C4's shapes; ``psroi_pool`` at R-FCN's; a
+    ``deform_conv2d`` v2."""
+    from paddle_tpu_torch.vision import ops as V
+    rs = np.random.RandomState(SEED + 180)
+    times, errs = {}, {}
+
+    def timed(name, fn):
+        out = fn()
+        times[name] = event_ms(fn, 3)
+        return out
+
+    def hold(name, got, want):
+        err = rel_err(got, want)
+        errs[name] = max(errs.get(name, 0.0), err)
+        if not err <= DET_TOL:
+            raise AssertionError(f"phase 16 {name}: card vs CPU {err}")
+
+    heads = [torch.from_numpy(rs.randn(YOLO_BATCH, 3 * (5 + YOLO_CLASSES),
+                                       g, g).astype(np.float32))
+             for g, _, _ in YOLO_HEADS]
+    size = torch.full((YOLO_BATCH, 2), 608, dtype=torch.int32)
+    boxes, scores = [], []
+    for x, (g, stride, mask) in zip(heads, YOLO_HEADS):
+        anchors = [YOLO_ANCHORS[2 * m + k] for m in mask for k in (0, 1)]
+
+        def box(dev, x=x, anchors=anchors, stride=stride):
+            return V.yolo_box(x.to(dev), size.to(dev), anchors,
+                              YOLO_CLASSES, 0.01, stride)
+
+        got = timed(f"yolo_box_{g}", lambda: box(device))
+        want = box("cpu")
+        for gt_, wt in zip(got, want):
+            hold("yolo_box", gt_, wt)
+        boxes.append(want[0])
+        scores.append(want[1])
+    boxes, scores = torch.cat(boxes, 1), torch.cat(scores, 1)
+    kept_total = 0
+    for n in range(YOLO_BATCH):
+        top = torch.topk(scores[n].reshape(-1), YOLO_NMS_TOP)
+        b = boxes[n][top.indices // YOLO_CLASSES]
+        cat = top.indices % YOLO_CLASSES
+
+        def nms(dev, b=b, s=top.values, cat=cat):
+            return V.nms(b.to(dev), YOLO_IOU, s.to(dev), cat.to(dev),
+                         list(range(YOLO_CLASSES)))
+
+        got = timed("nms", lambda: nms(device)) if n == 0 else nms(device)
+        want = nms("cpu")
+        if not torch.equal(got.cpu(), want):
+            raise AssertionError(f"phase 16 nms image {n}: card "
+                                 f"{got[:8].tolist()} CPU {want[:8].tolist()}")
+        kept_total += want.numel()
+    gt = np.zeros((YOLO_BATCH, YOLO_GT, 4), np.float32)
+    gt[..., :2] = rs.uniform(0.05, 0.95, (YOLO_BATCH, YOLO_GT, 2))
+    gt[..., 2:] = rs.uniform(0.02, 0.5, (YOLO_BATCH, YOLO_GT, 2))
+    labels = rs.randint(0, YOLO_CLASSES, (YOLO_BATCH, YOLO_GT)).astype(
+        np.int32)
+    for x, (g, stride, mask) in zip(heads, YOLO_HEADS):
+        def loss(dev, x=x, mask=mask, stride=stride):
+            xin = x.to(dev).requires_grad_(True)
+            out = V.yolo_loss(xin, torch.from_numpy(gt).to(dev),
+                              torch.from_numpy(labels).to(dev),
+                              YOLO_ANCHORS, mask, YOLO_CLASSES, 0.7, stride)
+            out.sum().backward()
+            return out, xin.grad
+
+        got = timed(f"yolo_loss_{g}", lambda: loss(device))
+        want = loss("cpu")
+        hold("yolo_loss", got[0], want[0])
+        hold("yolo_loss_grad", got[1], want[1])
+    c4 = torch.from_numpy(rs.randn(2, 1024, 50, 76).astype(np.float32))
+    ps = torch.from_numpy(rs.randn(2, 21 * 49, 50, 76).astype(np.float32))
+    rois = [det_rois(rs, DET_ROIS, 800, 1216) for _ in range(2)]
+    all_rois = torch.from_numpy(np.concatenate(rois))
+    sub = torch.from_numpy(np.concatenate([r[:DET_CHECK_ROIS]
+                                           for r in rois]))
+    pick = np.concatenate([np.arange(DET_CHECK_ROIS),
+                           DET_ROIS + np.arange(DET_CHECK_ROIS)])
+    for name, fn, feat, out in (
+            ("roi_align", V.roi_align, c4, 14),
+            ("roi_pool", V.roi_pool, c4, 7),
+            ("psroi_pool", V.psroi_pool, ps, 7)):
+        feat_d, rois_d = feat.to(device), all_rois.to(device)
+        got = timed(name, lambda: fn(feat_d, rois_d, [DET_ROIS] * 2, out,
+                                     1 / 16))
+        want = fn(feat, sub, [DET_CHECK_ROIS] * 2, out, 1 / 16)
+        hold(name, got[torch.from_numpy(pick).to(device)], want)
+    x = torch.from_numpy(rs.randn(2, 256, 50, 76).astype(np.float32))
+    off = torch.from_numpy(2 * rs.randn(2, 18, 50, 76).astype(np.float32))
+    mask = torch.sigmoid(torch.from_numpy(rs.randn(2, 9, 50, 76).astype(
+        np.float32)))
+    w = torch.from_numpy((rs.randn(256, 256, 3, 3) / 48).astype(np.float32))
+    bias = torch.from_numpy(rs.randn(256).astype(np.float32))
+    args = (x, off, w, bias)
+    dargs = [a.to(device) for a in args]
+    got = timed("deform_conv2d", lambda: V.deform_conv2d(
+        *dargs, padding=1, mask=mask.to(device)))
+    hold("deform_conv2d", got, V.deform_conv2d(*args, padding=1, mask=mask))
+    log(f"phase 16 (iii) on {card}: ms on the card (median of 3, CUDA "
+        f"events) {json.dumps({k: round(v, 4) for k, v in times.items()})}"
+        f"; card vs CPU, of each output's largest magnitude "
+        f"{json.dumps(errs)} (bound {DET_TOL}); categorical nms kept "
+        f"{kept_total} of {YOLO_BATCH} x {YOLO_NMS_TOP} pairs, equal to "
+        f"the CPU's; region ops held on the first {DET_CHECK_ROIS} of "
+        f"{DET_ROIS} regions an image")
+    return {"ms": times, "err": errs}
+
+
+def phase_vision(device, card):
+    """16: the rest of ``vision`` on the card: (i) MobileNetV2 trained
+    (:func:`vision_train`), (ii) the other families' forwards
+    (:func:`vision_zoo`), (iii) the seven detection ops
+    (:func:`vision_ops_phase`)."""
+    import tempfile
+    tmp = tempfile.mkdtemp(dir=TRACE_ROOT)
+    return {"train": vision_train(device, card, tmp),
+            "zoo": vision_zoo(device, card),
+            "ops": vision_ops_phase(device, card)}
+
+
 def check_nothing_left_running():
     """Every phase has stopped what it started: no ``device_prefetch``
     producer thread and no loader worker process is still alive (either
@@ -7767,6 +8384,8 @@ def run_phases() -> int:
     core = phase_core_api(device, card)
     legacy, legacy_served, legacy_row, legacy_ln = phase_legacy(
         device, card, timer, profile)
+    serving_launches, serving_shapes = phase_serving(device, card)
+    phase_vision(device, card)
     kernels = report_engine(device, timer, launches, captured,
                             quant_launches, quant_captured)
     # the engine row of the LayerNorm forward counts the fused engines'
@@ -7861,6 +8480,7 @@ def run_phases() -> int:
     kernels += bert_kernel_rows
     kernels.append(lenet_row)
     kernels.append(legacy_row)
+    kernels += serving_rows(timer, serving_launches, serving_shapes)
     check_nothing_left_running()
     for k in kernels:
         for key, v in k.items():

@@ -4,12 +4,14 @@
 (:mod:`.seq2seq`, decoding in :mod:`.seq2seq_decode`)."""
 from .bert import (BertConfig, BertForMaskedLM, BertForQuestionAnswering,
                    BertForSequenceClassification, BertModel)
-from .generation import GenerationConfig, build_fused_step_fn, generate
+from .generation import (GenerationConfig, build_fused_step_fn, generate,
+                         save_for_serving)
 from .gpt import GPTBlock, GPTConfig, GPTForPretraining, GPTModel
 from .seq2seq import TransformerModel
 
 __all__ = ["GPTConfig", "GPTBlock", "GPTModel", "GPTForPretraining",
-           "GenerationConfig", "generate", "build_fused_step_fn",
+           "GenerationConfig", "generate", "save_for_serving",
+           "build_fused_step_fn",
            "BertConfig", "BertModel", "BertForQuestionAnswering",
            "BertForMaskedLM", "BertForSequenceClassification",
            "TransformerModel"]

@@ -1,6 +1,7 @@
 """Decoding (counterpart of ``paddle_tpu/models/generation.py``): the
-static-cache :func:`generate` (greedy, sampled, beam search) and the
-serving steps of the dense, paged gather and fused engines.
+static-cache :func:`generate` (greedy, sampled, beam search), its
+exported form :func:`save_for_serving`, and the serving steps of the
+dense, paged gather and fused engines.
 
 :func:`generate` decodes a batch of prompts through ``GPTModel.prefill``
 and ``decode_step`` over a fixed per-layer K/V cache, greedily, by
@@ -48,9 +49,11 @@ from ..framework import trace_probe as _probe
 from ..framework.dispatch import call_op
 from ..framework.random import get_generator
 from ..nn import functional as F
+from ..nn.layer.layers import Layer
 from ..ops.ragged_paged_attention import BLOCK_Q, ragged_paged_attention
 
-__all__ = ["GenerationConfig", "generate", "build_fused_step_fn",
+__all__ = ["GenerationConfig", "generate", "save_for_serving",
+           "build_fused_step_fn",
            "build_slot_prefill_fn", "build_slot_decode_fn",
            "build_paged_prefill_fn", "build_paged_decode_fn",
            "build_spec_verify_fn", "build_draft_prefill_fn",
@@ -1005,6 +1008,46 @@ def _decode(model, ids, mask, max_new, do_sample, top_k, top_p,
     return tokens
 
 
+_MASK32 = 0xFFFFFFFF
+
+
+def _mix32(x):
+    """A 32-bit integer hash (xor-shift-multiply rounds) of ``x``, an
+    int64 tensor of values in ``[0, 2**32)``. Both multipliers are below
+    ``2**31``, so no product leaves int64."""
+    x = x ^ (x >> 16)
+    x = (x * 0x7FEB352D) & _MASK32
+    x = x ^ (x >> 15)
+    x = (x * 0x346CA68B) & _MASK32
+    return x ^ (x >> 16)
+
+
+def _keyed_uniform(key, step, shape, device):
+    """Uniforms in ``(0, 1)`` of ``shape``, a pure function of ``key``
+    (``[2]`` int64, 32-bit words), ``step`` (an int, or a 0-d int64
+    tensor in a traced loop) and each element's flat index: tensor ops
+    only, so an exported graph takes the key as an input and draws the
+    same on any device."""
+    s = _mix32((key[1] + (step * 0x9E3779B9)) & _MASK32)
+    s = _mix32(key[0] ^ s)
+    idx = torch.arange(int(np.prod(shape)), dtype=torch.int64,
+                       device=device).reshape(shape)
+    h = _mix32((idx * 0x27D4EB2F + s) & _MASK32)
+    h = _mix32(h ^ key[1])
+    return ((h >> 8).to(torch.float32) + 0.5) * (1.0 / (1 << 24))
+
+
+def _keyed_pick(logits, key, step, top_k, top_p, temperature):
+    """A draw from the filtered distribution of ``logits [B, V]`` by the
+    Gumbel-max rule over :func:`_keyed_uniform`'s uniforms: the same
+    ``(key, step)`` gives the same tokens, and each is a draw from
+    ``softmax(_filter_logits(...))``."""
+    u = _keyed_uniform(key, step, tuple(logits.shape), logits.device)
+    gumbel = -torch.log(-torch.log(u))
+    filtered = _filter_logits(logits, top_k, top_p, temperature)
+    return torch.argmax(filtered + gumbel, dim=-1).to(torch.int32)
+
+
 _SORT_BITS = {torch.float32: torch.int32, torch.float64: torch.int64}
 
 
@@ -1150,35 +1193,12 @@ def _check_mask(attention_mask, shape):
     return None if m.all() else m      # all ones: the uniform path
 
 
-def generate(model, input_ids, max_new_tokens=_UNSET, do_sample=_UNSET,
-             temperature=_UNSET, top_k=_UNSET, top_p=_UNSET,
-             eos_token_id=_UNSET, pad_token_id=_UNSET, seed=_UNSET,
-             num_beams=_UNSET, length_penalty=_UNSET,
-             attention_mask=None, config=None):
-    """Generate ``max_new_tokens`` continuations of ``input_ids [B, S]``.
-
-    Returns an int32 tensor ``[B, S + max_new_tokens]`` on the model's
-    device; positions after an ``eos_token_id`` hold ``pad_token_id``.
-    Ragged prompts take ``attention_mask [B, S]`` (1 = real token, 0 =
-    pad): prompts must be LEFT-padded, so the last column is each row's
-    final real token; pads are invisible to attention and to position
-    embeddings. A ``GenerationConfig`` may be passed as ``config=``
-    instead of the keyword arguments.
-
-    Greedy decoding draws no random number. Sampling draws from a
-    ``torch.Generator`` on the model's device, seeded from ``seed``, or,
-    without one, the port's generator of that device
-    (``paddle_tpu_torch.seed``). ``num_beams > 1`` selects beam search:
-    deterministic (no sampling knob may be set), ``length_penalty`` the
-    GNMT alpha of the final pick; ragged masks compose with beams.
-    """
-    passed = {
-        "max_new_tokens": max_new_tokens, "do_sample": do_sample,
-        "temperature": temperature, "top_k": top_k, "top_p": top_p,
-        "eos_token_id": eos_token_id, "pad_token_id": pad_token_id,
-        "seed": seed, "num_beams": num_beams,
-        "length_penalty": length_penalty,
-    }
+def _resolve(model, passed, config):
+    """:func:`generate`'s settings from its keyword arguments ``passed``
+    (``_UNSET`` where not given) or ``config``, checked and normalised:
+    ``num_beams``, ``max_new``, ``top_k`` (at most the vocabulary),
+    ``top_p``, ``temperature``, ``do_sample``, ``seed``, ``eos`` (None or
+    an int), ``pad`` and ``length_penalty``."""
     explicit = sorted(k for k, v in passed.items() if v is not _UNSET)
     if config is not None:
         if explicit:
@@ -1216,19 +1236,60 @@ def generate(model, input_ids, max_new_tokens=_UNSET, do_sample=_UNSET,
         raise ValueError(f"top_p must be in (0, 1], got {top_p}")
     if int(r["top_k"]) < 0:
         raise ValueError(f"top_k must be >= 0, got {r['top_k']}")
-    top_k = min(int(r["top_k"]), gpt.cfg.vocab_size)
+    eos = r["eos_token_id"]
+    return dict(num_beams=num_beams, max_new=max_new,
+                top_k=min(int(r["top_k"]), gpt.cfg.vocab_size), top_p=top_p,
+                temperature=float(r["temperature"]),
+                do_sample=bool(r["do_sample"]), seed=r["seed"],
+                eos=None if eos is None else int(eos),
+                pad=int(r["pad_token_id"]),
+                length_penalty=float(r["length_penalty"]))
 
+
+def _check_total(gpt, total_len):
+    if total_len > gpt.cfg.max_position_embeddings:
+        raise ValueError(
+            f"prompt_len+max_new_tokens={total_len} exceeds "
+            f"max_position_embeddings={gpt.cfg.max_position_embeddings}")
+
+
+def generate(model, input_ids, max_new_tokens=_UNSET, do_sample=_UNSET,
+             temperature=_UNSET, top_k=_UNSET, top_p=_UNSET,
+             eos_token_id=_UNSET, pad_token_id=_UNSET, seed=_UNSET,
+             num_beams=_UNSET, length_penalty=_UNSET,
+             attention_mask=None, config=None):
+    """Generate ``max_new_tokens`` continuations of ``input_ids [B, S]``.
+
+    Returns an int32 tensor ``[B, S + max_new_tokens]`` on the model's
+    device; positions after an ``eos_token_id`` hold ``pad_token_id``.
+    Ragged prompts take ``attention_mask [B, S]`` (1 = real token, 0 =
+    pad): prompts must be LEFT-padded, so the last column is each row's
+    final real token; pads are invisible to attention and to position
+    embeddings. A ``GenerationConfig`` may be passed as ``config=``
+    instead of the keyword arguments.
+
+    Greedy decoding draws no random number. Sampling draws from a
+    ``torch.Generator`` on the model's device, seeded from ``seed``, or,
+    without one, the port's generator of that device
+    (``paddle_tpu_torch.seed``). ``num_beams > 1`` selects beam search:
+    deterministic (no sampling knob may be set), ``length_penalty`` the
+    GNMT alpha of the final pick; ragged masks compose with beams.
+    """
+    r = _resolve(model, {
+        "max_new_tokens": max_new_tokens, "do_sample": do_sample,
+        "temperature": temperature, "top_k": top_k, "top_p": top_p,
+        "eos_token_id": eos_token_id, "pad_token_id": pad_token_id,
+        "seed": seed, "num_beams": num_beams,
+        "length_penalty": length_penalty,
+    }, config)
+    gpt = model.gpt if hasattr(model, "gpt") else model
     device = next(model.parameters()).device
     ids = input_ids.detach() if isinstance(input_ids, torch.Tensor) \
         else torch.from_numpy(np.asarray(input_ids))
     ids = ids.to(device=device, dtype=torch.int64)
     if ids.dim() == 1:
         ids = ids[None, :]
-    total_len = ids.shape[1] + max_new
-    if total_len > gpt.cfg.max_position_embeddings:
-        raise ValueError(
-            f"prompt_len+max_new_tokens={total_len} exceeds "
-            f"max_position_embeddings={gpt.cfg.max_position_embeddings}")
+    _check_total(gpt, ids.shape[1] + r["max_new"])
     mask = None
     if attention_mask is not None:
         m = _check_mask(attention_mask, tuple(ids.shape))
@@ -1241,27 +1302,322 @@ def generate(model, input_ids, max_new_tokens=_UNSET, do_sample=_UNSET,
         else:
             generator = torch.Generator(device=device)
             generator.manual_seed(int(r["seed"]))
-    eos = r["eos_token_id"]
     was_training = model.training
     model.eval()
-    eos = None if eos is None else int(eos)
     try:
         with torch.no_grad():
-            if num_beams > 1:
-                return _beam_search(model, ids, mask, max_new, num_beams,
-                                    eos, int(r["pad_token_id"]),
-                                    float(r["length_penalty"]))[0]
-            return _decode(model, ids, mask, max_new, bool(r["do_sample"]),
-                           top_k, top_p, float(r["temperature"]), eos,
-                           int(r["pad_token_id"]), generator)
+            if r["num_beams"] > 1:
+                return _beam_search(model, ids, mask, r["max_new"],
+                                    r["num_beams"], r["eos"], r["pad"],
+                                    r["length_penalty"])[0]
+            return _decode(model, ids, mask, r["max_new"], r["do_sample"],
+                           r["top_k"], r["top_p"], r["temperature"],
+                           r["eos"], r["pad"], generator)
     finally:
         if was_training:
             model.train()
 
 
+# -- the exported serving artifact -----------------------------------------
+
+def _key_words(seed):
+    """The two 32-bit words of a non-negative int ``seed``."""
+    seed = int(seed)
+    if seed < 0:
+        raise ValueError(f"seed must be >= 0, got {seed}")
+    return [seed & _MASK32, (seed >> 32) & _MASK32]
+
+
+class _ServedGenerate(Layer):
+    """What :func:`save_for_serving` exports: ``model``'s whole decode
+    loop at fixed settings, ``ids [B, S] int32 (, key [2]) -> tokens``.
+    Its ``training`` flag mirrors the model's, so that ``jit.save`` gives
+    the model back in the mode it found it in."""
+
+    def __init__(self, model, settings, key_words):
+        super().__init__()
+        self.model = model
+        self.training = model.training
+        self._settings = settings
+        self._key_words = key_words
+
+    def forward(self, ids, key=None):
+        return _serve_tokens(self.model, ids, key, self._settings,
+                             self._key_words)
+
+
+def _serve_tokens(model, ids, key, r, key_words):
+    """The traced body of :class:`_ServedGenerate`: the prompt as ``int64``;
+    a sampled loop's key (the runtime input's words kept to 32 bits, or
+    the constant ``key_words``)."""
+    ids = ids.to(torch.int64)
+    if key is not None:
+        key = key.to(torch.int64) & _MASK32
+    elif r["do_sample"]:
+        key = torch.tensor(key_words, dtype=torch.int64, device=ids.device)
+    with torch.no_grad():
+        if r["num_beams"] > 1:
+            return _served_beams(model, ids, r)
+        return _served_decode(model, ids, key, r)
+
+
+def _while(cond, body, carried, state):
+    """``torch.while_loop`` traced without TorchDynamo: the loop op
+    itself, whose bodies ``torch.export`` records by running them on its
+    proxies. ``state`` (the model's parameters and buffers, the key) is
+    handed to ``cond`` and ``body`` after the carried tensors, since a
+    body may capture no tensor."""
+    from torch._higher_order_ops.while_loop import while_loop_op
+    return while_loop_op(cond, body, tuple(carried), tuple(state))
+
+
+def _functional(gpt, step):
+    """``(state, run)``: ``gpt``'s parameters and buffers as a tuple, and
+    ``run(state, *args)``, which calls ``step(*args)`` with those tensors
+    in ``gpt``'s place (``torch.func.functional_call``)."""
+    from torch.func import functional_call
+
+    class _Step(torch.nn.Module):
+        def __init__(self):
+            super().__init__()
+            self.gpt = gpt
+
+        def forward(self, *args):
+            return step(self.gpt, *args)
+
+    mod = _Step()
+    named = dict(mod.named_parameters())
+    named.update(mod.named_buffers())
+    names = tuple(named)
+
+    def run(state, *args):
+        return functional_call(mod, dict(zip(names, state)), args,
+                               tie_weights=False, strict=True)
+
+    return tuple(named.values()), run
+
+
+def _served_decode(model, ids, key, r):
+    """:func:`_decode` as one ``while_loop`` over the decode steps
+    (:meth:`GPTModel.decode_step_at`), with the position, the tokens,
+    the finished rows and the caches carried: the prefill and the first
+    token, then a step a token while a row is unfinished and the budget
+    lasts. Sampled tokens are :func:`_keyed_pick`'s."""
+    gpt = model.gpt if hasattr(model, "gpt") else model
+    batch, prompt_len = ids.shape
+    total_len = prompt_len + r["max_new"]
+    device, n_cache = ids.device, 2 * gpt.cfg.num_hidden_layers
+    eos, pad = r["eos"], r["pad"]
+    caches = gpt.init_cache(batch, total_len,
+                            next(model.parameters()).dtype, device)
+
+    def pick(g, hidden, step, key):
+        logits = g.logits(hidden)[:, 0].float()
+        if not r["do_sample"]:
+            return torch.argmax(logits, dim=-1).to(torch.int32)
+        temp = torch.full((), r["temperature"], device=logits.device)
+        return _keyed_pick(logits, key, step, r["top_k"], r["top_p"], temp)
+
+    hidden, caches = gpt.prefill(ids, caches)
+    first = pick(gpt, hidden, prompt_len, key)
+    tokens = torch.cat([ids.to(torch.int32), torch.full(
+        (batch, r["max_new"]), pad, dtype=torch.int32, device=device)], 1)
+    tokens[:, prompt_len] = first
+    finished = first == eos if eos is not None else torch.zeros(
+        batch, dtype=torch.bool, device=device)
+    if r["max_new"] == 1:
+        return tokens
+    keyed = () if key is None else (key,)
+
+    def step(g, pos, tokens, finished, flat, key):
+        caches = tuple(zip(flat[0::2], flat[1::2]))
+        tok = tokens.index_select(1, pos.reshape(1)).to(torch.int64)
+        hidden, caches = g.decode_step_at(tok, caches, pos)
+        nxt = pick(g, hidden, pos + 1, key)
+        if eos is not None:
+            nxt = torch.where(finished, pad, nxt)
+            finished = finished | (nxt == eos)
+        tokens = tokens.index_copy(1, (pos + 1).reshape(1), nxt[:, None])
+        return (pos + 1, tokens, finished) + tuple(
+            c for kv in caches for c in kv)
+
+    state, run = _functional(gpt, step)
+
+    def cond(pos, tokens, finished, *rest):
+        going = pos < total_len - 1
+        return going & ~finished.all() if eos is not None else going
+
+    def body(pos, tokens, finished, *rest):
+        flat, extra = rest[:n_cache], rest[n_cache:]
+        key = extra[0] if keyed else None
+        return run(extra[len(keyed):], pos, tokens, finished, flat, key)
+
+    pos = torch.full((), prompt_len, dtype=torch.int64, device=device)
+    out = _while(cond, body, (pos, tokens, finished) + tuple(
+        c for kv in caches for c in kv), keyed + state)
+    return out[1]
+
+
+def _served_beams(model, ids, r):
+    """:func:`_beam_search` as one ``while_loop`` (no mask): the prefill
+    at ``[B]`` and the first ``K`` beams, then a step over the flattened
+    ``[B * K]`` rows while a beam is unfinished and the budget lasts,
+    the caches reordered by parent out of place. Returns the best beam's
+    tokens."""
+    gpt = model.gpt if hasattr(model, "gpt") else model
+    K, vocab = r["num_beams"], gpt.cfg.vocab_size
+    batch, prompt_len = ids.shape
+    total_len = prompt_len + r["max_new"]
+    device, n_cache = ids.device, 2 * gpt.cfg.num_hidden_layers
+    eos, pad = r["eos"], r["pad"]
+    caches = gpt.init_cache(batch, total_len,
+                            next(model.parameters()).dtype, device)
+    hidden, caches = gpt.prefill(ids, caches)
+    logp0 = torch.log_softmax(gpt.logits(hidden)[:, 0].float(), dim=-1)
+    scores, first = _beam_topk(logp0, K)                       # [B, K]
+    tokens = torch.cat([ids.to(torch.int32), torch.full(
+        (batch, r["max_new"]), pad, dtype=torch.int32, device=device)], 1)
+    tokens = tokens[:, None, :].repeat(1, K, 1)                # [B, K, T]
+    tokens[:, :, prompt_len] = first.to(torch.int32)
+    finished = (first == eos) if eos is not None else torch.zeros(
+        (batch, K), dtype=torch.bool, device=device)
+    gen_len = torch.ones((batch, K), dtype=torch.int32, device=device)
+    flat = tuple(c.repeat_interleave(K, dim=0) for kv in caches for c in kv)
+
+    def step(g, pos, tokens, scores, finished, gen_len, flat):
+        caches = tuple(zip(flat[0::2], flat[1::2]))
+        tok = tokens.index_select(2, pos.reshape(1)).reshape(
+            batch * K, 1).to(torch.int64)
+        hidden, caches = g.decode_step_at(tok, caches, pos)
+        logp = torch.log_softmax(g.logits(hidden)[:, 0].float(),
+                                 dim=-1).reshape(batch, K, vocab)
+        # the only continuation of a finished beam: pad, at log-prob 0
+        pad_row = torch.where(
+            torch.arange(vocab, device=logp.device) == pad, 0.0,
+            float("-inf"))
+        allowed = torch.where(finished[:, :, None], pad_row, logp)
+        cand = (scores[:, :, None] + allowed).reshape(batch, K * vocab)
+        scores, idx = _beam_topk(cand, K)
+        parent = idx // vocab
+        nxt = (idx % vocab).to(torch.int32)
+        tokens = torch.take_along_dim(tokens, parent[:, :, None], dim=1)
+        finished = torch.take_along_dim(finished, parent, dim=1)
+        gen_len = torch.take_along_dim(gen_len, parent, dim=1)
+        base = torch.arange(batch, device=logp.device)[:, None] * K
+        rows = (base + parent).reshape(-1)
+        tokens = tokens.index_copy(2, (pos + 1).reshape(1), nxt[:, :, None])
+        gen_len = gen_len + (~finished).to(torch.int32)
+        if eos is not None:
+            finished = finished | (nxt == eos)
+        return (pos + 1, tokens, scores, finished, gen_len) + tuple(
+            c.index_select(0, rows) for kv in caches for c in kv)
+
+    state, run = _functional(gpt, step)
+
+    def cond(pos, tokens, scores, finished, gen_len, *rest):
+        going = pos < total_len - 1
+        return going & ~finished.all() if eos is not None else going
+
+    def body(pos, tokens, scores, finished, gen_len, *rest):
+        return run(rest[n_cache:], pos, tokens, scores, finished, gen_len,
+                   rest[:n_cache])
+
+    pos = torch.full((), prompt_len, dtype=torch.int64, device=device)
+    _, tokens, scores, finished, gen_len, *_ = _while(
+        cond, body, (pos, tokens, scores, finished, gen_len) + flat, state)
+    best = torch.argmax(
+        scores / _length_penalty(gen_len, r["length_penalty"]), dim=1)
+    return tokens[torch.arange(batch, device=device), best]
+
+
+def save_for_serving(model, path, batch, prompt_len, runtime_key=False,
+                     **generate_kwargs):
+    """Export the whole :func:`generate` loop of ``model`` as a
+    ``jit.save`` artifact serving ``ids [batch, prompt_len] int32 ->
+    tokens [batch, prompt_len + max_new_tokens] int32``, loaded by
+    ``jit.load`` and ``inference.create_predictor`` with no model code.
+    The settings (``generate``'s keyword arguments, or ``config=``) are
+    fixed in the artifact, and so are the shapes.
+
+    The graph holds the prefill and one ``while_loop`` whose body is one
+    decode step, with the position, the tokens, the finished rows and
+    the caches carried (each step writes its cache rows into new
+    tensors); it stops when the budget is spent or, with
+    ``eos_token_id``, every row has finished, as :func:`generate` does,
+    so greedy and beam artifacts give ``generate``'s tokens. The
+    LayerNorm and flash attention kernels are in the graph as their
+    custom ops, so the loaded program launches them on the card.
+
+    Sampling draws by the Gumbel-max rule over a counter-based hash
+    (:func:`_keyed_pick`) computed inside the graph. With
+    ``runtime_key=True`` the key is a second input, ``key [2]``: two
+    32-bit words (a uint32 array, cast to int64 by the loader);
+    the same key gives the same tokens, another key other tokens. This
+    requires ``do_sample=True``, no ``seed`` and ``num_beams == 1``, and
+    takes only ``generate``'s settings. Without it a sampled export needs
+    an explicit ``seed``, whose two 32-bit words become the constant key:
+    the artifact then draws the same tokens for a prompt on every call
+    (not the tokens of ``generate(seed=)``, whose draws come from a
+    ``torch.Generator``)."""
+    from .. import jit
+    from ..static import InputSpec
+
+    if runtime_key:
+        unknown = sorted(set(generate_kwargs) - set(_GEN_DEFAULTS))
+        if unknown:
+            raise ValueError(
+                f"runtime_key export got unsupported kwargs: {unknown}")
+        resolved = dict(_GEN_DEFAULTS)
+        resolved.update(generate_kwargs)
+        if not resolved["do_sample"]:
+            raise ValueError(
+                "runtime_key=True requires do_sample=True: a greedy "
+                "export never consumes the key, so a key input would "
+                "be dead weight in the artifact's signature")
+        if resolved["seed"] is not None:
+            raise ValueError(
+                "runtime_key=True replaces seed=: the key arrives per "
+                "call at serve time")
+        if resolved["num_beams"] != 1:
+            raise ValueError("runtime_key=True requires num_beams=1 "
+                             "(beam search is deterministic)")
+    elif generate_kwargs.get("do_sample") and \
+            generate_kwargs.get("seed") is None:
+        raise ValueError(
+            "save_for_serving(do_sample=True) requires an explicit seed "
+            "(or runtime_key=True for per-request draws): the key is "
+            "baked into the artifact as a constant, so the export "
+            "freezes ONE draw per prompt; make that choice explicit")
+    config = generate_kwargs.pop("config", None)
+    unknown = sorted(set(generate_kwargs) - set(_GEN_DEFAULTS))
+    if unknown:
+        raise TypeError(f"save_for_serving() got unexpected keyword "
+                        f"arguments {unknown} (the artifact takes no mask: "
+                        f"its prompts are all {prompt_len} tokens)")
+    passed = dict.fromkeys(_GEN_DEFAULTS, _UNSET)
+    passed.update(generate_kwargs)
+    r = _resolve(model, passed, config)
+    if config is not None and config.do_sample and config.seed is None:
+        raise ValueError(
+            "save_for_serving(config=) with do_sample requires an "
+            "explicit seed (or runtime_key=True for per-request draws)")
+    gpt = model.gpt if hasattr(model, "gpt") else model
+    batch, prompt_len = int(batch), int(prompt_len)
+    _check_total(gpt, prompt_len + r["max_new"])
+    key_words = None if runtime_key or not r["do_sample"] \
+        else _key_words(r["seed"])
+    specs = [InputSpec([batch, prompt_len], "int32")]
+    if runtime_key:
+        # the key's two uint32 words arrive as int64 (the loader casts a
+        # uint32 array): not every torch.export serializer takes uint32
+        specs.append(InputSpec([2], "int64"))
+    return jit.save(_ServedGenerate(model, r, key_words), path,
+                    input_spec=specs)
+
+
 #: the JAX module's names the port has not taken yet, by ROADMAP Queue 1
-#: item: the exported serving artifact (5) and tensor-parallel serving (4)
-_DEFERRED = {"save_for_serving": 5, "shard_params_megatron": 4,
+#: item: tensor-parallel serving (4)
+_DEFERRED = {"shard_params_megatron": 4,
              "megatron_param_specs": 4, "build_sharded_paged_prefill_fn": 4,
              "build_sharded_paged_decode_fn": 4,
              "build_sharded_fused_step_fn": 4}

@@ -150,6 +150,20 @@ class GPTBlock(nn.Module):
         return self._tail(x, a)
 
 
+    def decode_step_at(self, x, cache_k, cache_v, pos, key_valid):
+        """:meth:`decode_step` at a tensor ``pos`` (int64, 0-d), for a
+        traced loop: the K/V row goes into new cache tensors, which are
+        returned with the block's output."""
+        q, k, v = self._qkv(x)
+        row = pos.reshape(1)
+        cache_k = cache_k.index_copy(1, row, k)
+        cache_v = cache_v.index_copy(1, row, v)
+        a = F.scaled_dot_product_attention(
+            q, cache_k, cache_v, attn_mask=key_valid[:, None, None, :],
+            training=False)
+        return self._tail(x, a), cache_k, cache_v
+
+
 class GPTModel(nn.Module):
     def __init__(self, cfg: GPTConfig):
         super().__init__()
@@ -246,6 +260,21 @@ class GPTModel(nn.Module):
         for block, (ck, cv) in zip(self.blocks, caches):
             x = block.decode_step(x, ck, cv, pos, key_valid)
         return self.ln_f(x), caches
+
+
+    def decode_step_at(self, token_ids, caches, pos):
+        """:meth:`decode_step` at a tensor ``pos`` (int64, 0-d) with no
+        mask, out of place: returns the hidden state ``[B, 1, E]`` and
+        the new caches. The values are :meth:`decode_step`'s."""
+        positions = pos.to(torch.int32).reshape(1, 1)
+        key_valid = call_op("arange", caches[0][0].shape[1],
+                            device=token_ids.device)[None, :] <= pos
+        x = self._embed(token_ids, positions)
+        out = []
+        for block, (ck, cv) in zip(self.blocks, caches):
+            x, ck, cv = block.decode_step_at(x, ck, cv, pos, key_valid)
+            out.append((ck, cv))
+        return self.ln_f(x), tuple(out)
 
 
 def _chunk_nll(h_c, y_c, table):

@@ -598,6 +598,7 @@ def cases(seed=0):
     c["roll_axis"] = Case("roll", (a, (1, -1)), dict(axis=(0, 1)))
     _extra_nn_cases(c, np.random.RandomState(seed + 1))
     _sequence_cases(c, np.random.RandomState(seed + 2))
+    _vision_cases(c, np.random.RandomState(seed + 3))
     return c
 
 
@@ -769,3 +770,84 @@ def _sequence_cases(c, rs):
     add("nce_loss", "nce_loss", rnd(4, 6), np.array([[1], [0], [7], [3]],
                                                     np.int64),
         rnd(8, 6), rnd(8), rs.randint(0, 8, (4, 3)).astype(np.int64))
+
+
+def _boxes(rs, n, h, w, scale=1.0):
+    """``n`` xyxy boxes over an ``h`` x ``w`` map (in input pixels at
+    ``1 / scale``), some reaching past its edges."""
+    x1 = rs.uniform(-1, w - 2, n)
+    y1 = rs.uniform(-1, h - 2, n)
+    x2 = x1 + rs.uniform(0.5, w / 2 + 1, n)
+    y2 = y1 + rs.uniform(0.5, h / 2 + 1, n)
+    return (np.stack([x1, y1, x2, y2], 1) / scale).astype(np.float32)
+
+
+def _vision_cases(c, rs):
+    """The cases of the detection ops (``vision_ops``, their own stream):
+    the region ops over two images with 2 and 3 boxes, aligned or not,
+    sampled adaptively or at a fixed ratio; NMS with scores, without and
+    with ``top_k``; deformable convolution v2 and v1 with deformable
+    groups and groups; YOLO decoding and loss over one 5 x 5 head of 3
+    anchors and 4 classes, the ground truth in distinct cells (a cell two
+    boxes claim leaves the JAX scatter's order unspecified)."""
+    def rnd(*shape):
+        return rs.randn(*shape).astype(np.float32)
+
+    def add(key, name, *args, check="close", tol=None, **attrs):
+        c[key] = Case(name, args, attrs, check, tol=tol)
+
+    feat = rnd(2, 3, 8, 10)
+    boxes = _boxes(rs, 5, 8, 10, scale=0.5)
+    add("roi_align", "roi_align", feat, boxes, boxes_num=(2, 3),
+        output_size=3, spatial_scale=0.5)
+    add("roi_align_unaligned", "roi_align", feat, boxes, boxes_num=(2, 3),
+        output_size=(2, 3), spatial_scale=0.5, sampling_ratio=2,
+        aligned=False)
+    add("roi_pool", "roi_pool", feat, boxes, boxes_num=(2, 3),
+        output_size=(3, 2), spatial_scale=0.5)
+    # bins whose ends fall on integers (7 cells in 3 bins, 6 in 7): a
+    # quotient rounded another way moves a bin by a cell
+    add("roi_pool_edges", "roi_pool", rnd(2, 2, 8, 10),
+        np.array([[0, 0, 6, 3], [1, 0, 7, 5]], np.float32),
+        boxes_num=(1, 1), output_size=(3, 7))
+    add("psroi_pool", "psroi_pool", rnd(2, 8, 8, 10), boxes,
+        boxes_num=(2, 3), output_size=2, spatial_scale=0.5)
+    nb = _boxes(rs, 12, 16, 16)
+    nb[3] = nb[1] + 0.2                       # an overlap that suppresses
+    scores = rs.rand(12).astype(np.float32)
+    add("nms", "nms", nb, scores, iou_threshold=0.4, check="exact")
+    add("nms_top_k", "nms", nb, scores, iou_threshold=0.2, top_k=3,
+        check="exact")
+    add("nms_unscored", "nms", nb, None, iou_threshold=0.3, check="exact")
+    x = rnd(2, 4, 7, 7)
+    add("deform_conv2d", "deform_conv2d", x, rnd(2, 18, 7, 7) * 1.5,
+        rnd(6, 4, 3, 3), 1 / (1 + np.exp(-rnd(2, 9, 7, 7))), rnd(6),
+        padding=1)
+    add("deform_conv2d_groups", "deform_conv2d", x, rnd(2, 36, 3, 3),
+        rnd(6, 2, 3, 3), None, None, stride=2, padding=0,
+        deformable_groups=2, groups=2)
+    anchors = (10, 13, 16, 30, 33, 23, 30, 61, 62, 45, 59, 119, 116, 90,
+               156, 198, 373, 326)
+    head = rnd(2, 3 * 9, 5, 5)
+    add("yolo_box", "yolo_box", head,
+        np.array([[160, 160], [150, 170]], np.int32), anchors=anchors[:6],
+        class_num=4, conf_thresh=0.3, downsample_ratio=32)
+    add("yolo_box_scaled", "yolo_box", head,
+        np.array([[160, 160], [150, 170]], np.int32), anchors=anchors[6:12],
+        class_num=4, conf_thresh=0.01, downsample_ratio=32, clip_bbox=False,
+        scale_x_y=1.05)
+    cells = rs.permutation(25)[:8].reshape(2, 4)
+    gt = np.zeros((2, 4, 4), np.float32)
+    gt[..., 0] = (cells % 5 + rs.uniform(0.1, 0.9, (2, 4))) / 5
+    gt[..., 1] = (cells // 5 + rs.uniform(0.1, 0.9, (2, 4))) / 5
+    gt[..., 2:] = rs.uniform(0.03, 0.6, (2, 4, 2))
+    gt[1, 3] = 0.0                            # a padded row
+    labels = rs.randint(0, 4, (2, 4)).astype(np.int32)
+    for key, mask, extra in (("yolo_loss", (0, 1, 2), {}),
+                             ("yolo_loss_scored", (3, 4, 5), dict(
+                                 use_label_smooth=False, scale_x_y=1.1))):
+        args = (head, gt, labels) if not extra else (
+            head, gt, labels, rs.uniform(0.5, 1, (2, 4)).astype(np.float32))
+        add(key, "yolo_loss", *args, anchors=anchors, anchor_mask=mask,
+            class_num=4, ignore_thresh=0.5, downsample_ratio=32, **extra)
+

@@ -15,11 +15,9 @@ __all__ = ["OpDef", "register_op", "register_override", "get_op", "has_op",
            "op_names", "DEFERRED"]
 
 #: the JAX package's ops the port does not register yet, by the ROADMAP
-#: Queue 1 item that ports them: ``vision.ops`` (item 5, ``vision/``).
-#: ``get_op`` names the item.
-DEFERRED = dict.fromkeys((
-    "deform_conv2d", "nms", "psroi_pool", "roi_align", "roi_pool",
-    "yolo_box", "yolo_loss"), 5)
+#: Queue 1 item that ports them (none since ``vision.ops``); ``get_op``
+#: names the item.
+DEFERRED: Dict[str, int] = {}
 
 
 def not_ported(what, item):

@@ -14,9 +14,9 @@ The sequence builders work on the dense ``(padded, lengths)`` encoding
 of the port's ``sequence_ops``: ``lengths`` is an optional keyword
 everywhere; without it every row counts as full length.
 
-Two builders wait on other ROADMAP items and raise naming them:
+One builder waits on another ROADMAP item and raises naming it:
 ``sparse_embedding`` (a ``distributed.embedding`` table, Queue 1 item
-4) and ``deform_conv2d`` (``vision.ops``, item 5, step 4).
+4).
 """
 from __future__ import annotations
 
@@ -321,8 +321,17 @@ def deform_conv2d(x, offset, mask, num_filters, filter_size, stride=1,
                   padding=0, dilation=1, groups=1,
                   deformable_groups=1, im2col_step=1, param_attr=None,
                   bias_attr=None, name=None):
-    """Over ``vision.ops.DeformConv2D``, which the port has not yet."""
-    raise _not_ported("static.nn.deform_conv2d (vision.ops, step 4)", 5)
+    """Over ``vision.ops.DeformConv2D`` (v2 with ``mask``, v1 without)."""
+    from ...vision.ops import DeformConv2D
+    layer = _cached(("deform_conv2d", name, int(x.shape[1]), num_filters,
+                     filter_size),
+                    _on(x, lambda: DeformConv2D(
+                        int(x.shape[1]), num_filters, filter_size,
+                        stride=stride, padding=padding, dilation=dilation,
+                        groups=groups, deformable_groups=deformable_groups,
+                        weight_attr=param_attr, bias_attr=bias_attr)),
+                    name=name)
+    return layer(x, offset, mask)
 
 
 def row_conv(input, future_context_size, param_attr=None, act=None,

@@ -2,11 +2,8 @@
 ``deprecated``, ``try_import``, ``require_version``, ``run_check``,
 :mod:`.dlpack` (on ``torch.utils.dlpack``), :mod:`.download` (local files
 only: nothing downloads), the C++ extension toolchain
-:mod:`.cpp_extension`, and the ``monitor``/``profiler`` aliases.
-
-``pretrained`` (reference-format weights read from a local file) is not
-ported yet (ROADMAP Queue 1 item 5): reaching it raises
-``NotImplementedError`` naming it.
+:mod:`.cpp_extension`, :mod:`.pretrained` (reference-format ``.pdparams``
+read from a local file) and the ``monitor``/``profiler`` aliases.
 """
 from __future__ import annotations
 
@@ -15,8 +12,8 @@ import warnings
 
 from .. import profiler  # noqa: F401  (span profiler, device traces)
 from ..framework import monitor  # noqa: F401  (counters + histograms)
-from ..ops.registry import not_ported as _not_ported
-from . import cpp_extension, dlpack, download, unique_name  # noqa: F401
+from . import (cpp_extension, dlpack, download, pretrained,  # noqa: F401
+               unique_name)
 
 __all__ = ["unique_name", "deprecated", "try_import", "monitor",
            "profiler", "dlpack", "download", "require_version", "run_check",
@@ -100,9 +97,3 @@ def run_check(device=None):
     print(f"paddle_tpu_torch works on {dev} ({name}): one train step "
           f"within {err:.1e} of the host's float64 step.")
     print("paddle_tpu_torch is installed successfully!")
-
-
-def __getattr__(name):
-    if name == "pretrained":
-        raise _not_ported("utils.pretrained", 5)
-    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")

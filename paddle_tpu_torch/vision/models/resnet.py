@@ -8,15 +8,15 @@ serves both layouts and crosses to and from the JAX package unchanged
 (``convert.layer_from_jax``). In NHWC the activations stay channel-last
 from layer to layer; each convolution and pool gives cuDNN its input as
 the NCHW view of the same memory (``torch.channels_last``) and returns
-the NHWC view of its output. ``pretrained=True`` needs the reference's
-published weights, which are not ported (ROADMAP Queue 1 item 5).
+the NHWC view of its output. ``pretrained=`` loads the reference's
+``.pdparams`` from a path, or (``True``) the published file from the
+local weights cache (``utils.pretrained``).
 """
 from __future__ import annotations
 
 import functools
 
 from ... import nn
-from ...ops.registry import not_ported
 
 __all__ = ["ResNet", "resnet18", "resnet34", "resnet50", "resnet101",
            "resnet152", "resnext50_32x4d", "resnext50_64x4d",
@@ -163,11 +163,55 @@ class ResNet(nn.Layer):
         return x
 
 
+# reference resnet.py:25-62: the published files' names, resolved in the
+# local weights cache (utils/pretrained.py); weights stay OIHW, so one file
+# serves the NCHW and NHWC models
+model_urls = {
+    "resnet18": ("https://paddle-hapi.bj.bcebos.com/models/resnet18.pdparams",
+                 "cf548f46534aa3560945be4b95cd11c4"),
+    "resnet34": ("https://paddle-hapi.bj.bcebos.com/models/resnet34.pdparams",
+                 "8d2275cf8706028345f78ac0e1d31969"),
+    "resnet50": ("https://paddle-hapi.bj.bcebos.com/models/resnet50.pdparams",
+                 "ca6f485ee1ab0492d38f323885b0ad80"),
+    "resnet101": (
+        "https://paddle-hapi.bj.bcebos.com/models/resnet101.pdparams",
+        "02f35f034ca3858e1e54d4036443c92d"),
+    "resnet152": (
+        "https://paddle-hapi.bj.bcebos.com/models/resnet152.pdparams",
+        "7ad16a2f1e7333859ff986138630fd7a"),
+    "wide_resnet50_2": (
+        "https://paddle-hapi.bj.bcebos.com/models/wide_resnet50_2.pdparams",
+        "0282f804d73debdab289bd9fea3fa6dc"),
+    "wide_resnet101_2": (
+        "https://paddle-hapi.bj.bcebos.com/models/wide_resnet101_2.pdparams",
+        "d4360a2d23657f059216f5d5a1a9ac93"),
+    "resnext50_32x4d": (
+        "https://paddle-hapi.bj.bcebos.com/models/resnext50_32x4d.pdparams",
+        "dc47483169be7d6f018fcbb7baf8775d"),
+    "resnext50_64x4d": (
+        "https://paddle-hapi.bj.bcebos.com/models/resnext50_64x4d.pdparams",
+        "063d4b483e12b06388529450ad7576db"),
+    "resnext101_32x4d": (
+        "https://paddle-hapi.bj.bcebos.com/models/resnext101_32x4d.pdparams",
+        "967b090039f9de2c8d06fe994fb9095f"),
+    "resnext101_64x4d": (
+        "https://paddle-hapi.bj.bcebos.com/models/resnext101_64x4d.pdparams",
+        "98e04e7ca616a066699230d769d03008"),
+    "resnext152_32x4d": (
+        "https://paddle-hapi.bj.bcebos.com/models/resnext152_32x4d.pdparams",
+        "18ff0beee21f2efc99c4b31786107121"),
+    "resnext152_64x4d": (
+        "https://paddle-hapi.bj.bcebos.com/models/resnext152_64x4d.pdparams",
+        "77c4af00ca42c405fa7f841841959379"),
+}
+
+
 def _resnet(arch, block, depth, width=64, pretrained=False, **kwargs):
+    model = ResNet(block, depth, width=width, **kwargs)
     if pretrained:
-        raise not_ported(f"vision.models.{arch}(pretrained=True), the "
-                         f"reference's published weights", 5)
-    return ResNet(block, depth, width=width, **kwargs)
+        from ...utils.pretrained import load_pretrained
+        load_pretrained(model, arch, model_urls, pretrained)
+    return model
 
 
 def resnet18(pretrained=False, **kwargs):

@@ -131,8 +131,7 @@ def test_deprecated_try_import_require_version():
     assert msgs[0] == msgs[1]
     assert utils.monitor is pt.framework.monitor
     assert utils.profiler is pt.profiler
-    with pytest.raises(NotImplementedError, match="Queue 1 item 5"):
-        utils.pretrained
+    assert utils.pretrained.load_pdparams is pt.framework.io.load_pdparams
 
 
 def test_run_check_trains_a_step(capsys):

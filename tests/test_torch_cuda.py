@@ -1814,3 +1814,100 @@ def test_device_prefetch_batches_stay_right_after_the_producer_moves_on(
     torch.cuda.synchronize()
     assert [(float(a), int(b)) for a, b in sums] == [
         (float(i * (1 << 20)), 4 * i) for i in range(8)]
+
+
+def _served_gpt(cuda, dtype=torch.bfloat16):
+    import paddle_tpu_torch as pt
+    from paddle_tpu_torch.models import GPTConfig, GPTForPretraining
+    pt.seed(0)
+    cfg = GPTConfig(vocab_size=512, hidden_size=128, num_hidden_layers=2,
+                    num_attention_heads=2, intermediate_size=256,
+                    max_position_embeddings=128, hidden_dropout_prob=0.0,
+                    attention_dropout_prob=0.0)
+    return GPTForPretraining(cfg).to(cuda, dtype).eval()
+
+
+@pytest.mark.parametrize("kw", [dict(max_new_tokens=6),
+                                dict(max_new_tokens=5, num_beams=3)],
+                         ids=["greedy", "beams"])
+def test_a_served_generate_artifact_launches_the_kernels(cuda, tmp_path, kw):
+    """``save_for_serving`` on the card: the loaded artifact's tokens equal
+    eager ``generate``'s, and each call launches K2 (2L + 1) a forward
+    (warp-row) and K4 L times in the prefill (tensor-core), counted by
+    the wrappers inside the ``while_loop``'s body too."""
+    from paddle_tpu_torch import jit
+    from paddle_tpu_torch.models import save_for_serving
+    net = _served_gpt(cuda)
+    ids = torch.randint(1, 512, (2, 16), device=cuda,
+                        generator=torch.Generator(cuda).manual_seed(1))
+    want = net.generate(ids, **kw)
+    save_for_serving(net, str(tmp_path / "g"), batch=2, prompt_len=16, **kw)
+    layer = jit.load(str(tmp_path / "g"))
+    before = (ln.fused_layer_norm.launches, ln.fused_layer_norm.warp_launches,
+              fa.flash_attention_fwd.launches,
+              fa.flash_attention_fwd.tc_launches)
+    got = layer(ids.to(torch.int32).cpu().numpy())
+    torch.cuda.synchronize()
+    after = (ln.fused_layer_norm.launches, ln.fused_layer_norm.warp_launches,
+             fa.flash_attention_fwd.launches,
+             fa.flash_attention_fwd.tc_launches)
+    forwards = kw["max_new_tokens"]
+    assert [a - b for a, b in zip(after, before)] == [
+        5 * forwards, 5 * forwards, 2, 2]
+    assert got.is_cuda and torch.equal(got, want)
+
+
+def test_a_keyed_artifact_draws_on_the_card_as_on_the_cpu(cuda, tmp_path):
+    """The counted draw is integer arithmetic and a float32 transform of
+    it: the card's sampled tokens equal the same artifact's on the CPU
+    (float32 weights, so the logits agree far inside a draw's margin)."""
+    from paddle_tpu_torch import jit
+    from paddle_tpu_torch.models import save_for_serving
+    net = _served_gpt(cuda, torch.float32)
+    save_for_serving(net, str(tmp_path / "k"), batch=2, prompt_len=8,
+                     max_new_tokens=6, do_sample=True, top_k=20,
+                     runtime_key=True)
+    ids = np.random.RandomState(2).randint(1, 512, (2, 8)).astype(np.int32)
+    key = np.array([7, 0xFFFFFFF0], np.uint32)
+    card = jit.load(str(tmp_path / "k"))(ids, key)
+    host = jit.load(str(tmp_path / "k"), device="cpu")(ids, key)
+    assert card.is_cuda and torch.equal(card.cpu(), host)
+
+
+def _vision_case_operands(case, dev):
+    def conv(a):
+        return None if a is None else torch.as_tensor(np.array(a),
+                                                      device=dev)
+    return [conv(a) for a in case.args], case.attrs
+
+
+@pytest.mark.parametrize("key", [
+    "roi_align", "roi_align_unaligned", "roi_pool", "roi_pool_edges",
+    "psroi_pool", "nms",
+    "nms_top_k", "nms_unscored", "deform_conv2d", "deform_conv2d_groups",
+    "yolo_box", "yolo_box_scaled", "yolo_loss", "yolo_loss_scored"])
+def test_the_detection_ops_on_the_card_match_the_cpu(cuda, key):
+    """Each detection op's case on CUDA tensors against the same call on
+    the CPU: float32 within atol 1e-4, NMS indices exactly; the outputs
+    on the card; the differentiable ops' input gradients too."""
+    from paddle_tpu_torch.framework.dispatch import call_op
+    from paddle_tpu_torch.ops import op_cases
+    case = op_cases.cases()[key]
+    results = []
+    for dev in (cuda, torch.device("cpu")):
+        args, attrs = _vision_case_operands(case, dev)
+        grad = case.name not in ("nms", "yolo_box")
+        if grad:
+            args[0].requires_grad_(True)
+        out = call_op(case.name, *args, **attrs)
+        outs = list(out) if isinstance(out, tuple) else [out]
+        assert all(o.device.type == dev.type for o in outs)
+        if grad:
+            outs[0].float().square().sum().backward()
+            outs.append(args[0].grad)
+        results.append([o.detach().cpu() for o in outs])
+    for got, want in zip(*results):
+        if want.dtype == torch.int64:
+            assert torch.equal(got, want)
+        else:
+            torch.testing.assert_close(got, want, **TOL[torch.float32])

@@ -21,9 +21,9 @@ under ``FLAGS_pallas_force``; the port runs the kernels' plain versions.
   counterpart here. Its tests on recompiles
   (``test_temperature_change_does_not_recompile``,
   ``test_seeded_and_unseeded_share_one_compile``) have none: the port's
-  loop runs eagerly, with no compile cache to count. Nor has
-  ``test_save_for_serving_roundtrip``: ``save_for_serving`` exports
-  through ``jax.export`` and is not ported (ROADMAP.md Queue 1).
+  loop runs eagerly, with no compile cache to count.
+  ``test_save_for_serving_roundtrip``'s counterpart is
+  ``tests/test_torch_serving_export.py``.
 """
 import numpy as np
 import pytest

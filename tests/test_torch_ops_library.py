@@ -2,14 +2,14 @@
 
 Every op of ``paddle_tpu/ops``' ``math_ops``, ``extra_math_ops``,
 ``creation_ops``, ``manipulation_ops``, ``linalg_ops``, ``nn_ops``,
-``extra_nn_ops`` and ``sequence_ops`` is registered in the port
-(``DEFERRED`` lists, by name,
-the JAX ops that wait for later slices, and ``ROADMAP.md`` names each in
-full). Each op's plain body runs on the inputs of its case in
-``paddle_tpu_torch.ops.op_cases`` (the ops from ``a`` to ``l`` here, the
-rest in ``test_torch_ops_library_m_z.py``, ``extra_nn_ops``' in
+``extra_nn_ops`` and ``sequence_ops``, and of ``paddle_tpu/vision/ops.py``,
+is registered in the port (``registry.DEFERRED``, the JAX ops left for
+later slices, is empty). Each op's plain body runs on the inputs of its
+case in ``paddle_tpu_torch.ops.op_cases`` (the ops from ``a`` to ``l``
+here, the rest in ``test_torch_ops_library_m_z.py``, ``extra_nn_ops``' in
 ``test_torch_extra_nn_ops.py``, ``sequence_ops``' in
-``test_torch_sequence_ops.py``)
+``test_torch_sequence_ops.py``, the detection ops' in
+``test_torch_vision_ops.py``)
 (numpy, from a seed) in both packages: float results within atol 1e-5 +
 rtol 1e-5 (the same f32 arithmetic in another order; a case may state a
 wider one, 1e-4 for the decompositions and solves), integer and bool
@@ -18,8 +18,6 @@ distribution only (mean and variance within 5 standard errors, support),
 since the JAX key and the torch generator give different streams; the
 decompositions unique only up to signs by their defining identities.
 """
-import pathlib
-
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -33,12 +31,10 @@ from paddle_tpu_torch.ops import op_cases, registry
 
 ATOL = RTOL = 1e-5
 
-#: the JAX ops the port leaves for a later slice: ``vision.ops`` (ROADMAP
-#: Queue 1 item 5)
-DEFERRED = {
-    "deform_conv2d": 5, "nms": 5, "psroi_pool": 5, "roi_align": 5,
-    "roi_pool": 5, "yolo_box": 5, "yolo_loss": 5,
-}
+#: the detection ops of ``vision.ops``, swept in ``test_torch_vision_ops.py``
+VISION = frozenset((
+    "deform_conv2d", "nms", "psroi_pool", "roi_align", "roi_pool",
+    "yolo_box", "yolo_loss"))
 
 #: the ops of ``extra_nn_ops``, swept in ``test_torch_extra_nn_ops.py``
 EXTRA_NN = frozenset((
@@ -96,22 +92,12 @@ def run_jax(case):
 def test_the_library_covers_the_jax_ops_but_the_deferred():
     jax_names, port_names = set(jax_registry.op_names()), \
         set(registry.op_names())
-    assert set(DEFERRED) <= jax_names
-    assert jax_names - set(DEFERRED) <= port_names
+    assert jax_names <= port_names
     assert port_names - jax_names == {"zeros"}
-    assert registry.DEFERRED == DEFERRED
-    assert len(jax_names - set(DEFERRED)) == 352
+    assert registry.DEFERRED == {}
+    assert len(jax_names) == 359
     assert EXTRA_NN <= port_names and SEQUENCE <= port_names
-    roadmap = (pathlib.Path(__file__).parents[1] / "ROADMAP.md").read_text()
-    missing = [n for n in DEFERRED if f"`{n}`" not in roadmap]
-    assert missing == [], missing
-
-
-@pytest.mark.parametrize("name", sorted(DEFERRED))
-def test_a_deferred_op_names_its_item(name):
-    with pytest.raises(NotImplementedError,
-                       match=f"Queue 1 item {DEFERRED[name]}"):
-        call_op(name, torch.zeros(2))
+    assert VISION <= port_names
 
 
 def test_every_op_has_a_case():
@@ -120,12 +106,13 @@ def test_every_op_has_a_case():
 
 def keys(first, last):
     """The case keys of the ops whose name starts with a letter in
-    ``[first, last]``, less ``extra_nn_ops``' and ``sequence_ops``' (the
-    sweep is split over four files so that each runs in about a minute on
-    one worker)."""
+    ``[first, last]``, less ``extra_nn_ops``', ``sequence_ops``' and the
+    detection ops' (the sweep is split over five files so that each runs
+    in about a minute on one worker)."""
     return sorted(k for k, c in CASES.items()
                   if c.name != "zeros" and c.name not in EXTRA_NN
-                  and c.name not in SEQUENCE and first <= k[0] <= last)
+                  and c.name not in SEQUENCE and c.name not in VISION
+                  and first <= k[0] <= last)
 
 
 def check_against_jax(key):

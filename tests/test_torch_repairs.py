@@ -344,7 +344,6 @@ def test_the_repaired_module_names():
     from paddle_tpu_torch import serving
     assert amp.amp_guard is amp.auto_cast
     for mod, name, item in (
-            (generation, "save_for_serving", 5),
             (generation, "shard_params_megatron", 4),
             (generation, "build_sharded_fused_step_fn", 4),
             (serving, "PlanError", 5), (serving.engine, "PlanError", 5),

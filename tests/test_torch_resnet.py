@@ -166,8 +166,9 @@ def test_resnet18_step_matches_jax_at_32(df):
 def test_the_constructors_build_the_reference_shapes():
     """resnet34 and the grouped resnext50_32x4d have the JAX networks'
     state keys and shapes (the other constructors differ from these and
-    the networks above only in depth and width), and each of the 13 raises
-    naming item 5 at ``pretrained=True``."""
+    the networks above only in depth and width), and each of the 13 looks
+    for the reference's published file in the local weights cache at
+    ``pretrained=True`` (none is there: it raises naming the file)."""
     from paddle_tpu.vision import models as jm
     from paddle_tpu_torch.vision import models as tm
     for name in ("resnet34", "resnext50_32x4d"):
@@ -177,17 +178,22 @@ def test_the_constructors_build_the_reference_shapes():
         got = {k: tuple(v.shape[::-1]) if k == "fc.weight" else
                tuple(v.shape) for k, v in t.state_dict().items()}
         assert got == want, name
-    for name in tm.__all__[1:]:
-        with pytest.raises(NotImplementedError, match="Queue 1 item 5"):
+    from paddle_tpu_torch.vision.models.resnet import model_urls
+    from paddle_tpu.vision.models.resnet import model_urls as jax_urls
+    assert model_urls == jax_urls
+    for name in model_urls:
+        with pytest.raises(RuntimeError, match=model_urls[name][0].rsplit(
+                "/", 1)[1].replace(".", r"\.")):
             getattr(tm, name)(pretrained=True)
 
 
 def test_the_rest_of_vision_raises_naming_item_5():
+    """Nothing of the JAX ``vision`` and ``vision.models`` waits for a
+    later slice any more: every public name of theirs is in the port's
+    modules, none of them a stub naming a Queue 1 item."""
     from paddle_tpu import vision as jv
     from paddle_tpu.vision import models as jm
     for port, ref in ((vision, jv), (vision.models, jm)):
-        for name in (n for n in dir(ref) if not n.startswith("_")):
-            if name in vars(port):
-                continue
-            with pytest.raises(NotImplementedError, match="Queue 1 item 5"):
-                getattr(port, name)
+        missing = [n for n in dir(ref) if not n.startswith("_")
+                   and n not in vars(port)]
+        assert missing == [], missing

@@ -212,7 +212,7 @@ def _gpt():
 
 
 def _not_ported_calls():
-    from paddle_tpu_torch import amp, nn, vision
+    from paddle_tpu_torch import amp, nn
     from paddle_tpu_torch.hapi import Model
     from paddle_tpu_torch.optimizer import SGD
     from paddle_tpu_torch.serving import GenerationEngine, PagedKVPool
@@ -231,13 +231,10 @@ def _not_ported_calls():
             no_grad_vars=[torch.ones(1)]),
         "flops custom_ops": lambda: pt.flops(
             nn.Linear(4, 2), [1, 4], custom_ops={nn.Linear: None}),
-        "resnet50 pretrained": lambda: vision.models.resnet50(
-            pretrained=True),
         "margin_cross_entropy group": lambda:
             nn.functional.margin_cross_entropy(
                 torch.zeros(2, 3), torch.zeros(2, dtype=torch.long),
                 group=object()),
-        "vision datasets": lambda: vision.datasets,
         "decorate is accepted": None,
     }
 
@@ -266,7 +263,8 @@ def _ported_checks():
     slice: ``DataLoader``'s static-mode arguments and ``minimize`` in
     static mode; item 5's core API: ``train_batch(update=False)``,
     ``evaluate(prefetch=)``, ``minimize``'s ``startup_program`` and
-    ``parameters``), each with a check of what it does now."""
+    ``parameters``; item 5's vision slice: ``resnet*(pretrained=)``,
+    ``vision.datasets``), each with a check of what it does now."""
     from paddle_tpu.hapi.callbacks import ProfilerCallback as JaxCallback
     from paddle_tpu.serving.scheduler import Scheduler as JaxScheduler
     from paddle_tpu_torch.framework import trace_probe
@@ -501,11 +499,36 @@ def _ported_checks():
     def minimize_parameters():          # only these step
         assert minimize_subset(parameters=[]) == ([1.0, 1.0], [1.0, 1.0])
 
+    def resnet_pretrained():            # a local reference-format file
+        import pickle
+        import tempfile
+        from paddle_tpu_torch.convert import layer_to_numpy
+        from paddle_tpu_torch.vision.models import resnet18
+        pt.seed(1)
+        src = resnet18(num_classes=4)
+        with tempfile.TemporaryDirectory() as d:
+            path = f"{d}/r18.pdparams"
+            with open(path, "wb") as f:
+                pickle.dump(layer_to_numpy(src), f)
+            pt.seed(2)
+            got = resnet18(pretrained=path, num_classes=4)
+        for k, v in src.state_dict().items():
+            assert torch.equal(got.state_dict()[k], v), k
+
+    def vision_datasets():
+        from paddle_tpu_torch.vision import datasets
+        img, label = datasets.FakeData(size=3, image_shape=(3, 8, 8))[2]
+        assert img.shape == (3, 8, 8) and 0 <= int(label) < 10
+        with pytest.raises(RuntimeError, match="download"):
+            datasets.MNIST(download=True)
+
     return {
         "train_batch update": train_batch_update,
         "evaluate prefetch": evaluate_prefetch,
         "minimize startup_program": minimize_startup_program,
         "minimize parameters": minimize_parameters,
+        "resnet pretrained": resnet_pretrained,
+        "vision datasets": vision_datasets,
         "max_pool2d return_mask": return_mask,
         "adaptive_max_pool1d return_mask": adaptive_mask,
         "functional ctc_loss": ctc_loss,

@@ -766,7 +766,9 @@ def test_layer_builders_match_jax_with_carried_weights(both_static):
     feed = {"a": rng.randn(3, 4).astype("float32"),
             "b": rng.randn(3, 5).astype("float32"),
             "img": rng.randn(2, 3, 6, 6).astype("float32"),
-            "vol": rng.randn(2, 3, 4, 4, 4).astype("float32")}
+            "vol": rng.randn(2, 3, 4, 4, 4).astype("float32"),
+            "off": rng.randn(2, 18, 6, 6).astype("float32"),
+            "mask": rng.rand(2, 9, 6, 6).astype("float32")}
     outs = []
     progs = []
     for pkg, st in ((paddle, jstatic), (pt, static)):
@@ -776,6 +778,8 @@ def test_layer_builders_match_jax_with_carried_weights(both_static):
             b = st.data("b", [None, 5], "float32")
             img = st.data("img", [None, 3, 6, 6], "float32")
             vol = st.data("vol", [None, 3, 4, 4, 4], "float32")
+            off = st.data("off", [None, 18, 6, 6], "float32")
+            mask = st.data("mask", [None, 9, 6, 6], "float32")
             fetches = [
                 st.nn.bilinear_tensor_product(a, b, 6, act="tanh"),
                 st.nn.prelu(img, mode="channel"),
@@ -790,7 +794,9 @@ def test_layer_builders_match_jax_with_carried_weights(both_static):
                 st.nn.group_norm(img, 3, act="relu"),
                 st.nn.fc(img, size=5, num_flatten_dims=1),
                 st.nn.fc(img, size=5, num_flatten_dims=2,
-                         activation="sigmoid")]
+                         activation="sigmoid"),
+                st.nn.deform_conv2d(img, off, mask, 4, 3, padding=1),
+                st.nn.deform_conv2d(img, off, None, 2, 3, padding=1)]
         progs.append((main, fetches))
     program_from_jax(progs[1][0], _jax_params(progs[0][0]))
     for (main, fetches), st in zip(progs, (jstatic, static)):
@@ -798,7 +804,7 @@ def test_layer_builders_match_jax_with_carried_weights(both_static):
     for i, (got, want) in enumerate(zip(outs[1], outs[0])):
         assert got.shape == want.shape, i
         _close(got, want)
-    assert outs[1][-1].shape == (2, 3, 5)
+    assert outs[1][-3].shape == (2, 3, 5)
 
 
 def test_nce_label_flows_and_crf_decoding_matches(both_static):
@@ -826,8 +832,6 @@ def test_builders_that_wait_or_raise_name_it():
     ids = torch.zeros(2, 3, dtype=torch.int64)
     with pytest.raises(NotImplementedError, match="Queue 1 item 4"):
         static.nn.sparse_embedding(ids, (30, 8))
-    with pytest.raises(NotImplementedError, match="Queue 1 item 5"):
-        static.nn.deform_conv2d(torch.zeros(1, 2, 4, 4), None, None, 2, 3)
     with pytest.raises(NotImplementedError, match="vision.ops"):
         static.nn.multi_box_head()
     x = torch.randn(1, 2, 4, 4)
