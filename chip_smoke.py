@@ -6172,10 +6172,11 @@ def phase_bert(device, card, timer, profile=False):
     del model, opt, batch
     gc.collect()
     torch.cuda.empty_cache()
-    return launches, bert_rows(device, timer, launches, shapes)
+    return (launches, bert_rows(device, timer, launches, shapes),
+            events[0].elapsed_time(events[-1]) / BERT_STEPS)
 
 
-def bert_rows(device, timer, launches, shapes):
+def bert_rows(device, timer, launches, shapes, tail="bert"):
     """The kernels line's rows of phase 10: each kernel against its plain
     version at the fit's shapes and dtypes (LayerNorm float32 [4096, 768],
     flash bf16 [32, 128, 12, 64] not causal, AdamW over the parameter
@@ -6202,17 +6203,17 @@ def bert_rows(device, timer, launches, shapes):
                                  BERT_LR, BERT_WD)
     out = []
     for name, src, tpu, row, count in (
-            ("fused_layer_norm_bert", LN_SRC, LN_TPU, ln_fwd,
+            (f"fused_layer_norm_{tail}", LN_SRC, LN_TPU, ln_fwd,
              "fused_layer_norm"),
-            ("fused_layer_norm_bwd_bert", LN_SRC, LN_BWD_TPU, ln_bwd,
+            (f"fused_layer_norm_bwd_{tail}", LN_SRC, LN_BWD_TPU, ln_bwd,
              "fused_layer_norm_bwd"),
-            ("flash_attention_fwd_bert", FA_TC_SRC, FA_FWD_TPU, fa_fwd,
+            (f"flash_attention_fwd_{tail}", FA_TC_SRC, FA_FWD_TPU, fa_fwd,
              "flash_attention_fwd"),
-            ("flash_attention_bwd_bert", FA_TC_SRC, FA_BWD_TPU, fa_bwd,
+            (f"flash_attention_bwd_{tail}", FA_TC_SRC, FA_BWD_TPU, fa_bwd,
              "flash_attention_bwd"),
-            ("fused_adamw_step_bert", ADAMW_SRC, ADAMW_TPU, adamw_step,
+            (f"fused_adamw_step_{tail}", ADAMW_SRC, ADAMW_TPU, adamw_step,
              "fused_adamw")):
-        log(f"phase 10 {name} {fmt(row)}")
+        log(f"phase {10 if tail == 'bert' else 17} {name} {fmt(row)}")
         out.append({"name": name, "route": "cuda", "source": src,
                     "replaces": tpu, "launches": launches[count],
                     "max_abs_err": row["max_abs_err"], "ms": row["ms"],
@@ -8297,6 +8298,881 @@ def phase_vision(device, card):
             "ops": vision_ops_phase(device, card)}
 
 
+# ---------------------------------------------------------------- phase 17
+#: (i) BERT-base fine-tuned quantization-aware at ``bench_bert``'s
+#: configuration through ``Model.fit``: ``QAT_WARM`` warm-up and
+#: ``QAT_STEPS`` timed steps on phase 10's fixed batch
+QAT_WARM, QAT_STEPS = 3, 8
+#: (ii) PTQ calibration batches of [32, 128]
+PTQ_BATCHES = 4
+#: (iii) ``Predictor.run`` calls timed (median of CUDA events)
+QAT_SERVE_RUNS = 10
+#: a fake-quantized bf16 weight over its scale, times 127, lies within
+#: this fraction of its magnitude (and at least of 1) from an integer:
+#: the quantizer's last two steps (times the scale, over 127) each round
+#: to bf16, at most half an ulp (2 ** -8 relative) each; bf16 cannot hold
+#: the grid exactly above code 64, where its ulp is half a code
+QAT_GRID_TOL = 2.0 ** -7
+#: (iv) float32 card vs CPU: the loss of each of 3 QAT steps (SGD, lr
+#: ``QAT_F32_LR``) within ``QAT_F32_TOL`` relative; LeNet's quantized
+#: program outputs within ``QAT_F32_TOL`` of their largest value
+QAT_F32_TOL = 1e-4
+QAT_F32_LR = 1e-3
+#: an int8 code whose pre-round value on the CPU lies within this of a
+#: rounding boundary (in code units) may round the other way on the
+#: card, whose float32 sums run in another order: the codes must agree
+#: everywhere else
+QAT_TIE = 1e-3
+
+
+def quant_net(device, layers, seed, dtype=None):
+    """``BertForQuestionAnswering`` at base width cut to ``layers``
+    (dropout 0), wrapped for ``Model.fit`` (positional ids, start, end);
+    the wrapper's ``inner`` is the network."""
+    from paddle_tpu_torch import nn
+    from paddle_tpu_torch.models.bert import BertForQuestionAnswering
+
+    class SpanFinetune(nn.Layer):
+        """The span-extraction fine-tune of phase 17: (ids, start, end)
+        in, (loss, start logits, end logits) out."""
+
+        def __init__(self, inner):
+            super().__init__()
+            self.inner = inner
+
+        def forward(self, ids, start, end):
+            return self.inner(ids, start_positions=start,
+                              end_positions=end)
+
+    return SpanFinetune(bert_net(BertForQuestionAnswering, layers, device,
+                                 seed, dtype))
+
+
+def count_linears(net):
+    from paddle_tpu_torch.nn import Linear
+    return sum(isinstance(m, Linear) for m in net.modules())
+
+
+def grid_check(what, net):
+    """Every ``QuantizedLinear``'s fake-quantized weight lies on its int8
+    grid: ``w_q / s * 127`` within ``QAT_GRID_TOL`` of an integer.
+    Returns the layers checked and the worst distance found."""
+    from paddle_tpu_torch.quantization import QuantizedLinear
+    worst, n = 0.0, 0
+    with torch.no_grad():
+        for name, m in net.named_modules():
+            if not isinstance(m, QuantizedLinear):
+                continue
+            w = m.inner.weight
+            wq = m.weight_quant(w)
+            v = wq.float() / w.abs().amax().float() * 127.0
+            dist = (v - v.round()).abs()
+            lim = QAT_GRID_TOL * v.abs().clamp_min(1.0)
+            if (dist > lim).any() or v.abs().max() > 127.0 + QAT_GRID_TOL \
+                    * 127.0:
+                raise AssertionError(
+                    f"{what}: {name}'s fake-quantized weight is off its "
+                    f"int8 grid: {int((dist > lim).sum())} values, worst "
+                    f"{dist.max().item():.3e}")
+            worst = max(worst, dist.max().item())
+            n += 1
+    return n, worst
+
+
+def qat_fit(device, card):
+    """17 (i): BERT-base, ``amp.decorate`` (O2, bf16) and then
+    ``ImperativeQuantAware().quantize``, trained through ``Model.fit``
+    (AdamW with float32 masters) on phase 10's fixed batch; returns the
+    fit's launches, the parameter shapes with a gradient, the network,
+    and its step time."""
+    import paddle_tpu_torch.optimizer.optimizer as opt_module
+    from paddle_tpu_torch import amp
+    from paddle_tpu_torch.hapi import Callback, Model
+    from paddle_tpu_torch.io import TensorDataset
+    from paddle_tpu_torch.optimizer import AdamW
+    from paddle_tpu_torch.quantization import (ImperativeQuantAware,
+                                               QuantizedLinear)
+    net = quant_net(device, 12, SEED)
+    n_linear = count_linears(net)
+    amp.decorate(net, level="O2", dtype="bfloat16")
+    ImperativeQuantAware().quantize(net)
+    swapped = sum(isinstance(m, QuantizedLinear) for m in net.modules())
+    if swapped != n_linear or count_linears(net) != n_linear:
+        raise AssertionError(f"phase 17: {swapped} QuantizedLinear for "
+                             f"{n_linear} Linear")
+    want = bert_want(net)
+    model = Model(net, inputs=["ids", "start", "end"], device=device)
+    model.prepare(AdamW(learning_rate=BERT_LR, weight_decay=BERT_WD,
+                        parameters=net.parameters(), multi_precision=True),
+                  loss=lambda loss, start, end: loss,
+                  amp_configs={"level": "O2", "dtype": "bfloat16"})
+    n = QAT_WARM + QAT_STEPS + 1
+    vocab = net.inner.bert.cfg.vocab_size
+    rows = [torch.from_numpy(a) for a in bert_batch(BERT_BATCH, BERT_SEQ,
+                                                     vocab)]
+    data = TensorDataset([r.repeat(n, *([1] * (r.dim() - 1)))
+                          for r in rows])
+    counters = train_counters()
+    losses, per_step, stamps = [], [], []
+
+    def spy(inputs, labels, update=True, _orig=model._train_step):
+        at = read_counts(counters)
+        loss, outs = _orig(inputs, labels, update)
+        now = read_counts(counters)
+        per_step.append({k: now[k] - at[k] for k in now})
+        losses.append(loss.detach())
+        return loss, outs
+
+    class Steps(Callback):
+        """The last step runs under sync debug "error"; CUDA events at
+        each step's end."""
+
+        def on_train_batch_begin(self, step, logs=None):
+            if step == n - 1:
+                torch.cuda.set_sync_debug_mode("error")
+
+        def on_train_batch_end(self, step, logs=None):
+            if step == n - 1:
+                torch.cuda.set_sync_debug_mode(0)
+            ev = torch.cuda.Event(enable_timing=True)
+            ev.record()
+            stamps.append(ev)
+
+        def on_train_abort(self):
+            torch.cuda.set_sync_debug_mode(0)
+
+    model._train_step = spy
+    torch.cuda.synchronize()
+    gc.collect()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts(counters)
+    try:
+        with count_plain() as plain, adamw_dtypes(opt_module) as kinds:
+            t0 = time.perf_counter()
+            model.fit(data, batch_size=BERT_BATCH, epochs=1, shuffle=False,
+                      log_freq=10 * n, verbose=0, callbacks=[Steps()])
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    del model._train_step
+    launches = read_counts(counters)
+    peak = torch.cuda.max_memory_allocated()
+    if per_step != [want] * n:
+        bad = [(i, s) for i, s in enumerate(per_step) if s != want]
+        raise AssertionError(f"phase 17: launches a QAT step, expected "
+                             f"{want}: {bad[:3]} ({len(per_step)} steps)")
+    check_flash_route("phase 17", counters, "tc")
+    check_ln_route("phase 17", (counters["fused_layer_norm"],
+                                counters["fused_layer_norm_bwd"]))
+    if sum(plain.values()) or set(kinds) != {
+            ("float32", "bfloat16", "bfloat16")}:
+        raise AssertionError(f"phase 17: plain versions {dict(plain)}, "
+                             f"AdamW (p, g, copy) dtypes {dict(kinds)}")
+    losses = [x.item() for x in losses]
+    timed = losses[QAT_WARM:QAT_WARM + QAT_STEPS]
+    if not all(math.isfinite(x) for x in losses) or not timed[-1] < timed[0]:
+        raise AssertionError(f"phase 17: QAT losses on the fixed batch: "
+                             f"{losses}")
+    step_ms = [stamps[i - 1].elapsed_time(stamps[i])
+               for i in range(QAT_WARM, QAT_WARM + QAT_STEPS)]
+    ms = stamps[QAT_WARM - 1].elapsed_time(
+        stamps[QAT_WARM + QAT_STEPS - 1]) / QAT_STEPS
+    layers, worst = grid_check("phase 17 (i)", net)
+    # Model.prepare's O2 decorate made every observer's state bf16; the
+    # moving average writes it back float32 (bf16 state, float32 abs-max)
+    # in each one that saw a batch: all but the unused pooler's
+    ran = {n: m.act_quant.scale_state for n, m in net.named_modules()
+           if isinstance(m, QuantizedLinear)
+           and not n.endswith("bert.pooler")}
+    if len(ran) != swapped - 1 or any(
+            s.dtype != torch.float32 or not (s > 0).all()
+            or not torch.isfinite(s).all() for s in ran.values()):
+        seen = {n: (s.dtype, s.tolist()) for n, s in ran.items()}
+        raise AssertionError(f"phase 17: {len(ran)} observers ran for "
+                             f"{swapped - 1}; states {seen}")
+    log(f"phase 17 (i): BERT-base (bench_bert's configuration), "
+        f"amp.decorate (O2, bf16) then ImperativeQuantAware().quantize: "
+        f"{swapped} Linear -> QuantizedLinear (12 layers x 6, the pooler "
+        f"and the classifier), trained through Model.fit with AdamW lr "
+        f"{BERT_LR} (float32 masters), batch {BERT_BATCH} x {BERT_SEQ}: "
+        f"{QAT_WARM} warm-up, {QAT_STEPS} timed steps and one more under "
+        f"set_sync_debug_mode('error'); launches a step {json.dumps(want)} "
+        f"(phase 10's), every flash launch tensor-core, every LayerNorm "
+        f"launch warp-row, no plain version; losses {json.dumps(losses)}; "
+        f"{layers} fake-quantized weights on their int8 grid (worst "
+        f"distance {worst:.3e} codes)")
+    log(f"phase 17 (i) on {card}: QAT step {ms:.3f} ms (CUDA events over "
+        f"the timed steps; median step {statistics.median(step_ms):.3f} "
+        f"ms), {BERT_BATCH * BERT_SEQ / ms * 1e3:.1f} tokens/s, wall "
+        f"{wall:.2f} s for {n} steps; max memory allocated {peak} bytes")
+    pooler = {id(p) for p in net.inner.bert.pooler.parameters()}
+    shapes = [tuple(p.shape) for p in net.parameters() if id(p) not in pooler]
+    return launches, shapes, net, ms
+
+
+def ptq_check(device):
+    """17 (ii): ``PostTrainingQuantization`` on a float bf16 BERT-base
+    over ``PTQ_BATCHES`` batches under O2; each recorded scale is the
+    largest |input| of its ``Linear``, read independently by a hook that
+    keeps the running maximum on the card."""
+    from paddle_tpu_torch import amp
+    from paddle_tpu_torch.models.bert import BertForQuestionAnswering
+    from paddle_tpu_torch.nn import Linear
+    from paddle_tpu_torch.quantization import (PostTrainingQuantization,
+                                               QuantizedLinear)
+    net = bert_net(BertForQuestionAnswering, 12, device, SEED + 170)
+    amp.decorate(net, level="O2", dtype="bfloat16")
+    vocab = net.bert.cfg.vocab_size
+    rng = np.random.RandomState(SEED + 171)
+    batches = [torch.from_numpy(rng.randint(0, vocab, (BERT_BATCH, BERT_SEQ))
+                                ).to(device) for _ in range(PTQ_BATCHES)]
+    seen, hooks = {}, []
+    for name, m in net.named_modules():
+        if isinstance(m, Linear):
+            def hook(mod, inputs, _name=name):
+                cur = inputs[0].detach().abs().amax().float()
+                seen[_name] = cur if _name not in seen \
+                    else torch.maximum(seen[_name], cur)
+            hooks.append(m.register_forward_pre_hook(hook))
+    ptq = PostTrainingQuantization(net)
+    t0 = time.perf_counter()
+    with amp.auto_cast(level="O2", dtype="bfloat16"):
+        scales = ptq.collect(batches)
+    collect_s = time.perf_counter() - t0
+    for h in hooks:
+        h.remove()
+    if set(scales) != set(seen) or not scales:
+        raise AssertionError(f"phase 17 (ii): scales of {sorted(scales)}, "
+                             f"inputs seen at {sorted(seen)}")
+    bad = {k: (v, seen[k].item()) for k, v in scales.items()
+           if v != seen[k].item()}
+    if bad:
+        raise AssertionError(f"phase 17 (ii): PTQ scale != the input's "
+                             f"abs-max: {bad}")
+    model = ptq.quantize()
+    frozen = {n: m.act_quant.scale_state.item()
+              for n, m in model.named_modules()
+              if isinstance(m, QuantizedLinear) and n in scales}
+    if any(frozen[n] != float(np.float32(scales[n])) for n in frozen):
+        raise AssertionError(f"phase 17 (ii): frozen observer states "
+                             f"{frozen} vs {scales}")
+    with torch.no_grad(), amp.auto_cast(level="O2", dtype="bfloat16"):
+        out = model(batches[0])
+    if not all(torch.isfinite(o).all() for o in out):
+        raise AssertionError("phase 17 (ii): the PTQ model's logits")
+    log(f"phase 17 (ii): PostTrainingQuantization of a float bf16 BERT-base "
+        f"(the QA head, which never runs the pooler) over {PTQ_BATCHES} "
+        f"batches of [{BERT_BATCH}, {BERT_SEQ}] in {collect_s:.2f} s: "
+        f"{len(scales)} scales, each equal to its Linear's input abs-max "
+        f"read by a separate hook (range {min(scales.values()):.4g} .. "
+        f"{max(scales.values()):.4g}); the quantized model's observers "
+        f"start from them and its logits are finite")
+    del net, model
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def qat_serve(device, card, net, counters, tmp):
+    """17 (iii): ``save_quantized_model`` of (i)'s network (its ``inner``
+    BERT, ids and token types of ``[None, 128]``) -> ``create_predictor``
+    -> ``Predictor.run``; returns the launches of the served runs."""
+    from paddle_tpu_torch import amp, inference
+    from paddle_tpu_torch.nn.layer.layers import port_axis
+    from paddle_tpu_torch.quantization import (ImperativeQuantAware,
+                                               QuantizedInferenceLinear,
+                                               QuantizedLinear,
+                                               quantize_weight)
+    from paddle_tpu_torch.static import InputSpec
+    bert = net.inner
+    # the trained bf16 weights in float32, as convert_to_int8 reads them,
+    # per output channel (the JAX layout's last axis)
+    codes = {n: quantize_weight(m.inner.weight.detach().float(),
+                                channel_axis=port_axis(m.inner.weight, -1))[0]
+             for n, m in bert.named_modules()
+             if isinstance(m, QuantizedLinear)}
+    specs = [InputSpec([None, BERT_SEQ], "int64", "input_ids"),
+             InputSpec([None, BERT_SEQ], "int64", "token_type_ids")]
+    path = os.path.join(tmp, "bert_int8")
+    t0 = time.perf_counter()
+    with amp.auto_cast(level="O2", dtype="bfloat16"):
+        live = ImperativeQuantAware().save_quantized_model(
+            bert, path, input_spec=specs)
+    export_s = time.perf_counter() - t0
+    frozen = {n: m for n, m in live.named_modules()
+              if isinstance(m, QuantizedInferenceLinear)}
+    if set(frozen) != set(codes):
+        raise AssertionError(f"phase 17 (iii): {len(frozen)} int8 layers "
+                             f"for {len(codes)} QAT layers")
+    for n, m in frozen.items():
+        if m.weight_int8.dtype != torch.int8 or not torch.equal(
+                m.weight_int8, codes[n]):
+            raise AssertionError(f"phase 17 (iii): {n}.weight_int8 is not "
+                                 f"quantize_weight of the trained weight")
+    from paddle_tpu_torch.framework.io import load as pt_load
+    stored = pt_load(path + ".pdiparams")
+    dtypes = {str(np.asarray(v).dtype) for k, v in stored.items()
+              if k.endswith("weight_int8")}
+    held = sum(k.endswith("weight_int8") for k in stored)
+    if held != len(codes) or dtypes != {"int8"}:
+        raise AssertionError(f"phase 17 (iii): the .pdiparams holds {held} "
+                             f"int8 weights, dtypes {sorted(dtypes)}")
+    t0 = time.perf_counter()
+    pred = inference.create_predictor(inference.Config(path + ".pdmodel"))
+    load_s = time.perf_counter() - t0
+    ids = bert_batch(BERT_BATCH, BERT_SEQ, bert.bert.cfg.vocab_size)[0]
+    types = np.zeros_like(ids)
+    with torch.no_grad(), amp.auto_cast(level="O2", dtype="bfloat16"):
+        want = [w.cpu() for w in live(torch.from_numpy(ids).to(device),
+                                      torch.from_numpy(types).to(device))]
+    n_ln = sum(1 for m in bert.modules() if type(m).__name__ == "LayerNorm")
+    layers = len(bert.bert.encoder.layers)
+    per_run = {"fused_layer_norm": n_ln, "warp": n_ln,
+               "flash_attention_fwd": layers, "tc": layers, "others": 0}
+    runs = []
+
+    def served():
+        at = deploy_counts(counters)
+        out = pred.run([ids, types])
+        now = deploy_counts(counters)
+        runs.append({k: now[k] - at[k] for k in now})
+        return out
+
+    reset_counts(counters)
+    with count_plain() as plain:
+        got = served()
+        run_ms = event_ms(served, QAT_SERVE_RUNS)
+    launches = read_counts(counters)
+    if sum(plain.values()) or runs != [per_run] * (QAT_SERVE_RUNS + 1):
+        raise AssertionError(f"phase 17 (iii): launches a Predictor.run, "
+                             f"expected {per_run}: {runs[:3]}; plain "
+                             f"{dict(plain)}")
+    errs = [check_close(f"phase 17 (iii) served {n} logits",
+                        torch.from_numpy(g), w, torch.bfloat16)
+            for n, g, w in zip(("start", "end"), got, want)]
+    size = artifact_bytes(path)
+    log(f"phase 17 (iii): the QAT BERT-base frozen by save_quantized_model "
+        f"(convert_to_int8: {len(frozen)} int8-weight Linear layers, "
+        f"weight_int8 bit-equal to quantize_weight of the trained weights, "
+        f"int8 in the .pdiparams) and exported in {export_s:.2f} s "
+        f"({size} bytes: .pdmodel, .pdiparams, .meta.json; phase 12's "
+        f"float bf16 artifact beside it above), loaded by create_predictor "
+        f"in {load_s:.2f} s; each Predictor.run at [{BERT_BATCH}, "
+        f"{BERT_SEQ}] launched K2 = {n_ln} (warp-row) and K4 = {layers} "
+        f"(tensor-core), no plain version; logits within bf16 TOL of the "
+        f"live converted model (max abs err {max(errs):.3e})")
+    log(f"phase 17 (iii) on {card}: Predictor.run {run_ms:.3f} ms a batch "
+        f"(median of {QAT_SERVE_RUNS}, CUDA events, numpy in and out)")
+    del pred, live
+    return launches
+
+
+def near_tie(w, bits=8):
+    """Where ``w``'s per-output-channel int8 pre-round value (as
+    ``quantize_weight`` computes it) lies within ``QAT_TIE`` of a
+    rounding boundary."""
+    from paddle_tpu_torch.nn.layer.layers import port_axis
+    keep = port_axis(w, -1)
+    w = w.detach().float()
+    axes = tuple(i for i in range(w.dim()) if i != keep)
+    scale = w.abs().amax(dim=axes, keepdim=True) / 127.0
+    v = w / torch.where(scale == 0, torch.ones_like(scale), scale)
+    return ((v - v.floor()) - 0.5).abs() < QAT_TIE
+
+
+class CodeTrace:
+    """Forward hooks on every activation observer of a QAT network.
+    ``record``: keep each call's fake-quantized output (moved to the
+    CPU). ``follow``: where an output's int8 code differs from the
+    recorded one, which must be a near-tie of this side's pre-round value
+    (within ``QAT_TIE`` of a rounding boundary, one code apart), take the
+    recorded code, with the straight-through gradient kept; count those
+    flips."""
+
+    def __init__(self, net, mode):
+        from paddle_tpu_torch.quantization import MovingAverageAbsMaxScale
+        self.mode, self.outs, self.flips, self.sites = mode, [], 0, 0
+        self._at = 0
+        self._hooks = [m.register_forward_hook(self._hook)
+                       for m in net.modules()
+                       if isinstance(m, MovingAverageAbsMaxScale)]
+
+    def _hook(self, mod, inputs, out):
+        if self.mode == "record":
+            self.outs.append(out.detach().cpu())
+            return None
+        want = self.outs[self._at]
+        self._at += 1
+        s = mod.scale_state.float().reshape(())
+        x = inputs[0].detach()
+        v = torch.minimum(torch.maximum(x, -s), s) / s * 127.0
+        step = (out.detach() - want) / s * 127.0
+        flip = step.abs() > 0.5
+        tie = ((v - v.floor()) - 0.5).abs() < QAT_TIE
+        if (flip & ~tie).any() or (step.abs() > 1.5).any():
+            raise AssertionError(
+                f"phase 17 (iv): {int((flip & ~tie).sum())} activation "
+                f"codes differ card vs CPU away from a near-tie")
+        self.flips += int(flip.sum())
+        self.sites += flip.numel()
+        return out + torch.where(flip, want - out, 0.0).detach()
+
+    def close(self):
+        for h in self._hooks:
+            h.remove()
+
+
+def qat_f32(device):
+    """17 (iv): float32 at base width cut to 2 layers, card against a CPU
+    copy: 3 QAT steps (SGD) in lockstep with losses within
+    ``QAT_F32_TOL``, then ``convert_to_int8``'s codes equal away from
+    near-ties; and LeNet's recorded program through
+    ``QuantizationTransformPass``, ``calibrate_program`` and
+    ``PostTrainingQuantizationProgram``, its outputs within
+    ``QAT_F32_TOL``.
+
+    Fake quantization is discontinuous: an activation within float32
+    rounding of a code boundary rounds one way on the card and the other
+    on the CPU (their sums run in other orders), and one such code moves
+    the loss by more than ``QAT_F32_TOL``. So each step runs on the card
+    first (:class:`CodeTrace` records its codes) and then on the CPU,
+    which takes the card's code wherever they differ, after checking
+    that every such place is a near-tie."""
+    import paddle_tpu_torch as pt
+    from paddle_tpu_torch import static
+    from paddle_tpu_torch.convert import layer_from_jax, layer_to_numpy
+    from paddle_tpu_torch.optimizer import SGD
+    from paddle_tpu_torch.quantization import (
+        ImperativeQuantAware, PostTrainingQuantizationProgram,
+        QuantizationTransformPass, QuantizedInferenceLinear,
+        calibrate_program, convert_to_int8)
+    from paddle_tpu_torch.vision.models import LeNet
+    cpu = torch.device("cpu")
+    ids, start, end = bert_batch(BERT_PARITY_BATCH, BERT_PARITY_SEQ, 30522)
+    card = quant_net(device, BERT_PARITY_LAYERS, SEED + 172)
+    host = quant_net(cpu, BERT_PARITY_LAYERS, SEED + 173)
+    layer_from_jax(host, layer_to_numpy(card))
+    side = {}
+    for key, net, dev in (("card", card, device), ("host", host, cpu)):
+        ImperativeQuantAware().quantize(net)
+        side[key] = (net, SGD(learning_rate=QAT_F32_LR,
+                              parameters=net.parameters()),
+                     [torch.from_numpy(a).to(dev) for a in (ids, start, end)])
+    losses = {"card": [], "host": []}
+    flips = sites = 0
+    for _ in range(3):
+        rec = CodeTrace(card, "record")
+        for key in ("card", "host"):
+            net, opt, batch = side[key]
+            follow = None
+            if key == "host":
+                follow = CodeTrace(host, "follow")
+                follow.outs = rec.outs
+            loss = net(*batch)[0]
+            loss.backward()
+            opt.step()
+            opt.clear_grad()
+            losses[key].append(loss.item())
+            if follow is not None:
+                follow.close()
+                flips += follow.flips
+                sites += follow.sites
+        rec.close()
+    for a, b in zip(losses["card"], losses["host"]):
+        if not abs(a - b) <= QAT_F32_TOL * abs(b):
+            raise AssertionError(f"phase 17 (iv): QAT losses card "
+                                 f"{losses['card']} vs CPU {losses['host']}")
+    near = {n: near_tie(m.inner.weight) for n, m in host.named_modules()
+            if type(m).__name__ == "QuantizedLinear"}
+    nets = {}
+    for key, net in (("card", card), ("host", host)):
+        convert_to_int8(net)
+        nets[key] = {n: m.weight_int8.detach().cpu()
+                     for n, m in net.named_modules()
+                     if isinstance(m, QuantizedInferenceLinear)}
+    differ = ties = 0
+    for n, c in nets["card"].items():
+        h = nets["host"][n]
+        tie = near[n]
+        ties += int(tie.sum())
+        off = c != h
+        differ += int(off.sum())
+        if (off & ~tie).any() or ((c.int() - h.int()).abs() > 1).any():
+            raise AssertionError(f"phase 17 (iv): {n}: {int(off.sum())} "
+                                 f"int8 codes differ card vs CPU, "
+                                 f"{int((off & ~tie).sum())} away from a "
+                                 f"near-tie")
+    log(f"phase 17 (iv): QAT BERT (base width, {BERT_PARITY_LAYERS} layers, "
+        f"float32, batch {BERT_PARITY_BATCH} x {BERT_PARITY_SEQ}, SGD lr "
+        f"{QAT_F32_LR}) card vs CPU in lockstep: {flips} of {sites} "
+        f"activation codes were near-ties rounded the other way on the "
+        f"CPU (it took the card's); 3 losses within {QAT_F32_TOL} (card "
+        f"{losses['card']}, CPU {losses['host']}); convert_to_int8 codes "
+        f"of {len(nets['card'])} layers equal but at {differ} of {ties} "
+        f"weight near-ties (within {QAT_TIE} of a rounding boundary)")
+    rng = np.random.RandomState(SEED + 174)
+    feeds = [{"image": rng.randn(2, 1, 28, 28).astype(np.float32)}
+             for _ in range(3)]
+    outs = {}
+    pt.seed(SEED + 175)
+    lenet = LeNet()
+    state = layer_to_numpy(lenet)
+    old = pt.get_device()
+    try:
+        for key, dev in (("card", device), ("host", cpu)):
+            pt.set_device(dev.type)
+            net = LeNet().to(dev)
+            layer_from_jax(net, state)
+            net.eval()
+            pt.enable_static()
+            try:
+                main = static.Program()
+                with static.program_guard(main, static.Program()):
+                    x = static.data(name="image", shape=[None, 1, 28, 28],
+                                    dtype="float32")
+                    out = net(x)
+            finally:
+                pt.disable_static()
+            exe = static.Executor()
+            dyn = QuantizationTransformPass().apply(main)
+            scales = calibrate_program(main, feeds)
+            if key == "card":
+                ptq = PostTrainingQuantizationProgram(main, feeds)
+                prog = ptq.quantize()
+                card_scales = ptq.scales
+            else:
+                # the card's frozen scales, so that an activation code
+                # differs only where the values do (the scales themselves
+                # are compared below)
+                prog = QuantizationTransformPass().apply(main, card_scales)
+            outs[key] = (
+                exe.run(dyn, feed=feeds[0], fetch_list=[out])[0],
+                exe.run(prog, feed=feeds[1], fetch_list=[out])[0],
+                scales)
+    finally:
+        pt.set_device(old)
+    errs = []
+    for i, what in enumerate(("transformed", "PTQ")):
+        got, want = outs["card"][i], outs["host"][i]
+        err = np.abs(got - want).max() / max(np.abs(want).max(), 1e-30)
+        errs.append(err)
+        if not err <= QAT_F32_TOL:
+            raise AssertionError(f"phase 17 (iv): LeNet's {what} program "
+                                 f"card vs CPU {err:.3e} > {QAT_F32_TOL}")
+    cs, hs = outs["card"][2], outs["host"][2]
+    if set(cs) != set(hs) or len(cs) != 5 or any(
+            abs(cs[k] - hs[k]) > QAT_F32_TOL * hs[k] for k in hs):
+        raise AssertionError(f"phase 17 (iv): calibrated scales card {cs} "
+                             f"vs CPU {hs}")
+    log(f"phase 17 (iv): LeNet recorded as a float32 static program: "
+        f"QuantizationTransformPass (live scales) and "
+        f"PostTrainingQuantizationProgram (scales from calibrate_program "
+        f"over 3 feeds of 2 images, within {QAT_F32_TOL} card vs CPU; 5 "
+        f"quantized nodes, 2 conv2d and 3 linear; the CPU's program frozen "
+        f"at the card's scales) card vs CPU within {QAT_F32_TOL} (worst "
+        f"{max(errs):.3e})")
+
+
+def phase_quant(device, card, timer, bert_ms):
+    """17: quantization on the card: (i) BERT-base fine-tuned
+    quantization-aware through ``Model.fit`` (:func:`qat_fit`), (ii) PTQ
+    (:func:`ptq_check`), (iii) the served int8-weight artifact
+    (:func:`qat_serve`), (iv) float32 card against CPU (:func:`qat_f32`),
+    (v) the numerics libraries card against CPU
+    (:func:`numerics_phase`). Returns the kernels line's ``_qat`` rows."""
+    import tempfile
+    t0 = time.perf_counter()
+    tmp = tempfile.mkdtemp(dir=TRACE_ROOT)
+    launches, shapes, net, ms = qat_fit(device, card)
+    log(f"phase 17 on {card}: the QAT step {ms:.3f} ms against phase 10's "
+        f"eager bf16 step {bert_ms:.3f} ms in this run ({ms / bert_ms:.3f}"
+        f"x; {BERT_BATCH * BERT_SEQ / ms * 1e3:.1f} against "
+        f"{BERT_BATCH * BERT_SEQ / bert_ms * 1e3:.1f} tokens/s)")
+    served = qat_serve(device, card, net, train_counters(), tmp)
+    del net
+    gc.collect()
+    torch.cuda.empty_cache()
+    ptq_check(device)
+    qat_f32(device)
+    numerics_phase(device)
+    rows = bert_rows(device, timer, launches, shapes, tail="qat")
+    for row in rows:
+        for name, count in (("fused_layer_norm_qat", "fused_layer_norm"),
+                            ("flash_attention_fwd_qat",
+                             "flash_attention_fwd")):
+            if row["name"] == name:
+                row["launches"] += served[count]
+    log(f"phase 17: {time.perf_counter() - t0:.1f} s")
+    return rows
+
+
+#: (v) the numerics libraries, card against CPU: float32 results within
+#: ``REL_TOL[float32]`` (1e-5) of each tensor's largest value; the
+#: decompositions' reconstructions (qr, svd, eigh, lu on the card) within
+#: ``NUM_RECON_TOL`` of the input's 2-norm, and their singular values and
+#: eigenvalues within it of the largest, the scale of a float32
+#: factorization's backward error (a few ``n * eps * ||A||_2``: cuSOLVER's
+#: eigh of a [256, 256] matrix lies near 1.8e-4 of its largest entry)
+NUM_RECON_TOL = 1e-4
+NUM_MATS, NUM_N = 64, 256
+NUM_SIGNALS, NUM_RATE, NUM_FFT, NUM_HOP = 16, 16000, 512, 128
+NUM_DRAWS = 100_000
+#: a draw's mean and variance within this many standard errors of the
+#: distribution's (the variance's standard error from the fourth moment)
+NUM_SE = 5.0
+#: the point cloud: active sites in an NDHWC grid, channels
+CLOUD_SITES, CLOUD_GRID, CLOUD_C = 20_000, (2, 64, 64, 64), 16
+
+
+def numerics_phase(device):
+    """17 (v): ``linalg`` over ``NUM_MATS`` well-conditioned ``[NUM_N,
+    NUM_N]`` matrices, ``signal.stft``/``istft`` of ``NUM_SIGNALS``
+    one-second signals and ``fft``, each ``distribution``'s closed forms
+    and ``NUM_DRAWS`` draws, sparse ``SubmConv3D`` + ``BatchNorm`` +
+    ``MaxPool3D`` over a point cloud, ``nn.utils`` weight and spectral
+    norm: card against the same calls on the CPU, each timed once on the
+    card (median of 3, CUDA events)."""
+    import paddle_tpu_torch as pt
+    from paddle_tpu_torch import distribution as D
+    from paddle_tpu_torch import fft as F_
+    from paddle_tpu_torch import linalg as L
+    from paddle_tpu_torch import signal as S
+    from paddle_tpu_torch import sparse as SP
+    from paddle_tpu_torch.nn import Linear
+    from paddle_tpu_torch.nn import utils as U
+    cpu = torch.device("cpu")
+    tol = REL_TOL[torch.float32]
+    rs = np.random.RandomState(SEED + 190)
+    times, errs = {}, {}
+
+    def timed(name, fn):
+        out = fn()
+        times[name] = event_ms(fn, 3)
+        return out
+
+    def hold(name, got, want, limit=tol):
+        if isinstance(got, (tuple, list)):
+            for i, (g, w) in enumerate(zip(got, want)):
+                hold(name, g, w, limit)
+            return
+        got, want = got.detach().cpu(), want.detach().cpu()
+        if got.is_complex():
+            got, want = torch.view_as_real(got), torch.view_as_real(want)
+        err = rel_err(got, want)
+        errs[name] = max(errs.get(name, 0.0), err)
+        if not (torch.isfinite(got).all() and err <= limit):
+            raise AssertionError(f"phase 17 (v) {name}: card vs CPU {err} "
+                                 f"> {limit}")
+
+    def both(name, fn, *arrays, limit=tol):
+        got = timed(name, lambda: fn(*[a.to(device) for a in arrays]))
+        want = fn(*arrays)
+        hold(name, got, want, limit)
+        return got, want
+
+    # linalg
+    n = NUM_N
+    a = torch.from_numpy(rs.randn(NUM_MATS, n, n).astype(np.float32)) \
+        / math.sqrt(n) + 2 * torch.eye(n)
+    spd = a @ a.mT + torch.eye(n)
+    b = torch.from_numpy(rs.randn(NUM_MATS, n, 8).astype(np.float32))
+    both("solve", L.solve, a, b)
+    both("inv", L.inv, a)
+    both("cholesky", L.cholesky, spd)
+    both("slogdet", L.slogdet, a)
+    tall = torch.cat([a, a[:, : n // 2]], 1)
+    # lstsq takes one system at a time (jnp.linalg.lstsq's contract)
+    both("lstsq", lambda x, y: torch.stack(
+        [L.lstsq(x[i], y[i])[0] for i in range(4)]), tall[:4],
+        torch.cat([b, b[:, : n // 2]], 1)[:4])
+    recon = {}
+    for name, fn, mat in (
+            ("qr", lambda x: (lambda q, r: q @ r)(*L.qr(x)), a),
+            ("svd", lambda x: (lambda u, s_, vh: u @ torch.diag_embed(s_)
+                               @ vh)(*L.svd(x)), a),
+            ("eigh", lambda x: (lambda w, v: v @ torch.diag_embed(w)
+                                @ v.mT)(*L.eigh(x)), spd),
+            ("lu", lambda x: (lambda p_, l_, u_: p_ @ l_ @ u_)(
+                *L.lu_unpack(*L.lu(x))), a)):
+        got = timed(name, lambda: fn(mat.to(device))).cpu()
+        norm2 = torch.linalg.matrix_norm(mat.double(), ord=2).amax().item()
+        err = (got - mat).abs().max().item() / norm2
+        recon[name] = err
+        if not (torch.isfinite(got).all() and err <= NUM_RECON_TOL):
+            raise AssertionError(f"phase 17 (v) {name} reconstruction: "
+                                 f"{err} of the 2-norm > {NUM_RECON_TOL}")
+    # the values a decomposition returns carry its backward error too
+    hold("svd values", L.svd(a.to(device))[1], L.svd(a)[1], NUM_RECON_TOL)
+    hold("eigh values", L.eigh(spd.to(device))[0], L.eigh(spd)[0],
+         NUM_RECON_TOL)
+    # signal and fft
+    t = torch.arange(NUM_RATE, dtype=torch.float32) / NUM_RATE
+    freqs = torch.from_numpy(rs.uniform(100, 4000, (NUM_SIGNALS, 1)
+                                        ).astype(np.float32))
+    wave = torch.sin(2 * math.pi * freqs * t) + 0.1 * torch.from_numpy(
+        rs.randn(NUM_SIGNALS, NUM_RATE).astype(np.float32))
+    win = torch.hann_window(NUM_FFT, periodic=True)
+    spec, _ = both("stft", lambda x, w: S.stft(x, NUM_FFT, NUM_HOP,
+                                              window=w), wave, win)
+    back, _ = both("istft", lambda x, w: S.istft(
+        x, NUM_FFT, NUM_HOP, window=w, length=NUM_RATE),
+        S.stft(wave, NUM_FFT, NUM_HOP, window=win), win)
+    hold("stft round trip", back[:, NUM_FFT:-NUM_FFT],
+         wave[:, NUM_FFT:-NUM_FFT], NUM_RECON_TOL)
+    vol = torch.from_numpy(rs.randn(8, 64, 64, 64).astype(np.float32))
+    both("fftn", lambda x: F_.fftn(x, axes=(1, 2, 3)), vol)
+    both("irfftn", lambda x: F_.irfftn(F_.rfftn(x, axes=(1, 2, 3)),
+                                       s=(64, 64, 64), axes=(1, 2, 3)), vol)
+    both("hfftn", lambda x: F_.hfftn(x, axes=(1, 2, 3)),
+         torch.complex(vol, vol.flip(0)))
+    # distributions: closed forms, and draws in distribution
+    loc = torch.from_numpy(rs.randn(64).astype(np.float32))
+    scale = torch.from_numpy(rs.uniform(0.5, 2, 64).astype(np.float32))
+    pos = torch.from_numpy(rs.uniform(0.5, 4, (64, 5)).astype(np.float32))
+    logits = torch.from_numpy(rs.randn(64, 7).astype(np.float32))
+    vals = torch.from_numpy(rs.uniform(0.05, 0.95, 64).astype(np.float32))
+
+    def dists(dev):
+        mv = lambda x: x.to(dev)  # noqa: E731
+        return {"normal": (D.Normal(mv(loc), mv(scale)),
+                           D.Normal(mv(loc) + 1, mv(scale) * 2), mv(loc)),
+                "uniform": (D.Uniform(mv(loc) - 1, mv(loc) + 2),
+                            D.Uniform(mv(loc) - 2, mv(loc) + 3), mv(loc)),
+                "categorical": (D.Categorical(mv(logits)),
+                                D.Categorical(mv(logits) * 0.5),
+                                torch.arange(64, device=dev) % 7),
+                "beta": (D.Beta(mv(pos[:, 0]), mv(pos[:, 1])),
+                         D.Beta(mv(pos[:, 2]), mv(pos[:, 3])), mv(vals)),
+                "dirichlet": (D.Dirichlet(mv(pos)), D.Dirichlet(mv(pos) + 1),
+                              mv(pos / pos.sum(-1, keepdim=True)))}
+
+    card_d, host_d = dists(device), dists(cpu)
+    for name in card_d:
+        p, q, v = card_d[name]
+        hp, hq, hv = host_d[name]
+        hold(f"{name} log_prob", p.log_prob(v), hp.log_prob(hv))
+        hold(f"{name} entropy", p.entropy(), hp.entropy())
+        hold(f"{name} kl", D.kl_divergence(p, q), D.kl_divergence(hp, hq))
+    moments = {}
+    probs, ks = torch.softmax(logits[:4], -1), torch.arange(7.)
+    share = pos[:4] / pos[:4].sum(-1, keepdim=True)
+    pt.seed(SEED + 191)
+    for name, dist, mean, var in (
+            ("normal", D.Normal(loc[:4].to(device), scale[:4].to(device)),
+             loc[:4], scale[:4] ** 2),
+            ("uniform", D.Uniform(loc[:4].to(device) - 1,
+                                  loc[:4].to(device) + 2),
+             loc[:4] + 0.5, torch.full((4,), 0.75)),
+            ("beta", D.Beta(pos[:4, 0].to(device), pos[:4, 1].to(device)),
+             pos[:4, 0] / pos[:4, :2].sum(-1),
+             pos[:4, 0] * pos[:4, 1] / (pos[:4, :2].sum(-1) ** 2
+                                         * (pos[:4, :2].sum(-1) + 1))),
+            ("categorical", D.Categorical(logits[:4].to(device)),
+             (probs * ks).sum(-1),
+             (probs * ks ** 2).sum(-1) - (probs * ks).sum(-1) ** 2),
+            ("dirichlet", D.Dirichlet(pos[:4].to(device)), share,
+             share * (1 - share) / (pos[:4].sum(-1, keepdim=True) + 1))):
+        draws = timed(f"{name} sample",
+                      lambda d=dist: d.sample((NUM_DRAWS,), seed=7)).float()
+        if draws.device.type != torch.device(device).type:
+            raise AssertionError(f"phase 17 (v): {name} drew on "
+                                 f"{draws.device}")
+        d = draws.cpu().double()
+        m, v2 = d.mean(0), d.var(0)
+        se_m = (v2 / NUM_DRAWS).sqrt()
+        se_v = ((((d - m) ** 4).mean(0) - v2 ** 2).clamp_min(0)
+                / NUM_DRAWS).sqrt()
+        zm = ((m - mean.double()).abs() / se_m).max().item()
+        zv = ((v2 - var.double()).abs() / se_v).max().item()
+        moments[name] = (zm, zv)
+        if not (zm <= NUM_SE and zv <= NUM_SE):
+            raise AssertionError(f"phase 17 (v) {name}: {NUM_DRAWS} draws' "
+                                 f"mean {zm:.2f}, variance {zv:.2f} standard "
+                                 f"errors off")
+    # the point cloud through SubmConv3D + BatchNorm + MaxPool3D
+    cells = int(np.prod(CLOUD_GRID))
+    flat = rs.choice(cells, CLOUD_SITES, replace=False)
+    idx = torch.from_numpy(np.stack(np.unravel_index(np.sort(flat),
+                                                     CLOUD_GRID)))
+    feats = torch.from_numpy(rs.randn(CLOUD_SITES, CLOUD_C).astype(
+        np.float32))
+    feats[0] = 0.0                  # an active site with zero features
+    shape = CLOUD_GRID + (CLOUD_C,)
+    pt.seed(SEED + 192)
+    state = SP.nn.SubmConv3D(CLOUD_C, 32, 3, padding=1).state_dict()
+    pool = SP.nn.MaxPool3D(2)
+
+    def cloud(dev):
+        pt.set_device(dev.type)
+        c = SP.nn.SubmConv3D(CLOUD_C, 32, 3, padding=1).to(dev)
+        c.load_dict(state)
+        nm = SP.nn.BatchNorm(32).to(dev)
+        x = SP.sparse_coo_tensor(idx.to(dev), feats.to(dev), shape)
+        y = c(x)
+        z = pool(SP.nn.ReLU()(nm(y)))
+        (z.values() ** 2).sum().backward()
+        return y, z, c.weight.grad, nm._mean
+
+    old = pt.get_device()
+    try:
+        cy, cz, cg, cm = timed("point cloud", lambda: cloud(device))
+        hy, hz, hg, hm = cloud(cpu)
+    finally:
+        pt.set_device(old)
+    if not torch.equal(cy.indices().cpu(), idx) or not torch.equal(
+            cz.indices().cpu(), hz.indices()):
+        raise AssertionError("phase 17 (v): the sparse patterns differ")
+    for name, g, w in (("subm_conv3d", cy.values(), hy.values()),
+                       ("batch_norm + max_pool3d", cz.values(), hz.values()),
+                       ("subm_conv3d weight gradient", cg, hg),
+                       ("batch_norm running mean", cm, hm)):
+        hold(name, g, w)
+    # nn.utils on a Linear, forward and gradient
+    pt.seed(SEED + 193)
+    lin_state = Linear(512, 256).state_dict()
+    outs = {}
+    for key, dev in (("card", device), ("host", cpu)):
+        res = []
+        for wrap in (lambda m: U.weight_norm(m, dim=0),
+                     lambda m: U.spectral_norm(m, n_power_iterations=2)):
+            pt.set_device(dev.type)
+            lin = Linear(512, 256).to(dev)
+            lin.load_dict(lin_state)
+            wrap(lin)
+            x = torch.from_numpy(np.random.RandomState(SEED + 194).randn(
+                64, 512).astype(np.float32)).to(dev)
+            y = lin(x)
+            y.square().sum().backward()
+            res.append((y, [p.grad for p in lin.parameters()]))
+        outs[key] = res
+    pt.set_device(old)
+    for i, name in enumerate(("weight_norm", "spectral_norm")):
+        (cy, cgs), (hy, hgs) = outs["card"][i], outs["host"][i]
+        hold(f"{name} forward", cy, hy)
+        hold(f"{name} gradient", cgs, hgs)
+    worst = moments.items()
+    log(f"phase 17 (v): the numerics libraries on the card against the "
+        f"CPU: linalg over {NUM_MATS} [{n}, {n}] matrices (solve, inv, "
+        f"cholesky, slogdet, lstsq; qr/svd/eigh/lu reconstructions, "
+        f"max error over the 2-norm, "
+        f"{json.dumps({k: float(f'{v:.3e}') for k, v in recon.items()})} "
+        f"within {NUM_RECON_TOL}); stft/istft of {NUM_SIGNALS} one-second "
+        f"signals at {NUM_RATE} Hz (n_fft {NUM_FFT}, hop {NUM_HOP}, Hann) "
+        f"and the round trip; fftn/irfftn/hfftn over [8, 64, 64, 64]; five "
+        f"distributions' log_prob/entropy/KL, and {NUM_DRAWS} draws' mean "
+        f"and variance within {NUM_SE} standard errors (worst "
+        f"{json.dumps({k: [round(z, 2) for z in v] for k, v in worst})}); "
+        f"SubmConv3D (16 -> 32, 3^3) + BatchNorm + ReLU + MaxPool3D(2) over "
+        f"{CLOUD_SITES} active sites of a {list(shape)} grid (pattern "
+        f"kept, {cz.nnz()} pooled sites), with the weight gradient; "
+        f"weight_norm/spectral_norm forward and gradient on a Linear(512, "
+        f"256); worst relative errors "
+        f"{json.dumps({k: float(f'{v:.3e}') for k, v in errs.items()})} "
+        f"(limit {tol}, {NUM_RECON_TOL} for the reconstructions)")
+    log(f"phase 17 (v) card times (ms, median of 3 CUDA-event runs): "
+        f"{json.dumps({k: round(v, 3) for k, v in times.items()})}")
+
+
 def check_nothing_left_running():
     """Every phase has stopped what it started: no ``device_prefetch``
     producer thread and no loader worker process is still alive (either
@@ -8378,7 +9254,7 @@ def run_phases() -> int:
     phase_oom(device)
     _, tf_kernel_rows, swept = phase_transformer(device, card, timer)
     phase_resnet(device, card, swept)
-    _, bert_kernel_rows = phase_bert(device, card, timer, profile)
+    _, bert_kernel_rows, bert_ms = phase_bert(device, card, timer, profile)
     phase_text(device, card, swept, profile)
     deploy_launches, lenet_row = phase_deploy(device, timer)
     core = phase_core_api(device, card)
@@ -8386,6 +9262,7 @@ def run_phases() -> int:
         device, card, timer, profile)
     serving_launches, serving_shapes = phase_serving(device, card)
     phase_vision(device, card)
+    qat_rows = phase_quant(device, card, timer, bert_ms)
     kernels = report_engine(device, timer, launches, captured,
                             quant_launches, quant_captured)
     # the engine row of the LayerNorm forward counts the fused engines'
@@ -8481,6 +9358,7 @@ def run_phases() -> int:
     kernels.append(lenet_row)
     kernels.append(legacy_row)
     kernels += serving_rows(timer, serving_launches, serving_shapes)
+    kernels += qat_rows
     check_nothing_left_running()
     for k in kernels:
         for key, v in k.items():

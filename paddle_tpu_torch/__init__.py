@@ -103,13 +103,15 @@ __all__ = ["seed", "amp", "autograd", "callbacks", "compat", "device", "hapi",
 #: item: multi-device (4) and API breadth (5)
 _DEFERRED = dict.fromkeys(("DataParallel", "distributed", "parallel"), 4)
 _DEFERRED.update(dict.fromkeys((
-    "analysis", "cost_model", "dataset", "distribution", "fft", "hub",
-    "incubate", "linalg", "quantization", "reader", "signal", "sparse"), 5))
+    "analysis", "cost_model", "incubate", "reader"), 5))
 
 #: imported at first use: loading a ``jit.save`` artifact (``jit.load``,
 #: ``inference``) needs the op library and no model code, and the 1.x
-#: namespace and the ONNX exporter are for the callers that ask
-_LAZY = ("models", "serving", "vision", "fluid", "onnx")
+#: namespace, the ONNX exporter, quantization, the datasets, hub and the
+#: numerics libraries are for the callers that ask
+_LAZY = ("models", "serving", "vision", "fluid", "onnx", "quantization",
+         "dataset", "hub", "linalg", "fft", "signal", "distribution",
+         "sparse")
 
 
 def __getattr__(name):

@@ -4,11 +4,15 @@
 any ported layer by structured name, and :func:`layer_to_numpy` is its
 inverse. The key sets must be equal: a missing or extra key raises. Only
 the weights of ``Linear`` layers are transposed (``[in, out]`` in the JAX
-package, ``[out, in]`` in the port); every other parameter and buffer
-keeps its layout. So it carries BERT (the masked-LM decoder tied to the
-word table: one key), every recurrent layer (the cells' ``weight_ih``/
-``weight_hh`` keep the JAX ``[gates * hidden, in]`` layout) and
-``TransformerModel`` (its ``pos_table`` buffer too).
+package, ``[out, in]`` in the port), with what is derived from them: the
+weight-norm and spectral-norm parameters, and the int8 inference layers'
+``weight_int8`` (``[in, out]``) and ``weight_scale`` (``[1, out]``
+there, ``[out, 1]`` here); every other parameter and buffer keeps its
+layout, QAT observers' ``scale_state`` among them. So it carries BERT
+(the masked-LM decoder tied to the word table: one key), every
+recurrent layer (the cells' ``weight_ih``/``weight_hh`` keep the JAX
+``[gates * hidden, in]`` layout) and ``TransformerModel`` (its
+``pos_table`` buffer too).
 
 The input is the JAX model's parameter tree as numpy
 (``{name: np.asarray(a) for name, a in
@@ -46,6 +50,7 @@ from torch import nn
 from ._device import resolve_device
 from .models.gpt import GPTConfig, GPTForPretraining
 from .nn.layer.common import Linear
+from .nn.layer.layers import jax_perm
 
 __all__ = ["gpt_from_jax_params", "gpt_to_numpy_params",
            "opt_state_from_jax", "opt_state_to_jax", "layer_from_jax",
@@ -63,9 +68,16 @@ def _np32(value) -> np.ndarray:
 
 
 def _linear_keys(model) -> set:
-    return {f"{name}.weight" if name else "weight"
+    """The keys stored transposed: torch ``nn.Linear`` weights and every
+    parameter with the port ``Linear``'s layout mark (its weight, the
+    ``weight_v``/``weight_g``/``weight_orig`` of ``nn.utils`` built from
+    it, and the int8 layers' ``weight_int8``/``weight_scale``)."""
+    keys = {f"{name}.weight" if name else "weight"
             for name, mod in model.named_modules()
             if isinstance(mod, (Linear, nn.Linear))}
+    keys.update(k for k, p in model.named_parameters()
+                if jax_perm(p) == (1, 0))
+    return keys
 
 
 def layer_from_jax(layer, jax_state: Mapping) -> None:
@@ -106,8 +118,9 @@ def layer_to_numpy(layer) -> Dict[str, np.ndarray]:
     out = {}
     for key, t in layer.state_dict().items():
         t = t.detach().cpu()
+        # a copy: a float32 CPU tensor's numpy() shares the live storage
         arr = (t.float() if t.is_floating_point() else t).numpy()
-        out[key] = arr.T.copy() if key in linear else arr
+        out[key] = arr.T.copy() if key in linear else arr.copy()
     return out
 
 

@@ -55,10 +55,18 @@ from .layer.transformer import (
 from ..ops.registry import not_ported as _not_ported
 
 #: the JAX package's ``nn`` names not ported yet, by ROADMAP Queue 1 item
-_DEFERRED = {"SyncBatchNorm": 4, "utils": 5, "quant": 5}
+_DEFERRED = {"SyncBatchNorm": 4}
+
+
+#: imported at first use (``nn.quant`` imports ``quantization``, which
+#: imports this package)
+_LAZY = ("utils", "quant")
 
 
 def __getattr__(name):
+    if name in _LAZY:
+        import importlib
+        return importlib.import_module(f".{name}", __name__)
     if name in _DEFERRED:
         raise _not_ported(f"nn.{name}", _DEFERRED[name])
     raise AttributeError(f"module {__name__!r} has no attribute {name!r}")

@@ -5,10 +5,15 @@ upsampling, ``Bilinear`` and the distances.
 ``Linear`` keeps torch's ``[out, in]`` weight and runs the ``linear`` op
 on its transpose (the JAX package's ``[in, out]``); its weight is drawn
 in the JAX layout by the initializer (``XavierUniform`` by default, so
-the fans are the JAX layer's) and stored transposed. ``weight_attr`` and
-``bias_attr`` (``nn.ParamAttr``, an initializer, a name, or
-``bias_attr=False`` for no bias) go onto its parameters as in the JAX
-layer. ``device``/``dtype`` (keyword-only) place a ``Linear``'s
+the fans are the JAX layer's) and stored transposed. The weight carries
+the mark ``_jax_perm = (1, 0)``, the permutation that gives its JAX
+layout (``Layer._jax_perms``); ``jax_view`` and ``port_axis``
+(``layers.py``) read it, so the code that reads axes off a weight
+(``nn.utils``, ``quantization``, ``convert``) takes the JAX package's
+axis numbers, and this is the one place that knows the layouts differ.
+``weight_attr`` and ``bias_attr`` (``nn.ParamAttr``, an initializer, a
+name, or ``bias_attr=False`` for no bias) go onto its parameters as in
+the JAX layer. ``device``/``dtype`` (keyword-only) place a ``Linear``'s
 parameters.
 """
 from __future__ import annotations
@@ -40,6 +45,8 @@ class Linear(Layer):
     the JAX package's ``[in, out]`` layout); under ``amp.auto_cast`` x, W
     and b run in the AMP dtype (``linear`` is on the white list)."""
 
+    _jax_perms = {"weight": (1, 0)}
+
     def __init__(self, in_features, out_features, weight_attr=None,
                  bias_attr=None, name=None, *, device=None, dtype=None):
         super().__init__(dtype=dtype)
@@ -51,6 +58,7 @@ class Linear(Layer):
             [in_features, out_features], weight_attr, self._dtype,
             default_initializer=XavierUniform(), device=device)
         self.weight.data = self.weight.data.t().contiguous()
+        self._mark_layouts()
         self.bias = make_parameter([out_features], bias_attr, self._dtype,
                                    is_bias=True, device=device)
 

@@ -95,15 +95,68 @@ def make_parameter(shape, attr=None, dtype=None, is_bias=False,
     return set_param_attr(nn.Parameter(data.to(device=device)), attr)
 
 
+def jax_perm(t):
+    """The permutation that gives the JAX layout of ``t`` (``None``: the
+    same layout)."""
+    return getattr(t, "_jax_perm", None)
+
+
+def mark_jax_perm(t, perm):
+    """Give ``t`` the layout mark ``perm`` (kept only where it has one
+    axis per entry); returns ``t``."""
+    if perm is not None and t.dim() == len(perm):
+        t._jax_perm = tuple(perm)
+    return t
+
+
+def jax_view(t):
+    """``t`` in the JAX package's layout (a view)."""
+    perm = jax_perm(t)
+    return t if perm is None else t.permute(perm)
+
+
+def from_jax_view(t, perm):
+    """The inverse of :func:`jax_view`: a JAX-layout ``t`` in the layout
+    that ``perm`` marks."""
+    if perm is None:
+        return t
+    inv = [0] * len(perm)
+    for i, p in enumerate(perm):
+        inv[p] = i
+    return t.permute(inv)
+
+
+def port_axis(t, axis):
+    """The axis of ``t`` that is axis ``axis`` of its JAX layout."""
+    perm = jax_perm(t)
+    axis = axis % len(t.shape)
+    return axis if perm is None else perm[axis]
+
+
 class Layer(nn.Module):
     """The base of the port's layers: a ``torch.nn.Module``.
     ``name_scope`` names it for ``full_name``; ``dtype`` is the dtype of
     the parameters ``create_parameter`` makes (float32 by default)."""
 
+    #: parameter name -> the permutation that gives its JAX layout (a
+    #: ``Linear``'s weight: ``(1, 0)``); the marks go onto the
+    #: parameters, and come back after a copy, which drops them
+    _jax_perms: dict = {}
+
     def __init__(self, name_scope=None, dtype=None):
         super().__init__()
         self._dtype = convert_dtype(dtype)
         self._name_scope = name_scope or self.__class__.__name__.lower()
+
+    def _mark_layouts(self):
+        for name, perm in self._jax_perms.items():
+            p = self._parameters.get(name)
+            if p is not None:
+                mark_jax_perm(p, perm)
+
+    def __setstate__(self, state):
+        super().__setstate__(state)
+        self._mark_layouts()
 
     # -- registration ---------------------------------------------------------
     def add_parameter(self, name, parameter):

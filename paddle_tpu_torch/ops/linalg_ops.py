@@ -100,8 +100,10 @@ for _name, _fn in {
 
 
 @register_op("matrix_rank")
-def _matrix_rank(x):
-    return torch.linalg.matrix_rank(x)
+def _matrix_rank(x, rtol=None):
+    """The rank: singular values above ``rtol`` times the largest
+    (default ``eps * max(m, n)``, as ``jnp.linalg.matrix_rank``)."""
+    return torch.linalg.matrix_rank(x, rtol=rtol)
 
 
 @register_op("qr")

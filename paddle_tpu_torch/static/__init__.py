@@ -232,19 +232,22 @@ class Program:
             raise KeyError(f"no variable named {item!r} in this program")
         raise TypeError(f"cannot fetch {type(item).__name__}")
 
-    def _forward_env(self, feeds: Dict[str, Any], params=None, nodes=None):
+    def _forward_env(self, feeds: Dict[str, Any], params=None, nodes=None,
+                     _observer=None):
         """Replay ``nodes`` (a :meth:`_plan`: the reference's pruning to
         the fetch targets), else the whole node list; returns
         {tensor_id: tensor}. ``params`` maps a recorded parameter's id to
         the tensor to use in its place (an export passes its own); the
-        live parameter otherwise."""
+        live parameter otherwise. ``_observer(index, node, leaves)`` is
+        called before each node runs, with its resolved operand leaves
+        (the calibration hook of ``quantization/passes.py``)."""
         env: Dict[int, Any] = {}
         for name, tid in self._feeds.items():
             if name in feeds:
                 env[tid] = feeds[name]
         if params:
             env.update(params)
-        for node in self._nodes if nodes is None else nodes:
+        for i, node in enumerate(self._nodes if nodes is None else nodes):
             leaves = []
             for tid, value, cast in node.inputs:
                 if tid is not None:
@@ -252,6 +255,8 @@ class Program:
                     if cast is not None:
                         value = value.to(cast)
                 leaves.append(value)
+            if _observer is not None:
+                _observer(i, node, leaves)
             args, attrs = pytree.tree_unflatten(leaves, node.spec)
             out = node.fn(*args, **attrs)
             flat = [t for t in pytree.tree_leaves(out)

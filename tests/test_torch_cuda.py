@@ -1911,3 +1911,106 @@ def test_the_detection_ops_on_the_card_match_the_cpu(cuda, key):
             assert torch.equal(got, want)
         else:
             torch.testing.assert_close(got, want, **TOL[torch.float32])
+
+
+def _qat_bert(dev, dtype=None):
+    """A 2-layer, 768-wide BERT (QA head, dropout 0), seeded."""
+    import paddle_tpu_torch as pt
+    from paddle_tpu_torch.models.bert import (BertConfig,
+                                              BertForQuestionAnswering)
+    pt.seed(3)
+    cfg = BertConfig(num_hidden_layers=2, hidden_dropout_prob=0.0,
+                     attention_dropout_prob=0.0)
+    return BertForQuestionAnswering(cfg).to(dev, dtype)
+
+
+def test_a_qat_step_runs_without_a_host_sync(cuda):
+    """Quantization-aware BERT in bf16 O2: a training step (the observers'
+    moving averages, the weight fake-quant, AdamW) reads nothing back to
+    the host, and every LayerNorm and flash launch took the kernels."""
+    from paddle_tpu_torch import amp
+    from paddle_tpu_torch.optimizer import AdamW
+    from paddle_tpu_torch.quantization import ImperativeQuantAware
+    net = _qat_bert(cuda)
+    amp.decorate(net, level="O2", dtype="bfloat16")
+    ImperativeQuantAware().quantize(net)
+    opt = AdamW(learning_rate=1e-4, parameters=net.parameters(),
+                multi_precision=True)
+    g = torch.Generator(cuda).manual_seed(4)
+    ids = torch.randint(0, 30522, (4, 128), device=cuda, generator=g)
+    pos = torch.randint(0, 128, (2, 4), device=cuda, generator=g)
+
+    def step():
+        with amp.auto_cast(level="O2", dtype="bfloat16"):
+            loss = net(ids, start_positions=pos[0], end_positions=pos[1])[0]
+        loss.backward()
+        opt.step()
+        opt.clear_grad()
+        return loss.detach()
+
+    step()
+    before = (ln.fused_layer_norm.launches, fa.flash_attention_fwd.launches)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        loss = step()
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    after = (ln.fused_layer_norm.launches, fa.flash_attention_fwd.launches)
+    assert [a - b for a, b in zip(after, before)] == [5, 2]
+    assert torch.isfinite(loss).item()
+
+
+def test_an_int8_weight_artifact_serves_on_the_card(cuda, tmp_path):
+    """``save_quantized_model`` of a card model: the artifact keeps int8
+    weights, launches K2 and K4 from the loaded graph, and its logits
+    equal the live converted model's within the bf16 tolerance."""
+    from paddle_tpu_torch import amp, jit
+    from paddle_tpu_torch.quantization import ImperativeQuantAware
+    from paddle_tpu_torch.static import InputSpec
+    net = _qat_bert(cuda).eval()
+    amp.decorate(net, level="O2", dtype="bfloat16")
+    qat = ImperativeQuantAware()
+    qat.quantize(net)
+    ids = torch.randint(0, 30522, (3, 128), device=cuda,
+                        generator=torch.Generator(cuda).manual_seed(5))
+    with amp.auto_cast(level="O2", dtype="bfloat16"):
+        live = qat.save_quantized_model(
+            net, str(tmp_path / "q"),
+            input_spec=[InputSpec([None, 128], "int64", "ids")])
+        with torch.no_grad():
+            want = live(ids)
+    layer = jit.load(str(tmp_path / "q"))
+    before = (ln.fused_layer_norm.launches, fa.flash_attention_fwd.launches)
+    got = layer(ids.cpu().numpy())
+    torch.cuda.synchronize()
+    after = (ln.fused_layer_norm.launches, fa.flash_attention_fwd.launches)
+    assert [a - b for a, b in zip(after, before)] == [5, 2]
+    for g_, w in zip(got, want):
+        torch.testing.assert_close(torch.as_tensor(g_).float().cpu(),
+                                   w.float().cpu(), **TOL[torch.bfloat16])
+    assert live.bert.encoder.layers[0].linear1.weight_int8.dtype == \
+        torch.int8
+
+
+@pytest.mark.parametrize("name", ["beta", "dirichlet", "categorical",
+                                  "multinomial"])
+def test_distribution_draws_on_the_card(cuda, name):
+    """Draws on the card (``torch._standard_gamma``, Gumbel-max) follow the
+    distribution: 50000 draws' means within 5 standard errors."""
+    from paddle_tpu_torch import distribution as D
+    conc = torch.tensor([[0.7, 2.0, 3.5], [4.0, 1.2, 0.9]], device=cuda)
+    d, mean = {
+        "beta": (D.Beta(conc[:, 0], conc[:, 1]),
+                 conc[:, 0] / conc[:, :2].sum(-1)),
+        "dirichlet": (D.Dirichlet(conc), conc / conc.sum(-1, keepdim=True)),
+        "categorical": (D.Categorical(conc.log()),
+                        (conc / conc.sum(-1, keepdim=True)
+                         * torch.arange(3., device=cuda)).sum(-1)),
+        "multinomial": (D.Multinomial(5, conc),
+                        5 * conc / conc.sum(-1, keepdim=True))}[name]
+    draws = d.sample((50000,), seed=11)
+    assert draws.is_cuda
+    draws = draws.double()
+    se = (draws.var(0) / 50000).sqrt()
+    assert ((draws.mean(0) - mean.double()).abs() <= 5 * se + 1e-9).all()
