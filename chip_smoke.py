@@ -382,6 +382,40 @@ prints no result line):
    Faster R-CNN C4's [2, 1024, 50, 76] with 512 regions an image,
    ``psroi_pool`` at R-FCN's 7 x 7 x 21 classes, a ``deform_conv2d`` v2
    3 x 3 256 -> 256 on [2, 256, 50, 76];
+17. quantization (``phase_quant``): BERT-base fine-tuned
+   quantization-aware through ``Model.fit`` and served from its
+   int8-weight artifact, PTQ, float32 card against CPU, the numerics
+   libraries card against CPU; rows ``_qat``;
+18. ``incubate`` (``phase_incubate``): (i) a 12-layer bf16
+   ``FusedMultiTransformer`` at GPT-2 small width served from its
+   CacheKV: the context stage over 8 x 512 tokens, 64 scalar decode
+   steps, 16 slot-indexed steps (a ``[8]`` ``time_step``), each call K2
+   24 times on the warp-row route and K4 never, every row within
+   ``INC_DEC_TOL`` of one uncached causal forward over the 576
+   positions, the caches passed in never written; a 2-layer float32 copy
+   card against CPU within ``GEN_TOL``; (ii) a fused encoder at
+   BERT-base width (``Embedding(30522, 768)``, 12
+   ``FusedTransformerEncoderLayer`` s, a mean pool, ``Linear(768, 2)``)
+   in bf16 O2, 2:4-pruned, under ``asp.decorate(LookAhead(AdamW))`` with
+   ``ModelAverage`` beside it, 12 steps of ``[32, 128]``: K2 = K3 = 24,
+   K4 = K6 = 12, K8 the plan's, exact, no plain call; 2:4 on every
+   pruned weight's JAX view after every step; masters and parameters
+   bit-equal to the sync recomputed from snapshots at steps 4, 8, 12;
+   the averages bit-equal to the recomputed ones inside
+   ``ModelAverage.apply()``, the live weights back bit for bit after it;
+   the loss falling; (iii) ``MoELayer`` (8 experts of 3072, top-2,
+   capacity factor 1.25) bf16 on ``[32, 128, 768]`` timed, float32 card
+   against CPU within ``MOE_TOL`` with the routing checked (a choice made
+   differently must be a near-tie, which the CPU then takes from the
+   card); (iv) the graph ops over 100,000 nodes and 1,000,000 edges card
+   against CPU, the causal masked softmax of bf16 ``[8, 12, 1024,
+   1024]``, and ``CostModel.profile_measure`` over one more encoder step
+   (``layer_norm`` and ``scaled_dot_product_attention`` seen). Rows
+   ``fused_layer_norm_incubate`` (bf16 ``[4096, 768]``, with ``[8,
+   768]`` and the encoder's f32 ``[4096, 768]`` held too),
+   ``fused_layer_norm_bwd_incubate``, ``flash_attention_fwd_incubate``/
+   ``_bwd_incubate`` (bf16 ``[32, 128, 12, 64]`` not causal),
+   ``fused_adamw_step_incubate``;
 8. real operands: the layer-0 operands of one real step of each path
    through kernel and plain: the engine's attention rows (float, int8
    and fp8 pools) at its widest step and at its last decode-only step
@@ -9173,6 +9207,783 @@ def numerics_phase(device):
         f"{json.dumps({k: round(v, 3) for k, v in times.items()})}")
 
 
+# ---------------------------------------------------------------- phase 18
+#: (i) ``FusedMultiTransformer`` at GPT-2 small width, bf16: the context
+#: stage over ``INC_PROMPT`` positions of ``INC_BATCH`` rows, ``INC_NEW``
+#: scalar decode steps, then ``INC_SLOT_STEPS`` slot-indexed steps with row
+#: b at ``INC_FILL + INC_FILL_STEP * b``
+INC_LAYERS, INC_D, INC_HEADS, INC_FFN = 12, 768, 12, 3072
+INC_BATCH, INC_PROMPT, INC_NEW, INC_SLOT_STEPS = 8, 512, 64, 16
+INC_FILL, INC_FILL_STEP = 448, 8
+#: the cached rows against the uncached causal forward: the same bf16
+#: products at other shapes, so each rounds apart by an ulp now and then
+#: and the 12-layer residual stream carries it; max |diff| over the
+#: largest |value| within REL_TOL's bf16 2e-2, as the other bf16 paths
+INC_DEC_TOL = 2e-2
+#: (ii) the fused encoder at BERT-base width, trained on ``[ENC_BATCH,
+#: ENC_SEQ]`` ids: 2:4-pruned, ``asp.decorate(LookAhead(AdamW))`` with
+#: ``ModelAverage`` beside it
+ENC_LAYERS, ENC_VOCAB, ENC_BATCH, ENC_SEQ, ENC_STEPS = 12, 30522, 32, 128, 12
+ENC_LR, ENC_WD, ENC_ALPHA, ENC_K = 1e-4, 0.01, 0.5, 4
+ENC_AVG = (0.15, 2, 10)     # average_window_rate, min and max windows
+#: the witness of the encoder's first step (dropout off, one batch):
+#: the port's composed step against ``torch.optim.AdamW`` on float32
+#: copies of the same bf16 model's parameters and gradients. The first
+#: Adam step moves every entry by lr times the sign of its gradient, so
+#: a gradient entry the two runs sum in another order can flip its sign:
+#: a master at most ``2 lr`` apart, plus float32 rounding. Only an entry
+#: whose gradient lies within rounding of 0 can flip, so at most
+#: ``ENC_WIT_MOVED`` of the entries may be over 1e-6 apart (a step that
+#: halves or skips the update moves nearly all). The loss before and
+#: after the step within 1e-2 of its size
+ENC_WIT_MASTER_TOL = 2 * ENC_LR + 1e-6
+ENC_WIT_MOVED = 1e-2
+ENC_WIT_LOSS_TOL = 1e-2
+#: (iii) ``MoELayer`` (8 experts of 3072, top-2, capacity factor 1.25) on
+#: bf16 ``MOE_TOKENS`` and float32 ``MOE_F32_TOKENS`` (card against the
+#: CPU, within ``MOE_TOL`` of each result's largest value: float32 sums
+#: over the tokens in other orders, TF32 off); a routing choice the two
+#: devices make differently must be a near-tie (within ``MOE_TIE``)
+MOE_E, MOE_HIDDEN, MOE_K, MOE_CAP = 8, 3072, 2, 1.25
+MOE_TOKENS, MOE_F32_TOKENS = (32, 128, 768), (4, 128, 768)
+MOE_TOL, MOE_TIE = 1e-4, 1e-5
+#: (iv) a random graph, and the causal masked softmax's scores; the
+#: softmax's float32 values on card and CPU differ in their last bits,
+#: so a bf16 probability may round to the neighbouring value: one bf16
+#: ulp of 1.0
+GRAPH_NODES, GRAPH_EDGES, GRAPH_WIDTH = 100_000, 1_000_000, 64
+SOFTMAX_SHAPE = (8, 12, 1024, 1024)
+SOFTMAX_TOL = 2.0 ** -8
+
+
+def inc_counts(counters, before):
+    now = read_counts(counters)
+    return {k: now[k] - before[k] for k in now}
+
+
+def incubate_decoder(device, card):
+    """18 (i): a 12-layer bf16 ``FusedMultiTransformer`` at GPT-2 small
+    width served from its CacheKV: the context stage over ``[8, 512,
+    768]``, 64 scalar decode steps (``time_step`` 512..575), then 16
+    slot-indexed steps (a ``[8]`` ``time_step``, row b from position
+    448 + 8b) over the caches of the context stage. Every call launches
+    K2 24 times on the warp-row route and K4 never (every attention is
+    masked: the op's plain body); every output row equals the uncached
+    causal forward's over the same 576 positions within ``INC_DEC_TOL``.
+    Returns the phase's K2 launches."""
+    from paddle_tpu_torch import seed
+    from paddle_tpu_torch.incubate.nn import FusedMultiTransformer
+    counters = train_counters()
+    seed(SEED + 180)
+    net = FusedMultiTransformer(INC_D, INC_HEADS, INC_FFN,
+                                num_layers=INC_LAYERS).to(
+        device, torch.bfloat16).eval()
+    total = INC_PROMPT + INC_NEW
+    gen = torch.Generator(device=device).manual_seed(SEED + 181)
+    x = torch.randn(INC_BATCH, total, INC_D, device=device,
+                    generator=gen).bfloat16()
+    want_call = {"fused_layer_norm": 2 * INC_LAYERS}
+    reset_counts(counters)
+    calls = 0
+
+    def call(*a, **kw):
+        nonlocal calls
+        at = read_counts(counters)
+        out = net(*a, **kw)
+        moved = {k: v for k, v in inc_counts(counters, at).items() if v}
+        if moved != want_call:
+            raise AssertionError(f"phase 18 (i): a decoder call launched "
+                                 f"{moved}, expected {want_call}")
+        calls += 1
+        return out
+
+    with torch.no_grad(), count_plain() as plain:
+        full = call(x)
+        call(x[:, :INC_PROMPT], caches=net.gen_cache(
+            INC_BATCH, total, dtype="bfloat16"))          # warm-up
+        caches = net.gen_cache(INC_BATCH, total, dtype="bfloat16")
+        kept = caches[0].clone()
+        torch.cuda.synchronize()
+        a, b = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        a.record()
+        out, ctx = call(x[:, :INC_PROMPT], caches=caches)
+        b.record()
+        torch.cuda.synchronize()
+        prefill_ms = a.elapsed_time(b)
+        if not torch.equal(caches[0], kept):
+            raise AssertionError("phase 18 (i): the context stage wrote "
+                                 "into the caches passed in")
+        rows, cur = [out], ctx
+        a.record()
+        for t in range(INC_PROMPT, total):
+            step, cur = call(x[:, t:t + 1], caches=cur, time_step=t)
+            rows.append(step)
+        b.record()
+        torch.cuda.synchronize()
+        decode_ms = a.elapsed_time(b) / INC_NEW
+        # the positions live on the host, as a serving loop keeps them
+        starts = INC_FILL + INC_FILL_STEP * torch.arange(INC_BATCH)
+        batch = torch.arange(INC_BATCH, device=device)
+        slot_rows, cur = [], ctx
+        for j in range(INC_SLOT_STEPS):
+            pos = starts + j
+            step, cur = call(x[batch, pos.to(device)][:, None], caches=cur,
+                             time_step=pos)
+            slot_rows.append(step[:, 0])
+        torch.cuda.synchronize()
+    launches = read_counts(counters)
+    if sum(plain.values()) or launches["flash_attention_fwd"]:
+        raise AssertionError(f"phase 18 (i): plain versions {dict(plain)}, "
+                             f"flash launches {launches}")
+    check_ln_route("phase 18 (i)", (counters["fused_layer_norm"],))
+    scale = full.float().abs().max().item()
+    err = (torch.cat(rows, 1).float() - full.float()).abs().max().item() \
+        / scale
+    idx = starts[:, None] + torch.arange(INC_SLOT_STEPS)[None, :]
+    want_slot = full[batch[:, None], idx.to(device)]
+    slot_err = (torch.stack(slot_rows, 1).float() - want_slot.float()
+                ).abs().max().item() / scale
+    if not (err <= INC_DEC_TOL and slot_err <= INC_DEC_TOL
+            and torch.isfinite(full).all()):
+        raise AssertionError(f"phase 18 (i): cached rows off the uncached "
+                             f"forward by {err:.3e} (scalar) and "
+                             f"{slot_err:.3e} (slot-indexed) of the largest "
+                             f"value {scale:.3e}, over {INC_DEC_TOL}")
+    copied = sum(c.numel() * c.element_size() for c in ctx)
+    log(f"phase 18 (i): FusedMultiTransformer {INC_LAYERS} x {INC_D}, "
+        f"{INC_HEADS} heads, FFN {INC_FFN}, gelu, pre-LN, bf16; caches "
+        f"[2, {INC_BATCH}, {INC_HEADS}, {total}, {INC_D // INC_HEADS}] a "
+        f"layer; {calls} calls, K2 {want_call['fused_layer_norm']} a call "
+        f"on the warp-row route, K4 0, no plain version; context + "
+        f"{INC_NEW} scalar steps off the uncached causal forward by "
+        f"{err:.3e}, {INC_SLOT_STEPS} slot-indexed steps (rows from "
+        f"{starts.tolist()}) by {slot_err:.3e} of the largest value "
+        f"{scale:.3e} (limit {INC_DEC_TOL})")
+    log(f"phase 18 (i) on {card}: prefill {prefill_ms:.3f} ms for "
+        f"{INC_BATCH} x {INC_PROMPT} tokens; decode {decode_ms:.3f} ms a "
+        f"step, {INC_BATCH / decode_ms * 1e3:.1f} tokens/s; the functional "
+        f"cache update writes {copied} bytes a step ({copied / 2 ** 20:.1f} "
+        f"MiB: every layer's whole cache anew)")
+    del net, full, ctx, cur, rows, caches
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches["fused_layer_norm"]
+
+
+def incubate_decoder_f32(device):
+    """18 (i), float32: a 2-layer copy on the card against the same
+    weights on the CPU (plain versions there), the context stage, 4
+    scalar steps and a slot-indexed one, within ``GEN_TOL`` of each
+    output's largest value (at least 1)."""
+    from paddle_tpu_torch import seed
+    from paddle_tpu_torch.incubate.nn import FusedMultiTransformer
+    seed(SEED + 182)
+    cpu = FusedMultiTransformer(INC_D, INC_HEADS, INC_FFN,
+                                num_layers=2).eval()
+    card = FusedMultiTransformer(INC_D, INC_HEADS, INC_FFN,
+                                 num_layers=2).to(device).eval()
+    card.load_state_dict(cpu.state_dict())
+    x = torch.randn(2, 40, INC_D, generator=torch.Generator().manual_seed(
+        SEED + 183))
+    outs = []
+    with torch.no_grad():
+        for net, dev in ((cpu, torch.device("cpu")), (card, device)):
+            xd = x.to(dev)
+            got = [net(xd)]
+            o, c = net(xd[:, :32], caches=net.gen_cache(2, 40))
+            got.append(o)
+            for t in range(32, 36):
+                o, c = net(xd[:, t:t + 1], caches=c, time_step=t)
+                got.append(o)
+            got.append(net(xd[:, 36:37], caches=c,
+                           time_step=torch.tensor([36, 30]))[0])
+            outs.append([g.cpu() for g in got])
+    err = max((a - b).abs().max().item() / max(1.0, a.abs().max().item())
+              for a, b in zip(*outs))
+    if not err <= GEN_TOL:
+        raise AssertionError(f"phase 18 (i) float32: card off the CPU by "
+                             f"{err:.3e}, over {GEN_TOL}")
+    log(f"phase 18 (i) float32, 2 layers: card against CPU {err:.3e} "
+        f"(limit {GEN_TOL})")
+
+
+def incubate_encoder_net(device):
+    """``nn.Embedding(30522, 768)``, 12 ``FusedTransformerEncoderLayer(768,
+    12, 3072, dropout_rate=0.1, attn_dropout_rate=0.0, gelu)``, a mean
+    pool and ``Linear(768, 2)``; the cross entropy of its logits."""
+    from paddle_tpu_torch import nn, seed
+    from paddle_tpu_torch.incubate.nn import FusedTransformerEncoderLayer
+    from paddle_tpu_torch.nn import functional as F
+
+    class FusedEncoder(nn.Layer):
+        def __init__(self):
+            super().__init__()
+            self.embed = nn.Embedding(ENC_VOCAB, INC_D)
+            self.layers = nn.LayerList([FusedTransformerEncoderLayer(
+                INC_D, INC_HEADS, INC_FFN, dropout_rate=0.1,
+                attn_dropout_rate=0.0, activation="gelu")
+                for _ in range(ENC_LAYERS)])
+            self.head = nn.Linear(INC_D, 2)
+
+        def forward(self, ids, labels):
+            h = self.embed(ids)
+            for layer in self.layers:
+                h = layer(h)
+            return F.cross_entropy(self.head(h.mean(1)), labels)
+
+    seed(SEED + 184)
+    return FusedEncoder().to(device)
+
+
+def incubate_encoder(device, card):
+    """18 (ii): the fused encoder trained in bf16 AMP O2 with float32
+    masters: ``asp.prune_model`` (2:4), ``asp.decorate(LookAhead(AdamW(
+    multi_precision=True), alpha=0.5, k=4))``, ``ModelAverage(0.15, 2,
+    10)`` stepped beside it, 12 steps on one batch. Each step launches K2
+    = K3 = 24 (warp-row) and K4 = K6 = 12 (tensor-core) and K8
+    ``adamw_plan``'s count, no plain version; after each, every pruned
+    weight passes ``check_sparsity`` on its JAX view; at steps 4, 8, 12
+    every master and parameter equal ``mask * (slow + alpha (fast -
+    slow))`` from snapshots (the fast weights taken after the inner
+    step); inside ``ModelAverage.apply()`` the parameters equal the
+    average recomputed from per-step snapshots, after it the live ones
+    come back bit for bit; the loss is finite and falls. Then
+    ``CostModel.profile_measure`` over one more step. Returns the
+    launches and the parameter shapes."""
+    import paddle_tpu_torch.optimizer.optimizer as opt_module
+    from paddle_tpu_torch import amp
+    from paddle_tpu_torch.cost_model import CostModel
+    from paddle_tpu_torch.incubate import LookAhead, ModelAverage, asp
+    from paddle_tpu_torch.optimizer import AdamW
+    from paddle_tpu_torch.optimizer.optimizer import _weak
+    net = incubate_encoder_net(device)
+    amp.decorate(net, level="O2", dtype="bfloat16")
+    asp.reset_excluded_layers()
+    masks = asp.prune_model(net)
+    if len(masks) != 4 * ENC_LAYERS:
+        raise AssertionError(f"phase 18 (ii): {len(masks)} masks")
+    pruned = {id(p): p._asp_mask for p in net.parameters()
+              if getattr(p, "_asp_mask", None) is not None}
+    params = list(net.named_parameters())
+    inner = AdamW(ENC_LR, parameters=params, weight_decay=ENC_WD,
+                  multi_precision=True)
+    look = LookAhead(inner, alpha=ENC_ALPHA, k=ENC_K)
+    opt = asp.decorate(look)
+    rate, lo, hi = ENC_AVG
+    avg = ModelAverage(rate, parameters=params, min_average_window=lo,
+                       max_average_window=hi)
+    gen = torch.Generator(device=device).manual_seed(SEED + 185)
+    ids = torch.randint(0, ENC_VOCAB, (ENC_BATCH, ENC_SEQ), device=device,
+                        generator=gen)
+    labels = torch.randint(0, 2, (ENC_BATCH,), device=device, generator=gen)
+    counters = train_counters()
+    numels = [p.numel() for _, p in params]
+    want = {"flash_attention_fwd": ENC_LAYERS,
+            "flash_attention_bwd": ENC_LAYERS,
+            "fused_layer_norm": 2 * ENC_LAYERS,
+            "fused_layer_norm_bwd": 2 * ENC_LAYERS,
+            "fused_adamw": adamw_launches(numels),
+            "fused_adamw_tensors": len(numels)}
+    fast = {}
+    inner_step = inner.step
+
+    def snap_fast(*a):
+        inner_step(*a)
+        if look._step_count % ENC_K == ENC_K - 1:     # this step syncs
+            masters = inner._master_weights()
+            fast.update((n, masters.get(id(p), p).detach().clone())
+                        for n, p in params)
+
+    inner.step = snap_fast
+
+    def step():
+        with amp.auto_cast(level="O2", dtype="bfloat16"):
+            loss = net(ids, labels)
+        loss.backward()
+        t = time.perf_counter()
+        opt.step()
+        host = time.perf_counter() - t
+        avg.step()
+        opt.clear_grad()
+        return loss.detach(), host
+
+    torch.cuda.synchronize()
+    reset_counts(counters)
+    losses, per_step, spans, hosts, synced, snaps = [], [], [], [], [], []
+    with count_plain() as plain, adamw_dtypes(opt_module) as kinds:
+        for i in range(1, ENC_STEPS + 1):
+            slow = {n: s.clone() for n, s in look._slow.items()} \
+                if i % ENC_K == 0 else None
+            at = read_counts(counters)
+            a, b = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+            a.record()
+            loss, host = step()
+            b.record()
+            torch.cuda.synchronize()
+            spans.append(a.elapsed_time(b))
+            hosts.append(host * 1e6)
+            per_step.append(inc_counts(counters, at))
+            losses.append(loss.item())
+            snaps.append({n: p.detach().clone() for n, p in params})
+            bad = [n for n, p in params if id(p) in pruned
+                   and not asp.check_sparsity(p)]
+            if bad:
+                raise AssertionError(f"phase 18 (ii) step {i}: not 2:4 on "
+                                     f"the JAX view: {bad[:3]}")
+            if slow is not None:
+                synced.append(i)
+                masters = inner._master_weights()
+                for n, p in params:
+                    s, f = slow[n], fast[n]
+                    new = s + _weak(ENC_ALPHA, s) * (f - s)
+                    if id(p) in pruned:
+                        new = new * pruned[id(p)]
+                    m = masters.get(id(p), p)
+                    if not (torch.equal(m, new) and torch.equal(
+                            p, new.to(p.dtype))):
+                        raise AssertionError(
+                            f"phase 18 (ii) step {i}: {n} off the "
+                            f"LookAhead sync of its snapshots")
+    launches = read_counts(counters)
+    inner.step = inner_step
+    if per_step != [want] * ENC_STEPS:
+        bad = [(i, s) for i, s in enumerate(per_step) if s != want]
+        raise AssertionError(f"phase 18 (ii): launches a step, expected "
+                             f"{want}: {bad[:3]}")
+    check_flash_route("phase 18 (ii)", counters, "tc")
+    check_ln_route("phase 18 (ii)", (counters["fused_layer_norm"],
+                                     counters["fused_layer_norm_bwd"]))
+    if sum(plain.values()) or set(kinds) != {
+            ("float32", "bfloat16", "bfloat16")}:
+        raise AssertionError(f"phase 18 (ii): plain versions {dict(plain)}, "
+                             f"AdamW (p, g, copy) dtypes {dict(kinds)}")
+    if not all(math.isfinite(x) for x in losses) or \
+            not losses[-1] < losses[0]:
+        raise AssertionError(f"phase 18 (ii) losses: {losses}")
+    # ModelAverage: the windowed sum of the snapshots, as the rule keeps it
+    want_avg = {}
+    for n, p in params:
+        total, count = torch.zeros_like(p), 0
+        for snap in snaps:
+            total, count = total + snap[n], count + 1
+            window = max(lo, min(hi, int(count * rate)))
+            if count > window:
+                total = total * _weak(window / count, p)
+                count = window
+        want_avg[n] = total / count
+    live = {n: p.detach().clone() for n, p in params}
+    with avg.apply():
+        off = [n for n, p in params if not torch.equal(p, want_avg[n])]
+    back = [n for n, p in params if not torch.equal(p, live[n])]
+    if off or back:
+        raise AssertionError(f"phase 18 (ii): ModelAverage off the "
+                             f"recomputed average {off[:3]}, not restored "
+                             f"{back[:3]}")
+    costs = CostModel().profile_measure(lambda: step(), repeat=1)
+    for op in ("layer_norm", "scaled_dot_product_attention"):
+        if costs.get(op, {}).get("calls", 0) <= 0:
+            raise AssertionError(f"phase 18 (iv): CostModel saw no {op}: "
+                                 f"{sorted(costs)}")
+    ms = statistics.median(spans)
+    log(f"phase 18 (ii): fused encoder {ENC_LAYERS} x {INC_D} (vocabulary "
+        f"{ENC_VOCAB}), bf16 AMP O2 with float32 masters, {len(masks)} "
+        f"weights 2:4-pruned, asp.decorate(LookAhead(AdamW(lr {ENC_LR}, wd "
+        f"{ENC_WD}), alpha {ENC_ALPHA}, k {ENC_K})), ModelAverage{ENC_AVG}; "
+        f"batch {ENC_BATCH} x {ENC_SEQ}, {ENC_STEPS} steps: launches a step "
+        f"{json.dumps(want)}, flash on the tensor-core route, LayerNorm on "
+        f"the warp-row route, no plain version; 2:4 after every step; the "
+        f"sync bit-equal to its snapshots at steps {synced}; ModelAverage "
+        f"bit-equal to the recomputed average, restored bit for bit; "
+        f"losses {json.dumps([round(x, 5) for x in losses])}")
+    log(f"phase 18 (ii) on {card}: {ms:.3f} ms a step (median, CUDA "
+        f"events), {ENC_BATCH * ENC_SEQ / ms * 1e3:.1f} tokens/s; "
+        f"opt.step() host time median {statistics.median(hosts):.1f} us "
+        f"(ASP masks, LookAhead, AdamW's {want['fused_adamw']} launches)")
+    cost_ms = {op: round(costs[op]["time"] * 1e3, 4) for op in
+               ("layer_norm", "scaled_dot_product_attention", "linear")
+               if op in costs}
+    log(f"phase 18 (iv): CostModel over one more step: {len(costs)} ops; "
+        f"mean ms a call {json.dumps(cost_ms)}; calls "
+        f"{json.dumps({op: costs[op]['calls'] for op in cost_ms})}")
+    shapes = [tuple(p.shape) for _, p in params]
+    del net, opt, look, inner, avg, snaps, fast, want_avg, live
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches, shapes
+
+
+def incubate_moe(device, card):
+    """18 (iii): ``MoELayer(768, num_experts=8, d_hidden=3072, topk=2,
+    capacity_factor=1.25)`` in bf16 on ``[32, 128, 768]``, forward and
+    backward timed; then float32 on ``[4, 128, 768]`` on the card against
+    a CPU copy (output, ``l_aux``, the input's, gate's and experts'
+    gradients within ``MOE_TOL``) with the same routing: where the two
+    pick other experts for a token, the gap between the probabilities
+    involved must be a near-tie (``MOE_TIE``) and the CPU takes the
+    card's choice."""
+    import copy
+
+    from paddle_tpu_torch import seed
+    from paddle_tpu_torch.incubate import MoELayer
+    from paddle_tpu_torch.incubate import moe as moe_mod
+    seed(SEED + 186)
+    layer = MoELayer(INC_D, num_experts=MOE_E, d_hidden=MOE_HIDDEN,
+                     topk=MOE_K, capacity_factor=MOE_CAP).to(
+        device, torch.bfloat16)
+    gen = torch.Generator(device=device).manual_seed(SEED + 187)
+    x = torch.randn(*MOE_TOKENS, device=device,
+                    generator=gen).bfloat16().requires_grad_()
+
+    def run():
+        y = layer(x)
+        ((y.float() ** 2).mean() + layer.l_aux.float()).backward()
+        return y
+
+    y = run()
+    if not (torch.isfinite(y).all() and torch.isfinite(x.grad).all()):
+        raise AssertionError("phase 18 (iii): non-finite bf16 MoE")
+    ms = event_ms(run, 5)
+    tokens = MOE_TOKENS[0] * MOE_TOKENS[1]
+    log(f"phase 18 (iii) on {card}: MoELayer bf16 {MOE_E} experts of "
+        f"{MOE_HIDDEN}, top-{MOE_K}, capacity "
+        f"{math.ceil(tokens / MOE_E * MOE_CAP)} tokens an expert, on "
+        f"{list(MOE_TOKENS)}: forward + backward {ms:.3f} ms (median of 5, "
+        f"CUDA events), {tokens / ms * 1e3:.1f} tokens/s")
+    del layer, x, y
+    seed(SEED + 188)
+    cpu = MoELayer(INC_D, num_experts=MOE_E, d_hidden=MOE_HIDDEN,
+                   topk=MOE_K, capacity_factor=MOE_CAP)
+    card_layer = copy.deepcopy(cpu).to(device)
+    xc = torch.randn(*MOE_F32_TOKENS,
+                     generator=torch.Generator().manual_seed(SEED + 189))
+    orig = moe_mod.top_k
+    seen = {}
+
+    def record(probs, k):
+        vals, idx = orig(probs, k)
+        seen["probs"], seen["idx"] = probs.detach(), idx
+        return vals, idx
+
+    flips = []
+
+    def take_card(probs, k):
+        vals, idx = orig(probs, k)
+        card_idx = seen["idx"].cpu()
+        differ = (idx != card_idx).any(-1)
+        for row in differ.nonzero().flatten().tolist():
+            srt = probs[row].detach().sort(descending=True).values
+            near = (srt[:k] - srt[1:k + 1]).min().item()
+            if near > MOE_TIE:
+                raise AssertionError(
+                    f"phase 18 (iii): token {row} routed to "
+                    f"{card_idx[row].tolist()} on the card and "
+                    f"{idx[row].tolist()} on the CPU, not a near-tie "
+                    f"(the smallest gap of its top {k + 1} {near:.3e})")
+            flips.append((row, near))
+        if flips:
+            idx = torch.where(differ[:, None], card_idx, idx)
+            vals = probs.gather(-1, idx)
+        return vals, idx
+
+    outs = []
+    try:
+        for net, dev, hook in ((card_layer, device, record),
+                               (cpu, torch.device("cpu"), take_card)):
+            moe_mod.top_k = hook
+            xd = xc.to(dev).requires_grad_()
+            y = net(xd)
+            ((y * y).mean() + net.l_aux).backward()
+            outs.append([t.detach().cpu() for t in
+                         [y, net.l_aux, xd.grad] +
+                         [p.grad for p in net.parameters()]])
+    finally:
+        moe_mod.top_k = orig
+    probs = seen["probs"].float()
+    srt = probs.sort(dim=-1, descending=True).values
+    gap = (srt[:, :MOE_K] - srt[:, 1:MOE_K + 1]).min().item()
+    names = ["out", "l_aux", "x.grad"] + [f"{n}.grad" for n, _ in
+                                          cpu.named_parameters()]
+    errs = {}
+    for name, a, b in zip(names, outs[1], outs[0]):
+        errs[name] = (b - a).abs().max().item() / max(
+            a.abs().max().item(), 1e-30)
+    worst = max(errs.values())
+    if not worst <= MOE_TOL:
+        raise AssertionError(f"phase 18 (iii) float32: card off the CPU "
+                             f"{errs}, over {MOE_TOL}")
+    log(f"phase 18 (iii) float32 on {list(MOE_F32_TOKENS)}: card against "
+        f"CPU {json.dumps({k: float(f'{v:.3e}') for k, v in errs.items()})} "
+        f"(limit {MOE_TOL}); the smallest gap between consecutive top-"
+        f"{MOE_K + 1} probabilities {gap:.3e}; routing choices that "
+        f"differed (near-ties the CPU took from the card): {len(flips)}")
+
+
+def incubate_graph(device, card):
+    """18 (iv): ``graph_send_recv`` (sum, mean, max, min) and the
+    ``segment_*`` ops over a random graph of 100,000 nodes, 1,000,000
+    edges and width 64 (float32), card against CPU: max/min exactly,
+    sum/mean within ``REL_TOL[float32]`` of the largest value (the card
+    adds each node's messages in another order); the causal masked
+    softmax of bf16 ``[8, 12, 1024, 1024]`` scores, its first batch row
+    against the CPU within ``SOFTMAX_TOL``; each timed on the card."""
+    from paddle_tpu_torch import incubate
+    g = torch.Generator().manual_seed(SEED + 190)
+    x = torch.randn(GRAPH_NODES, GRAPH_WIDTH, generator=g)
+    src = torch.randint(0, GRAPH_NODES, (GRAPH_EDGES,), generator=g)
+    dst = torch.randint(0, GRAPH_NODES, (GRAPH_EDGES,), generator=g)
+    seg = dst.sort().values
+    xd, srcd, dstd, segd = (t.to(device) for t in (x, src, dst, seg))
+    msgs = x[src]
+    msgs_d = msgs.to(device)
+    times, errs = {}, {}
+    for pool in ("sum", "mean", "max", "min"):
+        want = incubate.graph_send_recv(x, src, dst, pool_type=pool)
+        got = incubate.graph_send_recv(xd, srcd, dstd, pool_type=pool)
+        want_s = getattr(incubate, f"segment_{pool}")(msgs, seg)
+        got_s = getattr(incubate, f"segment_{pool}")(msgs_d, segd)
+        for name, a, b in ((f"graph_send_recv_{pool}", want, got),
+                           (f"segment_{pool}", want_s, got_s)):
+            b = b.cpu()
+            if pool in ("max", "min"):
+                ok = torch.equal(a, b)
+                errs[name] = 0.0 if ok else float("nan")
+            else:
+                errs[name] = (a - b).abs().max().item() / \
+                    a.abs().max().item()
+                ok = errs[name] <= REL_TOL[torch.float32]
+            if not ok:
+                raise AssertionError(f"phase 18 (iv): {name} card against "
+                                     f"CPU off ({errs[name]})")
+        times[f"graph_send_recv_{pool}"] = event_ms(
+            lambda: incubate.graph_send_recv(xd, srcd, dstd, pool_type=pool),
+            5)
+        times[f"segment_{pool}"] = event_ms(
+            lambda: getattr(incubate, f"segment_{pool}")(msgs_d, segd), 5)
+    scores = torch.randn(*SOFTMAX_SHAPE, device=device,
+                         generator=torch.Generator(device=device).manual_seed(
+                             SEED + 191)).bfloat16()
+    probs = incubate.softmax_mask_fuse_upper_triangle(scores)
+    want = incubate.softmax_mask_fuse_upper_triangle(scores[:1].cpu())
+    sm_err = (probs[:1].cpu().float() - want.float()).abs().max().item()
+    if not sm_err <= SOFTMAX_TOL:
+        raise AssertionError(f"phase 18 (iv): the causal masked softmax "
+                             f"off the CPU's by {sm_err}, over "
+                             f"{SOFTMAX_TOL}")
+    times["softmax_mask_fuse_upper_triangle"] = event_ms(
+        lambda: incubate.softmax_mask_fuse_upper_triangle(scores), 5)
+    log(f"phase 18 (iv): graph ops over {GRAPH_NODES} nodes, "
+        f"{GRAPH_EDGES} edges, width {GRAPH_WIDTH}, card against CPU "
+        f"{json.dumps({k: float(f'{v:.3e}') for k, v in errs.items()})} "
+        f"(max/min exact, sum/mean limit {REL_TOL[torch.float32]}); the "
+        f"causal masked softmax of bf16 {list(SOFTMAX_SHAPE)} off the "
+        f"CPU's by {sm_err:.3e} on its first row (limit {SOFTMAX_TOL})")
+    log(f"phase 18 (iv) on {card}: ms (median of 5, CUDA events) "
+        f"{json.dumps({k: round(v, 4) for k, v in times.items()})}")
+
+
+def incubate_rows(device, timer, dec_ln, enc, shapes):
+    """The kernels line's ``_incubate`` rows: the LayerNorm forward at the
+    decoder's bf16 ``[4096, 768]`` (its context stage) with its decode
+    rows ``[8, 768]`` and the encoder's float32 ``[4096, 768]`` held too
+    (``shape_errs``, ``shape_ms``), the backward at the encoder's float32
+    ``[4096, 768]``, flash bf16 ``[32, 128, 12, 64]`` not causal, K8 over
+    the encoder's list as its step hands it over; each with its launches
+    in phase 18."""
+    gen = torch.Generator(device=device).manual_seed(SEED + 192)
+
+    def randn(*shape, dtype=torch.float32, scale=1.0):
+        return (scale * torch.randn(*shape, device=device,
+                                    generator=gen)).to(dtype)
+
+    d, rows = INC_D, ENC_BATCH * ENC_SEQ
+
+    def ln_operands(n, dtype):
+        return (randn(n, d, dtype=dtype), (1 + randn(d, scale=0.1)).to(
+            dtype), randn(d, scale=0.1).to(dtype))
+
+    ln_fwd = ln_fwd_case(timer, *ln_operands(INC_BATCH * INC_PROMPT,
+                                             torch.bfloat16))
+    extra = {"bf16 [8, 768]": ln_fwd_case(
+        timer, *ln_operands(INC_BATCH, torch.bfloat16)),
+        "f32 [4096, 768]": ln_fwd_case(timer, *ln_operands(
+            rows, torch.float32))}
+    ln_fwd["shape_errs"] = {k: r["max_abs_err"] for k, r in extra.items()}
+    ln_fwd["shape_ms"] = {k: r["ms"] for k, r in extra.items()}
+    x, g = randn(rows, d), randn(rows, d)
+    ln_bwd = ln_bwd_case(timer, x, 1 + randn(d, scale=0.1), g)
+    q, k, v, do = (randn(ENC_BATCH, ENC_SEQ, INC_HEADS, d // INC_HEADS,
+                         dtype=torch.bfloat16) for _ in range(4))
+    fa_fwd, fa_bwd = flash_case(timer, q, k, v, do, causal=False,
+                                route="tc", core=True)
+    adamw = adamw_step_case(timer, device, shapes, torch.bfloat16, ENC_LR,
+                            ENC_WD)
+    out = []
+    for name, src, tpu, row, launches in (
+            ("fused_layer_norm_incubate", LN_SRC, LN_TPU, ln_fwd,
+             dec_ln + enc["fused_layer_norm"]),
+            ("fused_layer_norm_bwd_incubate", LN_SRC, LN_BWD_TPU, ln_bwd,
+             enc["fused_layer_norm_bwd"]),
+            ("flash_attention_fwd_incubate", FA_TC_SRC, FA_FWD_TPU, fa_fwd,
+             enc["flash_attention_fwd"]),
+            ("flash_attention_bwd_incubate", FA_TC_SRC, FA_BWD_TPU, fa_bwd,
+             enc["flash_attention_bwd"]),
+            ("fused_adamw_step_incubate", ADAMW_SRC, ADAMW_TPU, adamw,
+             enc["fused_adamw"])):
+        log(f"phase 18 {name} {fmt(row)}")
+        out.append({"name": name, "route": "cuda", "source": src,
+                    "replaces": tpu, "launches": launches,
+                    "max_abs_err": max([row["max_abs_err"]] + list(
+                        row.get("shape_errs", {}).values())),
+                    "ms": row["ms"], "plain_ms": row["plain_ms"],
+                    "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],
+                    "library_ms": row["library_ms"]})
+        for key in ("shape_errs", "shape_ms"):
+            if key in row:
+                out[-1][key] = row[key]
+        if "core_ms" in row:
+            out[-1].update(core_source=FA_SRC, core_ms=row["core_ms"],
+                           core_err=row["core_err"])
+        if "host_us" in row:
+            out[-1].update({k: row[k] for k in STEP_KEYS},
+                           launches_note=STEP_NOTE)
+    return out
+
+
+def incubate_encoder_witness(device):
+    """18 (ii) witness: the encoder's first step, dropout off (``eval``),
+    on (ii)'s batch, evaluated before and after the step. (a) The port's
+    composed step (bf16 O2, 2:4 masks, ``asp.decorate(LookAhead(AdamW(
+    multi_precision=True)))``) against ``torch.optim.AdamW`` over float32
+    copies of a second, equal bf16 model's parameters and gradients,
+    masked as ASP does: every master within ``ENC_WIT_MASTER_TOL``, at
+    most a share ``ENC_WIT_MOVED`` of the entries over 1e-6 apart, the
+    losses before and after the step within ``ENC_WIT_LOSS_TOL``. Logged beside it,
+    the loss before and after the step of the same model in float32, no
+    AMP, stepped by ``torch.optim.AdamW`` at (ii)'s learning rate and at
+    a tenth of it: whether the jump after the first step is the model's
+    and the recipe's, without ASP, LookAhead and the port's optimizer.
+    Nothing here is counted on the main path."""
+    from paddle_tpu_torch import amp
+    from paddle_tpu_torch.incubate import LookAhead, asp
+    from paddle_tpu_torch.optimizer import AdamW
+    gen = torch.Generator(device=device).manual_seed(SEED + 185)
+    ids = torch.randint(0, ENC_VOCAB, (ENC_BATCH, ENC_SEQ), device=device,
+                        generator=gen)
+    labels = torch.randint(0, 2, (ENC_BATCH,), device=device, generator=gen)
+
+    def loss_of(net, o2):
+        with amp.auto_cast(enable=o2, level="O2", dtype="bfloat16"):
+            return net(ids, labels)
+
+    def evaluate(net, o2):
+        with torch.no_grad():
+            return loss_of(net, o2).item()
+
+    def library_step(net, o2, masks, lr):
+        """One ``torch.optim.AdamW`` step over float32 copies of ``net``'s
+        parameters (masked as ``masks`` says), written back in their dtype
+        and masked; returns the loss before and after and the float32
+        values by name."""
+        params = list(net.named_parameters())
+        with torch.no_grad():
+            for n, p in params:
+                if n in masks:
+                    p.mul_(masks[n])
+        if o2 and any(not torch.equal(p, start[n]) for n, p in params):
+            raise AssertionError("phase 18 (ii) witness: the twin model "
+                                 "does not start from the port's weights")
+        before = evaluate(net, o2)
+        loss_of(net, o2).backward()
+        copies = {n: p.detach().float().clone() for n, p in params}
+        for n, p in params:
+            copies[n].grad = p.grad.float()
+        torch.optim.AdamW(list(copies.values()), lr=lr, betas=(0.9, 0.999),
+                          eps=1e-8, weight_decay=ENC_WD,
+                          foreach=False).step()
+        with torch.no_grad():
+            for n, p in params:
+                if n in masks:
+                    copies[n].mul_(masks[n])
+                p.copy_(copies[n].to(p.dtype))
+        return before, evaluate(net, o2), copies
+
+    port = incubate_encoder_net(device)
+    amp.decorate(port, level="O2", dtype="bfloat16")
+    port.eval()
+    asp.reset_excluded_layers()
+    asp.prune_model(port)
+    params = list(port.named_parameters())
+    masks = {n: p._asp_mask for n, p in params
+             if getattr(p, "_asp_mask", None) is not None}
+    twin = incubate_encoder_net(device)
+    amp.decorate(twin, level="O2", dtype="bfloat16")
+    twin.eval()
+    start = {n: p.detach().clone() for n, p in params}
+    inner = AdamW(ENC_LR, parameters=params, weight_decay=ENC_WD,
+                  multi_precision=True)
+    opt = asp.decorate(LookAhead(inner, alpha=ENC_ALPHA, k=ENC_K))
+    l0 = evaluate(port, True)
+    loss_of(port, True).backward()
+    opt.step()
+    opt.clear_grad()
+    l1 = evaluate(port, True)
+    masters = inner._master_weights()
+    t0, t1, ref = library_step(twin, True, masks, ENC_LR)
+    gap = max((masters.get(id(p), p).float() - ref[n]).abs().max().item()
+              for n, p in params)
+    moved = sum(int(((masters.get(id(p), p).float() - ref[n]).abs()
+                     > 1e-6).sum()) for n, p in params)
+    entries = sum(p.numel() for _, p in params)
+    del port, twin, inner, opt, masters, ref, start
+    gc.collect()
+    torch.cuda.empty_cache()
+    f32 = incubate_encoder_net(device).eval()
+    f0, f1, _ = library_step(f32, False, masks, ENC_LR)
+    del f32
+    slow = incubate_encoder_net(device).eval()
+    s0, s1, _ = library_step(slow, False, masks, ENC_LR / 10)
+    del slow
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"phase 18 (ii) witness, dropout off: the port's step {l0:.5f} -> "
+        f"{l1:.5f}; torch.optim.AdamW over float32 copies of the same bf16 "
+        f"model {t0:.5f} -> {t1:.5f} (masters at most {gap:.3e} apart, "
+        f"limit {ENC_WIT_MASTER_TOL:.3e}; {moved} of {entries} entries "
+        f"over 1e-6, limit a share {ENC_WIT_MOVED}); float32 "
+        f"model, torch.optim.AdamW lr {ENC_LR}: {f0:.5f} -> {f1:.5f}; lr "
+        f"{ENC_LR / 10}: {s0:.5f} -> {s1:.5f}")
+    if not (gap <= ENC_WIT_MASTER_TOL and moved <= ENC_WIT_MOVED * entries
+            and all(abs(a - b) <= ENC_WIT_LOSS_TOL * max(1.0, abs(b))
+                    for a, b in ((l0, t0), (l1, t1)))):
+        raise AssertionError(f"phase 18 (ii) witness: the port's step off "
+                             f"torch.optim.AdamW's: loss {l0} -> {l1} "
+                             f"against {t0} -> {t1}, masters {gap:.3e} "
+                             f"apart, {moved} of {entries} over 1e-6")
+
+
+def phase_incubate(device, card, timer):
+    """18: ``incubate`` on the card: (i) the ``FusedMultiTransformer``
+    decoder served from its CacheKV (:func:`incubate_decoder`, float32
+    card against CPU in :func:`incubate_decoder_f32`), (ii) the 2:4-pruned
+    fused encoder trained under LookAhead with ModelAverage
+    (:func:`incubate_encoder`, with (iv)'s ``CostModel``; its first step
+    held against ``torch.optim.AdamW`` in
+    :func:`incubate_encoder_witness`), (iii) MoE
+    (:func:`incubate_moe`), (iv) the graph ops and the causal masked
+    softmax (:func:`incubate_graph`). Returns the kernels line's
+    ``_incubate`` rows."""
+    t0 = time.perf_counter()
+    dec_ln = incubate_decoder(device, card)
+    incubate_decoder_f32(device)
+    enc, shapes = incubate_encoder(device, card)
+    incubate_encoder_witness(device)
+    incubate_moe(device, card)
+    incubate_graph(device, card)
+    rows = incubate_rows(device, timer, dec_ln, enc, shapes)
+    log(f"phase 18: {time.perf_counter() - t0:.1f} s")
+    return rows
+
+
 def check_nothing_left_running():
     """Every phase has stopped what it started: no ``device_prefetch``
     producer thread and no loader worker process is still alive (either
@@ -9263,6 +10074,7 @@ def run_phases() -> int:
     serving_launches, serving_shapes = phase_serving(device, card)
     phase_vision(device, card)
     qat_rows = phase_quant(device, card, timer, bert_ms)
+    incubate_rows_ = phase_incubate(device, card, timer)
     kernels = report_engine(device, timer, launches, captured,
                             quant_launches, quant_captured)
     # the engine row of the LayerNorm forward counts the fused engines'
@@ -9359,6 +10171,7 @@ def run_phases() -> int:
     kernels.append(legacy_row)
     kernels += serving_rows(timer, serving_launches, serving_shapes)
     kernels += qat_rows
+    kernels += incubate_rows_
     check_nothing_left_running()
     for k in kernels:
         for key, v in k.items():

@@ -102,16 +102,16 @@ __all__ = ["seed", "amp", "autograd", "callbacks", "compat", "device", "hapi",
 #: the JAX package's top-level names not ported yet, by ROADMAP Queue 1
 #: item: multi-device (4) and API breadth (5)
 _DEFERRED = dict.fromkeys(("DataParallel", "distributed", "parallel"), 4)
-_DEFERRED.update(dict.fromkeys((
-    "analysis", "cost_model", "incubate", "reader"), 5))
+_DEFERRED["analysis"] = 5
 
 #: imported at first use: loading a ``jit.save`` artifact (``jit.load``,
 #: ``inference``) needs the op library and no model code, and the 1.x
-#: namespace, the ONNX exporter, quantization, the datasets, hub and the
-#: numerics libraries are for the callers that ask
+#: namespace, the ONNX exporter, quantization, the datasets, hub, the
+#: numerics libraries, ``incubate``, ``reader`` and ``cost_model`` are
+#: for the callers that ask
 _LAZY = ("models", "serving", "vision", "fluid", "onnx", "quantization",
          "dataset", "hub", "linalg", "fft", "signal", "distribution",
-         "sparse")
+         "sparse", "incubate", "reader", "cost_model")
 
 
 def __getattr__(name):

@@ -7,12 +7,15 @@ the weights of ``Linear`` layers are transposed (``[in, out]`` in the JAX
 package, ``[out, in]`` in the port), with what is derived from them: the
 weight-norm and spectral-norm parameters, and the int8 inference layers'
 ``weight_int8`` (``[in, out]``) and ``weight_scale`` (``[1, out]``
-there, ``[out, 1]`` here); every other parameter and buffer keeps its
-layout, QAT observers' ``scale_state`` among them. So it carries BERT
-(the masked-LM decoder tied to the word table: one key), every
-recurrent layer (the cells' ``weight_ih``/``weight_hh`` keep the JAX
-``[gates * hidden, in]`` layout) and ``TransformerModel`` (its
-``pos_table`` buffer too).
+there, ``[out, 1]`` here); so are the stacked expert ``Linear`` weights
+of ``incubate.moe`` (``[E, in, out]`` there, ``[E, out, in]`` here: each
+parameter's layout mark says how). Every other parameter and buffer
+keeps its layout, QAT observers' ``scale_state`` and
+``incubate.nn.FusedLinear``'s ``[in, out]`` weight (not a ``Linear``'s)
+among them. So it carries BERT (the masked-LM decoder tied to the word
+table: one key), every recurrent layer (the cells' ``weight_ih``/
+``weight_hh`` keep the JAX ``[gates * hidden, in]`` layout) and
+``TransformerModel`` (its ``pos_table`` buffer too).
 
 The input is the JAX model's parameter tree as numpy
 (``{name: np.asarray(a) for name, a in
@@ -67,17 +70,26 @@ def _np32(value) -> np.ndarray:
     return np.asarray(value, np.float32)
 
 
+def _layouts(model) -> dict:
+    """``{key: perm}`` of every key stored in another layout than the
+    JAX package's: ``perm`` gives its JAX layout. Torch ``nn.Linear``
+    and port ``Linear`` weights carry ``(1, 0)``; every parameter with a
+    layout mark carries its mark (a stacked expert ``Linear`` weight of
+    ``incubate.moe``: ``(0, 2, 1)``)."""
+    out = {f"{name}.weight" if name else "weight": (1, 0)
+           for name, mod in model.named_modules()
+           if isinstance(mod, (Linear, nn.Linear))}
+    out.update((k, jax_perm(p)) for k, p in model.named_parameters()
+               if jax_perm(p) is not None)
+    return out
+
+
 def _linear_keys(model) -> set:
     """The keys stored transposed: torch ``nn.Linear`` weights and every
     parameter with the port ``Linear``'s layout mark (its weight, the
     ``weight_v``/``weight_g``/``weight_orig`` of ``nn.utils`` built from
     it, and the int8 layers' ``weight_int8``/``weight_scale``)."""
-    keys = {f"{name}.weight" if name else "weight"
-            for name, mod in model.named_modules()
-            if isinstance(mod, (Linear, nn.Linear))}
-    keys.update(k for k, p in model.named_parameters()
-                if jax_perm(p) == (1, 0))
-    return keys
+    return {k for k, perm in _layouts(model).items() if perm == (1, 0)}
 
 
 def layer_from_jax(layer, jax_state: Mapping) -> None:
@@ -92,20 +104,21 @@ def layer_from_jax(layer, jax_state: Mapping) -> None:
     if missing or unexpected:
         raise KeyError(f"the JAX state does not match the port's layer: "
                        f"missing {missing}, unexpected {unexpected}")
-    linear = _linear_keys(layer)
+    layouts = _layouts(layer)
     with torch.no_grad():
         for key, target in own.items():
             value = jax_state[key]
             arr = value.detach().cpu().numpy() if isinstance(
                 value, torch.Tensor) else np.asarray(value)
-            if key in linear:
-                arr = arr.T
+            perm = layouts.get(key)
+            if perm is not None and arr.ndim == len(perm):
+                arr = np.transpose(arr, np.argsort(perm))
             if tuple(arr.shape) != tuple(target.shape):
                 raise ValueError(
                     f"{key}: JAX array {tuple(np.shape(value))} does not fit "
                     f"the port's {tuple(target.shape)}"
-                    + (" (after the [in, out] -> [out, in] transpose)"
-                       if key in linear else ""))
+                    + (f" (after the transpose that undoes its layout "
+                       f"mark {perm})" if perm is not None else ""))
             target.copy_(torch.from_numpy(np.ascontiguousarray(arr)).to(
                 target.dtype))
 
@@ -114,13 +127,16 @@ def layer_to_numpy(layer) -> Dict[str, np.ndarray]:
     """The port ``layer``'s state as numpy under the JAX keys and
     layouts (``Linear`` weights back to ``[in, out]``); floating values
     as float32."""
-    linear = _linear_keys(layer)
+    layouts = _layouts(layer)
     out = {}
     for key, t in layer.state_dict().items():
         t = t.detach().cpu()
         # a copy: a float32 CPU tensor's numpy() shares the live storage
         arr = (t.float() if t.is_floating_point() else t).numpy()
-        out[key] = arr.T.copy() if key in linear else arr.copy()
+        perm = layouts.get(key)
+        if perm is not None and arr.ndim == len(perm):
+            arr = np.transpose(arr, perm)
+        out[key] = arr.copy()               # C order, 0-d kept 0-d
     return out
 
 

@@ -22,7 +22,7 @@ from ..ops.registry import get_op
 from . import static_capture as _capture
 from .flags import flag_value
 from .infermeta import maybe_check as _infermeta_check
-from .monitor import stat_add
+from .monitor import stat_add, stat_observe
 
 __all__ = ["call_op"]
 
@@ -74,13 +74,14 @@ def _outputs(out):
 
 
 def _timed(name, fn, args, attrs):
-    """``FLAGS_benchmark``: the op's time to its end, in ms, added to
-    ``op_time_ms/<name>``. Waits for the card after each op."""
+    """``FLAGS_benchmark``: the op's time to its end, in ms, one sample of
+    the ``op_time_ms/<name>`` distribution (count, sum, p50/p95/p99, as
+    the JAX package keeps it). Waits for the card after each op."""
     t0 = time.perf_counter()
     out = fn(*args, **attrs)
     if any(isinstance(t, torch.Tensor) and t.is_cuda for t in _outputs(out)):
         torch.cuda.synchronize()
-    stat_add(f"op_time_ms/{name}", (time.perf_counter() - t0) * 1e3)
+    stat_observe(f"op_time_ms/{name}", (time.perf_counter() - t0) * 1e3)
     return out
 
 

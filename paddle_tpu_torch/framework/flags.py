@@ -26,7 +26,7 @@ _DEFAULTS = {
                            "every op, raising ShapeError at the call site "
                            "(framework/infermeta.py)"),
     "FLAGS_benchmark": (False, "Time every op to its end (a device sync "
-                        "per op) into the op_time_ms/<name> counters"),
+                        "per op) into the op_time_ms/<name> distributions"),
     "FLAGS_flight_dump_dir": ("", "Directory of the serving flight "
                               "recorder's automatic dumps when a cycle "
                               "fails (empty: the system temp directory)"),

@@ -2,12 +2,12 @@
 ``paddle_tpu/framework/monitor.py``).
 
 * **counters** (``stat_add``/``stat_get``): accumulated floats, e.g.
-  ``op_count/<name>`` (``call_op`` bumps it on every call),
-  ``op_time_ms/<name>`` under ``FLAGS_benchmark``, and the serving
-  loop's ``serving/*`` counts;
+  ``op_count/<name>`` (``call_op`` bumps it on every call) and the
+  serving loop's ``serving/*`` counts;
 * **histograms** (``stat_observe``/``stat_histogram``): count, sum,
   min, max and p50/p95/p99 over a bounded reservoir of the latest
-  samples, e.g. ``serving/cycle_ms`` and ``serving/ttft_ms``.
+  samples, e.g. ``op_time_ms/<name>`` under ``FLAGS_benchmark``,
+  ``serving/cycle_ms`` and ``serving/ttft_ms``.
 
 Writers are lock-free: two threads racing may lose an increment or a
 sample, which observability accepts, where a lock per op dispatch would

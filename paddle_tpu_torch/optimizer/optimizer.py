@@ -133,6 +133,15 @@ class Optimizer:
             slots["master_weight"] = p.detach().float().clone()
         return slots
 
+    def _master_weights(self) -> dict:
+        """``{id(param): its float32 master}`` of the parameters that have
+        one (``multi_precision``, after their first step): the values the
+        rule updates, which a wrapper that rewrites the parameters
+        (``LookAhead``, ASP's masks) must rewrite as well."""
+        return {id(p): self._slots[name]["master_weight"]
+                for name, p in self._params or ()
+                if "master_weight" in self._slots.get(name, ())}
+
     def state_dict(self) -> dict:
         out = {f"{pname}_{sname}": t for pname, slots in self._slots.items()
                for sname, t in slots.items()}

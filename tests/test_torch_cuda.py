@@ -2014,3 +2014,160 @@ def test_distribution_draws_on_the_card(cuda, name):
     draws = draws.double()
     se = (draws.var(0) / 50000).sqrt()
     assert ((draws.mean(0) - mean.double()).abs() <= 5 * se + 1e-9).all()
+
+
+def _fused_encoder(cuda, layers):
+    from paddle_tpu_torch import nn, seed
+    from paddle_tpu_torch.incubate.nn import FusedTransformerEncoderLayer
+
+    class Encoder(nn.Layer):
+        def __init__(self):
+            super().__init__()
+            self.embed = nn.Embedding(30522, 768)
+            self.layers = nn.LayerList([FusedTransformerEncoderLayer(
+                768, 12, 3072, dropout_rate=0.1, attn_dropout_rate=0.0,
+                activation="gelu") for _ in range(layers)])
+            self.head = nn.Linear(768, 2)
+
+        def forward(self, ids):
+            h = self.embed(ids)
+            for layer in self.layers:
+                h = layer(h)
+            return self.head(h.mean(1))
+
+    seed(0)
+    return Encoder().to(cuda)
+
+
+def test_fused_encoder_step_under_asp_and_lookahead_reads_nothing_back(
+        cuda):
+    """Two ``FusedTransformerEncoderLayer`` s at BERT-base width, bf16 O2,
+    2:4-pruned, ``asp.decorate(LookAhead(AdamW(multi_precision)))``: a
+    step launches K4/K6 once a layer on the tensor-core route at ``[4,
+    128, 12, 64]``, K2/K3 twice a layer on the warp-row route, reads
+    nothing back to the host, and keeps every pruned weight 2:4 on its
+    JAX view, its master too."""
+    from paddle_tpu_torch import amp
+    from paddle_tpu_torch import nn as pnn
+    from paddle_tpu_torch.incubate import LookAhead, asp
+    from paddle_tpu_torch.optimizer import AdamW
+    net = _fused_encoder(cuda, 2)
+    amp.decorate(net, level="O2", dtype="bfloat16")
+    masks = asp.prune_model(net)
+    assert len(masks) == 8                      # 4 Linears a layer
+    inner = AdamW(1e-3, parameters=net.parameters(), multi_precision=True)
+    opt = asp.decorate(LookAhead(inner, alpha=0.5, k=2))
+    g = torch.Generator(cuda).manual_seed(1)
+    ids = torch.randint(0, 30522, (4, 128), device=cuda, generator=g)
+    labels = torch.randint(0, 2, (4,), device=cuda, generator=g)
+
+    def step():
+        with amp.auto_cast(level="O2", dtype="bfloat16"):
+            loss = F.cross_entropy(net(ids), labels)
+        loss.backward()
+        opt.step()
+        opt.clear_grad()
+        return loss.detach()
+
+    step()
+    before, tc = _launch_counts(), fa.flash_attention_bwd.tc_launches
+    warp = ln.fused_layer_norm.warp_launches
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        loss = step()                           # step 2: the sync
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    assert tuple(a - b for a, b in zip(_launch_counts(), before)) == \
+        (2, 2, 4, 4)
+    assert fa.flash_attention_bwd.tc_launches - tc == 2
+    assert ln.fused_layer_norm.warp_launches - warp == 4
+    assert torch.isfinite(loss)
+    masters = inner._master_weights()
+    for layer in net.sublayers():
+        if isinstance(layer, pnn.Linear) and layer is not net.head:
+            assert asp.check_sparsity(layer.weight)
+            master = masters[id(layer.weight)]
+            assert torch.equal(master.to(torch.bfloat16), layer.weight)
+
+
+def test_fused_multi_transformer_decodes_on_the_card(cuda):
+    """A 2-layer bf16 ``FusedMultiTransformer`` at GPT-2 small width: K2
+    twice a layer a call on the warp-row route and no flash launch (the
+    masks send attention to the op's plain body); the context stage and
+    4 decode steps equal the uncached causal forward's rows within bf16
+    rounding of the residual stream."""
+    from paddle_tpu_torch import seed
+    from paddle_tpu_torch.incubate.nn import FusedMultiTransformer
+    seed(0)
+    net = FusedMultiTransformer(768, 12, 3072, num_layers=2).to(
+        cuda, torch.bfloat16).eval()
+    g = torch.Generator(cuda).manual_seed(2)
+    x = torch.randn(2, 20, 768, device=cuda, generator=g).bfloat16()
+    with torch.no_grad():
+        full = net(x)
+        caches = net.gen_cache(2, 20, dtype="bfloat16")
+        before = (ln.fused_layer_norm.launches, fa.flash_attention_fwd.launches)
+        out, caches = net(x[:, :16], caches=caches)
+        assert (ln.fused_layer_norm.launches - before[0],
+                fa.flash_attention_fwd.launches - before[1]) == (4, 0)
+        rows = [out]
+        for t in range(16, 20):
+            step, caches = net(x[:, t:t + 1], caches=caches, time_step=t)
+            rows.append(step)
+    got = torch.cat(rows, 1).float()
+    scale = full.float().abs().max().item()
+    assert (got - full.float()).abs().max().item() <= 2e-2 * scale
+
+
+def test_graph_ops_put_array_input_on_the_card(cuda):
+    """Under the default place, numpy input to the graph ops and the
+    masked softmaxes lands on the card, as ``to_tensor`` puts it, and
+    gives what the same arrays give on the CPU."""
+    import paddle_tpu_torch as pt
+    from paddle_tpu_torch import incubate as tinc
+    rs = np.random.RandomState(6)
+    x = rs.randn(50, 8).astype(np.float32)
+    src, dst = rs.randint(0, 50, 200), rs.randint(0, 50, 200)
+    logits = rs.randn(2, 2, 16, 16).astype(np.float32)
+    calls = [lambda: tinc.graph_send_recv(x, src, dst, pool_type="max"),
+             lambda: tinc.segment_mean(x, np.sort(src[:50])),
+             lambda: tinc.softmax_mask_fuse(logits, np.zeros_like(logits)),
+             lambda: tinc.softmax_mask_fuse_upper_triangle(logits)]
+    old = pt.get_device()
+    try:
+        pt.set_device("gpu")
+        outs = [f() for f in calls]
+        pt.set_device("cpu")
+        refs = [f() for f in calls]
+    finally:
+        pt.set_device(old)
+    for out, ref in zip(outs, refs):
+        assert out.is_cuda and not ref.is_cuda
+        torch.testing.assert_close(out.cpu(), ref, rtol=1e-5, atol=1e-6)
+
+
+def test_moe_on_the_card_equals_the_cpu(cuda):
+    """A float32 ``MoELayer`` (8 experts, top-2) on the card against a CPU
+    copy: the same routing, output, ``l_aux`` and gradients within 1e-4
+    of each result's largest value (TF32 off)."""
+    import copy
+
+    from paddle_tpu_torch import seed
+    from paddle_tpu_torch.incubate import MoELayer
+    seed(3)
+    cpu = MoELayer(64, num_experts=8, d_hidden=128, topk=2)
+    card = copy.deepcopy(cpu).to(cuda)
+    x = torch.randn(4, 32, 64, generator=torch.Generator().manual_seed(4))
+    outs = []
+    for layer, dev in ((cpu, "cpu"), (card, cuda)):
+        xd = x.to(dev, copy=True).requires_grad_()
+        y = layer(xd)
+        ((y * y).sum() + layer.l_aux).backward()
+        outs.append([y, layer.l_aux, xd.grad] +
+                    [p.grad for p in layer.parameters()])
+    for a, b in zip(*outs):
+        scale = a.abs().max().item()
+        assert (b.detach().cpu() - a.detach()).abs().max().item() <= \
+            1e-4 * max(scale, 1e-6)

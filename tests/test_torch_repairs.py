@@ -187,6 +187,10 @@ def test_dropout_masks_have_the_jax_structure(axis, mode):
     x = np.random.RandomState(1).rand(8, 6, 5).astype(np.float32) + 1.0
     p, keep = 0.5, (1.0 if mode == "downscale_in_infer" else 2.0)
     paddle.seed(3)
+    # the port's generator too: an axis-0 mask has only 8 draws, all kept
+    # or all dropped in 1 of 128 unseeded runs
+    from paddle_tpu_torch import seed
+    seed(3)
     outs = [np.asarray(paddle.nn.functional.dropout(
                 paddle.to_tensor(x), p=p, axis=axis, mode=mode).numpy()),
             TF.dropout(torch.from_numpy(x), p=p, axis=axis,
